@@ -1,0 +1,282 @@
+"""Typed configuration: the part of ``data_diet_distributed_tpu/config.py`` the
+scoring slice reads.
+
+``DataConfig``, ``ModelConfig``, ``ScoreConfig`` and ``PruneConfig`` are copied
+whole; ``TrainConfig`` keeps every key but the slice reads only
+``half_precision`` and ``checkpoint_dir``. The sections this slice does not
+port (optim, mesh, parallel, checkpoint, obs, resilience, elastic, serve,
+tuning) are accepted key by key and ignored, so every ``configs/*.yaml`` loads
+unchanged, while an unknown key anywhere still raises ``KeyError`` as in JAX.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, fields
+from typing import Any
+
+import yaml
+
+
+@dataclass
+class DataConfig:
+    """Dataset selection and host-side pipeline knobs."""
+
+    # cifar10 | cifar100 | synthetic | synthetic_imagenet | npz | sharded
+    dataset: str = "cifar10"
+    data_dir: str = "./data"
+    batch_size: int = 128
+    eval_batch_size: int = 500
+    synthetic_size: int = 2048
+    synthetic_noise: float = 0.4
+    synthetic_clusters: int = 1
+    shuffle_each_epoch: bool = True
+    augment: bool = False
+    crop_pad: int = 4
+    flip: bool = True
+    data_plane: str = "auto"
+    prefetch_depth: int = 2
+    host_cache_bytes: int = 1 << 30
+    read_retries: int = 2
+    read_backoff_s: float = 0.05
+    skip_quarantined: bool = False
+
+    @property
+    def num_classes(self) -> int | None:
+        """Class count when statically known; None for npz (inferred at load)."""
+        return {"cifar10": 10, "cifar100": 100, "synthetic": 10,
+                "synthetic_imagenet": 100, "npz": None, "sharded": None}[self.dataset]
+
+
+@dataclass
+class ModelConfig:
+    arch: str = "resnet18"
+    num_classes: int = 10
+    stem: str = "cifar"
+    remat: bool = False
+
+
+@dataclass
+class ScoreConfig:
+    # el2n | margin | grand | grand_vmap | grand_last_layer | forgetting | aum
+    method: str = "el2n"
+    score_ckpt_step: int | None = None
+    pretrain_epochs: int = 2
+    seeds: tuple[int, ...] = (0,)
+    batch_size: int = 512
+    grand_chunk: int = 32
+    eval_mode: bool = True
+    # Hand-written kernels on the card: None or True = on (CPU tensors always
+    # take the plain versions), False = the plain route everywhere.
+    use_pallas: bool | None = None
+    chunk_steps: int | None = None
+    scores_npz: str | None = None
+
+
+@dataclass
+class PruneConfig:
+    sparsity: float = 0.5
+    keep: str = "hardest"
+    class_balance: bool = False
+    sweep: tuple[float, ...] = ()
+
+
+@dataclass
+class TrainConfig:
+    num_epochs: int = 10
+    seed: int = 0
+    eval_every: int = 1
+    checkpoint_every: int = 5
+    checkpoint_dir: str = "./checkpoints"
+    keep_checkpoints: int = 20
+    resume: bool = False
+    auto_resume_retries: int = 0
+    half_precision: bool = True
+    device_resident_data: bool | None = None
+    chunk_steps: int | None = None
+    log_every_steps: int = 50
+
+
+#: Keys of the sections this slice does not port: accepted, ignored.
+_IGNORED_SECTIONS: dict[str, Any] = {
+    "optim": {"lr", "momentum", "weight_decay", "nesterov", "cosine_t_max_epochs",
+              "warmup_epochs", "grad_clip_norm"},
+    "mesh": {"data_axis", "model_axis", "shard_opt_state", "shard_weight_update",
+             "multihost", "coordinator_address", "num_processes", "process_id"},
+    "parallel": {"overlap": {"enabled", "latency_hiding_scheduler",
+                             "async_all_gather", "async_reduce_scatter",
+                             "async_all_reduce", "async_collective_permute",
+                             "extra_flags"}},
+    "checkpoint": {"local_tier", "local_dir", "promote", "drain_timeout_s",
+                   "promote_delay_s"},
+    "obs": {"metrics_path", "monitor", "monitor_path", "profile_dir", "plots_dir",
+            "trace", "trace_path", "snapshot_every_s", "prom_path", "heartbeat",
+            "heartbeat_dir", "heartbeat_interval_s", "flightrec",
+            "flightrec_capacity", "flightrec_dir", "xla_introspect",
+            "hbm_jump_frac", "profile_window_chunks", "score_telemetry",
+            "score_hist_bins", "perf_ledger", "server_port", "server_host",
+            "fleet", "slo_throughput_floor", "slo_throughput_frac",
+            "slo_heartbeat_stale_s", "slo_nonfinite_frac",
+            "slo_eval_accuracy_floor", "slo_serve_p95_ms", "slo_serve_queue_depth",
+            "slo_serve_reject_frac", "slo_fleet_p95_ms",
+            "slo_fleet_available_frac", "slo_recovery_s"},
+    "resilience": {"step_timeout_s", "preemption", "verify_restore", "nan_check",
+                   "nan_retry_budget", "nan_lr_factor", "init_probe",
+                   "probe_attempts", "probe_timeout_s", "probe_backoff_s",
+                   "consensus", "consensus_poll_steps", "consensus_grace_s",
+                   "sidechannel_dir", "stage_resume"},
+    "elastic": {"enabled", "world", "min_world", "max_world", "max_restarts",
+                "backoff_s", "reap_timeout_s", "heartbeat_stale_s",
+                "resume_preempted"},
+    "serve": {"port", "host", "tenant", "methods", "batch_size", "max_queue",
+              "retry_after_s", "coalesce_ms", "request_timeout_s",
+              "drain_timeout_s", "stats_every_s", "warm", "request_log",
+              "replicas", "router_port", "dispatch_stall_s", "refresh_poll_s",
+              "refresh_from", "route_retries", "breaker_failures",
+              "breaker_reset_s", "hedge_ms", "health_poll_s", "idempotency_cache",
+              "hosts", "remote_launch", "min_replicas", "max_replicas",
+              "scale_up_after", "scale_down_after", "scale_cooldown_s",
+              "partition_after_misses", "probe_backoff_s", "probe_backoff_max_s",
+              "canary_requests", "canary_timeout_s", "trace_sample_frac",
+              "trace_slow_ms"},
+    "tuning": {"manifest", "apply"},
+}
+
+
+@dataclass
+class Config:
+    data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    score: ScoreConfig = field(default_factory=ScoreConfig)
+    prune: PruneConfig = field(default_factory=PruneConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    def validate(self) -> "Config":
+        if self.data.dataset not in ("cifar10", "cifar100", "synthetic",
+                                     "synthetic_imagenet", "npz", "sharded"):
+            raise ValueError(f"unknown dataset {self.data.dataset!r}")
+        if self.data.data_plane not in ("auto", "streaming", "resident"):
+            raise ValueError(
+                f"data.data_plane must be auto | streaming | resident, got "
+                f"{self.data.data_plane!r}")
+        if not 0.0 <= self.prune.sparsity < 1.0:
+            raise ValueError(f"sparsity must be in [0, 1), got {self.prune.sparsity}")
+        for s in self.prune.sweep:
+            if not 0.0 < s < 1.0:
+                raise ValueError(f"prune.sweep entries must be in (0, 1), got {s}")
+        if self.score.method not in ("el2n", "margin", "grand", "grand_vmap",
+                                     "grand_last_layer", "forgetting", "aum"):
+            raise ValueError(f"unknown score method {self.score.method!r}")
+        if (self.score.method in ("forgetting", "aum")
+                and self.score.pretrain_epochs < 1):
+            raise ValueError(f"score.method={self.score.method} tracks the "
+                             "training trajectory; set score.pretrain_epochs >= 1")
+        if self.data.crop_pad < 0:
+            raise ValueError(f"data.crop_pad must be >= 0, got {self.data.crop_pad}")
+        if self.data.synthetic_noise <= 0:
+            raise ValueError(
+                f"data.synthetic_noise must be > 0, got {self.data.synthetic_noise}")
+        if self.data.synthetic_clusters < 1:
+            raise ValueError(
+                f"data.synthetic_clusters must be >= 1, got "
+                f"{self.data.synthetic_clusters}")
+        if self.model.stem not in ("cifar", "imagenet"):
+            raise ValueError(f"unknown stem {self.model.stem!r}")
+        if self.prune.keep not in ("hardest", "easiest", "random"):
+            raise ValueError(f"unknown keep policy {self.prune.keep!r}")
+        if (self.data.num_classes is not None
+                and self.model.num_classes != self.data.num_classes):
+            self.model.num_classes = self.data.num_classes
+        if self.data.batch_size <= 0 or self.train.num_epochs < 0:
+            raise ValueError("batch_size must be positive, num_epochs non-negative")
+        if self.score.batch_size <= 0:
+            raise ValueError(f"score.batch_size must be positive, got "
+                             f"{self.score.batch_size}")
+        if self.score.chunk_steps is not None and self.score.chunk_steps < 0:
+            raise ValueError(
+                f"score.chunk_steps must be >= 0 (0/1 = per-batch, null = "
+                f"auto), got {self.score.chunk_steps}")
+        return self
+
+
+_SECTIONS = {"data": DataConfig, "model": ModelConfig, "score": ScoreConfig,
+             "prune": PruneConfig, "train": TrainConfig}
+
+
+def _check_ignored(keys: Any, value: Any, where: str) -> None:
+    """Raise KeyError for a key the unported section does not have. ``keys`` is
+    a set of leaf names or a dict of nested sections."""
+    if not isinstance(value, dict):
+        raise KeyError(f"config key {where!r} is a section")
+    for k, v in value.items():
+        if k not in keys:
+            raise KeyError(f"unknown config key {where}.{k}")
+        if isinstance(keys, dict):
+            _check_ignored(keys[k], v, f"{where}.{k}")
+
+
+def _section_from_dict(cls, d: dict[str, Any], where: str):
+    valid = {f.name: f for f in fields(cls)}
+    kwargs = {}
+    for key, value in d.items():
+        if key not in valid:
+            raise KeyError(f"unknown config key {key!r} for {cls.__name__}")
+        if isinstance(value, list) and isinstance(valid[key].default, tuple):
+            value = tuple(value)
+        kwargs[key] = value
+    return cls(**kwargs)
+
+
+def _from_dict(raw: dict[str, Any]) -> Config:
+    cfg = Config()
+    for section, value in raw.items():
+        if section in _SECTIONS:
+            setattr(cfg, section,
+                    _section_from_dict(_SECTIONS[section], value or {}, section))
+        elif section in _IGNORED_SECTIONS:
+            _check_ignored(_IGNORED_SECTIONS[section], value or {}, section)
+        else:
+            raise KeyError(f"unknown config key {section!r} for Config")
+    return cfg
+
+
+def _ignored_leaf(parts: list[str]) -> bool:
+    """Whether a dotted key names a known key of an unported section."""
+    node: Any = _IGNORED_SECTIONS
+    for i, part in enumerate(parts):
+        if part not in node:
+            return False
+        if isinstance(node, set):
+            return i == len(parts) - 1
+        node = node[part]
+    return False   # names a section, not a key
+
+
+def load_config(path: str | None = None, overrides: list[str] | None = None) -> Config:
+    """Build a Config from an optional YAML file plus ``dotted.key=value``
+    overrides (values YAML-parsed: ``score.seeds=[0,1]``, ``train.half_precision=false``)."""
+    cfg = Config()
+    if path is not None:
+        with open(path) as fh:
+            raw = yaml.safe_load(fh) or {}
+        cfg = _from_dict(raw)
+    for item in overrides or []:
+        if "=" not in item:
+            raise ValueError(f"override {item!r} is not of the form key=value")
+        dotted, _, raw_value = item.partition("=")
+        value = yaml.safe_load(raw_value)
+        *parents, leaf = dotted.split(".")
+        if parents and parents[0] in _IGNORED_SECTIONS:
+            if not _ignored_leaf(dotted.split(".")):
+                raise KeyError(f"unknown config key {dotted!r}")
+            continue
+        node: Any = cfg
+        for part in parents:
+            if not hasattr(node, part):
+                raise KeyError(f"unknown config key {dotted!r}")
+            node = getattr(node, part)
+        if not hasattr(node, leaf) or not parents:
+            raise KeyError(f"unknown config key {dotted!r}")
+        if isinstance(value, list) and isinstance(getattr(node, leaf), tuple):
+            value = tuple(value)
+        setattr(node, leaf, value)
+    return cfg.validate()

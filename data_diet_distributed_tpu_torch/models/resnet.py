@@ -1,0 +1,160 @@
+"""CIFAR-geometry ResNets (counterpart of ``data_diet_distributed_tpu/models/resnet.py``).
+
+The exact geometry of the Flax models: 3x3 stem with no pool (or the 7x7/s2 +
+max-pool ImageNet stem), stage widths ``width·2^i`` with strides 1/2/2/2,
+symmetric 1-pixel padding on every 3x3 conv (``PAD1``), 1x1 projections with
+SAME padding (zero for a 1x1 kernel at any stride), global mean pooling.
+Submodules carry the Flax parameter paths (``stem_conv``, ``BasicBlock_3.Conv_1``,
+``proj_norm``, ``classifier``), so weights port by name.
+
+``forward`` takes NHWC images and runs channels_last inside. Compute runs in
+``dtype`` (bf16 under half precision) while parameters and BatchNorm
+statistics stay fp32, as Flax's ``dtype``/``param_dtype``. No op works in
+place: the batched-GraNd hooks keep references to layer inputs and outputs.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype with fp32 parameters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype with fp32 parameters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+def batch_norm(channels: int, momentum: float = 0.1) -> nn.BatchNorm2d:
+    """Flax ``BatchNorm(momentum=m, epsilon=1e-5)`` is torch momentum ``1 - m``."""
+    return nn.BatchNorm2d(channels, eps=1e-5, momentum=momentum)
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 convs with identity/projection shortcut (expansion 1)."""
+
+    expansion = 1
+    #: Name of the BatchNorm closing the residual branch (zero-initialized scale).
+    closing_norm = "BatchNorm_1"
+
+    def __init__(self, c_in: int, filters: int, stride: int):
+        super().__init__()
+        self.Conv_0 = Conv2d(c_in, filters, 3, stride=stride, padding=1, bias=False)
+        self.BatchNorm_0 = batch_norm(filters)
+        self.Conv_1 = Conv2d(filters, filters, 3, padding=1, bias=False)
+        self.BatchNorm_1 = batch_norm(filters)
+        self.has_proj = stride != 1 or c_in != filters
+        if self.has_proj:
+            self.proj_conv = Conv2d(c_in, filters, 1, stride=stride, bias=False)
+            self.proj_norm = batch_norm(filters)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = self.BatchNorm_1(self.Conv_1(y))
+        residual = self.proj_norm(self.proj_conv(x)) if self.has_proj else x
+        return F.relu(residual + y)
+
+
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 -> 1x1 bottleneck (expansion 4)."""
+
+    expansion = 4
+    closing_norm = "BatchNorm_2"
+
+    def __init__(self, c_in: int, filters: int, stride: int):
+        super().__init__()
+        out = filters * self.expansion
+        self.Conv_0 = Conv2d(c_in, filters, 1, bias=False)
+        self.BatchNorm_0 = batch_norm(filters)
+        self.Conv_1 = Conv2d(filters, filters, 3, stride=stride, padding=1, bias=False)
+        self.BatchNorm_1 = batch_norm(filters)
+        self.Conv_2 = Conv2d(filters, out, 1, bias=False)
+        self.BatchNorm_2 = batch_norm(out)
+        self.has_proj = stride != 1 or c_in != out
+        if self.has_proj:
+            self.proj_conv = Conv2d(c_in, out, 1, stride=stride, bias=False)
+            self.proj_norm = batch_norm(out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = F.relu(self.BatchNorm_1(self.Conv_1(y)))
+        y = self.BatchNorm_2(self.Conv_2(y))
+        residual = self.proj_norm(self.proj_conv(x)) if self.has_proj else x
+        return F.relu(residual + y)
+
+
+class ResNet(nn.Module):
+    """CIFAR-style ResNet over NHWC inputs; ``forward`` returns fp32 logits, or
+    ``(logits, features)`` with ``capture_features=True``."""
+
+    def __init__(self, stage_sizes: Sequence[int], block_cls: type,
+                 num_classes: int = 10, width: int = 64,
+                 dtype: torch.dtype = torch.float32, stem: str = "cifar"):
+        super().__init__()
+        self.dtype = dtype
+        self.stem = stem
+        if stem == "imagenet":
+            self.stem_conv = Conv2d(3, width, 7, stride=2, padding=3, bias=False)
+        elif stem == "cifar":
+            self.stem_conv = Conv2d(3, width, 3, padding=1, bias=False)
+        else:
+            raise ValueError(f"unknown stem {stem!r} (cifar | imagenet)")
+        self.stem_norm = batch_norm(width)
+        self.block_names: list[str] = []
+        c_in = width
+        for stage, n_blocks in enumerate(stage_sizes):
+            filters = width * 2 ** stage
+            for block in range(n_blocks):
+                stride = 2 if stage > 0 and block == 0 else 1
+                name = f"{block_cls.__name__}_{len(self.block_names)}"
+                self.add_module(name, block_cls(c_in, filters, stride))
+                self.block_names.append(name)
+                c_in = filters * block_cls.expansion
+        self.classifier = Linear(c_in, num_classes)
+
+    def forward(self, x: torch.Tensor, capture_features: bool = False):
+        x = x.permute(0, 3, 1, 2).to(self.dtype)   # NHWC -> NCHW view, channels_last
+        x = F.relu(self.stem_norm(self.stem_conv(x)))
+        if self.stem == "imagenet":
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        x = x.mean(dim=(2, 3))
+        features = x.float()
+        logits = self.classifier(x).float()
+        if capture_features:
+            return logits, features
+        return logits
+
+
+def ResNet18(num_classes: int = 10, dtype=torch.float32, stem: str = "cifar") -> ResNet:
+    return ResNet((2, 2, 2, 2), BasicBlock, num_classes, dtype=dtype, stem=stem)
+
+
+def ResNet34(num_classes: int = 10, dtype=torch.float32, stem: str = "cifar") -> ResNet:
+    return ResNet((3, 4, 6, 3), BasicBlock, num_classes, dtype=dtype, stem=stem)
+
+
+def ResNet50(num_classes: int = 10, dtype=torch.float32, stem: str = "cifar") -> ResNet:
+    return ResNet((3, 4, 6, 3), BottleneckBlock, num_classes, dtype=dtype, stem=stem)
+
+
+def ResNet101(num_classes: int = 10, dtype=torch.float32, stem: str = "cifar") -> ResNet:
+    return ResNet((3, 4, 23, 3), BottleneckBlock, num_classes, dtype=dtype, stem=stem)
+
+
+def ResNet152(num_classes: int = 10, dtype=torch.float32, stem: str = "cifar") -> ResNet:
+    return ResNet((3, 8, 36, 3), BottleneckBlock, num_classes, dtype=dtype, stem=stem)

@@ -1,0 +1,116 @@
+"""Per-example importance scores (counterpart of ``data_diet_distributed_tpu/ops/scores.py``).
+
+EL2N ``‖softmax(f(x)) − onehot(y)‖₂``, margin, correctness, closed-form
+last-layer GraNd and full-parameter GraNd through the batched exact algorithm
+(``grand_batched.py``). Scoring runs in eval mode. ``grand_vmap`` and
+train-mode scoring are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.func import functional_call
+
+from . import kernels
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-example CE loss, [B] <- logits [B, C], labels [B]."""
+    return F.cross_entropy(logits.float(), labels.long(), reduction="none")
+
+
+def el2n_from_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """L2 error of the softmax vector against the one-hot target."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    err = probs - F.one_hot(labels.long(), logits.shape[-1]).float()
+    return torch.sqrt((err * err).sum(dim=-1))
+
+
+def margin_from_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``max_{k≠y} p_k − p_y`` ∈ [−1, 1]; higher = harder."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    onehot = F.one_hot(labels.long(), logits.shape[-1]).float()
+    p_true = (probs * onehot).sum(dim=-1)
+    p_other = (probs - onehot).max(dim=-1).values
+    return p_other - p_true
+
+
+def grand_last_layer_from_logits(logits: torch.Tensor, features: torch.Tensor,
+                                 labels: torch.Tensor) -> torch.Tensor:
+    """Exact GraNd of the classifier layer alone: ‖p − y‖·sqrt(‖h‖² + 1)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    err = probs - F.one_hot(labels.long(), logits.shape[-1]).float()
+    err_sq = (err * err).sum(dim=-1)
+    feat_sq = (features.float() ** 2).sum(dim=-1)
+    return torch.sqrt(err_sq * (feat_sq + 1.0))
+
+
+def _forward(model, variables, images, capture_features: bool = False):
+    """Eval-mode forward of ``model`` on ``variables`` (no autograd graph)."""
+    with torch.no_grad():
+        return functional_call(model, variables, (images,),
+                               {"capture_features": capture_features})
+
+
+def resolve_use_kernels(use_pallas: bool | None) -> bool:
+    """``score.use_pallas``: None (auto) and True take the kernels on CUDA
+    tensors; False takes the plain route everywhere. CPU tensors always run
+    the kernels' plain versions."""
+    return True if use_pallas is None else bool(use_pallas)
+
+
+def make_local_scores(model, method: str, *, eval_mode: bool = True,
+                      use_kernels: bool = False):
+    """``(variables, image, label, mask) -> scores [B]`` float32 for ``method``
+    — the one definition shared by ``score_dataset`` and the serving engine."""
+    if not eval_mode:
+        raise NotImplementedError(
+            "train-mode scoring (score.eval_mode=false) comes with the training "
+            "slice of the PyTorch port")
+
+    if method == "el2n":
+        def local_scores(variables, image, label, mask):
+            logits = _forward(model, variables, image)
+            if use_kernels:
+                return kernels.el2n(logits, label, mask)
+            return el2n_from_logits(logits, label) * mask
+        return local_scores
+
+    if method == "margin":
+        def local_scores(variables, image, label, mask):
+            return margin_from_logits(_forward(model, variables, image), label) * mask
+        return local_scores
+
+    if method == "correctness":
+        def local_scores(variables, image, label, mask):
+            logits = _forward(model, variables, image)
+            return (logits.argmax(dim=-1) == label).float() * mask
+        return local_scores
+
+    if method == "grand_last_layer":
+        def local_scores(variables, image, label, mask):
+            logits, feats = _forward(model, variables, image, capture_features=True)
+            return grand_last_layer_from_logits(logits, feats, label) * mask
+        return local_scores
+
+    if method == "grand_batched":
+        from .grand_batched import batched_grand_scores
+
+        def local_scores(variables, image, label, mask):
+            return batched_grand_scores(model, variables, image, label, mask,
+                                        use_kernels=use_kernels)
+        return local_scores
+
+    if method == "grand_vmap":
+        raise NotImplementedError(
+            "grand_vmap (per-example vmap(grad)) is not ported yet; use grand")
+    raise ValueError(f"unknown score method {method!r}")
+
+
+def resolve_score_method(method: str, eval_mode: bool) -> str:
+    """``grand`` is the batched exact algorithm in eval mode, ``vmap(grad)``
+    otherwise."""
+    if method == "grand":
+        return "grand_batched" if eval_mode else "grand_vmap"
+    return method

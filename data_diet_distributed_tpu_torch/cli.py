@@ -65,7 +65,8 @@ def score(cfg: Config, device=None) -> dict:
                                  stem=cfg.model.stem) for s in sc.seeds]
     t0 = time.perf_counter()
     scores = score_dataset(model, seeds_vars, train_ds, method=sc.method,
-                           batch_size=sc.batch_size, eval_mode=sc.eval_mode,
+                           batch_size=sc.batch_size, chunk=sc.grand_chunk,
+                           eval_mode=sc.eval_mode,
                            use_kernels=sc.use_pallas, device=device)
     score_s = time.perf_counter() - t0
     out = f"{cfg.train.checkpoint_dir}_scores.npz"

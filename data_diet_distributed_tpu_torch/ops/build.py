@@ -32,7 +32,13 @@ SOURCES = {
     "conv_grad_norm_direct": "conv_grad_norm_direct.cu",
     "conv_grad_norm_gram": "conv_grad_norm_gram.cu",
     "el2n": "el2n.cu",
+    "grand_last_layer": "grand_last_layer.cu",
+    "bn_grad_norm": "bn_grad_norm.cu",
+    "conv_grad_norm_catdot": "conv_grad_norm_catdot.cu",
+    "conv_bwd_grad_norm": "conv_bwd_grad_norm.cu",
 }
+#: Headers the sources include (``#include "..."``, resolved beside the source).
+HEADERS = ("common.cuh", "conv_norm_common.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -59,10 +65,10 @@ def nvcc_path() -> str:
 
 
 def build_dir() -> str:
-    """``ops/_build/<hash>``: the hash covers every source and the flags."""
+    """``ops/_build/<hash>``: the hash covers every source, header and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(SOURCES):
-        with open(os.path.join(_CSRC, SOURCES[name]), "rb") as fh:
+    for name in sorted(SOURCES.values()) + sorted(HEADERS):
+        with open(os.path.join(_CSRC, name), "rb") as fh:
             h.update(name.encode() + b"\0" + fh.read())
     return os.path.join(_BUILD_ROOT, h.hexdigest()[:16])
 

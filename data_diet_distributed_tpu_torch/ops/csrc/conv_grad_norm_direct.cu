@@ -24,7 +24,8 @@
 // Two modes of the same kernel: streaming (v1 entry; grid over offsets, x and g chunks
 // both read per offset) and g-resident (v2 entry; S <= 256 output positions, so the
 // block's whole [S, 64] g tile fits in 64 KB of shared memory, is read once and is
-// reused for every kernel offset).
+// reused for every kernel offset). The tile machinery, the loaders and the finalize
+// pass live in conv_norm_common.cuh, shared with the cat-dot kernel and the megakernel.
 //
 // Bound on the card: operations. At ResNet-18 stage-1 geometry the tile does 16 FMAs
 // for every two 16-byte shared-memory loads, on the fp32 CUDA cores. What the simple
@@ -32,93 +33,11 @@
 // chunk as the transposed A operand), TMA staging of the chunks, and reuse of each
 // staged x chunk across the kh*kw offsets it serves.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "conv_norm_common.cuh"
 
 namespace {
 
-constexpr int kTile = 64;          // C and K tile edge
-constexpr int kChunk = 32;         // output positions staged per step
-constexpr int kThreads = 256;      // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kMaxResidentS = 256; // g-resident mode: [S, 64] fp32 tile <= 64 KB
-
-struct Geo {
-  int B, H, W, C, Ho, Wo, K;
-  int kh, kw, sy, sx, pt, pl;
-  int ctiles, ktiles, P;
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Sum over the block of one float per thread, in a fixed order. Result valid in thread 0.
-__device__ float block_sum(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float total = 0.f;
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += red[w];
-  }
-  return total;
-}
-
-// xs[s][c] = x[b, pos(s0 + s, o), c0 + c], zero outside the input or past S / C.
-template <typename T>
-__device__ void load_x_chunk(float* xs, const T* xb, const Geo& g, int s0, int oy,
-                             int ox, int c0) {
-  const int S = g.Ho * g.Wo;
-  for (int i = threadIdx.x; i < kChunk * kTile; i += kThreads) {
-    const int s = s0 + i / kTile, c = c0 + i % kTile;
-    float v = 0.f;
-    if (s < S && c < g.C) {
-      const int iy = (s / g.Wo) * g.sy + oy - g.pt;
-      const int ix = (s % g.Wo) * g.sx + ox - g.pl;
-      if (iy >= 0 && iy < g.H && ix >= 0 && ix < g.W)
-        v = to_f32(xb[((size_t)iy * g.W + ix) * g.C + c]);
-    }
-    xs[i] = v;
-  }
-}
-
-// dst[s][k] = g[b, s0 + s, k0 + k] for s < rows, zero past S / K.
-template <typename T>
-__device__ void load_g_rows(float* dst, const T* gb, const Geo& g, int s0, int rows,
-                            int k0) {
-  const int S = g.Ho * g.Wo;
-  for (int i = threadIdx.x; i < rows * kTile; i += kThreads) {
-    const int s = s0 + i / kTile, k = k0 + i % kTile;
-    dst[i] = (s < S && k < g.K) ? to_f32(gb[(size_t)s * g.K + k]) : 0.f;
-  }
-}
-
-// acc[i][j] += sum_{s < kChunk} xs[s][tc*4+i] * gs[s][tk*4+j]
-__device__ __forceinline__ void accumulate(float (&acc)[4][4], const float* xs,
-                                           const float* gs, int tc, int tk) {
-#pragma unroll 8
-  for (int s = 0; s < kChunk; ++s) {
-    const float4 a = *reinterpret_cast<const float4*>(xs + s * kTile + tc * 4);
-    const float4 w = *reinterpret_cast<const float4*>(gs + s * kTile + tk * 4);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ float tile_sq(const float (&acc)[4][4]) {
-  float v = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v = fmaf(acc[i][j], acc[i][j], v);
-  return v;
-}
 
 // grid: (B, offsets handled by separate blocks ? kh*kw : 1, ctiles*ktiles)
 template <typename T, bool kResident>
@@ -156,15 +75,7 @@ direct_kernel(const T* __restrict__ x, const T* __restrict__ gt,
         } else {
           // Ragged tail of the resident tile: x rows past S are zero, so reading
           // g rows past S would only multiply zeros, but they lie outside gres.
-          for (int s = 0; s < S - s0; ++s) {
-            const float4 a = *reinterpret_cast<const float4*>(xs + s * kTile + tc * 4);
-            const float4 w =
-                *reinterpret_cast<const float4*>(gres + (s0 + s) * kTile + tk * 4);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float wv[4] = {w.x, w.y, w.z, w.w};
-            for (int i = 0; i < 4; ++i)
-              for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-          }
+          accumulate(acc, xs, gres + s0 * kTile, tc, tk, S - s0);
         }
       } else {
         accumulate(acc, xs, gs, tc, tk);
@@ -174,28 +85,6 @@ direct_kernel(const T* __restrict__ x, const T* __restrict__ gt,
     if (threadIdx.x == 0)
       partials[(size_t)b * g.P + ((size_t)o * g.ctiles + ct) * g.ktiles + kt] = part;
   }
-}
-
-// out[b] = sum_p partials[b, p] (+ sum_k (sum_s g[b, s, k])^2), fixed order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-finalize_kernel(const float* __restrict__ partials, const T* __restrict__ gt,
-                float* __restrict__ out, Geo g, int use_bias) {
-  __shared__ float red[kThreads / 32];
-  const int b = blockIdx.x;
-  float v = 0.f;
-  for (int p = threadIdx.x; p < g.P; p += kThreads) v += partials[(size_t)b * g.P + p];
-  if (use_bias) {
-    const int S = g.Ho * g.Wo;
-    const T* gb = gt + (size_t)b * S * g.K;
-    for (int k = threadIdx.x; k < g.K; k += kThreads) {
-      float col = 0.f;
-      for (int s = 0; s < S; ++s) col += to_f32(gb[(size_t)s * g.K + k]);
-      v = fmaf(col, col, v);
-    }
-  }
-  const float total = block_sum(v, red);
-  if (threadIdx.x == 0) out[b] = total;
 }
 
 template <typename T>
@@ -217,7 +106,8 @@ cudaError_t launch(const void* x, const void* gt, float* partials, float* out,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  finalize_kernel<T><<<g.B, kThreads, 0, stream>>>(partials, gp, out, g, use_bias);
+  finalize_kernel<T><<<g.B, kThreads, 0, stream>>>(partials, gp, out, g.P, S, g.K,
+                                                     use_bias);
   return cudaGetLastError();
 }
 

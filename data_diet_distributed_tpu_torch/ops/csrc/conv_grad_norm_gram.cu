@@ -21,9 +21,9 @@
 // are latency-bound (one block per example, dependent chunk loads). Left for later:
 // several examples per block and cp.async / TMA double-buffering of the chunks.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -35,22 +35,6 @@ struct Geo {
   int B, H, W, C, Ho, Wo, K;
   int kh, kw, pt, pl;
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ float block_sum(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float total = 0.f;
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += red[w];
-  }
-  return total;
-}
 
 // gram[e] += sum_c rows[p][c] * rows[q][c] for e = p * n + q, over channel chunks of
 // src[n, depth] (row-major, `depth` channels per row).

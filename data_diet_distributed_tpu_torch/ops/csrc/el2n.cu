@@ -12,23 +12,14 @@
 // dominates both bounds by far. Left for later: fusing it behind the classifier GEMM,
 // as the TPU's grand_last_layer kernel does.
 
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // 8 rows per block
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 __global__ void __launch_bounds__(kThreads)
 el2n_kernel(const float* __restrict__ logits, const int32_t* __restrict__ labels,

@@ -1,8 +1,8 @@
 """The scoring path's hand-written CUDA kernels, each beside its plain PyTorch version.
 
-Counterpart of ``data_diet_distributed_tpu/ops/pallas_kernels.py``. Three kernels
-(sources in ``ops/csrc/``, built by ``ops/build.py``) replace the four Pallas
-kernels on the ResNet-18 scoring path:
+Counterpart of ``data_diet_distributed_tpu/ops/pallas_kernels.py``. Seven kernels
+(sources in ``ops/csrc/``, built by ``ops/build.py``) replace its eight Pallas
+kernels:
 
 * ``conv_grad_norm_direct`` — per-example ‖∂W‖²_F of a conv layer from its input
   ``x`` and output cotangent ``g``, direct form ``Σ_o ‖Σ_s x[s·stride+o] g[s]‖²``.
@@ -12,6 +12,14 @@ kernels on the ResNet-18 scoring path:
 * ``conv_grad_norm_gram`` — the same quantity in Gram form ``Σ(PPᵀ∘GGᵀ)`` for
   small-map layers (``conv_grad_norm_sq_gram``).
 * ``el2n`` — ``‖softmax(z) − onehot(y)‖₂ · mask`` per row.
+* ``grand_last_layer`` — the classifier product and the last-layer GraNd score
+  ``‖p − y‖·sqrt(‖h‖² + 1)·mask`` in one kernel.
+* ``bn_grad_norm`` — eval-mode BatchNorm per-example grad-norm², same-shape
+  layers stacked in one launch (``bn_grad_norm_sq``).
+* ``conv_grad_norm_catdot`` — the conv ‖∂W‖² at unit stride as one
+  ``[kh·C, kw·K]`` product per example (``conv_grad_norm_sq_catdot``).
+* ``conv_bwd_grad_norm`` — the megakernel: a conv's input cotangent ``dx`` and
+  its ‖∂W‖² (+ bias term) from one launch (``conv_bwd_grad_norm_sq``).
 
 Every public function takes NHWC tensors. Given CPU tensors it computes its
 plain version (the same arithmetic in PyTorch ops); given CUDA tensors it
@@ -36,10 +44,14 @@ MAX_RESIDENT_S = 256
 MAX_BLOCK_SMEM = 227 * 1024
 #: Row stride of the Gram kernel's channel chunks (``kStride``).
 _GRAM_ROW_STRIDE = 33
-#: CUDA's grid limit on the y and z dimensions.
+#: CUDA's grid limits on the x and on the y and z dimensions.
+_GRID_X_MAX = 2**31 - 1
 _GRID_YZ_MAX = 65535
-
+#: Layers one stacked-BatchNorm launch takes (``kMaxLayers`` in bn_grad_norm.cu);
+#: larger stacks launch once per chunk of this many layers.
+BN_MAX_LAYERS = 64
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -82,8 +94,18 @@ CONV_GRAD_NORM_GRAM = Kernel(
     "conv_grad_norm_gram", "ddt_conv_grad_norm_gram",
     [_PTR] * 3 + [_INT] * 13 + [_PTR])
 EL2N = Kernel("el2n", "ddt_el2n", [_PTR] * 4 + [_INT] * 2 + [_PTR])
+GRAND_LAST_LAYER = Kernel("grand_last_layer", "ddt_grand_last_layer",
+                          [_PTR] * 6 + [_INT] * 3 + [_PTR])
+BN_GRAD_NORM = Kernel("bn_grad_norm", "ddt_bn_grad_norm",
+                      [_PTRS, _PTRS, _PTR, _PTR] + [_INT] * 7 + [_PTR])
+CONV_GRAD_NORM_CATDOT = Kernel("conv_grad_norm_catdot", "ddt_conv_grad_norm_catdot",
+                               [_PTR] * 4 + [_INT] * 13 + [_PTR])
+CONV_BWD_GRAD_NORM = Kernel("conv_bwd_grad_norm", "ddt_conv_bwd_grad_norm",
+                            [_PTR] * 5 + [_INT] * 13 + [_PTR])
 
-KERNELS = {k.name: k for k in (CONV_GRAD_NORM_DIRECT, CONV_GRAD_NORM_GRAM, EL2N)}
+KERNELS = {k.name: k for k in (CONV_GRAD_NORM_DIRECT, CONV_GRAD_NORM_GRAM, EL2N,
+                               GRAND_LAST_LAYER, BN_GRAD_NORM, CONV_GRAD_NORM_CATDOT,
+                               CONV_BWD_GRAD_NORM)}
 
 
 def launch_counts() -> dict[str, int]:
@@ -186,6 +208,53 @@ def conv_grad_norm_gram_eligible(x_shape, g_shape, kernel_size, strides,
                             g_shape[2]) <= MAX_BLOCK_SMEM - 1024
 
 
+def grand_last_layer_eligible(features: int, classes: int) -> bool:
+    """One warp's row of features and its logits ((F + C) fp32) fit one
+    block's shared memory."""
+    return 4 * (features + classes) <= MAX_BLOCK_SMEM
+
+
+def bn_grad_norm_eligible(x_shape) -> bool:
+    """The stacked-BN kernel takes 4-D (NHWC) activations; any size (one
+    block per row, channels in tiles of 64)."""
+    return len(x_shape) == 4
+
+
+def conv_grad_norm_catdot_eligible(x_shape, g_shape, kernel_size, strides,
+                                   padding) -> bool:
+    """The cat-dot kernel. Kept from the JAX package's ``_catdot_ok`` as
+    properties of the algorithm: unit stride, a multi-offset kernel
+    (kh·kw ≥ 2) and at least 128 contraction rows (Ho·Wp, Wp = Wo + kw − 1).
+    Kept from it for now, to re-measure on the card: C and K multiples of 128
+    (on the TPU the lane concatenations relayout otherwise), so ResNet-18
+    routes exactly the layers JAX routes. Hopper's own: the [kh·C, kw·K] tile
+    grid within grid.y. The TPU's VMEM budget has no counterpart: a block
+    stages two fixed [32, 64] fp32 chunks (16 KB of shared memory) at any
+    geometry."""
+    del padding
+    if tuple(strides) != (1, 1):
+        return False
+    kh, kw = kernel_size
+    c, (ho, wo, k) = x_shape[-1], g_shape[1:]
+    if kh * kw < 2 or ho * (wo + kw - 1) < 128 or c % 128 or k % 128:
+        return False
+    tiles = -(-kh * c // DIRECT_TILE) * -(-kw * k // DIRECT_TILE)
+    return tiles <= _GRID_YZ_MAX
+
+
+def conv_bwd_grad_norm_eligible(x_shape, g_shape, kernel_size, strides) -> bool:
+    """The megakernel: unit stride (the strided entry and projection convs
+    keep the two-phase contraction, as on the TPU), and its one-dimensional
+    grid (B norm blocks, then B·⌈H·W/64⌉·⌈C/64⌉ dx blocks) within CUDA's
+    limit. Its shared memory is a fixed 17 KB."""
+    del g_shape, kernel_size
+    if tuple(strides) != (1, 1):
+        return False
+    b, h, w, c = x_shape
+    blocks = b * (1 + -(-h * w // DIRECT_TILE) * -(-c // DIRECT_TILE))
+    return blocks <= _GRID_X_MAX
+
+
 # ------------------------------------------------------------ plain versions
 
 
@@ -252,6 +321,74 @@ def el2n_plain(logits, labels, mask) -> torch.Tensor:
     onehot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1]).float()
     err = probs - onehot
     return torch.sqrt((err * err).sum(dim=-1)) * mask.float()
+
+
+def grand_last_layer_plain(features, weight, bias, labels, mask) -> torch.Tensor:
+    """Plain version of the last-layer GraNd kernel: the classifier in fp32
+    (``weight`` [C, F] as ``nn.Linear`` holds it), then the score."""
+    logits = torch.nn.functional.linear(features.float(), weight.float(), bias.float())
+    probs = torch.softmax(logits, dim=-1)
+    onehot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1]).float()
+    err = probs - onehot
+    feat_sq = (features.float() ** 2).sum(dim=-1)
+    return torch.sqrt((err * err).sum(dim=-1) * (feat_sq + 1.0)) * mask.float()
+
+
+def bn_grad_norm_sq_plain(xs, gs, stats, use_scale: bool = True,
+                          use_bias: bool = True) -> torch.Tensor:
+    """Plain version of the stacked-BN kernel: per layer ``l``, the channel
+    reductions Σ_s g·x and Σ_s g in fp32 and the eval-BN terms with
+    ``stats[l] = (mean, rstd)``; the layers' [B] results concatenated."""
+    outs = []
+    for layer, (x, g) in enumerate(zip(xs, gs)):
+        b, c = x.shape[0], x.shape[-1]
+        gf = g.float().reshape(b, -1, c)
+        gx = (gf * x.float().reshape(b, -1, c)).sum(dim=1)
+        gsum = gf.sum(dim=1)
+        out = torch.zeros(b, dtype=torch.float32, device=x.device)
+        if use_scale:
+            mean, rstd = stats[layer, 0].float(), stats[layer, 1].float()
+            out = out + (((gx - mean * gsum) * rstd) ** 2).sum(dim=-1)
+        if use_bias:
+            out = out + (gsum * gsum).sum(dim=-1)
+        outs.append(out)
+    return torch.cat(outs)
+
+
+def conv_grad_norm_sq_catdot_plain(x, g, kernel_size, padding) -> torch.Tensor:
+    """Plain version of the cat-dot kernel: A [B, Ho·Wp, kh·C] from the kh
+    row-shifted windows of padded x, G [B, Ho·Wp, kw·K] from the kw
+    column-shifted zero-embedded copies of g (Wp = Wo + kw − 1), and
+    ‖AᵀG‖²_F in fp32. Unit stride; no bias term."""
+    kh, kw = kernel_size
+    (pt, _pb), (pl, _pr) = padding
+    b, h, w, c = x.shape
+    _, ho, wo, k = g.shape
+    wp = wo + kw - 1
+    xp = torch.nn.functional.pad(x.float(), (0, 0, pl, wp - w - pl, pt,
+                                             ho + kh - 1 - h - pt))
+    a = torch.cat([xp[:, oy:oy + ho] for oy in range(kh)], dim=-1)
+    gf = g.float()
+    gcat = torch.cat([torch.nn.functional.pad(gf, (0, 0, ox, wp - wo - ox))
+                      for ox in range(kw)], dim=-1)
+    m = torch.bmm(a.reshape(b, ho * wp, kh * c).transpose(1, 2),
+                  gcat.reshape(b, ho * wp, kw * k))
+    return (m * m).sum(dim=(1, 2))
+
+
+def conv_bwd_grad_norm_sq_plain(x, g, weight, kernel_size, padding,
+                                use_bias: bool = False):
+    """Plain version of the megakernel: ``dx`` [B, H, W, C] in x's dtype as
+    the transposed conv of g with ``weight`` ([K, C, kh, kw], fp32), cropped
+    to the unpadded input, and the direct plain version's ‖∂W‖² (+ bias)."""
+    (pt, _pb), (pl, _pr) = padding
+    _, h, w, _ = x.shape
+    dx_pad = torch.nn.functional.conv_transpose2d(g.float().permute(0, 3, 1, 2),
+                                                  weight.float())
+    dx = dx_pad[:, :, pt:pt + h, pl:pl + w].permute(0, 2, 3, 1)
+    norm = conv_grad_norm_sq_plain(x, g, kernel_size, (1, 1), padding,
+                                   use_bias=use_bias)
+    return dx.to(x.dtype).contiguous(), norm
 
 
 # ---------------------------------------------------------------- wrappers
@@ -358,3 +495,136 @@ def el2n(logits: torch.Tensor, labels: torch.Tensor,
         EL2N.launch(z.data_ptr(), y.data_ptr(), m.data_ptr(), out.data_ptr(),
                     b, c, _stream(z))
     return out
+
+
+def grand_last_layer(features: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, labels: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """Last-layer GraNd [B] from features [B, F] and the classifier
+    (``weight`` [C, F], ``bias`` [C]), the classifier product computed by the
+    kernel in fp32 (features cast to fp32 first, as on the TPU)."""
+    name = "grand_last_layer"
+    b, f = features.shape[0], features.shape[-1]
+    if features.dim() != 2 or weight.dim() != 2 or weight.shape[1] != f \
+            or bias.shape != weight.shape[:1] or labels.shape != (b,) \
+            or mask.shape != (b,):
+        raise ValueError(f"{name}: want features [B, F], weight [C, F], bias [C], "
+                         f"labels [B], mask [B]; got {tuple(features.shape)}, "
+                         f"{tuple(weight.shape)}, {tuple(bias.shape)}, "
+                         f"{tuple(labels.shape)}, {tuple(mask.shape)}")
+    if not _on_cuda(features, name):
+        return grand_last_layer_plain(features, weight, bias, labels, mask)
+    if any(t.device != features.device for t in (weight, bias, labels, mask)):
+        raise ValueError(f"{name}: every input must share the features' device")
+    c = weight.shape[0]
+    if not grand_last_layer_eligible(f, c):
+        raise ValueError(f"{name}: caller must check grand_last_layer_eligible")
+    h = features.float().contiguous()
+    w = weight.float().contiguous()     # nn.Linear's own [C, F]: no copy
+    bb = bias.float().contiguous()
+    y = labels.to(torch.int32).contiguous()
+    m = mask.float().contiguous()
+    out = torch.empty(b, dtype=torch.float32, device=h.device)
+    with torch.cuda.device(h.device):
+        GRAND_LAST_LAYER.launch(h.data_ptr(), w.data_ptr(), bb.data_ptr(), y.data_ptr(),
+                                m.data_ptr(), out.data_ptr(), b, f, c, _stream(h))
+    return out
+
+
+def bn_grad_norm_sq(xs, gs, stats: torch.Tensor, use_scale: bool = True,
+                    use_bias: bool = True) -> torch.Tensor:
+    """[L·B] ⟵ eval-mode BatchNorm per-example grad-norm² of L same-shape
+    layers: ``xs[l]``, ``gs[l]`` are layer l's NHWC input and output cotangent
+    [B, H, W, C], ``stats`` [L, 2, C] its (mean, rstd) rows. Row
+    ``l·B + i`` is layer l's example i. The layers are not concatenated: the
+    kernel takes an array of their base pointers."""
+    name = "bn_grad_norm_sq"
+    n = len(xs)
+    if n == 0 or len(gs) != n or tuple(stats.shape) != (n, 2, xs[0].shape[-1]):
+        raise ValueError(f"{name}: want L layers of x and g and stats [L, 2, C]; got "
+                         f"{n}, {len(gs)} and {tuple(stats.shape)}")
+    for x, g in zip(xs, gs):
+        _check_pair(x, g, name)
+        if x.shape != xs[0].shape or g.shape != x.shape or x.dtype != xs[0].dtype \
+                or x.device != xs[0].device:
+            raise ValueError(f"{name}: every layer must share one shape, dtype and device")
+    if not _on_cuda(xs[0], name):
+        return bn_grad_norm_sq_plain(xs, gs, stats, use_scale, use_bias)
+    _check_contiguous(name, *xs, *gs)
+    b, h, w, c = xs[0].shape
+    st = stats.to(device=xs[0].device, dtype=torch.float32).contiguous()
+    out = torch.empty(n * b, dtype=torch.float32, device=xs[0].device)
+    with torch.cuda.device(xs[0].device):
+        for l0 in range(0, n, BN_MAX_LAYERS):
+            ls = range(l0, min(n, l0 + BN_MAX_LAYERS))
+            xp = (ctypes.c_void_p * len(ls))(*[xs[i].data_ptr() for i in ls])
+            gp = (ctypes.c_void_p * len(ls))(*[gs[i].data_ptr() for i in ls])
+            BN_GRAD_NORM.launch(xp, gp, st[l0].data_ptr(), out[l0 * b].data_ptr(),
+                                _DTYPE_CODE[xs[0].dtype], len(ls), b, h * w, c,
+                                int(use_scale), int(use_bias), _stream(xs[0]))
+    return out
+
+
+def conv_grad_norm_sq_catdot(x: torch.Tensor, g: torch.Tensor, kernel_size,
+                             padding) -> torch.Tensor:
+    """[B] ⟵ ‖per-example conv weight gradient‖²_F in cat-dot form, unit
+    stride, raw unpadded ``x``. The bias term is the caller's, as in the JAX
+    package's ``catdot=True`` route."""
+    name = "conv_grad_norm_sq_catdot"
+    _check_pair(x, g, name)
+    _check_geometry(x, g, kernel_size, (1, 1), padding, name)
+    if not conv_grad_norm_catdot_eligible(x.shape, g.shape, kernel_size, (1, 1),
+                                          padding):
+        raise ValueError(f"{name}: caller must check conv_grad_norm_catdot_eligible")
+    if not _on_cuda(x, name):
+        return conv_grad_norm_sq_catdot_plain(x, g, kernel_size, padding)
+    _check_contiguous(name, x, g)
+    kh, kw = kernel_size
+    (pt, _pb), (pl, _pr) = padding
+    b, h, w, c = x.shape
+    _, ho, wo, k = g.shape
+    n_partials = -(-kh * c // DIRECT_TILE) * -(-kw * k // DIRECT_TILE)
+    partials = torch.empty((b, n_partials), dtype=torch.float32, device=x.device)
+    out = torch.empty(b, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        CONV_GRAD_NORM_CATDOT.launch(
+            x.data_ptr(), g.data_ptr(), partials.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[x.dtype], b, h, w, c, ho, wo, k, kh, kw, pt, pl, n_partials,
+            _stream(x))
+    return out
+
+
+def conv_bwd_grad_norm_sq(x: torch.Tensor, g: torch.Tensor, weight: torch.Tensor,
+                          kernel_size, padding, use_bias: bool = False):
+    """``(dx [B, H, W, C] in x's dtype, norm² [B] fp32)`` of a unit-stride
+    conv from one launch: the input cotangent of the conv with ``weight``
+    (PyTorch's [K, C, kh, kw], fp32) and the per-example ‖∂W‖²_F (+ the bias
+    term when ``use_bias``)."""
+    name = "conv_bwd_grad_norm_sq"
+    _check_pair(x, g, name)
+    _check_geometry(x, g, kernel_size, (1, 1), padding, name)
+    kh, kw = kernel_size
+    b, h, w, c = x.shape
+    _, ho, wo, k = g.shape
+    if tuple(weight.shape) != (k, c, kh, kw):
+        raise ValueError(f"{name}: weight {tuple(weight.shape)} is not [K, C, kh, kw] = "
+                         f"{(k, c, kh, kw)}")
+    if not conv_bwd_grad_norm_eligible(x.shape, g.shape, kernel_size, (1, 1)):
+        raise ValueError(f"{name}: caller must check conv_bwd_grad_norm_eligible")
+    if not _on_cuda(x, name):
+        return conv_bwd_grad_norm_sq_plain(x, g, weight, kernel_size, padding,
+                                           use_bias=use_bias)
+    if weight.device != x.device:
+        raise ValueError(f"{name}: weight on {weight.device} but x on {x.device}")
+    _check_contiguous(name, x, g)
+    # [K, kh, kw, C]: the channels_last memory of the conv weight, a view.
+    wk = weight.float().permute(0, 2, 3, 1).contiguous()
+    (pt, _pb), (pl, _pr) = padding
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    out = torch.empty(b, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        CONV_BWD_GRAD_NORM.launch(
+            x.data_ptr(), g.data_ptr(), wk.data_ptr(), dx.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[x.dtype], b, h, w, c, ho, wo, k, kh, kw, pt, pl, int(use_bias),
+            _stream(x))
+    return dx, out

@@ -1,18 +1,21 @@
 """Per-example importance scores (counterpart of ``data_diet_distributed_tpu/ops/scores.py``).
 
 EL2N ``‖softmax(f(x)) − onehot(y)‖₂``, margin, correctness, closed-form
-last-layer GraNd and full-parameter GraNd through the batched exact algorithm
-(``grand_batched.py``). Scoring runs in eval mode. ``grand_vmap`` and
-train-mode scoring are not ported yet.
+last-layer GraNd, full-parameter GraNd through the batched exact algorithm
+(``grand_batched.py``; two-phase, fused or megakernel route by its toggles)
+and per-example ``vmap(grad)`` GraNd (``grand_vmap``). Scoring runs in eval
+mode; train-mode scoring is not ported yet.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from . import kernels
+from . import grand_batched, kernels
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -60,10 +63,12 @@ def resolve_use_kernels(use_pallas: bool | None) -> bool:
     return True if use_pallas is None else bool(use_pallas)
 
 
-def make_local_scores(model, method: str, *, eval_mode: bool = True,
+def make_local_scores(model, method: str, *, chunk: int = 32, eval_mode: bool = True,
                       use_kernels: bool = False):
     """``(variables, image, label, mask) -> scores [B]`` float32 for ``method``
-    — the one definition shared by ``score_dataset`` and the serving engine."""
+    — the one definition shared by ``score_dataset`` and the serving engine.
+    ``chunk`` is ``grand_vmap``'s examples per ``vmap``; the GraNd route
+    toggles of ``grand_batched`` are read when this is called."""
     if not eval_mode:
         raise NotImplementedError(
             "train-mode scoring (score.eval_mode=false) comes with the training "
@@ -91,21 +96,59 @@ def make_local_scores(model, method: str, *, eval_mode: bool = True,
     if method == "grand_last_layer":
         def local_scores(variables, image, label, mask):
             logits, feats = _forward(model, variables, image, capture_features=True)
+            if use_kernels:
+                # The kernel redoes the classifier product in fp32 from the fp32
+                # features; the model's own logits (bf16 compute under half
+                # precision) are not part of this route's result.
+                return kernels.grand_last_layer(feats, variables["classifier.weight"],
+                                                variables["classifier.bias"], label,
+                                                mask)
             return grand_last_layer_from_logits(logits, feats, label) * mask
         return local_scores
 
     if method == "grand_batched":
-        from .grand_batched import batched_grand_scores
+        # Module attributes, read now: the toggles pick the route per factory call.
+        if grand_batched.MEGAKERNEL:
+            score_fn = partial(grand_batched.batched_grand_scores_fused, megakernel=True)
+        elif grand_batched.FUSED_BWD:
+            score_fn = grand_batched.batched_grand_scores_fused
+        else:
+            score_fn = grand_batched.batched_grand_scores
 
         def local_scores(variables, image, label, mask):
-            return batched_grand_scores(model, variables, image, label, mask,
-                                        use_kernels=use_kernels)
+            return score_fn(model, variables, image, label, mask,
+                            use_kernels=use_kernels)
         return local_scores
 
     if method == "grand_vmap":
-        raise NotImplementedError(
-            "grand_vmap (per-example vmap(grad)) is not ported yet; use grand")
+        return _make_grand_vmap(model, chunk)
     raise ValueError(f"unknown score method {method!r}")
+
+
+def _make_grand_vmap(model, chunk: int):
+    """Per-example GraNd the naive way: ``vmap(grad)`` of each example's loss
+    over every parameter, ``chunk`` examples per ``vmap``; the norm is taken
+    in fp32 over all parameter gradients (``optax.global_norm`` in JAX)."""
+    param_names = frozenset(name for name, _ in model.named_parameters())
+
+    def loss(params, buffers, image, label):
+        logits = functional_call(model, {**params, **buffers}, (image[None],))
+        return cross_entropy(logits, label[None])[0]
+
+    per_example_grads = torch.func.vmap(torch.func.grad(loss), in_dims=(None, None, 0, 0))
+
+    def local_scores(variables, image, label, mask):
+        params = {k: v for k, v in variables.items() if k in param_names}
+        buffers = {k: v for k, v in variables.items() if k not in param_names}
+        norms = []
+        for i in range(0, image.shape[0], chunk):
+            grads = per_example_grads(params, buffers, image[i:i + chunk],
+                                      label[i:i + chunk])
+            sq = sum(gr.float().reshape(gr.shape[0], -1).pow(2).sum(dim=1)
+                     for gr in grads.values())
+            norms.append(torch.sqrt(sq))
+        return torch.cat(norms) * mask
+    return local_scores
 
 
 def resolve_score_method(method: str, eval_mode: bool) -> str:

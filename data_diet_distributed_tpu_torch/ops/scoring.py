@@ -79,7 +79,7 @@ def score_pass(local_scores: Callable, variables: dict, batches: Iterable,
 
 
 def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
-                  method: str = "el2n", batch_size: int = 512,
+                  method: str = "el2n", batch_size: int = 512, chunk: int = 32,
                   eval_mode: bool = True, use_kernels: bool | None = None,
                   device_resident: bool | None = None, on_seed_done=None,
                   device=None) -> np.ndarray:
@@ -88,7 +88,8 @@ def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
     ``variables_seeds`` holds one variables mapping per scoring seed; the
     result is the per-example mean over seeds (float64 sums, cast last).
     ``device`` defaults to CUDA and raises without it (pass ``"cpu"`` for the
-    CPU); ``model`` is moved there. ``use_kernels`` (None = on) routes through
+    CPU); ``model`` is moved there. ``chunk`` is ``grand_vmap``'s examples per
+    ``vmap`` (``score.grand_chunk``). ``use_kernels`` (None = on) routes through
     the hand-written kernels on the card. ``device_resident`` (None = auto:
     several seeds and a dataset under 4 GB) uploads the batches once for every
     seed.
@@ -99,7 +100,7 @@ def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
         set_scoring_determinism()
     model = model.to(device).eval()
     local = make_local_scores(model, resolve_score_method(method, eval_mode),
-                              eval_mode=eval_mode,
+                              chunk=chunk, eval_mode=eval_mode,
                               use_kernels=resolve_use_kernels(use_kernels))
     variables_seeds = [variables_to(v, device) for v in variables_seeds]
     n = len(ds)

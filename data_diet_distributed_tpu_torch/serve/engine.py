@@ -127,7 +127,7 @@ class ServeEngine:
             sc = self.cfg.score
             fn = self._local[method] = make_local_scores(
                 self.model, resolve_score_method(method, sc.eval_mode),
-                eval_mode=sc.eval_mode,
+                chunk=sc.grand_chunk, eval_mode=sc.eval_mode,
                 use_kernels=resolve_use_kernels(sc.use_pallas))
         return fn
 

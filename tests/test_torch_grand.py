@@ -22,6 +22,16 @@ from data_diet_distributed_tpu_torch.weights import init_variables
 from test_torch_models import ported
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this file's small ops: the test workers share
+    the machine's cores, and oversubscribed thread pools make each op wait."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("name,batch", [("tiny", 4), ("narrow", 4), ("resnet18", 2)])
 def test_batched_grand_matches_jax(name, batch):
     fm, tree, tm, variables, x, y = ported(name, batch, seed=1)

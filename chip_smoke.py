@@ -9,11 +9,16 @@ Phases (the first failure exits non-zero; nothing is caught):
 
 1. Device: require CUDA; print ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compile every hand-written kernel from ``ops/csrc`` (one nvcc per
-   source, in parallel) and print the build seconds and ptxas resource lines.
+   source, in parallel) and print the build seconds and ptxas resource lines;
+   the direct kernel's tensor-core (bf16) mode must not spill registers.
 3. Kernels: hold each kernel against its plain PyTorch version at every
    ResNet-18 main-path geometry with B=512, in fp32 (TF32 off, rtol 1e-4) and
    bf16 (the same bf16 inputs on both sides, rtol 1e-3); time both with CUDA
-   events (median after warm-up).
+   events (median after warm-up). The direct kernel also at ragged
+   geometries (batch 37; not in the per-batch sums), bitwise equal on a
+   permutation of the batch and from run to run, with ``torch.bmm``'s bf16
+   time of the same product Pᵀ G (im2col patches P made outside the timed
+   call) beside each geometry as a yardstick (``bmm_ms``).
    The route kernels likewise: last-layer GraNd at [512, 512] -> 10 and
    [512, 2048] -> 1000, stacked BatchNorm at the four ResNet-18 BN shapes
    singly and 5 deep, cat-dot at 16x16x128, the megakernel at the stage-1/2/3
@@ -22,12 +27,14 @@ Phases (the first failure exits non-zero; nothing is caught):
 4. Path: full-width ResNet-18 on CIFAR-10-geometry synthetic data (8192
    examples, seeds [0, 1], batch 512, bf16) through ``score_dataset`` for
    ``el2n`` and ``grand``; check finite scores, the launch counts (12 direct,
-   3 Gram, 1 EL2N per batch per seed) and ex/s; then, on BN-randomized fp32
-   weights with TF32 off, the kernel route against the plain route end to end.
+   all in the tensor-core mode, 3 Gram, 1 EL2N per batch per seed) and ex/s;
+   then, on BN-randomized fp32 weights with TF32 off, the kernel route (direct
+   launches in the fp32 mode) against the plain route end to end.
 5. Routes: every GraNd route (``ROUTES``: ``grand_last_layer`` and the
    ``DDT_GRAND_*`` toggles, set as module attributes and restored) at the
    same width on 1024 examples x 2 seeds: exact launch counts per batch per
-   seed, ex/s; on BN-randomized fp32 weights with TF32 off each route against
+   seed (every direct launch in the tensor-core mode), ex/s; on BN-randomized
+   fp32 weights with TF32 off each route against
    the default two-phase route (rtol 1e-4), and ``grand_vmap`` on 64 examples
    against it (rtol 2e-4, atol 1e-5); both against float64 (rtol 1e-4).
 6. Serve: ``ServeEngine`` answers ``score_batch`` for 1, 100 and 512 ids
@@ -80,6 +87,13 @@ GEOMETRIES = [
     ("conv_grad_norm_direct", "v2", (B, 16, 16, 128), (B, 16, 16, 128), (3, 3), (1, 1), PAD1, 3),
     ("conv_grad_norm_direct", "v2", (B, 8, 8, 256), (B, 8, 8, 256), (3, 3), (1, 1), PAD1, 3),
     ("conv_grad_norm_gram", "gram", (B, 4, 4, 512), (B, 4, 4, 512), (3, 3), (1, 1), PAD1, 3),
+    # Ragged direct geometries, on no ResNet-18 path: C and K off the 64 tile, a
+    # strided 9x9 input, C not a multiple of 8, asymmetric padding; batch 37.
+    ("conv_grad_norm_direct", "v2", (37, 12, 12, 72), (37, 12, 12, 136), (3, 3), (1, 1), PAD1, 0),
+    ("conv_grad_norm_direct", "v1", (37, 9, 9, 48), (37, 5, 5, 80), (3, 3), (2, 2), PAD1, 0),
+    ("conv_grad_norm_direct", "v1", (37, 10, 10, 20), (37, 10, 10, 24), (3, 3), (1, 1), PAD1, 0),
+    ("conv_grad_norm_direct", "v1", (37, 11, 11, 64), (37, 11, 11, 40), (3, 3), (1, 1),
+     ((0, 2), (2, 0)), 0),
 ]
 # (x shape, g shape) of the unit-stride 3x3 convs of stages 1-3 (megakernel
 # route) with their layers per batch; the four BatchNorm shapes (5 layers each).
@@ -186,6 +200,14 @@ def conv_work(kernel: str, xs, gs, ks, itemsize: int) -> tuple[float, float]:
     return flops, float(nbytes)
 
 
+def check_modes(K, before: dict, n: int, mode: str, what: str) -> None:
+    """Exactly ``n`` direct-kernel launches since ``before``, all in ``mode``."""
+    after = K.mode_counts()["conv_grad_norm_direct"]
+    delta = {m: after[m] - before[m] for m in after}
+    want = {m: (n if m == mode else 0) for m in after}
+    check(delta == want, f"{what}: direct-kernel launches by mode {delta}, want {want}")
+
+
 def kernel_phase(torch, K, dtype, rtol, details) -> None:
     """Each kernel against its plain version at every main-path geometry."""
     dname = str(dtype).replace("torch.", "")
@@ -194,25 +216,37 @@ def kernel_phase(torch, K, dtype, rtol, details) -> None:
         x = torch.randn(xs, generator=gen, device="cuda").to(dtype)
         g = torch.randn(gs, generator=gen, device="cuda").to(dtype)
         if entry == "v1":
-            def run():
+            def call(x, g):
                 return K.conv_grad_norm_sq(x, g, ks, st, pad)
 
             def plain():
                 return K.conv_grad_norm_sq_plain(x, g, ks, st, pad)
         elif entry == "v2":
-            def run():
+            def call(x, g):
                 return K.conv_grad_norm_sq_v2(x, g, ks, pad)
 
             def plain():
                 return K.conv_grad_norm_sq_plain(x, g, ks, (1, 1), pad)
         else:
-            def run():
+            def call(x, g):
                 return K.conv_grad_norm_sq_gram(x, g, ks, pad)
 
             def plain():
                 return K.conv_grad_norm_sq_gram_plain(x, g, ks, pad)
+
+        def run():
+            return call(x, g)
+        modes0 = K.mode_counts()["conv_grad_norm_direct"]
         got = run()
         torch.cuda.synchronize()
+        if kernel == "conv_grad_norm_direct":
+            check_modes(K, modes0, 1, K.DIRECT_MODES[dtype], f"{kernel}/{entry} {dname}")
+            # Bitwise: run to run, and each example wherever it sits in the batch.
+            perm = torch.randperm(xs[0], generator=gen, device="cuda")
+            check(torch.equal(run(), got)
+                  and torch.equal(call(x[perm].contiguous(), g[perm].contiguous()), got[perm]),
+                  f"{kernel}/{entry} {dname} x{list(xs)}: not bitwise equal from run to "
+                  "run and on a permuted batch")
         ref = plain()
         err = (got - ref).abs()
         rel = float((err / ref.abs().clamp_min(1e-30)).max())
@@ -224,11 +258,19 @@ def kernel_phase(torch, K, dtype, rtol, details) -> None:
                "max_rel_err": rel, "ms": time_ms(torch, run),
                "plain_ms": time_ms(torch, plain, warmup=1, iters=3),
                "bound_ms": bnd, "bound_by": by}
+        if kernel == "conv_grad_norm_direct" and dtype == torch.bfloat16:
+            # Yardstick, not a library counterpart: one bf16 bmm of the same
+            # product P^T G (no norm), with the patches P made outside the call.
+            p = K.patches(x, ks, st, pad, gs[1:3]).to(dtype)
+            g2 = g.reshape(gs[0], gs[1] * gs[2], gs[3])
+            rec["bmm_ms"] = time_ms(torch, lambda: torch.bmm(p.transpose(1, 2), g2))
+            del p
         details.append(rec)
         print(f"  {kernel}/{entry} {dname} x{list(xs)} g{list(gs)} k{ks} s{st}: "
               f"rel_err={rel:.3e} (rtol {rtol}) ms={rec['ms']:.4f} "
               f"plain_ms={rec['plain_ms']:.4f} "
-              f"bound_ms={bnd:.4f} ({by})", flush=True)
+              f"bound_ms={bnd:.4f} ({by})"
+              + (f" bmm_ms={rec['bmm_ms']:.4f}" if "bmm_ms" in rec else ""), flush=True)
         check(bool(torch.isfinite(got).all()), f"{kernel}/{entry} {dname}: non-finite")
         check(rel <= rtol, f"{kernel}/{entry} {dname} x{list(xs)}: max rel err "
                            f"{rel:.3e} > {rtol}")
@@ -441,6 +483,7 @@ def path_phase(torch, port, details_out, card: str) -> dict:
     results = {}
     before = K.launch_counts()
     for method in ("el2n", "grand"):
+        modes0 = K.mode_counts()["conv_grad_norm_direct"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         scores = port["score_dataset"](model, variables, ds, method=method,
@@ -449,6 +492,7 @@ def path_phase(torch, port, details_out, card: str) -> dict:
         after = K.launch_counts()
         delta = {k: after[k] - before[k] for k in after}
         before = after
+        check_modes(K, modes0, delta["conv_grad_norm_direct"], "tensor_core", method)
         check(scores.shape == (N_PATH,), f"{method}: scores shape {scores.shape}")
         check(bool(np.isfinite(scores).all()), f"{method}: non-finite scores")
         check(bool((scores >= 0).all()), f"{method}: negative scores")
@@ -478,8 +522,11 @@ def path_phase(torch, port, details_out, card: str) -> dict:
     v = bn_randomized(torch, port, 7)
     sub = ds.subset(ds.indices[:2 * B])
     for method in ("grand", "el2n"):
+        modes0 = K.mode_counts()["conv_grad_norm_direct"]
         fast = port["score_dataset"](model32, [v], sub, method=method, batch_size=B,
                                      use_kernels=True, device="cuda")
+        check_modes(K, modes0, 12 * 2 if method == "grand" else 0, "fp32",
+                    f"{method} fp32")
         plain = port["score_dataset"](model32, [v], sub, method=method, batch_size=B,
                                       use_kernels=False, device="cuda")
         rel = float(np.max(np.abs(fast - plain) / np.maximum(np.abs(plain), 1e-30)))
@@ -519,6 +566,8 @@ def routes_phase(torch, port, details_out, card: str) -> dict:
             counts = K.launch_counts()
         want = {k: per_batch.get(k, 0) * runs for k in K.KERNELS}
         check(counts == want, f"route {name}: launch counts {counts}, want {want}")
+        check_modes(K, dict.fromkeys(K.DIRECT_MODES.values(), 0),
+                    counts["conv_grad_norm_direct"], "tensor_core", f"route {name}")
         check(scores.shape == (ROUTE_N,) and bool(np.isfinite(scores).all())
               and bool((scores >= 0).all()), f"route {name}: scores not finite/>= 0")
         for k, n in counts.items():
@@ -658,7 +707,8 @@ def serve_phase(torch, port, path, details_out) -> None:
 
 # Device-time groups for the profile, by kernel name (first match wins).
 PROFILE_GROUPS = (
-    ("conv_grad_norm_direct", ("::direct_kernel<", "::finalize_kernel<")),
+    ("conv_grad_norm_direct", ("::direct_kernel<", "::direct_mma_kernel(",
+                               "::finalize_kernel<")),
     ("conv_grad_norm_gram", ("::gram_kernel<",)),
     ("el2n", ("::el2n_kernel",)),
     ("conv_bwd_grad_norm (megakernel)", ("::bwd_norm_kernel<",)),
@@ -742,6 +792,13 @@ def profile_phase(torch, port, path, details_out, out_dir: str) -> None:
           "a cuDNN dgrad ran for a megakernel layer (or none was identified by name)")
 
 
+def function_properties(log: str, needle: str) -> list[str]:
+    """ptxas's stack and spill line of each kernel whose name contains ``needle``."""
+    lines = log.splitlines()
+    return [lines[i + 1].strip() for i, line in enumerate(lines[:-1])
+            if "Function properties for" in line and needle in line]
+
+
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -792,6 +849,10 @@ def main(argv: list[str]) -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  [{name}] {line.strip()}", flush=True)
+    mma = function_properties(build.build_log("conv_grad_norm_direct"), "direct_mma_kernel")
+    print(f"  direct_mma_kernel (bf16, tensor cores): {mma}", flush=True)
+    check(len(mma) == 1 and "0 bytes spill stores, 0 bytes spill loads" in mma[0],
+          f"the direct kernel's tensor-core mode spills registers (or was not found): {mma}")
     details["build_s"] = build_s
 
     phase("kernels")

@@ -7,8 +7,11 @@ kernels:
 * ``conv_grad_norm_direct`` — per-example ‖∂W‖²_F of a conv layer from its input
   ``x`` and output cotangent ``g``, direct form ``Σ_o ‖Σ_s x[s·stride+o] g[s]‖²``.
   Two entry points with the JAX signatures: ``conv_grad_norm_sq`` (v1: any
-  stride) and ``conv_grad_norm_sq_v2`` (unit stride, bias term fused, the
-  cotangent tile held in shared memory across offsets).
+  stride) and ``conv_grad_norm_sq_v2`` (unit stride, bias term fused). Two
+  modes chosen by dtype and counted apart (``mode_counts``): bf16 on the
+  tensor cores (``mma.sync``; one staged input band serves every offset of a
+  3x3 conv, ``direct_mma_plan``), fp32 on the CUDA cores (the v2 entry keeps
+  the cotangent tile in shared memory across offsets).
 * ``conv_grad_norm_gram`` — the same quantity in Gram form ``Σ(PPᵀ∘GGᵀ)`` for
   small-map layers (``conv_grad_norm_sq_gram``).
 * ``el2n`` — ``‖softmax(z) − onehot(y)‖₂ · mask`` per row.
@@ -24,7 +27,8 @@ kernels:
 Every public function takes NHWC tensors. Given CPU tensors it computes its
 plain version (the same arithmetic in PyTorch ops); given CUDA tensors it
 launches its kernel or raises — it never falls back. Each kernel counts its
-launches (``launch_counts``), so a run can show which path it took.
+launches (``launch_counts``), and a kernel with modes counts each launch
+under its mode too (``mode_counts``), so a run can show which path it took.
 """
 
 from __future__ import annotations
@@ -35,11 +39,27 @@ import torch
 
 from . import build
 
-#: C and K tile edge of the direct kernel (``kTile`` in conv_grad_norm_direct.cu).
+#: C and K tile edge of the direct kernel in both modes (``kTile``, ``kMmaTile``).
 DIRECT_TILE = 64
 #: Largest output-position count whose [S, 64] fp32 cotangent tile the direct
-#: kernel keeps resident in shared memory (``kMaxResidentS``): 64 KB.
+#: kernel's fp32 mode keeps resident in shared memory (``kMaxResidentS``): 64 KB.
 MAX_RESIDENT_S = 256
+#: The direct kernel's tensor-core mode (conv_norm_mma.cuh): kernel offsets one
+#: warpgroup accumulates (``kMmaOffsets``), warpgroups of a block at most
+#: (``kMmaGroups``), output positions a staged chunk aims at
+#: (``kMmaChunk``) and its most columns (``kMmaMaxCols``), the cp.async ring
+#: depth (``kMmaStages``), one shared row of 64 bf16 channels padded to 72
+#: (``kRowBytes``) and a block's shared-memory budget, half an SM's
+#: (``kMmaMaxSmem``).
+DIRECT_MMA_OFFSETS = 3
+DIRECT_MMA_GROUPS = 3
+DIRECT_MMA_CHUNK = 128
+DIRECT_MMA_MAX_COLS = 32
+DIRECT_MMA_STAGES = 2
+DIRECT_MMA_ROW_BYTES = 144
+DIRECT_MMA_MAX_SMEM = 113 * 1024
+#: The direct kernel's mode for each input dtype.
+DIRECT_MODES = {torch.bfloat16: "tensor_core", torch.float32: "fp32"}
 #: Shared memory one block may use on Hopper (227 KB).
 MAX_BLOCK_SMEM = 227 * 1024
 #: Row stride of the Gram kernel's channel chunks (``kStride``).
@@ -59,13 +79,16 @@ class Kernel:
     """One hand-written kernel: its library entry point and a launch count.
 
     ``launches`` grows by one exactly where the kernel is launched (after the
-    launch returned cudaSuccess); plain-version calls never touch it."""
+    launch returned cudaSuccess); plain-version calls never touch it. A kernel
+    with ``modes`` also counts each launch under the mode it took
+    (``mode_launches``)."""
 
-    def __init__(self, name: str, symbol: str, argtypes: list):
+    def __init__(self, name: str, symbol: str, argtypes: list, modes: tuple = ()):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.mode_launches = dict.fromkeys(modes, 0)
         self._entry = None
 
     def _function(self):
@@ -77,7 +100,10 @@ class Kernel:
             self._entry = (lib, fn)
         return self._entry
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, mode: str | None = None) -> None:
+        if mode not in (set(self.mode_launches) or {None}):
+            raise ValueError(f"{self.name}: mode {mode!r}, want one of "
+                             f"{sorted(self.mode_launches)}")
         lib, fn = self._function()
         err = fn(*args)
         if err != 0:
@@ -85,11 +111,13 @@ class Kernel:
                 f"{self.name}: kernel launch failed with cudaError {err} "
                 f"({lib.ddt_error_string(err).decode()})")
         self.launches += 1
+        if mode is not None:
+            self.mode_launches[mode] += 1
 
 
 CONV_GRAD_NORM_DIRECT = Kernel(
     "conv_grad_norm_direct", "ddt_conv_grad_norm_direct",
-    [_PTR] * 4 + [_INT] * 17 + [_PTR])
+    [_PTR] * 4 + [_INT] * 17 + [_PTR], modes=tuple(DIRECT_MODES.values()))
 CONV_GRAD_NORM_GRAM = Kernel(
     "conv_grad_norm_gram", "ddt_conv_grad_norm_gram",
     [_PTR] * 3 + [_INT] * 13 + [_PTR])
@@ -112,9 +140,15 @@ def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def mode_counts() -> dict[str, dict[str, int]]:
+    """Launches by mode, for each kernel that has modes."""
+    return {name: dict(k.mode_launches) for name, k in KERNELS.items() if k.mode_launches}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.mode_launches = dict.fromkeys(k.mode_launches, 0)
 
 
 # ------------------------------------------------------------------ checks
@@ -167,21 +201,75 @@ def _stream(t: torch.Tensor) -> int:
 # ---------------------------------------------------------- eligibility gates
 
 
+def direct_mma_plan(out_hw, kernel_size, strides) -> dict | None:
+    """The direct kernel's tensor-core staging plan (``mma_plan`` in
+    conv_norm_mma.cuh), or None where even one output position per chunk
+    does not fit: the output map in chunks of ``rows`` × ``cols`` positions,
+    each staging its input band (``band_h`` × ``band_w``; ``in_dy`` input rows
+    per band row and ``out_dy`` band rows per output row, likewise across) and
+    ``g_rows`` cotangent rows, in a ring of ``DIRECT_MMA_STAGES`` buffers
+    within ``DIRECT_MMA_MAX_SMEM`` (``smem`` bytes). A kernel dimension of
+    width 1 stages only the input lines its stride samples."""
+    ho, wo = out_hw
+    (kh, kw), (sy, sx) = kernel_size, strides
+    cols = min(wo, DIRECT_MMA_MAX_COLS)
+    rows = min(ho, max(1, DIRECT_MMA_CHUNK // cols))
+    while True:
+        band_h = rows if kh == 1 else (rows - 1) * sy + kh
+        band_w = cols if kw == 1 else (cols - 1) * sx + kw
+        g_rows = -(-rows * cols // 16) * 16
+        stage_rows = band_h * band_w + g_rows
+        smem = (DIRECT_MMA_STAGES * stage_rows + 1) * DIRECT_MMA_ROW_BYTES
+        if smem <= DIRECT_MMA_MAX_SMEM:
+            return {"rows": rows, "cols": cols, "band_h": band_h, "band_w": band_w,
+                    "in_dy": sy if kh == 1 else 1, "in_dx": sx if kw == 1 else 1,
+                    "out_dy": 1 if kh == 1 else sy, "out_dx": 1 if kw == 1 else sx,
+                    "g_rows": g_rows, "chunks_r": -(-ho // rows),
+                    "chunks_q": -(-wo // cols), "stage_rows": stage_rows, "smem": smem}
+        if rows > 1:
+            rows -= 1
+        elif cols > 1:
+            cols = -(-cols // 2)
+        else:
+            return None
+
+
+def _direct_mma_block_groups(kernel_size) -> int:
+    """Tensor-core blocks per example and C×K tile: one warpgroup per group of
+    ``DIRECT_MMA_OFFSETS`` offsets, up to ``DIRECT_MMA_GROUPS`` in a block."""
+    groups = -(-kernel_size[0] * kernel_size[1] // DIRECT_MMA_OFFSETS)
+    return -(-groups // min(groups, DIRECT_MMA_GROUPS))
+
+
+def direct_partials(c: int, k: int, kernel_size, dtype: torch.dtype) -> int:
+    """Partials per example of one direct launch, one per block: per offset
+    (fp32 mode) or per block of offset groups (tensor-core mode), times the C
+    and K tiles."""
+    kh, kw = kernel_size
+    per = kh * kw if DIRECT_MODES[dtype] == "fp32" else _direct_mma_block_groups(kernel_size)
+    return per * -(-c // DIRECT_TILE) * -(-k // DIRECT_TILE)
+
+
 def conv_grad_norm_direct_fits(x_shape, g_shape, kernel_size, strides) -> bool:
-    """Whether the direct kernel's grid fits CUDA's limits for this layer:
-    offsets on grid.y, C×K tiles on grid.z. (The kernel streams S in chunks, so
-    no map size is too large.)"""
-    del strides
+    """Whether the direct kernel takes this layer in either mode: fp32 with
+    offsets on grid.y and C×K tiles on grid.z within CUDA's limits;
+    tensor-core with a staging plan and its one-dimensional grid (B × block
+    groups × tiles blocks) within CUDA's limit. Both modes stream S in chunks,
+    so no map size is too large."""
     kh, kw = kernel_size
     tiles = -(-x_shape[-1] // DIRECT_TILE) * -(-g_shape[-1] // DIRECT_TILE)
-    return kh * kw <= _GRID_YZ_MAX and tiles <= _GRID_YZ_MAX
+    blocks = x_shape[0] * _direct_mma_block_groups(kernel_size) * tiles
+    return (kh * kw <= _GRID_YZ_MAX and tiles <= _GRID_YZ_MAX
+            and blocks <= _GRID_X_MAX
+            and direct_mma_plan(g_shape[1:3], kernel_size, strides) is not None)
 
 
 def conv_grad_norm_v2_eligible(x_shape, g_shape, kernel_size, strides,
                                padding) -> bool:
     """The v2 entry: unit stride, and an output map of at most
-    ``MAX_RESIDENT_S`` positions, so the block's [S, 64] fp32 cotangent tile
-    stays resident in shared memory (64 KB) across every kernel offset."""
+    ``MAX_RESIDENT_S`` positions, so the fp32 mode's [S, 64] cotangent tile
+    stays resident in shared memory (64 KB) across every kernel offset (the
+    tensor-core mode would take any S)."""
     del padding
     if tuple(strides) != (1, 1):
         return False
@@ -401,14 +489,15 @@ def _direct_launch(x, g, kernel_size, strides, padding, use_bias, resident,
     (pt, _pb), (pl, _pr) = padding
     b, h, w, c = x.shape
     _, ho, wo, k = g.shape
-    n_partials = kh * kw * -(-c // DIRECT_TILE) * -(-k // DIRECT_TILE)
+    n_partials = direct_partials(c, k, kernel_size, x.dtype)
     partials = torch.empty((b, n_partials), dtype=torch.float32, device=x.device)
     out = torch.empty(b, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         CONV_GRAD_NORM_DIRECT.launch(
             x.data_ptr(), g.data_ptr(), partials.data_ptr(), out.data_ptr(),
             _DTYPE_CODE[x.dtype], b, h, w, c, ho, wo, k, kh, kw, sy, sx, pt, pl,
-            n_partials, int(use_bias), int(resident), _stream(x))
+            n_partials, int(use_bias), int(resident), _stream(x),
+            mode=DIRECT_MODES[x.dtype])
     return out
 
 

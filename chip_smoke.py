@@ -10,7 +10,8 @@ Phases (the first failure exits non-zero; nothing is caught):
 1. Device: require CUDA; print ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compile every hand-written kernel from ``ops/csrc`` (one nvcc per
    source, in parallel) and print the build seconds and ptxas resource lines;
-   the direct kernel's tensor-core (bf16) mode must not spill registers.
+   the tensor-core (bf16) modes of the direct, megakernel and cat-dot kernels
+   must not spill registers.
 3. Kernels: hold each kernel against its plain PyTorch version at every
    ResNet-18 main-path geometry with B=512, in fp32 (TF32 off, rtol 1e-4) and
    bf16 (the same bf16 inputs on both sides, rtol 1e-3); time both with CUDA
@@ -21,9 +22,16 @@ Phases (the first failure exits non-zero; nothing is caught):
    call) beside each geometry as a yardstick (``bmm_ms``).
    The route kernels likewise: last-layer GraNd at [512, 512] -> 10 and
    [512, 2048] -> 1000, stacked BatchNorm at the four ResNet-18 BN shapes
-   singly and 5 deep, cat-dot at 16x16x128, the megakernel at the stage-1/2/3
-   unit-stride geometries (its bf16 ``dx`` within two bf16 ulps, see
-   ``MEGA_DX_TOL``).
+   singly and 5 deep, cat-dot (``CATDOT_GEOMETRIES``: 16x16x128 and ragged
+   ones at batch 37) with the direct kernel's time at the same layer as a
+   yardstick (``direct_ms``), the megakernel (``MEGA_GEOMETRIES``: the
+   stage-1/2/3 unit-stride geometries and ragged ones; its bf16 ``dx`` within
+   two bf16 ulps, see ``MEGA_DX_TOL``) with a cuDNN input gradient plus the
+   direct kernel's time as yardsticks (``dgrad_ms``, ``direct_ms``). Each
+   launch of the direct, cat-dot and megakernel kernels is counted in the mode
+   its dtype selects; in bf16 each is bitwise equal from run to run and on a
+   permuted batch, and the megakernel's norm bitwise equal to the direct
+   kernel's.
 4. Path: full-width ResNet-18 on CIFAR-10-geometry synthetic data (8192
    examples, seeds [0, 1], batch 512, bf16) through ``score_dataset`` for
    ``el2n`` and ``grand``; check finite scores, the launch counts (12 direct,
@@ -33,8 +41,9 @@ Phases (the first failure exits non-zero; nothing is caught):
 5. Routes: every GraNd route (``ROUTES``: ``grand_last_layer`` and the
    ``DDT_GRAND_*`` toggles, set as module attributes and restored) at the
    same width on 1024 examples x 2 seeds: exact launch counts per batch per
-   seed (every direct launch in the tensor-core mode), ex/s; on BN-randomized
-   fp32 weights with TF32 off each route against
+   seed (every direct, cat-dot and megakernel launch in the tensor-core
+   mode), ex/s; on BN-randomized fp32 weights with TF32 off (every such
+   launch in the fp32 mode) each route against
    the default two-phase route (rtol 1e-4), and ``grand_vmap`` on 64 examples
    against it (rtol 2e-4, atol 1e-5); both against float64 (rtol 1e-4).
 6. Serve: ``ServeEngine`` answers ``score_batch`` for 1, 100 and 512 ids
@@ -95,11 +104,22 @@ GEOMETRIES = [
     ("conv_grad_norm_direct", "v1", (37, 11, 11, 64), (37, 11, 11, 40), (3, 3), (1, 1),
      ((0, 2), (2, 0)), 0),
 ]
-# (x shape, g shape) of the unit-stride 3x3 convs of stages 1-3 (megakernel
-# route) with their layers per batch; the four BatchNorm shapes (5 layers each).
-MEGA_GEOMETRIES = [((B, 32, 32, 64), (B, 32, 32, 64), 4),
-                   ((B, 16, 16, 128), (B, 16, 16, 128), 3),
-                   ((B, 8, 8, 256), (B, 8, 8, 256), 3)]
+# Megakernel: (x shape, g shape, kernel size, padding, use_bias, layers per batch): the
+# unit-stride 3x3 convs of stages 1-3 (megakernel route), then ragged geometries on no
+# ResNet-18 path at batch 37 (C and K off the 64 tile; C and K not multiples of 8 with
+# asymmetric padding; a (3, 2) kernel).
+MEGA_GEOMETRIES = [((B, 32, 32, 64), (B, 32, 32, 64), (3, 3), PAD1, False, 4),
+                   ((B, 16, 16, 128), (B, 16, 16, 128), (3, 3), PAD1, False, 3),
+                   ((B, 8, 8, 256), (B, 8, 8, 256), (3, 3), PAD1, False, 3),
+                   ((37, 12, 12, 72), (37, 12, 12, 136), (3, 3), PAD1, True, 0),
+                   ((37, 10, 10, 20), (37, 10, 10, 30), (3, 3), ((0, 2), (2, 0)), False, 0),
+                   ((37, 9, 11, 64), (37, 9, 11, 48), (3, 2), ((1, 1), (1, 0)), True, 0)]
+# Cat-dot: (x shape, g shape, kernel size, padding, layers per batch): stage 2's
+# unit-stride 3x3 conv (CATDOT route), then ragged ones at batch 37 (a non-square map
+# with K = 256 and asymmetric padding; a (3, 2) kernel).
+CATDOT_GEOMETRIES = [((B, 16, 16, 128), (B, 16, 16, 128), (3, 3), PAD1, 3),
+                     ((37, 12, 10, 128), (37, 12, 10, 256), (3, 3), ((0, 2), (2, 0)), 0),
+                     ((37, 9, 14, 128), (37, 9, 14, 128), (3, 2), ((1, 1), (1, 0)), 0)]
 BN_SHAPES = [(B, 32, 32, 64), (B, 16, 16, 128), (B, 8, 8, 256), (B, 4, 4, 512)]
 # The megakernel's dx against the plain version's, elementwise:
 # |dx - ref| <= rtol * |ref| + 1e-5 * max|ref|. fp32: rtol 1e-4. bf16 output:
@@ -200,12 +220,27 @@ def conv_work(kernel: str, xs, gs, ks, itemsize: int) -> tuple[float, float]:
     return flops, float(nbytes)
 
 
-def check_modes(K, before: dict, n: int, mode: str, what: str) -> None:
-    """Exactly ``n`` direct-kernel launches since ``before``, all in ``mode``."""
-    after = K.mode_counts()["conv_grad_norm_direct"]
+def check_modes(K, before: dict, n: int, mode: str, what: str,
+                kernel: str = "conv_grad_norm_direct") -> None:
+    """Exactly ``n`` launches of ``kernel`` since ``before`` (its mode counts),
+    all in ``mode``."""
+    after = K.mode_counts()[kernel]
     delta = {m: after[m] - before[m] for m in after}
     want = {m: (n if m == mode else 0) for m in after}
-    check(delta == want, f"{what}: direct-kernel launches by mode {delta}, want {want}")
+    check(delta == want, f"{what}: {kernel} launches by mode {delta}, want {want}")
+
+
+def check_bitwise(torch, gen, call, x, g, got, what: str) -> None:
+    """``call(x, g)`` (a tensor or a tuple of them, batch first) gives ``got``
+    again bit for bit, and each example the same bits wherever it sits in the
+    batch (a permutation)."""
+    as_tuple = (lambda r: r if isinstance(r, tuple) else (r,))
+    perm = torch.randperm(x.shape[0], generator=gen, device="cuda")
+    again = as_tuple(call(x, g))
+    moved = as_tuple(call(x[perm].contiguous(), g[perm].contiguous()))
+    check(all(torch.equal(a, b) and torch.equal(m, b[perm])
+              for a, m, b in zip(again, moved, as_tuple(got))),
+          f"{what}: not bitwise equal from run to run and on a permuted batch")
 
 
 def kernel_phase(torch, K, dtype, rtol, details) -> None:
@@ -241,12 +276,7 @@ def kernel_phase(torch, K, dtype, rtol, details) -> None:
         torch.cuda.synchronize()
         if kernel == "conv_grad_norm_direct":
             check_modes(K, modes0, 1, K.DIRECT_MODES[dtype], f"{kernel}/{entry} {dname}")
-            # Bitwise: run to run, and each example wherever it sits in the batch.
-            perm = torch.randperm(xs[0], generator=gen, device="cuda")
-            check(torch.equal(run(), got)
-                  and torch.equal(call(x[perm].contiguous(), g[perm].contiguous()), got[perm]),
-                  f"{kernel}/{entry} {dname} x{list(xs)}: not bitwise equal from run to "
-                  "run and on a permuted batch")
+            check_bitwise(torch, gen, call, x, g, got, f"{kernel}/{entry} {dname} x{list(xs)}")
         ref = plain()
         err = (got - ref).abs()
         rel = float((err / ref.abs().clamp_min(1e-30)).max())
@@ -371,58 +401,98 @@ def route_kernel_phase(torch, K, dtype, rtol, details) -> None:
                   f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
             check(bool(torch.isfinite(got).all()) and rel <= rtol,
                   f"bn_grad_norm {dname} {shape} x{depth}: max rel err {rel:.3e} > {rtol}")
-    # Cat-dot at stage 2's unit-stride geometry (3 layers on the CATDOT route).
-    xs_, gs_ = (B, 16, 16, 128), (B, 16, 16, 128)
-    x, g = randn(*xs_), randn(*gs_)
-    got = K.conv_grad_norm_sq_catdot(x, g, (3, 3), PAD1)
-    ref = K.conv_grad_norm_sq_catdot_plain(x, g, (3, 3), PAD1)
-    abs_err, rel = _rel_err(got, ref)
-    rec = _measure(torch, {"kernel": "conv_grad_norm_catdot", "entry": "catdot",
-                           "dtype": dname, "x": list(xs_), "g": list(gs_),
-                           "kernel_size": [3, 3], "layers_per_batch": 3,
-                           "max_abs_err": abs_err, "max_rel_err": rel},
-                   lambda: K.conv_grad_norm_sq_catdot(x, g, (3, 3), PAD1),
-                   lambda: K.conv_grad_norm_sq_catdot_plain(x, g, (3, 3), PAD1),
-                   2.0 * B * gs_[1] * gs_[2] * 9 * xs_[3] * gs_[3],
-                   (np.prod(xs_) + np.prod(gs_)) * item + 4.0 * B, dname)
-    details.append(rec)
-    print(f"  conv_grad_norm_catdot {dname} x{list(xs_)}: rel_err={rel:.3e} "
-          f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-          f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
-    check(bool(torch.isfinite(got).all()) and rel <= rtol,
-          f"conv_grad_norm_catdot {dname}: max rel err {rel:.3e} > {rtol}")
-    # Megakernel at the stage-1/2/3 unit-stride geometries (4 + 3 + 3 layers).
-    for xs_, gs_, layers in MEGA_GEOMETRIES:
+    # Cat-dot at every CATDOT_GEOMETRIES row. Yardstick, not a library counterpart:
+    # the direct kernel at the same layer (v2 where it takes the layer), which
+    # computes the same function (``direct_ms``).
+    for xs_, gs_, ks, pad, layers in CATDOT_GEOMETRIES:
         x, g = randn(*xs_), randn(*gs_)
-        w = torch.randn((gs_[3], xs_[3], 3, 3), generator=gen, device="cuda") * 0.05
+
+        def call(x, g, ks=ks, pad=pad):
+            return K.conv_grad_norm_sq_catdot(x, g, ks, pad)
+        what = f"conv_grad_norm_catdot {dname} x{list(xs_)} g{list(gs_)} k{ks}"
+        modes0 = K.mode_counts()["conv_grad_norm_catdot"]
+        got = call(x, g)
+        torch.cuda.synchronize()
+        check_modes(K, modes0, 1, K.DIRECT_MODES[dtype], what, "conv_grad_norm_catdot")
+        if dtype == torch.bfloat16:
+            check_bitwise(torch, gen, call, x, g, got, what)
+        ref = K.conv_grad_norm_sq_catdot_plain(x, g, ks, pad)
+        abs_err, rel = _rel_err(got, ref)
+        rec = _measure(torch, {"kernel": "conv_grad_norm_catdot", "entry": "catdot",
+                               "dtype": dname, "x": list(xs_), "g": list(gs_),
+                               "kernel_size": list(ks), "padding": [list(p) for p in pad],
+                               "layers_per_batch": layers, "max_abs_err": abs_err,
+                               "max_rel_err": rel},
+                       lambda: call(x, g),
+                       lambda: K.conv_grad_norm_sq_catdot_plain(x, g, ks, pad),
+                       2.0 * xs_[0] * gs_[1] * gs_[2] * ks[0] * ks[1] * xs_[3] * gs_[3],
+                       (np.prod(xs_) + np.prod(gs_)) * item + 4.0 * xs_[0], dname)
+        if K.conv_grad_norm_v2_eligible(xs_, gs_, ks, (1, 1), pad):
+            rec["direct_ms"] = time_ms(torch, lambda: K.conv_grad_norm_sq_v2(x, g, ks, pad))
+        else:
+            rec["direct_ms"] = time_ms(torch, lambda: K.conv_grad_norm_sq(x, g, ks, (1, 1), pad))
+        details.append(rec)
+        print(f"  {what}: rel_err={rel:.3e} ms={rec['ms']:.4f} "
+              f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+              f"({rec['bound_by']}) direct_ms={rec['direct_ms']:.4f}", flush=True)
+        check(bool(torch.isfinite(got).all()) and rel <= rtol,
+              f"{what}: max rel err {rel:.3e} > {rtol}")
+    # Megakernel at every MEGA_GEOMETRIES row. Yardsticks, not library counterparts:
+    # a cuDNN input gradient of the same conv in the same dtype (``dgrad_ms``; at
+    # symmetric padding) plus the direct kernel's norm at the same layer
+    # (``direct_ms``), the two launches the megakernel replaces on its route.
+    for xs_, gs_, ks, pad, bias, layers in MEGA_GEOMETRIES:
+        x, g = randn(*xs_), randn(*gs_)
+        w = torch.randn((gs_[3], xs_[3], *ks), generator=gen, device="cuda") * 0.05
         w = w.contiguous(memory_format=torch.channels_last)
-        dx, ns = K.conv_bwd_grad_norm_sq(x, g, w, (3, 3), PAD1)
-        rdx, rns = K.conv_bwd_grad_norm_sq_plain(x, g, w, (3, 3), PAD1)
+
+        def call(x, g, w=w, ks=ks, pad=pad, bias=bias):
+            return K.conv_bwd_grad_norm_sq(x, g, w, ks, pad, use_bias=bias)
+        what = f"conv_bwd_grad_norm {dname} x{list(xs_)} g{list(gs_)} k{ks}"
+        modes0 = K.mode_counts()["conv_bwd_grad_norm"]
+        dx, ns = call(x, g)
+        torch.cuda.synchronize()
+        check_modes(K, modes0, 1, K.DIRECT_MODES[dtype], what, "conv_bwd_grad_norm")
+        if dtype == torch.bfloat16:
+            check_bitwise(torch, gen, call, x, g, (dx, ns), what)
+            if not bias:   # the norm role is the direct kernel's walk, to the bit
+                check(torch.equal(ns, K.conv_grad_norm_sq(x, g, ks, (1, 1), pad)),
+                      f"{what}: norm not bitwise equal to the direct kernel's")
+        rdx, rns = K.conv_bwd_grad_norm_sq_plain(x, g, w, ks, pad, use_bias=bias)
         abs_err, rel = _rel_err(ns, rns)
         dx_err = (dx.float() - rdx.float()).abs()
         scale = float(rdx.float().abs().max())
         dx_excess = float((dx_err - MEGA_DX_TOL[dname] * rdx.float().abs()).max())
-        flops = 2.0 * 2.0 * B * gs_[1] * gs_[2] * 9 * xs_[3] * gs_[3]
-        nbytes = (2 * np.prod(xs_) + np.prod(gs_)) * item + 4.0 * w.numel() + 4.0 * B
+        flops = 2.0 * 2.0 * xs_[0] * gs_[1] * gs_[2] * ks[0] * ks[1] * xs_[3] * gs_[3]
+        nbytes = (2 * np.prod(xs_) + np.prod(gs_)) * item + 4.0 * w.numel() + 4.0 * xs_[0]
         rec = _measure(torch, {"kernel": "conv_bwd_grad_norm", "entry": "mega",
                                "dtype": dname, "x": list(xs_), "g": list(gs_),
-                               "kernel_size": [3, 3], "layers_per_batch": layers,
+                               "kernel_size": list(ks), "padding": [list(p) for p in pad],
+                               "use_bias": bias, "layers_per_batch": layers,
                                "max_abs_err": max(abs_err, float(dx_err.max())),
                                "max_rel_err": rel, "dx_max_abs_err": float(dx_err.max()),
                                "dx_scale": scale},
-                       lambda: K.conv_bwd_grad_norm_sq(x, g, w, (3, 3), PAD1),
-                       lambda: K.conv_bwd_grad_norm_sq_plain(x, g, w, (3, 3), PAD1),
+                       lambda: call(x, g),
+                       lambda: K.conv_bwd_grad_norm_sq_plain(x, g, w, ks, pad, use_bias=bias),
                        flops, nbytes, dname)
+        rec["direct_ms"] = time_ms(torch, lambda: K.conv_grad_norm_sq(x, g, ks, (1, 1), pad))
+        rec["dgrad_ms"] = None
+        if pad[0][0] == pad[0][1] and pad[1][0] == pad[1][1]:
+            wd, gn = w.to(dtype), g.permute(0, 3, 1, 2)
+            size = (xs_[0], xs_[3], xs_[1], xs_[2])
+            rec["dgrad_ms"] = time_ms(torch, lambda: torch.nn.grad.conv2d_input(
+                size, wd, gn, padding=(pad[0][0], pad[1][0])))
         details.append(rec)
-        print(f"  conv_bwd_grad_norm {dname} x{list(xs_)}: norm rel_err={rel:.3e} "
+        yard = ("" if rec["dgrad_ms"] is None else
+                f" dgrad_ms={rec['dgrad_ms']:.4f} + direct_ms={rec['direct_ms']:.4f}")
+        print(f"  {what}: norm rel_err={rel:.3e} "
               f"dx max abs err={float(dx_err.max()):.3e} (max |dx| {scale:.3e}) "
               f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
+              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}){yard}", flush=True)
         check(dx.dtype == dtype and bool(torch.isfinite(dx).all())
-              and bool(torch.isfinite(ns).all()), f"conv_bwd_grad_norm {dname}: output")
-        check(rel <= rtol, f"conv_bwd_grad_norm {dname} {xs_}: norm rel err {rel:.3e}")
-        check(dx_excess <= 1e-5 * scale,
-              f"conv_bwd_grad_norm {dname} {xs_}: dx beyond rtol {MEGA_DX_TOL[dname]}")
+              and bool(torch.isfinite(ns).all()), f"{what}: output")
+        check(rel <= rtol, f"{what}: norm rel err {rel:.3e}")
+        check(dx_excess <= 1e-5 * scale, f"{what}: dx beyond rtol {MEGA_DX_TOL[dname]}")
 
 
 # Classifier scale of the parity weights: with the BatchNorms randomized the
@@ -566,8 +636,9 @@ def routes_phase(torch, port, details_out, card: str) -> dict:
             counts = K.launch_counts()
         want = {k: per_batch.get(k, 0) * runs for k in K.KERNELS}
         check(counts == want, f"route {name}: launch counts {counts}, want {want}")
-        check_modes(K, dict.fromkeys(K.DIRECT_MODES.values(), 0),
-                    counts["conv_grad_norm_direct"], "tensor_core", f"route {name}")
+        for kern in K.mode_counts():   # every bf16 launch on the tensor cores
+            check_modes(K, dict.fromkeys(K.DIRECT_MODES.values(), 0), counts[kern],
+                        "tensor_core", f"route {name}", kern)
         check(scores.shape == (ROUTE_N,) and bool(np.isfinite(scores).all())
               and bool((scores >= 0).all()), f"route {name}: scores not finite/>= 0")
         for k, n in counts.items():
@@ -593,8 +664,12 @@ def routes_phase(torch, port, details_out, card: str) -> dict:
                                      batch_size=batch_size, device="cuda", **kw)
     base = score32("grand", sub)
     for name, method, flags, _ in ROUTES[1:]:
+        launches0, modes0 = K.launch_counts(), K.mode_counts()
         with toggles(gb, flags):
             got = score32(method, sub)
+        for kern in modes0:   # every fp32 parity launch on the CUDA cores
+            check_modes(K, modes0[kern], K.launch_counts()[kern] - launches0[kern], "fp32",
+                        f"route {name} fp32", kern)
         ref = base if method == "grand" else score32(method, sub, use_kernels=False)
         parity[name] = float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30)))
         against = "default two-phase route" if method == "grand" else "plain route"
@@ -711,8 +786,8 @@ PROFILE_GROUPS = (
                                "::finalize_kernel<")),
     ("conv_grad_norm_gram", ("::gram_kernel<",)),
     ("el2n", ("::el2n_kernel",)),
-    ("conv_bwd_grad_norm (megakernel)", ("::bwd_norm_kernel<",)),
-    ("conv_grad_norm_catdot", ("::catdot_kernel<",)),
+    ("conv_bwd_grad_norm (megakernel)", ("::bwd_norm_kernel(", "::bwd_norm_mma_kernel(")),
+    ("conv_grad_norm_catdot", ("::catdot_kernel(", "::catdot_mma_kernel(")),
     ("bn_grad_norm", ("::bn_kernel<",)),
     ("grand_last_layer", ("::gll_kernel",)),
     ("cuDNN conv (forward, input gradient)", ("fprop", "dgrad", "cudnn", "nhwcAddPadding")),
@@ -849,10 +924,13 @@ def main(argv: list[str]) -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  [{name}] {line.strip()}", flush=True)
-    mma = function_properties(build.build_log("conv_grad_norm_direct"), "direct_mma_kernel")
-    print(f"  direct_mma_kernel (bf16, tensor cores): {mma}", flush=True)
-    check(len(mma) == 1 and "0 bytes spill stores, 0 bytes spill loads" in mma[0],
-          f"the direct kernel's tensor-core mode spills registers (or was not found): {mma}")
+    for name, fn in (("conv_grad_norm_direct", "direct_mma_kernel"),
+                     ("conv_bwd_grad_norm", "bwd_norm_mma_kernel"),
+                     ("conv_grad_norm_catdot", "catdot_mma_kernel")):
+        mma = function_properties(build.build_log(name), fn)
+        print(f"  {fn} (bf16, tensor cores): {mma}", flush=True)
+        check(len(mma) == 1 and "0 bytes spill stores, 0 bytes spill loads" in mma[0],
+              f"{name}'s tensor-core mode spills registers (or was not found): {mma}")
     details["build_s"] = build_s
 
     phase("kernels")

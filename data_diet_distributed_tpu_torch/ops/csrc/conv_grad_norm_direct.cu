@@ -14,21 +14,22 @@
 //
 // Two modes, chosen by the inputs' dtype; the wrapper counts each launch under its mode.
 //
-// bf16: tensor cores (direct_mma_kernel; tiling and staging in conv_norm_mma.cuh). As
-// the TPU kernels do on the MXU, bf16 x bf16 products are exact in fp32 and the sums
-// accumulate in fp32. A block owns one example and up to 9 kernel offsets (all of a 3x3
-// conv), one warpgroup of 4 warps per 3 offsets (a kernel row), and walks every 64 x 64
-// (C x K) tile of the example in turn. For each tile it streams the output map in chunks
-// of about 128 positions through a 2-deep cp.async ring; one staged input band per chunk
-// serves every offset of the block as shifted windows (x is staged once per tile, not
-// once per offset), read by ldmatrix.trans into mma.sync.m16n8k16 (bf16 -> fp32). Both
-// entries run this kernel at any stride (the band's steps are the strides; a kernel
-// dimension of width 1 stages only the lines its stride samples); the v2 entry's S limit
-// is the fp32 mode's. The grid is one-dimensional and example-major, and a block reads
-// its example's x and g again only per tile, from the 50 MB L2.
+// bf16: tensor cores (direct_mma_kernel; the loop is DirectWalk and mma_norm_walk of
+// conv_norm_mma.cuh, which the megakernel's norm role runs too). As the TPU kernels do on
+// the MXU, bf16 x bf16 products are exact in fp32 and the sums accumulate in fp32. A
+// block owns one example and up to 9 kernel offsets (all of a 3x3 conv), one warpgroup of
+// 4 warps per 3 offsets (a kernel row), and walks every 64 x 64 (C x K) tile of the
+// example in turn. For each tile it streams the output map in chunks of about 128
+// positions through a 2-deep cp.async ring; one staged input band per chunk serves every
+// offset of the block as shifted windows (x is staged once per tile, not once per
+// offset), read by ldmatrix.trans into mma.sync.m16n8k16 (bf16 -> fp32). Both entries run
+// this kernel at any stride (the band's steps are the strides; a kernel dimension of
+// width 1 stages only the lines its stride samples); the v2 entry's S limit is the fp32
+// mode's. The grid is one-dimensional and example-major, and a block reads its example's
+// x and g again only per tile, from the 50 MB L2.
 //
 // fp32: CUDA cores (direct_kernel; the fp32 tiles of conv_norm_common.cuh, shared with
-// the cat-dot kernel and the megakernel). A block computes one 64x64 tile of M_o from
+// the fp32 modes of the cat-dot kernel and the megakernel). A block computes one 64x64 tile of M_o from
 // 32-position chunks staged as float, each of 256 threads holding a 4x4 sub-tile: a
 // streaming mode (v1 entry; grid over offsets, x and g read per offset) and a
 // g-resident mode (v2 entry; S <= 256, the [S, 64] g tile read once and kept in shared
@@ -136,196 +137,18 @@ cudaError_t launch_fp32(const float* x, const float* gt, float* partials, float*
 
 // ------------------------------------------------------------ bf16 tensor-core mode
 
-struct MmaArgs {
-  Geo g;              // g.P = gblocks * ctiles * ktiles partials per example
-  MmaPlan p;
-  int wgroups;        // warpgroups of a block, one per offset group it owns
-  int gblocks;        // blocks per example, each owning wgroups offset groups
-  bool vec_x, vec_g;  // stage by 16-byte cp.async (else by scalar loads)
-};
-
-using bf16 = __nv_bfloat16;
-
-// Stage chunk ci of one block into the ring buffer at buf: the input band (band_h x
-// band_w positions, 64 channels from c0), then the chunk's g rows (64 channels from k0).
-// Thread t copies channel group t % 8 of every (blockDim / 8)-th position, walking the
-// band's coordinates by increments (no division per copy).
-__device__ void stage_chunk(bf16* buf, const bf16* xb, const bf16* gb, const MmaArgs& a,
-                            int ci, int c0, int k0) {
-  const Geo& g = a.g;
-  const MmaPlan& p = a.p;
-  const int r0 = (ci / p.chunks_q) * p.rows, q0 = (ci % p.chunks_q) * p.cols;
-  const int lane8 = threadIdx.x & 7, step = blockDim.x >> 3;
-  const int c = c0 + lane8 * 8, k = k0 + lane8 * 8;
-
-  const int band = p.band_h * p.band_w;
-  const int dy = step / p.band_w, dx = step - dy * p.band_w;
-  int pos = threadIdx.x >> 3;
-  int by = pos / p.band_w, bx = pos - by * p.band_w;
-  for (; pos < band; pos += step) {
-    const int iy = r0 * g.sy - g.pt + by * p.in_dy, ix = q0 * g.sx - g.pl + bx * p.in_dx;
-    const bool ok = iy >= 0 && iy < g.H && ix >= 0 && ix < g.W && c < g.C;
-    const bf16* src = xb + (ok ? ((size_t)iy * g.W + ix) * g.C + c : 0);
-    bf16* dst = buf + pos * kRowElems + lane8 * 8;
-    if (a.vec_x) {
-      cp_async16(smem_addr(dst), src, ok);
-    } else {
-      store8_scalar(dst, src, ok ? g.C - c : 0);
-    }
-    by += dy;
-    bx += dx;
-    if (bx >= p.band_w) {
-      bx -= p.band_w;
-      ++by;
-    }
-  }
-
-  bf16* gbuf = buf + band * kRowElems;
-  const int dr = step / p.cols, dq = step - dr * p.cols;
-  int row = threadIdx.x >> 3;
-  int rr = row / p.cols, qq = row - rr * p.cols;
-  for (; row < p.g_rows; row += step) {
-    const bool ok = rr < p.rows && r0 + rr < g.Ho && q0 + qq < g.Wo && k < g.K;
-    const bf16* src = gb + (ok ? ((size_t)(r0 + rr) * g.Wo + q0 + qq) * g.K + k : 0);
-    bf16* dst = gbuf + row * kRowElems + lane8 * 8;
-    if (a.vec_g) {
-      cp_async16(smem_addr(dst), src, ok);
-    } else {
-      store8_scalar(dst, src, ok ? g.K - k : 0);
-    }
-    rr += dr;
-    qq += dq;
-    if (qq >= p.cols) {
-      qq -= p.cols;
-      ++rr;
-    }
-  }
-}
-
 // grid: B * gblocks blocks, example-major. Block (b, gblk) has one warpgroup (4 warps)
-// per offset group: warpgroup w owns offsets 3 * (gblk * wgroups + w) + {0, 1, 2}. It
-// walks every C x K tile of example b in turn (K tiles fastest), chunk by chunk through
-// one ring, so the copies of the next tile's first chunk overlap this tile's last, and
-// writes one partial per tile.
+// per offset group and walks every C x K tile of example b (DirectWalk and
+// mma_norm_walk in conv_norm_mma.cuh), writing one partial per tile.
 __global__ void __launch_bounds__(kMmaThreads * kMmaGroups)
 direct_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gt,
                   float* __restrict__ partials, MmaArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float red[kMmaThreads * kMmaGroups / 32];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const Geo& g = a.g;
-  const MmaPlan& p = a.p;
-
   const int b = blockIdx.x / a.gblocks, gblk = blockIdx.x % a.gblocks;
-  const int ntiles = g.ctiles * g.ktiles;
-  const bf16* xb = x + (size_t)b * g.H * g.W * g.C;
-  const bf16* gb = gt + (size_t)b * g.Ho * g.Wo * g.K;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wq = warp & 3;  // quadrant of the 64 x 64 tile
-
-  // This warpgroup's offsets as shifts of the staged band (in band positions); a
-  // warpgroup past the last offset computes nothing.
-  const int o0 = (gblk * a.wgroups + (warp >> 2)) * kMmaOffsets;
-  const int n_off = min(kMmaOffsets, g.kh * g.kw - o0);
-  int shift[kMmaOffsets];
-#pragma unroll
-  for (int j = 0; j < kMmaOffsets; ++j) {
-    const int o = min(o0 + j, g.kh * g.kw - 1);
-    shift[j] = (o / g.kw) * p.band_w + o % g.kw;
-  }
-
-  // One row of zeros after the ring: the x operand of positions outside the chunk.
-  bf16* zero_row = smem + kMmaStages * p.stage_rows * kRowElems;
-  if (threadIdx.x < kRowBytes / 16)
-    reinterpret_cast<uint4*>(zero_row)[threadIdx.x] = make_uint4(0u, 0u, 0u, 0u);
-
-  // ldmatrix row addresses of this lane: lanes 8i..8i+7 address matrix i. A (x^T,
-  // 16 channels x 16 positions): matrices (s 0-7, c 0-7), (s 0-7, c 8-15), (s 8-15,
-  // c 0-7), (s 8-15, c 8-15). B (g, 16 positions x 16 channels = two n8 fragments):
-  // (s 0-7, k 0-7), (s 8-15, k 0-7), (s 0-7, k 8-15), (s 8-15, k 8-15).
-  const int mi = lane >> 3, r8 = lane & 7;
-  const int a_s = (mi >> 1) * 8 + r8, a_c = (wq & 1) * 32 + (mi & 1) * 8;
-  const int b_s = (mi & 1) * 8 + r8, b_k = (wq >> 1) * 32 + (mi >> 1) * 8;
-  const uint32_t zero_addr = smem_addr(zero_row + a_c);
-  const int dr = 16 / p.cols, dq = 16 - dr * p.cols;  // per 16 positions
-
-  float acc[kMmaOffsets][2][4][4] = {};
-  const int nch = p.chunks_r * p.chunks_q, nsteps = ntiles * nch;
-  // Step i stages chunk i % nch of tile i / nch into ring buffer i % kMmaStages.
-  auto stage = [&](int i) {
-    const int tile = i / nch;
-    stage_chunk(smem + i % kMmaStages * p.stage_rows * kRowElems, xb, gb, a, i % nch,
-                tile / g.ktiles * kMmaTile, tile % g.ktiles * kMmaTile);
-    cp_async_commit();
-  };
-  stage(0);
-  for (int i = 0; i < nsteps; ++i) {
-    const int ci = i % nch;
-    if (i + 1 < nsteps) {
-      stage(i + 1);
-    } else {
-      cp_async_commit();  // an empty group keeps the wait below uniform
-    }
-    cp_async_wait<1>();  // step i has landed; step i + 1 may still be in flight
-    __syncthreads();
-    if (n_off > 0) {
-      const bf16* band = smem + i % kMmaStages * p.stage_rows * kRowElems;
-      const uint32_t band_addr = smem_addr(band);
-      const uint32_t g_addr = smem_addr(band + p.band_h * p.band_w * kRowElems);
-      const int nr = min(p.rows, g.Ho - ci / p.chunks_q * p.rows);
-      const int nq = min(p.cols, g.Wo - ci % p.chunks_q * p.cols);
-      const int steps = (nr * p.cols + 15) / 16;
-      int rr = a_s / p.cols, qq = a_s - rr * p.cols;  // this lane's A position
-      for (int t = 0; t < steps; ++t) {
-        uint32_t bfr[2][4];
-        const uint32_t ga = g_addr + ((t * 16 + b_s) * kRowElems + b_k) * 2;
-        ldsm_x4_trans(bfr[0], ga);
-        ldsm_x4_trans(bfr[1], ga + 32);
-        const bool ok = rr < nr && qq < nq;
-        const int pos = rr * p.out_dy * p.band_w + qq * p.out_dx;
-#pragma unroll
-        for (int j = 0; j < kMmaOffsets; ++j) {
-          if (j < n_off) {
-            const uint32_t aa =
-                ok ? band_addr + ((pos + shift[j]) * kRowElems + a_c) * 2 : zero_addr;
-            uint32_t afr[2][4];
-            ldsm_x4_trans(afr[0], aa);
-            ldsm_x4_trans(afr[1], aa + 32);
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-              for (int nt = 0; nt < 4; ++nt)
-                mma_bf16(acc[j][mt][nt], afr[mt], bfr[nt >> 1][(nt & 1) * 2],
-                         bfr[nt >> 1][(nt & 1) * 2 + 1]);
-          }
-        }
-        rr += dr;
-        qq += dq;
-        if (qq >= p.cols) {
-          qq -= p.cols;
-          ++rr;
-        }
-      }
-    }
-    __syncthreads();  // the buffer is consumed before the next iteration refills it
-    if (ci == nch - 1) {  // the tile is done: square, reduce, write, start the next
-      float v = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMmaOffsets; ++j)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              v = fmaf(acc[j][mt][nt][e], acc[j][mt][nt][e], v);
-              acc[j][mt][nt][e] = 0.f;
-            }
-      const float part = block_sum(v, red);
-      if (threadIdx.x == 0) partials[(size_t)b * g.P + gblk * ntiles + i / nch] = part;
-    }
-  }
+  const DirectWalk wk(a, x, gt, b, gblk);
+  mma_norm_walk(wk, reinterpret_cast<bf16*>(smem_raw), red,
+                partials + (size_t)b * a.g.P + gblk * wk.ntiles);
 }
 
 cudaError_t launch_mma(const bf16* x, const bf16* gt, float* partials, float* out,
@@ -371,15 +194,8 @@ int ddt_conv_grad_norm_direct(const void* x, const void* g, float* partials, flo
   }
   if (dtype == 1) {
     MmaArgs a{};
-    if (!mma_plan(Ho, Wo, kh, kw, sy, sx, &a.p)) return (int)cudaErrorInvalidValue;
-    const int groups = (kh * kw + kMmaOffsets - 1) / kMmaOffsets;
-    a.wgroups = groups < kMmaGroups ? groups : kMmaGroups;
-    a.gblocks = (groups + a.wgroups - 1) / a.wgroups;
-    geo.P = a.gblocks * geo.ctiles * geo.ktiles;
-    if (P != geo.P || (long long)B * a.gblocks > INT_MAX) return (int)cudaErrorInvalidValue;
-    a.g = geo;
-    a.vec_x = C % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    a.vec_g = K % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+    if (!make_mma_args(geo, x, g, &a)) return (int)cudaErrorInvalidValue;
+    if (P != a.g.P || (long long)B * a.gblocks > INT_MAX) return (int)cudaErrorInvalidValue;
     return (int)launch_mma(static_cast<const bf16*>(x), static_cast<const bf16*>(g),
                            partials, out, a, use_bias, s);
   }

@@ -1,5 +1,7 @@
 // Device code shared by the conv weight-gradient-norm kernels
-// (conv_grad_norm_direct.cu, conv_grad_norm_catdot.cu, conv_bwd_grad_norm.cu).
+// (conv_grad_norm_direct.cu, conv_grad_norm_catdot.cu, conv_bwd_grad_norm.cu): the fp32
+// modes' CUDA-core tiles, the layer geometry and the fixed-order finalize pass that every
+// mode's partials go through.
 //
 // A block of 256 threads owns one 64 x 64 fp32 tile of a product A^T B over a
 // contraction axis that it streams through shared memory in chunks of 32 rows; each

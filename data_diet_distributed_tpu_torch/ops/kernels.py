@@ -7,11 +7,10 @@ kernels:
 * ``conv_grad_norm_direct`` — per-example ‖∂W‖²_F of a conv layer from its input
   ``x`` and output cotangent ``g``, direct form ``Σ_o ‖Σ_s x[s·stride+o] g[s]‖²``.
   Two entry points with the JAX signatures: ``conv_grad_norm_sq`` (v1: any
-  stride) and ``conv_grad_norm_sq_v2`` (unit stride, bias term fused). Two
-  modes chosen by dtype and counted apart (``mode_counts``): bf16 on the
-  tensor cores (``mma.sync``; one staged input band serves every offset of a
-  3x3 conv, ``direct_mma_plan``), fp32 on the CUDA cores (the v2 entry keeps
-  the cotangent tile in shared memory across offsets).
+  stride) and ``conv_grad_norm_sq_v2`` (unit stride, bias term fused). In bf16
+  one staged input band serves every offset of a 3x3 conv
+  (``direct_mma_plan``); in fp32 the v2 entry keeps the cotangent tile in
+  shared memory across offsets.
 * ``conv_grad_norm_gram`` — the same quantity in Gram form ``Σ(PPᵀ∘GGᵀ)`` for
   small-map layers (``conv_grad_norm_sq_gram``).
 * ``el2n`` — ``‖softmax(z) − onehot(y)‖₂ · mask`` per row.
@@ -23,6 +22,15 @@ kernels:
   ``[kh·C, kw·K]`` product per example (``conv_grad_norm_sq_catdot``).
 * ``conv_bwd_grad_norm`` — the megakernel: a conv's input cotangent ``dx`` and
   its ‖∂W‖² (+ bias term) from one launch (``conv_bwd_grad_norm_sq``).
+
+The direct, cat-dot and megakernel kernels each have two modes, chosen by dtype
+and counted apart (``DIRECT_MODES``, ``mode_counts``): bf16 on the tensor cores
+(``mma.sync``; the direct walk of ``conv_norm_mma.cuh`` serves the direct
+kernel and the megakernel's norm, the cat-dot kernel walks the same loop with
+its own staging, ``catdot_mma_plan``, and the megakernel's dx is an implicit
+GEMM over a staged cotangent band, ``mega_dx_plan``, with the fp32 weight split
+into a bf16 hi/lo pair), fp32 on the CUDA cores (the parity mode's 1e-4 against
+an fp32 reference rules out TF32).
 
 Every public function takes NHWC tensors. Given CPU tensors it computes its
 plain version (the same arithmetic in PyTorch ops); given CUDA tensors it
@@ -58,8 +66,16 @@ DIRECT_MMA_MAX_COLS = 32
 DIRECT_MMA_STAGES = 2
 DIRECT_MMA_ROW_BYTES = 144
 DIRECT_MMA_MAX_SMEM = 113 * 1024
-#: The direct kernel's mode for each input dtype.
+#: The mode of the direct, cat-dot and megakernel kernels for each input dtype.
 DIRECT_MODES = {torch.bfloat16: "tensor_core", torch.float32: "fp32"}
+#: The megakernel's tensor-core dx role (conv_bwd_grad_norm.cu): K channels of
+#: one ring buffer (``kDxK``), one shared cotangent row of 16 channels padded to
+#: 24 (``kDxRowElems``, 48 bytes), a tile's most input columns
+#: (``kDxMaxCols``) and the role's shared-memory budget (``kDxMaxSmem``).
+MEGA_DX_K = 16
+MEGA_DX_ROW_BYTES = 48
+MEGA_DX_MAX_COLS = 32
+MEGA_DX_MAX_SMEM = 200 * 1024
 #: Shared memory one block may use on Hopper (227 KB).
 MAX_BLOCK_SMEM = 227 * 1024
 #: Row stride of the Gram kernel's channel chunks (``kStride``).
@@ -127,9 +143,11 @@ GRAND_LAST_LAYER = Kernel("grand_last_layer", "ddt_grand_last_layer",
 BN_GRAD_NORM = Kernel("bn_grad_norm", "ddt_bn_grad_norm",
                       [_PTRS, _PTRS, _PTR, _PTR] + [_INT] * 7 + [_PTR])
 CONV_GRAD_NORM_CATDOT = Kernel("conv_grad_norm_catdot", "ddt_conv_grad_norm_catdot",
-                               [_PTR] * 4 + [_INT] * 13 + [_PTR])
+                               [_PTR] * 4 + [_INT] * 13 + [_PTR],
+                               modes=tuple(DIRECT_MODES.values()))
 CONV_BWD_GRAD_NORM = Kernel("conv_bwd_grad_norm", "ddt_conv_bwd_grad_norm",
-                            [_PTR] * 5 + [_INT] * 13 + [_PTR])
+                            [_PTR] * 6 + [_INT] * 14 + [_PTR],
+                            modes=tuple(DIRECT_MODES.values()))
 
 KERNELS = {k.name: k for k in (CONV_GRAD_NORM_DIRECT, CONV_GRAD_NORM_GRAM, EL2N,
                                GRAND_LAST_LAYER, BN_GRAD_NORM, CONV_GRAD_NORM_CATDOT,
@@ -308,6 +326,53 @@ def bn_grad_norm_eligible(x_shape) -> bool:
     return len(x_shape) == 4
 
 
+def catdot_mma_plan(out_hw, kernel_size) -> dict | None:
+    """The cat-dot kernel's tensor-core staging plan (``catdot_plan`` in
+    conv_grad_norm_catdot.cu), or None where even one position per chunk does
+    not fit: the padded Ho × Wp grid (Wp = Wo + kw − 1) in chunks of ``rows``
+    × ``cols`` positions, each staging an x band of the rows the kh row shifts
+    read (``xband`` rows: (rows + kh − 1) × cols) and a g band of its rows with
+    a (kw − 1)-column halo (rows × ``gband_w``), in a ring of
+    ``DIRECT_MMA_STAGES`` buffers within ``DIRECT_MMA_MAX_SMEM``."""
+    ho, wp = out_hw[0], out_hw[1] + kernel_size[1] - 1
+    kh, kw = kernel_size
+    cols = min(wp, DIRECT_MMA_MAX_COLS)
+    rows = min(ho, max(1, DIRECT_MMA_CHUNK // cols))
+    while True:
+        xband, gband_w = (rows + kh - 1) * cols, cols + kw - 1
+        stage_rows = xband + rows * gband_w
+        smem = (DIRECT_MMA_STAGES * stage_rows + 1) * DIRECT_MMA_ROW_BYTES
+        if smem <= DIRECT_MMA_MAX_SMEM:
+            return {"rows": rows, "cols": cols, "xband": xband, "gband_w": gband_w,
+                    "chunks_r": -(-ho // rows), "chunks_q": -(-wp // cols),
+                    "stage_rows": stage_rows, "smem": smem}
+        if rows > 1:
+            rows -= 1
+        elif cols > 1:
+            cols = -(-cols // 2)
+        else:
+            return None
+
+
+def _catdot_block_groups(kernel_size) -> int:
+    """Tensor-core cat-dot blocks per example and C×K tile: one warpgroup per
+    (column shift, group of up to 3 row shifts), up to ``DIRECT_MMA_GROUPS``
+    in a block."""
+    kh, kw = kernel_size
+    groups = kw * -(-kh // DIRECT_MMA_OFFSETS)
+    return -(-groups // min(groups, DIRECT_MMA_GROUPS))
+
+
+def catdot_partials(c: int, k: int, kernel_size, dtype: torch.dtype) -> int:
+    """Partials per example of one cat-dot launch, one per block: per 64×64
+    tile of the [kh·C, kw·K] product (fp32 mode) or per block of offset
+    groups and C×K tile (tensor-core mode)."""
+    kh, kw = kernel_size
+    if DIRECT_MODES[dtype] == "fp32":
+        return -(-kh * c // DIRECT_TILE) * -(-kw * k // DIRECT_TILE)
+    return _catdot_block_groups(kernel_size) * -(-c // DIRECT_TILE) * -(-k // DIRECT_TILE)
+
+
 def conv_grad_norm_catdot_eligible(x_shape, g_shape, kernel_size, strides,
                                    padding) -> bool:
     """The cat-dot kernel. Kept from the JAX package's ``_catdot_ok`` as
@@ -315,32 +380,88 @@ def conv_grad_norm_catdot_eligible(x_shape, g_shape, kernel_size, strides,
     (kh·kw ≥ 2) and at least 128 contraction rows (Ho·Wp, Wp = Wo + kw − 1).
     Kept from it for now, to re-measure on the card: C and K multiples of 128
     (on the TPU the lane concatenations relayout otherwise), so ResNet-18
-    routes exactly the layers JAX routes. Hopper's own: the [kh·C, kw·K] tile
-    grid within grid.y. The TPU's VMEM budget has no counterpart: a block
-    stages two fixed [32, 64] fp32 chunks (16 KB of shared memory) at any
-    geometry."""
+    routes exactly the layers JAX routes. Hopper's own: the fp32 mode's
+    [kh·C, kw·K] tile grid within grid.y, and the tensor-core mode's staging
+    plan (``catdot_mma_plan``) and one-dimensional grid within CUDA's limit.
+    The TPU's VMEM budget has no counterpart: both modes stream the
+    contraction in chunks."""
     del padding
     if tuple(strides) != (1, 1):
         return False
     kh, kw = kernel_size
-    c, (ho, wo, k) = x_shape[-1], g_shape[1:]
+    b, c, (ho, wo, k) = x_shape[0], x_shape[-1], g_shape[1:]
     if kh * kw < 2 or ho * (wo + kw - 1) < 128 or c % 128 or k % 128:
         return False
     tiles = -(-kh * c // DIRECT_TILE) * -(-kw * k // DIRECT_TILE)
-    return tiles <= _GRID_YZ_MAX
+    return (tiles <= _GRID_YZ_MAX and b * _catdot_block_groups(kernel_size) <= _GRID_X_MAX
+            and catdot_mma_plan((ho, wo), kernel_size) is not None)
+
+
+def mega_dx_plan(batch: int, in_hw, kernel_size) -> dict | None:
+    """The megakernel's tensor-core dx tiling (``dx_plan`` in
+    conv_bwd_grad_norm.cu), or None where even one position does not fit (a
+    kernel of more than about 13 offsets) or the grid would outgrow CUDA's
+    limit. Each warpgroup owns a tile of ``rows`` × ``cols`` input positions
+    (at most 64·``mt``: 128 positions, or 64 on maps of at most 64), staging
+    a cotangent band of ``band_h`` × ``band_w`` positions per K chunk beside
+    the chunk's hi/lo weight rows (``w_rows``), in a ring of
+    ``DIRECT_MMA_STAGES`` buffers within ``MEGA_DX_MAX_SMEM``; ``bpc`` dx
+    blocks of three tiles each per C tile."""
+    h, w = in_hw
+    kh, kw = kernel_size
+    mt = 2 if h * w > 64 else 1
+    cols = min(w, MEGA_DX_MAX_COLS)
+    rows = min(h, max(1, 64 * mt // cols))
+    while True:
+        band_h, band_w = rows + kh - 1, cols + kw - 1
+        w_rows = 2 * kh * kw * MEGA_DX_K
+        stage_bytes = (w_rows * DIRECT_MMA_ROW_BYTES
+                       + DIRECT_MMA_GROUPS * band_h * band_w * MEGA_DX_ROW_BYTES)
+        smem = DIRECT_MMA_STAGES * stage_bytes + DIRECT_MMA_ROW_BYTES
+        if smem <= MEGA_DX_MAX_SMEM:
+            tiles_q = -(-w // cols)
+            ptiles = -(-h // rows) * tiles_q
+            if batch * ptiles > _GRID_X_MAX:
+                return None
+            return {"mt": mt, "rows": rows, "cols": cols, "band_h": band_h,
+                    "band_w": band_w, "tiles_q": tiles_q, "ptiles": ptiles,
+                    "bpc": -(-batch * ptiles // DIRECT_MMA_GROUPS), "w_rows": w_rows,
+                    "smem": smem}
+        if rows > 1:
+            rows -= 1
+        elif cols > 1:
+            cols = -(-cols // 2)
+        else:
+            return None
+
+
+def mega_partials(c: int, k: int, kernel_size, dtype: torch.dtype) -> int:
+    """Partials per example of one megakernel launch: the direct kernel's in
+    the tensor-core mode (its norm role is that walk); none in the fp32 mode,
+    whose norm blocks own a whole example."""
+    if DIRECT_MODES[dtype] == "fp32":
+        return 0
+    return direct_partials(c, k, kernel_size, dtype)
 
 
 def conv_bwd_grad_norm_eligible(x_shape, g_shape, kernel_size, strides) -> bool:
     """The megakernel: unit stride (the strided entry and projection convs
-    keep the two-phase contraction, as on the TPU), and its one-dimensional
-    grid (B norm blocks, then B·⌈H·W/64⌉·⌈C/64⌉ dx blocks) within CUDA's
-    limit. Its shared memory is a fixed 17 KB."""
-    del g_shape, kernel_size
+    keep the two-phase contraction, as on the TPU); the tensor-core mode's
+    norm plan (``direct_mma_plan``) and dx plan (``mega_dx_plan``, whose
+    weight staging bounds the kernel size); and each mode's one-dimensional
+    grid within CUDA's limit (fp32: B norm blocks, then B·⌈H·W/64⌉·⌈C/64⌉ dx
+    blocks; tensor cores: B·(offset-group blocks) norm blocks, then
+    ⌈C/64⌉·``bpc`` dx blocks)."""
     if tuple(strides) != (1, 1):
         return False
     b, h, w, c = x_shape
-    blocks = b * (1 + -(-h * w // DIRECT_TILE) * -(-c // DIRECT_TILE))
-    return blocks <= _GRID_X_MAX
+    dx = mega_dx_plan(b, (h, w), kernel_size)
+    if dx is None or not conv_grad_norm_direct_fits(x_shape, g_shape, kernel_size, (1, 1)):
+        return False
+    ctiles = -(-c // DIRECT_TILE)
+    blocks_fp32 = b * (1 + -(-h * w // DIRECT_TILE) * ctiles)
+    blocks_mma = b * _direct_mma_block_groups(kernel_size) + ctiles * dx["bpc"]
+    return max(blocks_fp32, blocks_mma) <= _GRID_X_MAX
 
 
 # ------------------------------------------------------------ plain versions
@@ -672,14 +793,14 @@ def conv_grad_norm_sq_catdot(x: torch.Tensor, g: torch.Tensor, kernel_size,
     (pt, _pb), (pl, _pr) = padding
     b, h, w, c = x.shape
     _, ho, wo, k = g.shape
-    n_partials = -(-kh * c // DIRECT_TILE) * -(-kw * k // DIRECT_TILE)
+    n_partials = catdot_partials(c, k, kernel_size, x.dtype)
     partials = torch.empty((b, n_partials), dtype=torch.float32, device=x.device)
     out = torch.empty(b, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         CONV_GRAD_NORM_CATDOT.launch(
             x.data_ptr(), g.data_ptr(), partials.data_ptr(), out.data_ptr(),
             _DTYPE_CODE[x.dtype], b, h, w, c, ho, wo, k, kh, kw, pt, pl, n_partials,
-            _stream(x))
+            _stream(x), mode=DIRECT_MODES[x.dtype])
     return out
 
 
@@ -707,13 +828,21 @@ def conv_bwd_grad_norm_sq(x: torch.Tensor, g: torch.Tensor, weight: torch.Tensor
         raise ValueError(f"{name}: weight on {weight.device} but x on {x.device}")
     _check_contiguous(name, x, g)
     # [K, kh, kw, C]: the channels_last memory of the conv weight, a view.
-    wk = weight.float().permute(0, 2, 3, 1).contiguous()
+    wk = weight.float().permute(0, 2, 3, 1)
+    if x.dtype == torch.bfloat16:
+        # The tensor-core mode takes the weight as a bf16 pair [2, K, kh, kw, C]
+        # (w_hi = bf16(w), w_lo = bf16(w − w_hi)), split once per launch.
+        hi = wk.to(torch.bfloat16)
+        wk = torch.stack((hi, (wk - hi.float()).to(torch.bfloat16)))
+    wk = wk.contiguous()
     (pt, _pb), (pl, _pr) = padding
+    n_partials = mega_partials(c, k, kernel_size, x.dtype)
+    partials = torch.empty((b, n_partials), dtype=torch.float32, device=x.device)
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     out = torch.empty(b, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         CONV_BWD_GRAD_NORM.launch(
-            x.data_ptr(), g.data_ptr(), wk.data_ptr(), dx.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[x.dtype], b, h, w, c, ho, wo, k, kh, kw, pt, pl, int(use_bias),
-            _stream(x))
+            x.data_ptr(), g.data_ptr(), wk.data_ptr(), dx.data_ptr(), partials.data_ptr(),
+            out.data_ptr(), _DTYPE_CODE[x.dtype], b, h, w, c, ho, wo, k, kh, kw, pt, pl,
+            n_partials, int(use_bias), _stream(x), mode=DIRECT_MODES[x.dtype])
     return dx, out

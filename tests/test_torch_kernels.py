@@ -170,6 +170,14 @@ def test_mma_constants_match_the_header():
         "kMmaMaxCols": K.DIRECT_MMA_MAX_COLS, "kMmaStages": K.DIRECT_MMA_STAGES,
         "kRowElems": K.DIRECT_MMA_ROW_BYTES // 2, "kRowBytes": K.DIRECT_MMA_ROW_BYTES,
         "kMmaMaxSmem": K.DIRECT_MMA_MAX_SMEM}
+    # The megakernel's dx-role constants (conv_bwd_grad_norm.cu), mirrored by
+    # mega_dx_plan.
+    path = os.path.join(os.path.dirname(build.__file__), "csrc", "conv_bwd_grad_norm.cu")
+    with open(path) as fh:
+        dx = {name: eval(expr, {}, {}) for name, expr in
+              re.findall(r"constexpr int (kDx\w+) = ([^;]+);", fh.read())}
+    assert dx == {"kDxK": K.MEGA_DX_K, "kDxRowElems": K.MEGA_DX_ROW_BYTES // 2,
+                  "kDxMaxCols": K.MEGA_DX_MAX_COLS, "kDxMaxSmem": K.MEGA_DX_MAX_SMEM}
 
 
 def _mma_tiling_norm(x, g, ks, st, pad, plan):
@@ -286,7 +294,8 @@ def test_plain_versions_do_not_count_launches():
     assert K.launch_counts() == {name: 0 for name in (
         "conv_grad_norm_direct", "conv_grad_norm_gram", "el2n", "grand_last_layer",
         "bn_grad_norm", "conv_grad_norm_catdot", "conv_bwd_grad_norm")}
-    assert K.mode_counts() == {"conv_grad_norm_direct": {"tensor_core": 0, "fp32": 0}}
+    assert K.mode_counts() == {name: {"tensor_core": 0, "fp32": 0} for name in (
+        "conv_grad_norm_direct", "conv_grad_norm_catdot", "conv_bwd_grad_norm")}
 
 
 # ----------------------------------------------------------- card-only tests

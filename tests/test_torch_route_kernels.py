@@ -90,25 +90,94 @@ def test_catdot_plain_matches_pallas(pallas):
     np.testing.assert_allclose(got.numpy(), direct.numpy(), rtol=1e-5)
 
 
-@pytest.mark.parametrize("c,k,bias", [
-    (16, 16, True),     # stage conv
-    (64, 64, True),     # the TPU's two-examples-per-dot (packed) case
+# The bf16 cases pin the semantics of the tensor-core modes: bf16 x and g (rounded
+# to nearest even on both sides), exact products and float32 sums.
+@pytest.mark.parametrize("h,w,c,k,pad", [
+    (16, 16, 128, 128, PAD1),
+    (12, 10, 128, 256, ((0, 2), (2, 0))),     # non-square map, K = 256
 ])
-def test_megakernel_plain_matches_pallas(pallas, c, k, bias):
+def test_catdot_plain_matches_pallas_bf16(pallas, h, w, c, k, pad):
+    jnp, pk = pallas
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, h, w, c)).astype(np.float32)
+    g = rng.normal(size=(2, h, w, k)).astype(np.float32)
+    jx, jg = jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(g).astype(jnp.bfloat16)
+    tx, tg = torch.from_numpy(x).bfloat16(), torch.from_numpy(g).bfloat16()
+    want = pk.conv_grad_norm_sq_pallas(jx, jg, (3, 3), (1, 1), pad, interpret=True,
+                                       catdot=True)
+    got = K.conv_grad_norm_sq_catdot(tx, tg, (3, 3), pad)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("c,k,bias,dtype", [
+    pytest.param(16, 16, True, "float32", id="16-16-True"),     # stage conv
+    pytest.param(64, 64, True, "float32", id="64-64-True"),     # the TPU's packed case
+    (16, 16, True, "bfloat16"),
+    (64, 64, False, "bfloat16"),
+    (72, 40, True, "bfloat16"),                                  # C, K off the 64 tile
+])
+def test_megakernel_plain_matches_pallas(pallas, c, k, bias, dtype):
     jnp, pk = pallas
     rng = np.random.default_rng(0)
     x = rng.normal(size=(4, 8, 8, c)).astype(np.float32)
     g = rng.normal(size=(4, 8, 8, k)).astype(np.float32)
     w = (rng.normal(size=(3, 3, c, k)) * 0.1).astype(np.float32)   # Flax [kh, kw, C, K]
+    jx, jg, tx, tg = jnp.asarray(x), jnp.asarray(g), torch.from_numpy(x), torch.from_numpy(g)
+    if dtype == "bfloat16":
+        jx, jg = jx.astype(jnp.bfloat16), jg.astype(jnp.bfloat16)
+        tx, tg = tx.bfloat16(), tg.bfloat16()
     want_dx, want_ns = pk.conv_bwd_grad_norm_sq_pallas(
-        jnp.asarray(x), jnp.asarray(g), jnp.asarray(w), (3, 3), PAD1, use_bias=bias,
-        interpret=True)
-    dx, ns = K.conv_bwd_grad_norm_sq(torch.from_numpy(x), torch.from_numpy(g),
-                                     torch.from_numpy(w.transpose(3, 2, 0, 1).copy()),
+        jx, jg, jnp.asarray(w), (3, 3), PAD1, use_bias=bias, interpret=True)
+    dx, ns = K.conv_bwd_grad_norm_sq(tx, tg, torch.from_numpy(w.transpose(3, 2, 0, 1).copy()),
                                      (3, 3), PAD1, use_bias=bias)
-    assert dx.shape == x.shape and dx.dtype == torch.float32
-    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), rtol=1e-5, atol=1e-5)
+    assert dx.shape == x.shape and dx.dtype == tx.dtype
+    want_dx = np.asarray(want_dx.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(dx.numpy(), want_dx, rtol=1e-5, atol=1e-5)
+    else:
+        # Both sides round an fp32 sum of the same exact products (in another
+        # order) to bf16: at most one bf16 ulp apart, 2^-7 relative at worst.
+        np.testing.assert_allclose(dx.float().numpy(), want_dx, rtol=2.0 ** -7, atol=1e-6)
     np.testing.assert_allclose(ns.numpy(), np.asarray(want_ns), rtol=1e-5, atol=1e-3)
+
+
+def _dx_pass(g, w, ks, pad, hw):
+    """float32 conv input gradient of g ([B, Ho, Wo, K] float32) with weight w
+    ([K, C, kh, kw] float32), cropped to the unpadded [B, H, W, C] input."""
+    (pt, _), (pl, _) = pad
+    full = torch.nn.functional.conv_transpose2d(g.permute(0, 3, 1, 2), w)
+    return full[:, :, pt:pt + hw[0], pl:pl + hw[1]].permute(0, 2, 3, 1)
+
+
+def _mega_dx_excess(dx, ref):
+    """Largest excess over chip_smoke's dx check |dx − ref| ≤ rtol·|ref| +
+    1e-5·max|ref| (bf16: rtol 2^-7, MEGA_DX_TOL), as a fraction of max|ref|."""
+    rtol = 2.0 ** -7
+    err = (dx.float() - ref.float()).abs() - rtol * ref.float().abs()
+    return float(err.max()) / float(ref.float().abs().max())
+
+
+def test_megakernel_bf16_dx_needs_the_hi_lo_weight():
+    """The tensor-core dx arithmetic, emulated: bf16 g, the fp32 weight split
+    into w_hi = bf16(w) and w_lo = bf16(w − w_hi), products exact and sums in
+    fp32, the result rounded to bf16, meets the dx check against the plain
+    version; one bf16 pass of the rounded weight does not."""
+    rng = np.random.default_rng(5)
+    b, h, c, k, ks, pad = 4, 8, 32, 64, (3, 3), PAD1
+    x = torch.from_numpy(rng.normal(size=(b, h, h, c)).astype(np.float32)).bfloat16()
+    g = torch.from_numpy(rng.normal(size=(b, h, h, k)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy((rng.normal(size=(k, c, *ks)) * 0.05).astype(np.float32))
+    ref, _ = K.conv_bwd_grad_norm_sq(x, g, w, ks, pad)      # the plain version, bf16 out
+    hi = w.bfloat16()
+    lo = (w - hi.float()).bfloat16()
+    gf = g.float()
+    pair = (_dx_pass(gf, hi.float(), ks, pad, (h, h))
+            + _dx_pass(gf, lo.float(), ks, pad, (h, h))).bfloat16()
+    single = _dx_pass(gf, hi.float(), ks, pad, (h, h)).bfloat16()
+    assert _mega_dx_excess(pair, ref) <= 1e-5
+    assert _mega_dx_excess(single, ref) > 1e-5
+    # The pair carries the weight to ~2^-17 of its size, one bf16 to ~2^-9.
+    assert float((hi.float() + lo.float() - w).abs().max()) <= 2.0 ** -17 * float(w.abs().max())
 
 
 def test_megakernel_plain_asymmetric_padding_is_the_conv_backward():
@@ -160,6 +229,164 @@ def test_hopper_gates():
     assert not K.bn_grad_norm_eligible((8, 32))
 
 
+def _mega_dx_tiling(g, w, ks, pad, hw, plan):
+    """The megakernel's tensor-core dx role in numpy (float64): each block's
+    three tiles (one per warpgroup, example-major), each staging one cotangent
+    band with a (kh − 1, kw − 1) halo (zero outside the map), and each offset's
+    window read from the band at (r + kh − 1 − oy, q + kw − 1 − ox), as the
+    kernel's ldmatrix addresses do."""
+    (kh, kw), ((pt, _), (pl, _)) = ks, pad
+    b, ho, wo, k = g.shape
+    h, wd = hw
+    rows, cols = plan["rows"], plan["cols"]
+    dx = np.zeros((b, h, wd, w.shape[1]))
+    seen = np.zeros((b, h, wd), dtype=int)
+    for blk in range(plan["bpc"]):
+        for wg in range(3):
+            unit = blk * 3 + wg
+            if unit >= b * plan["ptiles"]:
+                continue
+            bi, t = divmod(unit, plan["ptiles"])
+            y0, x0 = t // plan["tiles_q"] * rows, t % plan["tiles_q"] * cols
+            nr, nq = min(rows, h - y0), min(cols, wd - x0)
+            band = np.zeros((plan["band_h"], plan["band_w"], k))
+            for by in range(plan["band_h"]):
+                for bx in range(plan["band_w"]):
+                    gy, gx = y0 + pt - (kh - 1) + by, x0 + pl - (kw - 1) + bx
+                    if 0 <= gy < ho and 0 <= gx < wo:
+                        band[by, bx] = g[bi, gy, gx]
+            for s in range(64 * plan["mt"]):
+                r, q = divmod(s, cols)
+                if r >= nr or q >= nq:
+                    continue
+                seen[bi, y0 + r, x0 + q] += 1
+                for oy in range(kh):
+                    for ox in range(kw):
+                        dx[bi, y0 + r, x0 + q] += (band[r + kh - 1 - oy, q + kw - 1 - ox]
+                                                   @ w[:, :, oy, ox])
+    assert (seen == 1).all()            # the tiles cover every position once
+    return dx
+
+
+# ResNet-18's three megakernel geometries at CIFAR-10 size (4 + 3 + 3 layers at
+# batch 512), then ragged ones.
+@pytest.mark.parametrize("b,h,w,ks,pad,want", [
+    (512, 32, 32, (3, 3), PAD1, (2, 4, 32, 141840, 1366)),
+    (512, 16, 16, (3, 3), PAD1, (2, 8, 16, 134928, 342)),
+    (512, 8, 8, (3, 3), PAD1, (1, 8, 8, 111888, 171)),
+    (5, 12, 12, (3, 3), PAD1, None),
+    (4, 10, 10, (3, 3), ((0, 2), (2, 0)), None),
+    (4, 9, 11, (3, 2), ((1, 1), (1, 0)), None),
+    (3, 40, 40, (3, 3), PAD1, None),                     # two column tiles
+])
+def test_mega_dx_plan(b, h, w, ks, pad, want):
+    plan = K.mega_dx_plan(b, (h, w), ks)
+    if want is not None:
+        assert (plan["mt"], plan["rows"], plan["cols"], plan["smem"], plan["bpc"]) == want
+    assert plan["smem"] <= K.MEGA_DX_MAX_SMEM
+    assert plan["rows"] * plan["cols"] <= 64 * plan["mt"]
+    if b > 8:
+        return
+    rng = np.random.default_rng(4)
+    ho = h + pad[0][0] + pad[0][1] - ks[0] + 1
+    wo = w + pad[1][0] + pad[1][1] - ks[1] + 1
+    g = rng.normal(size=(b, ho, wo, 10)).astype(np.float32)
+    wt = rng.normal(size=(10, 6, *ks)).astype(np.float32)
+    want_dx, _ = K.conv_bwd_grad_norm_sq(torch.zeros(b, h, w, 6), torch.from_numpy(g),
+                                         torch.from_numpy(wt), ks, pad)
+    np.testing.assert_allclose(_mega_dx_tiling(g, wt, ks, pad, (h, w), plan),
+                               want_dx.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _catdot_tiling_norm(x, g, ks, pad, plan):
+    """The cat-dot kernel's tensor-core tiling in numpy (float64): per chunk of
+    the padded Ho × Wp grid an x band of rows + kh − 1 rows and a g band with a
+    (kw − 1)-column halo, zero outside the maps; offset (oy, ox) reads A at
+    x band (rr + oy, qq) and B at g band (rr, qq + kw − 1 − ox), as the
+    kernel's ldmatrix addresses do."""
+    (kh, kw), ((pt, _), (pl, _)) = ks, pad
+    b, h, w, c = x.shape
+    _, ho, wo, k = g.shape
+    wp = wo + kw - 1
+    rows, cols = plan["rows"], plan["cols"]
+    m = np.zeros((b, kh, kw, c, k))
+    seen = np.zeros((ho, wp), dtype=int)
+    for ci in range(plan["chunks_r"] * plan["chunks_q"]):
+        r0, w0 = ci // plan["chunks_q"] * rows, ci % plan["chunks_q"] * cols
+        nr, nq = min(rows, ho - r0), min(cols, wp - w0)
+        xband = np.zeros((b, rows + kh - 1, cols, c))
+        for by in range(rows + kh - 1):
+            for bx in range(cols):
+                iy, ix = r0 + by - pt, w0 + bx - pl
+                if 0 <= iy < h and 0 <= ix < w:
+                    xband[:, by, bx] = x[:, iy, ix]
+        gband = np.zeros((b, rows, plan["gband_w"], k))
+        for by in range(rows):
+            for bx in range(plan["gband_w"]):
+                gy, gx = r0 + by, w0 + bx - (kw - 1)
+                if gy < ho and 0 <= gx < wo:
+                    gband[:, by, bx] = g[:, gy, gx]
+        s = np.arange(-(-nr * cols // 16) * 16)
+        rr, qq = s // cols, s % cols
+        ok = (rr < nr) & (qq < nq)
+        rr, qq = rr[ok], qq[ok]
+        seen[r0 + rr, w0 + qq] += 1
+        for oy in range(kh):
+            for ox in range(kw):
+                m[:, oy, ox] += np.einsum("bnc,bnk->bck", xband[:, rr + oy, qq],
+                                          gband[:, rr, qq + kw - 1 - ox])
+    assert (seen == 1).all()            # the chunks cover the padded grid once
+    assert plan["xband"] == (rows + kh - 1) * cols
+    return (m * m).sum(axis=(1, 2, 3, 4))
+
+
+@pytest.mark.parametrize("h,w,ks,pad,want", [
+    (16, 16, (3, 3), PAD1, (7, 18, 87120)),              # ResNet-18's 3 cat-dot layers
+    (12, 10, (3, 3), ((0, 2), (2, 0)), None),
+    (9, 14, (3, 2), ((1, 1), (1, 0)), None),
+    (10, 40, (3, 3), PAD1, None),                        # two column chunks
+])
+def test_catdot_mma_plan(h, w, ks, pad, want):
+    ho = h + pad[0][0] + pad[0][1] - ks[0] + 1
+    wo = w + pad[1][0] + pad[1][1] - ks[1] + 1
+    plan = K.catdot_mma_plan((ho, wo), ks)
+    if want is not None:
+        assert (plan["rows"], plan["cols"], plan["smem"]) == want
+    assert plan["smem"] <= K.DIRECT_MMA_MAX_SMEM
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(2, h, w, 12)).astype(np.float32)
+    g = rng.normal(size=(2, ho, wo, 10)).astype(np.float32)
+    want_norm = K.conv_grad_norm_sq_plain(torch.from_numpy(x), torch.from_numpy(g), ks,
+                                          (1, 1), pad).numpy()
+    np.testing.assert_allclose(_catdot_tiling_norm(x, g, ks, pad, plan), want_norm,
+                               rtol=1e-5)
+
+
+def test_tensor_core_gates_and_partials_at_resnet18():
+    """ResNet-18 (CIFAR-10 geometry, batch 512): the megakernel takes the ten
+    unit-stride 3x3 convs of stages 1-3 and cat-dot the three of stage 2, and
+    the tensor-core partial counts are the direct walk's (one block of three
+    offset groups per example: one partial per C×K tile). A kernel whose hi/lo
+    weight rows do not fit the dx role's shared memory has no dx plan and is
+    refused; fp32 partial counts are the CUDA-core tiles'."""
+    layers = [((512, 32, 32, 64), 4), ((512, 16, 16, 128), 3), ((512, 8, 8, 256), 3)]
+    for shape, _ in layers:
+        assert K.conv_bwd_grad_norm_eligible(shape, shape, (3, 3), (1, 1))
+        c = shape[-1]
+        assert K.mega_partials(c, c, (3, 3), torch.bfloat16) == (c // 64) ** 2
+        assert K.mega_partials(c, c, (3, 3), torch.float32) == 0
+    assert sum(n for _, n in layers) == 10
+    assert K.conv_grad_norm_catdot_eligible((512, 16, 16, 128), (512, 16, 16, 128), (3, 3),
+                                            (1, 1), PAD1)
+    assert K.catdot_partials(128, 128, (3, 3), torch.bfloat16) == 4
+    assert K.catdot_partials(128, 128, (3, 3), torch.float32) == 36
+    assert K.catdot_partials(128, 256, (3, 2), torch.bfloat16) == 1 * 2 * 4
+    assert K.catdot_partials(128, 128, (4, 3), torch.bfloat16) == 2 * 4   # 6 groups, 2 blocks
+    assert K.mega_dx_plan(8, (9, 9), (5, 5)) is None
+    assert not K.conv_bwd_grad_norm_eligible((8, 9, 9, 72), (8, 9, 9, 136), (5, 5), (1, 1))
+    assert K.conv_bwd_grad_norm_eligible((8, 9, 9, 72), (8, 9, 8, 136), (3, 4), (1, 1))
+
+
 def test_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError, match="eligible"):
         K.conv_grad_norm_sq_catdot(torch.zeros(2, 8, 8, 64), torch.zeros(2, 8, 8, 64),
@@ -191,7 +418,13 @@ def test_plain_versions_do_not_count_launches():
     K.bn_grad_norm_sq([x], [x], torch.ones(1, 2, 128))
     K.grand_last_layer(torch.randn(2, 8), torch.randn(3, 8), torch.zeros(3),
                        torch.tensor([0, 2]), torch.ones(2))
+    K.conv_grad_norm_sq_catdot(x.bfloat16(), torch.randn(2, 16, 16, 128).bfloat16(), (3, 3),
+                               PAD1)
+    K.conv_bwd_grad_norm_sq(x[..., :8].bfloat16(), torch.randn(2, 16, 16, 8).bfloat16(),
+                            torch.randn(8, 8, 3, 3), (3, 3), PAD1)
     assert set(K.launch_counts().values()) == {0}
+    assert K.mode_counts() == {name: {"tensor_core": 0, "fp32": 0} for name in (
+        "conv_grad_norm_direct", "conv_grad_norm_catdot", "conv_bwd_grad_norm")}
 
 
 # ----------------------------------------------------------- card-only tests
@@ -247,16 +480,35 @@ def test_bn_kernel_matches_plain_on_card(cuda_device, dtype, layers, hw, ch, use
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=_rtol(dtype))
 
 
+def _check_one_launch(name, dtype, before, modes_before):
+    """Exactly one launch of kernel ``name`` since the counts ``before``, in
+    the mode its dtype selects."""
+    assert K.launch_counts()[name] == before[name] + 1
+    modes = dict(modes_before)
+    modes[K.DIRECT_MODES[dtype]] += 1
+    assert K.mode_counts()[name] == modes
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,c,k,pad", [(16, 128, 128, PAD1), (12, 128, 256, ((0, 2), (2, 0)))])
-def test_catdot_kernel_matches_plain_on_card(cuda_device, dtype, h, c, k, pad):
+@pytest.mark.parametrize("h,w,c,k,ks,pad", [
+    (16, 16, 128, 128, (3, 3), PAD1),
+    (12, 12, 128, 256, (3, 3), ((0, 2), (2, 0))),
+    (12, 10, 128, 256, (3, 3), ((0, 2), (2, 0))),             # non-square map
+    (9, 14, 128, 128, (3, 2), ((1, 1), (1, 0))),               # a (3, 2) kernel
+    (10, 40, 128, 128, (3, 3), PAD1),                          # two column chunks
+])
+def test_catdot_kernel_matches_plain_on_card(cuda_device, dtype, h, w, c, k, ks, pad):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn((3, h, h, c), generator=gen, device=cuda_device).to(dtype)
-    g = torch.randn((3, h, h, k), generator=gen, device=cuda_device).to(dtype)
-    got = K.conv_grad_norm_sq_catdot(x, g, (3, 3), pad)
-    want = K.conv_grad_norm_sq_plain(x, g, (3, 3), (1, 1), pad)
+    ho = h + pad[0][0] + pad[0][1] - ks[0] + 1
+    wo = w + pad[1][0] + pad[1][1] - ks[1] + 1
+    x = torch.randn((37, h, w, c), generator=gen, device=cuda_device).to(dtype)
+    g = torch.randn((37, ho, wo, k), generator=gen, device=cuda_device).to(dtype)
+    before, modes_before = K.launch_counts(), K.mode_counts()["conv_grad_norm_catdot"]
+    got = K.conv_grad_norm_sq_catdot(x, g, ks, pad)
     torch.cuda.synchronize()
+    _check_one_launch("conv_grad_norm_catdot", dtype, before, modes_before)
+    want = K.conv_grad_norm_sq_plain(x, g, ks, (1, 1), pad)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=_rtol(dtype))
 
 
@@ -266,21 +518,66 @@ def test_catdot_kernel_matches_plain_on_card(cuda_device, dtype, h, c, k, pad):
     (8, 16, 16, (3, 3), PAD1, True),
     (9, 72, 136, (3, 3), PAD1, False),
     (7, 64, 48, (3, 2), ((0, 2), (1, 0)), True),
+    (10, 20, 30, (3, 3), ((0, 2), (2, 0)), False),             # C, K % 8 != 0
+    (40, 16, 16, (3, 3), PAD1, False),                         # two column tiles
+    (5, 21, 64, (3, 3), PAD1, True),                           # odd C, a 25-position map
 ])
 def test_megakernel_matches_plain_on_card(cuda_device, dtype, h, c, k, ks, pad, bias):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     ho = h + pad[0][0] + pad[0][1] - ks[0] + 1
     wo = h + pad[1][0] + pad[1][1] - ks[1] + 1
-    x = torch.randn((3, h, h, c), generator=gen, device=cuda_device).to(dtype)
-    g = torch.randn((3, ho, wo, k), generator=gen, device=cuda_device).to(dtype)
+    x = torch.randn((37, h, h, c), generator=gen, device=cuda_device).to(dtype)
+    g = torch.randn((37, ho, wo, k), generator=gen, device=cuda_device).to(dtype)
     w = torch.randn((k, c, *ks), generator=gen, device=cuda_device) * 0.1
+    before, modes_before = K.launch_counts(), K.mode_counts()["conv_bwd_grad_norm"]
     dx, ns = K.conv_bwd_grad_norm_sq(x, g, w, ks, pad, use_bias=bias)
-    want_dx, want_ns = K.conv_bwd_grad_norm_sq_plain(x, g, w, ks, pad, use_bias=bias)
     torch.cuda.synchronize()
+    _check_one_launch("conv_bwd_grad_norm", dtype, before, modes_before)
+    want_dx, want_ns = K.conv_bwd_grad_norm_sq_plain(x, g, w, ks, pad, use_bias=bias)
     assert dx.dtype == dtype
     np.testing.assert_allclose(ns.cpu().numpy(), want_ns.cpu().numpy(), rtol=_rtol(dtype))
-    # bf16 dx: both sides round one fp32 sum to bf16, so they may differ by one
-    # bf16 ulp (2^-8 relative) where the sums straddle a rounding boundary.
+    # chip_smoke's dx check (MEGA_DX_TOL): |dx - ref| <= rtol |ref| + 1e-5 max|ref|; in
+    # bf16 both sides round an fp32 sum to bf16, which may land one ulp apart.
     tol = 1e-4 if dtype == torch.float32 else 2 ** -7
     err = (dx.float() - want_dx.float()).abs()
-    assert float((err - tol * want_dx.float().abs()).max()) <= 1e-4
+    scale = float(want_dx.float().abs().max())
+    assert float((err - tol * want_dx.float().abs()).max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["catdot", "megakernel"])
+def test_route_kernels_bitwise_on_card(cuda_device, dtype, kernel):
+    """Run to run, and wherever an example sits in the batch (a permutation,
+    a prefix), cat-dot and the megakernel give each example the same bits (dx
+    and norm)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    c, k = (128, 256) if kernel == "catdot" else (72, 136)
+    x = torch.randn((37, 12, 12, c), generator=gen, device=cuda_device).to(dtype)
+    g = torch.randn((37, 12, 12, k), generator=gen, device=cuda_device).to(dtype)
+    w = torch.randn((k, c, 3, 3), generator=gen, device=cuda_device) * 0.1
+
+    def run(xx, gg):
+        if kernel == "catdot":
+            return (K.conv_grad_norm_sq_catdot(xx.contiguous(), gg.contiguous(), (3, 3), PAD1),)
+        return K.conv_bwd_grad_norm_sq(xx.contiguous(), gg.contiguous(), w, (3, 3), PAD1,
+                                       use_bias=True)
+    out = run(x, g)
+    perm = torch.randperm(37, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    for a, b, p, q in zip(run(x, g), out, run(x[perm], g[perm]), run(x[:5], g[:5])):
+        assert torch.equal(a, b)
+        assert torch.equal(p, b[perm])
+        assert torch.equal(q, b[:5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c", [(32, 64), (16, 128), (8, 256)])
+def test_megakernel_norm_is_the_direct_walk_on_card(cuda_device, h, c):
+    """The megakernel's bf16 norm role runs the direct kernel's tensor-core
+    walk: its norm equals the direct kernel's to the bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((9, h, h, c), generator=gen, device=cuda_device).bfloat16()
+    g = torch.randn((9, h, h, c), generator=gen, device=cuda_device).bfloat16()
+    w = torch.randn((c, c, 3, 3), generator=gen, device=cuda_device) * 0.05
+    _, ns = K.conv_bwd_grad_norm_sq(x, g, w, (3, 3), PAD1)
+    assert torch.equal(ns, K.conv_grad_norm_sq(x, g, (3, 3), (1, 1), PAD1))

@@ -1,36 +1,50 @@
 #!/usr/bin/env python3
-"""Time the direct kernel's tensor-core mode with parts knocked out, on one CUDA card.
+"""Time the tensor-core kernels with parts knocked out, on one CUDA card.
 
-    python3 tools/direct_kernel_variants.py                  # every variant
-    python3 tools/direct_kernel_variants.py base nostage     # some of them
+    python3 tools/direct_kernel_variants.py                     # every variant
+    python3 tools/direct_kernel_variants.py base nostage        # some of them
+    python3 tools/direct_kernel_variants.py --parent DIR        # also DIR's package
 
-Each variant is a textual edit of the PyTorch port's
-``ops/csrc/conv_grad_norm_direct.cu`` in a copy of the package under
-``chip_smoke_out/variants/<name>/``, built there from the edited source. Each
-copy is timed in a process of its own at the five ResNet-18 main-path direct
-geometries of ``chip_smoke.py`` (bf16, B = 512; CUDA events, median of 15
-launches) and prints one JSON line: ms per launch at each geometry, ms per
-GraNd batch (weighted by the layers per batch) and ptxas's register line of
-the kernel. ``base`` runs first and last, so the spread between its two lines
-is the noise of the call. The knock-outs compute wrong results on purpose
-(only ``base`` is held against the plain version); they show where the time
-goes:
+Each variant is a textual edit of the PyTorch port's sources in a copy of the
+package under ``chip_smoke_out/variants/<name>/``, built there from the edited
+sources. Each copy is timed in a process of its own, in bf16 on the same seeded
+inputs (CUDA events, median of 15 launches), at ``chip_smoke.py``'s main-path
+geometries: the direct kernel's five, the megakernel's three and cat-dot's one.
+It prints one JSON line: ms per launch at each geometry, ms per GraNd batch of
+each kernel (weighted by the layers per batch on the route that runs it) and
+ptxas's register lines. ``base`` runs first and last, so the spread between its
+two lines is the noise of the call. The knock-outs compute wrong results on
+purpose (only ``base`` and ``parent`` are held against the plain versions);
+they show where the time goes:
 
-* ``nostage``: nothing is copied into shared memory (the MMA loop alone);
-* ``nomma``: fragments are loaded but no ``mma.sync`` runs (staging and
+* ``nostage``: nothing is copied into shared memory by the norm walk of
+  ``conv_norm_mma.cuh`` (the MMA loop alone; the direct kernel, the
+  megakernel's norm role and cat-dot);
+* ``nomma``: the walk loads fragments but runs no ``mma.sync`` (staging and
   ``ldmatrix``);
-* ``noldm_nomma``: neither (staging, barriers and the loop).
+* ``noldm_nomma``: neither (staging, barriers and the loop);
+* ``mega_norm_only`` / ``mega_dx_only``: the megakernel with its dx blocks,
+  or its norm blocks, doing nothing but exiting.
+
+With ``--parent DIR`` the package under DIR (for example an unpacked parent
+commit) runs too, as variant ``parent``, unedited, right after the first
+``base``; the line after the last variant then says whether the direct
+kernel's bf16 outputs of ``base`` and ``parent`` are bitwise equal at each
+geometry.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = "conv_grad_norm_direct.cu"
+PACKAGE = "data_diet_distributed_tpu_torch"
+HEADER = "conv_norm_mma.cuh"
+MEGA = "conv_bwd_grad_norm.cu"
 
 _MMA = """mma_bf16(acc[j][mt][nt], afr[mt], bfr[nt >> 1][(nt & 1) * 2],
                          bfr[nt >> 1][(nt & 1) * 2 + 1]);"""
@@ -44,84 +58,139 @@ _LDM_B = """ldsm_x4_trans(bfr[0], ga);
 _NO_LDM_B = "bfr[0][0] = bfr[0][1] = bfr[0][2] = bfr[0][3] = ga;" \
             " bfr[1][0] = bfr[1][1] = bfr[1][2] = bfr[1][3] = ga + 32;"
 
-#: Variant -> (old, new) edits of the source.
+#: Variant -> (source under ops/csrc, old, new) edits.
 VARIANTS = {
     "base": [],
-    "nostage": [("    stage_chunk(smem + i % kMmaStages",
-                 "    if (nch < 0) stage_chunk(smem + i % kMmaStages")],
-    "nomma": [(_MMA, _NO_MMA)],
-    "noldm_nomma": [(_MMA, _NO_MMA), (_LDM_A, _NO_LDM_A), (_LDM_B, _NO_LDM_B)],
+    "nostage": [(HEADER, "    wk.stage(smem + i % kMmaStages",
+                 "    if (nch < 0) wk.stage(smem + i % kMmaStages")],
+    "nomma": [(HEADER, _MMA, _NO_MMA)],
+    "noldm_nomma": [(HEADER, _MMA, _NO_MMA), (HEADER, _LDM_A, _NO_LDM_A),
+                    (HEADER, _LDM_B, _NO_LDM_B)],
+    "mega_norm_only": [(MEGA, "  } else {\n    dx_mma_role(",
+                        "  } else if (norm_blocks < 0) {\n    dx_mma_role(")],
+    "mega_dx_only": [(MEGA, "    mma_norm_walk(wk, smem, red, partials",
+                      "    if (b < 0) mma_norm_walk(wk, smem, red, partials")],
 }
 
 _TIME = r'''
 import json, sys
+import numpy as np
 import torch
 sys.path[:0] = [sys.argv[1], sys.argv[2]]
 from data_diet_distributed_tpu_torch.ops import build, kernels as K
 import chip_smoke as cs
+checked = sys.argv[3] in ("base", "parent")
 build.build_all()
-log = build.build_log("conv_grad_norm_direct").splitlines()
-regs = [log[i + 2].strip() for i, line in enumerate(log[:-2])
-        if "Function properties for" in line and "direct_mma_kernel" in line]
+regs = {}
+for lib, fn in (("conv_grad_norm_direct", "direct_mma_kernel"),
+                ("conv_bwd_grad_norm", "bwd_norm_mma_kernel"),
+                ("conv_grad_norm_catdot", "catdot_mma_kernel")):
+    log = build.build_log(lib).splitlines()
+    regs[fn] = [log[i + 2].strip() for i, line in enumerate(log[:-2])
+                if "Function properties for" in line and fn in line]
 gen = torch.Generator(device="cuda").manual_seed(0)
-per_geo, per_batch = [], 0.0
-for kernel, entry, xs, gs, ks, st, pad, layers in cs.GEOMETRIES:
-    if kernel != "conv_grad_norm_direct" or not layers:
-        continue
-    x = torch.randn(xs, generator=gen, device="cuda").bfloat16()
-    g = torch.randn(gs, generator=gen, device="cuda").bfloat16()
-    if entry == "v1":
-        run = lambda: K.conv_grad_norm_sq(x, g, ks, st, pad)
+
+
+def rel_err(got, ref):
+    return float(((got.float() - ref.float()).abs() / ref.float().abs()).max())
+
+
+out = {"variant": sys.argv[3], "registers": regs}
+saved = {}
+for kind in ("direct", "mega", "catdot"):
+    per_geo, per_batch = [], 0.0
+    if kind == "direct":
+        rows = [(xs, gs, ks, st, pad, layers, entry)
+                for kernel, entry, xs, gs, ks, st, pad, layers in cs.GEOMETRIES
+                if kernel == "conv_grad_norm_direct" and layers]
+    elif kind == "mega":
+        rows = [(xs, gs, ks, (1, 1), pad, layers, None)
+                for xs, gs, ks, pad, _bias, layers in cs.MEGA_GEOMETRIES if layers]
     else:
-        run = lambda: K.conv_grad_norm_sq_v2(x, g, ks, pad)
-    if sys.argv[3] == "base":
-        ref = K.conv_grad_norm_sq_plain(x, g, ks, st, pad)
-        rel = float(((run() - ref).abs() / ref.abs()).max())
-        assert rel <= 1e-3, f"base variant: max rel err {rel:.3e} at x{xs}"
-    ms = cs.time_ms(torch, run, warmup=3, iters=15)
-    per_geo.append({"x": list(xs), "g": list(gs), "kernel_size": list(ks),
-                    "strides": list(st), "layers_per_batch": layers, "ms": ms})
-    per_batch += layers * ms
-print(json.dumps({"variant": sys.argv[3], "ms_per_batch": per_batch,
-                  "ms": [r["ms"] for r in per_geo], "registers": regs,
-                  "geometries": per_geo}), flush=True)
+        rows = [(xs, gs, ks, (1, 1), pad, layers, None)
+                for xs, gs, ks, pad, layers in cs.CATDOT_GEOMETRIES if layers]
+    for i, (xs, gs, ks, st, pad, layers, entry) in enumerate(rows):
+        x = torch.randn(xs, generator=gen, device="cuda").bfloat16()
+        g = torch.randn(gs, generator=gen, device="cuda").bfloat16()
+        if kind == "direct":
+            run = ((lambda: K.conv_grad_norm_sq(x, g, ks, st, pad)) if entry == "v1" else
+                   (lambda: K.conv_grad_norm_sq_v2(x, g, ks, pad)))
+            plain = lambda: K.conv_grad_norm_sq_plain(x, g, ks, st, pad)
+        elif kind == "mega":
+            w = torch.randn((gs[3], xs[3], *ks), generator=gen, device="cuda") * 0.05
+            w = w.contiguous(memory_format=torch.channels_last)
+            run = lambda: K.conv_bwd_grad_norm_sq(x, g, w, ks, pad)[1]
+            plain = lambda: K.conv_bwd_grad_norm_sq_plain(x, g, w, ks, pad)[1]
+        else:
+            run = lambda: K.conv_grad_norm_sq_catdot(x, g, ks, pad)
+            plain = lambda: K.conv_grad_norm_sq_catdot_plain(x, g, ks, pad)
+        got = run()
+        if checked:
+            rel = rel_err(got, plain())
+            assert rel <= 1e-3, f"{sys.argv[3]}: {kind} max rel err {rel:.3e} at x{xs}"
+        saved[f"{kind}_{i}"] = got.float().cpu().numpy()
+        ms = cs.time_ms(torch, run, warmup=3, iters=15)
+        per_geo.append({"x": list(xs), "g": list(gs), "kernel_size": list(ks),
+                        "layers_per_batch": layers, "ms": ms})
+        per_batch += layers * ms
+    out[f"{kind}_ms_per_batch"] = per_batch
+    out[f"{kind}_ms"] = [r["ms"] for r in per_geo]
+if len(sys.argv) > 4:
+    np.savez(sys.argv[4], **saved)
+print(json.dumps(out), flush=True)
 '''
 
 
-def make_copy(name: str, root: str) -> str:
-    """The package with variant ``name``'s edits, under ``root/name``."""
+def make_copy(name: str, root: str, src_repo: str = REPO) -> str:
+    """The package of ``src_repo`` with variant ``name``'s edits, under ``root/name``."""
     dst = os.path.join(root, name)
     shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(os.path.join(REPO, "data_diet_distributed_tpu_torch"),
-                    os.path.join(dst, "data_diet_distributed_tpu_torch"),
+    shutil.copytree(os.path.join(src_repo, PACKAGE), os.path.join(dst, PACKAGE),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    path = os.path.join(dst, "data_diet_distributed_tpu_torch", "ops", "csrc", SOURCE)
-    with open(path) as fh:
-        src = fh.read()
-    for old, new in VARIANTS[name]:
+    for source, old, new in VARIANTS.get(name, []):
+        path = os.path.join(dst, PACKAGE, "ops", "csrc", source)
+        with open(path) as fh:
+            src = fh.read()
         if src.count(old) != 1:
-            raise SystemExit(f"variant {name}: the edit does not apply to {SOURCE}: {old!r}")
-        src = src.replace(old, new)
-    with open(path, "w") as fh:
-        fh.write(src)
+            raise SystemExit(f"variant {name}: the edit does not apply to {source}: {old!r}")
+        with open(path, "w") as fh:
+            fh.write(src.replace(old, new))
     return dst
 
 
 def main(argv: list[str]) -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("direct_kernel_variants: needs a CUDA card")
+    parent = None
+    if "--parent" in argv:
+        i = argv.index("--parent")
+        parent = os.path.abspath(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
     names = argv or ["base", *[n for n in VARIANTS if n != "base"], "base"]
     unknown = sorted(set(names) - set(VARIANTS))
     if unknown:
         raise SystemExit(f"unknown variants {unknown}; known: {sorted(VARIANTS)}")
+    if parent is not None:
+        names.insert(names.index("base") + 1 if "base" in names else 0, "parent")
     root = os.path.join(REPO, "chip_smoke_out", "variants")
+    outputs = {}
     for name in names:
-        proc = subprocess.run([sys.executable, "-c", _TIME, make_copy(name, root), REPO, name],
-                              capture_output=True, text=True)
+        src = parent if name == "parent" else REPO
+        save = None
+        if name in ("base", "parent") and name not in outputs:
+            save = outputs[name] = os.path.join(root, f"{name}_outputs.npz")
+        cmd = [sys.executable, "-c", _TIME, make_copy(name, root, src), REPO, name]
+        proc = subprocess.run(cmd + ([save] if save else []), capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"variant {name} failed:\n{proc.stdout}{proc.stderr[-4000:]}")
         print(proc.stdout.strip(), flush=True)
+    if "base" in outputs and "parent" in outputs:
+        base, par = np.load(outputs["base"]), np.load(outputs["parent"])
+        same = {k: bool(np.array_equal(base[k], par[k])) for k in sorted(base.files)
+                if k.startswith("direct_")}
+        print(json.dumps({"direct_bf16_bitwise_equal_to_parent": same}), flush=True)
     return 0
 
 

@@ -10,28 +10,38 @@ Phases (the first failure exits non-zero; nothing is caught):
 1. Device: require CUDA; print ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compile every hand-written kernel from ``ops/csrc`` (one nvcc per
    source, in parallel) and print the build seconds and ptxas resource lines;
-   the tensor-core (bf16) modes of the direct, megakernel and cat-dot kernels
-   must not spill registers.
+   the tensor-core (bf16) modes of the direct, megakernel and cat-dot kernels,
+   and the Gram kernel and the stacked-BN vector mode in both dtypes, must not
+   spill registers.
 3. Kernels: hold each kernel against its plain PyTorch version at every
    ResNet-18 main-path geometry with B=512, in fp32 (TF32 off, rtol 1e-4) and
-   bf16 (the same bf16 inputs on both sides, rtol 1e-3); time both with CUDA
-   events (median after warm-up). The direct kernel also at ragged
-   geometries (batch 37; not in the per-batch sums), bitwise equal on a
+   bf16 (the same bf16 inputs on both sides, rtol 1e-3); time both. ``ms`` is
+   one call between CUDA events (median after warm-up; the wrapper's host
+   time included), ``device_ms`` the kernel's device time per launch over a
+   run of ``RUN_LAUNCHES`` launches replayed from a CUDA graph (the host out
+   of the run); rows whose inputs fit the 50 MB L2 say so (``l2_warm``), and
+   the Gram and stacked-BN ones are also timed cold (``device_cold_ms``,
+   cycling through input copies that exceed L2). The direct and Gram kernels
+   also at ragged geometries (batch 37; not in the per-batch sums), and the
+   Gram kernel at GROUP_CONV's batch 1,536; each bitwise equal on a
    permutation of the batch and from run to run, with ``torch.bmm``'s bf16
    time of the same product Pᵀ G (im2col patches P made outside the timed
-   call) beside each geometry as a yardstick (``bmm_ms``).
+   call) beside each direct geometry as a yardstick (``bmm_ms``).
    The route kernels likewise: last-layer GraNd at [512, 512] -> 10 and
    [512, 2048] -> 1000, stacked BatchNorm at the four ResNet-18 BN shapes
-   singly and 5 deep, cat-dot (``CATDOT_GEOMETRIES``: 16x16x128 and ragged
-   ones at batch 37) with the direct kernel's time at the same layer as a
-   yardstick (``direct_ms``), the megakernel (``MEGA_GEOMETRIES``: the
-   stage-1/2/3 unit-stride geometries and ragged ones; its bf16 ``dx`` within
-   two bf16 ulps, see ``MEGA_DX_TOL``) with a cuDNN input gradient plus the
-   direct kernel's time as yardsticks (``dgrad_ms``, ``direct_ms``). Each
-   launch of the direct, cat-dot and megakernel kernels is counted in the mode
-   its dtype selects; in bf16 each is bitwise equal from run to run and on a
-   permuted batch, and the megakernel's norm bitwise equal to the direct
-   kernel's.
+   singly and 5 deep (every launch in the ``vector`` mode) and at ragged rows
+   (``BN_RAGGED``: batch 37, C = 72, 100 and 98, S = 1, use_scale and use_bias
+   off in turn), bitwise from run to run and on a permuted batch, cat-dot
+   (``CATDOT_GEOMETRIES``: 16x16x128 and ragged ones at batch 37) with the
+   direct kernel's time at the same layer as a yardstick (``direct_ms``), the
+   megakernel (``MEGA_GEOMETRIES``: the stage-1/2/3 unit-stride geometries and
+   ragged ones; its bf16 ``dx`` within two bf16 ulps, see ``MEGA_DX_TOL``)
+   with a cuDNN input gradient plus the direct kernel's time as yardsticks
+   (``dgrad_ms``, ``direct_ms``). Each launch of the direct, Gram, cat-dot
+   and megakernel kernels is counted in the mode its dtype selects, and each
+   stacked-BN launch in the mode ``bn_mode`` names; in bf16 each is bitwise
+   equal from run to run and on a permuted batch, and the megakernel's norm
+   bitwise equal to the direct kernel's.
 4. Path: full-width ResNet-18 on CIFAR-10-geometry synthetic data (8192
    examples, seeds [0, 1], batch 512, bf16) through ``score_dataset`` for
    ``el2n`` and ``grand``; check finite scores, the launch counts (12 direct,
@@ -41,9 +51,11 @@ Phases (the first failure exits non-zero; nothing is caught):
 5. Routes: every GraNd route (``ROUTES``: ``grand_last_layer`` and the
    ``DDT_GRAND_*`` toggles, set as module attributes and restored) at the
    same width on 1024 examples x 2 seeds: exact launch counts per batch per
-   seed (every direct, cat-dot and megakernel launch in the tensor-core
-   mode), ex/s; on BN-randomized fp32 weights with TF32 off (every such
-   launch in the fp32 mode) each route against
+   seed (every direct, Gram, cat-dot and megakernel launch in the tensor-core
+   mode, every stacked-BN launch in the vector mode, and every BatchNorm x and
+   g an NHWC view, so the BN routes copy nothing), ex/s; on BN-randomized
+   fp32 weights with TF32 off (every such launch in the fp32 mode, BN in the
+   vector mode) each route against
    the default two-phase route (rtol 1e-4), and ``grand_vmap`` on 64 examples
    against it (rtol 2e-4, atol 1e-5); both against float64 (rtol 1e-4).
 6. Serve: ``ServeEngine`` answers ``score_batch`` for 1, 100 and 512 ids
@@ -51,13 +63,16 @@ Phases (the first failure exits non-zero; nothing is caught):
    methods; the keep-hardest count at sparsity 0.5. Then ``grand_last_layer``
    (kernel route) and ``grand`` on the fused megakernel route, bitwise too.
 
-With ``--profile``: one default and one megakernel-route batch under
-``torch.profiler``; the cuDNN dgrad launches must drop from 19 to 9.
+With ``--profile``: one batch under ``torch.profiler`` on each of the default,
+FUSED+MEGAKERNEL, BN_KERNEL and BN_KERNEL+GROUP_BN+GROUP_CONV routes; the cuDNN
+dgrad launches must drop from 19 to 9 on the megakernel route, and the
+profiled BN and Gram time per batch is printed beside the ``device_ms`` sums.
 
 Every counted run (phases 4 and 5) starts with the launch counts at 0 and is
 read right after; the kernels line sums them. The line before the last is a
 JSON object with one entry per kernel (launches on the main paths, max error,
-ms, plain ms, bound ms); the last line is ``{"ok": true, "device": {...}}``.
+ms, device ms, plain ms, bound ms); the last line is ``{"ok": true, "device":
+{...}}``.
 Per-geometry details go to ``<out>/chip_smoke.json`` (and the profile tables to
 ``<out>/chip_smoke_profile.txt``).
 """
@@ -88,21 +103,43 @@ PAD1 = ((1, 1), (1, 1))
 PAD0 = ((0, 0), (0, 0))
 
 # (kernel, entry, x shape, g shape, kernel size, strides, padding, layers of
-# ResNet-18 at CIFAR-10 geometry with this shape, i.e. launches per GraNd batch)
+# ResNet-18 at CIFAR-10 geometry with this shape, i.e. launches per GraNd batch, bias)
 GEOMETRIES = [
-    ("conv_grad_norm_direct", "v1", (B, 32, 32, 64), (B, 32, 32, 64), (3, 3), (1, 1), PAD1, 4),
-    ("conv_grad_norm_direct", "v1", (B, 32, 32, 64), (B, 16, 16, 128), (3, 3), (2, 2), PAD1, 1),
-    ("conv_grad_norm_direct", "v1", (B, 32, 32, 64), (B, 16, 16, 128), (1, 1), (2, 2), PAD0, 1),
-    ("conv_grad_norm_direct", "v2", (B, 16, 16, 128), (B, 16, 16, 128), (3, 3), (1, 1), PAD1, 3),
-    ("conv_grad_norm_direct", "v2", (B, 8, 8, 256), (B, 8, 8, 256), (3, 3), (1, 1), PAD1, 3),
-    ("conv_grad_norm_gram", "gram", (B, 4, 4, 512), (B, 4, 4, 512), (3, 3), (1, 1), PAD1, 3),
+    ("conv_grad_norm_direct", "v1", (B, 32, 32, 64), (B, 32, 32, 64), (3, 3), (1, 1), PAD1, 4,
+     False),
+    ("conv_grad_norm_direct", "v1", (B, 32, 32, 64), (B, 16, 16, 128), (3, 3), (2, 2), PAD1, 1,
+     False),
+    ("conv_grad_norm_direct", "v1", (B, 32, 32, 64), (B, 16, 16, 128), (1, 1), (2, 2), PAD0, 1,
+     False),
+    ("conv_grad_norm_direct", "v2", (B, 16, 16, 128), (B, 16, 16, 128), (3, 3), (1, 1), PAD1, 3,
+     False),
+    ("conv_grad_norm_direct", "v2", (B, 8, 8, 256), (B, 8, 8, 256), (3, 3), (1, 1), PAD1, 3,
+     False),
+    ("conv_grad_norm_gram", "gram", (B, 4, 4, 512), (B, 4, 4, 512), (3, 3), (1, 1), PAD1, 3,
+     False),
+    # The three stage-4 convs concatenated along the batch, as GROUP_CONV launches them
+    # (one launch per batch on that route; not in the default route's per-batch sums).
+    ("conv_grad_norm_gram", "gram", (3 * B, 4, 4, 512), (3 * B, 4, 4, 512), (3, 3), (1, 1),
+     PAD1, 0, False),
     # Ragged direct geometries, on no ResNet-18 path: C and K off the 64 tile, a
     # strided 9x9 input, C not a multiple of 8, asymmetric padding; batch 37.
-    ("conv_grad_norm_direct", "v2", (37, 12, 12, 72), (37, 12, 12, 136), (3, 3), (1, 1), PAD1, 0),
-    ("conv_grad_norm_direct", "v1", (37, 9, 9, 48), (37, 5, 5, 80), (3, 3), (2, 2), PAD1, 0),
-    ("conv_grad_norm_direct", "v1", (37, 10, 10, 20), (37, 10, 10, 24), (3, 3), (1, 1), PAD1, 0),
+    ("conv_grad_norm_direct", "v2", (37, 12, 12, 72), (37, 12, 12, 136), (3, 3), (1, 1), PAD1, 0,
+     False),
+    ("conv_grad_norm_direct", "v1", (37, 9, 9, 48), (37, 5, 5, 80), (3, 3), (2, 2), PAD1, 0,
+     False),
+    ("conv_grad_norm_direct", "v1", (37, 10, 10, 20), (37, 10, 10, 24), (3, 3), (1, 1), PAD1, 0,
+     False),
     ("conv_grad_norm_direct", "v1", (37, 11, 11, 64), (37, 11, 11, 40), (3, 3), (1, 1),
-     ((0, 2), (2, 0)), 0),
+     ((0, 2), (2, 0)), 0, False),
+    # Ragged Gram geometries at batch 37: C and K not multiples of 8 with the bias term
+    # (scalar staging); a 5x5 map (25 positions, padded to 32) with asymmetric padding;
+    # K = 4096, whose rows stream through the ring in chunks (gram_plan).
+    ("conv_grad_norm_gram", "gram", (37, 4, 4, 100), (37, 4, 4, 70), (3, 3), (1, 1), PAD1, 0,
+     True),
+    ("conv_grad_norm_gram", "gram", (37, 5, 5, 64), (37, 5, 5, 64), (3, 3), (1, 1),
+     ((0, 2), (2, 0)), 0, False),
+    ("conv_grad_norm_gram", "gram", (37, 4, 4, 72), (37, 4, 4, 4096), (3, 3), (1, 1), PAD1, 0,
+     True),
 ]
 # Megakernel: (x shape, g shape, kernel size, padding, use_bias, layers per batch): the
 # unit-stride 3x3 convs of stages 1-3 (megakernel route), then ragged geometries on no
@@ -121,6 +158,11 @@ CATDOT_GEOMETRIES = [((B, 16, 16, 128), (B, 16, 16, 128), (3, 3), PAD1, 3),
                      ((37, 12, 10, 128), (37, 12, 10, 256), (3, 3), ((0, 2), (2, 0)), 0),
                      ((37, 9, 14, 128), (37, 9, 14, 128), (3, 2), ((1, 1), (1, 0)), 0)]
 BN_SHAPES = [(B, 32, 32, 64), (B, 16, 16, 128), (B, 8, 8, 256), (B, 4, 4, 512)]
+# Ragged stacked-BN rows at batch 37, on no ResNet-18 path: (x shape, layers, use_scale,
+# use_bias). C = 72 takes the vector mode (9 vectors of 8 bf16); C = 100 the scalar
+# mode in bf16 and the vector one in fp32; C = 98 the scalar mode in both; S = 1.
+BN_RAGGED = [((37, 3, 3, 72), 3, True, True), ((37, 5, 5, 100), 3, True, False),
+             ((37, 1, 1, 98), 3, False, True), ((37, 1, 1, 72), 1, True, True)]
 # The megakernel's dx against the plain version's, elementwise:
 # |dx - ref| <= rtol * |ref| + 1e-5 * max|ref|. fp32: rtol 1e-4. bf16 output:
 # both sides round an fp32 sum of the same terms (in another order) to bf16,
@@ -184,7 +226,8 @@ def phase(name: str) -> None:
 
 
 def time_ms(torch, fn, warmup: int = 2, iters: int = 7) -> float:
-    """Median device time of one call, by CUDA events."""
+    """Median time of one call, by CUDA events around it with the device idle
+    before it: the wrapper's host time (checks, allocation, launch) included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -198,6 +241,52 @@ def time_ms(torch, fn, warmup: int = 2, iters: int = 7) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+# Launches of one timed run (device_ms) and such runs whose median is taken.
+RUN_LAUNCHES = 20
+RUN_REPEATS = 3
+# L2 cache of the H100: inputs of at most this many bytes are read warm in a run of
+# launches on the same inputs.
+L2_BYTES = 50 * 2**20
+
+
+def device_ms(torch, fns, warmup: int = 3) -> float:
+    """Device time per launch: a run of ``RUN_LAUNCHES`` back-to-back calls
+    (cycling through ``fns``, one callable or a list of them on distinct
+    input copies) captured once in a CUDA graph, then CUDA events around one
+    replay of it, over the count; median of ``RUN_REPEATS`` replays after
+    warm-up. The graph takes the wrapper's host time (checks, allocation,
+    the ctypes call) out of the run, which for a short kernel is longer than
+    the kernel: only the device's work and its launch gaps remain."""
+    fns = fns if isinstance(fns, list) else [fns]
+    n = max(RUN_LAUNCHES, len(fns))
+    for i in range(max(warmup, len(fns))):
+        fns[i % len(fns)]()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(RUN_REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / n)
+    del graph
+    return statistics.median(times)
+
+
+def cold_copies(nbytes: float) -> int:
+    """Input copies a cold run cycles through: enough that one cycle reads at
+    least twice the L2 cache, so no launch finds its inputs there."""
+    return int(-(-2 * L2_BYTES // nbytes)) + 1
 
 
 def bound_ms(flops: float, nbytes: float, dtype_name: str) -> tuple[float, str]:
@@ -230,6 +319,13 @@ def check_modes(K, before: dict, n: int, mode: str, what: str,
     check(delta == want, f"{what}: {kernel} launches by mode {delta}, want {want}")
 
 
+def route_mode(K, kernel: str, dtype) -> str:
+    """The mode every launch of ``kernel`` takes on a ResNet-18 route in
+    ``dtype``: the stacked-BN kernel's vector mode (every ResNet-18 channel
+    count is a multiple of 8), else the mode the dtype selects."""
+    return "vector" if kernel == "bn_grad_norm" else K.DIRECT_MODES[dtype]
+
+
 def check_bitwise(torch, gen, call, x, g, got, what: str) -> None:
     """``call(x, g)`` (a tensor or a tuple of them, batch first) gives ``got``
     again bit for bit, and each example the same bits wherever it sits in the
@@ -243,11 +339,24 @@ def check_bitwise(torch, gen, call, x, g, got, what: str) -> None:
           f"{what}: not bitwise equal from run to run and on a permuted batch")
 
 
+def check_bn_bitwise(torch, gen, call, xs, gs, got, what: str) -> None:
+    """``call(xs, gs)`` of the stacked-BN kernel gives ``got`` again bit for
+    bit, and each example the same bits wherever it sits in its layer's batch
+    (every layer permuted alike; out is [L·B], layer-major)."""
+    b = xs[0].shape[0]
+    perm = torch.randperm(b, generator=gen, device="cuda")
+    again = call(xs, gs)
+    moved = call([x[perm].contiguous() for x in xs], [g[perm].contiguous() for g in gs])
+    want = got.reshape(len(xs), b)[:, perm].reshape(-1)
+    check(torch.equal(again, got) and torch.equal(moved, want),
+          f"{what}: not bitwise equal from run to run and on a permuted batch")
+
+
 def kernel_phase(torch, K, dtype, rtol, details) -> None:
     """Each kernel against its plain version at every main-path geometry."""
     dname = str(dtype).replace("torch.", "")
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    for kernel, entry, xs, gs, ks, st, pad, layers in GEOMETRIES:
+    for kernel, entry, xs, gs, ks, st, pad, layers, bias in GEOMETRIES:
         x = torch.randn(xs, generator=gen, device="cuda").to(dtype)
         g = torch.randn(gs, generator=gen, device="cuda").to(dtype)
         if entry == "v1":
@@ -263,20 +372,20 @@ def kernel_phase(torch, K, dtype, rtol, details) -> None:
             def plain():
                 return K.conv_grad_norm_sq_plain(x, g, ks, (1, 1), pad)
         else:
-            def call(x, g):
-                return K.conv_grad_norm_sq_gram(x, g, ks, pad)
+            def call(x, g, bias=bias):
+                return K.conv_grad_norm_sq_gram(x, g, ks, pad, use_bias=bias)
 
             def plain():
-                return K.conv_grad_norm_sq_gram_plain(x, g, ks, pad)
+                return K.conv_grad_norm_sq_gram_plain(x, g, ks, pad, use_bias=bias)
 
         def run():
             return call(x, g)
-        modes0 = K.mode_counts()["conv_grad_norm_direct"]
+        what = f"{kernel}/{entry} {dname} x{list(xs)} g{list(gs)}"
+        modes0 = K.mode_counts()[kernel]
         got = run()
         torch.cuda.synchronize()
-        if kernel == "conv_grad_norm_direct":
-            check_modes(K, modes0, 1, K.DIRECT_MODES[dtype], f"{kernel}/{entry} {dname}")
-            check_bitwise(torch, gen, call, x, g, got, f"{kernel}/{entry} {dname} x{list(xs)}")
+        check_modes(K, modes0, 1, K.DIRECT_MODES[dtype], what, kernel)
+        check_bitwise(torch, gen, call, x, g, got, what)
         ref = plain()
         err = (got - ref).abs()
         rel = float((err / ref.abs().clamp_min(1e-30)).max())
@@ -284,10 +393,17 @@ def kernel_phase(torch, K, dtype, rtol, details) -> None:
         bnd, by = bound_ms(flops, nbytes, dname)
         rec = {"kernel": kernel, "entry": entry, "dtype": dname, "x": list(xs),
                "g": list(gs), "kernel_size": list(ks), "strides": list(st),
+               "padding": [list(p) for p in pad], "use_bias": bias,
                "layers_per_batch": layers, "max_abs_err": float(err.max()),
-               "max_rel_err": rel, "ms": time_ms(torch, run),
+               "max_rel_err": rel, "ms": time_ms(torch, run), "device_ms": device_ms(torch, run),
                "plain_ms": time_ms(torch, plain, warmup=1, iters=3),
-               "bound_ms": bnd, "bound_by": by}
+               "bound_ms": bnd, "bound_by": by, "input_bytes": nbytes,
+               "l2_warm": nbytes <= L2_BYTES}
+        if rec["l2_warm"] and kernel == "conv_grad_norm_gram":
+            copies = [(x.clone(), g.clone()) for _ in range(cold_copies(nbytes))]
+            rec["device_cold_ms"] = device_ms(torch, [lambda xc=xc, gc=gc: call(xc, gc)
+                                                      for xc, gc in copies])
+            del copies
         if kernel == "conv_grad_norm_direct" and dtype == torch.bfloat16:
             # Yardstick, not a library counterpart: one bf16 bmm of the same
             # product P^T G (no norm), with the patches P made outside the call.
@@ -296,14 +412,15 @@ def kernel_phase(torch, K, dtype, rtol, details) -> None:
             rec["bmm_ms"] = time_ms(torch, lambda: torch.bmm(p.transpose(1, 2), g2))
             del p
         details.append(rec)
-        print(f"  {kernel}/{entry} {dname} x{list(xs)} g{list(gs)} k{ks} s{st}: "
+        print(f"  {what} k{ks} s{st}: "
               f"rel_err={rel:.3e} (rtol {rtol}) ms={rec['ms']:.4f} "
-              f"plain_ms={rec['plain_ms']:.4f} "
-              f"bound_ms={bnd:.4f} ({by})"
+              f"device_ms={rec['device_ms']:.4f}"
+              + (f" (inputs {nbytes / 2**20:.1f} MiB fit L2; cold "
+                 f"{rec['device_cold_ms']:.4f})" if "device_cold_ms" in rec else "")
+              + f" plain_ms={rec['plain_ms']:.4f} bound_ms={bnd:.4f} ({by})"
               + (f" bmm_ms={rec['bmm_ms']:.4f}" if "bmm_ms" in rec else ""), flush=True)
-        check(bool(torch.isfinite(got).all()), f"{kernel}/{entry} {dname}: non-finite")
-        check(rel <= rtol, f"{kernel}/{entry} {dname} x{list(xs)}: max rel err "
-                           f"{rel:.3e} > {rtol}")
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+        check(rel <= rtol, f"{what}: max rel err {rel:.3e} > {rtol}")
     # EL2N at the path's logits geometry [512, 10] and a wide one [512, 1000].
     for c in (10, 1000):
         z = (torch.randn((B, c), generator=gen, device="cuda") * 3).to(dtype).float()
@@ -318,22 +435,27 @@ def kernel_phase(torch, K, dtype, rtol, details) -> None:
                "layers_per_batch": 1 if c == 10 else 0,
                "max_abs_err": float(err.max()), "max_rel_err": rel,
                "ms": time_ms(torch, lambda: K.el2n(z, y, m)),
+               "device_ms": device_ms(torch, lambda: K.el2n(z, y, m)),
                "plain_ms": time_ms(torch, lambda: K.el2n_plain(z, y, m), 1, 3),
                "bound_ms": bnd, "bound_by": by}
         details.append(rec)
         print(f"  el2n logits[{B},{c}] ({dname} inputs): abs_err={rec['max_abs_err']:.3e} "
-              f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f}", flush=True)
+              f"ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f} "
+              f"plain_ms={rec['plain_ms']:.4f}", flush=True)
         check(rel <= max(rtol, 1e-5) or float(err.max()) <= 1e-6,
               f"el2n C={c}: max rel err {rel:.3e}")
 
 
 def _measure(torch, rec: dict, run, plain, flops: float, nbytes: float,
              peak: str) -> dict:
-    """Fill ``rec`` with the kernel's and the plain version's median times and
-    the bound of ``flops`` at the ``peak`` type's rate and ``nbytes``."""
+    """Fill ``rec`` with the kernel's one-call and device (run of launches)
+    times, the plain version's time and the bound of ``flops`` at the
+    ``peak`` type's rate and ``nbytes``."""
     bnd, by = bound_ms(flops, nbytes, peak)
-    rec.update(ms=time_ms(torch, run), plain_ms=time_ms(torch, plain, warmup=1, iters=3),
-               bound_ms=bnd, bound_by=by)
+    rec.update(ms=time_ms(torch, run), device_ms=device_ms(torch, run),
+               plain_ms=time_ms(torch, plain, warmup=1, iters=3),
+               bound_ms=bnd, bound_by=by, input_bytes=float(nbytes),
+               l2_warm=bool(nbytes <= L2_BYTES))
     return rec
 
 
@@ -369,38 +491,62 @@ def route_kernel_phase(torch, K, dtype, rtol, details) -> None:
                        4.0 * (B * f + c * f + c + 3 * B), "float32")
         details.append(rec)
         print(f"  grand_last_layer {dname} [{B},{f}]->{c}: rel_err={rel:.3e} "
-              f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+              f"ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f} "
+              f"plain_ms={rec['plain_ms']:.4f} "
               f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
         check(bool(torch.isfinite(got).all()) and rel <= rtol,
               f"grand_last_layer {dname} F={f}: max rel err {rel:.3e} > {rtol}")
     # Stacked BatchNorm: every ResNet-18 BN shape, one layer (5 launches per batch on
-    # the BN_KERNEL route) and 5 deep (1 launch per batch with GROUP_BN).
-    for shape in BN_SHAPES:
+    # the BN_KERNEL route) and 5 deep (1 launch per batch with GROUP_BN), then the
+    # ragged rows (BN_RAGGED).
+    rows = [(shape, depth, True, True, 5 if depth == 1 else 0)
+            for shape in BN_SHAPES for depth in (1, 5)]
+    rows += [(shape, depth, scale, bias, 0) for shape, depth, scale, bias in BN_RAGGED]
+    for shape, depth, scale, bias, layers in rows:
         c = shape[-1]
-        for depth in (1, 5):
-            xs = [randn(*shape) for _ in range(depth)]
-            gs = [randn(*shape) for _ in range(depth)]
-            stats = torch.stack([torch.randn((depth, c), generator=gen, device="cuda"),
-                                 torch.rand((depth, c), generator=gen, device="cuda") + 0.5],
-                                dim=1)
-            got = K.bn_grad_norm_sq(xs, gs, stats)
-            ref = K.bn_grad_norm_sq_plain(xs, gs, stats)
-            abs_err, rel = _rel_err(got, ref)
-            n = depth * float(np.prod(shape))
-            rec = _measure(torch, {"kernel": "bn_grad_norm", "entry": "bn", "dtype": dname,
-                                   "x": list(shape), "layers": depth,
-                                   "layers_per_batch": 5 if depth == 1 else 0,
-                                   "max_abs_err": abs_err, "max_rel_err": rel},
-                           lambda: K.bn_grad_norm_sq(xs, gs, stats),
-                           lambda: K.bn_grad_norm_sq_plain(xs, gs, stats),
-                           3.0 * n, 2.0 * n * item + 8.0 * depth * c + 4.0 * depth * B,
-                           "float32")
-            details.append(rec)
-            print(f"  bn_grad_norm {dname} x{list(shape)} x{depth}: rel_err={rel:.3e} "
-                  f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-                  f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
-            check(bool(torch.isfinite(got).all()) and rel <= rtol,
-                  f"bn_grad_norm {dname} {shape} x{depth}: max rel err {rel:.3e} > {rtol}")
+        xs = [randn(*shape) for _ in range(depth)]
+        gs = [randn(*shape) for _ in range(depth)]
+        stats = torch.stack([torch.randn((depth, c), generator=gen, device="cuda"),
+                             torch.rand((depth, c), generator=gen, device="cuda") + 0.5],
+                            dim=1)
+
+        def call(xs, gs, stats=stats, scale=scale, bias=bias):
+            return K.bn_grad_norm_sq(xs, gs, stats, scale, bias)
+        what = f"bn_grad_norm {dname} x{list(shape)} x{depth} scale={scale} bias={bias}"
+        mode = K.bn_mode(xs, gs)
+        if shape in BN_SHAPES:
+            check(mode == "vector", f"{what}: a ResNet-18 BN launch in mode {mode}")
+        modes0 = K.mode_counts()["bn_grad_norm"]
+        got = call(xs, gs)
+        torch.cuda.synchronize()
+        check_modes(K, modes0, 1, mode, what, "bn_grad_norm")
+        check_bn_bitwise(torch, gen, call, xs, gs, got, what)
+        ref = K.bn_grad_norm_sq_plain(xs, gs, stats, scale, bias)
+        abs_err, rel = _rel_err(got, ref)
+        n = depth * float(np.prod(shape))
+        rec = _measure(torch, {"kernel": "bn_grad_norm", "entry": "bn", "dtype": dname,
+                               "x": list(shape), "layers": depth, "use_scale": scale,
+                               "use_bias": bias, "mode": mode, "layers_per_batch": layers,
+                               "max_abs_err": abs_err, "max_rel_err": rel},
+                       lambda: call(xs, gs),
+                       lambda: K.bn_grad_norm_sq_plain(xs, gs, stats, scale, bias),
+                       3.0 * n, 2.0 * n * item + 8.0 * depth * c + 4.0 * depth * shape[0],
+                       "float32")
+        if rec["l2_warm"] and shape in BN_SHAPES:
+            copies = [([t.clone() for t in xs], [t.clone() for t in gs])
+                      for _ in range(cold_copies(rec["input_bytes"]))]
+            rec["device_cold_ms"] = device_ms(torch, [lambda xc=xc, gc=gc: call(xc, gc)
+                                                      for xc, gc in copies])
+            del copies
+        details.append(rec)
+        print(f"  {what} ({mode}): rel_err={rel:.3e} ms={rec['ms']:.4f} "
+              f"device_ms={rec['device_ms']:.4f}"
+              + (f" (inputs {rec['input_bytes'] / 2**20:.1f} MiB fit L2; cold "
+                 f"{rec['device_cold_ms']:.4f})" if "device_cold_ms" in rec else "")
+              + f" plain_ms={rec['plain_ms']:.4f} "
+              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
+        check(bool(torch.isfinite(got).all()) and rel <= rtol,
+              f"{what}: max rel err {rel:.3e} > {rtol}")
     # Cat-dot at every CATDOT_GEOMETRIES row. Yardstick, not a library counterpart:
     # the direct kernel at the same layer (v2 where it takes the layer), which
     # computes the same function (``direct_ms``).
@@ -433,6 +579,7 @@ def route_kernel_phase(torch, K, dtype, rtol, details) -> None:
             rec["direct_ms"] = time_ms(torch, lambda: K.conv_grad_norm_sq(x, g, ks, (1, 1), pad))
         details.append(rec)
         print(f"  {what}: rel_err={rel:.3e} ms={rec['ms']:.4f} "
+              f"device_ms={rec['device_ms']:.4f} "
               f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
               f"({rec['bound_by']}) direct_ms={rec['direct_ms']:.4f}", flush=True)
         check(bool(torch.isfinite(got).all()) and rel <= rtol,
@@ -487,7 +634,8 @@ def route_kernel_phase(torch, K, dtype, rtol, details) -> None:
                 f" dgrad_ms={rec['dgrad_ms']:.4f} + direct_ms={rec['direct_ms']:.4f}")
         print(f"  {what}: norm rel_err={rel:.3e} "
               f"dx max abs err={float(dx_err.max()):.3e} (max |dx| {scale:.3e}) "
-              f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+              f"ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f} "
+              f"plain_ms={rec['plain_ms']:.4f} "
               f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}){yard}", flush=True)
         check(dx.dtype == dtype and bool(torch.isfinite(dx).all())
               and bool(torch.isfinite(ns).all()), f"{what}: output")
@@ -553,7 +701,7 @@ def path_phase(torch, port, details_out, card: str) -> dict:
     results = {}
     before = K.launch_counts()
     for method in ("el2n", "grand"):
-        modes0 = K.mode_counts()["conv_grad_norm_direct"]
+        modes0 = K.mode_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         scores = port["score_dataset"](model, variables, ds, method=method,
@@ -562,7 +710,8 @@ def path_phase(torch, port, details_out, card: str) -> dict:
         after = K.launch_counts()
         delta = {k: after[k] - before[k] for k in after}
         before = after
-        check_modes(K, modes0, delta["conv_grad_norm_direct"], "tensor_core", method)
+        for kern in ("conv_grad_norm_direct", "conv_grad_norm_gram"):
+            check_modes(K, modes0[kern], delta[kern], "tensor_core", method, kern)
         check(scores.shape == (N_PATH,), f"{method}: scores shape {scores.shape}")
         check(bool(np.isfinite(scores).all()), f"{method}: non-finite scores")
         check(bool((scores >= 0).all()), f"{method}: negative scores")
@@ -592,11 +741,12 @@ def path_phase(torch, port, details_out, card: str) -> dict:
     v = bn_randomized(torch, port, 7)
     sub = ds.subset(ds.indices[:2 * B])
     for method in ("grand", "el2n"):
-        modes0 = K.mode_counts()["conv_grad_norm_direct"]
+        modes0 = K.mode_counts()
         fast = port["score_dataset"](model32, [v], sub, method=method, batch_size=B,
                                      use_kernels=True, device="cuda")
-        check_modes(K, modes0, 12 * 2 if method == "grand" else 0, "fp32",
-                    f"{method} fp32")
+        for kern, per_batch in (("conv_grad_norm_direct", 12), ("conv_grad_norm_gram", 3)):
+            check_modes(K, modes0[kern], per_batch * 2 if method == "grand" else 0, "fp32",
+                        f"{method} fp32", kern)
         plain = port["score_dataset"](model32, [v], sub, method=method, batch_size=B,
                                       use_kernels=False, device="cuda")
         rel = float(np.max(np.abs(fast - plain) / np.maximum(np.abs(plain), 1e-30)))
@@ -607,6 +757,25 @@ def path_phase(torch, port, details_out, card: str) -> dict:
     port["set_parity_mode"](False)
     return {"cfg": cfg, "ds": ds, "variables": variables, "results": results,
             "counts": counts}
+
+
+@contextlib.contextmanager
+def bn_layout_spy(gb, seen: list):
+    """Record, for every stacked-BN group the GraNd route scores, whether each
+    layer's x and g are NHWC views of their memory (so the route's
+    ``permute(0, 2, 3, 1).contiguous()`` copies nothing)."""
+    orig = gb._bn_group_contrib
+
+    def spy(items, *args, **kwargs):
+        for _, x, g in items:
+            seen.append(x.permute(0, 2, 3, 1).is_contiguous()
+                        and g.permute(0, 2, 3, 1).is_contiguous())
+        return orig(items, *args, **kwargs)
+    gb._bn_group_contrib = spy
+    try:
+        yield
+    finally:
+        gb._bn_group_contrib = orig
 
 
 def routes_phase(torch, port, details_out, card: str) -> dict:
@@ -628,17 +797,24 @@ def routes_phase(torch, port, details_out, card: str) -> dict:
             port["score_dataset"](model, variables[:1], warm, method=method,
                                   batch_size=B, device="cuda")
             K.reset_launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            scores = port["score_dataset"](model, variables, ds, method=method,
-                                           batch_size=B, device="cuda")
-            wall = time.perf_counter() - t0
+            views: list = []
+            with bn_layout_spy(gb, views):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                scores = port["score_dataset"](model, variables, ds, method=method,
+                                               batch_size=B, device="cuda")
+                wall = time.perf_counter() - t0
             counts = K.launch_counts()
+        if flags.get("USE_BN_KERNEL"):
+            print(f"  route {name}: {sum(views)} of {len(views)} BatchNorm (x, g) pairs are "
+                  "NHWC views (the stacked-BN kernel's inputs copy nothing)", flush=True)
+            check(views and all(views), f"route {name}: a BatchNorm input or cotangent is "
+                                        "not an NHWC view, so the route copies it")
         want = {k: per_batch.get(k, 0) * runs for k in K.KERNELS}
         check(counts == want, f"route {name}: launch counts {counts}, want {want}")
-        for kern in K.mode_counts():   # every bf16 launch on the tensor cores
-            check_modes(K, dict.fromkeys(K.DIRECT_MODES.values(), 0), counts[kern],
-                        "tensor_core", f"route {name}", kern)
+        for kern, modes in K.mode_counts().items():   # every bf16 launch on the tensor
+            check_modes(K, dict.fromkeys(modes, 0), counts[kern],   # cores, BN in vector
+                        route_mode(K, kern, torch.bfloat16), f"route {name}", kern)
         check(scores.shape == (ROUTE_N,) and bool(np.isfinite(scores).all())
               and bool((scores >= 0).all()), f"route {name}: scores not finite/>= 0")
         for k, n in counts.items():
@@ -667,9 +843,9 @@ def routes_phase(torch, port, details_out, card: str) -> dict:
         launches0, modes0 = K.launch_counts(), K.mode_counts()
         with toggles(gb, flags):
             got = score32(method, sub)
-        for kern in modes0:   # every fp32 parity launch on the CUDA cores
-            check_modes(K, modes0[kern], K.launch_counts()[kern] - launches0[kern], "fp32",
-                        f"route {name} fp32", kern)
+        for kern in modes0:   # every fp32 parity launch on the CUDA cores, BN in vector
+            check_modes(K, modes0[kern], K.launch_counts()[kern] - launches0[kern],
+                        route_mode(K, kern, torch.float32), f"route {name} fp32", kern)
         ref = base if method == "grand" else score32(method, sub, use_kernels=False)
         parity[name] = float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30)))
         against = "default two-phase route" if method == "grand" else "plain route"
@@ -788,7 +964,7 @@ PROFILE_GROUPS = (
     ("el2n", ("::el2n_kernel",)),
     ("conv_bwd_grad_norm (megakernel)", ("::bwd_norm_kernel(", "::bwd_norm_mma_kernel(")),
     ("conv_grad_norm_catdot", ("::catdot_kernel(", "::catdot_mma_kernel(")),
-    ("bn_grad_norm", ("::bn_kernel<",)),
+    ("bn_grad_norm", ("::bn_vector_kernel<", "::bn_scalar_kernel<")),
     ("grand_last_layer", ("::gll_kernel",)),
     ("cuDNN conv (forward, input gradient)", ("fprop", "dgrad", "cudnn", "nhwcAddPadding")),
     ("batch norm (forward, backward)", ("batch_norm",)),
@@ -849,22 +1025,54 @@ def _profile_batch(torch, port, path, out_dir: str, label: str) -> dict:
             "device_ms_by_group": groups, "device_ms_by_kernel": by_kernel}
 
 
+# Profiled routes: (label, DDT_GRAND_* module attributes, details key).
+PROFILE_ROUTES = [
+    ("default route", {}, "profile"),
+    ("FUSED+MEGAKERNEL route", MEGA_ROUTE, "profile_megakernel"),
+    ("BN_KERNEL route", {"USE_BN_KERNEL": True}, "profile_bn_kernel"),
+    ("BN_KERNEL+GROUP_BN+GROUP_CONV route",
+     {"USE_BN_KERNEL": True, "GROUP_BN": True, "GROUP_CONV": True}, "profile_bn_grouped"),
+]
+
+
 def profile_phase(torch, port, path, details_out, out_dir: str) -> None:
-    """Profile one default-route GraNd batch and one on the fused megakernel
-    route, and report whether a cuDNN dgrad ran for the megakernel's layers."""
+    """Profile one GraNd batch on the default route, the fused megakernel route
+    and the two stacked-BN routes; report whether a cuDNN dgrad ran for the
+    megakernel's layers, and hold each route's profiled BN and Gram kernel
+    time per batch beside the kernel phase's device_ms sums."""
     os.makedirs(out_dir, exist_ok=True)
     open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w").close()   # batches append
-    details_out["profile"] = _profile_batch(torch, port, path, out_dir, "default route")
-    with toggles(port["grand_batched"], MEGA_ROUTE):
-        mega = _profile_batch(torch, port, path, out_dir, "FUSED+MEGAKERNEL route")
-    details_out["profile_megakernel"] = mega
+    for label, flags, key in PROFILE_ROUTES:
+        with toggles(port["grand_batched"], flags):
+            details_out[key] = _profile_batch(torch, port, path, out_dir, label)
     base = details_out["profile"]["dgrad_launches"]
+    mega = details_out["profile_megakernel"]
     # The default route runs a dgrad for 19 convs (every conv but the stem); on the
     # megakernel route 10 of them get dx from the megakernel instead.
     print(f"  cuDNN dgrad launches per batch: default route {base}, megakernel route "
           f"{mega['dgrad_launches']}", flush=True)
     check(base > 0 and base % 19 == 0 and mega["dgrad_launches"] == base - 10 * base // 19,
           "a cuDNN dgrad ran for a megakernel layer (or none was identified by name)")
+    # Cross-check: the kernel phase's device_ms (bf16, a run of launches on random
+    # inputs), summed over the launches each route makes, against the profiler.
+    rows = [r for r in details_out["kernels"] if r["dtype"] == "bfloat16"]
+
+    def dev(kernel, **match):
+        return sum(r["device_ms"] for r in rows if r["kernel"] == kernel
+                   and all(r.get(k) == v for k, v in match.items()))
+    want = {"profile": {"conv_grad_norm_gram": 3 * dev("conv_grad_norm_gram", x=[B, 4, 4, 512])},
+            "profile_bn_kernel": {
+                "bn_grad_norm": 5 * dev("bn_grad_norm", layers=1, layers_per_batch=5),
+                "conv_grad_norm_gram": 3 * dev("conv_grad_norm_gram", x=[B, 4, 4, 512])},
+            "profile_bn_grouped": {
+                "bn_grad_norm": dev("bn_grad_norm", layers=5),
+                "conv_grad_norm_gram": dev("conv_grad_norm_gram", x=[3 * B, 4, 4, 512])}}
+    for key, kernels in want.items():
+        got = details_out[key]["device_ms_by_group"]
+        for kernel, ms in kernels.items():
+            print(f"  {key}: {kernel} profiled {got.get(kernel, 0.0):.4f} ms per batch, "
+                  f"device_ms sum {ms:.4f}", flush=True)
+            details_out[key].setdefault("device_ms_sum", {})[kernel] = ms
 
 
 def function_properties(log: str, needle: str) -> list[str]:
@@ -924,13 +1132,18 @@ def main(argv: list[str]) -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  [{name}] {line.strip()}", flush=True)
-    for name, fn in (("conv_grad_norm_direct", "direct_mma_kernel"),
-                     ("conv_bwd_grad_norm", "bwd_norm_mma_kernel"),
-                     ("conv_grad_norm_catdot", "catdot_mma_kernel")):
-        mma = function_properties(build.build_log(name), fn)
-        print(f"  {fn} (bf16, tensor cores): {mma}", flush=True)
-        check(len(mma) == 1 and "0 bytes spill stores, 0 bytes spill loads" in mma[0],
-              f"{name}'s tensor-core mode spills registers (or was not found): {mma}")
+    # (kernel, function, instances): the bf16 modes on the tensor cores, and the
+    # Gram kernel and the stacked-BN vector mode in both dtypes, must not spill.
+    for name, fn, count in (("conv_grad_norm_direct", "direct_mma_kernel", 1),
+                            ("conv_bwd_grad_norm", "bwd_norm_mma_kernel", 1),
+                            ("conv_grad_norm_catdot", "catdot_mma_kernel", 1),
+                            ("conv_grad_norm_gram", "gram_kernel", 2),
+                            ("bn_grad_norm", "bn_vector_kernel", 2)):
+        props = function_properties(build.build_log(name), fn)
+        print(f"  {fn}: {props}", flush=True)
+        check(len(props) == count
+              and all("0 bytes spill stores, 0 bytes spill loads" in p for p in props),
+              f"{name}: {fn} spills registers (or was not found): {props}")
     details["build_s"] = build_s
 
     phase("kernels")
@@ -978,6 +1191,7 @@ def main(argv: list[str]) -> int:
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["layers_per_batch"] * r["ms"] for r in path_rows),
+            "device_ms": sum(r["layers_per_batch"] * r["device_ms"] for r in path_rows),
             "plain_ms": sum(r["layers_per_batch"] * r["plain_ms"] for r in path_rows),
             "bound_ms": t_ops + t_bytes,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",

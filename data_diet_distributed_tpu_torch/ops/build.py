@@ -38,7 +38,7 @@ SOURCES = {
     "conv_bwd_grad_norm": "conv_bwd_grad_norm.cu",
 }
 #: Headers the sources include (``#include "..."``, resolved beside the source).
-HEADERS = ("common.cuh", "conv_norm_common.cuh", "conv_norm_mma.cuh")
+HEADERS = ("common.cuh", "conv_norm_common.cuh", "conv_norm_mma.cuh", "mma_sync.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

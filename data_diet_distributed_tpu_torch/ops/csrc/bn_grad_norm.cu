@@ -16,17 +16,27 @@
 // kMaxLayers layers per launch; the statistics come as one [L, 2, C] fp32 slab (the
 // TPU's 8-row sublane padding of it is not carried over).
 //
-// Design. One block per row (the stacked rows already give L x B blocks): for each tile
-// of 64 channels, 4 groups of 64 threads stride over the S positions, each thread
-// reducing sum_s g*x and sum_s g for one channel in fp32 straight from bf16 or fp32
-// (no fp32 copies of x and g); the 4 partial sums of a channel are added in a fixed
-// order, its term formed, and the per-channel terms summed per thread and then over the
-// block in a fixed order. No atomics: bit-identical from run to run and independent of
-// the example's place in the stack. (One block covers all channels of its row, so the
-// fixed-order sum over channels needs no second pass.)
+// Bound on the card: bytes. x and g are read once and each element pair costs 3 FLOPs,
+// so the kernel is a streaming reduction: what it needs is enough bytes in flight per SM
+// and full 16-byte transactions. At ResNet-18's four BN shapes (batch 512, bf16) one
+// layer is 134, 67, 34 and 17 MB, 40.3, 20.2, 10.1 and 5.0 us at 3.35 TB/s.
 //
-// Bound on the card: bytes (x and g read once, 3 FLOPs per element pair). Left for later:
-// 16-byte vector loads (8 bf16 channels per thread).
+// Design, vector mode (C a multiple of the 16-byte vector width, at most kThreads
+// vectors, 16-byte-aligned layer pointers; ResNet-18 always). One block per stacked row.
+// A thread owns one vector of channels (8 bf16 or 4 fp32, one 16-byte load per tensor
+// per position) and one position group: the block's threads span C / vec channel
+// vectors x the remaining position groups (8 x 32 at 32x32x64, 64 x 4 at 4x4x512 in
+// bf16), so every position of a row is read by exactly one thread and a warp reads 512
+// contiguous bytes per load. Each thread keeps its channels' sum g*x and sum g in fp32
+// registers and walks its positions kUnroll at a time, all loads of a step issued before
+// any arithmetic, so 2 * kUnroll loads of 16 bytes are in flight per thread. The position
+// groups' partial sums meet in shared memory and are added per channel in group order;
+// then each channel's term is formed and the terms are summed per thread and over the
+// block in a fixed order. No atomics: bit-identical from run to run and independent of
+// the row's place in the stack or the batch.
+//
+// Scalar mode (any other C or alignment): one thread per channel of a 64-channel tile,
+// 4 position groups, the tiles walked in series with scalar loads.
 
 #include <stdint.h>
 
@@ -35,8 +45,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCTile = 64;                   // channels per tile, one per thread
-constexpr int kGroups = kThreads / kCTile;   // position groups
+constexpr int kUnroll = 4;                   // positions per thread per load step (vector)
+constexpr int kCTile = 64;                   // channels per tile, one per thread (scalar)
+constexpr int kGroups = kThreads / kCTile;   // position groups (scalar)
 constexpr int kMaxLayers = 64;
 
 struct Layers {
@@ -44,10 +55,99 @@ struct Layers {
   const void* g[kMaxLayers];
 };
 
+// The `i`-th channel value of a 16-byte vector of T.
+__device__ __forceinline__ float lane_f32(const uint4& v, int i, float) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  return __uint_as_float(w[i]);
+}
+
+__device__ __forceinline__ float lane_f32(const uint4& v, int i, __nv_bfloat16) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  const uint32_t word = w[i >> 1];
+  return __uint_as_float((i & 1) ? (word & 0xffff0000u) : (word << 16));
+}
+
+// The channel terms of one row from the per-(group, channel) partial sums sgx, sgs
+// ([groups][C]), added in group order; the block's fixed-order sum, in thread 0.
+__device__ float row_terms(const float* sgx, const float* sgs, int groups,
+                           const float* mean, const float* rstd, int C, int use_scale,
+                           int use_bias, float* red) {
+  float v = 0.f;
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float tgx = sgx[c], tgs = sgs[c];
+    for (int q = 1; q < groups; ++q) {
+      tgx += sgx[q * C + c];
+      tgs += sgs[q * C + c];
+    }
+    if (use_scale) {
+      const float t = (tgx - mean[c] * tgs) * rstd[c];
+      v = fmaf(t, t, v);
+    }
+    if (use_bias) v = fmaf(tgs, tgs, v);
+  }
+  return block_sum(v, red);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bn_kernel(Layers layers, const float* __restrict__ stats, float* __restrict__ out,
-          int per_layer, int S, int C, int use_scale, int use_bias) {
+bn_vector_kernel(Layers layers, const float* __restrict__ stats, float* __restrict__ out,
+                 int per_layer, int S, int C, int use_scale, int use_bias) {
+  constexpr int kVec = 16 / sizeof(T);       // channels per 16-byte vector
+  // groups * C <= kThreads * kVec floats each (groups = kThreads / (C / kVec)).
+  __shared__ __align__(16) float sgx[kThreads * kVec];
+  __shared__ __align__(16) float sgs[kThreads * kVec];
+  __shared__ float red[kThreads / 32];
+  const int n = blockIdx.x, l = n / per_layer, r = n % per_layer;
+  const int CV = C / kVec, groups = kThreads / CV;
+  const int cv = threadIdx.x % CV, grp = threadIdx.x / CV;
+  const uint4* xr = static_cast<const uint4*>(layers.x[l]) + (size_t)r * S * CV + cv;
+  const uint4* gr = static_cast<const uint4*>(layers.g[l]) + (size_t)r * S * CV + cv;
+  const float* mean = stats + (size_t)l * 2 * C;
+  const float* rstd = mean + C;
+
+  if (grp < groups) {
+    float gx[kVec], gs[kVec];
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) gx[i] = gs[i] = 0.f;
+    for (int s0 = grp; s0 < S; s0 += kUnroll * groups) {
+      uint4 xv[kUnroll], gv[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int s = s0 + u * groups;
+        if (s < S) {
+          xv[u] = __ldg(xr + (size_t)s * CV);
+          gv[u] = __ldg(gr + (size_t)s * CV);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (s0 + u * groups < S) {
+#pragma unroll
+          for (int i = 0; i < kVec; ++i) {
+            const float g = lane_f32(gv[u], i, T{});
+            gx[i] = fmaf(g, lane_f32(xv[u], i, T{}), gx[i]);
+            gs[i] += g;
+          }
+        }
+      }
+    }
+    float4* dgx = reinterpret_cast<float4*>(sgx + grp * C + cv * kVec);
+    float4* dgs = reinterpret_cast<float4*>(sgs + grp * C + cv * kVec);
+#pragma unroll
+    for (int i = 0; i < kVec / 4; ++i) {
+      dgx[i] = make_float4(gx[4 * i], gx[4 * i + 1], gx[4 * i + 2], gx[4 * i + 3]);
+      dgs[i] = make_float4(gs[4 * i], gs[4 * i + 1], gs[4 * i + 2], gs[4 * i + 3]);
+    }
+  }
+  __syncthreads();
+  const float total = row_terms(sgx, sgs, groups, mean, rstd, C, use_scale, use_bias, red);
+  if (threadIdx.x == 0) out[n] = total;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bn_scalar_kernel(Layers layers, const float* __restrict__ stats, float* __restrict__ out,
+                 int per_layer, int S, int C, int use_scale, int use_bias) {
   __shared__ float sgx[kGroups][kCTile];
   __shared__ float sgs[kGroups][kCTile];
   __shared__ float red[kThreads / 32];
@@ -90,17 +190,44 @@ bn_kernel(Layers layers, const float* __restrict__ stats, float* __restrict__ ou
   if (threadIdx.x == 0) out[n] = total;
 }
 
+// The vector mode's preconditions: C a multiple of the vector width with at most
+// kThreads vectors, and every layer pointer 16-byte aligned.
+bool vector_ok(const Layers& layers, int L, int C, int vec) {
+  if (C % vec != 0 || C / vec > kThreads) return false;
+  for (int l = 0; l < L; ++l)
+    if (reinterpret_cast<uintptr_t>(layers.x[l]) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(layers.g[l]) % 16 != 0)
+      return false;
+  return true;
+}
+
+template <typename T>
+cudaError_t launch(const Layers& layers, const float* stats, float* out, int L, int per_layer,
+                   int S, int C, int use_scale, int use_bias, int vector, cudaStream_t s) {
+  const unsigned blocks = (unsigned)L * per_layer;
+  if (vector) {
+    if (!vector_ok(layers, L, C, 16 / sizeof(T))) return cudaErrorInvalidValue;
+    bn_vector_kernel<T><<<blocks, kThreads, 0, s>>>(layers, stats, out, per_layer, S, C,
+                                                    use_scale, use_bias);
+  } else {
+    bn_scalar_kernel<T><<<blocks, kThreads, 0, s>>>(layers, stats, out, per_layer, S, C,
+                                                    use_scale, use_bias);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // xs[l], gs[l]: layer l's x and g, [per_layer, S, C] NHWC, all in one dtype
 // (0 = float32, 1 = bfloat16); stats [L, 2, C] float32 (mean, rstd); out [L * per_layer]
-// float32. L <= 64. Returns the launch's cudaError_t (0 = success).
+// float32. L <= 64. mode: 1 = vector (refused unless its preconditions hold), 0 = scalar.
+// Returns the launch's cudaError_t (0 = success).
 int ddt_bn_grad_norm(const void* const* xs, const void* const* gs, const float* stats,
                      float* out, int dtype, int L, int per_layer, int S, int C,
-                     int use_scale, int use_bias, void* stream) {
-  if (L < 1 || L > kMaxLayers || per_layer < 1 || S < 1 || C < 1)
+                     int use_scale, int use_bias, int mode, void* stream) {
+  if (L < 1 || L > kMaxLayers || per_layer < 1 || S < 1 || C < 1 || mode < 0 || mode > 1)
     return (int)cudaErrorInvalidValue;
   Layers layers{};
   for (int l = 0; l < L; ++l) {
@@ -108,16 +235,13 @@ int ddt_bn_grad_norm(const void* const* xs, const void* const* gs, const float* 
     layers.g[l] = gs[l];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = (unsigned)L * per_layer;
   if (dtype == 0)
-    bn_kernel<float><<<blocks, kThreads, 0, s>>>(layers, stats, out, per_layer, S, C,
-                                                 use_scale, use_bias);
-  else if (dtype == 1)
-    bn_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(layers, stats, out, per_layer, S,
-                                                         C, use_scale, use_bias);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)launch<float>(layers, stats, out, L, per_layer, S, C, use_scale, use_bias,
+                              mode, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16>(layers, stats, out, L, per_layer, S, C, use_scale,
+                                      use_bias, mode, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* ddt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -12,7 +12,9 @@ kernels:
   (``direct_mma_plan``); in fp32 the v2 entry keeps the cotangent tile in
   shared memory across offsets.
 * ``conv_grad_norm_gram`` — the same quantity in Gram form ``Σ(PPᵀ∘GGᵀ)`` for
-  small-map layers (``conv_grad_norm_sq_gram``).
+  small-map layers (``conv_grad_norm_sq_gram``): several examples per block,
+  one warp per (example, Gram), rows staged by ``cp.async`` in chunks as wide
+  as shared memory allows (``gram_plan``: whole rows at ResNet-18's stage 4).
 * ``el2n`` — ``‖softmax(z) − onehot(y)‖₂ · mask`` per row.
 * ``grand_last_layer`` — the classifier product and the last-layer GraNd score
   ``‖p − y‖·sqrt(‖h‖² + 1)·mask`` in one kernel.
@@ -23,14 +25,19 @@ kernels:
 * ``conv_bwd_grad_norm`` — the megakernel: a conv's input cotangent ``dx`` and
   its ‖∂W‖² (+ bias term) from one launch (``conv_bwd_grad_norm_sq``).
 
-The direct, cat-dot and megakernel kernels each have two modes, chosen by dtype
-and counted apart (``DIRECT_MODES``, ``mode_counts``): bf16 on the tensor cores
-(``mma.sync``; the direct walk of ``conv_norm_mma.cuh`` serves the direct
-kernel and the megakernel's norm, the cat-dot kernel walks the same loop with
-its own staging, ``catdot_mma_plan``, and the megakernel's dx is an implicit
+The direct, cat-dot, megakernel and Gram kernels each have two modes, chosen
+by dtype and counted apart (``DIRECT_MODES``, ``mode_counts``): bf16 on the
+tensor cores (``mma.sync``; the direct walk of ``conv_norm_mma.cuh`` serves the
+direct kernel and the megakernel's norm, the cat-dot kernel walks the same loop
+with its own staging, ``catdot_mma_plan``, the megakernel's dx is an implicit
 GEMM over a staged cotangent band, ``mega_dx_plan``, with the fp32 weight split
-into a bf16 hi/lo pair), fp32 on the CUDA cores (the parity mode's 1e-4 against
-an fp32 reference rules out TF32).
+into a bf16 hi/lo pair, and the Gram kernel forms X Xᵀ and G Gᵀ from one
+``ldmatrix`` per 16 rows and 16 channels), fp32 on the CUDA cores (the parity
+mode's 1e-4 against an fp32 reference rules out TF32). The stacked-BN kernel
+has two modes chosen by layout (``BN_MODES``, ``bn_mode``): ``vector`` (16-byte
+loads, a thread per channel vector and position group, ``bn_vector_plan``)
+where C is a multiple of the vector width and the layers are 16-byte aligned,
+``scalar`` otherwise.
 
 Every public function takes NHWC tensors. Given CPU tensors it computes its
 plain version (the same arithmetic in PyTorch ops); given CUDA tensors it
@@ -78,14 +85,30 @@ MEGA_DX_MAX_COLS = 32
 MEGA_DX_MAX_SMEM = 200 * 1024
 #: Shared memory one block may use on Hopper (227 KB).
 MAX_BLOCK_SMEM = 227 * 1024
-#: Row stride of the Gram kernel's channel chunks (``kStride``).
-_GRAM_ROW_STRIDE = 33
+#: The Gram kernel (conv_grad_norm_gram.cu): examples of a block at most
+#: (``kGramExamples``, two warps each), its ring depth at most in chunks
+#: (``kGramStages``), the narrowest chunk of a staged row (``kGramUnitBytes``
+#: of channels), the padding after each staged row (``kGramRowPad``), a
+#: block's target shared memory (``kGramBlockSmem``: two blocks per SM) and
+#: its most (``kGramMaxSmem``).
+GRAM_EXAMPLES = 4
+GRAM_STAGES = 4
+GRAM_UNIT_BYTES = 128
+GRAM_ROW_PAD = 16
+GRAM_BLOCK_SMEM = 113 * 1024
+GRAM_MAX_SMEM = 226 * 1024
 #: CUDA's grid limits on the x and on the y and z dimensions.
 _GRID_X_MAX = 2**31 - 1
 _GRID_YZ_MAX = 65535
 #: Layers one stacked-BatchNorm launch takes (``kMaxLayers`` in bn_grad_norm.cu);
 #: larger stacks launch once per chunk of this many layers.
 BN_MAX_LAYERS = 64
+#: The stacked-BN kernel's threads per block (``kThreads``) and positions a
+#: thread loads per step in the vector mode (``kUnroll``).
+BN_THREADS = 256
+BN_UNROLL = 4
+#: The stacked-BN kernel's modes.
+BN_MODES = ("vector", "scalar")
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -136,12 +159,12 @@ CONV_GRAD_NORM_DIRECT = Kernel(
     [_PTR] * 4 + [_INT] * 17 + [_PTR], modes=tuple(DIRECT_MODES.values()))
 CONV_GRAD_NORM_GRAM = Kernel(
     "conv_grad_norm_gram", "ddt_conv_grad_norm_gram",
-    [_PTR] * 3 + [_INT] * 13 + [_PTR])
+    [_PTR] * 3 + [_INT] * 13 + [_PTR], modes=tuple(DIRECT_MODES.values()))
 EL2N = Kernel("el2n", "ddt_el2n", [_PTR] * 4 + [_INT] * 2 + [_PTR])
 GRAND_LAST_LAYER = Kernel("grand_last_layer", "ddt_grand_last_layer",
                           [_PTR] * 6 + [_INT] * 3 + [_PTR])
 BN_GRAD_NORM = Kernel("bn_grad_norm", "ddt_bn_grad_norm",
-                      [_PTRS, _PTRS, _PTR, _PTR] + [_INT] * 7 + [_PTR])
+                      [_PTRS, _PTRS, _PTR, _PTR] + [_INT] * 8 + [_PTR], modes=BN_MODES)
 CONV_GRAD_NORM_CATDOT = Kernel("conv_grad_norm_catdot", "ddt_conv_grad_norm_catdot",
                                [_PTR] * 4 + [_INT] * 13 + [_PTR],
                                modes=tuple(DIRECT_MODES.values()))
@@ -296,22 +319,51 @@ def conv_grad_norm_v2_eligible(x_shape, g_shape, kernel_size, strides,
         x_shape, g_shape, kernel_size, strides)
 
 
-def _gram_smem_bytes(h: int, w: int, ho: int, wo: int) -> int:
-    """Dynamic shared memory of one Gram-kernel block (``smem_bytes`` in
-    conv_grad_norm_gram.cu): both Grams plus one channel chunk."""
-    hw, s = h * w, ho * wo
-    return 4 * (hw * hw + s * s + max(hw, s) * _GRAM_ROW_STRIDE)
+def gram_plan(hw: int, s: int, c: int, k: int, dtype: torch.dtype) -> dict | None:
+    """The Gram kernel's block layout (``gram_plan`` in conv_grad_norm_gram.cu)
+    for ``hw`` input and ``s`` output positions and C, K channels of ``dtype``,
+    or None where it does not fit: both position counts padded to a multiple
+    of 16 (``hwp``, ``sp``; ``rows`` = hwp + sp staged rows per example), the
+    widest ``chunk`` of channels staged per step (the whole row first, then
+    halves, in units of ``GRAM_UNIT_BYTES``; ``nsteps`` of them through a ring
+    of ``stages`` = min(``GRAM_STAGES``, nsteps) buffers) with the most
+    ``examples`` (4, 2) within ``GRAM_BLOCK_SMEM``; at the narrowest chunk
+    also one example, within ``GRAM_BLOCK_SMEM`` or else ``GRAM_MAX_SMEM``
+    (``smem`` bytes: the ring of rows, each padded by ``GRAM_ROW_PAD``, and
+    the fp32 Grams)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    hwp, sp = -(-hw // 16) * 16, -(-s // 16) * 16
+    rows, unit = hwp + sp, GRAM_UNIT_BYTES // item
+    depth = -(-max(c, k) // unit) * unit
+    chunk = depth
+    while True:
+        nsteps = -(-depth // chunk)
+        stages = min(GRAM_STAGES, nsteps)
+        last = chunk == unit
+        e = GRAM_EXAMPLES
+        while e >= 1:
+            smem = (stages * e * rows * (chunk * item + GRAM_ROW_PAD)
+                    + e * (hwp * hwp + sp * sp) * 4)
+            if ((smem <= GRAM_BLOCK_SMEM and (e > 1 or last))
+                    or (last and e == 1 and smem <= GRAM_MAX_SMEM)):
+                return {"hwp": hwp, "sp": sp, "rows": rows, "examples": e, "chunk": chunk,
+                        "nsteps": nsteps, "stages": stages, "smem": smem}
+            e //= 2
+        if last:
+            return None
+        chunk = -(-(chunk // 2) // unit) * unit
 
 
 def conv_grad_norm_gram_eligible(x_shape, g_shape, kernel_size, strides,
                                  padding) -> bool:
-    """The Gram kernel: unit stride, and both per-example Grams ([H·W]² and
-    [S]² fp32) fit one block's shared memory on Hopper."""
+    """The Gram kernel: unit stride, and a block layout (``gram_plan``) in both
+    dtypes, so the route does not depend on the dtype."""
     del kernel_size, padding
     if tuple(strides) != (1, 1):
         return False
-    return _gram_smem_bytes(x_shape[1], x_shape[2], g_shape[1],
-                            g_shape[2]) <= MAX_BLOCK_SMEM - 1024
+    hw, s = x_shape[1] * x_shape[2], g_shape[1] * g_shape[2]
+    return all(gram_plan(hw, s, x_shape[-1], g_shape[-1], dtype) is not None
+               for dtype in _DTYPE_CODE)
 
 
 def grand_last_layer_eligible(features: int, classes: int) -> bool:
@@ -321,9 +373,31 @@ def grand_last_layer_eligible(features: int, classes: int) -> bool:
 
 
 def bn_grad_norm_eligible(x_shape) -> bool:
-    """The stacked-BN kernel takes 4-D (NHWC) activations; any size (one
-    block per row, channels in tiles of 64)."""
+    """The stacked-BN kernel takes 4-D (NHWC) activations of any size (one
+    block per row; the scalar mode takes any channel count)."""
     return len(x_shape) == 4
+
+
+def bn_vector_plan(c: int, dtype: torch.dtype) -> dict | None:
+    """The stacked-BN kernel's vector-mode thread layout for C channels, or
+    None where the mode does not take C: ``vec`` channels per 16-byte load
+    (8 bf16, 4 fp32), ``channel_vectors`` = C / vec threads across and
+    ``groups`` = ``BN_THREADS`` // channel_vectors position groups down
+    (C a multiple of vec, at most ``BN_THREADS`` vectors)."""
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    if c % vec or c // vec > BN_THREADS:
+        return None
+    return {"vec": vec, "channel_vectors": c // vec, "groups": BN_THREADS // (c // vec)}
+
+
+def bn_mode(xs, gs) -> str:
+    """The stacked-BN mode a launch of these layers takes: ``vector`` where
+    ``bn_vector_plan`` takes C and every layer's x and g start 16-byte
+    aligned, else ``scalar``."""
+    x0 = xs[0]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (*xs, *gs))
+    return ("vector" if aligned and bn_vector_plan(x0.shape[-1], x0.dtype) is not None
+            else "scalar")
 
 
 def catdot_mma_plan(out_hw, kernel_size) -> dict | None:
@@ -679,7 +753,8 @@ def conv_grad_norm_sq_gram(x: torch.Tensor, g: torch.Tensor, kernel_size,
     with torch.cuda.device(x.device):
         CONV_GRAD_NORM_GRAM.launch(
             x.data_ptr(), g.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype],
-            b, h, w, c, ho, wo, k, kh, kw, pt, pl, int(use_bias), _stream(x))
+            b, h, w, c, ho, wo, k, kh, kw, pt, pl, int(use_bias), _stream(x),
+            mode=DIRECT_MODES[x.dtype])
     return out
 
 
@@ -747,7 +822,8 @@ def bn_grad_norm_sq(xs, gs, stats: torch.Tensor, use_scale: bool = True,
     layers: ``xs[l]``, ``gs[l]`` are layer l's NHWC input and output cotangent
     [B, H, W, C], ``stats`` [L, 2, C] its (mean, rstd) rows. Row
     ``l·B + i`` is layer l's example i. The layers are not concatenated: the
-    kernel takes an array of their base pointers."""
+    kernel takes an array of their base pointers. The launch takes the mode
+    ``bn_mode`` names, and is counted under it."""
     name = "bn_grad_norm_sq"
     n = len(xs)
     if n == 0 or len(gs) != n or tuple(stats.shape) != (n, 2, xs[0].shape[-1]):
@@ -762,6 +838,7 @@ def bn_grad_norm_sq(xs, gs, stats: torch.Tensor, use_scale: bool = True,
         return bn_grad_norm_sq_plain(xs, gs, stats, use_scale, use_bias)
     _check_contiguous(name, *xs, *gs)
     b, h, w, c = xs[0].shape
+    mode = bn_mode(xs, gs)
     st = stats.to(device=xs[0].device, dtype=torch.float32).contiguous()
     out = torch.empty(n * b, dtype=torch.float32, device=xs[0].device)
     with torch.cuda.device(xs[0].device):
@@ -771,7 +848,8 @@ def bn_grad_norm_sq(xs, gs, stats: torch.Tensor, use_scale: bool = True,
             gp = (ctypes.c_void_p * len(ls))(*[gs[i].data_ptr() for i in ls])
             BN_GRAD_NORM.launch(xp, gp, st[l0].data_ptr(), out[l0 * b].data_ptr(),
                                 _DTYPE_CODE[xs[0].dtype], len(ls), b, h * w, c,
-                                int(use_scale), int(use_bias), _stream(xs[0]))
+                                int(use_scale), int(use_bias), int(mode == "vector"),
+                                _stream(xs[0]), mode=mode)
     return out
 
 

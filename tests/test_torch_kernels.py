@@ -88,18 +88,22 @@ def test_direct_v2_plain_matches_pallas(pallas, h, c, k, bias, dtype):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-3)
 
 
-@pytest.mark.parametrize("h,c,k,bias", [
-    (8, 128, 128, False),    # small-S wide-channel (Gram regime)
-    (4, 256, 256, True),     # stage-4-like + bias term
+# bfloat16 cases pin the tensor-core mode's semantics: bf16 x and g on both sides,
+# exact products and float32 sums, so float32's tolerance holds.
+@pytest.mark.parametrize("h,c,k,bias,dtype", [
+    pytest.param(8, 128, 128, False, "float32",
+                 id="8-128-128-False"),   # small-S wide-channel (Gram regime)
+    pytest.param(4, 256, 256, True, "float32",
+                 id="4-256-256-True"),    # stage-4-like + bias term
+    (8, 128, 128, False, "bfloat16"),
+    (4, 256, 256, True, "bfloat16"),
 ])
-def test_gram_plain_matches_pallas(pallas, h, c, k, bias):
+def test_gram_plain_matches_pallas(pallas, h, c, k, bias, dtype):
     jnp, pk = pallas
     rng = np.random.default_rng(0)
-    x, g = _pair(rng, 10, h, c, h, k)
-    want = pk.conv_grad_norm_sq_gram(jnp.asarray(x), jnp.asarray(g), (3, 3), PAD1,
-                                     use_bias=bias, interpret=True)
-    got = K.conv_grad_norm_sq_gram(torch.from_numpy(x), torch.from_numpy(g), (3, 3),
-                                   PAD1, use_bias=bias)
+    jx, jg, tx, tg = _both_sides(jnp, *_pair(rng, 10, h, c, h, k), dtype)
+    want = pk.conv_grad_norm_sq_gram(jx, jg, (3, 3), PAD1, use_bias=bias, interpret=True)
+    got = K.conv_grad_norm_sq_gram(tx, tg, (3, 3), PAD1, use_bias=bias)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-2)
 
 
@@ -140,6 +144,16 @@ def test_hopper_gates():
                                               (2, 2), PAD1)        # strided
     assert not K.conv_grad_norm_gram_eligible((8, 16, 16, 128), (8, 16, 16, 128),
                                               (3, 3), (1, 1), PAD1)  # Grams > 227 KB
+    # ResNet-18's stage-4 convs, alone and as GROUP_CONV's batch-1,536 concatenation.
+    for b in (512, 1536):
+        assert K.conv_grad_norm_gram_eligible((b, 4, 4, 512), (b, 4, 4, 512), (3, 3),
+                                              (1, 1), PAD1)
+    assert K.conv_grad_norm_gram_eligible((8, 11, 11, 64), (8, 11, 11, 64), (3, 3),
+                                          (1, 1), PAD1)            # 128 rows, 1 example
+    assert K.gram_plan(144, 144, 64, 64, torch.bfloat16) is not None
+    assert K.gram_plan(144, 144, 64, 64, torch.float32) is None
+    assert not K.conv_grad_norm_gram_eligible((8, 12, 12, 64), (8, 12, 12, 64), (3, 3),
+                                              (1, 1), PAD1)        # no fp32 layout
     assert K.conv_grad_norm_direct_fits((8, 32, 32, 64), (8, 16, 16, 128), (3, 3),
                                         (2, 2))
 
@@ -178,6 +192,107 @@ def test_mma_constants_match_the_header():
               re.findall(r"constexpr int (kDx\w+) = ([^;]+);", fh.read())}
     assert dx == {"kDxK": K.MEGA_DX_K, "kDxRowElems": K.MEGA_DX_ROW_BYTES // 2,
                   "kDxMaxCols": K.MEGA_DX_MAX_COLS, "kDxMaxSmem": K.MEGA_DX_MAX_SMEM}
+    # The Gram kernel's layout (gram_plan) and the stacked-BN kernel's threads.
+    assert _header_constants("conv_grad_norm_gram.cu") == {
+        "kGramExamples": K.GRAM_EXAMPLES, "kGramStages": K.GRAM_STAGES,
+        "kGramUnitBytes": K.GRAM_UNIT_BYTES, "kGramRowPad": K.GRAM_ROW_PAD,
+        "kGramBlockSmem": K.GRAM_BLOCK_SMEM, "kGramMaxSmem": K.GRAM_MAX_SMEM}
+    assert _header_constants("bn_grad_norm.cu") == {
+        "kThreads": K.BN_THREADS, "kUnroll": K.BN_UNROLL,
+        "kCTile": 64, "kGroups": 4, "kMaxLayers": K.BN_MAX_LAYERS}
+
+
+def _header_constants(name: str) -> dict:
+    """File-scope ``constexpr int`` constants of a kernel source, evaluated in
+    order (those inside a kernel depend on its template type)."""
+    path = os.path.join(os.path.dirname(build.__file__), "csrc", name)
+    with open(path) as fh:
+        consts: dict = {}
+        for const, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", fh.read(),
+                                      flags=re.M):
+            consts[const] = eval(expr, {}, dict(consts))
+    return consts
+
+
+def _gram_tiling_norm(x, g, ks, pad, plan, use_bias):
+    """The Gram kernel's layout in numpy (float64): per example, x's H·W rows
+    and g's S rows staged chunk by chunk of ``plan["chunk"]`` channels into
+    hwp + sp rows (zero past H·W, S, C or K), each Gram accumulated per
+    16 × 16 tile over 16-channel k-steps, as the kernel's ldmatrix and
+    mma.sync read the staged rows; then P Pᵀ gathered from XX (row stride
+    hwp) over the kernel offsets and dotted with GG, plus the bias term from
+    the staged g chunks."""
+    (kh, kw), ((pt, _), (pl, _)) = ks, pad
+    b, h, w, c = x.shape
+    _, ho, wo, k = g.shape
+    hw, s, hwp, sp, chunk = h * w, ho * wo, plan["hwp"], plan["sp"], plan["chunk"]
+    out = np.zeros(b)
+
+    def tiles(gram, rows):
+        for mi in range(len(gram) // 16):
+            for ni in range(len(gram) // 16):
+                for k0 in range(0, chunk, 16):
+                    a = rows[mi * 16:(mi + 1) * 16, k0:k0 + 16]
+                    bb = rows[ni * 16:(ni + 1) * 16, k0:k0 + 16]
+                    gram[mi * 16:(mi + 1) * 16, ni * 16:(ni + 1) * 16] += a @ bb.T
+    for e in range(b):
+        xx, gg, v = np.zeros((hwp, hwp)), np.zeros((sp, sp)), 0.0
+        for i in range(plan["nsteps"]):
+            rows = np.zeros((hwp + sp, chunk))
+            xc = x[e].reshape(hw, c)[:, i * chunk:(i + 1) * chunk]
+            gc = g[e].reshape(s, k)[:, i * chunk:(i + 1) * chunk]
+            rows[:hw, :xc.shape[1]] = xc
+            rows[hwp:hwp + s, :gc.shape[1]] = gc
+            tiles(xx, rows[:hwp])
+            tiles(gg, rows[hwp:])
+            if use_bias:
+                v += (rows[hwp:hwp + s].sum(axis=0) ** 2).sum()
+        for si in range(s):
+            for ti in range(s):
+                (sr, sq), (tr, tq) = divmod(si, wo), divmod(ti, wo)
+                pp = 0.0
+                for oy in range(kh):
+                    for ox in range(kw):
+                        y1, y2, x1, x2 = sr + oy - pt, tr + oy - pt, sq + ox - pl, tq + ox - pl
+                        if 0 <= y1 < h and 0 <= y2 < h and 0 <= x1 < w and 0 <= x2 < w:
+                            pp += xx[y1 * w + x1, y2 * w + x2]
+                v += pp * gg[si, ti]
+        out[e] = v
+    return out
+
+
+# ResNet-18's stage-4 conv, then ragged maps and channel counts (C and K off the
+# chunk, a 25-position map with asymmetric padding, a non-square map, 100 positions
+# with one example a block), then deep rows that stream through the ring. want:
+# (examples, chunk, nsteps, stages, smem) in bf16 and in fp32.
+@pytest.mark.parametrize("hw,c,k,pad,bias,want_bf16,want_fp32", [
+    ((4, 4), 512, 512, PAD1, False, (2, 512, 1, 1, 70656), (2, 64, 8, 4, 73728)),
+    ((4, 4), 100, 70, PAD1, True, (4, 128, 1, 1, 43008), (4, 128, 1, 1, 75776)),
+    ((5, 5), 64, 64, ((0, 2), (2, 0)), False, (4, 64, 1, 1, 69632),
+     (4, 64, 1, 1, 102400)),
+    ((6, 3), 40, 24, PAD1, True, (4, 64, 1, 1, 69632), (4, 64, 1, 1, 102400)),
+    ((10, 10), 16, 24, PAD1, True, (1, 64, 1, 1, 132608), (1, 32, 1, 1, 132608)),
+    ((4, 4), 1536, 512, PAD1, True, (2, 192, 8, 4, 106496), (2, 96, 16, 4, 106496)),
+    ((4, 4), 72, 4096, PAD1, False, (2, 128, 32, 4, 73728), (2, 64, 64, 4, 73728)),
+])
+def test_gram_plan_tiling(hw, c, k, pad, bias, want_bf16, want_fp32):
+    h, w = hw
+    ho, wo = h + pad[0][0] + pad[0][1] - 2, w + pad[1][0] + pad[1][1] - 2
+    assert K.conv_grad_norm_gram_eligible((2, h, w, c), (2, ho, wo, k), (3, 3), (1, 1), pad)
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, h, w, c)).astype(np.float32)
+    g = rng.normal(size=(2, ho, wo, k)).astype(np.float32)
+    ref = K.conv_grad_norm_sq_gram_plain(torch.from_numpy(x), torch.from_numpy(g), (3, 3),
+                                         pad, use_bias=bias).numpy()
+    for dtype, want in ((torch.bfloat16, want_bf16), (torch.float32, want_fp32)):
+        plan = K.gram_plan(h * w, ho * wo, c, k, dtype)
+        assert (plan["examples"], plan["chunk"], plan["nsteps"], plan["stages"],
+                plan["smem"]) == want
+        assert plan["smem"] <= K.GRAM_MAX_SMEM
+        assert plan["stages"] == min(K.GRAM_STAGES, plan["nsteps"])
+        got = _gram_tiling_norm(x.astype(np.float64), g.astype(np.float64), (3, 3), pad,
+                                plan, bias)
+        np.testing.assert_allclose(got, ref, rtol=1e-5)
 
 
 def _mma_tiling_norm(x, g, ks, st, pad, plan):
@@ -291,11 +406,17 @@ def test_plain_versions_do_not_count_launches():
     K.el2n(torch.randn(2, 3), torch.tensor([0, 2]), torch.ones(2))
     K.conv_grad_norm_sq_v2(x.bfloat16(), torch.randn(2, 4, 4, 8).bfloat16(), (3, 3),
                            PAD1)
+    for dtype in (torch.float32, torch.bfloat16):
+        K.conv_grad_norm_sq_gram(x.to(dtype), torch.randn(2, 4, 4, 8).to(dtype), (3, 3),
+                                 PAD1, use_bias=True)
     assert K.launch_counts() == {name: 0 for name in (
         "conv_grad_norm_direct", "conv_grad_norm_gram", "el2n", "grand_last_layer",
         "bn_grad_norm", "conv_grad_norm_catdot", "conv_bwd_grad_norm")}
-    assert K.mode_counts() == {name: {"tensor_core": 0, "fp32": 0} for name in (
-        "conv_grad_norm_direct", "conv_grad_norm_catdot", "conv_bwd_grad_norm")}
+    assert K.mode_counts() == {
+        **{name: {"tensor_core": 0, "fp32": 0} for name in (
+            "conv_grad_norm_direct", "conv_grad_norm_gram", "conv_grad_norm_catdot",
+            "conv_bwd_grad_norm")},
+        "bn_grad_norm": {"vector": 0, "scalar": 0}}
 
 
 # ----------------------------------------------------------- card-only tests
@@ -317,6 +438,11 @@ def cuda_device():
     ("v2", 7, 72, 136, (3, 3), (1, 1), PAD1, True),
     ("gram", 4, 100, 70, (3, 3), (1, 1), PAD1, True),
     ("gram", 5, 64, 64, (3, 3), (1, 1), ((0, 2), (2, 0)), False),
+    ("gram", 4, 512, 512, (3, 3), (1, 1), PAD1, True),         # ResNet-18 stage 4
+    ("gram", 3, 40, 24, (3, 3), (1, 1), PAD1, True),           # 9 positions, padded
+    ("gram", 10, 16, 24, (3, 3), (1, 1), PAD1, False),         # one example a block
+    ("gram", 4, 72, 4096, (3, 3), (1, 1), PAD1, True),         # rows through the ring
+    ("gram", 4, 1536, 512, (3, 3), (1, 1), PAD1, True),        # C deeper than K
     ("v1", 10, 20, 24, (3, 3), (1, 1), PAD1, False),            # C % 8 != 0
     ("v1", 10, 16, 30, (3, 3), (1, 1), PAD1, False),            # K % 8 != 0
     ("v1", 11, 64, 40, (3, 3), (1, 1), ((0, 2), (2, 0)), False),  # asymmetric
@@ -334,7 +460,7 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, entry, h, c, k, ks, st
     x = torch.randn((37, h, h, c), generator=gen, device=cuda_device).to(dtype)
     g = torch.randn((37, ho, ho, k), generator=gen, device=cuda_device).to(dtype)
     before = K.launch_counts()
-    modes_before = K.mode_counts()["conv_grad_norm_direct"]
+    modes_before = K.mode_counts()
     if entry == "v1":
         got = K.conv_grad_norm_sq(x, g, ks, st, pad)
         want = K.conv_grad_norm_sq_plain(x, g, ks, st, pad)
@@ -349,10 +475,9 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, entry, h, c, k, ks, st
         name = "conv_grad_norm_gram"
     torch.cuda.synchronize()
     assert K.launch_counts()[name] == before[name] + 1
-    if name == "conv_grad_norm_direct":
-        modes = dict(modes_before)
-        modes[K.DIRECT_MODES[dtype]] += 1
-        assert K.mode_counts()["conv_grad_norm_direct"] == modes
+    modes = dict(modes_before[name])
+    modes[K.DIRECT_MODES[dtype]] += 1
+    assert K.mode_counts()[name] == modes
     rtol = 1e-4 if dtype == torch.float32 else 1e-3
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=rtol)
 
@@ -378,6 +503,27 @@ def test_direct_kernel_bitwise_on_card(cuda_device, dtype, entry):
     assert torch.equal(run(x, g), out)
     assert torch.equal(run(x[perm], g[perm]), out[perm])
     assert torch.equal(run(x[:5], g[:5]), out[:5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,c,k", [(4, 512, 512), (5, 100, 70)])
+def test_gram_kernel_bitwise_on_card(cuda_device, dtype, h, c, k):
+    """Run to run, and wherever an example sits in the batch (a permutation,
+    a prefix, so another block and slot), the Gram kernel gives each example
+    the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((37, h, h, c), generator=gen, device=cuda_device).to(dtype)
+    g = torch.randn((37, h, h, k), generator=gen, device=cuda_device).to(dtype)
+
+    def run(xx, gg):
+        return K.conv_grad_norm_sq_gram(xx.contiguous(), gg.contiguous(), (3, 3), PAD1,
+                                        use_bias=True)
+    out = run(x, g)
+    perm = torch.randperm(37, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    assert torch.equal(run(x, g), out)
+    assert torch.equal(run(x[perm], g[perm]), out[perm])
+    assert torch.equal(run(x[1:6], g[1:6]), out[1:6])
 
 
 @pytest.mark.cuda

@@ -53,25 +53,113 @@ def test_grand_last_layer_plain_matches_pallas(pallas):
     assert (got.numpy()[m == 0] == 0).all()
 
 
-@pytest.mark.parametrize("layers,use_scale,use_bias", [
-    (1, True, True), (3, True, True), (3, True, False), (3, False, True),
-    (1, False, False),
+# The bfloat16 cases pin the semantics of the kernel in bf16: bf16 x and g on both
+# sides (rounded to nearest even), exact products and float32 sums.
+@pytest.mark.parametrize("layers,use_scale,use_bias,dtype", [
+    pytest.param(1, True, True, "float32", id="1-True-True"),
+    pytest.param(3, True, True, "float32", id="3-True-True"),
+    pytest.param(3, True, False, "float32", id="3-True-False"),
+    pytest.param(3, False, True, "float32", id="3-False-True"),
+    pytest.param(1, False, False, "float32", id="1-False-False"),
+    (1, True, True, "bfloat16"),
+    (3, True, False, "bfloat16"),
+    (3, False, True, "bfloat16"),
 ])
-def test_bn_plain_matches_pallas(pallas, layers, use_scale, use_bias):
+def test_bn_plain_matches_pallas(pallas, layers, use_scale, use_bias, dtype):
     jnp, pk = pallas
     rng = np.random.default_rng(4)
     bl = 16
     x, g, stats = _bn_inputs(rng, layers, bl)
     slab = np.pad(stats, ((0, 0), (0, 6), (0, 0)))    # the TPU's 8-row stats slab
-    want = pk.bn_grad_norm_sq_pallas(jnp.asarray(x), jnp.asarray(g), jnp.asarray(slab),
-                                     bl, use_scale=use_scale, use_bias=use_bias,
-                                     interpret=True)
-    xs = [torch.from_numpy(x[i * bl:(i + 1) * bl]) for i in range(layers)]
-    gs = [torch.from_numpy(g[i * bl:(i + 1) * bl]) for i in range(layers)]
+    jx, jg, tx, tg = jnp.asarray(x), jnp.asarray(g), torch.from_numpy(x), torch.from_numpy(g)
+    if dtype == "bfloat16":
+        jx, jg = jx.astype(jnp.bfloat16), jg.astype(jnp.bfloat16)
+        tx, tg = tx.bfloat16(), tg.bfloat16()
+    want = pk.bn_grad_norm_sq_pallas(jx, jg, jnp.asarray(slab), bl, use_scale=use_scale,
+                                     use_bias=use_bias, interpret=True)
+    xs = [tx[i * bl:(i + 1) * bl].contiguous() for i in range(layers)]
+    gs = [tg[i * bl:(i + 1) * bl].contiguous() for i in range(layers)]
     got = K.bn_grad_norm_sq(xs, gs, torch.from_numpy(stats), use_scale=use_scale,
                             use_bias=use_bias)
     assert got.shape == (layers * bl,)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-4)
+
+
+def _bn_vector_norm(x, g, stats, plan, use_scale, use_bias):
+    """The stacked-BN vector mode's thread layout in numpy (float64) for one
+    layer: thread (cv, grp) of a row reads channel vector cv (``vec``
+    channels) at positions grp, grp + groups, ... in steps of ``BN_UNROLL``
+    positions, keeping its channels' Σ g·x and Σ g; the position groups'
+    partials are added per channel in group order, then the channel terms."""
+    b, c = x.shape[0], x.shape[-1]
+    xr, gr = x.reshape(b, -1, c), g.reshape(b, -1, c)
+    s = xr.shape[1]
+    vec, groups = plan["vec"], plan["groups"]
+    sgx, sgs = np.zeros((b, groups, c)), np.zeros((b, groups, c))
+    seen = np.zeros((s, c), dtype=int)
+    for grp in range(groups):
+        for cv in range(plan["channel_vectors"]):
+            ch = slice(cv * vec, (cv + 1) * vec)
+            for s0 in range(grp, s, K.BN_UNROLL * groups):
+                for u in range(K.BN_UNROLL):
+                    pos = s0 + u * groups
+                    if pos < s:
+                        seen[pos, ch] += 1
+                        sgx[:, grp, ch] += gr[:, pos, ch] * xr[:, pos, ch]
+                        sgs[:, grp, ch] += gr[:, pos, ch]
+    assert (seen == 1).all()            # every (position, channel) read once
+    tgx, tgs = sgx.sum(axis=1), sgs.sum(axis=1)
+    out = np.zeros(b)
+    if use_scale:
+        out += (((tgx - stats[0] * tgs) * stats[1]) ** 2).sum(axis=1)
+    if use_bias:
+        out += (tgs * tgs).sum(axis=1)
+    return out
+
+
+# ResNet-18's four BN shapes in both dtypes, then ragged ones: C = 72 (9 vectors of
+# 8 bf16, 28 groups, 4 threads idle), C = 100 in fp32 (25 vectors of 4), S = 1.
+@pytest.mark.parametrize("h,c,dtype,want", [
+    (32, 64, torch.bfloat16, (8, 8, 32)), (16, 128, torch.bfloat16, (8, 16, 16)),
+    (8, 256, torch.bfloat16, (8, 32, 8)), (4, 512, torch.bfloat16, (8, 64, 4)),
+    (32, 64, torch.float32, (4, 16, 16)), (4, 512, torch.float32, (4, 128, 2)),
+    (3, 72, torch.bfloat16, (8, 9, 28)), (5, 100, torch.float32, (4, 25, 10)),
+    (1, 72, torch.bfloat16, (8, 9, 28)),
+])
+def test_bn_vector_plan_tiling(h, c, dtype, want):
+    plan = K.bn_vector_plan(c, dtype)
+    assert (plan["vec"], plan["channel_vectors"], plan["groups"]) == want
+    rng = np.random.default_rng(7)
+    x, g = (torch.from_numpy(rng.normal(size=(2, h, h, c)).astype(np.float32)).to(dtype)
+            for _ in range(2))
+    stats = np.stack([rng.normal(size=c), rng.random(c) + 0.5]).astype(np.float32)
+    for use_scale, use_bias in ((True, True), (True, False), (False, True)):
+        ref = K.bn_grad_norm_sq([x], [g], torch.from_numpy(stats)[None], use_scale,
+                                use_bias).numpy()
+        got = _bn_vector_norm(x.double().numpy(), g.double().numpy(), stats, plan,
+                              use_scale, use_bias)
+        np.testing.assert_allclose(got, ref, rtol=1e-5)
+
+
+def test_bn_modes():
+    """The vector mode takes C a multiple of the 16-byte vector (8 bf16, 4 fp32)
+    with at most ``BN_THREADS`` vectors and 16-byte-aligned layers; anything
+    else takes the scalar mode. Every ResNet-18 BN layer takes the vector mode."""
+    for c in (64, 128, 256, 512):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.zeros(2, 4, 4, c, dtype=dtype)
+            assert K.bn_mode([x, x], [x, x]) == "vector"
+    assert K.bn_vector_plan(100, torch.bfloat16) is None       # 100 % 8
+    assert K.bn_vector_plan(98, torch.float32) is None         # 98 % 4
+    assert K.bn_vector_plan(4096, torch.bfloat16) is None      # 512 vectors
+    assert K.bn_vector_plan(2048, torch.bfloat16)["groups"] == 1
+    x = torch.zeros(2, 3, 3, 100, dtype=torch.bfloat16)
+    assert K.bn_mode([x], [x]) == "scalar"
+    assert K.bn_mode([x.float()], [x.float()]) == "vector"
+    # A layer whose memory starts 2 bytes into an allocation: not 16-byte aligned.
+    off = torch.zeros(2 * 4 * 4 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 4, 4, 64)
+    y = torch.zeros(2, 4, 4, 64, dtype=torch.bfloat16)
+    assert off.is_contiguous() and K.bn_mode([y, off], [y, y]) == "scalar"
 
 
 def test_catdot_plain_matches_pallas(pallas):
@@ -422,9 +510,15 @@ def test_plain_versions_do_not_count_launches():
                                PAD1)
     K.conv_bwd_grad_norm_sq(x[..., :8].bfloat16(), torch.randn(2, 16, 16, 8).bfloat16(),
                             torch.randn(8, 8, 3, 3), (3, 3), PAD1)
+    K.bn_grad_norm_sq([x.bfloat16()], [x.bfloat16()], torch.ones(1, 2, 128))
+    K.bn_grad_norm_sq([x[..., :100].contiguous()], [x[..., :100].contiguous()],
+                      torch.ones(1, 2, 100))
     assert set(K.launch_counts().values()) == {0}
-    assert K.mode_counts() == {name: {"tensor_core": 0, "fp32": 0} for name in (
-        "conv_grad_norm_direct", "conv_grad_norm_catdot", "conv_bwd_grad_norm")}
+    assert K.mode_counts() == {
+        **{name: {"tensor_core": 0, "fp32": 0} for name in (
+            "conv_grad_norm_direct", "conv_grad_norm_gram", "conv_grad_norm_catdot",
+            "conv_bwd_grad_norm")},
+        "bn_grad_norm": {"vector": 0, "scalar": 0}}
 
 
 # ----------------------------------------------------------- card-only tests
@@ -465,19 +559,54 @@ def test_grand_last_layer_kernel_matches_plain_on_card(cuda_device, b, f, c):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layers,hw,ch,use_scale,use_bias", [
     (1, 6, 32, True, True), (3, 7, 100, True, False), (2, 4, 512, False, True),
+    (5, 32, 64, True, True),                                   # ResNet-18 stage 1
+    (3, 3, 72, True, True),                                    # 9 vectors of 8 bf16
+    (3, 1, 98, False, True),                                   # S = 1, scalar mode
+    (1, 5, 100, True, True),                                   # scalar in bf16
 ])
 def test_bn_kernel_matches_plain_on_card(cuda_device, dtype, layers, hw, ch, use_scale,
                                          use_bias):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    xs = [torch.randn((5, hw, hw, ch), generator=gen, device=cuda_device).to(dtype)
+    xs = [torch.randn((37, hw, hw, ch), generator=gen, device=cuda_device).to(dtype)
           for _ in range(layers)]
-    gs = [torch.randn((5, hw, hw, ch), generator=gen, device=cuda_device).to(dtype)
+    gs = [torch.randn((37, hw, hw, ch), generator=gen, device=cuda_device).to(dtype)
           for _ in range(layers)]
     stats = torch.rand((layers, 2, ch), generator=gen, device=cuda_device) + 0.5
+    mode = "vector" if K.bn_vector_plan(ch, dtype) is not None else "scalar"
+    assert K.bn_mode(xs, gs) == mode
+    before = K.mode_counts()["bn_grad_norm"]
     got = K.bn_grad_norm_sq(xs, gs, stats, use_scale, use_bias)
-    want = K.bn_grad_norm_sq_plain(xs, gs, stats, use_scale, use_bias)
     torch.cuda.synchronize()
+    modes = dict(before)
+    modes[mode] += 1
+    assert K.mode_counts()["bn_grad_norm"] == modes
+    want = K.bn_grad_norm_sq_plain(xs, gs, stats, use_scale, use_bias)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=_rtol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ch", [512, 100])
+def test_bn_kernel_bitwise_on_card(cuda_device, dtype, ch):
+    """Run to run, and wherever an example sits in its layer's batch (every
+    layer permuted alike, a prefix), the stacked-BN kernel gives each row the
+    same bits, in both modes."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    xs = [torch.randn((37, 4, 4, ch), generator=gen, device=cuda_device).to(dtype)
+          for _ in range(3)]
+    gs = [torch.randn((37, 4, 4, ch), generator=gen, device=cuda_device).to(dtype)
+          for _ in range(3)]
+    stats = torch.rand((3, 2, ch), generator=gen, device=cuda_device) + 0.5
+
+    def run(idx):
+        return K.bn_grad_norm_sq([x[idx].contiguous() for x in xs],
+                                 [g[idx].contiguous() for g in gs], stats).reshape(3, -1)
+    every = torch.arange(37, device=cuda_device)
+    out = run(every)
+    perm = torch.randperm(37, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    assert torch.equal(run(every), out)
+    assert torch.equal(run(perm), out[:, perm])
+    assert torch.equal(run(every[:5]), out[:, :5])
 
 
 def _check_one_launch(name, dtype, before, modes_before):

@@ -8,8 +8,10 @@
 Each variant is a textual edit of the PyTorch port's sources in a copy of the
 package under ``chip_smoke_out/variants/<name>/``, built there from the edited
 sources. Each copy is timed in a process of its own, in bf16 on the same seeded
-inputs (CUDA events, median of 15 launches), at ``chip_smoke.py``'s main-path
-geometries: the direct kernel's five, the megakernel's three and cat-dot's one.
+inputs (``chip_smoke.device_ms``: a run of launches replayed from a CUDA graph,
+so the wrapper's host time is not in it), at ``chip_smoke.py``'s main-path
+geometries: the direct kernel's five, the megakernel's three, cat-dot's one and
+the Gram kernel's one.
 It prints one JSON line: ms per launch at each geometry, ms per GraNd batch of
 each kernel (weighted by the layers per batch on the route that runs it) and
 ptxas's register lines. ``base`` runs first and last, so the spread between its
@@ -24,7 +26,10 @@ they show where the time goes:
   ``ldmatrix``);
 * ``noldm_nomma``: neither (staging, barriers and the loop);
 * ``mega_norm_only`` / ``mega_dx_only``: the megakernel with its dx blocks,
-  or its norm blocks, doing nothing but exiting.
+  or its norm blocks, doing nothing but exiting;
+* ``gram_nostage`` / ``gram_nomma`` / ``gram_nogather``: the Gram kernel
+  staging nothing, running no Gram chunk (``ldmatrix`` and ``mma.sync``), or
+  skipping the offset gather and dot.
 
 With ``--parent DIR`` the package under DIR (for example an unpacked parent
 commit) runs too, as variant ``parent``, unedited, right after the first
@@ -45,6 +50,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = "data_diet_distributed_tpu_torch"
 HEADER = "conv_norm_mma.cuh"
 MEGA = "conv_bwd_grad_norm.cu"
+GRAM = "conv_grad_norm_gram.cu"
 
 _MMA = """mma_bf16(acc[j][mt][nt], afr[mt], bfr[nt >> 1][(nt & 1) * 2],
                          bfr[nt >> 1][(nt & 1) * 2 + 1]);"""
@@ -70,6 +76,11 @@ VARIANTS = {
                         "  } else if (norm_blocks < 0) {\n    dx_mma_role(")],
     "mega_dx_only": [(MEGA, "    mma_norm_walk(wk, smem, red, partials",
                       "    if (b < 0) mma_norm_walk(wk, smem, red, partials")],
+    "gram_nostage": [(GRAM, "  while (e < nb) {", "  while (e < nb && vpr < 0) {")],
+    "gram_nomma": [(GRAM, "gram_chunk(gram, rows, n, a.chunk, a.row_elems, lane);",
+                    "if (n < 0) gram_chunk(gram, rows, n, a.chunk, a.row_elems, lane);")],
+    "gram_nogather": [(GRAM, "for (int e = which * 32 + lane; e < a.S * a.S; e += 64) {",
+                       "for (int e = a.S * a.S + which * 32 + lane; e < a.S * a.S; e += 64) {")],
 }
 
 _TIME = r'''
@@ -84,7 +95,8 @@ build.build_all()
 regs = {}
 for lib, fn in (("conv_grad_norm_direct", "direct_mma_kernel"),
                 ("conv_bwd_grad_norm", "bwd_norm_mma_kernel"),
-                ("conv_grad_norm_catdot", "catdot_mma_kernel")):
+                ("conv_grad_norm_catdot", "catdot_mma_kernel"),
+                ("conv_grad_norm_gram", "gram_kernel")):
     log = build.build_log(lib).splitlines()
     regs[fn] = [log[i + 2].strip() for i, line in enumerate(log[:-2])
                 if "Function properties for" in line and fn in line]
@@ -97,15 +109,19 @@ def rel_err(got, ref):
 
 out = {"variant": sys.argv[3], "registers": regs}
 saved = {}
-for kind in ("direct", "mega", "catdot"):
+for kind in ("direct", "mega", "catdot", "gram"):
     per_geo, per_batch = [], 0.0
     if kind == "direct":
         rows = [(xs, gs, ks, st, pad, layers, entry)
-                for kernel, entry, xs, gs, ks, st, pad, layers in cs.GEOMETRIES
+                for kernel, entry, xs, gs, ks, st, pad, layers, _bias in cs.GEOMETRIES
                 if kernel == "conv_grad_norm_direct" and layers]
     elif kind == "mega":
         rows = [(xs, gs, ks, (1, 1), pad, layers, None)
                 for xs, gs, ks, pad, _bias, layers in cs.MEGA_GEOMETRIES if layers]
+    elif kind == "gram":
+        rows = [(xs, gs, ks, st, pad, layers, None)
+                for kernel, entry, xs, gs, ks, st, pad, layers, _bias in cs.GEOMETRIES
+                if kernel == "conv_grad_norm_gram" and layers]
     else:
         rows = [(xs, gs, ks, (1, 1), pad, layers, None)
                 for xs, gs, ks, pad, layers in cs.CATDOT_GEOMETRIES if layers]
@@ -121,15 +137,18 @@ for kind in ("direct", "mega", "catdot"):
             w = w.contiguous(memory_format=torch.channels_last)
             run = lambda: K.conv_bwd_grad_norm_sq(x, g, w, ks, pad)[1]
             plain = lambda: K.conv_bwd_grad_norm_sq_plain(x, g, w, ks, pad)[1]
-        else:
+        elif kind == "catdot":
             run = lambda: K.conv_grad_norm_sq_catdot(x, g, ks, pad)
             plain = lambda: K.conv_grad_norm_sq_catdot_plain(x, g, ks, pad)
+        else:
+            run = lambda: K.conv_grad_norm_sq_gram(x, g, ks, pad)
+            plain = lambda: K.conv_grad_norm_sq_gram_plain(x, g, ks, pad)
         got = run()
         if checked:
             rel = rel_err(got, plain())
             assert rel <= 1e-3, f"{sys.argv[3]}: {kind} max rel err {rel:.3e} at x{xs}"
         saved[f"{kind}_{i}"] = got.float().cpu().numpy()
-        ms = cs.time_ms(torch, run, warmup=3, iters=15)
+        ms = cs.device_ms(torch, run)
         per_geo.append({"x": list(xs), "g": list(gs), "kernel_size": list(ks),
                         "layers_per_batch": layers, "ms": ms})
         per_batch += layers * ms

@@ -27,8 +27,14 @@ Phases (the first failure exits non-zero; nothing is caught):
    permutation of the batch and from run to run, with ``torch.bmm``'s bf16
    time of the same product Pᵀ G (im2col patches P made outside the timed
    call) beside each direct geometry as a yardstick (``bmm_ms``).
-   The route kernels likewise: last-layer GraNd at [512, 512] -> 10 and
-   [512, 2048] -> 1000, stacked BatchNorm at the four ResNet-18 BN shapes
+   EL2N at logits [512, 10] and [512, 1000] and the route kernels likewise:
+   last-layer GraNd at [512, 512] -> 10 and [512, 2048] -> 1000 (with the fp32
+   ``F.linear`` of the same product as a yardstick, ``linear_ms``); both take
+   the working dtype and int64 labels as given and are bitwise from run to
+   run, on a permuted batch and on a 5-row slice (that each call launches one
+   CUDA kernel and nothing else is checked under ``torch.profiler`` after the
+   timed phases, phase 8: the profiler slows every later launch of the
+   process); stacked BatchNorm at the four ResNet-18 BN shapes
    singly and 5 deep (every launch in the ``vector`` mode) and at ragged rows
    (``BN_RAGGED``: batch 37, C = 72, 100 and 98, S = 1, use_scale and use_bias
    off in turn), bitwise from run to run and on a permuted batch, cat-dot
@@ -62,13 +68,21 @@ Phases (the first failure exits non-zero; nothing is caught):
    bitwise equal to ``full_scores``, plus ``topk`` and ``rank``, for both
    methods; the keep-hardest count at sparsity 0.5. Then ``grand_last_layer``
    (kernel route) and ``grand`` on the fused megakernel route, bitwise too.
+7. ResNet-50: ``create_model("resnet50", 100)`` on synthetic CIFAR-100-geometry
+   data (1,024 examples, one seed, batch 512, bf16) through ``score_dataset``
+   for ``el2n`` and ``grand_last_layer``: one launch of the kernel a batch,
+   finite scores, ex/s; then in fp32 (TF32 off) the kernel route against the
+   plain route (rtol 1e-4 for ``grand_last_layer``, rel 1e-5 or abs 1e-6 for
+   EL2N).
+8. Calls: each EL2N and last-layer row of phase 3 runs one CUDA kernel per
+   call, its own, and no copy, cast or memset (``torch.profiler``).
 
 With ``--profile``: one batch under ``torch.profiler`` on each of the default,
 FUSED+MEGAKERNEL, BN_KERNEL and BN_KERNEL+GROUP_BN+GROUP_CONV routes; the cuDNN
 dgrad launches must drop from 19 to 9 on the megakernel route, and the
 profiled BN and Gram time per batch is printed beside the ``device_ms`` sums.
 
-Every counted run (phases 4 and 5) starts with the launch counts at 0 and is
+Every counted run (phases 4, 5 and 7) starts with the launch counts at 0 and is
 read right after; the kernels line sums them. The line before the last is a
 JSON object with one entry per kernel (launches on the main paths, max error,
 ms, device ms, plain ms, bound ms); the last line is ``{"ok": true, "device":
@@ -352,6 +366,39 @@ def check_bn_bitwise(torch, gen, call, xs, gs, got, what: str) -> None:
           f"{what}: not bitwise equal from run to run and on a permuted batch")
 
 
+def check_rows_bitwise(torch, gen, call, args, got, what: str) -> None:
+    """``call(*args)`` (every arg batch-first) gives ``got`` again bit for bit,
+    on a permuted batch the permuted bits, and on a 5-row slice those rows'."""
+    b = args[0].shape[0]
+    perm = torch.randperm(b, generator=gen, device="cuda")
+    again = call(*args)
+    moved = call(*(a[perm].contiguous() for a in args))
+    part = call(*(a[3:8].contiguous() for a in args))
+    check(torch.equal(again, got) and torch.equal(moved, got[perm])
+          and torch.equal(part, got[3:8]),
+          f"{what}: not bitwise equal from run to run, on a permuted batch and on a "
+          "5-row slice")
+
+
+# (row record, description, kernel name, call): the one-call launch checks, run by
+# ``calls_phase`` after the timed phases (the profiler slows every later launch of
+# the process).
+CALL_CHECKS: list = []
+
+
+def kernels_per_call(torch, call) -> list[str]:
+    """Names of the CUDA kernels (copies and memsets included) one warmed-up
+    ``call()`` runs, under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def kernel_phase(torch, K, dtype, rtol, details) -> None:
     """Each kernel against its plain version at every main-path geometry."""
     dname = str(dtype).replace("torch.", "")
@@ -421,29 +468,32 @@ def kernel_phase(torch, K, dtype, rtol, details) -> None:
               + (f" bmm_ms={rec['bmm_ms']:.4f}" if "bmm_ms" in rec else ""), flush=True)
         check(bool(torch.isfinite(got).all()), f"{what}: non-finite")
         check(rel <= rtol, f"{what}: max rel err {rel:.3e} > {rtol}")
-    # EL2N at the path's logits geometry [512, 10] and a wide one [512, 1000].
+    # EL2N at the path's logits geometry [512, 10] and a wide one [512, 1000]: the
+    # logits in the working dtype itself, the labels int64, as a caller holds them.
     for c in (10, 1000):
-        z = (torch.randn((B, c), generator=gen, device="cuda") * 3).to(dtype).float()
+        z = (torch.randn((B, c), generator=gen, device="cuda") * 3).to(dtype)
         y = torch.randint(0, c, (B,), generator=gen, device="cuda")
         m = (torch.rand(B, generator=gen, device="cuda") > 0.1).float()
+        what = f"el2n {dname} logits[{B},{c}]"
         got, ref = K.el2n(z, y, m), K.el2n_plain(z, y, m)
+        torch.cuda.synchronize()
         err = (got - ref).abs()
         rel = float((err / ref.abs().clamp_min(1e-6)).max())
-        nbytes = B * c * 4 + B * 8 + B * 4 + B * 4
-        bnd, by = bound_ms(5.0 * B * c, nbytes, "float32")
-        rec = {"kernel": "el2n", "entry": "el2n", "dtype": dname, "logits": [B, c],
-               "layers_per_batch": 1 if c == 10 else 0,
-               "max_abs_err": float(err.max()), "max_rel_err": rel,
-               "ms": time_ms(torch, lambda: K.el2n(z, y, m)),
-               "device_ms": device_ms(torch, lambda: K.el2n(z, y, m)),
-               "plain_ms": time_ms(torch, lambda: K.el2n_plain(z, y, m), 1, 3),
-               "bound_ms": bnd, "bound_by": by}
+        check_rows_bitwise(torch, gen, lambda z, y, m: K.el2n(z, y, m), (z, y, m), got, what)
+        nbytes = B * c * z.element_size() + B * 8 + B * 4 + B * 4
+        rec = _measure(torch, {"kernel": "el2n", "entry": "el2n", "dtype": dname,
+                               "logits": [B, c], "labels": "int64",
+                               "layers_per_batch": 1 if c == 10 else 0,
+                               "max_abs_err": float(err.max()), "max_rel_err": rel},
+                       lambda: K.el2n(z, y, m), lambda: K.el2n_plain(z, y, m),
+                       5.0 * B * c, nbytes, "float32")
         details.append(rec)
-        print(f"  el2n logits[{B},{c}] ({dname} inputs): abs_err={rec['max_abs_err']:.3e} "
+        CALL_CHECKS.append((rec, what, "el2n_kernel", lambda z=z, y=y, m=m: K.el2n(z, y, m)))
+        print(f"  {what} (int64 labels): abs_err={rec['max_abs_err']:.3e} "
               f"ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f} "
-              f"plain_ms={rec['plain_ms']:.4f}", flush=True)
-        check(rel <= max(rtol, 1e-5) or float(err.max()) <= 1e-6,
-              f"el2n C={c}: max rel err {rel:.3e}")
+              f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.5f} "
+              f"({rec['bound_by']})", flush=True)
+        check(rel <= 1e-5 or float(err.max()) <= 1e-6, f"{what}: max rel err {rel:.3e}")
 
 
 def _measure(torch, rec: dict, run, plain, flops: float, nbytes: float,
@@ -473,29 +523,53 @@ def route_kernel_phase(torch, K, dtype, rtol, details) -> None:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    # Last-layer GraNd: features in the working type, cast to fp32 by the route.
+    # Last-layer GraNd: features in the working type and int64 labels, read as they are;
+    # ResNet-18's head and a wide one (a ResNet-50's, 1,000 classes). Bound: the
+    # product's FLOPs at the tensor-core rate (both modes run there; the split's extra
+    # products not counted), beside the old fp32 CUDA-core figure.
     for f, c, layers in ((512, 10, 1), (2048, 1000, 0)):
         h = randn(B, f)
         w = torch.randn((c, f), generator=gen, device="cuda") * f ** -0.5
         bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
         y = torch.randint(0, c, (B,), generator=gen, device="cuda")
         m = (torch.rand(B, generator=gen, device="cuda") > 0.1).float()
+        what = f"grand_last_layer {dname} [{B},{f}]->{c}"
         got, ref = K.grand_last_layer(h, w, bias, y, m), K.grand_last_layer_plain(h, w, bias, y, m)
+        torch.cuda.synchronize()
         abs_err, rel = _rel_err(got, ref)
+        check_rows_bitwise(torch, gen, lambda h, y, m: K.grand_last_layer(h, w, bias, y, m),
+                           (h, y, m), got, what)
+        flops = 2.0 * B * f * c + 2.0 * B * f + 6.0 * B * c
+        nbytes = B * f * item + 4.0 * (c * f + c) + B * (8 + 4 + 4)
         rec = _measure(torch, {"kernel": "grand_last_layer", "entry": "gll", "dtype": dname,
-                               "features": [B, f], "classes": c, "layers_per_batch": layers,
-                               "max_abs_err": abs_err, "max_rel_err": rel},
+                               "features": [B, f], "classes": c, "labels": "int64",
+                               "layers_per_batch": layers, "max_abs_err": abs_err,
+                               "max_rel_err": rel, "plan": K.gll_plan(f, c, dtype),
+                               "bound_fp32_cores_ms": bound_ms(flops, nbytes, "float32")[0]},
                        lambda: K.grand_last_layer(h, w, bias, y, m),
                        lambda: K.grand_last_layer_plain(h, w, bias, y, m),
-                       2.0 * B * f * c + 2.0 * B * f + 6.0 * B * c,
-                       4.0 * (B * f + c * f + c + 3 * B), "float32")
+                       flops, nbytes, "bfloat16")
+        if c == 1000:
+            # Yardstick, not a library counterpart: the classifier product alone, fp32
+            # (cuBLAS, TF32 off), on fp32 features made outside the call.
+            h32 = h.float()
+            rec["linear_ms"] = time_ms(torch, lambda: torch.nn.functional.linear(h32, w, bias))
+            rec["linear_device_ms"] = device_ms(
+                torch, lambda: torch.nn.functional.linear(h32, w, bias))
         details.append(rec)
-        print(f"  grand_last_layer {dname} [{B},{f}]->{c}: rel_err={rel:.3e} "
+        print(f"  {what}: rel_err={rel:.3e} "
               f"ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f} "
               f"plain_ms={rec['plain_ms']:.4f} "
-              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
+              f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}; fp32 CUDA cores "
+              f"{rec['bound_fp32_cores_ms']:.4f})"
+              + (f" F.linear fp32 ms={rec['linear_ms']:.4f} device_ms="
+                 f"{rec['linear_device_ms']:.4f}" if "linear_ms" in rec else ""),
+              flush=True)
         check(bool(torch.isfinite(got).all()) and rel <= rtol,
-              f"grand_last_layer {dname} F={f}: max rel err {rel:.3e} > {rtol}")
+              f"{what}: max rel err {rel:.3e} > {rtol}")
+        CALL_CHECKS.append((rec, what, "gll_kernel",
+                            lambda h=h, w=w, bias=bias, y=y, m=m:
+                            K.grand_last_layer(h, w, bias, y, m)))
     # Stacked BatchNorm: every ResNet-18 BN shape, one layer (5 launches per batch on
     # the BN_KERNEL route) and 5 deep (1 launch per batch with GROUP_BN), then the
     # ragged rows (BN_RAGGED).
@@ -757,6 +831,92 @@ def path_phase(torch, port, details_out, card: str) -> dict:
     port["set_parity_mode"](False)
     return {"cfg": cfg, "ds": ds, "variables": variables, "results": results,
             "counts": counts}
+
+
+def calls_phase(torch) -> None:
+    """Each EL2N and last-layer row's call, on its kernel-phase inputs, runs one
+    CUDA kernel, its own, and no copy, cast or memset (``kernels_per_call``)."""
+    for rec, what, kernel, call in CALL_CHECKS:
+        launched = kernels_per_call(torch, call)
+        rec["kernels_per_call"] = launched
+        print(f"  {what}: CUDA kernels per call {launched}", flush=True)
+        check(len(launched) == 1 and kernel in launched[0],
+              f"{what}: one call ran {launched}, want {kernel} alone")
+    CALL_CHECKS.clear()
+
+
+# ResNet-50 head pass: CIFAR-100 geometry (32x32x3, 100 classes), 1,024 examples.
+R50_N = 1024
+R50_CLASSES = 100
+R50_REPEATS = 3   # timed passes per method (the launch counts are read after each)
+
+
+def r50_dataset(port, n: int):
+    """Synthetic CIFAR-100-geometry data (CIFAR-100 itself is not in the repo): a
+    fixed template per class plus noise, drawn from seed 0."""
+    rng = np.random.default_rng(0)
+    templates = rng.normal(0.0, 0.5, size=(R50_CLASSES, 32, 32, 3)).astype(np.float32)
+    labels = rng.integers(0, R50_CLASSES, size=n).astype(np.int32)
+    images = templates[labels] + rng.normal(0.0, 0.4, size=(n, 32, 32, 3)).astype(np.float32)
+    return port["ArrayDataset"](images=images, labels=labels,
+                                indices=np.arange(n, dtype=np.int32), num_classes=R50_CLASSES)
+
+
+def resnet50_phase(torch, port, details_out, card: str) -> dict:
+    """A ResNet-50 head ([512, 2048] -> 100) through both redesigned kernels on a
+    real scoring path: ``score_dataset`` with ``el2n`` and ``grand_last_layer``
+    at full width, bf16, batch 512, one seed (one launch a batch, finite
+    scores, ex/s of each of ``R50_REPEATS`` passes, the first counted in the
+    kernels line); then in fp32 parity mode (TF32 off) each against the plain
+    route."""
+    K = port["kernels"]
+    ds = r50_dataset(port, R50_N)
+    model = port["create_model"]("resnet50", R50_CLASSES, half_precision=True)
+    v = [port["init_variables"]("resnet50", 0, "cuda", num_classes=R50_CLASSES)]
+    nb = -(-R50_N // B)
+    warm = ds.subset(ds.indices[:B])
+    out, counts = {}, dict.fromkeys(K.KERNELS, 0)
+    for method in ("el2n", "grand_last_layer"):
+        port["score_dataset"](model, v, warm, method=method, batch_size=B, device="cuda")
+        walls = []
+        for rep in range(R50_REPEATS):
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = port["score_dataset"](model, v, ds, method=method, batch_size=B,
+                                           device="cuda")
+            walls.append(time.perf_counter() - t0)
+            got = K.launch_counts()
+            want = {k: (nb if k == method else 0) for k in K.KERNELS}
+            check(got == want, f"resnet50 {method}: launch counts {got}, want {want}")
+            if rep == 0:
+                for k, n in got.items():
+                    counts[k] += n
+        check(scores.shape == (R50_N,) and bool(np.isfinite(scores).all())
+              and bool((scores >= 0).all()), f"resnet50 {method}: scores not finite/>= 0")
+        ex_s = [R50_N / wall for wall in walls]
+        out[method] = {"wall_s": walls, "ex_per_s": ex_s, "launches": nb}
+        print(f"  resnet50 {method}: {R50_N} examples x 1 seed, {R50_REPEATS} passes: "
+              + ", ".join(f"{x:.1f}" for x in ex_s) + f" ex/s on {card}; {nb} launches a "
+              f"pass ({nb} batches); mean score {scores.mean():.5f}", flush=True)
+    port["set_parity_mode"](True)
+    model32 = port["create_model"]("resnet50", R50_CLASSES)
+    for method in ("el2n", "grand_last_layer"):
+        fast = port["score_dataset"](model32, v, ds, method=method, batch_size=B,
+                                     use_kernels=True, device="cuda")
+        plain = port["score_dataset"](model32, v, ds, method=method, batch_size=B,
+                                      use_kernels=False, device="cuda")
+        err = np.abs(fast - plain)
+        rel = float(np.max(err / np.maximum(np.abs(plain), 1e-30)))
+        ok = (rel <= 1e-4 if method == "grand_last_layer"
+              else bool(np.all((err <= 1e-5 * np.abs(plain)) | (err <= 1e-6))))
+        out[method]["fp32_rel_err_vs_plain_route"] = rel
+        print(f"  resnet50 {method} fp32 kernel route vs plain route ({R50_N} examples): "
+              f"max rel err {rel:.3e}, max abs err {float(err.max()):.3e}", flush=True)
+        check(ok, f"resnet50 {method}: kernel route vs plain route rel err {rel:.3e}")
+    port["set_parity_mode"](False)
+    details_out["resnet50"] = out
+    return {"counts": counts}
 
 
 @contextlib.contextmanager
@@ -1102,9 +1262,9 @@ def main(argv: list[str]) -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     try:
         from data_diet_distributed_tpu_torch.config import load_config
-        from data_diet_distributed_tpu_torch.data.datasets import load_dataset
+        from data_diet_distributed_tpu_torch.data.datasets import ArrayDataset, load_dataset
         from data_diet_distributed_tpu_torch.device import set_parity_mode
-        from data_diet_distributed_tpu_torch.models import create_model_from_cfg
+        from data_diet_distributed_tpu_torch.models import create_model, create_model_from_cfg
         from data_diet_distributed_tpu_torch.ops import build
         from data_diet_distributed_tpu_torch.ops import grand_batched
         from data_diet_distributed_tpu_torch.ops import kernels as K
@@ -1115,7 +1275,8 @@ def main(argv: list[str]) -> int:
     except ImportError as err:
         fail(f"the port package is not importable next to this script: {err}")
     port = {"load_config": load_config, "load_dataset": load_dataset,
-            "set_parity_mode": set_parity_mode,
+            "ArrayDataset": ArrayDataset, "set_parity_mode": set_parity_mode,
+            "create_model": create_model,
             "create_model_from_cfg": create_model_from_cfg, "kernels": K,
             "grand_batched": grand_batched,
             "score_dataset": score_dataset, "select_indices": select_indices,
@@ -1165,6 +1326,12 @@ def main(argv: list[str]) -> int:
     serve_phase(torch, port, path, details)
     serve_routes_phase(torch, port, routes, details)
 
+    phase("resnet50")
+    r50 = resnet50_phase(torch, port, details, card)
+
+    phase("calls")
+    calls_phase(torch)
+
     if args.profile:
         phase("profile")
         profile_phase(torch, port, path, details, args.out)
@@ -1174,8 +1341,10 @@ def main(argv: list[str]) -> int:
         json.dump(details, fh, indent=1)
 
     # One entry per kernel: per-batch sums over the layers of the route that runs
-    # it, bf16; launches summed over the counted runs of the path and routes phases.
-    launches = {k: path["counts"][k] + routes["counts"][k] for k in K.KERNELS}
+    # it, bf16; launches summed over the counted runs of the path, routes and
+    # resnet50 phases.
+    launches = {k: path["counts"][k] + routes["counts"][k] + r50["counts"][k]
+                for k in K.KERNELS}
     check(all(launches[k] > 0 for k in KERNEL_INFO), f"a kernel never launched: {launches}")
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -15,9 +15,14 @@ kernels:
   small-map layers (``conv_grad_norm_sq_gram``): several examples per block,
   one warp per (example, Gram), rows staged by ``cp.async`` in chunks as wide
   as shared memory allows (``gram_plan``: whole rows at ResNet-18's stage 4).
-* ``el2n`` — ``‖softmax(z) − onehot(y)‖₂ · mask`` per row.
+* ``el2n`` — ``‖softmax(z) − onehot(y)‖₂ · mask`` per row, from bf16 or fp32
+  logits and int64 or int32 labels as given (``el2n_plan``: lane groups per
+  row, a row read once).
 * ``grand_last_layer`` — the classifier product and the last-layer GraNd score
-  ``‖p − y‖·sqrt(‖h‖² + 1)·mask`` in one kernel.
+  ``‖p − y‖·sqrt(‖h‖² + 1)·mask`` in one kernel: tiles of rows share each
+  staged chunk of the weight, the product on the tensor cores with the fp32
+  weight split into three bf16 parts, the classes split across blocks and
+  their softmax-error sums merged in split order (``gll_plan``).
 * ``bn_grad_norm`` — eval-mode BatchNorm per-example grad-norm², same-shape
   layers stacked in one launch (``bn_grad_norm_sq``).
 * ``conv_grad_norm_catdot`` — the conv ‖∂W‖² at unit stride as one
@@ -49,6 +54,7 @@ under its mode too (``mode_counts``), so a run can show which path it took.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -97,6 +103,21 @@ GRAM_UNIT_BYTES = 128
 GRAM_ROW_PAD = 16
 GRAM_BLOCK_SMEM = 113 * 1024
 GRAM_MAX_SMEM = 226 * 1024
+#: The last-layer GraNd kernel (grand_last_layer.cu): rows of a block's tile
+#: (``kGllRows``), its threads (``kGllThreads``), features of a staged chunk
+#: (``kGllChunk``), the cp.async ring depth (``kGllStages``), classes of one
+#: split at most (``kGllMaxClasses``) and a staged bf16 row of one chunk,
+#: padded (``kGllRowBytes``).
+GLL_ROWS = 64
+GLL_THREADS = 256
+GLL_CHUNK = 64
+GLL_STAGES = 3
+GLL_MAX_CLASSES = 64
+GLL_ROW_BYTES = 144
+#: The EL2N kernel (el2n.cu): threads of a block (``kThreads``) and logits a lane
+#: holds per tile at most (``kMaxValues``).
+EL2N_THREADS = 256
+EL2N_MAX_VALUES = 32
 #: CUDA's grid limits on the x and on the y and z dimensions.
 _GRID_X_MAX = 2**31 - 1
 _GRID_YZ_MAX = 65535
@@ -160,9 +181,10 @@ CONV_GRAD_NORM_DIRECT = Kernel(
 CONV_GRAD_NORM_GRAM = Kernel(
     "conv_grad_norm_gram", "ddt_conv_grad_norm_gram",
     [_PTR] * 3 + [_INT] * 13 + [_PTR], modes=tuple(DIRECT_MODES.values()))
-EL2N = Kernel("el2n", "ddt_el2n", [_PTR] * 4 + [_INT] * 2 + [_PTR])
+EL2N = Kernel("el2n", "ddt_el2n", [_PTR, _INT, _PTR, _INT, _PTR, _PTR, _INT, _INT, _PTR])
 GRAND_LAST_LAYER = Kernel("grand_last_layer", "ddt_grand_last_layer",
-                          [_PTR] * 6 + [_INT] * 3 + [_PTR])
+                          [_PTR, _INT, _PTR, _PTR, _PTR, _INT] + [_PTR] * 4
+                          + [_INT] * 3 + [_PTR])
 BN_GRAD_NORM = Kernel("bn_grad_norm", "ddt_bn_grad_norm",
                       [_PTRS, _PTRS, _PTR, _PTR] + [_INT] * 8 + [_PTR], modes=BN_MODES)
 CONV_GRAD_NORM_CATDOT = Kernel("conv_grad_norm_catdot", "ddt_conv_grad_norm_catdot",
@@ -366,10 +388,44 @@ def conv_grad_norm_gram_eligible(x_shape, g_shape, kernel_size, strides,
                for dtype in _DTYPE_CODE)
 
 
+def gll_plan(features: int, classes: int, dtype: torch.dtype) -> dict:
+    """The last-layer kernel's block layout (``launch`` in grand_last_layer.cu)
+    for F ``features`` of ``dtype`` and C ``classes``: a tile of ``rows``
+    (``GLL_ROWS``) rows and one split of ``classes`` (32, or
+    ``GLL_MAX_CLASSES`` above 32) per block, ``splits`` of them covering the C
+    classes, F in ``chunks`` of ``GLL_CHUNK`` through a ring of ``GLL_STAGES``
+    buffers (``smem`` bytes with two buffers of split operands, the rows'
+    ‖h‖² and the two class halves' sums). A function of (F, C, dtype) alone,
+    so a row's arithmetic never depends on the batch."""
+    nc = 32 if classes <= 32 else GLL_MAX_CLASSES
+    bf16 = dtype == torch.bfloat16
+    stage = GLL_ROWS * (GLL_ROW_BYTES if bf16 else 4 * GLL_CHUNK) + nc * 4 * GLL_CHUNK
+    parts = (3 * nc + (1 if bf16 else 3) * GLL_ROWS) * GLL_ROW_BYTES
+    smem = GLL_STAGES * stage + 2 * parts + 4 * GLL_ROWS + 2 * 16 * GLL_ROWS
+    return {"rows": GLL_ROWS, "classes": nc, "splits": -(-classes // nc),
+            "chunk": GLL_CHUNK, "chunks": -(-features // GLL_CHUNK), "stages": GLL_STAGES,
+            "smem": smem}
+
+
+@functools.lru_cache(maxsize=None)
 def grand_last_layer_eligible(features: int, classes: int) -> bool:
-    """One warp's row of features and its logits ((F + C) fp32) fit one
-    block's shared memory."""
-    return 4 * (features + classes) <= MAX_BLOCK_SMEM
+    """The last-layer kernel streams F through its ring and splits C across
+    blocks, so it takes any F, C ≥ 1 whose layout fits a block's shared
+    memory in both dtypes (every one does: at most 207 KB)."""
+    return features >= 1 and classes >= 1 and all(
+        gll_plan(features, classes, dtype)["smem"] <= MAX_BLOCK_SMEM for dtype in _DTYPE_CODE)
+
+
+def el2n_plan(classes: int) -> dict:
+    """The EL2N kernel's layout (``launch`` in el2n.cu) for C ``classes``:
+    ``lanes`` per row (the power of two covering C / 2, at most 32), so
+    ``rows_per_warp`` rows share a warp; ``values`` logits per lane per tile
+    (a power of two from 2 to ``EL2N_MAX_VALUES``) and ``tiles`` of
+    lanes × values logits per row."""
+    lanes = min(32, 1 << max(0, ((classes + 1) // 2 - 1).bit_length()))
+    values = min(EL2N_MAX_VALUES, max(2, 1 << (-(-classes // lanes) - 1).bit_length()))
+    return {"lanes": lanes, "rows_per_warp": 32 // lanes, "values": values,
+            "tiles": -(-classes // (lanes * values))}
 
 
 def bn_grad_norm_eligible(x_shape) -> bool:
@@ -771,15 +827,37 @@ def el2n(logits: torch.Tensor, labels: torch.Tensor,
         return el2n_plain(logits, labels, mask)
     if labels.device != logits.device or mask.device != logits.device:
         raise ValueError(f"{name}: logits, labels and mask must share a device")
-    z = logits.float().contiguous()
-    y = labels.to(torch.int32).contiguous()
+    # The kernel reads bf16 or fp32 logits and int64 or int32 labels as they are:
+    # under half precision a call launches the kernel and nothing else.
+    z = (logits if logits.dtype in _DTYPE_CODE else logits.float()).contiguous()
+    y = _labels(labels)
     m = mask.float().contiguous()
     b, c = z.shape
     out = torch.empty(b, dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
-        EL2N.launch(z.data_ptr(), y.data_ptr(), m.data_ptr(), out.data_ptr(),
-                    b, c, _stream(z))
+        EL2N.launch(z.data_ptr(), _DTYPE_CODE[z.dtype], y.data_ptr(),
+                    int(y.dtype == torch.int64), m.data_ptr(), out.data_ptr(), b, c,
+                    _stream(z))
     return out
+
+
+def _labels(labels: torch.Tensor) -> torch.Tensor:
+    """Labels as the kernels read them: int64 or int32 as given, others as int64."""
+    y = labels if labels.dtype in (torch.int64, torch.int32) else labels.long()
+    return y.contiguous()
+
+
+#: Per-device row-tile tickets of the last-layer kernel (zero between launches:
+#: the last block of each tile resets its own). Grown, never freed while a
+#: captured CUDA graph may still point at an older buffer.
+_GLL_TICKETS: dict = {}
+
+
+def _gll_tickets(device: torch.device, tiles: int) -> torch.Tensor:
+    held = _GLL_TICKETS.setdefault(device, [])
+    if not held or held[-1].numel() < tiles:
+        held.append(torch.zeros(max(tiles, 64), dtype=torch.int32, device=device))
+    return held[-1]
 
 
 def grand_last_layer(features: torch.Tensor, weight: torch.Tensor,
@@ -787,7 +865,10 @@ def grand_last_layer(features: torch.Tensor, weight: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
     """Last-layer GraNd [B] from features [B, F] and the classifier
     (``weight`` [C, F], ``bias`` [C]), the classifier product computed by the
-    kernel in fp32 (features cast to fp32 first, as on the TPU)."""
+    kernel to fp32 accuracy (bf16 or fp32 features read as they are, the fp32
+    weight split into three bf16 parts inside the kernel). One launch; with
+    more than one class split (``gll_plan``) launches on one device take turns
+    on its tickets, so they must not run concurrently on two streams."""
     name = "grand_last_layer"
     b, f = features.shape[0], features.shape[-1]
     if features.dim() != 2 or weight.dim() != 2 or weight.shape[1] != f \
@@ -804,15 +885,23 @@ def grand_last_layer(features: torch.Tensor, weight: torch.Tensor,
     c = weight.shape[0]
     if not grand_last_layer_eligible(f, c):
         raise ValueError(f"{name}: caller must check grand_last_layer_eligible")
-    h = features.float().contiguous()
+    h = (features if features.dtype in _DTYPE_CODE else features.float()).contiguous()
     w = weight.float().contiguous()     # nn.Linear's own [C, F]: no copy
     bb = bias.float().contiguous()
-    y = labels.to(torch.int32).contiguous()
+    y = _labels(labels)
     m = mask.float().contiguous()
     out = torch.empty(b, dtype=torch.float32, device=h.device)
+    plan = gll_plan(f, c, h.dtype)
+    partials = tickets = None
+    if plan["splits"] > 1:
+        partials = torch.empty((b, plan["splits"], 4), dtype=torch.float32, device=h.device)
+        tickets = _gll_tickets(h.device, -(-b // plan["rows"]))
     with torch.cuda.device(h.device):
-        GRAND_LAST_LAYER.launch(h.data_ptr(), w.data_ptr(), bb.data_ptr(), y.data_ptr(),
-                                m.data_ptr(), out.data_ptr(), b, f, c, _stream(h))
+        GRAND_LAST_LAYER.launch(
+            h.data_ptr(), _DTYPE_CODE[h.dtype], w.data_ptr(), bb.data_ptr(), y.data_ptr(),
+            int(y.dtype == torch.int64), m.data_ptr(), out.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), b, f, c, _stream(h))
     return out
 
 

@@ -120,6 +120,92 @@ def test_el2n_plain_matches_pallas(pallas, b, c):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
+def _bf16(a):
+    """float32 values rounded to bfloat16 (nearest even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def _el2n_emulate(z, y, mask):
+    """el2n.cu's arithmetic in numpy (float32): per ``el2n_plan`` tile of
+    lanes × values logits, the tile's max m and, with e = exp(z − m), S = Σe,
+    S_ny = Σ_{j≠y} e and Q_ny = Σ_{j≠y} e², merged into the row's running sums
+    tile by tile (rescaled to the larger max); ‖p − y‖² = (Q_ny + S_ny²) / S²."""
+    c = z.shape[1]
+    plan = K.el2n_plan(c)
+    width = plan["lanes"] * plan["values"]
+    sums = (np.full(len(z), -np.inf, np.float32),) + (np.zeros(len(z), np.float32),) * 3
+    for t0 in range(0, c, width):
+        cls = np.arange(t0, min(c, t0 + width))
+        zt = z[:, cls]
+        m = zt.max(axis=1)
+        e = np.exp(zt - m[:, None])
+        not_y = cls[None, :] != y[:, None]
+        tile = (m, e.sum(axis=1), (e * not_y).sum(axis=1), (e * e * not_y).sum(axis=1))
+        mm = np.maximum(sums[0], tile[0])
+        ca, cb = np.exp(sums[0] - mm), np.exp(tile[0] - mm)
+        sums = (mm, sums[1] * ca + tile[1] * cb, sums[2] * ca + tile[2] * cb,
+                sums[3] * (ca * ca) + tile[3] * (cb * cb))
+    _, s_all, s_ny, q_ny = sums
+    return np.sqrt((q_ny + s_ny * s_ny) / (s_all * s_all)) * mask
+
+
+@pytest.mark.parametrize("c,scale,dtype", [
+    (1, 1.0, "float32"), (10, 3.0, "bfloat16"), (10, 50.0, "float32"),
+    (100, 50.0, "bfloat16"), (1000, 3.0, "float32"), (2500, 50.0, "float32"),
+])
+def test_el2n_emulation_matches_pallas(pallas, c, scale, dtype):
+    """The EL2N kernel's arithmetic (``el2n_plan`` tiles, the running max, the
+    (Q_ny + S_ny²)/S² form) against the Pallas kernel on the same
+    (bf16-rounded) logits, saturated rows (× 50) and labels on a tile's first
+    and last class included. C = 2500 streams through three tiles."""
+    jnp, pk = pallas
+    rng = np.random.default_rng(c)
+    b = 37
+    z = (rng.normal(size=(b, c)) * scale).astype(np.float32)
+    if dtype == "bfloat16":
+        z = _bf16(z)
+    y = rng.integers(0, c, b).astype(np.int64)
+    width = K.el2n_plan(c)["lanes"] * K.el2n_plan(c)["values"]
+    y[:3] = [0, min(c, width) - 1, c - 1]
+    m = (rng.random(b) > 0.1).astype(np.float32)
+    m[3] = 0.0
+    want = np.asarray(pk.el2n_pallas(jnp.asarray(z), jnp.asarray(y), jnp.asarray(m),
+                                     interpret=True))
+    got = _el2n_emulate(z, y, m)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    assert got[3] == 0.0
+
+
+@pytest.mark.parametrize("c,want", [
+    (1, (1, 2, 1)), (10, (8, 2, 1)), (64, (32, 2, 1)), (100, (32, 4, 1)),
+    (1000, (32, 32, 1)), (1025, (32, 32, 2)),
+])
+def test_el2n_plan(c, want):
+    """Lane groups of a power of two covering C / 2 (8 lanes, 4 rows a warp at
+    C = 10), at most 32 logits a lane per tile (one tile up to C = 1024)."""
+    plan = K.el2n_plan(c)
+    assert (plan["lanes"], plan["values"], plan["tiles"]) == want
+    assert plan["rows_per_warp"] * plan["lanes"] == 32
+    assert plan["tiles"] * plan["lanes"] * plan["values"] >= c
+
+
+@pytest.mark.parametrize("labels_dtype", [np.int64, np.int32])
+def test_el2n_plain_bf16_matches_pallas(pallas, labels_dtype):
+    """The plain version with bf16 logits and int64 (or int32) labels, as the
+    kernel takes them, against the Pallas kernel fed the same bf16-rounded
+    logits."""
+    jnp, pk = pallas
+    rng = np.random.default_rng(5)
+    z = _bf16(rng.normal(size=(37, 100)) * 3)
+    y = rng.integers(0, 100, 37)
+    m = (rng.random(37) > 0.1).astype(np.float32)
+    want = pk.el2n_pallas(jnp.asarray(z), jnp.asarray(y.astype(np.int32)), jnp.asarray(m),
+                          interpret=True)
+    got = K.el2n(torch.from_numpy(z).bfloat16(), torch.from_numpy(y.astype(labels_dtype)),
+                 torch.from_numpy(m))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
 def test_gram_plain_equals_direct_plain():
     """The two forms compute one quantity (bias term included)."""
     rng = np.random.default_rng(1)
@@ -527,13 +613,45 @@ def test_gram_kernel_bitwise_on_card(cuda_device, dtype, h, c, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,c", [(37, 10), (300, 1000)])
-def test_el2n_kernel_matches_plain_on_card(cuda_device, b, c):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("labels_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("b,c", [(37, 10), (300, 1000), (64, 100), (37, 2500), (37, 1)])
+def test_el2n_kernel_matches_plain_on_card(cuda_device, dtype, labels_dtype, b, c):
+    """bf16 or fp32 logits and int64 or int32 labels as given, one launch,
+    within rel 1e-5 or abs 1e-6 of the plain version on the same inputs,
+    bitwise from run to run, on a permuted batch and on a 5-row slice."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    z = torch.randn((b, c), generator=gen, device=cuda_device) * 3
-    y = torch.randint(0, c, (b,), generator=gen, device=cuda_device)
+    z = (torch.randn((b, c), generator=gen, device=cuda_device) * 3).to(dtype)
+    y = torch.randint(0, c, (b,), generator=gen, device=cuda_device).to(labels_dtype)
     m = (torch.rand(b, generator=gen, device=cuda_device) > 0.1).float()
+    before = K.launch_counts()["el2n"]
     got = K.el2n(z, y, m)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["el2n"] == before + 1
     want = K.el2n_plain(z, y, m)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5,
                                atol=1e-6)
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    assert torch.equal(K.el2n(z, y, m), got)
+    assert torch.equal(K.el2n(z[perm].contiguous(), y[perm], m[perm]), got[perm])
+    assert torch.equal(K.el2n(z[1:6].contiguous(), y[1:6], m[1:6]), got[1:6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [10, 1000])
+def test_el2n_one_launch_per_call_on_card(cuda_device, c):
+    """Under half precision (bf16 logits, int64 labels) a call runs the kernel
+    alone: no copy or cast before it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    z = torch.randn((512, c), generator=gen, device=cuda_device).bfloat16()
+    y = torch.randint(0, c, (512,), generator=gen, device=cuda_device)
+    m = torch.ones(512, device=cuda_device)
+    K.el2n(z, y, m)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        K.el2n(z, y, m)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "el2n_kernel" in names[0], names

@@ -9,6 +9,8 @@ tests/test_torch_route_kernels.py`` on the card; JAX is imported only inside the
 comparisons).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -51,6 +53,169 @@ def test_grand_last_layer_plain_matches_pallas(pallas):
                              torch.from_numpy(m))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
     assert (got.numpy()[m == 0] == 0).all()
+
+
+def _bf16(a):
+    """float32 values rounded to bfloat16 (nearest even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def _err_merge(a, b):
+    """common.cuh's ``err_merge`` on [B] arrays: the sums (m, S, S_ny, Q_ny) of
+    two class slices, the second after the first, rescaled to the larger max."""
+    m = np.maximum(a[0], b[0])
+    ca, cb = np.exp(a[0] - m), np.exp(b[0] - m)
+    return m, a[1] * ca + b[1] * cb, a[2] * ca + b[2] * cb, a[3] * (ca * ca) + b[3] * (cb * cb)
+
+
+def _err_sums(z, y, cls):
+    """A slice's (m, S, S_ny, Q_ny) of logits ``z`` [B, n] for classes ``cls``."""
+    m = z.max(axis=1)
+    e = np.exp(z - m[:, None])
+    not_y = cls[None, :] != y[:, None]
+    return m, e.sum(axis=1), (e * not_y).sum(axis=1), (e * e * not_y).sum(axis=1)
+
+
+def _split3(a):
+    """grand_last_layer.cu's three bf16 parts a1 = bf16(a), a2 = bf16(a - a1),
+    a3 = bf16(a - a1 - a2), as float64."""
+    a1 = _bf16(a)
+    a2 = _bf16(a - a1)
+    a3 = _bf16(a - a1 - a2)
+    return tuple(p.astype(np.float64) for p in (a1, a2, a3))
+
+
+def _gll_emulate(h, w, bias, y, mask, dtype):
+    """grand_last_layer.cu's arithmetic in numpy (float32 sums): w split into
+    three bf16 parts (fp32 features alike), the products exact, h1·w1 summed
+    apart from the small terms (h1·w2 + h1·w3, or the five above 2^-24 for
+    fp32 features), ‖h‖² from the features as read, then per ``gll_plan`` split
+    of the classes the sums (m, S, S_ny, Q_ny) of its two halves (one per warp
+    column) merged in order, the splits merged in split order, and
+    ‖p − y‖² = (Q_ny + S_ny²) / S². Returns the scores and the class ranges of
+    the splits."""
+    f, c = h.shape[1], w.shape[0]
+    plan = K.gll_plan(f, c, getattr(torch, dtype))
+    w1, w2, w3 = _split3(w)
+    if dtype == "bfloat16":
+        h1 = h.astype(np.float64)
+        big, small = h1 @ w1.T, h1 @ w2.T + h1 @ w3.T
+    else:
+        h1, h2, h3 = _split3(h)
+        big = h1 @ w1.T
+        small = h1 @ w2.T + h2 @ w1.T + h1 @ w3.T + h2 @ w2.T + h3 @ w1.T
+    z = (big.astype(np.float32) + small.astype(np.float32)) + bias
+    fsq = (h * h).sum(axis=1, dtype=np.float32)
+    splits = [np.arange(s * plan["classes"], min(c, (s + 1) * plan["classes"]))
+              for s in range(plan["splits"])]
+    sums = None
+    for cls in splits:
+        mid = cls[0] + plan["classes"] // 2
+        halves = [cls[cls < mid], cls[cls >= mid]]
+        part = _err_sums(z[:, halves[0]], y, halves[0])
+        if len(halves[1]):
+            part = _err_merge(part, _err_sums(z[:, halves[1]], y, halves[1]))
+        sums = part if sums is None else _err_merge(sums, part)
+    _, s_all, s_ny, q_ny = sums
+    err = (q_ny + s_ny * s_ny) / (s_all * s_all)
+    return np.sqrt(err * (fsq + 1.0)) * mask, splits
+
+
+def _gll_inputs(rng, b, f, c, scale, dtype):
+    """Seeded features, classifier ([C, F]), labels and mask: labels on the
+    first and last class of the first two splits and on the last class, rows
+    4-5 fully masked; logits scaled by ``scale`` (50 saturates the softmax)."""
+    h = rng.normal(size=(b, f)).astype(np.float32)
+    if dtype == "bfloat16":
+        h = _bf16(h)
+    w = (rng.normal(size=(c, f)) * scale / np.sqrt(f)).astype(np.float32)
+    bias = (rng.normal(size=c) * 0.1 * scale).astype(np.float32)
+    y = rng.integers(0, c, b).astype(np.int64)
+    nc = K.gll_plan(f, c, getattr(torch, dtype))["classes"]
+    y[:4] = [0, min(c, nc) - 1, min(c - 1, nc), c - 1]
+    m = (rng.random(b) > 0.2).astype(np.float32)
+    m[4:6] = 0.0
+    return h, w, bias, y, m
+
+
+@pytest.mark.parametrize("f,c,scale,dtype", [
+    (64, 1, 1.0, "float32"), (64, 10, 50.0, "float32"), (64, 100, 1.0, "bfloat16"),
+    (2048, 10, 1.0, "float32"), (2048, 1000, 1.0, "bfloat16"), (2048, 1000, 50.0, "float32"),
+    (64, 1000, 50.0, "bfloat16"),
+])
+def test_gll_emulation_matches_pallas(pallas, f, c, scale, dtype):
+    """The last-layer kernel's arithmetic (three-part bf16 split, split classes,
+    running max, the (Q_ny + S_ny²)/S² form, the merge in split order) against
+    the Pallas kernel fed the same (bf16-rounded) values, saturated rows
+    included."""
+    jnp, pk = pallas
+    h, w, bias, y, m = _gll_inputs(np.random.default_rng(c + f), 37, f, c, scale, dtype)
+    want = np.asarray(pk.grand_last_layer_pallas(
+        jnp.asarray(h), jnp.asarray(w.T.copy()), jnp.asarray(bias), jnp.asarray(y),
+        jnp.asarray(m), interpret=True))
+    got, _ = _gll_emulate(h, w, bias, y, m, dtype)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    assert (got[m == 0] == 0).all()
+
+
+@pytest.mark.parametrize("f,c", [(1, 1), (64, 10), (512, 16), (512, 17), (2048, 100),
+                                 (2048, 1000), (100, 4097)])
+def test_gll_plan_depends_on_f_c_dtype_and_covers_every_class_once(f, c):
+    """``gll_plan`` takes no batch, and its splits cover classes 0..C-1 once
+    each; so a row scores the same bits alone, in a slice or anywhere in a
+    permuted batch (the emulation, row by row)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = K.gll_plan(f, c, dtype)
+        assert plan == K.gll_plan(f, c, dtype)
+        assert plan["smem"] <= K.MAX_BLOCK_SMEM
+        assert plan["classes"] in (32, K.GLL_MAX_CLASSES)
+        covered = np.concatenate([np.arange(s * plan["classes"], (s + 1) * plan["classes"])
+                                  for s in range(plan["splits"])])
+        covered = covered[covered < c]
+        assert np.array_equal(covered, np.arange(c))
+        assert (plan["splits"] - 1) * plan["classes"] < c
+    if f * c <= 2048 * 1000:
+        h, w, bias, y, m = _gll_inputs(np.random.default_rng(0), 12, f, c, 1.0, "float32")
+        full, splits = _gll_emulate(h, w, bias, y, m, "float32")
+        assert np.array_equal(np.sort(np.concatenate(splits)), np.arange(c))
+        perm = np.random.default_rng(1).permutation(12)
+        moved, _ = _gll_emulate(h[perm], w, bias, y[perm], m[perm], "float32")
+        part, _ = _gll_emulate(h[3:8], w, bias, y[3:8], m[3:8], "float32")
+        assert np.array_equal(moved, full[perm]) and np.array_equal(part, full[3:8])
+
+
+@pytest.mark.parametrize("labels_dtype", [np.int64, np.int32])
+def test_grand_last_layer_plain_bf16_matches_pallas(pallas, labels_dtype):
+    """The plain version with bf16 features and int64 (or int32) labels, as the
+    kernel takes them, against the Pallas kernel fed the same bf16-rounded
+    features."""
+    jnp, pk = pallas
+    rng = np.random.default_rng(3)
+    h, w, bias, y, m = _gll_inputs(rng, 37, 128, 100, 1.0, "bfloat16")
+    want = pk.grand_last_layer_pallas(jnp.asarray(h), jnp.asarray(w.T.copy()),
+                                      jnp.asarray(bias), jnp.asarray(y.astype(np.int32)),
+                                      jnp.asarray(m), interpret=True)
+    got = K.grand_last_layer(torch.from_numpy(h).bfloat16(), torch.from_numpy(w),
+                             torch.from_numpy(bias), torch.from_numpy(y.astype(labels_dtype)),
+                             torch.from_numpy(m))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def test_gll_constants_match_the_source():
+    """The Python plan's constants are grand_last_layer.cu's and el2n.cu's."""
+    import os
+    from data_diet_distributed_tpu_torch.ops import build
+    consts = {}
+    for name in ("grand_last_layer.cu", "el2n.cu"):
+        with open(os.path.join(os.path.dirname(build.__file__), "csrc", name)) as fh:
+            for const, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", fh.read(),
+                                          flags=re.M):
+                consts[const] = eval(expr, {}, dict(consts))
+    assert consts == {"kGllRows": K.GLL_ROWS, "kGllThreads": K.GLL_THREADS,
+                      "kGllChunk": K.GLL_CHUNK,
+                      "kGllStages": K.GLL_STAGES, "kGllMaxClasses": K.GLL_MAX_CLASSES,
+                      "kGllRowBytes": K.GLL_ROW_BYTES, "kThreads": K.EL2N_THREADS,
+                      "kMaxValues": K.EL2N_MAX_VALUES}
 
 
 # The bfloat16 cases pin the semantics of the kernel in bf16: bf16 x and g on both
@@ -299,9 +464,8 @@ def test_catdot_plain_equals_direct_plain_off_square():
 
 def test_hopper_gates():
     """Cat-dot keeps the algorithmic gates and, to re-measure, C % 128 = K % 128
-    = 0; the megakernel takes unit stride; the last-layer kernel needs one
-    warp's (F + C) floats within a block's shared memory; the BN kernel 4-D
-    activations."""
+    = 0; the megakernel takes unit stride; the last-layer kernel streams F and
+    splits C, so it takes any F, C ≥ 1; the BN kernel 4-D activations."""
     cat = K.conv_grad_norm_catdot_eligible
     assert cat((8, 16, 16, 128), (8, 16, 16, 128), (3, 3), (1, 1), PAD1)
     assert not cat((8, 32, 32, 64), (8, 32, 32, 64), (3, 3), (1, 1), PAD1)   # c % 128
@@ -312,7 +476,10 @@ def test_hopper_gates():
     assert mega((8, 32, 32, 64), (8, 32, 32, 64), (3, 3), (1, 1))
     assert not mega((8, 16, 16, 64), (8, 8, 8, 128), (3, 3), (2, 2))
     assert K.grand_last_layer_eligible(2048, 1000)
-    assert not K.grand_last_layer_eligible(60000, 10)
+    assert K.grand_last_layer_eligible(60000, 10)
+    assert K.grand_last_layer_eligible(1, 100000)
+    assert not K.grand_last_layer_eligible(0, 10)
+    assert not K.grand_last_layer_eligible(2048, 0)
     assert K.bn_grad_norm_eligible((8, 6, 6, 32))
     assert not K.bn_grad_norm_eligible((8, 32))
 
@@ -537,14 +704,35 @@ def _rtol(dtype):
     return 1e-4 if dtype == torch.float32 else 1e-3
 
 
+def _cuda_kernels_per_call(call):
+    """CUDA kernels (and copies or memsets) one warmed-up ``call()`` runs, as
+    ``torch.profiler`` sees them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,f,c", [(37, 64, 10), (300, 2048, 1000)])
-def test_grand_last_layer_kernel_matches_plain_on_card(cuda_device, b, f, c):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("labels_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("b,f,c", [(37, 64, 10), (300, 2048, 1000), (70, 2048, 100),
+                                   (37, 98, 20), (37, 64, 33)])
+def test_grand_last_layer_kernel_matches_plain_on_card(cuda_device, dtype, labels_dtype, b,
+                                                       f, c):
+    """bf16 or fp32 features and int64 or int32 labels as given, one launch,
+    within rtol 1e-4 (fp32) or 1e-3 (bf16) of the plain version on the same
+    inputs, bitwise from run to run, on a permuted batch and on a 5-row slice.
+    F = 98 stages by scalar loads (not a multiple of the 16-byte unit)."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    h = torch.randn((b, f), generator=gen, device=cuda_device)
+    h = torch.randn((b, f), generator=gen, device=cuda_device).to(dtype)
     w = torch.randn((c, f), generator=gen, device=cuda_device) * f ** -0.5
     bias = torch.randn(c, generator=gen, device=cuda_device)
-    y = torch.randint(0, c, (b,), generator=gen, device=cuda_device)
+    y = torch.randint(0, c, (b,), generator=gen, device=cuda_device).to(labels_dtype)
     m = (torch.rand(b, generator=gen, device=cuda_device) > 0.1).float()
     before = K.launch_counts()["grand_last_layer"]
     got = K.grand_last_layer(h, w, bias, y, m)
@@ -552,7 +740,28 @@ def test_grand_last_layer_kernel_matches_plain_on_card(cuda_device, b, f, c):
     assert K.launch_counts()["grand_last_layer"] == before + 1
     np.testing.assert_allclose(got.cpu().numpy(),
                                K.grand_last_layer_plain(h, w, bias, y, m).cpu().numpy(),
-                               rtol=1e-4, atol=1e-6)
+                               rtol=_rtol(dtype), atol=1e-6)
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    assert torch.equal(K.grand_last_layer(h, w, bias, y, m), got)
+    assert torch.equal(K.grand_last_layer(h[perm].contiguous(), w, bias, y[perm], m[perm]),
+                       got[perm])
+    assert torch.equal(K.grand_last_layer(h[3:8].contiguous(), w, bias, y[3:8], m[3:8]),
+                       got[3:8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [10, 1000])
+def test_grand_last_layer_one_launch_per_call_on_card(cuda_device, c):
+    """Under half precision (bf16 features, int64 labels) a call runs the kernel
+    alone: no copy, cast or memset before it."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    h = torch.randn((512, 2048), generator=gen, device=cuda_device).bfloat16()
+    w = torch.randn((c, 2048), generator=gen, device=cuda_device) * 2048 ** -0.5
+    bias = torch.zeros(c, device=cuda_device)
+    y = torch.randint(0, c, (512,), generator=gen, device=cuda_device)
+    m = torch.ones(512, device=cuda_device)
+    names = _cuda_kernels_per_call(lambda: K.grand_last_layer(h, w, bias, y, m))
+    assert len(names) == 1 and "gll_kernel" in names[0], names
 
 
 @pytest.mark.cuda

@@ -4,6 +4,7 @@
     python3 tools/direct_kernel_variants.py                     # every variant
     python3 tools/direct_kernel_variants.py base nostage        # some of them
     python3 tools/direct_kernel_variants.py --parent DIR        # also DIR's package
+    python3 tools/direct_kernel_variants.py --kinds gll base gll_nomma   # some kernels
 
 Each variant is a textual edit of the PyTorch port's sources in a copy of the
 package under ``chip_smoke_out/variants/<name>/``, built there from the edited
@@ -11,7 +12,9 @@ sources. Each copy is timed in a process of its own, in bf16 on the same seeded
 inputs (``chip_smoke.device_ms``: a run of launches replayed from a CUDA graph,
 so the wrapper's host time is not in it), at ``chip_smoke.py``'s main-path
 geometries: the direct kernel's five, the megakernel's three, cat-dot's one and
-the Gram kernel's one.
+the Gram kernel's one; and the last-layer kernel (``gll``) at ResNet-18's head,
+a ResNet-50's with 100 and with 1,000 classes, in bf16 and (the wide head)
+fp32. ``--kinds`` names the kernels to time (default: all).
 It prints one JSON line: ms per launch at each geometry, ms per GraNd batch of
 each kernel (weighted by the layers per batch on the route that runs it) and
 ptxas's register lines. ``base`` runs first and last, so the spread between its
@@ -29,7 +32,11 @@ they show where the time goes:
   or its norm blocks, doing nothing but exiting;
 * ``gram_nostage`` / ``gram_nomma`` / ``gram_nogather``: the Gram kernel
   staging nothing, running no Gram chunk (``ldmatrix`` and ``mma.sync``), or
-  skipping the offset gather and dot.
+  skipping the offset gather and dot;
+* ``gll_nostage`` / ``gll_nosplit`` / ``gll_nomma`` / ``gll_loop_only``: the
+  last-layer kernel copying nothing into its ring, splitting no chunk into
+  bf16 parts, running no chunk's ``ldmatrix`` and ``mma.sync``, or all three
+  (the loop, its waits and barriers, and the epilogue).
 
 With ``--parent DIR`` the package under DIR (for example an unpacked parent
 commit) runs too, as variant ``parent``, unedited, right after the first
@@ -51,6 +58,11 @@ PACKAGE = "data_diet_distributed_tpu_torch"
 HEADER = "conv_norm_mma.cuh"
 MEGA = "conv_bwd_grad_norm.cu"
 GRAM = "conv_grad_norm_gram.cu"
+GLL = "grand_last_layer.cu"
+_GLL_STAGE = ("    if (next < nchunks)\n      stager.stage(", "    if (next < 0)\n      stager.stage(")
+_GLL_SPLIT = ("    if (c + 1 < nchunks) {\n      unsigned char* const nxt",
+              "    if (c + 1 < 0) {\n      unsigned char* const nxt")
+_GLL_MMA = ("    mma_chunk<kF32, NT>(big, small,", "    if (c < 0) mma_chunk<kF32, NT>(big, small,")
 
 _MMA = """mma_bf16(acc[j][mt][nt], afr[mt], bfr[nt >> 1][(nt & 1) * 2],
                          bfr[nt >> 1][(nt & 1) * 2 + 1]);"""
@@ -81,7 +93,13 @@ VARIANTS = {
                     "if (n < 0) gram_chunk(gram, rows, n, a.chunk, a.row_elems, lane);")],
     "gram_nogather": [(GRAM, "for (int e = which * 32 + lane; e < a.S * a.S; e += 64) {",
                        "for (int e = a.S * a.S + which * 32 + lane; e < a.S * a.S; e += 64) {")],
+    "gll_nostage": [(GLL, *_GLL_STAGE), (GLL, "    if (c < nchunks) stager.stage(",
+                                         "    if (c < 0) stager.stage(")],
+    "gll_nosplit": [(GLL, *_GLL_SPLIT)],
+    "gll_nomma": [(GLL, *_GLL_MMA)],
+    "gll_loop_only": [(GLL, *_GLL_STAGE), (GLL, *_GLL_SPLIT), (GLL, *_GLL_MMA)],
 }
+KINDS = ("direct", "mega", "catdot", "gram", "gll")
 
 _TIME = r'''
 import json, sys
@@ -91,12 +109,14 @@ sys.path[:0] = [sys.argv[1], sys.argv[2]]
 from data_diet_distributed_tpu_torch.ops import build, kernels as K
 import chip_smoke as cs
 checked = sys.argv[3] in ("base", "parent")
+kinds = sys.argv[4].split(",")
 build.build_all()
 regs = {}
 for lib, fn in (("conv_grad_norm_direct", "direct_mma_kernel"),
                 ("conv_bwd_grad_norm", "bwd_norm_mma_kernel"),
                 ("conv_grad_norm_catdot", "catdot_mma_kernel"),
-                ("conv_grad_norm_gram", "gram_kernel")):
+                ("conv_grad_norm_gram", "gram_kernel"),
+                ("grand_last_layer", "gll_kernel")):
     log = build.build_log(lib).splitlines()
     regs[fn] = [log[i + 2].strip() for i, line in enumerate(log[:-2])
                 if "Function properties for" in line and fn in line]
@@ -109,7 +129,7 @@ def rel_err(got, ref):
 
 out = {"variant": sys.argv[3], "registers": regs}
 saved = {}
-for kind in ("direct", "mega", "catdot", "gram"):
+for kind in kinds:
     per_geo, per_batch = [], 0.0
     if kind == "direct":
         rows = [(xs, gs, ks, st, pad, layers, entry)
@@ -122,12 +142,27 @@ for kind in ("direct", "mega", "catdot", "gram"):
         rows = [(xs, gs, ks, st, pad, layers, None)
                 for kernel, entry, xs, gs, ks, st, pad, layers, _bias in cs.GEOMETRIES
                 if kernel == "conv_grad_norm_gram" and layers]
+    elif kind == "gll":   # (features, classes, dtype, launches per batch): heads
+        rows = [((cs.B, 512), 10, torch.bfloat16, 1), ((cs.B, 2048), 100, torch.bfloat16, 0),
+                ((cs.B, 2048), 1000, torch.bfloat16, 0), ((cs.B, 2048), 1000, torch.float32, 0)]
     else:
         rows = [(xs, gs, ks, (1, 1), pad, layers, None)
                 for xs, gs, ks, pad, layers in cs.CATDOT_GEOMETRIES if layers]
-    for i, (xs, gs, ks, st, pad, layers, entry) in enumerate(rows):
-        x = torch.randn(xs, generator=gen, device="cuda").bfloat16()
-        g = torch.randn(gs, generator=gen, device="cuda").bfloat16()
+    for i, row in enumerate(rows):
+        if kind == "gll":
+            (b, f), c, dtype, layers = row
+            h = torch.randn((b, f), generator=gen, device="cuda").to(dtype)
+            w = torch.randn((c, f), generator=gen, device="cuda") * f ** -0.5
+            bias = torch.zeros(c, device="cuda")
+            y = torch.randint(0, c, (b,), generator=gen, device="cuda")
+            m = torch.ones(b, device="cuda")
+            run = lambda: K.grand_last_layer(h, w, bias, y, m)
+            plain = lambda: K.grand_last_layer_plain(h, w, bias, y, m)
+            xs, gs, ks = [b, f], [c], [str(dtype).replace("torch.", "")]
+        else:
+            xs, gs, ks, st, pad, layers, entry = row
+            x = torch.randn(xs, generator=gen, device="cuda").bfloat16()
+            g = torch.randn(gs, generator=gen, device="cuda").bfloat16()
         if kind == "direct":
             run = ((lambda: K.conv_grad_norm_sq(x, g, ks, st, pad)) if entry == "v1" else
                    (lambda: K.conv_grad_norm_sq_v2(x, g, ks, pad)))
@@ -140,7 +175,7 @@ for kind in ("direct", "mega", "catdot", "gram"):
         elif kind == "catdot":
             run = lambda: K.conv_grad_norm_sq_catdot(x, g, ks, pad)
             plain = lambda: K.conv_grad_norm_sq_catdot_plain(x, g, ks, pad)
-        else:
+        elif kind == "gram":
             run = lambda: K.conv_grad_norm_sq_gram(x, g, ks, pad)
             plain = lambda: K.conv_grad_norm_sq_gram_plain(x, g, ks, pad)
         got = run()
@@ -154,8 +189,8 @@ for kind in ("direct", "mega", "catdot", "gram"):
         per_batch += layers * ms
     out[f"{kind}_ms_per_batch"] = per_batch
     out[f"{kind}_ms"] = [r["ms"] for r in per_geo]
-if len(sys.argv) > 4:
-    np.savez(sys.argv[4], **saved)
+if len(sys.argv) > 5:
+    np.savez(sys.argv[5], **saved)
 print(json.dumps(out), flush=True)
 '''
 
@@ -187,6 +222,13 @@ def main(argv: list[str]) -> int:
         i = argv.index("--parent")
         parent = os.path.abspath(argv[i + 1])
         argv = argv[:i] + argv[i + 2:]
+    kinds = list(KINDS)
+    if "--kinds" in argv:
+        i = argv.index("--kinds")
+        kinds = argv[i + 1].split(",")
+        argv = argv[:i] + argv[i + 2:]
+    if set(kinds) - set(KINDS):
+        raise SystemExit(f"unknown kinds {sorted(set(kinds) - set(KINDS))}; known: {KINDS}")
     names = argv or ["base", *[n for n in VARIANTS if n != "base"], "base"]
     unknown = sorted(set(names) - set(VARIANTS))
     if unknown:
@@ -200,7 +242,8 @@ def main(argv: list[str]) -> int:
         save = None
         if name in ("base", "parent") and name not in outputs:
             save = outputs[name] = os.path.join(root, f"{name}_outputs.npz")
-        cmd = [sys.executable, "-c", _TIME, make_copy(name, root, src), REPO, name]
+        cmd = [sys.executable, "-c", _TIME, make_copy(name, root, src), REPO, name,
+               ",".join(kinds)]
         proc = subprocess.run(cmd + ([save] if save else []), capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"variant {name} failed:\n{proc.stdout}{proc.stderr[-4000:]}")

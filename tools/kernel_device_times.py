@@ -78,20 +78,30 @@ for shape in cs.BN_SHAPES:
             return (lambda: K.bn_grad_norm_sq(xs, gs, st)), *xs, *gs
         rows.append(("bn_grad_norm", f"x{list(shape)} depth {depth}", 5 if depth == 1 else 1,
                      "BN_KERNEL" if depth == 1 else "BN_KERNEL+GROUP_BN", make))
-def make_el2n():
-    z = randn(B, 10).float()
-    y = torch.randint(0, 10, (B,), generator=gen, device="cuda")
-    m = torch.ones(B, device="cuda")
-    return (lambda: K.el2n(z, y, m)), z
-rows.append(("el2n", f"logits[{B},10]", 1, "el2n", make_el2n))
-def make_gll():
-    h = randn(B, 512)
-    w = torch.randn((10, 512), generator=gen, device="cuda") * 512 ** -0.5
-    bias = torch.zeros(10, device="cuda")
-    y = torch.randint(0, 10, (B,), generator=gen, device="cuda")
-    m = torch.ones(B, device="cuda")
-    return (lambda: K.grand_last_layer(h, w, bias, y, m)), h
-rows.append(("grand_last_layer", f"[{B},512]->10", 1, "grand_last_layer", make_gll))
+# EL2N: the path's fp32 logits [512, 10], a wide [512, 1000], and bf16 logits with int64
+# labels at both widths (an older wrapper casts both before its launch; the casts are
+# in the timed run). Last-layer GraNd: ResNet-18's head and a ResNet-50's with 1,000
+# classes, bf16 features.
+for c, half, route in ((10, False, "el2n"), (1000, False, "el2n, 1,000 classes"),
+                       (10, True, "el2n, bf16 logits"),
+                       (1000, True, "el2n, bf16 logits, 1,000 classes")):
+    def make_el2n(c=c, half=half):
+        z = randn(B, c) if half else randn(B, c).float()
+        y = torch.randint(0, c, (B,), generator=gen, device="cuda")
+        m = torch.ones(B, device="cuda")
+        return (lambda: K.el2n(z, y, m)), z
+    rows.append(("el2n", f"logits[{B},{c}] {'bf16' if half else 'fp32'}", 1, route,
+                 make_el2n))
+for f, c, route in ((512, 10, "grand_last_layer"),
+                    (2048, 1000, "grand_last_layer, ResNet-50 head, 1,000 classes")):
+    def make_gll(f=f, c=c):
+        h = randn(B, f)
+        w = torch.randn((c, f), generator=gen, device="cuda") * f ** -0.5
+        bias = torch.zeros(c, device="cuda")
+        y = torch.randint(0, c, (B,), generator=gen, device="cuda")
+        m = torch.ones(B, device="cuda")
+        return (lambda: K.grand_last_layer(h, w, bias, y, m)), h, w
+    rows.append(("grand_last_layer", f"[{B},{f}]->{c}", 1, route, make_gll))
 for xs, gs, ks, pad, layers in cs.CATDOT_GEOMETRIES:
     if layers:
         def make(xs=xs, gs=gs, ks=ks, pad=pad):

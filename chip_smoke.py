@@ -33,7 +33,7 @@ Phases (the first failure exits non-zero; nothing is caught):
    the working dtype and int64 labels as given and are bitwise from run to
    run, on a permuted batch and on a 5-row slice (that each call launches one
    CUDA kernel and nothing else is checked under ``torch.profiler`` after the
-   timed phases, phase 8: the profiler slows every later launch of the
+   timed phases, phase 9: the profiler slows every later launch of the
    process); stacked BatchNorm at the four ResNet-18 BN shapes
    singly and 5 deep (every launch in the ``vector`` mode) and at ragged rows
    (``BN_RAGGED``: batch 37, C = 72, 100 and 98, S = 1, use_scale and use_bias
@@ -74,7 +74,28 @@ Phases (the first failure exits non-zero; nothing is caught):
    finite scores, ex/s; then in fp32 (TF32 off) the kernel route against the
    plain route (rtol 1e-4 for ``grand_last_layer``, rel 1e-5 or abs 1e-6 for
    EL2N).
-8. Calls: each EL2N and last-layer row of phase 3 runs one CUDA kernel per
+8. Train: full-width ResNet-18 through the port's training slice, bf16,
+   batch 128, on synthetic CIFAR-10-geometry data. A 2-epoch ``fit`` on
+   ``TRAIN_N`` examples with eval (each epoch's ex/s, the steady step ms, the
+   eval rate; loss falls, test accuracy above 1/10 + ``TRAIN_ACC_MARGIN``);
+   two 20-step fits from one seed bitwise equal, and the step timed with
+   cuDNN's deterministic and autotuned algorithms; fit(2) bitwise equal to
+   fit(1) + a resume for 1 more through the port's checkpoint
+   (``RESUME_N`` examples, augmented); 3 fp32 steps (TF32 off, one padded
+   tail) on the card, on the CPU and on the CPU in float64: losses within
+   rtol 1e-5 of the CPU's, variables within rtol 1e-4 and an atol of twice
+   the CPU fp32 run's largest distance from float64 (floor 1e-6), the card
+   no farther from float64; the north-star ``run``
+   (``configs/cifar10_resnet18_grand10.yaml`` at ``TRAIN_N`` examples, seeds
+   [0, 1], 2 retrain epochs): its stage walls, 12 direct and 3 Gram launches
+   per batch per seed in the tensor-core mode, ``n_kept`` half the set, the
+   prune manifest verified, a finite final accuracy; then on its pretrained
+   seed-0 weights in fp32 each kernel route (``el2n``, ``grand``,
+   ``grand_last_layer``, train-mode ``el2n``) against its plain route (rtol
+   1e-4; EL2N + atol 1e-6). Cuts: 8,192 of CIFAR-10's 50,000 examples, 2 of
+   the recipes' 198 epochs, 2 of the north star's 10 seeds; widths as
+   published.
+9. Calls: each EL2N and last-layer row of phase 3 runs one CUDA kernel per
    call, its own, and no copy, cast or memset (``torch.profiler``).
 
 With ``--profile``: one batch under ``torch.profiler`` on each of the default,
@@ -82,8 +103,8 @@ FUSED+MEGAKERNEL, BN_KERNEL and BN_KERNEL+GROUP_BN+GROUP_CONV routes; the cuDNN
 dgrad launches must drop from 19 to 9 on the megakernel route, and the
 profiled BN and Gram time per batch is printed beside the ``device_ms`` sums.
 
-Every counted run (phases 4, 5 and 7) starts with the launch counts at 0 and is
-read right after; the kernels line sums them. The line before the last is a
+Every counted run (phases 4, 5 and 7, and phase 8's ``run``) starts with the
+launch counts at 0 and is read right after; the kernels line sums them. The line before the last is a
 JSON object with one entry per kernel (launches on the main paths, max error,
 ms, device ms, plain ms, bound ms); the last line is ``{"ok": true, "device":
 {...}}``.
@@ -97,6 +118,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -725,19 +747,19 @@ def route_kernel_phase(torch, K, dtype, rtol, details) -> None:
 PARITY_CLASSIFIER_SCALE = 0.05
 
 
-def bn_randomized(torch, port, seed: int) -> dict:
-    """ResNet-18 variables with every BatchNorm randomized (at init the
-    closing BN scale is zero, which would zero half the convs' cotangents)
-    and the classifier scaled by ``PARITY_CLASSIFIER_SCALE``."""
-    v = port["init_variables"]("resnet18", seed, "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+def bn_randomized(torch, port, seed: int, device: str = "cuda") -> dict:
+    """ResNet-18 variables on ``device`` with every BatchNorm randomized (at
+    init the closing BN scale is zero, which would zero half the convs'
+    cotangents) and the classifier scaled by ``PARITY_CLASSIFIER_SCALE``."""
+    v = port["init_variables"]("resnet18", seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
     for name, t in v.items():
         if t.dim() == 1 and not name.startswith("classifier"):
             if name.endswith("running_var"):
-                v[name] = torch.rand(t.shape, generator=gen, device="cuda") + 0.5
+                v[name] = torch.rand(t.shape, generator=gen, device=device) + 0.5
             else:
                 base = 1.0 if name.endswith(".weight") else 0.0
-                v[name] = base + 0.3 * torch.randn(t.shape, generator=gen, device="cuda")
+                v[name] = base + 0.3 * torch.randn(t.shape, generator=gen, device=device)
         elif name.startswith("classifier"):
             v[name] = PARITY_CLASSIFIER_SCALE * t
     return v
@@ -916,6 +938,254 @@ def resnet50_phase(torch, port, details_out, card: str) -> dict:
         check(ok, f"resnet50 {method}: kernel route vs plain route rel err {rel:.3e}")
     port["set_parity_mode"](False)
     details_out["resnet50"] = out
+    return {"counts": counts}
+
+
+# Train phase: full-width ResNet-18, bf16, batch 128, synthetic CIFAR-10-geometry data.
+TRAIN_N = 8192
+TRAIN_B = 128
+# The fit's final test accuracy must beat chance (1/10) by this much. The same recipe
+# on the CPU in fp32 at 1,024 examples (2 epochs, 16 steps: ``cli train --device cpu``
+# with these overrides and train.half_precision=false) reached 0.707.
+TRAIN_ACC_MARGIN = 0.3
+REPRO_N = 2560          # 20 steps of TRAIN_B
+RESUME_N = 1024         # 8 steps an epoch
+PARITY_N = 80           # batches of 32, 32 and a padded tail of 16
+PARITY_B = 32
+TIMED_STEPS = 20
+# Checkpoints of the train phase (a ResNet-18 step is ~135 MB): in the ignored
+# chip_smoke_out/ of the checkout, never in --out, and removed after the phase.
+TRAIN_CKPT_DIR = os.path.join(REPO, "chip_smoke_out", "train_ckpt")
+
+
+def train_cfg(port, *over):
+    """The BASELINE ResNet-18 recipe (``configs/cifar10_resnet18.yaml``: lr 0.01,
+    momentum 0.9, weight decay 5e-4, bf16) on synthetic CIFAR-10-geometry data."""
+    return port["load_config"](os.path.join(REPO, "configs", "cifar10_resnet18.yaml"), [
+        "data.dataset=synthetic", f"data.synthetic_size={TRAIN_N}",
+        f"data.batch_size={TRAIN_B}", "score.pretrain_epochs=0", *over])
+
+
+def state_equal(torch, a, b) -> bool:
+    return a.step == b.step and all(
+        torch.equal(getattr(a, g)[k], getattr(b, g)[k])
+        for g in ("params", "batch_stats", "momentum") for k in getattr(a, g))
+
+
+def step_ms(torch, port, cfg, ds, deterministic: bool) -> float:
+    """Host wall per train step over ``TIMED_STEPS`` steps (after 3 warm-up
+    steps), ending in a synchronize, with cuDNN's deterministic algorithms or
+    with its autotuned ones; the determinism switches are restored after."""
+    T = port["train"]
+    model = port["create_model_from_cfg"](cfg).to("cuda")
+    state = T["create_train_state"](cfg, 0, "cuda", model)
+    sgd = T["make_optimizer"](cfg, 64)
+    batches = list(T["ResidentBatches"](ds, TRAIN_B, "cuda", torch.bfloat16)())
+    torch.backends.cudnn.deterministic = deterministic
+    torch.backends.cudnn.benchmark = not deterministic
+    try:
+        for b in batches[:3]:
+            T["train_step"](model, sgd, state, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TIMED_STEPS):
+            T["train_step"](model, sgd, state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+    finally:
+        port["set_scoring_determinism"]()
+
+
+def train_phase(torch, port, details_out, card: str) -> dict:
+    """Training on the card: a fit, its reproducibility and resume, the card
+    against the CPU, the north-star ``run`` (its scoring launches counted),
+    and every kernel route against its plain route on pretrained weights.
+    Checkpoints go to ``TRAIN_CKPT_DIR`` and are removed after."""
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        return _train_phase(torch, port, details_out, card)
+    finally:
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+        print(f"  train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _train_phase(torch, port, details_out, card: str) -> dict:
+    T = port["train"]
+    K = port["kernels"]
+    rec: dict = {}
+    cfg = train_cfg(port, "train.num_epochs=2")
+    train_ds, test_ds = T["load_data_for"](cfg)
+    steps_per_epoch = -(-TRAIN_N // TRAIN_B)
+
+    # 1. Fit: 2 epochs with eval; epoch 1 is the steady one.
+    res = T["fit"](cfg, train_ds, test_ds, device="cuda")
+    hist = res.history
+    for h in hist:
+        print(f"  fit epoch {h['epoch']}: {h['examples_per_s']:.1f} ex/s "
+              f"({h['epoch_s']:.3f} s), train loss {h['train_loss']:.4f}, "
+              f"test accuracy {h['test_accuracy']:.4f} on {card}", flush=True)
+    steady_step_ms = 1e3 * hist[1]["epoch_s"] / steps_per_epoch
+    model = port["create_model_from_cfg"](cfg).to("cuda")
+    resident = T["maybe_resident"](test_ds, cfg.data.eval_batch_size, "cuda",
+                                   torch.bfloat16, enabled=True)
+    T["evaluate"](model, res.state, test_ds, cfg.data.eval_batch_size, device="cuda",
+                  resident=resident)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = T["evaluate"](model, res.state, test_ds, cfg.data.eval_batch_size,
+                       device="cuda", resident=resident)
+    eval_s = time.perf_counter() - t0
+    eval_rate = len(test_ds) / eval_s
+    print(f"  steady train step {steady_step_ms:.3f} ms (batch {TRAIN_B}, bf16); eval "
+          f"{eval_rate:.1f} ex/s ({len(test_ds)} examples, batch "
+          f"{cfg.data.eval_batch_size})", flush=True)
+    check(hist[1]["train_loss"] < hist[0]["train_loss"],
+          f"train loss did not fall: {[h['train_loss'] for h in hist]}")
+    check(hist[-1]["test_accuracy"] > 0.1 + TRAIN_ACC_MARGIN,
+          f"test accuracy {hist[-1]['test_accuracy']} not above chance + "
+          f"{TRAIN_ACC_MARGIN}")
+    check(ev["accuracy"] == hist[-1]["test_accuracy"], "evaluate disagrees with fit")
+    rec["fit"] = {"history": hist, "steady_step_ms": steady_step_ms,
+                  "eval_examples_per_s": eval_rate}
+
+    # 2. Reproducibility: two fits of 20 steps from one seed, bitwise; and what
+    # the deterministic cuDNN algorithms cost (deterministic, autotuned, autotuned,
+    # deterministic).
+    small = train_ds.subset(train_ds.indices[:REPRO_N])
+    runs = [T["fit"](cfg, small, None, device="cuda", num_epochs=1, seed=3)
+            for _ in range(2)]
+    check(state_equal(torch, runs[0].state, runs[1].state),
+          "two fits from one seed differ on the card")
+    det = {True: [], False: []}
+    for flag in (True, False, False, True):
+        det[flag].append(step_ms(torch, port, cfg, small, flag))
+    print(f"  reproducible: two 20-step fits from one seed bitwise equal; train step "
+          f"{statistics.median(det[True]):.3f} ms with deterministic cuDNN "
+          f"({det[True]}), {statistics.median(det[False]):.3f} ms autotuned "
+          f"({det[False]})", flush=True)
+    rec["step_ms_deterministic"] = det[True]
+    rec["step_ms_autotuned"] = det[False]
+
+    # 3. Resume: fit(2) == fit(1) + resume(1), through the port's checkpoint.
+    rcfg = train_cfg(port, "train.num_epochs=2", "optim.cosine_t_max_epochs=2",
+                     "data.augment=true")
+    rds = train_ds.subset(train_ds.indices[:RESUME_N])
+    whole = T["fit"](rcfg, rds, None, device="cuda")
+    ckpt = os.path.join(TRAIN_CKPT_DIR, "resume")
+    T["fit"](rcfg, rds, None, device="cuda", num_epochs=1, checkpoint_dir=ckpt)
+    rcfg.train.resume = True
+    rest = T["fit"](rcfg, rds, None, device="cuda", checkpoint_dir=ckpt)
+    check([h["epoch"] for h in rest.history] == [1], "resume did not start at epoch 1")
+    check(state_equal(torch, rest.state, whole.state),
+          "fit(1) + resume(1) differs from fit(2) on the card")
+    print(f"  resume: fit(2) == fit(1) + resume(1) bitwise ({RESUME_N} examples, "
+          "augmented)", flush=True)
+
+    # 4. The card against the CPU: 3 fp32 train steps, TF32 off, one padded tail;
+    # and the CPU in float64, which measures fp32's own error on this net.
+    port["set_parity_mode"](True)
+    pcfg = train_cfg(port, "train.half_precision=false", "train.num_epochs=1",
+                     f"data.batch_size={PARITY_B}")
+    pds = train_ds.subset(train_ds.indices[:PARITY_N])
+    v = bn_randomized(torch, port, 11, "cpu")
+    results = {}
+    for label, dev, dtype in (("cuda", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                              ("f64", "cpu", torch.float64)):
+        model = port["create_model_from_cfg"](pcfg).to(dev, dtype)
+        model.dtype = dtype
+        state = T["state_from_variables"](
+            {k: t.to(dtype) for k, t in port["variables_to"](v, dev).items()}, model)
+        sgd = T["make_optimizer"](pcfg, 3)
+        losses = []
+        for b in T["iterate_batches"](pds, PARITY_B):
+            b = {k: (t.to(dtype) if t.is_floating_point() else t)
+                 for k, t in T["to_device"](b, dev).items()}
+            losses.append(float(T["train_step"](model, sgd, state, b)["loss"]))
+        results[label] = (losses, {k: t.cpu().double() for k, t in state.variables.items()})
+    port["set_parity_mode"](False)
+    (l_gpu, v_gpu), (l_cpu, v_cpu), (_, v_64) = (results[k] for k in ("cuda", "cpu", "f64"))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    # fp32's own error here: the CPU fp32 run's largest distance from float64.
+    eps_cpu = max(float((v_cpu[k] - v_64[k]).abs().max()) for k in v_64)
+    eps_gpu = max(float((v_gpu[k] - v_64[k]).abs().max()) for k in v_64)
+    atol = max(1e-6, 2 * eps_cpu)
+    var_err, worst = max((float(((v_gpu[k] - v_cpu[k]).abs() - 1e-4 * v_cpu[k].abs()).max()),
+                          k) for k in v_cpu)
+    print(f"  card vs CPU, 3 fp32 steps (TF32 off, tail of {PARITY_N % PARITY_B}): losses "
+          f"{l_gpu} vs {l_cpu}, max rel {loss_rel:.3e}; variables: max |d| - 1e-4|cpu| "
+          f"{var_err:.3e} ({worst}); from float64: card {eps_gpu:.3e}, CPU {eps_cpu:.3e}",
+          flush=True)
+    check(loss_rel <= 1e-5, f"card vs CPU loss rel err {loss_rel:.3e}")
+    check(var_err <= atol, f"card vs CPU variables beyond rtol 1e-4 / atol {atol:.3e} "
+                           f"({var_err:.3e}, {worst})")
+    check(eps_gpu <= atol, f"card fp32 {eps_gpu:.3e} from float64, CPU fp32 {eps_cpu:.3e}")
+    rec["card_vs_cpu"] = {"loss_rel": loss_rel, "var_excess": var_err, "worst": worst,
+                          "card_from_f64": eps_gpu, "cpu_from_f64": eps_cpu}
+
+    # 5. The north-star run at 8,192 examples, 2 seeds, 2 epochs of retrain.
+    run_cfg = port["load_config"](
+        os.path.join(REPO, "configs", "cifar10_resnet18_grand10.yaml"),
+        ["data.dataset=synthetic", f"data.synthetic_size={TRAIN_N}", "score.seeds=[0,1]",
+         "train.num_epochs=2", f"train.checkpoint_dir={os.path.join(TRAIN_CKPT_DIR, 'run')}"])
+    nb = -(-TRAIN_N // run_cfg.score.batch_size)
+    K.reset_launch_counts()
+    modes0 = K.mode_counts()
+    t0 = time.perf_counter()
+    summary = T["run_datadiet"](run_cfg, device="cuda")
+    run_wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    want = dict.fromkeys(K.KERNELS, 0)
+    want.update(conv_grad_norm_direct=12 * nb * 2, conv_grad_norm_gram=3 * nb * 2)
+    check(counts == want, f"run: launch counts {counts}, want {want}")
+    for kern in ("conv_grad_norm_direct", "conv_grad_norm_gram"):
+        check_modes(K, modes0[kern], want[kern], "tensor_core", "run", kern)
+    npz = T["scores_npz_path"](run_cfg.train.checkpoint_dir)
+    with np.load(npz) as f:
+        kept = f["kept"]
+        check(bool(np.isfinite(f["scores"]).all()), "run: non-finite scores")
+    T["verify_prune_manifest"](npz, kept)
+    check(summary["n_kept"] == TRAIN_N // 2 == len(kept), f"run: n_kept {summary['n_kept']}")
+    check(summary["final_test_accuracy"] is not None
+          and bool(np.isfinite(summary["final_test_accuracy"])),
+          f"run: final test accuracy {summary['final_test_accuracy']}")
+    walls = {k: summary[k] for k in ("pretrain_wall_s", "score_wall_s", "prune_wall_s",
+                                     "train_wall_s")}
+    print(f"  run ({TRAIN_N} examples, seeds [0, 1], score batch "
+          f"{run_cfg.score.batch_size}, grand): {run_wall:.3f} s; stages "
+          + ", ".join(f"{k[:-7]} {v:.3f} s" for k, v in walls.items())
+          + f"; n_kept {summary['n_kept']}, final test accuracy "
+          f"{summary['final_test_accuracy']:.4f}; launches {counts} (tensor-core mode); "
+          "prune manifest verified", flush=True)
+    rec["run"] = {"wall_s": run_wall, **walls, "n_kept": summary["n_kept"],
+                  "final_test_accuracy": summary["final_test_accuracy"],
+                  "launches": counts}
+
+    # 6. Each kernel route against the plain route on the pretrained seed-0
+    # variables, fp32, TF32 off: rtol 1e-4 (atol 1e-6 for EL2N, whose scores of
+    # well-fit examples sit near 0).
+    pretrained = T["score_variables_for_seeds"](run_cfg, train_ds, device="cuda",
+                                                seeds=[0])
+    port["set_parity_mode"](True)
+    model32 = port["create_model"]("resnet18", 10)
+    sub = train_ds.subset(train_ds.indices[:2 * B])
+    rec["trained_parity"] = {}
+    for method, eval_mode, atol in (("el2n", True, 1e-6), ("grand", True, 0.0),
+                                    ("grand_last_layer", True, 0.0),
+                                    ("el2n", False, 1e-6)):
+        kw = dict(method=method, batch_size=B, eval_mode=eval_mode, device="cuda")
+        fast = port["score_dataset"](model32, pretrained, sub, use_kernels=True, **kw)
+        plain = port["score_dataset"](model32, pretrained, sub, use_kernels=False, **kw)
+        err = np.abs(fast - plain)
+        rel = float(np.max(err / np.maximum(np.abs(plain), 1e-30)))
+        what = f"{method} ({'eval' if eval_mode else 'train'} mode)"
+        print(f"  trained weights, {what}: kernel route vs plain route max rel err "
+              f"{rel:.3e}, max abs err {float(err.max()):.3e}", flush=True)
+        check(bool(np.all(err <= 1e-4 * np.abs(plain) + atol)),
+              f"trained weights, {what}: kernel route vs plain route rel err {rel:.3e}")
+        rec["trained_parity"][what] = {"max_rel": rel, "max_abs": float(err.max())}
+    port["set_parity_mode"](False)
+    details_out["train"] = rec
     return {"counts": counts}
 
 
@@ -1262,16 +1532,20 @@ def main(argv: list[str]) -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     try:
         from data_diet_distributed_tpu_torch.config import load_config
+        from data_diet_distributed_tpu_torch.data import pipeline
         from data_diet_distributed_tpu_torch.data.datasets import ArrayDataset, load_dataset
-        from data_diet_distributed_tpu_torch.device import set_parity_mode
+        from data_diet_distributed_tpu_torch.device import (set_parity_mode,
+                                                            set_scoring_determinism)
         from data_diet_distributed_tpu_torch.models import create_model, create_model_from_cfg
         from data_diet_distributed_tpu_torch.ops import build
         from data_diet_distributed_tpu_torch.ops import grand_batched
         from data_diet_distributed_tpu_torch.ops import kernels as K
         from data_diet_distributed_tpu_torch.ops.scoring import score_dataset
         from data_diet_distributed_tpu_torch.pruning import select_indices
+        from data_diet_distributed_tpu_torch.pruning import verify_prune_manifest
         from data_diet_distributed_tpu_torch.serve.engine import ServeEngine
-        from data_diet_distributed_tpu_torch.weights import init_variables
+        from data_diet_distributed_tpu_torch.train import loop, state, steps
+        from data_diet_distributed_tpu_torch.weights import init_variables, variables_to
     except ImportError as err:
         fail(f"the port package is not importable next to this script: {err}")
     port = {"load_config": load_config, "load_dataset": load_dataset,
@@ -1280,7 +1554,23 @@ def main(argv: list[str]) -> int:
             "create_model_from_cfg": create_model_from_cfg, "kernels": K,
             "grand_batched": grand_batched,
             "score_dataset": score_dataset, "select_indices": select_indices,
-            "ServeEngine": ServeEngine, "init_variables": init_variables}
+            "ServeEngine": ServeEngine, "init_variables": init_variables,
+            "variables_to": variables_to,
+            "set_scoring_determinism": set_scoring_determinism,
+            "train": {"fit": loop.fit, "evaluate": loop.evaluate,
+                      "load_data_for": loop.load_data_for,
+                      "run_datadiet": loop.run_datadiet,
+                      "score_variables_for_seeds": loop.score_variables_for_seeds,
+                      "scores_npz_path": loop.scores_npz_path,
+                      "verify_prune_manifest": verify_prune_manifest,
+                      "create_train_state": state.create_train_state,
+                      "state_from_variables": state.state_from_variables,
+                      "make_optimizer": state.make_optimizer,
+                      "train_step": steps.train_step,
+                      "ResidentBatches": pipeline.ResidentBatches,
+                      "maybe_resident": pipeline.maybe_resident,
+                      "iterate_batches": pipeline.iterate_batches,
+                      "to_device": pipeline.to_device}}
     details: dict = {"card": card, "torch": torch.__version__,
                      "cuda": torch.version.cuda}
 
@@ -1329,6 +1619,9 @@ def main(argv: list[str]) -> int:
     phase("resnet50")
     r50 = resnet50_phase(torch, port, details, card)
 
+    phase("train")
+    trained = train_phase(torch, port, details, card)
+
     phase("calls")
     calls_phase(torch)
 
@@ -1342,9 +1635,9 @@ def main(argv: list[str]) -> int:
 
     # One entry per kernel: per-batch sums over the layers of the route that runs
     # it, bf16; launches summed over the counted runs of the path, routes and
-    # resnet50 phases.
+    # resnet50 phases and the train phase's run.
     launches = {k: path["counts"][k] + routes["counts"][k] + r50["counts"][k]
-                for k in K.KERNELS}
+                + trained["counts"][k] for k in K.KERNELS}
     check(all(launches[k] > 0 for k in KERNEL_INFO), f"a kernel never launched: {launches}")
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():

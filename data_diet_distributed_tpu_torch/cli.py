@@ -1,79 +1,65 @@
-"""Command line of the PyTorch port (counterpart of ``data_diet_distributed_tpu/cli.py``).
+"""Command line of the PyTorch port (counterpart of ``data_diet_distributed_tpu/cli.py``)::
 
-Only ``score`` is ported::
+    python -m data_diet_distributed_tpu_torch.cli {train|run|sweep|score} \\
+        --config configs/x.yaml [key=value ...] [--device cpu]
 
-    python -m data_diet_distributed_tpu_torch.cli score --config configs/x.yaml \\
-        score.pretrain_epochs=0 [key=value ...] [--device cpu]
+* ``train``: dense training, checkpoints in ``train.checkpoint_dir``;
+* ``run``: (pretrain ->) score -> prune -> retrain -> eval, writing
+  ``<train.checkpoint_dir>_scores.npz`` and its provenance sidecar;
+* ``sweep``: one scoring pass, then prune and retrain per ``prune.sweep``
+  level;
+* ``score``: score only (after ``score.pretrain_epochs`` epochs per seed, from
+  ``score.score_ckpt_step``, or reused from ``score.scores_npz``) and write
+  ``<train.checkpoint_dir>_scores.npz`` with ``scores``, ``indices`` and
+  ``method``.
 
-It scores the training set at initialization (``score.pretrain_epochs=0``,
-GraNd/EL2N at init, one model per ``score.seeds`` entry) and writes
-``<train.checkpoint_dir>_scores.npz`` with ``scores``, ``indices`` and ``method``.
-``train``, ``run``, ``sweep`` and ``serve``, and scoring after a pretrain or
-from a checkpoint, need the training slice and raise ``NotImplementedError``.
+Each command prints its summary as one JSON line on stdout; the event records
+along the way (epochs, prune decisions) go to stderr as JSON lines. The
+device is CUDA unless ``--device cpu``; without CUDA the command raises.
+``serve`` is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
-import time
-
-import numpy as np
 
 from .config import Config, load_config
-from .data.datasets import load_dataset
 from .device import resolve_device
-from .models import create_model_from_cfg
-from .ops.scoring import score_dataset
-from .weights import init_variables
-
-_TRAINING_SLICE = "needs the training slice of the PyTorch port, not ported yet"
+from .train.loop import (compute_scores, fit, load_data_for, run_datadiet, run_sweep,
+                         scores_npz_path)
+from .utils.io import atomic_savez
 
 
-def _atomic_savez(path: str, **arrays) -> None:
-    """Write the npz next to its final name, then rename: a kill mid-write
-    never leaves a truncated artifact."""
-    parent = os.path.dirname(os.path.abspath(path))
-    os.makedirs(parent, exist_ok=True)
-    tmp = f"{path}.tmp{os.getpid()}.npz"
-    np.savez(tmp, **arrays)
-    os.replace(tmp, path)
+def _log(kind: str, **fields) -> None:
+    print(json.dumps({"kind": kind, **fields}, default=str), file=sys.stderr,
+          flush=True)
 
 
 def score(cfg: Config, device=None) -> dict:
     """The ``score`` command: score, save the npz, return a summary."""
-    sc = cfg.score
-    if sc.pretrain_epochs > 0:
-        raise NotImplementedError(
-            f"score.pretrain_epochs={sc.pretrain_epochs} {_TRAINING_SLICE}; "
-            "set score.pretrain_epochs=0 to score at initialization")
-    if sc.score_ckpt_step is not None:
-        raise NotImplementedError(f"score.score_ckpt_step {_TRAINING_SLICE}")
-    if sc.scores_npz:
-        raise NotImplementedError("score.scores_npz reuse is not ported yet")
     device = resolve_device(device)
-    train_ds, _ = load_dataset(cfg.data.dataset, cfg.data.data_dir,
-                               cfg.data.synthetic_size, seed=cfg.train.seed,
-                               synthetic_noise=cfg.data.synthetic_noise,
-                               synthetic_clusters=cfg.data.synthetic_clusters)
-    cfg.model.num_classes = train_ds.num_classes
-    model = create_model_from_cfg(cfg)
-    seeds_vars = [init_variables(cfg.model.arch, int(s), device,
-                                 num_classes=cfg.model.num_classes,
-                                 stem=cfg.model.stem) for s in sc.seeds]
-    t0 = time.perf_counter()
-    scores = score_dataset(model, seeds_vars, train_ds, method=sc.method,
-                           batch_size=sc.batch_size, chunk=sc.grand_chunk,
-                           eval_mode=sc.eval_mode,
-                           use_kernels=sc.use_pallas, device=device)
-    score_s = time.perf_counter() - t0
-    out = f"{cfg.train.checkpoint_dir}_scores.npz"
-    _atomic_savez(out, scores=scores, indices=train_ds.indices, method=sc.method)
+    train_ds, _ = load_data_for(cfg)
+    scores, timings = compute_scores(cfg, train_ds, device=device, log=_log)
+    out = scores_npz_path(cfg.train.checkpoint_dir)
+    method = (f"reused:{timings['loaded_from']}" if timings.get("loaded_from")
+              else cfg.score.method)
+    atomic_savez(out, scores=scores, indices=train_ds.indices, method=method)
     return {"n_scores": int(len(scores)), "scores_npz": out,
-            "score_s": round(score_s, 3), "device": str(device),
+            "score_s": round(timings["score_s"], 3),
+            "pretrain_s": round(timings["pretrain_s"], 3), "device": str(device),
             "mean": float(scores.mean()), "std": float(scores.std())}
+
+
+def train(cfg: Config, device=None) -> dict:
+    """The ``train`` command: a dense fit with checkpoints."""
+    device = resolve_device(device)
+    train_ds, test_ds = load_data_for(cfg)
+    res = fit(cfg, train_ds, test_ds, device=device, log=_log,
+              checkpoint_dir=cfg.train.checkpoint_dir, tag="dense")
+    return {**res.throughput_summary(), "train_wall_s": round(res.wall_s, 3),
+            "device": str(device)}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -83,11 +69,21 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--device", default=None,
                         help="cuda (default; raises without CUDA) or cpu")
     parser.add_argument("overrides", nargs="*", help="dotted.key=value overrides")
-    args = parser.parse_args(argv)
-    if args.command != "score":
-        raise NotImplementedError(f"the {args.command!r} command {_TRAINING_SLICE}")
+    args = parser.parse_intermixed_args(argv)
+    if args.command == "serve":
+        raise NotImplementedError(
+            "the 'serve' command (batcher, HTTP server, router) is not ported yet")
     cfg = load_config(args.config, args.overrides)
-    print(json.dumps({"event": "scores_saved", **score(cfg, args.device)}), flush=True)
+    if args.command == "score":
+        out = {"event": "scores_saved", **score(cfg, args.device)}
+    elif args.command == "train":
+        out = {"event": "train_done", **train(cfg, args.device)}
+    elif args.command == "run":
+        out = {"event": "run_done", **run_datadiet(cfg, device=args.device, log=_log)}
+    else:
+        out = {"event": "sweep_done",
+               "levels": run_sweep(cfg, device=args.device, log=_log)}
+    print(json.dumps(out), flush=True)
     return 0
 
 

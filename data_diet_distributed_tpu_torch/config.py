@@ -1,12 +1,16 @@
 """Typed configuration: the part of ``data_diet_distributed_tpu/config.py`` the
-scoring slice reads.
+port reads.
 
-``DataConfig``, ``ModelConfig``, ``ScoreConfig`` and ``PruneConfig`` are copied
-whole; ``TrainConfig`` keeps every key but the slice reads only
-``half_precision`` and ``checkpoint_dir``. The sections this slice does not
-port (optim, mesh, parallel, checkpoint, obs, resilience, elastic, serve,
-tuning) are accepted key by key and ignored, so every ``configs/*.yaml`` loads
-unchanged, while an unknown key anywhere still raises ``KeyError`` as in JAX.
+``DataConfig``, ``ModelConfig``, ``OptimConfig``, ``ScoreConfig``,
+``PruneConfig`` and ``TrainConfig`` are copied whole, with the JAX package's
+validations. Two train keys are accepted and ignored: ``train.chunk_steps``
+(the JAX package's dispatch-amortising engine, whose results are by contract
+those of the per-step path, which is the one the port runs) and
+``train.auto_resume_retries`` (restart-based recovery, not ported yet). The
+sections the port does not have (mesh, parallel, checkpoint, obs, resilience,
+elastic, serve, tuning) are accepted key by key and ignored, so every
+``configs/*.yaml`` loads unchanged, while an unknown key anywhere still raises
+``KeyError`` as in JAX.
 """
 
 from __future__ import annotations
@@ -56,6 +60,19 @@ class ModelConfig:
 
 
 @dataclass
+class OptimConfig:
+    """SGD + momentum + weight decay + cosine schedule (``train/state.py``)."""
+
+    lr: float = 0.01
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    nesterov: bool = False
+    cosine_t_max_epochs: int | None = None   # None -> train.num_epochs
+    warmup_epochs: int = 0                   # linear warmup into the cosine
+    grad_clip_norm: float | None = None
+
+
+@dataclass
 class ScoreConfig:
     # el2n | margin | grand | grand_vmap | grand_last_layer | forgetting | aum
     method: str = "el2n"
@@ -89,17 +106,17 @@ class TrainConfig:
     checkpoint_dir: str = "./checkpoints"
     keep_checkpoints: int = 20
     resume: bool = False
-    auto_resume_retries: int = 0
-    half_precision: bool = True
+    auto_resume_retries: int = 0             # accepted, ignored (not ported yet)
+    half_precision: bool = True              # bf16 compute, fp32 parameters
+    # Upload the train/test sets to the device once and gather batches there.
+    # None = auto: on when the set fits data/pipeline.RESIDENT_MAX_BYTES.
     device_resident_data: bool | None = None
-    chunk_steps: int | None = None
+    chunk_steps: int | None = None           # accepted, ignored (per-step path)
     log_every_steps: int = 50
 
 
-#: Keys of the sections this slice does not port: accepted, ignored.
+#: Keys of the sections the port does not have: accepted, ignored.
 _IGNORED_SECTIONS: dict[str, Any] = {
-    "optim": {"lr", "momentum", "weight_decay", "nesterov", "cosine_t_max_epochs",
-              "warmup_epochs", "grad_clip_norm"},
     "mesh": {"data_axis", "model_axis", "shard_opt_state", "shard_weight_update",
              "multihost", "coordinator_address", "num_processes", "process_id"},
     "parallel": {"overlap": {"enabled", "latency_hiding_scheduler",
@@ -146,6 +163,7 @@ _IGNORED_SECTIONS: dict[str, Any] = {
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
     score: ScoreConfig = field(default_factory=ScoreConfig)
     prune: PruneConfig = field(default_factory=PruneConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
@@ -170,6 +188,11 @@ class Config:
                 and self.score.pretrain_epochs < 1):
             raise ValueError(f"score.method={self.score.method} tracks the "
                              "training trajectory; set score.pretrain_epochs >= 1")
+        if (self.score.method in ("forgetting", "aum")
+                and self.score.score_ckpt_step is not None):
+            raise ValueError(
+                f"score.method={self.score.method} scores a training TRAJECTORY "
+                "and cannot start from score.score_ckpt_step; unset one of them")
         if self.data.crop_pad < 0:
             raise ValueError(f"data.crop_pad must be >= 0, got {self.data.crop_pad}")
         if self.data.synthetic_noise <= 0:
@@ -179,6 +202,15 @@ class Config:
             raise ValueError(
                 f"data.synthetic_clusters must be >= 1, got "
                 f"{self.data.synthetic_clusters}")
+        if self.optim.warmup_epochs < 0:
+            raise ValueError(
+                f"optim.warmup_epochs must be >= 0, got {self.optim.warmup_epochs}")
+        t_max = self.optim.cosine_t_max_epochs or self.train.num_epochs
+        if self.optim.warmup_epochs and self.optim.warmup_epochs >= t_max:
+            raise ValueError(
+                f"optim.warmup_epochs ({self.optim.warmup_epochs}) must be "
+                f"less than the cosine horizon ({t_max} epochs); raise "
+                "optim.cosine_t_max_epochs or lower the warmup")
         if self.model.stem not in ("cifar", "imagenet"):
             raise ValueError(f"unknown stem {self.model.stem!r}")
         if self.prune.keep not in ("hardest", "easiest", "random"):
@@ -188,6 +220,10 @@ class Config:
             self.model.num_classes = self.data.num_classes
         if self.data.batch_size <= 0 or self.train.num_epochs < 0:
             raise ValueError("batch_size must be positive, num_epochs non-negative")
+        if self.train.chunk_steps is not None and self.train.chunk_steps < 0:
+            raise ValueError(
+                f"train.chunk_steps must be >= 0 (0/1 = per-step, null = "
+                f"auto), got {self.train.chunk_steps}")
         if self.score.batch_size <= 0:
             raise ValueError(f"score.batch_size must be positive, got "
                              f"{self.score.batch_size}")
@@ -198,7 +234,8 @@ class Config:
         return self
 
 
-_SECTIONS = {"data": DataConfig, "model": ModelConfig, "score": ScoreConfig,
+_SECTIONS = {"data": DataConfig, "model": ModelConfig, "optim": OptimConfig,
+             "score": ScoreConfig,
              "prune": PruneConfig, "train": TrainConfig}
 
 

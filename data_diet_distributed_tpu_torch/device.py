@@ -35,7 +35,8 @@ def set_scoring_determinism() -> None:
     """Deterministic cuDNN algorithms picked by heuristics, not by timing
     (``benchmark=False``): the same batch geometry then runs the same
     algorithms in every call, which the serving engine's guarantee (a padded
-    request scores bit-identical to the resident pass) rests on.
-    Process-wide."""
+    request scores bit-identical to the resident pass) and a reproducible
+    ``fit`` (bitwise from run to run and across a resume) rest on.
+    Process-wide; training sets it too, so it never turns it off."""
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False

@@ -11,11 +11,14 @@ Submodules carry the Flax parameter paths (``stem_conv``, ``BasicBlock_3.Conv_1`
 ``dtype`` (bf16 under half precision) while parameters and BatchNorm
 statistics stay fp32, as Flax's ``dtype``/``param_dtype``. No op works in
 place: the batched-GraNd hooks keep references to layer inputs and outputs.
+In train mode BatchNorm follows Flax (``BatchNorm2d``).
 """
 
 from __future__ import annotations
 
-from collections.abc import Sequence
+import contextlib
+import contextvars
+from collections.abc import Iterator, Sequence
 
 import torch
 import torch.nn as nn
@@ -38,9 +41,59 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
-def batch_norm(channels: int, momentum: float = 0.1) -> nn.BatchNorm2d:
+_STATS_SINK: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
+    "batch_stats_sink", default=None)
+
+
+@contextlib.contextmanager
+def collect_batch_stats() -> Iterator[dict]:
+    """Within the block, every train-mode ``BatchNorm2d`` forward records its
+    batch ``(mean, var)`` (fp32, detached) in the yielded dict under the
+    module; the running statistics themselves are never written."""
+    sink: dict = {}
+    token = _STATS_SINK.set(sink)
+    try:
+        yield sink
+    finally:
+        _STATS_SINK.reset(token)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode is Flax's ``BatchNorm``.
+
+    Eval mode is ``nn.BatchNorm2d``'s. In train mode the batch statistics are
+    reduced in at least fp32 whatever the input dtype, the variance the biased
+    ``E[x²] − E[x]²`` clipped at 0, the output ``(x − mean) · (rsqrt(var + eps)
+    · scale) + bias`` in fp32 cast to the input dtype, and gradients flow
+    through the statistics. The running statistics are not touched (torch
+    would update them in place with the unbiased variance): inside
+    ``collect_batch_stats`` the batch statistics go to the sink, from which
+    the training step forms Flax's ``m · running + (1 − m) · batch``
+    (``flax_momentum``). Outside it (train-mode scoring, ``vmap``) they are
+    dropped, as the JAX package drops them."""
+
+    @property
+    def flax_momentum(self) -> float:
+        """Flax's ``momentum`` (the weight of the old running value)."""
+        return 1.0 - self.momentum
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        sink = _STATS_SINK.get()
+        if sink is not None:
+            sink[self] = (mean.detach(), var.detach())
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+def batch_norm(channels: int, momentum: float = 0.1) -> BatchNorm2d:
     """Flax ``BatchNorm(momentum=m, epsilon=1e-5)`` is torch momentum ``1 - m``."""
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=momentum)
+    return BatchNorm2d(channels, eps=1e-5, momentum=momentum)
 
 
 class BasicBlock(nn.Module):

@@ -4,7 +4,10 @@ EL2N ``‖softmax(f(x)) − onehot(y)‖₂``, margin, correctness, closed-form
 last-layer GraNd, full-parameter GraNd through the batched exact algorithm
 (``grand_batched.py``; two-phase, fused or megakernel route by its toggles)
 and per-example ``vmap(grad)`` GraNd (``grand_vmap``). Scoring runs in eval
-mode; train-mode scoring is not ported yet.
+mode by default; ``eval_mode=False`` normalizes BatchNorm by the scoring
+batch's own statistics (padded rows included) and throws the statistics
+away, as the JAX package does (``scores.py:84-95``): the scored variables are
+never written.
 """
 
 from __future__ import annotations
@@ -49,8 +52,11 @@ def grand_last_layer_from_logits(logits: torch.Tensor, features: torch.Tensor,
     return torch.sqrt(err_sq * (feat_sq + 1.0))
 
 
-def _forward(model, variables, images, capture_features: bool = False):
-    """Eval-mode forward of ``model`` on ``variables`` (no autograd graph)."""
+def _forward(model, variables, images, capture_features: bool = False,
+             eval_mode: bool = True):
+    """Forward of ``model`` on ``variables`` with no autograd graph, BatchNorm
+    on running statistics (``eval_mode``) or on the batch's own."""
+    model.train(not eval_mode)
     with torch.no_grad():
         return functional_call(model, variables, (images,),
                                {"capture_features": capture_features})
@@ -68,15 +74,14 @@ def make_local_scores(model, method: str, *, chunk: int = 32, eval_mode: bool = 
     """``(variables, image, label, mask) -> scores [B]`` float32 for ``method``
     — the one definition shared by ``score_dataset`` and the serving engine.
     ``chunk`` is ``grand_vmap``'s examples per ``vmap``; the GraNd route
-    toggles of ``grand_batched`` are read when this is called."""
-    if not eval_mode:
-        raise NotImplementedError(
-            "train-mode scoring (score.eval_mode=false) comes with the training "
-            "slice of the PyTorch port")
+    toggles of ``grand_batched`` are read when this is called. The batched
+    GraNd algorithm always runs BatchNorm in eval mode, as in JAX
+    (``resolve_score_method`` sends ``grand`` in train mode to ``grand_vmap``)."""
+    forward = partial(_forward, eval_mode=eval_mode)
 
     if method == "el2n":
         def local_scores(variables, image, label, mask):
-            logits = _forward(model, variables, image)
+            logits = forward(model, variables, image)
             if use_kernels:
                 return kernels.el2n(logits, label, mask)
             return el2n_from_logits(logits, label) * mask
@@ -84,18 +89,18 @@ def make_local_scores(model, method: str, *, chunk: int = 32, eval_mode: bool = 
 
     if method == "margin":
         def local_scores(variables, image, label, mask):
-            return margin_from_logits(_forward(model, variables, image), label) * mask
+            return margin_from_logits(forward(model, variables, image), label) * mask
         return local_scores
 
     if method == "correctness":
         def local_scores(variables, image, label, mask):
-            logits = _forward(model, variables, image)
+            logits = forward(model, variables, image)
             return (logits.argmax(dim=-1) == label).float() * mask
         return local_scores
 
     if method == "grand_last_layer":
         def local_scores(variables, image, label, mask):
-            logits, feats = _forward(model, variables, image, capture_features=True)
+            logits, feats = forward(model, variables, image, capture_features=True)
             if use_kernels:
                 # The kernel redoes the classifier product in fp32 from the fp32
                 # features; the model's own logits (bf16 compute under half
@@ -116,19 +121,22 @@ def make_local_scores(model, method: str, *, chunk: int = 32, eval_mode: bool = 
             score_fn = grand_batched.batched_grand_scores
 
         def local_scores(variables, image, label, mask):
+            model.eval()
             return score_fn(model, variables, image, label, mask,
                             use_kernels=use_kernels)
         return local_scores
 
     if method == "grand_vmap":
-        return _make_grand_vmap(model, chunk)
+        return _make_grand_vmap(model, chunk, eval_mode)
     raise ValueError(f"unknown score method {method!r}")
 
 
-def _make_grand_vmap(model, chunk: int):
+def _make_grand_vmap(model, chunk: int, eval_mode: bool = True):
     """Per-example GraNd the naive way: ``vmap(grad)`` of each example's loss
     over every parameter, ``chunk`` examples per ``vmap``; the norm is taken
-    in fp32 over all parameter gradients (``optax.global_norm`` in JAX)."""
+    in fp32 over all parameter gradients (``optax.global_norm`` in JAX). In
+    train mode each example's ``image[None]`` forward normalizes BatchNorm
+    over that one example's positions, as JAX's does (``scores.py:206-211``)."""
     param_names = frozenset(name for name, _ in model.named_parameters())
 
     def loss(params, buffers, image, label):
@@ -138,6 +146,7 @@ def _make_grand_vmap(model, chunk: int):
     per_example_grads = torch.func.vmap(torch.func.grad(loss), in_dims=(None, None, 0, 0))
 
     def local_scores(variables, image, label, mask):
+        model.train(not eval_mode)
         params = {k: v for k, v in variables.items() if k in param_names}
         buffers = {k: v for k, v in variables.items() if k not in param_names}
         norms = []

@@ -11,8 +11,10 @@ function, so it scores bit-identical to ``full_scores`` for the same ids
 deterministic cuDNN algorithm choice for one geometry and kernels without
 atomics.
 
-Not ported yet: ``fit``/``evaluate``, checkpoint refresh, the batcher, the
-HTTP server, the router and the fleet.
+The scoring variables come from the config's recipe
+(``score_variables_for_seeds``: a pretrain per seed, a fixed checkpoint, or
+the init). Not ported yet: ``fit``/``evaluate``, checkpoint refresh, the
+batcher, the HTTP server, the router and the fleet.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from ..device import resolve_device, set_scoring_determinism
 from ..models import create_model_from_cfg
 from ..ops.scores import make_local_scores, resolve_score_method, resolve_use_kernels
 from ..ops.scoring import ScoreResident, score_pass
-from ..weights import init_variables, variables_to
+from ..train.loop import score_variables_for_seeds
+from ..weights import variables_to
 
 #: Checkpoint-based score methods the engine can answer for.
 SERVABLE_METHODS = ("el2n", "margin", "grand", "grand_vmap", "grand_last_layer")
@@ -72,26 +75,19 @@ class ServeEngine:
 
     # ------------------------------------------------------------- tenants
 
-    def scoring_variables(self) -> list:
-        """Per-seed scoring variables from the config's recipe. Only
-        ``score.pretrain_epochs=0`` (GraNd at initialization) is ported; a
-        pretrain or a fixed checkpoint needs the training slice."""
-        sc = self.cfg.score
-        if sc.pretrain_epochs > 0 or sc.score_ckpt_step is not None:
-            raise NotImplementedError(
-                "scoring variables from a pretrain (score.pretrain_epochs > 0) or a "
-                "checkpoint (score.score_ckpt_step) need the training slice of the "
-                "PyTorch port; set score.pretrain_epochs=0")
-        return [init_variables(self.cfg.model.arch, int(s), self.device,
-                               num_classes=self.cfg.model.num_classes,
-                               stem=self.cfg.model.stem) for s in sc.seeds]
+    def scoring_variables(self, ds: ArrayDataset,
+                          seeds: Sequence[int] | None = None) -> list:
+        """Per-seed scoring variables from the config's recipe: a pretrain of
+        ``score.pretrain_epochs`` epochs on ``ds`` per seed (one upload shared
+        by the seeds), the checkpoint ``score.score_ckpt_step``, or the init."""
+        return score_variables_for_seeds(self.cfg, ds, device=self.device, seeds=seeds)
 
     def register_tenant(self, name: str, ds: ArrayDataset,
                         variables_seeds: Sequence | None = None) -> Tenant:
         """Make a dataset + scoring variables resident under ``name``;
         ``variables_seeds`` None builds them from the config's recipe."""
         if variables_seeds is None:
-            variables_seeds = self.scoring_variables()
+            variables_seeds = self.scoring_variables(ds)
         tenant = Tenant(name=name, ds=ds,
                         variables_seeds=[variables_to(v, self.device)
                                          for v in variables_seeds],

@@ -9,6 +9,7 @@ from data_diet_distributed_tpu_torch.data.datasets import ArrayDataset, _synthet
 from data_diet_distributed_tpu_torch.models import create_model_from_cfg
 from data_diet_distributed_tpu_torch.ops.scoring import score_dataset
 from data_diet_distributed_tpu_torch.serve.engine import ServeEngine
+from data_diet_distributed_tpu_torch.train.loop import score_variables_for_seeds
 from data_diet_distributed_tpu_torch.weights import init_variables
 
 
@@ -70,10 +71,30 @@ def test_topk_and_rank_break_ties_by_global_index():
         engine.full_scores("t", "forgetting")
 
 
+def test_pretrained_engine_scores_like_score_dataset():
+    """``score.pretrain_epochs=1``: the engine pretrains one model per seed on
+    the tenant's data; its resident scores equal ``score_dataset`` on the
+    same pretrain, and its requests stay bitwise equal to them."""
+    images, labels = _synthetic(40, 10, 3, "train")
+    ds = ArrayDataset(images, labels, np.arange(40, dtype=np.int32), 10)
+    cfg = _cfg(**{"score.pretrain_epochs": "1", "data.batch_size": "16"})
+    engine = ServeEngine(cfg, device="cpu")
+    engine.register_tenant("pre", ds)
+    variables = score_variables_for_seeds(cfg, ds, device="cpu")
+    init = init_variables("tiny_cnn", 0, "cpu")
+    assert not torch.equal(variables[0]["classifier.weight"], init["classifier.weight"])
+    for method in ("el2n", "grand"):
+        offline = score_dataset(create_model_from_cfg(cfg), variables, ds, method=method,
+                                batch_size=16, device="cpu")
+        full = engine.full_scores("pre", method)
+        assert np.array_equal(full, offline)
+        got = engine.score_batch("pre", method, images[:5], labels[:5])
+        assert np.array_equal(got, full[:5])
+
+
 def test_engine_refuses_unported_recipes_and_missing_cuda():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ServeEngine(_cfg(**{"score.pretrain_epochs": "1"}),
-                    device="cpu").scoring_variables()
+    with pytest.raises(NotImplementedError, match="remat"):
+        ServeEngine(_cfg(**{"model.remat": "true"}), device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default device is then valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -33,7 +33,7 @@ Phases (the first failure exits non-zero; nothing is caught):
    the working dtype and int64 labels as given and are bitwise from run to
    run, on a permuted batch and on a 5-row slice (that each call launches one
    CUDA kernel and nothing else is checked under ``torch.profiler`` after the
-   timed phases, phase 9: the profiler slows every later launch of the
+   timed phases, phase 10: the profiler slows every later launch of the
    process); stacked BatchNorm at the four ResNet-18 BN shapes
    singly and 5 deep (every launch in the ``vector`` mode) and at ragged rows
    (``BN_RAGGED``: batch 37, C = 72, 100 and 98, S = 1, use_scale and use_bias
@@ -95,7 +95,28 @@ Phases (the first failure exits non-zero; nothing is caught):
    1e-4; EL2N + atol 1e-6). Cuts: 8,192 of CIFAR-10's 50,000 examples, 2 of
    the recipes' 198 epochs, 2 of the north star's 10 seeds; widths as
    published.
-9. Calls: each EL2N and last-layer row of phase 3 runs one CUDA kernel per
+9. Resilience: on the north-star ``run`` of phase 8 (its own directory), A:
+   a fault plan SIGTERMs after seed 0's score partial -> ``Preempted``, seed 0's
+   partial on disk, ``score`` not complete; the re-invoked run pretrains and
+   scores seed 1 only (12 direct and 3 Gram launches per batch, tensor-core)
+   and its scores, kept set and final retrain arrays are bitwise phase 8's.
+   B: the same config reusing A's scores, SIGTERM at epoch 0's end ->
+   ``Preempted`` durable at one epoch of steps; the re-invoked run resumes
+   ``retrain:final`` there and ends bitwise equal to A's retrain, launching
+   nothing. F: B's newest step truncated, a resumed fit refuses it
+   (``checkpoint_corrupt``), falls back one step and ends bitwise equal to B.
+   On ``RESUME_N`` examples of the recipe: C, SIGTERM before step 2 -> a final
+   save at step 3 (``preempted``, epoch -1), the resume ending at step 3 + 2
+   epochs; D, NaN at epoch 1 -> one ``divergence``, a rollback to epoch 0's
+   step at half the LR, bitwise a resume by hand; E, a 600-s hang in epoch 1
+   with ``resilience.step_timeout_s`` = ``HANG_TIMEOUT_S`` -> one ``hang``
+   (``WatchdogTimeout``) and a retry, under ``HANG_WALL_S`` of wall, bitwise
+   an uninterrupted fit. G: ``python -m data_diet_distributed_tpu_torch.cli
+   run`` at ``G_N`` examples exits 75 with ``[preempted]`` under
+   ``DDT_FAULT_PLAN`` and 0 without it (``n_kept`` half). Then the hooks'
+   cost: ``OVERHEAD_PAIRS`` alternating pairs of fit's steady-epoch ex/s with
+   resilience at its defaults and with preemption and the NaN check off.
+10. Calls: each EL2N and last-layer row of phase 3 runs one CUDA kernel per
    call, its own, and no copy, cast or memset (``torch.profiler``).
 
 With ``--profile``: one batch under ``torch.profiler`` on each of the default,
@@ -103,8 +124,9 @@ FUSED+MEGAKERNEL, BN_KERNEL and BN_KERNEL+GROUP_BN+GROUP_CONV routes; the cuDNN
 dgrad launches must drop from 19 to 9 on the megakernel route, and the
 profiled BN and Gram time per batch is printed beside the ``device_ms`` sums.
 
-Every counted run (phases 4, 5 and 7, and phase 8's ``run``) starts with the
-launch counts at 0 and is read right after; the kernels line sums them. The line before the last is a
+Every counted run (phases 4, 5 and 7, phase 8's ``run`` and phase 9's runs of
+``run_datadiet``) starts with the launch counts at 0 and is read right after;
+the kernels line sums them. The line before the last is a
 JSON object with one entry per kernel (launches on the main paths, max error,
 ms, device ms, plain ms, bound ms); the last line is ``{"ok": true, "device":
 {...}}``.
@@ -116,6 +138,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import os
 import shutil
@@ -966,6 +989,28 @@ def train_cfg(port, *over):
         f"data.batch_size={TRAIN_B}", "score.pretrain_epochs=0", *over])
 
 
+def north_star_cfg(port, checkpoint_dir: str, n: int = TRAIN_N, *over):
+    """The north-star ``configs/cifar10_resnet18_grand10.yaml`` at ``n`` synthetic
+    examples, seeds [0, 1] and 2 retrain epochs."""
+    return port["load_config"](
+        os.path.join(REPO, "configs", "cifar10_resnet18_grand10.yaml"),
+        ["data.dataset=synthetic", f"data.synthetic_size={n}", "score.seeds=[0,1]",
+         "train.num_epochs=2", f"train.checkpoint_dir={checkpoint_dir}", *over])
+
+
+def ckpt_arrays(directory: str, step: int | None = None) -> tuple[int, dict]:
+    """A checkpoint step's arrays as saved (the newest step by default)."""
+    if step is None:
+        step = max(int(n[len("step_"):]) for n in os.listdir(directory)
+                   if n.startswith("step_") and n[len("step_"):].isdigit())
+    with np.load(os.path.join(directory, f"step_{step}", "arrays.npz")) as f:
+        return step, {k: f[k] for k in f.files}
+
+
+def arrays_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
 def state_equal(torch, a, b) -> bool:
     return a.step == b.step and all(
         torch.equal(getattr(a, g)[k], getattr(b, g)[k])
@@ -1124,10 +1169,7 @@ def _train_phase(torch, port, details_out, card: str) -> dict:
                           "card_from_f64": eps_gpu, "cpu_from_f64": eps_cpu}
 
     # 5. The north-star run at 8,192 examples, 2 seeds, 2 epochs of retrain.
-    run_cfg = port["load_config"](
-        os.path.join(REPO, "configs", "cifar10_resnet18_grand10.yaml"),
-        ["data.dataset=synthetic", f"data.synthetic_size={TRAIN_N}", "score.seeds=[0,1]",
-         "train.num_epochs=2", f"train.checkpoint_dir={os.path.join(TRAIN_CKPT_DIR, 'run')}"])
+    run_cfg = north_star_cfg(port, os.path.join(TRAIN_CKPT_DIR, "run"))
     nb = -(-TRAIN_N // run_cfg.score.batch_size)
     K.reset_launch_counts()
     modes0 = K.mode_counts()
@@ -1160,6 +1202,10 @@ def _train_phase(torch, port, details_out, card: str) -> dict:
     rec["run"] = {"wall_s": run_wall, **walls, "n_kept": summary["n_kept"],
                   "final_test_accuracy": summary["final_test_accuracy"],
                   "launches": counts}
+    # What the resilience phase's drills must reproduce bitwise.
+    with np.load(npz) as f:
+        run_art = {"scores": f["scores"], "kept": f["kept"], "walls": walls,
+                   "arrays": ckpt_arrays(run_cfg.train.checkpoint_dir)[1]}
 
     # 6. Each kernel route against the plain route on the pretrained seed-0
     # variables, fp32, TF32 off: rtol 1e-4 (atol 1e-6 for EL2N, whose scores of
@@ -1186,7 +1232,288 @@ def _train_phase(torch, port, details_out, card: str) -> dict:
         rec["trained_parity"][what] = {"max_rel": rel, "max_abs": float(err.max())}
     port["set_parity_mode"](False)
     details_out["train"] = rec
-    return {"counts": counts}
+    return {"counts": counts, "run": run_art}
+
+
+# Resilience phase: the north-star run preempted, resumed and corrupted on the card.
+RES_DIR = os.path.join(REPO, "chip_smoke_out", "resilience_ckpt")
+HANG_TIMEOUT_S = 10      # resilience.step_timeout_s of drill E
+HANG_WALL_S = 60         # drill E's whole fit_with_recovery must end within this
+G_N = 2048               # drill G's examples (two CLI processes)
+OVERHEAD_PAIRS = 3
+
+
+class Events:
+    """A ``log(kind, **fields)`` callable that keeps every record."""
+
+    def __init__(self):
+        self.records: list[dict] = []
+
+    def __call__(self, kind, **fields):
+        self.records.append({"kind": kind, **fields})
+
+    def of(self, kind: str) -> list[dict]:
+        return [e for e in self.records if e["kind"] == kind]
+
+
+def expect_preempted(port, fn):
+    """``fn()`` must raise ``Preempted``; returns it."""
+    try:
+        fn()
+    except port["Preempted"] as p:
+        return p
+    fail(f"{fn}: no Preempted raised")
+
+
+def with_plan(port, plan: dict, fn):
+    inject = port["inject"]
+    inject.activate(inject.plan_from_dict(plan))
+    try:
+        return fn()
+    finally:
+        inject.deactivate()
+
+
+def counted(K, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just after:
+    (result, counts, mode counts before)."""
+    K.reset_launch_counts()
+    modes0 = K.mode_counts()
+    out = fn()
+    return out, K.launch_counts(), modes0
+
+
+def resilience_phase(torch, port, details_out, trained: dict) -> dict:
+    """The resilience core on the card (drills A-G and the hooks' overhead).
+    Checkpoints go to ``RES_DIR`` and are removed after."""
+    shutil.rmtree(RES_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        return _resilience_phase(torch, port, details_out, trained)
+    finally:
+        shutil.rmtree(RES_DIR, ignore_errors=True)
+        wall = time.perf_counter() - t0
+        details_out.setdefault("resilience", {})["phase_wall_s"] = wall
+        print(f"  resilience phase: {wall:.1f} s", flush=True)
+
+
+def _resilience_phase(torch, port, details_out, trained: dict) -> dict:
+    T, K = port["train"], port["kernels"]
+    rec: dict = {}
+    details_out["resilience"] = rec
+    total = dict.fromkeys(K.KERNELS, 0)
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    # A. Preempt mid-scoring (after seed 0's partial), then re-invoke: only seed
+    # 1 is pretrained and scored, and everything equals the train phase's run.
+    dir_a = os.path.join(RES_DIR, "a")
+    cfg = north_star_cfg(port, dir_a)
+    nb = -(-TRAIN_N // cfg.score.batch_size)
+    one_seed = dict.fromkeys(K.KERNELS, 0)
+    one_seed.update(conv_grad_norm_direct=12 * nb, conv_grad_norm_gram=3 * nb)
+    p, counts, modes0 = counted(K, lambda: with_plan(
+        port, {"sigterm_after_seed_scores": 1},
+        lambda: expect_preempted(port, lambda: T["run_datadiet"](cfg, device="cuda"))))
+    add(counts)
+    check(counts == one_seed, f"A, preempted pass: launches {counts}, want {one_seed}")
+    parts = sorted(os.listdir(f"{dir_a}_score_partials"))
+    manifest = port["StageManifest"](f"{dir_a}_stages.json",
+                                     T["pipeline_fingerprint"](cfg))
+    check(parts == ["seed0.npz"] and not manifest.completed("score"),
+          f"A: partials {parts}, score stage {manifest.status('score')}")
+    ev = Events()
+    t1 = time.perf_counter()
+    summary, counts, modes0 = counted(K, lambda: T["run_datadiet"](
+        north_star_cfg(port, dir_a), device="cuda", log=ev))
+    wall = time.perf_counter() - t1
+    add(counts)
+    check(counts == one_seed, f"A, resumed pass: launches {counts}, want {one_seed}")
+    for kern in ("conv_grad_norm_direct", "conv_grad_norm_gram"):
+        check_modes(K, modes0[kern], one_seed[kern], "tensor_core", "A, resumed", kern)
+    resumed = [(e["done"], e["todo"]) for e in ev.of("score_seeds_resumed")]
+    check(resumed == [([0], [1])], f"A: score_seeds_resumed {resumed}")
+    with np.load(T["scores_npz_path"](dir_a)) as f:
+        scores_a, kept_a = f["scores"], f["kept"]
+    arrays_a = ckpt_arrays(dir_a)[1]
+    run = trained["run"]
+    check(np.array_equal(scores_a, run["scores"]), "A: scores differ from the train "
+          f"phase's run (max |d| {float(np.abs(scores_a - run['scores']).max()):.3e})")
+    check(np.array_equal(kept_a, run["kept"]), "A: kept set differs")
+    check(arrays_equal(arrays_a, run["arrays"]), "A: final retrain arrays differ")
+    rec["A"] = {"resumed_wall_s": wall, "pretrain_wall_s": summary["pretrain_wall_s"],
+                "score_wall_s": summary["score_wall_s"], "launches": counts,
+                "uninterrupted": run["walls"]}
+    print(f"  A preempt mid-scoring: Preempted after seed 0 ({p.signame}); resumed "
+          f"run {wall:.3f} s, pretrain {summary['pretrain_wall_s']:.3f} s, score "
+          f"{summary['score_wall_s']:.3f} s (uninterrupted: pretrain "
+          f"{run['walls']['pretrain_wall_s']:.3f}, score "
+          f"{run['walls']['score_wall_s']:.3f}); launches {counts}, tensor-core; "
+          "scores, kept and final arrays bitwise equal", flush=True)
+
+    # B. Preempt the retrain at epoch 0's end (scores reused from A: no
+    # pretrain, nothing scored), then re-invoke: retrain:final resumes.
+    dir_b = os.path.join(RES_DIR, "b")
+    b_over = (f"score.scores_npz={T['scores_npz_path'](dir_a)}",)
+    spe = -(-len(kept_a) // cfg.data.batch_size)
+    p, counts, _ = counted(K, lambda: with_plan(
+        port, {"sigterm_at_epoch_end": 0},
+        lambda: expect_preempted(port, lambda: T["run_datadiet"](
+            north_star_cfg(port, dir_b, TRAIN_N, *b_over), device="cuda"))))
+    add(counts)
+    check((p.durable_step, p.epoch) == (spe, 0),
+          f"B: Preempted durable_step {p.durable_step} epoch {p.epoch}, want {spe}, 0")
+    ev = Events()
+    _, counts, _ = counted(K, lambda: T["run_datadiet"](
+        north_star_cfg(port, dir_b, TRAIN_N, *b_over), device="cuda", log=ev))
+    add(counts)
+    check(not any(counts.values()), f"B: launches {counts}, want none")
+    stage_ev = [(e["stage"], e["status"]) for e in ev.of("stage")]
+    resumes = [(e["step"], e["epoch"]) for e in ev.of("resume")]
+    check(("retrain:final", "resuming") in stage_ev and resumes == [(spe, 1)],
+          f"B: stage events {stage_ev}, resumes {resumes}")
+    step_b, arrays_b = ckpt_arrays(dir_b)
+    check(arrays_equal(arrays_b, arrays_a), "B: final arrays differ from A's retrain")
+    rec["B"] = {"durable_step": p.durable_step, "resumes": resumes}
+    print(f"  B preempt at epoch end: durable step {p.durable_step}; retrain:final "
+          f"resumed at step {resumes[0][0]}, epoch 1; final arrays bitwise equal to A's; "
+          f"no launches", flush=True)
+
+    # F. Truncate B's newest step: the resume falls back to the step before it.
+    port["inject"].truncate_checkpoint(dir_b, step_b)
+    cfg_b = north_star_cfg(port, dir_b, TRAIN_N, *b_over, "train.resume=true")
+    train_ds, test_ds = T["load_data_for"](cfg_b)
+    ev = Events()
+    T["fit"](cfg_b, train_ds.subset(kept_a), test_ds, device="cuda", log=ev,
+             checkpoint_dir=dir_b, tag="final")
+    faults = [(e["fault"], e["step"]) for e in ev.of("fault")]
+    resumes = [e["step"] for e in ev.of("resume")]
+    check(faults == [("checkpoint_corrupt", step_b)] and resumes == [spe],
+          f"F: faults {faults}, resumes {resumes}")
+    check(arrays_equal(ckpt_arrays(dir_b)[1], arrays_b), "F: refit differs from B's")
+    rec["F"] = {"faults": faults, "resume_step": resumes[0]}
+    print(f"  F corrupt checkpoint: step {step_b} truncated, refused "
+          f"(checkpoint_corrupt), fell back to step {resumes[0]}; final arrays bitwise "
+          "equal to B's", flush=True)
+
+    # C, D, E: plain fits of the recipe on RESUME_N examples (8 steps an epoch).
+    small_cfg = train_cfg(port, "train.num_epochs=2", "train.checkpoint_every=1")
+    rds = train_ds.subset(train_ds.indices[:RESUME_N])
+    spe = -(-RESUME_N // TRAIN_B)
+    whole = T["fit"](small_cfg, rds, None, device="cuda")
+
+    # C. SIGTERM before step 2: the final synchronous save at step 3, epoch -1;
+    # the resume replays epoch 0 with the counter continuing (at least once).
+    dir_c = os.path.join(RES_DIR, "c")
+    p = with_plan(port, {"sigterm_at_step": 2}, lambda: expect_preempted(
+        port, lambda: T["fit"](small_cfg, rds, None, device="cuda", checkpoint_dir=dir_c)))
+    meta = port["CheckpointManager"](dir_c).metrics(3)
+    check((p.step, p.durable_step, p.epoch) == (3, 3, -1)
+          and meta.get("preempted") is True and meta.get("epoch") == -1,
+          f"C: Preempted step {p.step} durable {p.durable_step} epoch {p.epoch}, "
+          f"saved metrics {meta}")
+    c_cfg = copy.deepcopy(small_cfg)
+    c_cfg.train.resume = True
+    res = T["fit"](c_cfg, rds, None, device="cuda", checkpoint_dir=dir_c)
+    check(res.state.step == 3 + 2 * spe, f"C: resumed to step {res.state.step}, "
+          f"want {3 + 2 * spe}")
+    rec["C"] = {"step": p.step, "final_step": res.state.step}
+    print(f"  C preempt mid-epoch: final save at step 3 (epoch -1, preempted); resumed "
+          f"to step {res.state.step} = 3 + 2 x {spe}", flush=True)
+
+    # D. NaN at epoch 1: rollback to epoch 0's step at half the LR, bitwise the
+    # fit resumed by hand from that checkpoint with optim.lr halved.
+    dir_d = os.path.join(RES_DIR, "d")
+    ev = Events()
+    res = with_plan(port, {"nan_loss_at_epoch": 1}, lambda: T["fit_with_recovery"](
+        small_cfg, rds, None, device="cuda", checkpoint_dir=dir_d, log=ev))
+    faults = [e["fault"] for e in ev.of("fault")]
+    recov = [(e["cause"], e["resume_step"], e["lr"]) for e in ev.of("recovery")]
+    lr = small_cfg.optim.lr * small_cfg.resilience.nan_lr_factor
+    check(faults == ["divergence"] and recov == [("divergence", spe, lr)],
+          f"D: faults {faults}, recoveries {recov}")
+    by_hand = os.path.join(RES_DIR, "d_by_hand")
+    shutil.copytree(os.path.join(dir_d, f"step_{spe}"), os.path.join(by_hand, f"step_{spe}"))
+    h_cfg = copy.deepcopy(small_cfg)
+    h_cfg.optim.lr = lr
+    h_cfg.train.resume = True
+    want = T["fit"](h_cfg, rds, None, device="cuda", checkpoint_dir=by_hand)
+    check(state_equal(torch, res.state, want.state),
+          "D: rollback differs from a resume by hand at half the LR")
+    rec["D"] = {"faults": faults, "recovery": recov}
+    print(f"  D NaN rollback: divergence at epoch 1, resumed at step {spe} with lr {lr}; "
+          "bitwise equal to a resume by hand", flush=True)
+
+    # E. A hang in epoch 1: the watchdog turns it into a retry from epoch 0's step.
+    dir_e = os.path.join(RES_DIR, "e")
+    e_cfg = train_cfg(port, "train.num_epochs=2", "train.checkpoint_every=1",
+                      f"resilience.step_timeout_s={HANG_TIMEOUT_S}",
+                      "train.auto_resume_retries=1")
+    ev = Events()
+    t1 = time.perf_counter()
+    res = with_plan(port, {"hang_at": spe + 2, "hang_seconds": 600},
+                    lambda: T["fit_with_recovery"](e_cfg, rds, None, device="cuda",
+                                                   checkpoint_dir=dir_e, log=ev))
+    wall = time.perf_counter() - t1
+    faults = [e for e in ev.of("fault")]
+    check(len(faults) == 1 and faults[0]["fault"] == "hang"
+          and "WatchdogTimeout" in faults[0]["error"], f"E: faults {faults}")
+    check(wall < HANG_WALL_S, f"E: {wall:.1f} s of wall (limit {HANG_WALL_S})")
+    check(state_equal(torch, res.state, whole.state), "E: differs from an uninterrupted fit")
+    rec["E"] = {"wall_s": wall, "timeout_s": HANG_TIMEOUT_S}
+    print(f"  E hang: WatchdogTimeout after {HANG_TIMEOUT_S} s, retried from step {spe}; "
+          f"{wall:.3f} s of wall; bitwise equal to an uninterrupted fit", flush=True)
+
+    # G. The real command line in a process of its own: exit 75 under a fault
+    # plan, then the same command finishes.
+    torch.cuda.empty_cache()
+    dir_g = os.path.join(RES_DIR, "g")
+    cmd = [sys.executable, "-m", "data_diet_distributed_tpu_torch.cli", "run",
+           "--config", os.path.join(REPO, "configs", "cifar10_resnet18_grand10.yaml"),
+           "data.dataset=synthetic", f"data.synthetic_size={G_N}", "score.seeds=[0,1]",
+           "train.num_epochs=2", f"train.checkpoint_dir={dir_g}"]
+    env = {k: v for k, v in os.environ.items() if k != "DDT_FAULT_PLAN"}
+    env["PYTHONPATH"] = REPO
+    walls = []
+    for plan in ('{"sigterm_after_seed_scores": 1}', None):
+        t1 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+                              env={**env, "DDT_FAULT_PLAN": plan} if plan else env)
+        walls.append(time.perf_counter() - t1)
+        if plan:
+            check(proc.returncode == 75 and "[preempted]" in proc.stdout,
+                  f"G: exit {proc.returncode}, stdout {proc.stdout[-300:]!r}, "
+                  f"stderr {proc.stderr[-1500:]!r}")
+        else:
+            check(proc.returncode == 0, f"G rerun: exit {proc.returncode}, "
+                                        f"stderr {proc.stderr[-1500:]!r}")
+            out = json.loads(proc.stdout.strip().splitlines()[-1])
+            check(out["event"] == "run_done" and out["n_kept"] == G_N // 2,
+                  f"G rerun: {out}")
+    rec["G"] = {"walls_s": walls}
+    print(f"  G cli run ({G_N} examples): exit 75 with [preempted] under "
+          f"DDT_FAULT_PLAN ({walls[0]:.1f} s), then exit 0, n_kept {G_N // 2} "
+          f"({walls[1]:.1f} s)", flush=True)
+
+    # The hooks' cost: fit's steady-epoch ex/s with resilience at its defaults
+    # against preemption and the NaN check off, three alternating pairs.
+    rates = {"on": [], "off": []}
+    for i in range(OVERHEAD_PAIRS):
+        for label in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            over = (() if label == "on" else
+                    ("resilience.preemption=false", "resilience.nan_check=false"))
+            hist = T["fit"](train_cfg(port, "train.num_epochs=2", *over), train_ds,
+                            None, device="cuda").history
+            rates[label].append(hist[1]["examples_per_s"])
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    rec["overhead"] = {"examples_per_s": rates, "median": med,
+                       "ratio_on_off": med["on"] / med["off"]}
+    print(f"  hooks: steady epoch {med['on']:.1f} ex/s on vs {med['off']:.1f} off "
+          f"(ratio {med['on'] / med['off']:.4f}; on {rates['on']}, off {rates['off']})",
+          flush=True)
+    return {"counts": total}
 
 
 @contextlib.contextmanager
@@ -1543,6 +1870,10 @@ def main(argv: list[str]) -> int:
         from data_diet_distributed_tpu_torch.ops.scoring import score_dataset
         from data_diet_distributed_tpu_torch.pruning import select_indices
         from data_diet_distributed_tpu_torch.pruning import verify_prune_manifest
+        from data_diet_distributed_tpu_torch.checkpoint import CheckpointManager
+        from data_diet_distributed_tpu_torch.resilience import inject
+        from data_diet_distributed_tpu_torch.resilience.preemption import Preempted
+        from data_diet_distributed_tpu_torch.resilience.stages import StageManifest
         from data_diet_distributed_tpu_torch.serve.engine import ServeEngine
         from data_diet_distributed_tpu_torch.train import loop, state, steps
         from data_diet_distributed_tpu_torch.weights import init_variables, variables_to
@@ -1557,7 +1888,11 @@ def main(argv: list[str]) -> int:
             "ServeEngine": ServeEngine, "init_variables": init_variables,
             "variables_to": variables_to,
             "set_scoring_determinism": set_scoring_determinism,
+            "inject": inject, "Preempted": Preempted, "StageManifest": StageManifest,
+            "CheckpointManager": CheckpointManager,
             "train": {"fit": loop.fit, "evaluate": loop.evaluate,
+                      "fit_with_recovery": loop.fit_with_recovery,
+                      "pipeline_fingerprint": loop.pipeline_fingerprint,
                       "load_data_for": loop.load_data_for,
                       "run_datadiet": loop.run_datadiet,
                       "score_variables_for_seeds": loop.score_variables_for_seeds,
@@ -1622,6 +1957,9 @@ def main(argv: list[str]) -> int:
     phase("train")
     trained = train_phase(torch, port, details, card)
 
+    phase("resilience")
+    resil = resilience_phase(torch, port, details, trained)
+
     phase("calls")
     calls_phase(torch)
 
@@ -1635,9 +1973,9 @@ def main(argv: list[str]) -> int:
 
     # One entry per kernel: per-batch sums over the layers of the route that runs
     # it, bf16; launches summed over the counted runs of the path, routes and
-    # resnet50 phases and the train phase's run.
+    # resnet50 phases, the train phase's run and the resilience phase's runs.
     launches = {k: path["counts"][k] + routes["counts"][k] + r50["counts"][k]
-                + trained["counts"][k] for k in K.KERNELS}
+                + trained["counts"][k] + resil["counts"][k] for k in K.KERNELS}
     check(all(launches[k] > 0 for k in KERNEL_INFO), f"a kernel never launched: {launches}")
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -39,17 +39,24 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   the SGD chain)
 * ``train/steps.py`` -> ``train/steps.py`` (``train_step``, ``eval_step``; the
   per-step path)
-* ``train/loop.py`` -> ``train/loop.py`` (``fit``, ``evaluate``,
-  ``score_variables_for_seeds``, ``compute_scores``, ``run_datadiet``,
-  ``run_sweep``)
+* ``train/loop.py`` -> ``train/loop.py`` (``fit`` with the resilience hooks,
+  ``fit_with_recovery``, ``evaluate``, ``score_variables_for_seeds``,
+  ``compute_scores`` with per-seed partials, ``run_datadiet`` and
+  ``run_sweep`` with the stage manifest, the fingerprints)
 * ``checkpoint.py`` -> ``checkpoint.py`` (the single-tier ``CheckpointManager``,
-  in the port's own format)
+  in the port's own format; ``restore_verified`` falls back past corrupt
+  steps)
+* ``resilience/`` -> ``resilience/`` (single process: ``preemption.py``,
+  ``sentinel.py``, ``watchdog.py`` with ``probe_devices`` through torch,
+  ``integrity.py`` for the port's manifest, ``stages.py``, and ``inject.py``
+  with the training fault classes)
 * ``utils/io.py`` -> ``utils/io.py`` (atomic writes, ``load_scores_npz``)
 * ``serve/engine.py`` -> ``serve/engine.py`` (``ServeEngine`` scoring units)
-* ``cli.py`` -> ``cli.py`` (``train``, ``run``, ``sweep``, ``score``)
+* ``cli.py`` -> ``cli.py`` (``train``, ``run``, ``sweep``, ``score``; exit 75
+  on preemption, ``DDT_FAULT_PLAN`` drills)
 
-Not ported yet: resilience (stage manifest, score partials, NaN sentinel,
-preemption, watchdog, ``fit_with_recovery``, checkpoint tiers), the chunked
+Not ported yet: multi-host consensus, elastic supervision, the checkpoint
+tiers and the other fault classes of ``resilience/``, the chunked
 training engine, trajectory scores (forgetting, AUM), WideResNet and
 ``model.remat``, the npz/sharded/streaming data planes, multi-device training
 and scoring, the serving batcher/server/router/fleet (``cli serve``) and

@@ -6,39 +6,40 @@ checkpoints, nor they its. One directory per step, ``<dir>/step_<N>/``:
 
 * ``arrays.npz``: every ``TrainState`` tensor as float32, keyed
   ``params/<name>``, ``batch_stats/<name>`` and ``momentum/<name>``;
-* ``manifest.json``: the format tag, the step, per array its shape, dtype
+* ``manifest.json`` (``resilience/integrity.py::build_manifest``): the format
+  tag, the step, whether the params were finite, per array its shape, dtype
   and the sha256 of its bytes, and ``metrics`` (``epoch``,
-  ``steps_per_epoch`` and the epoch record's numbers).
+  ``steps_per_epoch``, the epoch record's numbers, and ``preempted`` for a
+  preemption's final save).
 
 A step is written into a temporary directory and renamed into place, so a
 kill mid-save leaves no half-written step. ``max_to_keep`` newest steps are
-kept. A restore checks every array against its digest and refuses on a
-mismatch, naming the array.
+kept. A restore verifies the arrays against the manifest
+(``integrity.verify_restored``) and refuses with ``CheckpointCorrupt``
+naming the array; ``restore_verified`` falls back past refused steps to the
+newest one that verifies.
 """
 
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 import re
 import shutil
+import zipfile
 from typing import Any
 
 import numpy as np
 import torch
 
 from .device import resolve_device
+from .resilience.integrity import (FORMAT, CheckpointCorrupt, build_manifest,
+                                   verify_restored)
 from .train.state import TrainState
 from .weights import variables_to
 
-FORMAT = "data_diet_distributed_tpu_torch/checkpoint/1"
 _STEP_DIR = re.compile(r"^step_(\d+)$")
 _GROUPS = ("params", "batch_stats", "momentum")
-
-
-def _digest(arr: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
 
 
 class CheckpointManager:
@@ -67,12 +68,7 @@ class CheckpointManager:
         """Write ``state`` as step ``step``; returns its directory."""
         arrays = {f"{group}/{k}": v.detach().float().cpu().numpy()
                   for group in _GROUPS for k, v in getattr(state, group).items()}
-        manifest = {
-            "format": FORMAT, "step": int(step), "state_step": int(state.step),
-            "arrays": {k: {"shape": list(a.shape), "dtype": str(a.dtype),
-                           "sha256": _digest(a)} for k, a in arrays.items()},
-            "metrics": metrics or {},
-        }
+        manifest = build_manifest(arrays, step, state.step, metrics)
         final = self._step_dir(step)
         tmp = f"{final}.tmp{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -113,21 +109,21 @@ class CheckpointManager:
         return int(step)
 
     def _load(self, step: int | None) -> tuple[dict, dict[str, dict]]:
-        """The manifest and the digest-checked arrays by group."""
+        """The manifest and the verified arrays by group."""
         step = self._resolve(step)
         manifest = self.manifest(step)
+        path = os.path.join(self._step_dir(step), "arrays.npz")
+        try:
+            with np.load(path) as f:
+                arrays = {k: f[k] for k in f.files}
+        except (OSError, ValueError, EOFError, zipfile.BadZipFile) as err:
+            raise CheckpointCorrupt(f"{path} does not read ({err!r}): truncated or "
+                                    "corrupt payload") from err
+        verify_restored(arrays, manifest, step, where=self._step_dir(step))
         out: dict[str, dict] = {g: {} for g in _GROUPS}
-        with np.load(os.path.join(self._step_dir(step), "arrays.npz")) as f:
-            if set(f.files) != set(manifest["arrays"]):
-                raise ValueError(f"{self._step_dir(step)}: the arrays do not match "
-                                 "the manifest")
-            for key, meta in manifest["arrays"].items():
-                arr = f[key]
-                if _digest(arr) != meta["sha256"] or list(arr.shape) != meta["shape"]:
-                    raise ValueError(f"{self._step_dir(step)}: array {key!r} fails its "
-                                     "sha256 digest (corrupt checkpoint)")
-                group, name = key.split("/", 1)
-                out[group][name] = torch.from_numpy(arr.copy())
+        for key, arr in arrays.items():
+            group, name = key.split("/", 1)
+            out[group][name] = torch.from_numpy(arr)
         return manifest, out
 
     def restore(self, step: int | None = None, device=None) -> TrainState:
@@ -146,3 +142,25 @@ class CheckpointManager:
         device = resolve_device(device)
         _, groups = self._load(step)
         return variables_to({**groups["params"], **groups["batch_stats"]}, device)
+
+    def restore_verified(self, step: int | None = None, device=None,
+                         on_fallback=None) -> tuple[TrainState, int]:
+        """Restore the newest step (``<= step`` when one is given) whose
+        payload reads and verifies; returns ``(state, restored_step)``. Each
+        refused step is reported through ``on_fallback(step=, error=)`` before
+        the next older one is tried; ``CheckpointCorrupt`` when none verifies."""
+        candidates = [s for s in sorted(self.all_steps(), reverse=True)
+                      if step is None or s <= step]
+        if not candidates:
+            raise FileNotFoundError(f"{self.directory}: no checkpoint to restore")
+        last_err: Exception | None = None
+        for s in candidates:
+            try:
+                return self.restore(s, device), s
+            except Exception as err:  # noqa: BLE001 — any failed candidate falls back
+                last_err = err
+                if on_fallback is not None:
+                    on_fallback(step=s, error=repr(err)[:300])
+        raise CheckpointCorrupt(
+            f"all {len(candidates)} checkpoint(s) {candidates} in {self.directory} "
+            f"failed restore/verification; last error: {last_err!r}") from last_err

@@ -2,13 +2,17 @@
 port reads.
 
 ``DataConfig``, ``ModelConfig``, ``OptimConfig``, ``ScoreConfig``,
-``PruneConfig`` and ``TrainConfig`` are copied whole, with the JAX package's
-validations. Two train keys are accepted and ignored: ``train.chunk_steps``
-(the JAX package's dispatch-amortising engine, whose results are by contract
-those of the per-step path, which is the one the port runs) and
-``train.auto_resume_retries`` (restart-based recovery, not ported yet). The
-sections the port does not have (mesh, parallel, checkpoint, obs, resilience,
-elastic, serve, tuning) are accepted key by key and ignored, so every
+``PruneConfig``, ``TrainConfig`` and ``ResilienceConfig`` are copied whole,
+with the JAX package's validations. ``train.chunk_steps`` is accepted and
+ignored (the JAX package's dispatch-amortising engine, whose results are by
+contract those of the per-step path, which is the one the port runs). Of
+``resilience``, the port honours ``step_timeout_s``, ``preemption``,
+``verify_restore``, ``nan_check``, ``nan_retry_budget``, ``nan_lr_factor``,
+``stage_resume`` and the ``init_probe`` settings; the multi-host consensus
+keys (``consensus``, ``consensus_poll_steps``, ``consensus_grace_s``,
+``sidechannel_dir``) are validated and have no effect in one process. The
+sections the port does not have (mesh, parallel, checkpoint, obs, elastic,
+serve, tuning) are accepted key by key and ignored, so every
 ``configs/*.yaml`` loads unchanged, while an unknown key anywhere still raises
 ``KeyError`` as in JAX.
 """
@@ -106,13 +110,54 @@ class TrainConfig:
     checkpoint_dir: str = "./checkpoints"
     keep_checkpoints: int = 20
     resume: bool = False
-    auto_resume_retries: int = 0             # accepted, ignored (not ported yet)
+    auto_resume_retries: int = 0             # fit_with_recovery retries
     half_precision: bool = True              # bf16 compute, fp32 parameters
     # Upload the train/test sets to the device once and gather batches there.
     # None = auto: on when the set fits data/pipeline.RESIDENT_MAX_BYTES.
     device_resident_data: bool | None = None
     chunk_steps: int | None = None           # accepted, ignored (per-step path)
     log_every_steps: int = 50
+
+
+@dataclass
+class ResilienceConfig:
+    """Fault tolerance (``resilience/``): watchdog, preemption handling,
+    checkpoint integrity, NaN sentinel, stage resume."""
+
+    # Heartbeat deadline over training progress units: each step, the epoch
+    # metrics fetch, the eval pass and the checkpoint save each get a fresh
+    # deadline; a unit that makes no host-side progress for this long raises
+    # a retriable WatchdogTimeout. None = off.
+    step_timeout_s: float | None = None
+    # SIGTERM/SIGINT -> final synchronous checkpoint -> Preempted (CLI exit
+    # 75); rerun with train.resume=true (or the same run/sweep) to continue.
+    preemption: bool = True
+    # Verify restored checkpoints against their manifest and fall back to the
+    # newest earlier step when the latest is corrupt. False: resume from the
+    # newest (or the given) step with no fallback; the port's format still
+    # checks what it reads, so a corrupt step raises CheckpointCorrupt (the
+    # JAX package loads it unverified).
+    verify_restore: bool = True
+    # Raise on NaN/inf epoch loss BEFORE the diverged state is checkpointed...
+    nan_check: bool = True
+    # ...then roll back to the last good checkpoint and retry with
+    # lr *= nan_lr_factor, up to nan_retry_budget times.
+    nan_retry_budget: int = 1
+    nan_lr_factor: float = 0.5
+    # Subprocess-bounded CUDA-init probe with retry and backoff before the
+    # CLI touches the card (exit 69 when it fails).
+    init_probe: bool = False
+    probe_attempts: int = 3
+    probe_timeout_s: float = 150.0
+    probe_backoff_s: float = 20.0
+    # Multi-host consensus: validated, no effect in a single process.
+    consensus: bool = True
+    consensus_poll_steps: int = 1
+    consensus_grace_s: float = 15.0
+    sidechannel_dir: str | None = None
+    # Durable stage manifest + per-seed score partials: an interrupted
+    # run/sweep/score re-enters at the exact pipeline stage.
+    stage_resume: bool = True
 
 
 #: Keys of the sections the port does not have: accepted, ignored.
@@ -136,11 +181,6 @@ _IGNORED_SECTIONS: dict[str, Any] = {
             "slo_eval_accuracy_floor", "slo_serve_p95_ms", "slo_serve_queue_depth",
             "slo_serve_reject_frac", "slo_fleet_p95_ms",
             "slo_fleet_available_frac", "slo_recovery_s"},
-    "resilience": {"step_timeout_s", "preemption", "verify_restore", "nan_check",
-                   "nan_retry_budget", "nan_lr_factor", "init_probe",
-                   "probe_attempts", "probe_timeout_s", "probe_backoff_s",
-                   "consensus", "consensus_poll_steps", "consensus_grace_s",
-                   "sidechannel_dir", "stage_resume"},
     "elastic": {"enabled", "world", "min_world", "max_world", "max_restarts",
                 "backoff_s", "reap_timeout_s", "heartbeat_stale_s",
                 "resume_preempted"},
@@ -167,6 +207,7 @@ class Config:
     score: ScoreConfig = field(default_factory=ScoreConfig)
     prune: PruneConfig = field(default_factory=PruneConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
 
     def validate(self) -> "Config":
         if self.data.dataset not in ("cifar10", "cifar100", "synthetic",
@@ -231,12 +272,37 @@ class Config:
             raise ValueError(
                 f"score.chunk_steps must be >= 0 (0/1 = per-batch, null = "
                 f"auto), got {self.score.chunk_steps}")
+        r = self.resilience
+        if r.step_timeout_s is not None and r.step_timeout_s <= 0:
+            raise ValueError(
+                f"resilience.step_timeout_s must be > 0 (or null to disable "
+                f"the watchdog), got {r.step_timeout_s}")
+        if r.nan_retry_budget < 0:
+            raise ValueError(
+                f"resilience.nan_retry_budget must be >= 0, got {r.nan_retry_budget}")
+        if not 0.0 < r.nan_lr_factor <= 1.0:
+            raise ValueError(
+                f"resilience.nan_lr_factor must be in (0, 1], got {r.nan_lr_factor}")
+        if r.probe_attempts < 1 or r.probe_timeout_s <= 0 or r.probe_backoff_s < 0:
+            raise ValueError(
+                "resilience probe settings need probe_attempts >= 1, "
+                "probe_timeout_s > 0, probe_backoff_s >= 0; got "
+                f"{r.probe_attempts}/{r.probe_timeout_s}/{r.probe_backoff_s}")
+        if r.consensus_poll_steps < 1:
+            raise ValueError(
+                f"resilience.consensus_poll_steps must be >= 1, got "
+                f"{r.consensus_poll_steps}")
+        if r.consensus_grace_s <= 0:
+            raise ValueError(
+                f"resilience.consensus_grace_s must be > 0, got "
+                f"{r.consensus_grace_s}")
         return self
 
 
 _SECTIONS = {"data": DataConfig, "model": ModelConfig, "optim": OptimConfig,
              "score": ScoreConfig,
-             "prune": PruneConfig, "train": TrainConfig}
+             "prune": PruneConfig, "train": TrainConfig,
+             "resilience": ResilienceConfig}
 
 
 def _check_ignored(keys: Any, value: Any, where: str) -> None:

@@ -52,6 +52,12 @@ class ScoreResident:
                    (self.images[i], self.labels[i], self.mask[i]))
 
 
+def resident_by_default(n_seeds: int, ds: ArrayDataset) -> bool:
+    """``score_dataset``'s residency rule: several seeds and a dataset under
+    ``_DEVICE_RESIDENT_MAX_BYTES`` of float32 images."""
+    return n_seeds > 1 and ds.images.size * 4 <= _DEVICE_RESIDENT_MAX_BYTES
+
+
 def _streamed_batches(ds: ArrayDataset, batch_size: int, device):
     for hb in iterate_batches(ds, batch_size):
         yield (hb["index"], hb["mask"].astype(bool),
@@ -106,8 +112,7 @@ def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
     n = len(ds)
     pos_of = make_position_joiner(ds.indices)
     if device_resident is None:
-        device_resident = (len(variables_seeds) > 1
-                           and ds.images.size * 4 <= _DEVICE_RESIDENT_MAX_BYTES)
+        device_resident = resident_by_default(len(variables_seeds), ds)
     resident = ScoreResident(ds, batch_size, device) if device_resident else None
     total = np.zeros(n, np.float64)
     for k, variables in enumerate(variables_seeds):

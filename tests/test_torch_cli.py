@@ -147,6 +147,58 @@ def test_cli_score_reuses_scores_npz(tmp_path, capsys):
                   f"train.checkpoint_dir={tmp_path}/c"])
 
 
+def test_cli_run_preempted_exits_75_then_resumes(tmp_path):
+    """A drill through the real command line: a fault plan in DDT_FAULT_PLAN
+    preempts ``run`` after the first seed's scores (exit 75, ``[preempted]``);
+    the same command without it re-enters at the scoring stage and finishes."""
+    ckpt = tmp_path / "run"
+    cmd = [sys.executable, "-m", "data_diet_distributed_tpu_torch.cli", "run",
+           "--config", SMOKE, *TINY, "train.num_epochs=1",
+           f"train.checkpoint_dir={ckpt}", "--device", "cpu"]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    drill = subprocess.run(cmd, env={**env, "DDT_FAULT_PLAN":
+                                     '{"sigterm_after_seed_scores": 1}'},
+                           cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert drill.returncode == 75, drill.stderr[-3000:]
+    assert drill.stdout.startswith("[preempted] preempted by SIGTERM")
+    assert os.listdir(f"{ckpt}_score_partials") == ["seed0.npz"]
+    rerun = subprocess.run(cmd, env=env, cwd=tmp_path, capture_output=True, text=True,
+                           timeout=300)
+    assert rerun.returncode == 0, rerun.stderr[-3000:]
+    out = json.loads(rerun.stdout.strip().splitlines()[-1])
+    assert out["event"] == "run_done" and out["n_kept"] == 48
+    events = [json.loads(line) for line in rerun.stderr.splitlines()
+              if line.startswith("{")]
+    resumed = [e for e in events if e["kind"] == "score_seeds_resumed"]
+    assert [(e["done"], e["todo"]) for e in resumed] == [([0], [1])]
+
+
+def test_cli_refuses_an_unported_fault_class(tmp_path, monkeypatch):
+    monkeypatch.setenv("DDT_FAULT_PLAN", '{"kill_rank_after_epoch": 0}')
+    with pytest.raises(ValueError, match="not ported"):
+        cli.main(["train", "--config", SMOKE, "--device", "cpu", *TINY,
+                  f"train.checkpoint_dir={tmp_path}/c"])
+
+
+@pytest.mark.parametrize("device,rc", [(None, 69), ("cpu", 0)])
+def test_cli_init_probe_failure_exits_69(tmp_path, capsys, monkeypatch, device, rc):
+    """``resilience.init_probe=true``: a CUDA device whose bounded init probe
+    fails ends the command with exit 69 before any work; ``--device cpu`` does
+    not probe."""
+    from data_diet_distributed_tpu_torch.resilience import watchdog
+    monkeypatch.setattr(watchdog, "PROBE_SNIPPET", 'raise SystemExit("no CUDA device")')
+    ckpt = tmp_path / "ckpt"
+    argv = ["score", "--config", SMOKE, "score.pretrain_epochs=0",
+            "data.synthetic_size=40", "score.batch_size=16",
+            "resilience.init_probe=true", "resilience.probe_attempts=1",
+            "resilience.probe_backoff_s=0", f"train.checkpoint_dir={ckpt}"]
+    assert cli.main(argv + (["--device", device] if device else [])) == rc
+    err = capsys.readouterr().err
+    assert ("device init failed after 1 attempts: no CUDA device" in err) == (rc == 69)
+    assert os.path.exists(f"{ckpt}_scores.npz") == (rc == 0)
+
+
 def test_cli_without_cuda_raises(tmp_path):
     import torch
     if torch.cuda.is_available():

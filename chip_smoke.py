@@ -33,7 +33,7 @@ Phases (the first failure exits non-zero; nothing is caught):
    the working dtype and int64 labels as given and are bitwise from run to
    run, on a permuted batch and on a 5-row slice (that each call launches one
    CUDA kernel and nothing else is checked under ``torch.profiler`` after the
-   timed phases, phase 10: the profiler slows every later launch of the
+   timed phases, phase 11: the profiler slows every later launch of the
    process); stacked BatchNorm at the four ResNet-18 BN shapes
    singly and 5 deep (every launch in the ``vector`` mode) and at ragged rows
    (``BN_RAGGED``: batch 37, C = 72, 100 and 98, S = 1, use_scale and use_bias
@@ -116,17 +116,45 @@ Phases (the first failure exits non-zero; nothing is caught):
    ``DDT_FAULT_PLAN`` and 0 without it (``n_kept`` half). Then the hooks'
    cost: ``OVERHEAD_PAIRS`` alternating pairs of fit's steady-epoch ex/s with
    resilience at its defaults and with preemption and the NaN check off.
-10. Calls: each EL2N and last-layer row of phase 3 runs one CUDA kernel per
+10. Data: BASELINE config 5 (``configs/imagenet_resnet50_grand.yaml``: ResNet-50,
+   imagenet stem, GraNd, batch 256, bf16) on ``DATA_N`` synthetic_imagenet
+   examples (96x96, 100 classes) quantized to uint8 and written by the port as
+   npz splits, ``.npy`` splits with ``stats.npz`` and ``DATA_SHARD``-row shards
+   read through a two-shard cache (``DATA_CACHE``). 1: the native assembler
+   loads, and ``prefetch_stream`` over the shards yields CUDA batches bitwise
+   the npy plane's host batches (all taken at once, so a pinned slot reused
+   early would show). 2: ``cli run`` on the streamed shards (one seed, one
+   epoch each): exit 0, ``n_kept`` half, the manifest verified, one
+   ``data_plane`` record per fit and score pass within the cache budget and
+   evicting, and the direct and Gram launches exactly what one batch's route
+   log predicts, tensor-core; stage walls and epoch ex/s. 3: GraNd on the
+   eager set, two seeds: streaming bitwise resident, partials included; ex/s.
+   4: the npy and sharded planes streamed, bitwise equal. 5-6: fp32, TF32
+   off, BN-randomized weights, ``DATA_PARITY_N`` examples: lazy against the
+   dense npz (EL2N rel 1e-5 or abs 1e-6, GraNd rtol 1e-4), the kernel route
+   against the plain one (rtol 1e-4), and every conv geometry with its route
+   and its largest relative error against the plain version (fp32 1e-4, bf16
+   1e-3); each kernel geometry timed in bf16 with its bound. 7: 20-step fits,
+   streaming at depth 2 and 0 bitwise resident; epoch ex/s and
+   ``stall_frac``. 8: storage drills: one EIO recovers in place with one
+   ``data_fault`` record and bitwise scores; a torn shard fails the pass with
+   ``ShardReadError`` naming it and a ``shard_quarantine`` record; the same
+   under ``data.skip_quarantined`` lets ``cli run`` finish with the
+   quarantined rows in its prune manifest. Cuts: 4,096 examples for an
+   ImageNet-1k subset, one epoch for 30, synthetic data for real (none in the
+   repo); widths as published.
+11. Calls: each EL2N and last-layer row of phase 3 runs one CUDA kernel per
    call, its own, and no copy, cast or memset (``torch.profiler``).
 
 With ``--profile``: one batch under ``torch.profiler`` on each of the default,
-FUSED+MEGAKERNEL, BN_KERNEL and BN_KERNEL+GROUP_BN+GROUP_CONV routes; the cuDNN
-dgrad launches must drop from 19 to 9 on the megakernel route, and the
-profiled BN and Gram time per batch is printed beside the ``device_ms`` sums.
+FUSED+MEGAKERNEL, BN_KERNEL and BN_KERNEL+GROUP_BN+GROUP_CONV routes, and one
+config 5 batch (phase 10) on the default route; the cuDNN dgrad launches must
+drop from 19 to 9 on the megakernel route, and the profiled BN and Gram time
+per batch is printed beside the ``device_ms`` sums.
 
-Every counted run (phases 4, 5 and 7, phase 8's ``run`` and phase 9's runs of
-``run_datadiet``) starts with the launch counts at 0 and is read right after;
-the kernels line sums them. The line before the last is a
+Every counted run (phases 4, 5 and 7, phase 8's ``run``, phase 9's runs of
+``run_datadiet`` and phase 10's ``cli run``) starts with the launch counts at 0
+and is read right after; the kernels line sums them. The line before the last is a
 JSON object with one entry per kernel (launches on the main paths, max error,
 ms, device ms, plain ms, bound ms); the last line is ``{"ok": true, "device":
 {...}}``.
@@ -137,8 +165,10 @@ Per-geometry details go to ``<out>/chip_smoke.json`` (and the profile tables to
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
+import io
 import json
 import os
 import shutil
@@ -770,11 +800,13 @@ def route_kernel_phase(torch, K, dtype, rtol, details) -> None:
 PARITY_CLASSIFIER_SCALE = 0.05
 
 
-def bn_randomized(torch, port, seed: int, device: str = "cuda") -> dict:
-    """ResNet-18 variables on ``device`` with every BatchNorm randomized (at
+def bn_randomized(torch, port, seed: int, device: str = "cuda", arch: str = "resnet18",
+                  **init) -> dict:
+    """``arch``'s variables (ResNet-18 by default; ``init`` goes to
+    ``init_variables``) on ``device`` with every BatchNorm randomized (at
     init the closing BN scale is zero, which would zero half the convs'
     cotangents) and the classifier scaled by ``PARITY_CLASSIFIER_SCALE``."""
-    v = port["init_variables"]("resnet18", seed, device)
+    v = port["init_variables"](arch, seed, device, **init)
     gen = torch.Generator(device=device).manual_seed(seed)
     for name, t in v.items():
         if t.dim() == 1 and not name.startswith("classifier"):
@@ -1516,6 +1548,422 @@ def _resilience_phase(torch, port, details_out, trained: dict) -> dict:
     return {"counts": total}
 
 
+# Data phase: BASELINE config 5 (configs/imagenet_resnet50_grand.yaml: ResNet-50 with
+# the imagenet stem, GraNd, batch 256) on synthetic_imagenet data (96x96, 100 classes:
+# no ImageNet subset is in the repo), written by the port as npz, npy and shards.
+DATA_ROOT = os.path.join(REPO, "chip_smoke_out", "data")
+DATA_CONFIG = os.path.join(REPO, "configs", "imagenet_resnet50_grand.yaml")
+DATA_N = 4096                 # train examples; the test split is the generator's 1,024
+DATA_B = 256                  # config 5's data.batch_size and score.batch_size
+DATA_CLASSES = 100
+DATA_SHARD = 1024             # rows a shard
+DATA_CACHE = 2 * DATA_SHARD * 96 * 96 * 3   # two decoded shards: the cache must evict
+DATA_PARITY_N = 512           # the fp32 comparisons' examples (two batches)
+DATA_FIT_N = 2560             # 10 steps an epoch at batch 256: a 2-epoch fit is 20 steps
+DATA_TORN_SHARD = 1
+
+
+def quantize_u8(x: np.ndarray) -> np.ndarray:
+    """synthetic_imagenet's float images as uint8 ([-4, 4] onto 0..255)."""
+    return np.clip(np.rint((x + 4.0) * (255.0 / 8.0)), 0, 255).astype(np.uint8)
+
+
+def write_data_planes(port, train, test) -> dict:
+    """The uint8 quantization of ``train``/``test`` written three times: npz
+    splits (stats derived at load), the same splits as ``.npy`` with the same
+    stats in ``stats.npz``, and ``DATA_SHARD``-row shards with them in the
+    manifest. Returns the three directories."""
+    D = port["data"]
+    q = {"train": quantize_u8(train.images), "test": quantize_u8(test.images)}
+    labels = {"train": train.labels, "test": test.labels}
+    norm = D["channel_stats"](q["train"])
+    dirs = {k: os.path.join(DATA_ROOT, k) for k in ("npz", "npy", "shards")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    for s in ("train", "test"):
+        np.savez(os.path.join(dirs["npz"], f"{s}.npz"), images=q[s], labels=labels[s])
+        np.save(os.path.join(dirs["npy"], f"{s}_images.npy"), q[s])
+        np.save(os.path.join(dirs["npy"], f"{s}_labels.npy"), labels[s])
+    np.savez(os.path.join(dirs["npy"], "stats.npz"), mean=norm[0], std=norm[1])
+    splits = {s: D["write_split"](dirs["shards"], s, q[s], labels[s], DATA_SHARD)
+              for s in ("train", "test")}
+    D["write_manifest"](dirs["shards"], splits, DATA_CLASSES, norm)
+    return dirs
+
+
+def run_cli(port, argv: list[str]) -> tuple[int, dict | None, list[dict]]:
+    """``cli.main(argv)`` in this process (so its kernel launches are counted):
+    (exit status, the summary line, the JSON records it logged)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = port["data"]["cli"].main(argv)
+    lines = out.getvalue().strip().splitlines()
+    records = [json.loads(line) for line in err.getvalue().splitlines()
+               if line.startswith("{")]
+    return rc, (json.loads(lines[-1]) if rc == 0 and lines else None), records
+
+
+def config5_argv(data_dir: str, ckpt: str, *over) -> list[str]:
+    return ["run", "--config", DATA_CONFIG, "data.dataset=sharded",
+            f"data.data_dir={data_dir}", "data.data_plane=streaming",
+            "train.num_epochs=1", "score.seeds=[0]",
+            f"data.host_cache_bytes={DATA_CACHE}", f"train.checkpoint_dir={ckpt}", *over]
+
+
+@contextlib.contextmanager
+def conv_spy(gb, rows: dict):
+    """While active, each conv layer the GraNd route sends to a kernel route is
+    also computed on the plain route from the same x and g; ``rows`` gets, by
+    distinct geometry, the route, the layers a batch and the largest relative
+    error against the plain version (and the last x and g, for timing)."""
+    orig = gb._conv_contrib
+
+    def spy(rec, x, g, use_kernels, route_log):
+        out = orig(rec, x, g, use_kernels, route_log)
+        if use_kernels:
+            pad = gb._explicit_padding(rec["padding"], x.shape, g.shape, rec)
+            route = gb.conv_route(rec, x.shape, g.shape, pad)
+            ref = orig(rec, x, g, False, None)
+            key = (route, str(x.dtype), tuple(x.shape), tuple(g.shape),
+                   tuple(rec["kernel_size"]), tuple(rec["strides"]),
+                   tuple(tuple(p) for p in pad), bool(rec["use_bias"]))
+            row = rows.setdefault(key, {"layers": 0, "max_rel_err": 0.0})
+            row["layers"] += 1
+            row["max_rel_err"] = max(row["max_rel_err"], _rel_err(out, ref)[1])
+            row["x"], row["g"] = x, g
+        return out
+    gb._conv_contrib = spy
+    try:
+        yield
+    finally:
+        gb._conv_contrib = orig
+
+
+def data_phase(torch, port, details_out, card: str) -> dict:
+    """BASELINE config 5 through the port's data planes on the card. Its files
+    go to ``DATA_ROOT`` and are removed after."""
+    shutil.rmtree(DATA_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        return _data_phase(torch, port, details_out.setdefault("data", {}), card)
+    finally:
+        shutil.rmtree(DATA_ROOT, ignore_errors=True)
+        wall = time.perf_counter() - t0
+        details_out["data"]["phase_wall_s"] = wall
+        print(f"  data phase: {wall:.1f} s", flush=True)
+
+
+def _data_phase(torch, port, rec: dict, card: str) -> dict:
+    D, K, gb = port["data"], port["kernels"], port["grand_batched"]
+    load, score = port["load_dataset"], port["score_dataset"]
+    t0 = time.perf_counter()
+    train, test = load("synthetic_imagenet", synthetic_size=DATA_N, seed=0)
+    dirs = write_data_planes(port, train, test)
+    npz_train, _ = load("npz", dirs["npz"])
+    npy_train, _ = load("npz", dirs["npy"])
+
+    def sharded_train(**kw):
+        return load("sharded", dirs["shards"], host_cache_bytes=DATA_CACHE, **kw)[0]
+    print(f"  data: {DATA_N} + {len(test)} synthetic_imagenet examples written as npz, "
+          f"npy and {DATA_SHARD}-row shards in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(npy_train.norm is not None and isinstance(npy_train.images, np.memmap)
+          and npz_train.norm is None, "the npy plane is not lazy or the npz one not dense")
+
+    # 1. The native assembler, and pinned uploads that are bitwise the host batches.
+    check(D["native"].load() is not None, "the native assembler did not build or load")
+    print(f"  native assembler: {D['native'].LIB_PATH}", flush=True)
+    shards = sharded_train()
+    kw = dict(shuffle=True, seed=1, epoch=0)
+    stream = D["prefetch_stream"](shards, DATA_B, "cuda", depth=2, stage="check", **kw)
+    with contextlib.closing(stream):
+        got = list(stream)   # taken as fast as they come: slot reuse is raced
+    host = list(D["iterate_batches"](npy_train, DATA_B, **kw))
+    check(len(got) == len(host) == DATA_N // DATA_B, f"{len(got)} streamed batches")
+    for i, (db, hb) in enumerate(zip(got, host)):
+        check(all(t.is_cuda for t in db.values()), "prefetch_stream yielded a host tensor")
+        check(all(torch.equal(db[k], torch.from_numpy(hb[k]).cuda()) for k in hb),
+              f"prefetch_stream batch {i}: not bitwise the npy plane's host batch")
+    cache = shards.images.cache
+    print(f"  prefetch_stream (sharded, depth 2): {len(got)} CUDA batches, each bitwise "
+          f"the npy-mmap plane's host batch; shard cache {cache.bytes_in_use} of "
+          f"{cache.budget_bytes} B in use, {cache.evictions} evictions", flush=True)
+    check(cache.evictions > 0 and cache.bytes_in_use <= cache.budget_bytes,
+          "the shard cache did not evict within its budget")
+    del got, host
+
+    # 2. The main path: config 5's cli run on the streamed shards.
+    model16 = port["create_model"]("resnet50", DATA_CLASSES, half_precision=True,
+                                   stem="imagenet").to("cuda")
+    seeds = [port["init_variables"]("resnet50", s, "cuda", num_classes=DATA_CLASSES,
+                                    stem="imagenet") for s in (0, 1)]
+    first = D["iterate_batches"](train, DATA_B).__next__()
+    batch = [torch.from_numpy(first[k]).cuda() for k in ("image", "label", "mask")]
+    route_log: list = []
+    gb.batched_grand_scores(model16, seeds[0], *batch, use_kernels=True, route_log=route_log)
+    routes = collections.Counter(r for _, r in route_log)
+    per_batch = {"conv_grad_norm_direct": routes["v1"] + routes["v2"],
+                 "conv_grad_norm_gram": routes["gram"]}
+    print(f"  route log of one batch: {dict(routes)} -> launches a batch {per_batch}",
+          flush=True)
+    ckpt = os.path.join(DATA_ROOT, "ckpt")
+    K.reset_launch_counts()
+    modes0 = K.mode_counts()
+    t0 = time.perf_counter()
+    rc, summary, records = run_cli(port, config5_argv(dirs["shards"], ckpt))
+    run_wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check(rc == 0 and summary is not None, f"config 5 cli run exited {rc}")
+    nb = DATA_N // DATA_B
+    want = {k: nb * per_batch.get(k, 0) for k in K.KERNELS}
+    check(counts == want, f"config 5 run: launch counts {counts}, want {want}")
+    for kern in per_batch:
+        check_modes(K, modes0[kern], want[kern], "tensor_core", "config 5 run", kern)
+    check(summary["n_kept"] == DATA_N // 2, f"config 5 run: n_kept {summary['n_kept']}")
+    npz = port["train"]["scores_npz_path"](ckpt)
+    with np.load(npz) as f:
+        port["train"]["verify_prune_manifest"](npz, f["kept"])
+    planes = [r for r in records if r["kind"] == "data_plane"]
+    check([p["stage"] for p in planes] == ["score_pretrain_seed0", "score", "final"],
+          f"config 5 run: data_plane records {[p['stage'] for p in planes]}")
+    for p in planes:
+        check(p["fault"] is None and p["engine"] == "stream"
+              and p["host_cache_bytes_in_use"] <= p.get("host_cache_budget_bytes",
+                                                         DATA_CACHE),
+              f"config 5 run: data_plane record {p}")
+    check(all(p["host_cache_evictions"] > 0 for p in planes[:2]),
+          "config 5 run: the shard cache never evicted")
+    epochs = [r for r in records if r["kind"] == "epoch"]
+    walls = {k: summary[k] for k in ("pretrain_wall_s", "score_wall_s", "prune_wall_s",
+                                     "train_wall_s")}
+    rec["run"] = {"wall_s": run_wall, "stage_walls_s": walls, "launches": counts,
+                  "launches_per_batch": per_batch, "routes_per_batch": dict(routes),
+                  "data_plane": planes, "epochs": epochs,
+                  "final_test_accuracy": summary.get("final_test_accuracy")}
+    print(f"  config 5 cli run (sharded, streaming, {DATA_N} examples, 1 seed, 1 epoch "
+          f"each): exit 0 in {run_wall:.1f} s; n_kept {summary['n_kept']}, manifest "
+          f"verified; stages {walls}; launches {counts} ({per_batch} a batch, "
+          f"tensor-core)", flush=True)
+    for p in planes:
+        print(f"    data_plane {p['stage']}: stall_frac {p['stall_frac']} (depth "
+              f"{p['prefetch_depth']}, {p.get('items')} batches), cache "
+              f"{p['host_cache_bytes_in_use']} B, evictions "
+              f"{p.get('host_cache_evictions')}", flush=True)
+    for e in epochs:
+        print(f"    epoch {e['tag']}: {e['examples_per_s']:.1f} ex/s in {e['epoch_s']} s",
+              flush=True)
+
+    # 3. GraNd on the eager set, two seeds, bf16: streaming is bitwise resident.
+    score(model16, seeds[:1], train.subset(train.indices[:DATA_B]), method="grand",
+          batch_size=DATA_B, device="cuda")   # warm-up
+    grand = {}
+    for plane in ("resident", "streaming"):
+        partials: list = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = score(model16, seeds, train, method="grand", batch_size=DATA_B,
+                  data_plane=plane, on_seed_done=lambda k, v, p=partials: p.append(v),
+                  device="cuda")
+        wall = time.perf_counter() - t0
+        grand[plane] = (s, partials, 2 * DATA_N / wall)
+    check(np.array_equal(grand["streaming"][0], grand["resident"][0])
+          and all(np.array_equal(a, b) for a, b in zip(grand["streaming"][1],
+                                                       grand["resident"][1])),
+          "GraNd: streaming scores or partials not bitwise the resident ones")
+    check(bool(np.isfinite(grand["resident"][0]).all()), "GraNd: non-finite scores")
+    rec["grand_ex_per_s"] = {p: grand[p][2] for p in grand}
+    print(f"  GraNd, eager set, {DATA_N} x 2 seeds, bf16: streaming bitwise resident "
+          f"(mean and both float64 partials); resident {grand['resident'][2]:.1f} ex/s, "
+          f"streaming {grand['streaming'][2]:.1f} ex/s on {card}", flush=True)
+
+    # 4. The lazy planes through the streaming plane: npy-mmap bitwise sharded.
+    lazy = {}
+    for name, ds in (("npy", npy_train), ("sharded", sharded_train())):
+        ev = Events()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lazy[name] = score(model16, seeds[:1], ds, method="grand", batch_size=DATA_B,
+                           data_plane="streaming", log=ev, device="cuda")
+        wall = time.perf_counter() - t0
+        (plane,) = ev.of("data_plane")
+        rec.setdefault("lazy", {})[name] = {"ex_per_s": DATA_N / wall,
+                                            "stall_frac": plane["stall_frac"]}
+        print(f"  GraNd, {name} plane, 1 seed: {DATA_N / wall:.1f} ex/s, stall_frac "
+              f"{plane['stall_frac']}", flush=True)
+    check(np.array_equal(lazy["npy"], lazy["sharded"]),
+          "GraNd: the npy-mmap and sharded planes' scores differ")
+    print("  npy-mmap and sharded planes: bitwise equal scores", flush=True)
+
+    # 5-6. fp32, TF32 off: lazy against dense; the kernel route against the plain one.
+    port["set_parity_mode"](True)
+    model32 = port["create_model"]("resnet50", DATA_CLASSES, stem="imagenet").to("cuda")
+    vr = bn_randomized(torch, port, 7, arch="resnet50", num_classes=DATA_CLASSES,
+                       stem="imagenet")
+    ids = np.arange(DATA_PARITY_N)
+    dense_sub, lazy_sub = npz_train.subset(ids), npy_train.subset(ids)
+    parity = {}
+    for method in ("el2n", "grand"):
+        a = score(model32, [vr], lazy_sub, method=method, batch_size=DATA_B,
+                  data_plane="streaming", device="cuda")
+        b = score(model32, [vr], dense_sub, method=method, batch_size=DATA_B,
+                  data_plane="streaming", device="cuda")
+        err = np.abs(a - b)
+        rel = float(np.max(err / np.maximum(np.abs(b), 1e-30)))
+        parity[f"{method}_lazy_vs_dense"] = rel
+        ok = (rel <= 1e-4 if method == "grand"
+              else bool(np.all(err <= 1e-5 * np.abs(b) + 1e-6)))
+        print(f"  {method} fp32, lazy (npy) vs dense (npz), {DATA_PARITY_N} examples: max "
+              f"rel err {rel:.3e}, max abs err {float(err.max()):.3e}", flush=True)
+        check(ok, f"{method}: lazy vs dense rel err {rel:.3e}")
+    fast = score(model32, [vr], dense_sub, method="grand", batch_size=DATA_B,
+                 use_kernels=True, device="cuda")
+    plain = score(model32, [vr], dense_sub, method="grand", batch_size=DATA_B,
+                  use_kernels=False, device="cuda")
+    rel = float(np.max(np.abs(fast - plain) / np.maximum(np.abs(plain), 1e-30)))
+    parity["grand_kernel_vs_plain_route"] = rel
+    print(f"  grand fp32 kernel route vs plain route, {DATA_PARITY_N} examples: max rel "
+          f"err {rel:.3e}", flush=True)
+    check(rel <= 1e-4, f"grand: kernel route vs plain route rel err {rel:.3e}")
+    geo: dict = {}
+    local32 = port["make_local_scores"](model32, "grand_batched", use_kernels=True)
+    with conv_spy(gb, geo):
+        local32(vr, *batch)
+    port["set_parity_mode"](False)
+    local16 = port["make_local_scores"](model16, "grand_batched", use_kernels=True)
+    with conv_spy(gb, geo):
+        local16(seeds[0], *batch)
+    rec["parity"] = parity
+    rec["kernel_rows"] = kernel_rows = []
+    for (route, dt, xs, gs, ks, st, pad, bias), row in sorted(geo.items(),
+                                                             key=lambda kv: kv[0][1:]):
+        dname = dt.replace("torch.", "")
+        tol = 1e-4 if dname == "float32" else 1e-3
+        print(f"    {dname} {route:5s} x{list(xs[1:])} g{list(gs[1:])} k{ks} s{st}: "
+              f"{row['layers']} a batch, max rel err vs plain {row['max_rel_err']:.3e}",
+              flush=True)
+        check(row["max_rel_err"] <= tol, f"{route} x{xs} g{gs}: rel err "
+              f"{row['max_rel_err']:.3e} > {tol}")
+        if route == "plain" or dname != "bfloat16":
+            continue
+        kern = "conv_grad_norm_gram" if route == "gram" else "conv_grad_norm_direct"
+        x, g = row["x"], row["g"]
+        if route == "v1":
+            def run(x=x, g=g, ks=ks, st=st, pad=pad):
+                return K.conv_grad_norm_sq(x, g, ks, st, pad)
+
+            def plain_fn(x=x, g=g, ks=ks, st=st, pad=pad):
+                return K.conv_grad_norm_sq_plain(x, g, ks, st, pad)
+        elif route == "v2":
+            def run(x=x, g=g, ks=ks, pad=pad, bias=bias):
+                return K.conv_grad_norm_sq_v2(x, g, ks, pad, use_bias=bias)
+
+            def plain_fn(x=x, g=g, ks=ks, pad=pad):
+                return K.conv_grad_norm_sq_plain(x, g, ks, (1, 1), pad)
+        else:
+            def run(x=x, g=g, ks=ks, pad=pad, bias=bias):
+                return K.conv_grad_norm_sq_gram(x, g, ks, pad, use_bias=bias)
+
+            def plain_fn(x=x, g=g, ks=ks, pad=pad, bias=bias):
+                return K.conv_grad_norm_sq_gram_plain(x, g, ks, pad, use_bias=bias)
+        flops, nbytes = conv_work(kern, xs, gs, ks, x.element_size())
+        kernel_rows.append(_measure(torch, {
+            "kernel": kern, "entry": route, "dtype": dname, "x": list(xs), "g": list(gs),
+            "kernel_size": list(ks), "strides": list(st), "layers_per_batch": row["layers"],
+            "max_rel_err": row["max_rel_err"]}, run, plain_fn, flops, nbytes, dname))
+    for kern in per_batch:
+        rows = [r for r in kernel_rows if r["kernel"] == kern]
+        tot = {k: sum(r["layers_per_batch"] * r[k] for r in rows)
+               for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+        rec.setdefault("per_batch", {})[kern] = tot
+        print(f"  {kern} at config 5 (bf16, batch {DATA_B}): "
+              f"{sum(r['layers_per_batch'] for r in rows)} launches a batch, device "
+              f"{tot['device_ms']:.4f} ms, one-call {tot['ms']:.4f}, plain "
+              f"{tot['plain_ms']:.4f}, bound {tot['bound_ms']:.4f} ms a batch", flush=True)
+    for r in kernel_rows:
+        print(f"    {r['kernel']}/{r['entry']} x{r['x'][1:]} g{r['g'][1:]} "
+              f"k{r['kernel_size']} s{r['strides']} x{r['layers_per_batch']}: device "
+              f"{r['device_ms']:.4f} ms, one-call {r['ms']:.4f}, plain {r['plain_ms']:.4f}, "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    del geo
+
+    # 7. Fits: streaming bitwise resident; prefetch depth 0 bitwise depth 2.
+    fit_ds = train.subset(train.indices[:DATA_FIT_N])
+    fits = {}
+    for name, over in (("resident", ["data.data_plane=resident"]),
+                       ("depth2", ["data.data_plane=streaming", "data.prefetch_depth=2"]),
+                       ("depth0", ["data.data_plane=streaming", "data.prefetch_depth=0"])):
+        cfg = port["load_config"](DATA_CONFIG, ["train.num_epochs=2",
+                                                f"model.num_classes={DATA_CLASSES}", *over])
+        ev = Events()
+        fits[name] = (port["train"]["fit"](cfg, fit_ds, None, device="cuda", log=ev), ev)
+    res0 = fits["resident"][0]
+    for name in ("depth2", "depth0"):
+        res = fits[name][0]
+        check([h["train_loss"] for h in res.history]
+              == [h["train_loss"] for h in res0.history]
+              and all(torch.equal(v, res.state.variables[k])
+                      for k, v in res0.state.variables.items()),
+              f"fit {name}: not bitwise the resident fit")
+    rec["fit"] = {}
+    for name, (res, ev) in fits.items():
+        (plane,) = ev.of("data_plane")
+        rec["fit"][name] = {"examples_per_s": [h["examples_per_s"] for h in res.history],
+                            "stall_frac": plane["stall_frac"]}
+        print(f"  fit {name} (20 steps, batch {DATA_B}, bf16): epoch ex/s "
+              + ", ".join(f"{h['examples_per_s']:.1f}" for h in res.history)
+              + f"; data_plane {plane['engine']} stall_frac {plane['stall_frac']}",
+              flush=True)
+    print("  fits: streaming (depth 2 and 0) bitwise the resident fit", flush=True)
+
+    # 8. Storage drills on the shards.
+    ev = Events()
+    s = with_plan(port, {"eio_shard_read": 2}, lambda: score(
+        model16, seeds[:1], sharded_train(read_backoff_s=0.0), method="grand",
+        batch_size=DATA_B, data_plane="streaming", log=ev, device="cuda"))
+    faults = ev.of("data_fault")
+    check(len(faults) == 1 and faults[0]["recovered"] is True and faults[0]["shard"] == 2,
+          f"EIO drill: data_fault records {faults}")
+    check(np.array_equal(s, lazy["sharded"]), "EIO drill: scores not bitwise the clean ones")
+    print(f"  EIO drill: recovered in place ({faults[0]}), scores bitwise the clean ones",
+          flush=True)
+    ev = Events()
+    err = None
+    try:
+        with_plan(port, {"torn_shard_read": DATA_TORN_SHARD}, lambda: score(
+            model16, seeds[:1], sharded_train(read_backoff_s=0.0), method="grand",
+            batch_size=DATA_B, data_plane="streaming", log=ev, device="cuda"))
+    except D["ShardReadError"] as e:
+        err = e
+    check(err is not None and err.split == "train" and err.shard == DATA_TORN_SHARD,
+          f"torn drill: no ShardReadError naming train shard {DATA_TORN_SHARD} ({err!r})")
+    quarantine = ev.of("shard_quarantine")
+    check(len(quarantine) == 1 and quarantine[0]["shard"] == DATA_TORN_SHARD
+          and ev.of("data_plane")[0]["fault"] is not None,
+          f"torn drill: records {ev.records}")
+    print(f"  torn drill: ShardReadError ({err.split} shard {err.shard}, "
+          f"{err.error_class}), shard_quarantine {quarantine[0]}", flush=True)
+    ckpt_q = os.path.join(DATA_ROOT, "ckpt_quarantined")
+    rc, summary, records = with_plan(
+        port, {"torn_shard_read": DATA_TORN_SHARD},
+        lambda: run_cli(port, config5_argv(dirs["shards"], ckpt_q,
+                                           "data.skip_quarantined=true")))
+    check(rc == 0 and summary is not None, f"skip_quarantined run exited {rc}")
+    with open(port["train"]["scores_npz_path"](ckpt_q) + ".provenance.json") as fh:
+        manifest = json.load(fh)
+    check(manifest.get("quarantined_shards") == [DATA_TORN_SHARD]
+          and manifest.get("quarantined_rows") == DATA_SHARD
+          and summary["n_kept"] == DATA_N // 2 - manifest["quarantined_dropped_from_kept"],
+          f"skip_quarantined run: manifest {manifest.get('quarantined_shards')}, "
+          f"{manifest.get('quarantined_rows')} rows, n_kept {summary['n_kept']}")
+    print(f"  skip_quarantined run: exit 0, n_kept {summary['n_kept']}; manifest lists "
+          f"shard {manifest['quarantined_shards']} ({manifest['quarantined_rows']} rows, "
+          f"{manifest['quarantined_dropped_from_kept']} dropped from the kept set)",
+          flush=True)
+    cfg5 = port["load_config"](DATA_CONFIG, [f"model.num_classes={DATA_CLASSES}"])
+    return {"counts": counts,
+            "profile": {"ds": train, "cfg": cfg5, "variables": seeds, "batch": DATA_B}}
+
+
 @contextlib.contextmanager
 def bn_layout_spy(gb, seen: list):
     """Record, for every stacked-BN group the GraNd route scores, whether each
@@ -1738,15 +2186,16 @@ def _profile_group(name: str) -> str:
 
 
 def _profile_batch(torch, port, path, out_dir: str, label: str) -> dict:
-    """torch.profiler over one GraNd batch (one seed, 512 examples, the whole
-    ``score_dataset`` call) on the route the toggles select: device time by
-    kernel, the device-busy share of the call's wall, and the count of cuDNN
-    input-gradient (dgrad) kernel launches."""
+    """torch.profiler over one GraNd batch (one seed, ``path["batch"]`` examples,
+    512 by default, the whole ``score_dataset`` call) on the route the toggles
+    select: device time by kernel, the device-busy share of the call's wall,
+    and the count of cuDNN input-gradient (dgrad) kernel launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    ds = path["ds"].subset(path["ds"].indices[:B])
+    batch = path.get("batch", B)
+    ds = path["ds"].subset(path["ds"].indices[:batch])
     model = port["create_model_from_cfg"](path["cfg"])
-    args = dict(method="grand", batch_size=B, device="cuda")
+    args = dict(method="grand", batch_size=batch, device="cuda")
     port["score_dataset"](model, path["variables"][:1], ds, **args)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -1769,7 +2218,7 @@ def _profile_batch(torch, port, path, out_dir: str, label: str) -> dict:
     with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "a") as fh:
         fh.write(f"== {label}\n")
         fh.write(events.table(sort_by="self_device_time_total", row_limit=40) + "\n")
-    print(f"  {label}: one GraNd batch (512 examples, 1 seed): wall {wall_ms:.3f} ms under "
+    print(f"  {label}: one GraNd batch ({batch} examples, 1 seed): wall {wall_ms:.3f} ms under "
           f"the profiler, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f} %); cuDNN dgrad kernel launches: {dgrad}",
           flush=True)
@@ -1792,16 +2241,20 @@ PROFILE_ROUTES = [
 ]
 
 
-def profile_phase(torch, port, path, details_out, out_dir: str) -> None:
+def profile_phase(torch, port, path, details_out, out_dir: str, config5: dict) -> None:
     """Profile one GraNd batch on the default route, the fused megakernel route
-    and the two stacked-BN routes; report whether a cuDNN dgrad ran for the
-    megakernel's layers, and hold each route's profiled BN and Gram kernel
-    time per batch beside the kernel phase's device_ms sums."""
+    and the two stacked-BN routes, and one batch of config 5 (ResNet-50 at
+    96x96, batch 256; ``config5`` from the data phase) on the default route;
+    report whether a cuDNN dgrad ran for the megakernel's layers, and hold
+    each route's profiled BN and Gram kernel time per batch beside the kernel
+    phase's device_ms sums."""
     os.makedirs(out_dir, exist_ok=True)
     open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w").close()   # batches append
     for label, flags, key in PROFILE_ROUTES:
         with toggles(port["grand_batched"], flags):
             details_out[key] = _profile_batch(torch, port, path, out_dir, label)
+    details_out["profile_config5"] = _profile_batch(
+        torch, port, config5, out_dir, "config 5 (ResNet-50, 96x96, batch 256), default route")
     base = details_out["profile"]["dgrad_launches"]
     mega = details_out["profile_megakernel"]
     # The default route runs a dgrad for 19 convs (every conv but the stem); on the
@@ -1871,6 +2324,10 @@ def main(argv: list[str]) -> int:
         from data_diet_distributed_tpu_torch.pruning import select_indices
         from data_diet_distributed_tpu_torch.pruning import verify_prune_manifest
         from data_diet_distributed_tpu_torch.checkpoint import CheckpointManager
+        from data_diet_distributed_tpu_torch import cli
+        from data_diet_distributed_tpu_torch.data import native, sharded
+        from data_diet_distributed_tpu_torch.data.datasets import _chunked_channel_stats
+        from data_diet_distributed_tpu_torch.ops.scores import make_local_scores
         from data_diet_distributed_tpu_torch.resilience import inject
         from data_diet_distributed_tpu_torch.resilience.preemption import Preempted
         from data_diet_distributed_tpu_torch.resilience.stages import StageManifest
@@ -1890,6 +2347,13 @@ def main(argv: list[str]) -> int:
             "set_scoring_determinism": set_scoring_determinism,
             "inject": inject, "Preempted": Preempted, "StageManifest": StageManifest,
             "CheckpointManager": CheckpointManager,
+            "make_local_scores": make_local_scores,
+            "data": {"cli": cli, "native": native, "write_split": sharded.write_split,
+                     "write_manifest": sharded.write_manifest,
+                     "ShardReadError": sharded.ShardReadError,
+                     "channel_stats": _chunked_channel_stats,
+                     "iterate_batches": pipeline.iterate_batches,
+                     "prefetch_stream": pipeline.prefetch_stream},
             "train": {"fit": loop.fit, "evaluate": loop.evaluate,
                       "fit_with_recovery": loop.fit_with_recovery,
                       "pipeline_fingerprint": loop.pipeline_fingerprint,
@@ -1960,12 +2424,15 @@ def main(argv: list[str]) -> int:
     phase("resilience")
     resil = resilience_phase(torch, port, details, trained)
 
+    phase("data")
+    data = data_phase(torch, port, details, card)
+
     phase("calls")
     calls_phase(torch)
 
     if args.profile:
         phase("profile")
-        profile_phase(torch, port, path, details, args.out)
+        profile_phase(torch, port, path, details, args.out, data["profile"])
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
@@ -1975,7 +2442,8 @@ def main(argv: list[str]) -> int:
     # it, bf16; launches summed over the counted runs of the path, routes and
     # resnet50 phases, the train phase's run and the resilience phase's runs.
     launches = {k: path["counts"][k] + routes["counts"][k] + r50["counts"][k]
-                + trained["counts"][k] + resil["counts"][k] for k in K.KERNELS}
+                + trained["counts"][k] + resil["counts"][k] + data["counts"][k]
+                for k in K.KERNELS}
     check(all(launches[k] > 0 for k in KERNEL_INFO), f"a kernel never launched: {launches}")
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -12,9 +12,17 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
 * ``device.py`` -> (new) device resolution, TF32 parity mode, cuDNN determinism
 * ``config.py`` -> ``config.py`` (data/model/optim/score/prune/train; other
   sections accepted and ignored)
-* ``data/datasets.py`` -> ``data/datasets.py`` (synthetic, CIFAR pickles)
+* ``data/datasets.py`` -> ``data/datasets.py`` (synthetic, synthetic_imagenet,
+  CIFAR pickles, npz, the memory-mapped ``.npy`` splits, lazy normalization)
+* ``data/native.py`` -> ``data/native.py`` (``native/datadiet_native.cpp``
+  built with ``g++`` into ``data/_build/``; ``BatchAssembler`` and a NumPy
+  version of its arithmetic)
+* ``data/sharded.py`` -> ``data/sharded.py`` (the ``ddt-shards-v1`` format, the
+  LRU ``ShardCache``, the digest-verified retrying read with quarantine)
 * ``data/pipeline.py`` -> ``data/pipeline.py`` (``epoch_permutation``,
-  ``iterate_batches``, ``ResidentBatches``, ``maybe_resident``)
+  ``iterate_batches``, ``ResidentBatches``, ``maybe_resident``,
+  ``PrefetchIterator``, ``prefetch_stream`` from pinned buffers on a copy
+  stream, ``EvalBatchCache``, the ``data_plane`` record)
 * ``data/augment.py`` -> ``data/augment.py`` (flip and crop, draws split from
   the pixel moves)
 * ``models/`` -> ``models/resnet.py``, ``models/tiny.py``, ``models/__init__.py``
@@ -32,7 +40,8 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   with same-geometry grouping and the stacked-BN and cat-dot routes,
   ``batched_grand_scores_fused`` with the megakernel route, the ``DDT_GRAND_*``
   toggles under the JAX names)
-* ``ops/scoring.py`` -> ``ops/scoring.py`` (``score_dataset``, ``ScoreResident``)
+* ``ops/scoring.py`` -> ``ops/scoring.py`` (``score_dataset`` with the data
+  planes, ``ScoreResident``, ``ScoreStream``)
 * ``pruning.py`` -> ``pruning.py`` (``select_indices``, the prune-provenance
   manifest)
 * ``train/state.py`` -> ``train/state.py`` (``TrainState``, the LR schedule,
@@ -49,16 +58,19 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
 * ``resilience/`` -> ``resilience/`` (single process: ``preemption.py``,
   ``sentinel.py``, ``watchdog.py`` with ``probe_devices`` through torch,
   ``integrity.py`` for the port's manifest, ``stages.py``, and ``inject.py``
-  with the training fault classes)
+  with the training and storage fault classes)
 * ``utils/io.py`` -> ``utils/io.py`` (atomic writes, ``load_scores_npz``)
 * ``serve/engine.py`` -> ``serve/engine.py`` (``ServeEngine`` scoring units)
 * ``cli.py`` -> ``cli.py`` (``train``, ``run``, ``sweep``, ``score``; exit 75
   on preemption, ``DDT_FAULT_PLAN`` drills)
 
 Not ported yet: multi-host consensus, elastic supervision, the checkpoint
-tiers and the other fault classes of ``resilience/``, the chunked
-training engine, trajectory scores (forgetting, AUM), WideResNet and
-``model.remat``, the npz/sharded/streaming data planes, multi-device training
-and scoring, the serving batcher/server/router/fleet (``cli serve``) and
-observability.
+tiers and the rank, host and serve fault classes of ``resilience/``, the
+chunked training engine and its ``StreamingBatches``, trajectory scores
+(forgetting, AUM), WideResNet and ``model.remat``, multi-device training and
+scoring (the per-rank image slices of ``iterate_batches``), the serving
+batcher/server/router/fleet (``cli serve``), observability (the flight
+recorder: shard-fault records go to the caller's ``log``) and the tools
+(``tools/make_shards.py``, ``tools/npz_to_npy.py``; their formats are the
+port's too).
 """

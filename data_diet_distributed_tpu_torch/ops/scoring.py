@@ -3,8 +3,10 @@
 
 Each seed's pass accumulates into a float64 vector joined by global example
 index; the result is the float64 mean over seeds cast to float32. The
-resident mode uploads the dataset once as ``[nb, B, ...]`` batch tensors (the
-``ScoreResident`` layout) and reuses them for every seed.
+resident plane uploads the dataset once as ``[nb, B, ...]`` batch tensors (the
+``ScoreResident`` layout) and reuses them for every seed; the streaming plane
+(``ScoreStream``) assembles and uploads the same batches per seed through
+``prefetch_stream``, so its scores are bitwise the resident plane's.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import numpy as np
 import torch
 
 from ..data.datasets import ArrayDataset, make_position_joiner
-from ..data.pipeline import iterate_batches, num_batches, pad_batch
+from ..data.pipeline import (logging_data_plane, merge_stall_stats, num_batches,
+                             pad_batch, prefetch_stream)
 from ..device import resolve_device, set_scoring_determinism
 from ..weights import variables_to
 from .scores import make_local_scores, resolve_score_method, resolve_use_kernels
@@ -32,6 +35,7 @@ class ScoreResident:
     ``valid`` stay on the host for the score join."""
 
     def __init__(self, ds: ArrayDataset, batch_size: int, device):
+        ds = ds.dense()   # a lazy dataset uploads its normalized rows
         self.n = len(ds)
         self.nb = num_batches(self.n, batch_size)
         self.batch_size = batch_size
@@ -52,17 +56,46 @@ class ScoreResident:
                    (self.images[i], self.labels[i], self.mask[i]))
 
 
+def fits_residency(ds: ArrayDataset) -> bool:
+    """Whether the dataset's uploaded footprint (float32, however it is held on
+    the host) fits ``_DEVICE_RESIDENT_MAX_BYTES``."""
+    return int(np.prod(ds.images.shape)) * 4 <= _DEVICE_RESIDENT_MAX_BYTES
+
+
 def resident_by_default(n_seeds: int, ds: ArrayDataset) -> bool:
-    """``score_dataset``'s residency rule: several seeds and a dataset under
-    ``_DEVICE_RESIDENT_MAX_BYTES`` of float32 images."""
-    return n_seeds > 1 and ds.images.size * 4 <= _DEVICE_RESIDENT_MAX_BYTES
+    """``score_dataset``'s automatic residency rule: several seeds and a
+    dataset that ``fits_residency``."""
+    return n_seeds > 1 and fits_residency(ds)
 
 
-def _streamed_batches(ds: ArrayDataset, batch_size: int, device):
-    for hb in iterate_batches(ds, batch_size):
-        yield (hb["index"], hb["mask"].astype(bool),
-               tuple(torch.from_numpy(hb[k]).to(device)
-                     for k in ("image", "label", "mask")))
+class ScoreStream:
+    """The streaming twin of ``ScoreResident``: each seed's pass assembles the
+    batches in dataset order on the prefetch thread and uploads them through
+    ``prefetch_stream`` (``prefetch_depth`` ahead), so nothing dataset-sized
+    is held on the device. ``stall_stats`` totals the passes' prefetch
+    accounting."""
+
+    def __init__(self, ds: ArrayDataset, batch_size: int, device, prefetch_depth: int = 2):
+        self.ds = ds
+        self.batch_size = batch_size
+        self.device = device
+        self.prefetch_depth = prefetch_depth
+        self.stall_stats: dict = {}
+
+    def batches(self):
+        it = prefetch_stream(self.ds, self.batch_size, self.device,
+                             depth=self.prefetch_depth, stage="score")
+        n, bs = len(self.ds), self.batch_size
+        try:
+            for start, b in zip(range(0, n, bs), it):
+                # The join's index and validity on the host, without a fetch.
+                rows = min(bs, n - start)
+                index = np.zeros(bs, np.int32)
+                index[:rows] = self.ds.indices[start:start + rows]
+                yield (index, np.arange(bs) < rows, (b["image"], b["label"], b["mask"]))
+        finally:
+            it.close()
+            merge_stall_stats(self.stall_stats, it.stats())
 
 
 def score_pass(local_scores: Callable, variables: dict, batches: Iterable,
@@ -88,6 +121,7 @@ def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
                   method: str = "el2n", batch_size: int = 512, chunk: int = 32,
                   eval_mode: bool = True, use_kernels: bool | None = None,
                   device_resident: bool | None = None, on_seed_done=None,
+                  data_plane: str = "auto", prefetch_depth: int = 2, log=None,
                   device=None) -> np.ndarray:
     """Score every example; returns ``scores[N]`` float32 aligned with ``ds``.
 
@@ -96,9 +130,15 @@ def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
     ``device`` defaults to CUDA and raises without it (pass ``"cpu"`` for the
     CPU); ``model`` is moved there. ``chunk`` is ``grand_vmap``'s examples per
     ``vmap`` (``score.grand_chunk``). ``use_kernels`` (None = on) routes through
-    the hand-written kernels on the card. ``device_resident`` (None = auto:
-    several seeds and a dataset under 4 GB) uploads the batches once for every
-    seed.
+    the hand-written kernels on the card.
+
+    The data plane (``data.data_plane``), by the JAX package's rules:
+    ``"streaming"`` never holds the dataset on the device (``ScoreStream``,
+    ``prefetch_depth`` batches ahead); ``"resident"`` uploads it once for every
+    seed (``ScoreResident``) unless ``device_resident`` is False; ``"auto"``
+    follows ``device_resident``, which None leaves to ``resident_by_default``.
+    A streamed pass logs one ``data_plane`` record to ``log(kind, **fields)``,
+    after the shard-read fault records it drains, even when it fails.
     ``on_seed_done(k, seed_scores)`` fires after seed ``k``'s pass with its
     float64 vector."""
     device = resolve_device(device)
@@ -111,15 +151,20 @@ def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
     variables_seeds = [variables_to(v, device) for v in variables_seeds]
     n = len(ds)
     pos_of = make_position_joiner(ds.indices)
+    if data_plane == "streaming":
+        device_resident = False
+    elif data_plane == "resident" and device_resident is None:
+        device_resident = True
     if device_resident is None:
         device_resident = resident_by_default(len(variables_seeds), ds)
-    resident = ScoreResident(ds, batch_size, device) if device_resident else None
+    feed = (ScoreResident(ds, batch_size, device) if device_resident
+            else ScoreStream(ds, batch_size, device, prefetch_depth))
     total = np.zeros(n, np.float64)
-    for k, variables in enumerate(variables_seeds):
-        batches = (resident.batches() if resident is not None
-                   else _streamed_batches(ds, batch_size, device))
-        seed_scores = score_pass(local, variables, batches, n, pos_of)
-        total += seed_scores
-        if on_seed_done is not None:
-            on_seed_done(k, seed_scores)
+    with logging_data_plane(None if device_resident else log, "score", "stream",
+                            getattr(feed, "stall_stats", {}), ds):
+        for k, variables in enumerate(variables_seeds):
+            seed_scores = score_pass(local, variables, feed.batches(), n, pos_of)
+            total += seed_scores
+            if on_seed_done is not None:
+                on_seed_done(k, seed_scores)
     return (total / len(variables_seeds)).astype(np.float32)

@@ -21,10 +21,11 @@ or from the environment for a drill through the CLI:
 ``DDT_FAULT_PLAN='{"sigterm_at_epoch_end": 0}' python -m
 data_diet_distributed_tpu_torch.cli train ...``.
 
-The classes here are the JAX package's single-process training classes, under
+The classes here are the JAX package's single-process training classes and
+its storage classes (the ``shard_read`` site of ``data/sharded.py``), under
 its field names. Its other classes (``NOT_PORTED``: rank targeting, host
-kill and rejoin, the consensus restore drill, the serve and storage classes)
-have no site in this package yet; a plan that arms one is refused by name.
+kill and rejoin, the consensus restore drill, the serve classes) have no site
+in this package yet; a plan that arms one is refused by name.
 """
 
 from __future__ import annotations
@@ -51,14 +52,25 @@ class FaultPlan:
     nan_loss_at_epoch: int | None = None   # replace epoch N's train loss with NaN
     # SIGTERM self after N seed score passes have persisted their partials.
     sigterm_after_seed_scores: int | None = None
+    # Storage (the shard_read site). Shard S's raw bytes are flipped before
+    # the digest check on every read from torn_on_read on: NOT fired once,
+    # on-disk corruption does not heal between retries, so the read path
+    # must exhaust its retries and quarantine the shard.
+    torn_shard_read: int | None = None
+    torn_on_read: int = 1
+    # OSError(EIO) on read eio_on_read of shard S, fired once: the retry's
+    # re-read succeeds and the read recovers in place.
+    eio_shard_read: int | None = None
+    eio_on_read: int = 1
+    # This much latency on every shard read (slow storage); not fired once.
+    slow_shard_read_ms: float | None = None
 
 
 #: The JAX package's FaultPlan fields this package cannot fire yet.
 NOT_PORTED = ("kill_rank_after_epoch", "rejoin_after_stage", "hide_latest_durable",
               "kill_replica_after_requests", "wedge_dispatcher_after",
               "partition_replica_after", "partition_seconds", "slow_replica_ms",
-              "slow_if_step", "torn_shard_read", "torn_on_read", "eio_shard_read",
-              "eio_on_read", "slow_shard_read_ms", "rank")
+              "slow_if_step", "rank")
 
 
 class FaultInjector:
@@ -95,6 +107,17 @@ class FaultInjector:
         elif site == "seed_scored":
             if self._due("sigterm_after_seed_scores", ctx["completed"]):
                 os.kill(os.getpid(), signal.SIGTERM)
+        elif site == "shard_read":
+            # Coordinates: the shard id and its 1-based read count (a retry
+            # reads again, and must not re-trip a fired-once fault).
+            if self.plan.slow_shard_read_ms is not None:
+                time.sleep(self.plan.slow_shard_read_ms / 1000.0)
+            s = self.plan.eio_shard_read
+            if (s is not None and ctx["shard"] == s
+                    and ctx["read"] >= self.plan.eio_on_read
+                    and "eio_shard_read" not in self.fired):
+                self.fired.add("eio_shard_read")
+                raise OSError(5, f"injected EIO on read {ctx['read']} of shard {s}")
         elif site == "checkpoint_saved":
             if self._due("truncate_after_save_step", ctx["step"]):
                 truncate_checkpoint(ctx["directory"], ctx["step"])
@@ -104,6 +127,16 @@ class FaultInjector:
             return value
         if site == "epoch_loss" and self._due("nan_loss_at_epoch", ctx["epoch"]):
             return float("nan")
+        if (site == "shard_read" and self.plan.torn_shard_read is not None
+                and ctx["shard"] == self.plan.torn_shard_read
+                and ctx["read"] >= self.plan.torn_on_read):
+            # A deterministic spread of flipped bytes in the raw buffer, before
+            # the digest check, the same on every read.
+            buf = bytearray(value)
+            step = max(1, len(buf) // 7)
+            for i in range(len(buf) // 2, len(buf), step):
+                buf[i] ^= 0xFF
+            return bytes(buf)
         return value
 
 

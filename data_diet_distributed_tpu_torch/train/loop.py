@@ -58,8 +58,9 @@ import torch
 from ..checkpoint import CheckpointManager
 from ..config import Config
 from ..data.datasets import ArrayDataset, load_dataset
-from ..data.pipeline import (ResidentBatches, iterate_batches, maybe_resident,
-                             num_batches, to_device)
+from ..data.pipeline import (EvalBatchCache, PrefetchIterator, ResidentBatches,
+                             logging_data_plane, maybe_resident, merge_stall_stats,
+                             num_batches, prefetch_stream)
 from ..device import resolve_device, set_scoring_determinism
 from ..models import create_model_from_cfg
 from ..ops.scoring import resident_by_default, score_dataset
@@ -132,7 +133,7 @@ def image_dtype(cfg: Config) -> torch.dtype:
 
 def train_resident(cfg: Config, ds: ArrayDataset, device) -> ResidentBatches | None:
     """The train-set residency policy, shared by ``fit`` and the multi-seed
-    scoring pretrain: ``data.data_plane=streaming`` assembles on the host,
+    scoring pretrain: ``data.data_plane=streaming`` streams (None),
     ``resident`` forces residency, ``auto`` follows
     ``train.device_resident_data`` (None = when it fits)."""
     if cfg.data.data_plane == "streaming":
@@ -154,12 +155,10 @@ def _with_epochs(cfg: Config, num_epochs: int | None, seed: int | None) -> Confi
     return cfg
 
 
-def _batches(ds: ArrayDataset, batch_size: int, device, resident, *,
-             shuffle: bool = False, seed: int = 0, epoch: int = 0):
-    if resident is not None:
-        return resident(shuffle=shuffle, seed=seed, epoch=epoch)
-    return (to_device(b, device) for b in iterate_batches(
-        ds, batch_size, shuffle=shuffle, seed=seed, epoch=epoch))
+def _quarantined_rows(ds: ArrayDataset) -> np.ndarray:
+    """Rows of ``ds`` served from quarantined shards (empty unless sharded)."""
+    fn = getattr(ds.images, "quarantined_rows", None)
+    return fn() if fn is not None else np.empty(0, np.int64)
 
 
 def _fetch(metrics: list[dict], keys: tuple[str, ...]) -> list[dict[str, float]]:
@@ -172,15 +171,19 @@ def _fetch(metrics: list[dict], keys: tuple[str, ...]) -> list[dict[str, float]]
 
 
 def evaluate(model, state: TrainState, ds: ArrayDataset, batch_size: int, *,
-             device=None, resident: ResidentBatches | None = None) -> dict[str, float]:
-    """Masked loss and accuracy over ``ds``: ``{loss, accuracy, examples}``."""
+             device=None, resident: ResidentBatches | None = None,
+             cache: EvalBatchCache | None = None) -> dict[str, float]:
+    """Masked loss and accuracy over ``ds``: ``{loss, accuracy, examples}``,
+    from ``resident`` batches, or streamed (through ``cache`` when given)."""
     device = resolve_device(device)
     if resident is not None and resident.batch_size != batch_size:
         raise ValueError(
             f"evaluate: resident batches were built at batch size "
             f"{resident.batch_size} but batch_size={batch_size} was requested")
-    outs = [eval_step(model, state, b)
-            for b in _batches(ds, batch_size, device, resident)]
+    batches = (resident() if resident is not None
+               else cache.stream(ds, batch_size, device) if cache is not None
+               else prefetch_stream(ds, batch_size, device, depth=0, stage="eval"))
+    outs = [eval_step(model, state, b) for b in batches]
     totals = {"loss_sum": 0.0, "correct": 0.0, "examples": 0.0}
     for m in _fetch(outs, tuple(totals)):
         for k in totals:
@@ -203,6 +206,12 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
     call saves are appended to ``saved_steps``. On CUDA the cuDNN algorithms
     are the deterministic ones (``set_scoring_determinism``), so a fit is
     reproducible bit for bit.
+
+    A train set that is not resident streams through ``prefetch_stream``
+    (``data.prefetch_depth`` batches ahead), bitwise the resident batches; a
+    test set that is not resident is cached on the device across evals while
+    it fits (``EvalBatchCache``). One ``data_plane`` record per fit goes to
+    ``log`` when it ends, however it ends.
 
     A preemption signal ends the fit with ``Preempted`` after a final
     synchronous checkpoint; a mid-epoch one records ``epoch`` as the last
@@ -253,12 +262,15 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
                if cfg.data.augment else None)
     if train_batches is None:
         train_batches = train_resident(cfg, train_ds, device)
-    test_batches = None
+    test_batches = eval_cache = None
     if test_ds is not None:
         test_batches = maybe_resident(
             test_ds, cfg.data.eval_batch_size, device, image_dtype(cfg),
             enabled=(False if cfg.data.data_plane == "streaming"
                      else cfg.train.device_resident_data))
+        if test_batches is None:
+            eval_cache = EvalBatchCache()
+    plane_stats: dict = {}
 
     result = FitResult(state=state)
     t_start = time.perf_counter()
@@ -269,25 +281,36 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
     watchdog = Watchdog(timeout, label=f"{tag} step loop") if timeout else None
     preempt = PreemptionHandler(enabled=cfg.resilience.preemption)
     sentinel = LossSentinel(enabled=cfg.resilience.nan_check)
-    with preempt, (watchdog or contextlib.nullcontext()):
+    with logging_data_plane(log, tag, "resident" if train_batches is not None
+                            else "stream", plane_stats, train_ds), \
+            preempt, (watchdog or contextlib.nullcontext()):
         for epoch in range(start_epoch, cfg.train.num_epochs):
             epoch_t0 = time.perf_counter()
-            batches = _batches(train_ds, batch_size, device, train_batches,
-                               shuffle=cfg.data.shuffle_each_epoch, seed=cfg.train.seed,
-                               epoch=epoch)
+            shuffle, seed = cfg.data.shuffle_each_epoch, cfg.train.seed
+            batches = (train_batches(shuffle=shuffle, seed=seed, epoch=epoch)
+                       if train_batches is not None else
+                       prefetch_stream(train_ds, batch_size, device, shuffle=shuffle,
+                                       seed=seed, epoch=epoch,
+                                       depth=cfg.data.prefetch_depth, stage=tag))
             metrics = []
-            for i, b in enumerate(batches):
-                if watchdog is not None:
-                    watchdog.beat()
-                inject.fire("step", epoch=epoch, step=epoch * steps_per_epoch + i)
-                metrics.append(train_step(model, optimizer, state, b, augment))
-                if (i + 1) % cfg.train.log_every_steps == 0:
-                    # Host arithmetic only: the loss waits for the epoch's one fetch.
-                    log("train_step", tag=tag, epoch=epoch, step=state.step)
-                # The poll reads a host flag: no device sync per step.
-                if preempt.requested:
-                    _preempt_exit(preempt, ckpt, state, log, tag, epoch - 1,
-                                  steps_per_epoch, saved_steps, watchdog=watchdog)
+            try:
+                for i, b in enumerate(batches):
+                    if watchdog is not None:
+                        watchdog.beat()
+                    inject.fire("step", epoch=epoch, step=epoch * steps_per_epoch + i)
+                    metrics.append(train_step(model, optimizer, state, b, augment))
+                    if (i + 1) % cfg.train.log_every_steps == 0:
+                        # Host arithmetic only: the loss waits for the epoch's one fetch.
+                        log("train_step", tag=tag, epoch=epoch, step=state.step)
+                    # The poll reads a host flag: no device sync per step.
+                    if preempt.requested:
+                        _preempt_exit(preempt, ckpt, state, log, tag, epoch - 1,
+                                      steps_per_epoch, saved_steps, watchdog=watchdog)
+            finally:
+                # Preempted or failed mid-epoch, the assembler thread stops here.
+                batches.close()
+                if isinstance(batches, PrefetchIterator):
+                    merge_stall_stats(plane_stats, batches.stats())
             steps = _fetch(metrics, ("loss", "correct", "examples"))
             if watchdog is not None:
                 watchdog.beat()   # the epoch fetch, eval and save are progress too
@@ -313,7 +336,7 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
             if test_ds is not None and ((epoch + 1) % cfg.train.eval_every == 0
                                         or epoch + 1 == cfg.train.num_epochs):
                 ev = evaluate(model, state, test_ds, cfg.data.eval_batch_size,
-                              device=device, resident=test_batches)
+                              device=device, resident=test_batches, cache=eval_cache)
                 record["test_accuracy"] = ev["accuracy"]
                 record["test_loss"] = ev["loss"]
                 if watchdog is not None:
@@ -440,11 +463,17 @@ def fit_with_recovery(cfg: Config, train_ds: ArrayDataset,
 
 
 def load_data_for(cfg: Config) -> tuple[ArrayDataset, ArrayDataset]:
-    """The configured dataset; syncs ``model.num_classes`` to it."""
+    """The configured dataset, with the sharded format's cache budget and read
+    policy; syncs ``model.num_classes`` to it (npz and sharded datasets know
+    it only from their labels)."""
     train_ds, test_ds = load_dataset(cfg.data.dataset, cfg.data.data_dir,
                                      cfg.data.synthetic_size, seed=cfg.train.seed,
                                      synthetic_noise=cfg.data.synthetic_noise,
-                                     synthetic_clusters=cfg.data.synthetic_clusters)
+                                     synthetic_clusters=cfg.data.synthetic_clusters,
+                                     host_cache_bytes=cfg.data.host_cache_bytes,
+                                     read_retries=cfg.data.read_retries,
+                                     read_backoff_s=cfg.data.read_backoff_s,
+                                     skip_quarantined=cfg.data.skip_quarantined)
     cfg.model.num_classes = train_ds.num_classes
     return train_ds, test_ds
 
@@ -552,9 +581,11 @@ def compute_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
                 # As for every seed at once, however many are left: a resumed
                 # pass runs the same batches.
                 device_resident=(resident_by_default(len(seeds), train_ds)
-                                 if partials is not None else None),
+                                 if partials is not None and cfg.data.data_plane == "auto"
+                                 else None),
                 on_seed_done=on_seed_done if partials is not None else None,
-                device=device)
+                data_plane=cfg.data.data_plane, prefetch_depth=cfg.data.prefetch_depth,
+                log=log, device=device)
             score_s = time.perf_counter() - t1
         passes = len(seeds_vars)
     if partials is not None:
@@ -662,12 +693,25 @@ def _retrain_level(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset,
     kept = select_indices(scores, train_ds.indices, sparsity, keep=cfg.prune.keep,
                           seed=cfg.train.seed, labels=train_ds.labels,
                           class_balance=cfg.prune.class_balance)
+    # Rows served as zeros by a quarantined shard (data.skip_quarantined) were
+    # scored on meaningless bytes: they leave the kept set, and the manifest
+    # says so.
+    q_rows = _quarantined_rows(train_ds)
+    q_dropped = 0
+    if len(q_rows):
+        before = len(kept)
+        kept = kept[~np.isin(kept, np.asarray(train_ds.indices)[q_rows])]
+        q_dropped = before - len(kept)
     loaded_from = score_t.get("loaded_from")
     method = f"reused:{loaded_from}" if loaded_from else cfg.score.method
     manifest = build_prune_manifest(
         scores, train_ds.indices, kept, method=method, sparsity=float(sparsity),
         keep=cfg.prune.keep, class_balance=cfg.prune.class_balance,
         seed=cfg.train.seed, fingerprint=pipeline_fingerprint(cfg))
+    if len(q_rows):
+        manifest["quarantined_shards"] = sorted(int(s) for s in train_ds.images.quarantined)
+        manifest["quarantined_rows"] = int(len(q_rows))
+        manifest["quarantined_dropped_from_kept"] = int(q_dropped)
     npz = scores_npz_path(ckpt_dir)
     atomic_savez(npz, scores=scores, indices=train_ds.indices, kept=kept,
                  keep=cfg.prune.keep, class_balance=cfg.prune.class_balance,

@@ -51,7 +51,8 @@ def _summary(capsys) -> dict:
     (["score", "--config", SMOKE, "--device", "cpu", "score.method=forgetting"],
      "trajectory scores"),
     (["train", "--config", SMOKE, "--device", "cpu", "model.remat=true"], "remat"),
-    (["run", "--config", SMOKE, "--device", "cpu", "data.dataset=npz"], "npz"),
+    (["run", "--config", SMOKE, "--device", "cpu", "score.method=aum"],
+     "trajectory scores"),
 ])
 def test_cli_refuses_what_needs_training(argv, match):
     with pytest.raises(NotImplementedError, match=match):

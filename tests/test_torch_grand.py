@@ -32,7 +32,8 @@ def _one_intra_op_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("name,batch", [("tiny", 4), ("narrow", 4), ("resnet18", 2)])
+@pytest.mark.parametrize("name,batch", [("tiny", 4), ("narrow", 4), ("resnet18", 2),
+                                        ("narrow_bottleneck", 4)])
 def test_batched_grand_matches_jax(name, batch):
     fm, tree, tm, variables, x, y = ported(name, batch, seed=1)
     mask = np.ones(batch, np.float32)

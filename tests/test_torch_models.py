@@ -13,8 +13,9 @@ import torch
 
 from data_diet_distributed_tpu.models import create_model as flax_create_model
 from data_diet_distributed_tpu.models.resnet import BasicBlock as FlaxBasicBlock
+from data_diet_distributed_tpu.models.resnet import BottleneckBlock as FlaxBottleneckBlock
 from data_diet_distributed_tpu.models.resnet import ResNet as FlaxResNet
-from data_diet_distributed_tpu_torch.models import (BasicBlock, ResNet,
+from data_diet_distributed_tpu_torch.models import (BasicBlock, BottleneckBlock, ResNet,
                                                     create_model)
 from data_diet_distributed_tpu_torch.weights import (init_variables,
                                                      params_from_flax)
@@ -54,6 +55,10 @@ def flax_and_torch(name: str):
     if name == "narrow":
         return (FlaxResNet((1, 1, 1, 1), FlaxBasicBlock, width=16),
                 ResNet((1, 1, 1, 1), BasicBlock, width=16).eval())
+    if name == "narrow_bottleneck":
+        # ResNet-50's parts: bottleneck blocks, the 7x7/2 stem and max-pool.
+        return (FlaxResNet((1, 1, 1, 1), FlaxBottleneckBlock, width=8, stem="imagenet"),
+                ResNet((1, 1, 1, 1), BottleneckBlock, width=8, stem="imagenet").eval())
     return flax_create_model("resnet18", 10), create_model("resnet18", 10)
 
 
@@ -71,7 +76,8 @@ def ported(name: str, batch: int, seed: int = 0):
     return fm, tree, tm, variables, x, y
 
 
-@pytest.mark.parametrize("name,batch", [("tiny", 4), ("narrow", 4), ("resnet18", 2)])
+@pytest.mark.parametrize("name,batch", [("tiny", 4), ("narrow", 4), ("resnet18", 2),
+                                        ("narrow_bottleneck", 4)])
 def test_logits_match_flax(name, batch):
     fm, tree, tm, _, x, _ = ported(name, batch)
     want = np.asarray(fm.apply(tree, jnp.asarray(x), train=False))

@@ -251,7 +251,7 @@ def test_fault_plan_from_env_matches_jax(monkeypatch):
                                        ("rejoin_after_stage", "score"),
                                        ("hide_latest_durable", True),
                                        ("wedge_dispatcher_after", 2),
-                                       ("torn_shard_read", 0)])
+                                       ("kill_replica_after_requests", 2)])
 def test_fault_plan_arming_an_unported_class_refuses_by_name(monkeypatch, key, value):
     import json
     monkeypatch.setenv("DDT_FAULT_PLAN", json.dumps({"hang_at": 1, key: value}))

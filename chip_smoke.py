@@ -33,7 +33,7 @@ Phases (the first failure exits non-zero; nothing is caught):
    the working dtype and int64 labels as given and are bitwise from run to
    run, on a permuted batch and on a 5-row slice (that each call launches one
    CUDA kernel and nothing else is checked under ``torch.profiler`` after the
-   timed phases, phase 11: the profiler slows every later launch of the
+   timed phases, phase 12: the profiler slows every later launch of the
    process); stacked BatchNorm at the four ResNet-18 BN shapes
    singly and 5 deep (every launch in the ``vector`` mode) and at ragged rows
    (``BN_RAGGED``: batch 37, C = 72, 100 and 98, S = 1, use_scale and use_bias
@@ -143,17 +143,49 @@ Phases (the first failure exits non-zero; nothing is caught):
    quarantined rows in its prune manifest. Cuts: 4,096 examples for an
    ImageNet-1k subset, one epoch for 30, synthetic data for real (none in the
    repo); widths as published.
-11. Calls: each EL2N and last-layer row of phase 3 runs one CUDA kernel per
+11. WRN: BASELINE config 4 (``configs/cifar100_wrn28_10.yaml``: WideResNet-28-10
+   / CIFAR-100, GraNd over seeds [0, 1, 2], prune sweep {30, 50, 70} %; bf16,
+   training at batch 128, scoring at batch 512) on ``WRN_N`` synthetic
+   CIFAR-100-geometry examples. 1: 36,479,194 parameters at 10 classes, and
+   bf16 logits within ``WRN_LOGIT_RTOL`` of fp32 on BN-randomized weights. 2:
+   one GraNd batch's route log is ``WRN_ROUTES`` (9 v1, 7 v2, 7 Gram, 5
+   plain: 16 direct and 7 Gram launches a batch). 3: every conv geometry of
+   a GraNd batch against its plain version on the layer's own x and g (fp32
+   1e-4, bf16 1e-3), and the megakernel's 15 and the stacked-BN kernel's 25
+   layers at their geometries on random inputs in both dtypes; each bf16
+   geometry timed with its bound; EL2N and the last layer at config 4's head
+   (logits [512, 100], features [512, 640]) in both dtypes, timed in fp32,
+   the dtype the path hands them. 4: GraNd, EL2N and ``grand_last_layer``
+   through ``score_dataset`` on the three seeds (ex/s, exact launches,
+   tensor-core), then in fp32 each kernel route against its plain route on
+   ``WRN_PARITY_N`` examples. 5: ``cli sweep`` with ``prune.sweep=[0.3,0.5,0.7]``
+   on the set written as npz: exit 0, one scoring pass (the three seeds'
+   launches, exact), ``n_kept`` of 70, 50 and 30 % with a verified prune
+   manifest per level; stage walls and each fit's epoch ex/s. 6: with
+   ``model.remat=true`` 20 training steps bitwise those without (losses,
+   params, batch statistics, momentum) and GraNd bitwise; one step's peak
+   CUDA memory with remat on and off. 7: ``cli score`` with ``forgetting`` and
+   ``aum`` on the ResNet-18 north-star geometry (``TRAJ_N`` examples,
+   ``TRAJ_EPOCHS`` epochs, seeds [0, 1], pixel noise ``TRAJ_NOISE``): finite
+   scores, forgetting's
+   per-seed counts in {0, 1} or never learned (``updates + 1``), two runs
+   bitwise equal, and a run preempted after seed 0's partial resuming with
+   seed 1 only, bitwise the uninterrupted one. Cuts: ``WRN_N`` of 50,000
+   examples, 1 of 10 pretrain epochs, 1 of 200 retrain epochs per level;
+   widths and seeds as published.
+12. Calls: each EL2N and last-layer row of phase 3 runs one CUDA kernel per
    call, its own, and no copy, cast or memset (``torch.profiler``).
 
 With ``--profile``: one batch under ``torch.profiler`` on each of the default,
 FUSED+MEGAKERNEL, BN_KERNEL and BN_KERNEL+GROUP_BN+GROUP_CONV routes, and one
-config 5 batch (phase 10) on the default route; the cuDNN dgrad launches must
-drop from 19 to 9 on the megakernel route, and the profiled BN and Gram time
-per batch is printed beside the ``device_ms`` sums.
+config 5 batch (phase 10) and one config 4 batch (phase 11) on the default
+route; the cuDNN dgrad launches must drop from 19 to 9 on the megakernel
+route, and the profiled BN and Gram time per batch is printed beside the
+``device_ms`` sums.
 
 Every counted run (phases 4, 5 and 7, phase 8's ``run``, phase 9's runs of
-``run_datadiet`` and phase 10's ``cli run``) starts with the launch counts at 0
+``run_datadiet``, phase 10's ``cli run``, phase 11's ``score_dataset`` passes and
+``cli sweep``) starts with the launch counts at 0
 and is read right after; the kernels line sums them. The line before the last is a
 JSON object with one entry per kernel (launches on the main paths, max error,
 ms, device ms, plain ms, bound ms); the last line is ``{"ok": true, "device":
@@ -589,6 +621,124 @@ def _rel_err(got, ref) -> tuple[float, float]:
     return float(err.max()), float((err / ref.float().abs().clamp_min(1e-30)).max())
 
 
+def bn_row(torch, K, gen, dtype, rtol, details, shape, depth: int, scale: bool,
+           bias: bool, layers: int, main_path: bool) -> dict:
+    """The stacked-BN kernel on ``depth`` random layers of ``shape`` against its
+    plain version, bitwise from run to run and on a permuted batch, timed; a
+    ``main_path`` shape must take the vector mode and is also timed cold."""
+    dname = str(dtype).replace("torch.", "")
+    item = torch.tensor([], dtype=dtype).element_size()
+    c = shape[-1]
+    xs = [torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(depth)]
+    gs = [torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(depth)]
+    stats = torch.stack([torch.randn((depth, c), generator=gen, device="cuda"),
+                         torch.rand((depth, c), generator=gen, device="cuda") + 0.5],
+                        dim=1)
+
+    def call(xs, gs, stats=stats, scale=scale, bias=bias):
+        return K.bn_grad_norm_sq(xs, gs, stats, scale, bias)
+    what = f"bn_grad_norm {dname} x{list(shape)} x{depth} scale={scale} bias={bias}"
+    mode = K.bn_mode(xs, gs)
+    if main_path:
+        check(mode == "vector", f"{what}: a main-path BN launch in mode {mode}")
+    modes0 = K.mode_counts()["bn_grad_norm"]
+    got = call(xs, gs)
+    torch.cuda.synchronize()
+    check_modes(K, modes0, 1, mode, what, "bn_grad_norm")
+    check_bn_bitwise(torch, gen, call, xs, gs, got, what)
+    ref = K.bn_grad_norm_sq_plain(xs, gs, stats, scale, bias)
+    abs_err, rel = _rel_err(got, ref)
+    n = depth * float(np.prod(shape))
+    rec = _measure(torch, {"kernel": "bn_grad_norm", "entry": "bn", "dtype": dname,
+                           "x": list(shape), "layers": depth, "use_scale": scale,
+                           "use_bias": bias, "mode": mode, "layers_per_batch": layers,
+                           "max_abs_err": abs_err, "max_rel_err": rel},
+                   lambda: call(xs, gs),
+                   lambda: K.bn_grad_norm_sq_plain(xs, gs, stats, scale, bias),
+                   3.0 * n, 2.0 * n * item + 8.0 * depth * c + 4.0 * depth * shape[0],
+                   "float32")
+    if rec["l2_warm"] and main_path:
+        copies = [([t.clone() for t in xs], [t.clone() for t in gs])
+                  for _ in range(cold_copies(rec["input_bytes"]))]
+        rec["device_cold_ms"] = device_ms(torch, [lambda xc=xc, gc=gc: call(xc, gc)
+                                                  for xc, gc in copies])
+        del copies
+    details.append(rec)
+    print(f"  {what} ({mode}): rel_err={rel:.3e} ms={rec['ms']:.4f} "
+          f"device_ms={rec['device_ms']:.4f}"
+          + (f" (inputs {rec['input_bytes'] / 2**20:.1f} MiB fit L2; cold "
+             f"{rec['device_cold_ms']:.4f})" if "device_cold_ms" in rec else "")
+          + f" plain_ms={rec['plain_ms']:.4f} "
+          f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
+    check(bool(torch.isfinite(got).all()) and rel <= rtol,
+          f"{what}: max rel err {rel:.3e} > {rtol}")
+    return rec
+
+
+def mega_row(torch, K, gen, dtype, rtol, details, xs_, gs_, ks, pad, bias: bool,
+             layers: int) -> dict:
+    """The megakernel at one geometry on random x, g and weight against its plain
+    version (the norm within ``rtol``, dx within ``MEGA_DX_TOL``), bitwise in
+    bf16 and its norm bitwise the direct kernel's; timed with a cuDNN input
+    gradient and the direct kernel as yardsticks."""
+    dname = str(dtype).replace("torch.", "")
+    item = torch.tensor([], dtype=dtype).element_size()
+    x = torch.randn(xs_, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(gs_, generator=gen, device="cuda").to(dtype)
+    w = torch.randn((gs_[3], xs_[3], *ks), generator=gen, device="cuda") * 0.05
+    w = w.contiguous(memory_format=torch.channels_last)
+
+    def call(x, g, w=w, ks=ks, pad=pad, bias=bias):
+        return K.conv_bwd_grad_norm_sq(x, g, w, ks, pad, use_bias=bias)
+    what = f"conv_bwd_grad_norm {dname} x{list(xs_)} g{list(gs_)} k{ks}"
+    modes0 = K.mode_counts()["conv_bwd_grad_norm"]
+    dx, ns = call(x, g)
+    torch.cuda.synchronize()
+    check_modes(K, modes0, 1, K.DIRECT_MODES[dtype], what, "conv_bwd_grad_norm")
+    if dtype == torch.bfloat16:
+        check_bitwise(torch, gen, call, x, g, (dx, ns), what)
+        if not bias:   # the norm role is the direct kernel's walk, to the bit
+            check(torch.equal(ns, K.conv_grad_norm_sq(x, g, ks, (1, 1), pad)),
+                  f"{what}: norm not bitwise equal to the direct kernel's")
+    rdx, rns = K.conv_bwd_grad_norm_sq_plain(x, g, w, ks, pad, use_bias=bias)
+    abs_err, rel = _rel_err(ns, rns)
+    dx_err = (dx.float() - rdx.float()).abs()
+    scale = float(rdx.float().abs().max())
+    dx_excess = float((dx_err - MEGA_DX_TOL[dname] * rdx.float().abs()).max())
+    flops = 2.0 * 2.0 * xs_[0] * gs_[1] * gs_[2] * ks[0] * ks[1] * xs_[3] * gs_[3]
+    nbytes = (2 * np.prod(xs_) + np.prod(gs_)) * item + 4.0 * w.numel() + 4.0 * xs_[0]
+    rec = _measure(torch, {"kernel": "conv_bwd_grad_norm", "entry": "mega",
+                           "dtype": dname, "x": list(xs_), "g": list(gs_),
+                           "kernel_size": list(ks), "padding": [list(p) for p in pad],
+                           "use_bias": bias, "layers_per_batch": layers,
+                           "max_abs_err": max(abs_err, float(dx_err.max())),
+                           "max_rel_err": rel, "dx_max_abs_err": float(dx_err.max()),
+                           "dx_scale": scale},
+                   lambda: call(x, g),
+                   lambda: K.conv_bwd_grad_norm_sq_plain(x, g, w, ks, pad, use_bias=bias),
+                   flops, nbytes, dname)
+    rec["direct_ms"] = time_ms(torch, lambda: K.conv_grad_norm_sq(x, g, ks, (1, 1), pad))
+    rec["dgrad_ms"] = None
+    if pad[0][0] == pad[0][1] and pad[1][0] == pad[1][1]:
+        wd, gn = w.to(dtype), g.permute(0, 3, 1, 2)
+        size = (xs_[0], xs_[3], xs_[1], xs_[2])
+        rec["dgrad_ms"] = time_ms(torch, lambda: torch.nn.grad.conv2d_input(
+            size, wd, gn, padding=(pad[0][0], pad[1][0])))
+    details.append(rec)
+    yard = ("" if rec["dgrad_ms"] is None else
+            f" dgrad_ms={rec['dgrad_ms']:.4f} + direct_ms={rec['direct_ms']:.4f}")
+    print(f"  {what}: norm rel_err={rel:.3e} "
+          f"dx max abs err={float(dx_err.max()):.3e} (max |dx| {scale:.3e}) "
+          f"ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f} "
+          f"plain_ms={rec['plain_ms']:.4f} "
+          f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}){yard}", flush=True)
+    check(dx.dtype == dtype and bool(torch.isfinite(dx).all())
+          and bool(torch.isfinite(ns).all()), f"{what}: output")
+    check(rel <= rtol, f"{what}: norm rel err {rel:.3e}")
+    check(dx_excess <= 1e-5 * scale, f"{what}: dx beyond rtol {MEGA_DX_TOL[dname]}")
+    return rec
+
+
 def route_kernel_phase(torch, K, dtype, rtol, details) -> None:
     """The route kernels against their plain versions at the path's shapes."""
     dname = str(dtype).replace("torch.", "")
@@ -652,50 +802,8 @@ def route_kernel_phase(torch, K, dtype, rtol, details) -> None:
             for shape in BN_SHAPES for depth in (1, 5)]
     rows += [(shape, depth, scale, bias, 0) for shape, depth, scale, bias in BN_RAGGED]
     for shape, depth, scale, bias, layers in rows:
-        c = shape[-1]
-        xs = [randn(*shape) for _ in range(depth)]
-        gs = [randn(*shape) for _ in range(depth)]
-        stats = torch.stack([torch.randn((depth, c), generator=gen, device="cuda"),
-                             torch.rand((depth, c), generator=gen, device="cuda") + 0.5],
-                            dim=1)
-
-        def call(xs, gs, stats=stats, scale=scale, bias=bias):
-            return K.bn_grad_norm_sq(xs, gs, stats, scale, bias)
-        what = f"bn_grad_norm {dname} x{list(shape)} x{depth} scale={scale} bias={bias}"
-        mode = K.bn_mode(xs, gs)
-        if shape in BN_SHAPES:
-            check(mode == "vector", f"{what}: a ResNet-18 BN launch in mode {mode}")
-        modes0 = K.mode_counts()["bn_grad_norm"]
-        got = call(xs, gs)
-        torch.cuda.synchronize()
-        check_modes(K, modes0, 1, mode, what, "bn_grad_norm")
-        check_bn_bitwise(torch, gen, call, xs, gs, got, what)
-        ref = K.bn_grad_norm_sq_plain(xs, gs, stats, scale, bias)
-        abs_err, rel = _rel_err(got, ref)
-        n = depth * float(np.prod(shape))
-        rec = _measure(torch, {"kernel": "bn_grad_norm", "entry": "bn", "dtype": dname,
-                               "x": list(shape), "layers": depth, "use_scale": scale,
-                               "use_bias": bias, "mode": mode, "layers_per_batch": layers,
-                               "max_abs_err": abs_err, "max_rel_err": rel},
-                       lambda: call(xs, gs),
-                       lambda: K.bn_grad_norm_sq_plain(xs, gs, stats, scale, bias),
-                       3.0 * n, 2.0 * n * item + 8.0 * depth * c + 4.0 * depth * shape[0],
-                       "float32")
-        if rec["l2_warm"] and shape in BN_SHAPES:
-            copies = [([t.clone() for t in xs], [t.clone() for t in gs])
-                      for _ in range(cold_copies(rec["input_bytes"]))]
-            rec["device_cold_ms"] = device_ms(torch, [lambda xc=xc, gc=gc: call(xc, gc)
-                                                      for xc, gc in copies])
-            del copies
-        details.append(rec)
-        print(f"  {what} ({mode}): rel_err={rel:.3e} ms={rec['ms']:.4f} "
-              f"device_ms={rec['device_ms']:.4f}"
-              + (f" (inputs {rec['input_bytes'] / 2**20:.1f} MiB fit L2; cold "
-                 f"{rec['device_cold_ms']:.4f})" if "device_cold_ms" in rec else "")
-              + f" plain_ms={rec['plain_ms']:.4f} "
-              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
-        check(bool(torch.isfinite(got).all()) and rel <= rtol,
-              f"{what}: max rel err {rel:.3e} > {rtol}")
+        bn_row(torch, K, gen, dtype, rtol, details, shape, depth, scale, bias, layers,
+               main_path=shape in BN_SHAPES)
     # Cat-dot at every CATDOT_GEOMETRIES row. Yardstick, not a library counterpart:
     # the direct kernel at the same layer (v2 where it takes the layer), which
     # computes the same function (``direct_ms``).
@@ -738,58 +846,7 @@ def route_kernel_phase(torch, K, dtype, rtol, details) -> None:
     # symmetric padding) plus the direct kernel's norm at the same layer
     # (``direct_ms``), the two launches the megakernel replaces on its route.
     for xs_, gs_, ks, pad, bias, layers in MEGA_GEOMETRIES:
-        x, g = randn(*xs_), randn(*gs_)
-        w = torch.randn((gs_[3], xs_[3], *ks), generator=gen, device="cuda") * 0.05
-        w = w.contiguous(memory_format=torch.channels_last)
-
-        def call(x, g, w=w, ks=ks, pad=pad, bias=bias):
-            return K.conv_bwd_grad_norm_sq(x, g, w, ks, pad, use_bias=bias)
-        what = f"conv_bwd_grad_norm {dname} x{list(xs_)} g{list(gs_)} k{ks}"
-        modes0 = K.mode_counts()["conv_bwd_grad_norm"]
-        dx, ns = call(x, g)
-        torch.cuda.synchronize()
-        check_modes(K, modes0, 1, K.DIRECT_MODES[dtype], what, "conv_bwd_grad_norm")
-        if dtype == torch.bfloat16:
-            check_bitwise(torch, gen, call, x, g, (dx, ns), what)
-            if not bias:   # the norm role is the direct kernel's walk, to the bit
-                check(torch.equal(ns, K.conv_grad_norm_sq(x, g, ks, (1, 1), pad)),
-                      f"{what}: norm not bitwise equal to the direct kernel's")
-        rdx, rns = K.conv_bwd_grad_norm_sq_plain(x, g, w, ks, pad, use_bias=bias)
-        abs_err, rel = _rel_err(ns, rns)
-        dx_err = (dx.float() - rdx.float()).abs()
-        scale = float(rdx.float().abs().max())
-        dx_excess = float((dx_err - MEGA_DX_TOL[dname] * rdx.float().abs()).max())
-        flops = 2.0 * 2.0 * xs_[0] * gs_[1] * gs_[2] * ks[0] * ks[1] * xs_[3] * gs_[3]
-        nbytes = (2 * np.prod(xs_) + np.prod(gs_)) * item + 4.0 * w.numel() + 4.0 * xs_[0]
-        rec = _measure(torch, {"kernel": "conv_bwd_grad_norm", "entry": "mega",
-                               "dtype": dname, "x": list(xs_), "g": list(gs_),
-                               "kernel_size": list(ks), "padding": [list(p) for p in pad],
-                               "use_bias": bias, "layers_per_batch": layers,
-                               "max_abs_err": max(abs_err, float(dx_err.max())),
-                               "max_rel_err": rel, "dx_max_abs_err": float(dx_err.max()),
-                               "dx_scale": scale},
-                       lambda: call(x, g),
-                       lambda: K.conv_bwd_grad_norm_sq_plain(x, g, w, ks, pad, use_bias=bias),
-                       flops, nbytes, dname)
-        rec["direct_ms"] = time_ms(torch, lambda: K.conv_grad_norm_sq(x, g, ks, (1, 1), pad))
-        rec["dgrad_ms"] = None
-        if pad[0][0] == pad[0][1] and pad[1][0] == pad[1][1]:
-            wd, gn = w.to(dtype), g.permute(0, 3, 1, 2)
-            size = (xs_[0], xs_[3], xs_[1], xs_[2])
-            rec["dgrad_ms"] = time_ms(torch, lambda: torch.nn.grad.conv2d_input(
-                size, wd, gn, padding=(pad[0][0], pad[1][0])))
-        details.append(rec)
-        yard = ("" if rec["dgrad_ms"] is None else
-                f" dgrad_ms={rec['dgrad_ms']:.4f} + direct_ms={rec['direct_ms']:.4f}")
-        print(f"  {what}: norm rel_err={rel:.3e} "
-              f"dx max abs err={float(dx_err.max()):.3e} (max |dx| {scale:.3e}) "
-              f"ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f} "
-              f"plain_ms={rec['plain_ms']:.4f} "
-              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}){yard}", flush=True)
-        check(dx.dtype == dtype and bool(torch.isfinite(dx).all())
-              and bool(torch.isfinite(ns).all()), f"{what}: output")
-        check(rel <= rtol, f"{what}: norm rel err {rel:.3e}")
-        check(dx_excess <= 1e-5 * scale, f"{what}: dx beyond rtol {MEGA_DX_TOL[dname]}")
+        mega_row(torch, K, gen, dtype, rtol, details, xs_, gs_, ks, pad, bias, layers)
 
 
 # Classifier scale of the parity weights: with the BatchNorms randomized the
@@ -928,7 +985,7 @@ R50_CLASSES = 100
 R50_REPEATS = 3   # timed passes per method (the launch counts are read after each)
 
 
-def r50_dataset(port, n: int):
+def cifar100_dataset(port, n: int):
     """Synthetic CIFAR-100-geometry data (CIFAR-100 itself is not in the repo): a
     fixed template per class plus noise, drawn from seed 0."""
     rng = np.random.default_rng(0)
@@ -947,7 +1004,7 @@ def resnet50_phase(torch, port, details_out, card: str) -> dict:
     kernels line); then in fp32 parity mode (TF32 off) each against the plain
     route."""
     K = port["kernels"]
-    ds = r50_dataset(port, R50_N)
+    ds = cifar100_dataset(port, R50_N)
     model = port["create_model"]("resnet50", R50_CLASSES, half_precision=True)
     v = [port["init_variables"]("resnet50", 0, "cuda", num_classes=R50_CLASSES)]
     nb = -(-R50_N // B)
@@ -1639,6 +1696,72 @@ def conv_spy(gb, rows: dict):
         gb._conv_contrib = orig
 
 
+def conv_geometry_rows(torch, K, geo: dict) -> list[dict]:
+    """Hold each conv geometry ``conv_spy`` recorded (route, dtype, shapes) to
+    its largest relative error against the plain version (fp32 1e-4, bf16
+    1e-3), and time every bf16 kernel geometry on the layer's own x and g with
+    its bound (``_measure``); returns those rows."""
+    kernel_rows = []
+    for (route, dt, xs, gs, ks, st, pad, bias), row in sorted(geo.items(),
+                                                             key=lambda kv: kv[0][1:]):
+        dname = dt.replace("torch.", "")
+        tol = 1e-4 if dname == "float32" else 1e-3
+        print(f"    {dname} {route:5s} x{list(xs[1:])} g{list(gs[1:])} k{ks} s{st}: "
+              f"{row['layers']} a batch, max rel err vs plain {row['max_rel_err']:.3e}",
+              flush=True)
+        check(row["max_rel_err"] <= tol, f"{route} x{xs} g{gs}: rel err "
+              f"{row['max_rel_err']:.3e} > {tol}")
+        if route == "plain" or dname != "bfloat16":
+            continue
+        kern = "conv_grad_norm_gram" if route == "gram" else "conv_grad_norm_direct"
+        x, g = row["x"], row["g"]
+        if route == "v1":
+            def run(x=x, g=g, ks=ks, st=st, pad=pad):
+                return K.conv_grad_norm_sq(x, g, ks, st, pad)
+
+            def plain_fn(x=x, g=g, ks=ks, st=st, pad=pad):
+                return K.conv_grad_norm_sq_plain(x, g, ks, st, pad)
+        elif route == "v2":
+            def run(x=x, g=g, ks=ks, pad=pad, bias=bias):
+                return K.conv_grad_norm_sq_v2(x, g, ks, pad, use_bias=bias)
+
+            def plain_fn(x=x, g=g, ks=ks, pad=pad):
+                return K.conv_grad_norm_sq_plain(x, g, ks, (1, 1), pad)
+        else:
+            def run(x=x, g=g, ks=ks, pad=pad, bias=bias):
+                return K.conv_grad_norm_sq_gram(x, g, ks, pad, use_bias=bias)
+
+            def plain_fn(x=x, g=g, ks=ks, pad=pad, bias=bias):
+                return K.conv_grad_norm_sq_gram_plain(x, g, ks, pad, use_bias=bias)
+        flops, nbytes = conv_work(kern, xs, gs, ks, x.element_size())
+        kernel_rows.append(_measure(torch, {
+            "kernel": kern, "entry": route, "dtype": dname, "x": list(xs), "g": list(gs),
+            "kernel_size": list(ks), "strides": list(st), "layers_per_batch": row["layers"],
+            "max_rel_err": row["max_rel_err"]}, run, plain_fn, flops, nbytes, dname))
+    return kernel_rows
+
+
+def per_batch_sums(kernel_rows: list[dict], kernels: list[str], what: str) -> dict:
+    """Each kernel's rows summed over the layers of a batch (device, one-call,
+    plain and bound ms), printed with every row."""
+    out = {}
+    for kern in kernels:
+        rows = [r for r in kernel_rows if r["kernel"] == kern]
+        tot = {k: sum(r["layers_per_batch"] * r[k] for r in rows)
+               for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+        out[kern] = tot
+        print(f"  {kern} at {what}: "
+              f"{sum(r['layers_per_batch'] for r in rows)} launches a batch, device "
+              f"{tot['device_ms']:.4f} ms, one-call {tot['ms']:.4f}, plain "
+              f"{tot['plain_ms']:.4f}, bound {tot['bound_ms']:.4f} ms a batch", flush=True)
+    for r in kernel_rows:
+        print(f"    {r['kernel']}/{r['entry']} x{r['x'][1:]} g{r['g'][1:]} "
+              f"k{r['kernel_size']} s{r['strides']} x{r['layers_per_batch']}: device "
+              f"{r['device_ms']:.4f} ms, one-call {r['ms']:.4f}, plain {r['plain_ms']:.4f}, "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return out
+
+
 def data_phase(torch, port, details_out, card: str) -> dict:
     """BASELINE config 5 through the port's data planes on the card. Its files
     go to ``DATA_ROOT`` and are removed after."""
@@ -1833,57 +1956,9 @@ def _data_phase(torch, port, rec: dict, card: str) -> dict:
     with conv_spy(gb, geo):
         local16(seeds[0], *batch)
     rec["parity"] = parity
-    rec["kernel_rows"] = kernel_rows = []
-    for (route, dt, xs, gs, ks, st, pad, bias), row in sorted(geo.items(),
-                                                             key=lambda kv: kv[0][1:]):
-        dname = dt.replace("torch.", "")
-        tol = 1e-4 if dname == "float32" else 1e-3
-        print(f"    {dname} {route:5s} x{list(xs[1:])} g{list(gs[1:])} k{ks} s{st}: "
-              f"{row['layers']} a batch, max rel err vs plain {row['max_rel_err']:.3e}",
-              flush=True)
-        check(row["max_rel_err"] <= tol, f"{route} x{xs} g{gs}: rel err "
-              f"{row['max_rel_err']:.3e} > {tol}")
-        if route == "plain" or dname != "bfloat16":
-            continue
-        kern = "conv_grad_norm_gram" if route == "gram" else "conv_grad_norm_direct"
-        x, g = row["x"], row["g"]
-        if route == "v1":
-            def run(x=x, g=g, ks=ks, st=st, pad=pad):
-                return K.conv_grad_norm_sq(x, g, ks, st, pad)
-
-            def plain_fn(x=x, g=g, ks=ks, st=st, pad=pad):
-                return K.conv_grad_norm_sq_plain(x, g, ks, st, pad)
-        elif route == "v2":
-            def run(x=x, g=g, ks=ks, pad=pad, bias=bias):
-                return K.conv_grad_norm_sq_v2(x, g, ks, pad, use_bias=bias)
-
-            def plain_fn(x=x, g=g, ks=ks, pad=pad):
-                return K.conv_grad_norm_sq_plain(x, g, ks, (1, 1), pad)
-        else:
-            def run(x=x, g=g, ks=ks, pad=pad, bias=bias):
-                return K.conv_grad_norm_sq_gram(x, g, ks, pad, use_bias=bias)
-
-            def plain_fn(x=x, g=g, ks=ks, pad=pad, bias=bias):
-                return K.conv_grad_norm_sq_gram_plain(x, g, ks, pad, use_bias=bias)
-        flops, nbytes = conv_work(kern, xs, gs, ks, x.element_size())
-        kernel_rows.append(_measure(torch, {
-            "kernel": kern, "entry": route, "dtype": dname, "x": list(xs), "g": list(gs),
-            "kernel_size": list(ks), "strides": list(st), "layers_per_batch": row["layers"],
-            "max_rel_err": row["max_rel_err"]}, run, plain_fn, flops, nbytes, dname))
-    for kern in per_batch:
-        rows = [r for r in kernel_rows if r["kernel"] == kern]
-        tot = {k: sum(r["layers_per_batch"] * r[k] for r in rows)
-               for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
-        rec.setdefault("per_batch", {})[kern] = tot
-        print(f"  {kern} at config 5 (bf16, batch {DATA_B}): "
-              f"{sum(r['layers_per_batch'] for r in rows)} launches a batch, device "
-              f"{tot['device_ms']:.4f} ms, one-call {tot['ms']:.4f}, plain "
-              f"{tot['plain_ms']:.4f}, bound {tot['bound_ms']:.4f} ms a batch", flush=True)
-    for r in kernel_rows:
-        print(f"    {r['kernel']}/{r['entry']} x{r['x'][1:]} g{r['g'][1:]} "
-              f"k{r['kernel_size']} s{r['strides']} x{r['layers_per_batch']}: device "
-              f"{r['device_ms']:.4f} ms, one-call {r['ms']:.4f}, plain {r['plain_ms']:.4f}, "
-              f"bound {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    rec["kernel_rows"] = kernel_rows = conv_geometry_rows(torch, K, geo)
+    rec["per_batch"] = per_batch_sums(kernel_rows, per_batch,
+                                      f"config 5 (bf16, batch {DATA_B})")
     del geo
 
     # 7. Fits: streaming bitwise resident; prefetch depth 0 bitwise depth 2.
@@ -1962,6 +2037,404 @@ def _data_phase(torch, port, rec: dict, card: str) -> dict:
     cfg5 = port["load_config"](DATA_CONFIG, [f"model.num_classes={DATA_CLASSES}"])
     return {"counts": counts,
             "profile": {"ds": train, "cfg": cfg5, "variables": seeds, "batch": DATA_B}}
+
+
+# BASELINE config 4 (phase 11): WideResNet-28-10 / CIFAR-100, GraNd over 3 seeds and a
+# prune sweep, on synthetic CIFAR-100-geometry data (``cifar100_dataset``). Widths as
+# published; the cuts are in ``wrn_phase``'s docstring.
+WRN_CONFIG = os.path.join(REPO, "configs", "cifar100_wrn28_10.yaml")
+WRN_ROOT = os.path.join(REPO, "chip_smoke_out", "wrn")
+WRN_N = 4096                  # train examples (CIFAR-100 has 50,000)
+WRN_TEST = 1024               # test examples
+WRN_CLASSES = 100
+WRN_SEEDS = (0, 1, 2)         # config 4's score.seeds
+WRN_TRAIN_B = 128             # config 4's data.batch_size
+WRN_SWEEP = (0.3, 0.5, 0.7)   # config 4's sweep levels
+WRN_PARITY_N = 1024           # the fp32 route comparisons: two batches
+WRN_PARAMS = 36_479_194       # WRN-28-10 at 10 classes (the JAX package's test_models.py)
+# bf16 against fp32 logits on the same weights: the largest difference over the largest
+# |fp32 logit| (the port's CPU run of the same comparison reads 0.6 %).
+WRN_LOGIT_RTOL = 0.02
+WRN_ROUTES = {"v1": 9, "v2": 7, "gram": 7, "plain": 5}   # one GraNd batch's convs
+WRN_REMAT_STEPS = 20
+# Trajectory scores on the ResNet-18 north-star geometry. The synthetic set's default
+# pixel noise (0.4) is learned whole in two epochs, which leaves every forgetting count
+# at 0: TRAJ_NOISE makes examples that are forgotten or never learned.
+TRAJ_N = 8192
+TRAJ_EPOCHS = 2
+TRAJ_SEEDS = (0, 1)
+TRAJ_NOISE = 6.0
+
+
+def layer_shapes(torch, gb, model, variables, image) -> list:
+    """(record, NHWC x shape, NHWC output shape) of every Conv and BatchNorm of
+    ``model`` in one forward of ``image``."""
+    names = {mod: path for path, mod in model.named_modules()}
+    layers = []
+
+    def nhwc(t):
+        return (t.shape[0], t.shape[2], t.shape[3], t.shape[1])
+
+    def hook(mod, args, out):
+        layers.append((gb._record_for(names[mod], mod), nhwc(args[0]), nhwc(out)))
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.BatchNorm2d))]
+    try:
+        with torch.no_grad():
+            torch.func.functional_call(model.eval(), variables, (image,))
+    finally:
+        for h in handles:
+            h.remove()
+    return layers
+
+
+def wrn_argv(data_dir: str, ckpt: str, *over) -> list[str]:
+    return ["sweep", "--config", WRN_CONFIG, "data.dataset=npz", f"data.data_dir={data_dir}",
+            "score.pretrain_epochs=1", "train.num_epochs=1", f"score.batch_size={B}",
+            f"prune.sweep=[{','.join(str(s) for s in WRN_SWEEP)}]",
+            f"train.checkpoint_dir={ckpt}", *over]
+
+
+def wrn_phase(torch, port, details_out, card: str) -> dict:
+    """BASELINE config 4 (``configs/cifar100_wrn28_10.yaml``: WideResNet-28-10 /
+    CIFAR-100, GraNd over seeds [0, 1, 2], prune sweep {30, 50, 70} %) on the
+    card, bf16, training at batch 128 and scoring at batch 512, on
+    ``WRN_N`` synthetic CIFAR-100-geometry examples (no CIFAR-100 is in the
+    repo). Cuts: ``WRN_N`` of 50,000 examples, ``score.pretrain_epochs`` 1 of
+    10, ``train.num_epochs`` 1 of 200 per sweep level; widths and seeds as
+    published. Its files go to ``WRN_ROOT`` and are removed after."""
+    shutil.rmtree(WRN_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    rec = details_out.setdefault("wrn", {})
+    try:
+        return _wrn_phase(torch, port, rec, card)
+    finally:
+        shutil.rmtree(WRN_ROOT, ignore_errors=True)
+        port["set_parity_mode"](False)
+        rec["phase_wall_s"] = wall = time.perf_counter() - t0
+        print(f"  wrn phase: {wall:.1f} s", flush=True)
+
+
+def _wrn_phase(torch, port, rec: dict, card: str) -> dict:
+    K, gb, score = port["kernels"], port["grand_batched"], port["score_dataset"]
+    T, arch = port["train"], "wideresnet28_10"
+    full = cifar100_dataset(port, WRN_N + WRN_TEST)
+    train = full.subset(full.indices[:WRN_N])
+    nb = WRN_N // B
+    counts = dict.fromkeys(K.KERNELS, 0)
+
+    # 1. The model: its size, and bf16 logits against fp32 on the same weights.
+    n10, n100 = (sum(p.numel() for p in port["create_model"](arch, c).parameters())
+                 for c in (10, WRN_CLASSES))
+    check(n10 == WRN_PARAMS and n100 == WRN_PARAMS + 90 * 641,
+          f"WRN-28-10 has {n10} parameters at 10 classes, {n100} at 100")
+    model16 = port["create_model"](arch, WRN_CLASSES, half_precision=True).to("cuda")
+    model32 = port["create_model"](arch, WRN_CLASSES).to("cuda")
+    port["set_parity_mode"](True)
+    vr = bn_randomized(torch, port, 7, arch=arch, num_classes=WRN_CLASSES)
+    first = port["data"]["iterate_batches"](train, B).__next__()
+    batch = [torch.from_numpy(first[k]).cuda() for k in ("image", "label", "mask")]
+    with torch.no_grad():
+        l32 = torch.func.functional_call(model32, vr, (batch[0],))
+        l16 = torch.func.functional_call(model16, vr, (batch[0],))
+    gap = float((l16 - l32).abs().max() / l32.abs().max())
+    rec["model"] = {"params_10": n10, "params_100": n100, "bf16_logit_gap": gap}
+    print(f"  WRN-28-10: {n10} parameters at 10 classes, {n100} at {WRN_CLASSES}; bf16 "
+          f"vs fp32 logits (batch {B}, BN randomized): largest difference "
+          f"{gap:.3e} of the largest |logit| (limit {WRN_LOGIT_RTOL})", flush=True)
+    check(bool(torch.isfinite(l16).all()) and gap <= WRN_LOGIT_RTOL,
+          f"WRN bf16 logits {gap:.3e} from fp32")
+
+    # 2. The route of one GraNd batch (bf16, seed 0 at init).
+    seeds16 = [port["init_variables"](arch, s, "cuda", num_classes=WRN_CLASSES)
+               for s in WRN_SEEDS]
+    route_log: list = []
+    gb.batched_grand_scores(model16, seeds16[0], *batch, use_kernels=True,
+                            route_log=route_log)
+    routes = collections.Counter(r for _, r in route_log)
+    per_batch = {"conv_grad_norm_direct": routes["v1"] + routes["v2"],
+                 "conv_grad_norm_gram": routes["gram"]}
+    rec["routes_per_batch"] = dict(routes)
+    print(f"  route log of one batch: {dict(routes)} -> launches a batch {per_batch}",
+          flush=True)
+    check(dict(routes) == WRN_ROUTES, f"WRN route log {dict(routes)}, want {WRN_ROUTES}")
+
+    # 3. Every kernel geometry against its plain version, fp32 and bf16; bf16 timed.
+    geo: dict = {}
+    with conv_spy(gb, geo):
+        port["make_local_scores"](model32, "grand_batched", use_kernels=True)(vr, *batch)
+    port["set_parity_mode"](False)
+    with conv_spy(gb, geo):
+        port["make_local_scores"](model16, "grand_batched", use_kernels=True)(vr, *batch)
+    for dname in ("float32", "bfloat16"):
+        got = collections.Counter()
+        for key, row in geo.items():
+            if key[1] == f"torch.{dname}":
+                got[key[0]] += row["layers"]
+        check(dict(got) == WRN_ROUTES, f"WRN {dname} conv_spy routes {dict(got)}")
+    rec["kernel_rows"] = kernel_rows = conv_geometry_rows(torch, K, geo)
+    del geo
+    rec["per_batch"] = per_batch_sums(kernel_rows, per_batch,
+                                      f"config 4 (bf16, batch {B})")
+    layers = layer_shapes(torch, gb, model16, seeds16[0], batch[0])
+    mega = collections.Counter(
+        (xs, gs, r["kernel_size"], r["padding"], r["use_bias"]) for r, xs, gs in layers
+        if r["kind"] == "conv" and gb._mega_conv_route(r, xs, gs))
+    bns = collections.Counter(xs for r, xs, _ in layers if r["kind"] == "bn")
+    check(sum(mega.values()) == 15 and sum(bns.values()) == 25,
+          f"WRN: {sum(mega.values())} megakernel convs, {sum(bns.values())} BatchNorms")
+    rec["mega_rows"], rec["bn_rows"] = [], []
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    port["set_parity_mode"](True)
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-3)):
+        for (xs, gs, ks, pad, bias), n in sorted(mega.items()):
+            mega_row(torch, K, gen, dtype, rtol, rec["mega_rows"], xs, gs, ks, pad, bias,
+                     n)
+        for shape, n in sorted(bns.items()):
+            bn_row(torch, K, gen, dtype, rtol, rec["bn_rows"], shape, 1, True, True, n,
+                   main_path=True)
+    for what, rows in (("megakernel (FUSED+MEGAKERNEL)", rec["mega_rows"]),
+                       ("stacked BN (BN_KERNEL)", rec["bn_rows"])):
+        bf = [r for r in rows if r["dtype"] == "bfloat16"]
+        tot = {k: sum(r["layers_per_batch"] * r[k] for r in bf)
+               for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+        print(f"  {what} at config 4 (bf16, batch {B}): "
+              f"{sum(r['layers_per_batch'] for r in bf)} launches a batch, device "
+              f"{tot['device_ms']:.4f} ms, one-call {tot['ms']:.4f}, plain "
+              f"{tot['plain_ms']:.4f}, bound {tot['bound_ms']:.4f} ms a batch", flush=True)
+
+    # EL2N and the last layer at config 4's head, in fp32 as the path hands them over
+    # (the model returns fp32 logits and features) and in bf16: logits [512, 100],
+    # features [512, 640] -> 100 classes; fp32 timed with its bound.
+    rec["head_rows"] = []
+    feats = model16.classifier.in_features
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        z = (torch.randn((B, WRN_CLASSES), generator=gen, device="cuda") * 3).to(dtype)
+        h = torch.randn((B, feats), generator=gen, device="cuda").to(dtype)
+        w = torch.randn((WRN_CLASSES, feats), generator=gen, device="cuda") * feats ** -0.5
+        bias = 0.1 * torch.randn(WRN_CLASSES, generator=gen, device="cuda")
+        y = torch.randint(0, WRN_CLASSES, (B,), generator=gen, device="cuda")
+        m = (torch.rand(B, generator=gen, device="cuda") > 0.1).float()
+        item = z.element_size()
+        for kern, shape, call, plain, flops, nbytes, peak in (
+                ("el2n", f"logits [{B}, {WRN_CLASSES}]", lambda: K.el2n(z, y, m),
+                 lambda: K.el2n_plain(z, y, m),
+                 5.0 * B * WRN_CLASSES, B * WRN_CLASSES * item + B * 16, "float32"),
+                ("grand_last_layer", f"[{B}, {feats}] -> {WRN_CLASSES}",
+                 lambda: K.grand_last_layer(h, w, bias, y, m),
+                 lambda: K.grand_last_layer_plain(h, w, bias, y, m),
+                 2.0 * B * feats * WRN_CLASSES + 2.0 * B * feats + 6.0 * B * WRN_CLASSES,
+                 B * feats * item + 4.0 * (WRN_CLASSES * feats + WRN_CLASSES) + B * 16,
+                 "bfloat16")):
+            got, ref = call(), plain()
+            abs_err, rel = _rel_err(got, ref)
+            ok = (rel <= 1e-5 or abs_err <= 1e-6) if kern == "el2n" else rel <= 1e-4
+            what = f"{kern} {dname} at config 4's head"
+            check(bool(torch.isfinite(got).all()) and ok, f"{what}: rel err {rel:.3e}")
+            row = {"kernel": kern, "dtype": dname, "max_abs_err": abs_err,
+                   "max_rel_err": rel, "layers_per_batch": 1}
+            if dtype == torch.float32:
+                row = _measure(torch, row, call, plain, flops, nbytes, peak)
+                print(f"  {what} ({shape}): rel_err={rel:.3e} "
+                      f"ms={row['ms']:.4f} device_ms={row['device_ms']:.4f} plain_ms="
+                      f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
+                      f"({row['bound_by']})", flush=True)
+            rec["head_rows"].append(row)
+    port["set_parity_mode"](False)
+
+    # 4. Scoring through score_dataset, bf16, config 4's seeds: ex/s and exact launches.
+    warm = train.subset(train.indices[:B])
+    methods = ("grand", "el2n", "grand_last_layer")
+    for method in methods:
+        score(model16, seeds16[:1], warm, method=method, batch_size=B, device="cuda")
+    rec["score"] = {}
+    for method in methods:
+        K.reset_launch_counts()
+        modes0 = K.mode_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = score(model16, seeds16, train, method=method, batch_size=B, device="cuda")
+        wall = time.perf_counter() - t0
+        got = K.launch_counts()
+        if method == "grand":
+            want = {k: nb * len(WRN_SEEDS) * per_batch.get(k, 0) for k in K.KERNELS}
+            for kern in per_batch:
+                check_modes(K, modes0[kern], want[kern], "tensor_core", "WRN grand", kern)
+        else:
+            want = {k: (nb * len(WRN_SEEDS) if k == method else 0) for k in K.KERNELS}
+        check(got == want, f"WRN {method}: launch counts {got}, want {want}")
+        check(scores.shape == (WRN_N,) and bool(np.isfinite(scores).all())
+              and bool((scores >= 0).all()), f"WRN {method}: scores not finite/>= 0")
+        for k, n in got.items():
+            counts[k] += n
+        ex_s = WRN_N * len(WRN_SEEDS) / wall
+        rec["score"][method] = {"wall_s": wall, "ex_per_s": ex_s, "launches": got}
+        print(f"  {method}: {WRN_N} examples x {len(WRN_SEEDS)} seeds in {wall:.3f} s = "
+              f"{ex_s:.1f} ex/s on {card}; launches {got}; mean score "
+              f"{scores.mean():.5f}", flush=True)
+    port["set_parity_mode"](True)
+    sub = train.subset(train.indices[:WRN_PARITY_N])
+    for method in methods:
+        fast = score(model32, [vr], sub, method=method, batch_size=B, use_kernels=True,
+                     device="cuda")
+        plain = score(model32, [vr], sub, method=method, batch_size=B, use_kernels=False,
+                      device="cuda")
+        err = np.abs(fast - plain)
+        rel = float(np.max(err / np.maximum(np.abs(plain), 1e-30)))
+        ok = (bool(np.all((err <= 1e-5 * np.abs(plain)) | (err <= 1e-6)))
+              if method == "el2n" else rel <= 1e-4)
+        rec["score"][method]["fp32_rel_err_vs_plain_route"] = rel
+        print(f"  {method} fp32 kernel route vs plain route ({WRN_PARITY_N} examples, BN "
+              f"randomized): max rel err {rel:.3e}, max abs err {float(err.max()):.3e}",
+              flush=True)
+        check(ok, f"WRN {method}: kernel route vs plain route rel err {rel:.3e}")
+    port["set_parity_mode"](False)
+
+    # 5. Config 4's cli sweep: one scoring pass of 3 seeds, three verified levels.
+    data_dir = os.path.join(WRN_ROOT, "npz")
+    os.makedirs(data_dir, exist_ok=True)
+    for split, rows in (("train", slice(0, WRN_N)), ("test", slice(WRN_N, None))):
+        np.savez(os.path.join(data_dir, f"{split}.npz"), images=full.images[rows],
+                 labels=full.labels[rows])
+    ckpt = os.path.join(WRN_ROOT, "ckpt")
+    K.reset_launch_counts()
+    modes0 = K.mode_counts()
+    t0 = time.perf_counter()
+    rc, summary, records = run_cli(port, wrn_argv(data_dir, ckpt))
+    sweep_wall = time.perf_counter() - t0
+    got = K.launch_counts()
+    check(rc == 0 and summary is not None, f"config 4 cli sweep exited {rc}")
+    want = {k: nb * len(WRN_SEEDS) * per_batch.get(k, 0) for k in K.KERNELS}
+    check(got == want, f"config 4 sweep: launch counts {got}, want {want}")
+    for kern in per_batch:
+        check_modes(K, modes0[kern], want[kern], "tensor_core", "config 4 sweep", kern)
+    for k, n in got.items():
+        counts[k] += n
+    levels = summary["levels"]
+    check([lv["sparsity"] for lv in levels] == list(WRN_SWEEP),
+          f"config 4 sweep levels {[lv['sparsity'] for lv in levels]}")
+    for lv in levels:
+        n_kept = int((1.0 - lv["sparsity"]) * WRN_N)
+        check(lv["n_kept"] == n_kept, f"sweep level {lv['sparsity']}: n_kept {lv['n_kept']}")
+        npz = T["scores_npz_path"](port["train"]["sweep_level_dir"](ckpt, lv["sparsity"]))
+        with np.load(npz) as f:
+            check(len(f["kept"]) == n_kept, f"{npz}: {len(f['kept'])} kept")
+            T["verify_prune_manifest"](npz, f["kept"])
+    epochs = [r for r in records if r["kind"] == "epoch"]
+    walls = [{k: lv[k] for k in ("sparsity", "n_kept", "pretrain_wall_s", "score_wall_s",
+                                  "prune_wall_s", "train_wall_s")} for lv in levels]
+    rec["sweep"] = {"wall_s": sweep_wall, "levels": walls, "launches": got,
+                    "epochs": epochs}
+    print(f"  config 4 cli sweep ({WRN_N} examples, seeds {list(WRN_SEEDS)}, 1 pretrain "
+          f"epoch a seed, 1 retrain epoch a level): exit 0 in {sweep_wall:.1f} s; "
+          f"launches {got} (one scoring pass); levels {walls}", flush=True)
+    for e in epochs:
+        print(f"    epoch {e['tag']}: {e['examples_per_s']:.1f} ex/s in {e['epoch_s']} s",
+              flush=True)
+
+    # 6. Remat: 20 steps bitwise without it; GraNd bitwise; one step's peak memory.
+    steps = {}
+    fit_ds = train.subset(train.indices[:WRN_REMAT_STEPS * WRN_TRAIN_B])
+    batches = list(T["ResidentBatches"](fit_ds, WRN_TRAIN_B, "cuda", torch.bfloat16)())
+    for remat in (False, True):
+        cfg = port["load_config"](WRN_CONFIG, [f"model.num_classes={WRN_CLASSES}",
+                                               f"model.remat={str(remat).lower()}"])
+        model = port["create_model_from_cfg"](cfg).to("cuda")
+        check(model.remat is remat, "model.remat not applied")
+        state = T["create_train_state"](cfg, 0, "cuda", model)
+        sgd = T["make_optimizer"](cfg, WRN_REMAT_STEPS)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [T["train_step"](model, sgd, state, batches[0])["loss"]]
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        losses += [T["train_step"](model, sgd, state, b)["loss"] for b in batches[1:]]
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / (len(batches) - 1)
+        grand = score(model, seeds16[:1], warm, method="grand", batch_size=B,
+                      device="cuda")
+        steps[remat] = (torch.stack(losses).cpu(), state, grand)
+        rec.setdefault("remat", {})[str(remat).lower()] = {
+            "peak_bytes": peak, "state_bytes": base, "step_ms": 1e3 * step_s}
+        print(f"  train step (batch {WRN_TRAIN_B}, bf16) remat={remat}: peak CUDA memory "
+              f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the "
+              f"{base / 2**30:.3f} GiB before the step), {1e3 * step_s:.1f} ms a step "
+              f"on {card}", flush=True)
+    (l0, s0, g0), (l1, s1, g1) = steps[False], steps[True]
+    check(torch.equal(l0, l1) and state_equal(torch, s0, s1),
+          "remat: the 20 steps' losses, variables or batch statistics differ")
+    check(np.array_equal(g0, g1), "remat: GraNd scores differ")
+    print(f"  remat: {len(batches)} steps bitwise (losses, params, batch statistics, "
+          f"momentum), GraNd bitwise; peak {rec['remat']['true']['peak_bytes'] / 2**30:.3f} "
+          f"vs {rec['remat']['false']['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+    del steps, batches
+
+    # 7. Trajectory scores: cli score on the ResNet-18 north-star geometry.
+    rec["trajectory"] = {}
+    for method in ("forgetting", "aum"):
+        runs = {}
+        for name in ("a", "b", "cut"):
+            argv = ["score", "--config",
+                    os.path.join(REPO, "configs", "cifar10_resnet18_grand10.yaml"),
+                    "data.dataset=synthetic", f"data.synthetic_size={TRAJ_N}",
+                    f"data.synthetic_noise={TRAJ_NOISE}",
+                    f"score.seeds=[{','.join(str(s) for s in TRAJ_SEEDS)}]",
+                    f"score.pretrain_epochs={TRAJ_EPOCHS}", f"score.method={method}",
+                    f"train.checkpoint_dir={os.path.join(WRN_ROOT, method + '_' + name)}"]
+            t0 = time.perf_counter()
+            if name == "cut":
+                rc, _, _ = with_plan(port, {"sigterm_after_seed_scores": 1},
+                                     lambda: run_cli(port, argv))
+                check(rc == 75, f"{method}: the preempted cli score exited {rc}")
+            rc, summary, records = run_cli(port, argv)
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"{method} cli score ({name}) exited {rc}")
+            ckpt_dir = os.path.join(WRN_ROOT, f"{method}_{name}")
+            with np.load(T["scores_npz_path"](ckpt_dir)) as f:
+                s = f["scores"]
+            partials = []
+            for seed in TRAJ_SEEDS:
+                with np.load(os.path.join(f"{ckpt_dir}_score_partials",
+                                          f"seed{seed}.npz")) as f:
+                    partials.append(f["scores"])
+            done = [r["seed"] for r in records if r["kind"] == f"{method}_seed_done"]
+            runs[name] = (s, wall, done, records)
+            check(s.shape == (TRAJ_N,) and bool(np.isfinite(s).all()),
+                  f"{method} ({name}): scores not finite")
+            if method == "forgetting":
+                for p in partials:   # counts of 0 or 1, or never learned: updates + 1
+                    check(set(np.unique(p)) <= {0.0, 1.0, float(TRAJ_EPOCHS + 1)},
+                          f"forgetting partial values {np.unique(p)}")
+                if name == "a":
+                    rec["trajectory"]["forgetting_per_seed"] = [
+                        {"forgotten": int((p == 1).sum()),
+                         "never_learned": int((p == TRAJ_EPOCHS + 1).sum())}
+                        for p in partials]
+            else:
+                check(bool((np.abs(s) <= 1.0).all()), "aum: margins outside [-1, 1]")
+        resumed = [r for r in runs["cut"][3] if r["kind"] == "score_seeds_resumed"]
+        check(runs["a"][2] == list(TRAJ_SEEDS) and runs["cut"][2] == [TRAJ_SEEDS[1]]
+              and len(resumed) == 1 and resumed[0]["done"] == [TRAJ_SEEDS[0]],
+              f"{method}: seeds fit {runs['a'][2]}, resumed run {runs['cut'][2]}")
+        check(np.array_equal(runs["a"][0], runs["b"][0]),
+              f"{method}: two cli score runs differ")
+        check(np.array_equal(runs["a"][0], runs["cut"][0]),
+              f"{method}: the resumed run is not bitwise the uninterrupted one")
+        rec["trajectory"][method] = {"walls_s": {k: v[1] for k, v in runs.items()},
+                                     "mean": float(runs["a"][0].mean())}
+        print(f"  {method} cli score ({TRAJ_N} examples, seeds {list(TRAJ_SEEDS)}, "
+              f"{TRAJ_EPOCHS} epochs): {runs['a'][1]:.1f} s, again {runs['b'][1]:.1f} s "
+              f"(bitwise), preempted after seed {TRAJ_SEEDS[0]} and resumed with seed "
+              f"{TRAJ_SEEDS[1]} only in {runs['cut'][1]:.1f} s (bitwise); mean "
+              f"{runs['a'][0].mean():.5f}"
+              + (f"; per seed {rec['trajectory']['forgetting_per_seed']}"
+                 if method == "forgetting" else ""), flush=True)
+    cfg4 = port["load_config"](WRN_CONFIG, [f"model.num_classes={WRN_CLASSES}"])
+    return {"counts": counts,
+            "profile": {"ds": train, "cfg": cfg4, "variables": seeds16, "batch": B}}
 
 
 @contextlib.contextmanager
@@ -2241,10 +2714,12 @@ PROFILE_ROUTES = [
 ]
 
 
-def profile_phase(torch, port, path, details_out, out_dir: str, config5: dict) -> None:
+def profile_phase(torch, port, path, details_out, out_dir: str, config5: dict,
+                  config4: dict) -> None:
     """Profile one GraNd batch on the default route, the fused megakernel route
-    and the two stacked-BN routes, and one batch of config 5 (ResNet-50 at
-    96x96, batch 256; ``config5`` from the data phase) on the default route;
+    and the two stacked-BN routes, and one batch each of config 5 (ResNet-50
+    at 96x96, batch 256; ``config5`` from the data phase) and config 4
+    (WRN-28-10, batch 512; ``config4`` from the wrn phase) on the default route;
     report whether a cuDNN dgrad ran for the megakernel's layers, and hold
     each route's profiled BN and Gram kernel time per batch beside the kernel
     phase's device_ms sums."""
@@ -2255,6 +2730,8 @@ def profile_phase(torch, port, path, details_out, out_dir: str, config5: dict) -
             details_out[key] = _profile_batch(torch, port, path, out_dir, label)
     details_out["profile_config5"] = _profile_batch(
         torch, port, config5, out_dir, "config 5 (ResNet-50, 96x96, batch 256), default route")
+    details_out["profile_config4"] = _profile_batch(
+        torch, port, config4, out_dir, "config 4 (WRN-28-10, batch 512), default route")
     base = details_out["profile"]["dgrad_launches"]
     mega = details_out["profile_megakernel"]
     # The default route runs a dgrad for 19 convs (every conv but the stem); on the
@@ -2292,24 +2769,9 @@ def function_properties(log: str, needle: str) -> list[str]:
             if "Function properties for" in line and needle in line]
 
 
-def main(argv: list[str]) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", action="store_true",
-                        help="profile GraNd batches with torch.profiler")
-    parser.add_argument("--out", default=os.path.join(REPO, "chip_smoke_out"),
-                        help="directory for the detail files")
-    args = parser.parse_args(argv)
-    import torch
-    phase("device")
-    check(torch.cuda.is_available(), "CUDA is not available")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip()
-    print(card, flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}", flush=True)
+def load_port() -> dict:
+    """The port's entry points and modules this script drives, by name; fails
+    when the package is not importable next to this script."""
     try:
         from data_diet_distributed_tpu_torch.config import load_config
         from data_diet_distributed_tpu_torch.data import pipeline
@@ -2336,11 +2798,11 @@ def main(argv: list[str]) -> int:
         from data_diet_distributed_tpu_torch.weights import init_variables, variables_to
     except ImportError as err:
         fail(f"the port package is not importable next to this script: {err}")
-    port = {"load_config": load_config, "load_dataset": load_dataset,
+    return {"load_config": load_config, "load_dataset": load_dataset,
             "ArrayDataset": ArrayDataset, "set_parity_mode": set_parity_mode,
             "create_model": create_model,
             "create_model_from_cfg": create_model_from_cfg, "kernels": K,
-            "grand_batched": grand_batched,
+            "build": build, "grand_batched": grand_batched,
             "score_dataset": score_dataset, "select_indices": select_indices,
             "ServeEngine": ServeEngine, "init_variables": init_variables,
             "variables_to": variables_to,
@@ -2361,6 +2823,7 @@ def main(argv: list[str]) -> int:
                       "run_datadiet": loop.run_datadiet,
                       "score_variables_for_seeds": loop.score_variables_for_seeds,
                       "scores_npz_path": loop.scores_npz_path,
+                      "sweep_level_dir": loop.sweep_level_dir,
                       "verify_prune_manifest": verify_prune_manifest,
                       "create_train_state": state.create_train_state,
                       "state_from_variables": state.state_from_variables,
@@ -2370,6 +2833,29 @@ def main(argv: list[str]) -> int:
                       "maybe_resident": pipeline.maybe_resident,
                       "iterate_batches": pipeline.iterate_batches,
                       "to_device": pipeline.to_device}}
+
+
+def main(argv: list[str]) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="profile GraNd batches with torch.profiler")
+    parser.add_argument("--out", default=os.path.join(REPO, "chip_smoke_out"),
+                        help="directory for the detail files")
+    args = parser.parse_args(argv)
+    import torch
+    phase("device")
+    check(torch.cuda.is_available(), "CUDA is not available")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+    port = load_port()
+    K, build = port["kernels"], port["build"]
+    set_parity_mode = port["set_parity_mode"]
     details: dict = {"card": card, "torch": torch.__version__,
                      "cuda": torch.version.cuda}
 
@@ -2427,12 +2913,15 @@ def main(argv: list[str]) -> int:
     phase("data")
     data = data_phase(torch, port, details, card)
 
+    phase("wrn")
+    wrn = wrn_phase(torch, port, details, card)
+
     phase("calls")
     calls_phase(torch)
 
     if args.profile:
         phase("profile")
-        profile_phase(torch, port, path, details, args.out, data["profile"])
+        profile_phase(torch, port, path, details, args.out, data["profile"], wrn["profile"])
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
@@ -2440,10 +2929,11 @@ def main(argv: list[str]) -> int:
 
     # One entry per kernel: per-batch sums over the layers of the route that runs
     # it, bf16; launches summed over the counted runs of the path, routes and
-    # resnet50 phases, the train phase's run and the resilience phase's runs.
+    # resnet50 phases, the train phase's run, the resilience phase's runs, the data
+    # phase's run and the wrn phase's passes and sweep.
     launches = {k: path["counts"][k] + routes["counts"][k] + r50["counts"][k]
                 + trained["counts"][k] + resil["counts"][k] + data["counts"][k]
-                for k in K.KERNELS}
+                + wrn["counts"][k] for k in K.KERNELS}
     check(all(launches[k] > 0 for k in KERNEL_INFO), f"a kernel never launched: {launches}")
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():

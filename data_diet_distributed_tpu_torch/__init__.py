@@ -25,8 +25,10 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   stream, ``EvalBatchCache``, the ``data_plane`` record)
 * ``data/augment.py`` -> ``data/augment.py`` (flip and crop, draws split from
   the pixel moves)
-* ``models/`` -> ``models/resnet.py``, ``models/tiny.py``, ``models/__init__.py``
-  (BatchNorm in train mode with Flax's semantics)
+* ``models/`` -> ``models/resnet.py``, ``models/wideresnet.py``,
+  ``models/tiny.py``, ``models/__init__.py`` (BatchNorm in train mode with
+  Flax's semantics; ``model.remat`` as ``torch.utils.checkpoint`` around each
+  ResNet and WideResNet block in training)
 * ``weights.py`` -> (new) Flax weight port, seeded init (``resnet.py:29-32,57``)
 * ``ops/kernels.py`` + ``ops/csrc/*.cu`` + ``ops/build.py`` ->
   ``ops/pallas_kernels.py``, every Pallas kernel: ``conv_grad_norm_direct`` (v1
@@ -36,6 +38,8 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   megakernel, ``:488``)
 * ``ops/scores.py`` -> ``ops/scores.py`` (local scores in eval and train mode,
   ``grand_vmap``, method resolution)
+* ``ops/forgetting.py`` -> ``ops/forgetting.py`` (``ForgettingTracker``,
+  ``AUMTracker``)
 * ``ops/grand_batched.py`` -> ``ops/grand_batched.py`` (``batched_grand_scores``
   with same-geometry grouping and the stacked-BN and cat-dot routes,
   ``batched_grand_scores_fused`` with the megakernel route, the ``DDT_GRAND_*``
@@ -50,7 +54,8 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   per-step path)
 * ``train/loop.py`` -> ``train/loop.py`` (``fit`` with the resilience hooks,
   ``fit_with_recovery``, ``evaluate``, ``score_variables_for_seeds``,
-  ``compute_scores`` with per-seed partials, ``run_datadiet`` and
+  ``compute_scores`` with per-seed partials, ``trajectory_scores`` (forgetting,
+  AUM) through ``fit``'s ``epoch_hook``, ``run_datadiet`` and
   ``run_sweep`` with the stage manifest, the fingerprints)
 * ``checkpoint.py`` -> ``checkpoint.py`` (the single-tier ``CheckpointManager``,
   in the port's own format; ``restore_verified`` falls back past corrupt
@@ -66,8 +71,7 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
 
 Not ported yet: multi-host consensus, elastic supervision, the checkpoint
 tiers and the rank, host and serve fault classes of ``resilience/``, the
-chunked training engine and its ``StreamingBatches``, trajectory scores
-(forgetting, AUM), WideResNet and ``model.remat``, multi-device training and
+chunked training engine and its ``StreamingBatches``, multi-device training and
 scoring (the per-rank image slices of ``iterate_batches``), the serving
 batcher/server/router/fleet (``cli serve``), observability (the flight
 recorder: shard-fault records go to the caller's ``log``) and the tools

@@ -14,6 +14,10 @@
   ``<train.checkpoint_dir>_scores.npz`` with ``scores``, ``indices`` and
   ``method``.
 
+``score``, ``run`` and ``sweep`` take every ``score.method``, the trajectory
+scores ``forgetting`` and ``aum`` included (their per-seed fits are the
+scoring pass), and every command takes ``model.remat``.
+
 Each command prints its summary as one JSON line on stdout; the event records
 along the way (epochs, prune decisions, faults, recoveries, stages) go to
 stderr as JSON lines. The device is CUDA unless ``--device cpu``; without

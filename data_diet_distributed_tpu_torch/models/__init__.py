@@ -1,7 +1,4 @@
-"""Model zoo registry (counterpart of ``data_diet_distributed_tpu/models/__init__.py``).
-
-WideResNet-28-10 is not ported yet.
-"""
+"""Model zoo registry (counterpart of ``data_diet_distributed_tpu/models/__init__.py``)."""
 
 from __future__ import annotations
 
@@ -10,6 +7,7 @@ import torch
 from .resnet import (BasicBlock, BottleneckBlock, ResNet, ResNet18, ResNet34,
                      ResNet50, ResNet101, ResNet152)
 from .tiny import TinyCNN
+from .wideresnet import WideResNet, WideResNet28_10
 
 _REGISTRY = {
     "tiny_cnn": TinyCNN,
@@ -18,27 +16,32 @@ _REGISTRY = {
     "resnet50": ResNet50,
     "resnet101": ResNet101,
     "resnet152": ResNet152,
+    "wideresnet28_10": WideResNet28_10,
 }
 
 
 def create_model(arch: str, num_classes: int, half_precision: bool = False,
                  stem: str = "cifar", remat: bool = False) -> torch.nn.Module:
     """A model by name, in eval mode, on the CPU with fp32 parameters;
-    ``half_precision`` selects bf16 compute. Move it with
+    ``half_precision`` selects bf16 compute. ``stem`` is a ResNet's input
+    geometry (``cifar`` or ``imagenet``); ``remat`` recomputes the blocks'
+    activations in training backward passes (ResNets and WideResNet), with
+    the same parameter names. Move it with
     ``.to(device, memory_format=torch.channels_last)``."""
     if arch not in _REGISTRY:
         raise ValueError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY)}")
-    if remat:
-        raise NotImplementedError(
-            "model.remat is a training-memory option; the PyTorch port does not "
-            "have it yet")
     dtype = torch.bfloat16 if half_precision else torch.float32
-    if arch == "tiny_cnn":
-        if stem != "cifar":
-            raise ValueError(f"arch {arch!r} has no {stem!r} stem variant")
+    if arch.startswith("resnet"):
+        model = _REGISTRY[arch](num_classes=num_classes, dtype=dtype, stem=stem,
+                                remat=remat)
+    elif stem != "cifar":
+        raise ValueError(f"arch {arch!r} has no {stem!r} stem variant")
+    elif arch == "tiny_cnn":
+        if remat:
+            raise ValueError(f"arch {arch!r} has no remat variant")
         model = TinyCNN(num_classes=num_classes, dtype=dtype)
     else:
-        model = _REGISTRY[arch](num_classes=num_classes, dtype=dtype, stem=stem)
+        model = _REGISTRY[arch](num_classes=num_classes, dtype=dtype, remat=remat)
     return model.eval()
 
 
@@ -51,5 +54,6 @@ def create_model_from_cfg(cfg) -> torch.nn.Module:
 
 __all__ = [
     "BasicBlock", "BottleneckBlock", "ResNet", "ResNet18", "ResNet34", "ResNet50",
-    "ResNet101", "ResNet152", "TinyCNN", "create_model", "create_model_from_cfg",
+    "ResNet101", "ResNet152", "TinyCNN", "WideResNet", "WideResNet28_10",
+    "create_model", "create_model_from_cfg",
 ]

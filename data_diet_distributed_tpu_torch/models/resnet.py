@@ -11,7 +11,8 @@ Submodules carry the Flax parameter paths (``stem_conv``, ``BasicBlock_3.Conv_1`
 ``dtype`` (bf16 under half precision) while parameters and BatchNorm
 statistics stay fp32, as Flax's ``dtype``/``param_dtype``. No op works in
 place: the batched-GraNd hooks keep references to layer inputs and outputs.
-In train mode BatchNorm follows Flax (``BatchNorm2d``).
+In train mode BatchNorm follows Flax (``BatchNorm2d``). With ``remat`` each
+block's activations are recomputed in the backward pass (``remat_block``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from collections.abc import Iterator, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 
 class Conv2d(nn.Conv2d):
@@ -56,6 +59,59 @@ def collect_batch_stats() -> Iterator[dict]:
         yield sink
     finally:
         _STATS_SINK.reset(token)
+
+
+@contextlib.contextmanager
+def _no_stats_sink() -> Iterator[None]:
+    token = _STATS_SINK.set(None)
+    try:
+        yield
+    finally:
+        _STATS_SINK.reset(token)
+
+
+def _remat_contexts():
+    """Checkpoint's (forward, recompute) contexts: the recomputed forward
+    records no batch statistics, so each layer's reach the sink once."""
+    return contextlib.nullcontext(), _no_stats_sink()
+
+
+_REMAT_OFF: contextvars.ContextVar[bool] = contextvars.ContextVar("remat_off",
+                                                                  default=False)
+
+
+@contextlib.contextmanager
+def no_remat() -> Iterator[None]:
+    """Within the block no model rematerializes: ``torch.func`` transforms
+    (``grand_vmap``) do not support checkpoint's saved-tensor hooks."""
+    token = _REMAT_OFF.set(True)
+    try:
+        yield
+    finally:
+        _REMAT_OFF.reset(token)
+
+
+def remat_block(block: nn.Module, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``block(x)``, with its activations recomputed in the backward pass
+    when ``remat`` is on and the call trains with autograd (Flax's
+    ``nn.remat``: the same parameters, outputs and gradients, less activation
+    memory). Eval-mode and no-grad calls (every scoring pass) run the block
+    as it is, so batched GraNd's hooks see each layer once.
+
+    The block runs on the tensors bound to it now, passed to the checkpoint
+    as inputs: under ``functional_call`` the recompute happens after the
+    call has restored the module's own parameters, which a plain
+    ``checkpoint(block, x)`` would silently use."""
+    if not (remat and block.training and torch.is_grad_enabled()
+            and not _REMAT_OFF.get()):
+        return block(x)
+    bound = {**dict(block.named_parameters()), **dict(block.named_buffers())}
+    names = list(bound)
+
+    def run(x, *tensors):
+        return functional_call(block, dict(zip(names, tensors)), (x,))
+    return checkpoint(run, x, *bound.values(), use_reentrant=False,
+                      preserve_rng_state=False, context_fn=_remat_contexts)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -155,10 +211,12 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int], block_cls: type,
                  num_classes: int = 10, width: int = 64,
-                 dtype: torch.dtype = torch.float32, stem: str = "cifar"):
+                 dtype: torch.dtype = torch.float32, stem: str = "cifar",
+                 remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.stem = stem
+        self.remat = remat
         if stem == "imagenet":
             self.stem_conv = Conv2d(3, width, 7, stride=2, padding=3, bias=False)
         elif stem == "cifar":
@@ -184,7 +242,7 @@ class ResNet(nn.Module):
         if self.stem == "imagenet":
             x = F.max_pool2d(x, 3, stride=2, padding=1)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            x = remat_block(getattr(self, name), x, self.remat)
         x = x.mean(dim=(2, 3))
         features = x.float()
         logits = self.classifier(x).float()
@@ -193,21 +251,31 @@ class ResNet(nn.Module):
         return logits
 
 
-def ResNet18(num_classes: int = 10, dtype=torch.float32, stem: str = "cifar") -> ResNet:
-    return ResNet((2, 2, 2, 2), BasicBlock, num_classes, dtype=dtype, stem=stem)
+def ResNet18(num_classes: int = 10, dtype=torch.float32, stem: str = "cifar",
+             remat: bool = False) -> ResNet:
+    return ResNet((2, 2, 2, 2), BasicBlock, num_classes, dtype=dtype,
+                  stem=stem, remat=remat)
 
 
-def ResNet34(num_classes: int = 10, dtype=torch.float32, stem: str = "cifar") -> ResNet:
-    return ResNet((3, 4, 6, 3), BasicBlock, num_classes, dtype=dtype, stem=stem)
+def ResNet34(num_classes: int = 10, dtype=torch.float32, stem: str = "cifar",
+             remat: bool = False) -> ResNet:
+    return ResNet((3, 4, 6, 3), BasicBlock, num_classes, dtype=dtype,
+                  stem=stem, remat=remat)
 
 
-def ResNet50(num_classes: int = 10, dtype=torch.float32, stem: str = "cifar") -> ResNet:
-    return ResNet((3, 4, 6, 3), BottleneckBlock, num_classes, dtype=dtype, stem=stem)
+def ResNet50(num_classes: int = 10, dtype=torch.float32, stem: str = "cifar",
+             remat: bool = False) -> ResNet:
+    return ResNet((3, 4, 6, 3), BottleneckBlock, num_classes, dtype=dtype,
+                  stem=stem, remat=remat)
 
 
-def ResNet101(num_classes: int = 10, dtype=torch.float32, stem: str = "cifar") -> ResNet:
-    return ResNet((3, 4, 23, 3), BottleneckBlock, num_classes, dtype=dtype, stem=stem)
+def ResNet101(num_classes: int = 10, dtype=torch.float32, stem: str = "cifar",
+              remat: bool = False) -> ResNet:
+    return ResNet((3, 4, 23, 3), BottleneckBlock, num_classes, dtype=dtype,
+                  stem=stem, remat=remat)
 
 
-def ResNet152(num_classes: int = 10, dtype=torch.float32, stem: str = "cifar") -> ResNet:
-    return ResNet((3, 8, 36, 3), BottleneckBlock, num_classes, dtype=dtype, stem=stem)
+def ResNet152(num_classes: int = 10, dtype=torch.float32, stem: str = "cifar",
+              remat: bool = False) -> ResNet:
+    return ResNet((3, 8, 36, 3), BottleneckBlock, num_classes, dtype=dtype,
+                  stem=stem, remat=remat)

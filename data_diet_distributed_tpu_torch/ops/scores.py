@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from ..models.resnet import no_remat
 from . import grand_batched, kernels
 
 
@@ -151,8 +152,9 @@ def _make_grand_vmap(model, chunk: int, eval_mode: bool = True):
         buffers = {k: v for k, v in variables.items() if k not in param_names}
         norms = []
         for i in range(0, image.shape[0], chunk):
-            grads = per_example_grads(params, buffers, image[i:i + chunk],
-                                      label[i:i + chunk])
+            with no_remat():   # torch.func refuses checkpoint's saved-tensor hooks
+                grads = per_example_grads(params, buffers, image[i:i + chunk],
+                                          label[i:i + chunk])
             sq = sum(gr.float().reshape(gr.shape[0], -1).pow(2).sum(dim=1)
                      for gr in grads.values())
             norms.append(torch.sqrt(sq))

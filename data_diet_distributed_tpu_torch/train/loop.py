@@ -23,7 +23,10 @@
    ``score_dataset`` over every seed; or reuse ``score.scores_npz``. With a
    stage manifest, each seed's float64 vector is saved as a partial, an
    interrupted pass resumes with only the seeds still to do, and a SIGTERM
-   exits at the next seed boundary.
+   exits at the next seed boundary. The trajectory scores (``forgetting``,
+   ``aum``) go to ``trajectory_scores``: per seed, a fit whose
+   ``epoch_hook`` runs a correctness or margin pass over the train set after
+   every epoch.
 4. ``_retrain_level``: keep ``1 - sparsity`` of the examples, write the
    scores npz and its provenance sidecar, verify the sidecar against the
    kept set, and retrain a fresh model on the kept set.
@@ -37,8 +40,8 @@ re-enters a started retrain from its checkpoints. Entry points take
 (``epoch``, ``resume``, ``prune``, ``summary``, ``fault``, ``recovery``,
 ``preempted``, ``stage``, ``score_seeds_resumed``, ...).
 
-Not ported here: the chunked engine, the observability, consensus and
-elastic hooks, and the trajectory scores (forgetting, AUM).
+Not ported here: the chunked engine and the observability, consensus and
+elastic hooks.
 """
 
 from __future__ import annotations
@@ -63,6 +66,8 @@ from ..data.pipeline import (EvalBatchCache, PrefetchIterator, ResidentBatches,
                              num_batches, prefetch_stream)
 from ..device import resolve_device, set_scoring_determinism
 from ..models import create_model_from_cfg
+from ..ops.forgetting import AUMTracker, ForgettingTracker
+from ..ops.scores import make_local_scores
 from ..ops.scoring import resident_by_default, score_dataset
 from ..pruning import (build_prune_manifest, select_indices, verify_prune_manifest,
                        write_prune_manifest)
@@ -197,13 +202,16 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
         device=None, log: Log | None = None, num_epochs: int | None = None,
         seed: int | None = None, checkpoint_dir: str | None = None,
         resume_step: int | None = None, saved_steps: list[int] | None = None,
-        tag: str = "train", train_batches: ResidentBatches | None = None) -> FitResult:
+        tag: str = "train", train_batches: ResidentBatches | None = None,
+        epoch_hook: Callable[[Any, TrainState, int], None] | None = None) -> FitResult:
     """Train a fresh model from ``train.seed`` (or resume from
     ``checkpoint_dir`` under ``train.resume``, from the newest step, or the
     newest at or before ``resume_step``) for exactly ``num_epochs`` (default
     ``train.num_epochs``) epochs. ``train_batches`` is a resident upload of
     ``train_ds`` to use (the multi-seed pretrain shares one). The steps this
-    call saves are appended to ``saved_steps``. On CUDA the cuDNN algorithms
+    call saves are appended to ``saved_steps``. ``epoch_hook(model, state,
+    epoch)``, when given, runs after each epoch's eval (the trajectory scores'
+    per-epoch pass). On CUDA the cuDNN algorithms
     are the deterministic ones (``set_scoring_determinism``), so a fit is
     reproducible bit for bit.
 
@@ -339,6 +347,10 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
                               device=device, resident=test_batches, cache=eval_cache)
                 record["test_accuracy"] = ev["accuracy"]
                 record["test_loss"] = ev["loss"]
+                if watchdog is not None:
+                    watchdog.beat()
+            if epoch_hook is not None:
+                epoch_hook(model, state, epoch)
                 if watchdog is not None:
                     watchdog.beat()
             log("epoch", tag=tag, **record)
@@ -541,12 +553,16 @@ def compute_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
         log("scores_loaded", path=cfg.score.scores_npz, n=len(scores))
         return scores, {"pretrain_s": 0.0, "score_s": time.perf_counter() - t0,
                         "passes": 0, "loaded_from": cfg.score.scores_npz}
-    if cfg.score.method in ("forgetting", "aum"):
-        raise NotImplementedError(
-            f"score.method={cfg.score.method} (trajectory scores) is not ported yet")
     partials = _score_partial_store(cfg, train_ds, log, stages)
     seeds = [int(s) for s in cfg.score.seeds]
     done = partials.load_all(seeds) if partials is not None else {}
+    if cfg.score.method in ("forgetting", "aum"):
+        scores = trajectory_scores(cfg, train_ds, device=device, log=log,
+                                   partials=partials, preloaded=done)
+        # The fits are the scoring pass: the whole wall is score_s, over the
+        # seeds computed here (not those resumed from partials).
+        return scores, {"pretrain_s": 0.0, "score_s": time.perf_counter() - t0,
+                        "passes": len([s for s in seeds if s not in done])}
     todo = [s for s in seeds if s not in done]
     if done:
         log("score_seeds_resumed", method=cfg.score.method, done=sorted(done), todo=todo)
@@ -598,6 +614,103 @@ def compute_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
         stages.complete("score", method=cfg.score.method, n=int(len(scores)),
                         reused_seeds=sorted(done))
     return scores, {"pretrain_s": pretrain_s, "score_s": score_s, "passes": passes}
+
+
+def trajectory_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
+                      log: Log | None = None, partials: ScorePartialStore | None = None,
+                      preloaded: dict | None = None) -> np.ndarray:
+    """Trajectory scores (the JAX package's ``trajectory_scores``): forgetting
+    events (``score.method=forgetting``) or the area under the margin
+    (``aum``), ``ops/forgetting.py``.
+
+    Per seed of ``score.seeds``: a fresh model fits ``score.pretrain_epochs``
+    epochs, and after each epoch a correctness (``forgetting``) or margin
+    (``aum``) pass runs over the train set in dataset order on the fit's
+    variables, through the fit's resident upload when there is one (else
+    streamed); the tracker accumulates on the host. Scores are the float64
+    sum of the per-seed vectors in ``score.seeds`` order over their number,
+    cast to float32.
+
+    ``partials`` (a ``ScorePartialStore``) arms stage resume: the seeds in
+    ``preloaded`` (the partials the caller loaded; loaded here when None) are
+    not refit, each finished seed's vector is saved before the next starts,
+    and a SIGTERM loses at most the seed in flight (``Preempted``: from the
+    fit it lands in, or at the boundary after a seed's save)."""
+    method = cfg.score.method
+    if cfg.score.pretrain_epochs < 1:
+        raise ValueError(
+            f"score.method={method} tracks the training trajectory; set "
+            "score.pretrain_epochs >= 1")
+    if method == "forgetting":
+        kind, make_tracker, to_obs = "correctness", ForgettingTracker, (lambda v: v > 0.5)
+    elif method == "aum":
+        kind, make_tracker, to_obs = "margin", AUMTracker, (lambda v: v)
+    else:
+        # The forgetting_scores alias must not return AUM scores for a config
+        # of another method.
+        raise ValueError(f"trajectory_scores handles forgetting/aum, got {method!r}")
+    device = resolve_device(device)
+    log = log or _no_log
+    seeds = [int(s) for s in cfg.score.seeds]
+    n = len(train_ds)
+    batch_size = cfg.data.batch_size
+    local = make_local_scores(create_model_from_cfg(cfg).to(device), kind,
+                              eval_mode=cfg.score.eval_mode)
+    shared = train_resident(cfg, train_ds, device)
+    done = preloaded if preloaded is not None else (
+        partials.load_all(seeds) if partials is not None else {})
+    if done:
+        log("score_seeds_resumed", method=method, done=sorted(done),
+            todo=[s for s in seeds if s not in done])
+    total = np.zeros(n, np.float64)
+    completed = len(done)
+    preempt = PreemptionHandler(enabled=(partials is not None
+                                         and cfg.resilience.preemption))
+    with preempt:
+        for seed in seeds:
+            if seed in done:
+                total += done[seed]
+                continue
+            tracker = make_tracker(n)
+
+            def hook(model, state, epoch, tracker=tracker):
+                del model, epoch
+                batches = (shared(shuffle=False) if shared is not None else
+                           prefetch_stream(train_ds, batch_size, device,
+                                           depth=cfg.data.prefetch_depth,
+                                           stage=f"{method}_pass"))
+                try:
+                    outs = [local(state.variables, b["image"], b["label"], b["mask"])
+                            for b in batches]
+                finally:
+                    batches.close()
+                tracker.update(to_obs(torch.cat(outs).cpu().numpy()[:n]))
+
+            fit(cfg, train_ds, None, device=device, log=log,
+                num_epochs=cfg.score.pretrain_epochs, seed=seed,
+                tag=f"{method}_seed{seed}", train_batches=shared, epoch_hook=hook)
+            rec: dict[str, Any] = {"seed": seed, "epochs": tracker.updates}
+            if method == "forgetting":
+                rec.update(never_learned=int((~tracker.learned).sum()),
+                           mean_events=float(tracker.counts.mean()))
+            else:
+                rec.update(mean_margin=float(tracker.scores().mean()))
+            log(f"{method}_seed_done", **rec)
+            seed_scores = np.asarray(tracker.scores(), np.float64)
+            total += seed_scores
+            completed += 1
+            if partials is not None:
+                partials.save(seed, seed_scores)
+                inject.fire("seed_scored", seed=seed, completed=completed)
+                if preempt.requested:
+                    # The finished seed's partial is durable: the clean exit
+                    # (CLI 75) loses nothing, and a resume starts at the next seed.
+                    raise Preempted(preempt.signame)
+    return (total / len(seeds)).astype(np.float32)
+
+
+#: The JAX package's other name for ``trajectory_scores``.
+forgetting_scores = trajectory_scores
 
 
 def scores_npz_path(checkpoint_dir: str) -> str:

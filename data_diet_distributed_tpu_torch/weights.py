@@ -85,8 +85,8 @@ def init_variables(arch: str, seed: int, device=None, *, num_classes: int = 10,
     """Freshly initialized variables for ``arch``, as the Flax models
     initialize (``resnet.py:29-32,57``): He-normal (truncated) convs,
     LeCun-normal classifier with zero bias, BatchNorm scale 1 / bias 0 /
-    mean 0 / var 1, and the BatchNorm closing each residual branch with scale
-    0. Drawn from a ``torch.Generator`` seeded with ``seed`` on the CPU, so
+    mean 0 / var 1, and in a ResNet the BatchNorm closing each residual
+    branch with scale 0 (a WideResNet has none, ``wideresnet.py``). Drawn from a ``torch.Generator`` seeded with ``seed`` on the CPU, so
     the numbers are the same on every device (and differ from
     ``jax.random``'s)."""
     device = resolve_device(device)

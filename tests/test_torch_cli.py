@@ -48,15 +48,31 @@ def _summary(capsys) -> dict:
 # What is not ported yet still refuses by name.
 @pytest.mark.parametrize("argv,match", [
     (["serve", "--config", SMOKE, "--device", "cpu"], "'serve' command"),
-    (["score", "--config", SMOKE, "--device", "cpu", "score.method=forgetting"],
-     "trajectory scores"),
-    (["train", "--config", SMOKE, "--device", "cpu", "model.remat=true"], "remat"),
-    (["run", "--config", SMOKE, "--device", "cpu", "score.method=aum"],
-     "trajectory scores"),
 ])
 def test_cli_refuses_what_needs_training(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv)
+
+
+# The trajectory scores and model.remat, refused before they were ported, run.
+@pytest.mark.parametrize("argv,event", [
+    (["score", "score.method=forgetting", "score.pretrain_epochs=2"], "scores_saved"),
+    (["train", "model.arch=resnet18", "model.remat=true", "data.synthetic_size=16",
+      "data.batch_size=16", "train.num_epochs=1"], "train_done"),
+    (["run", "score.method=aum", "train.num_epochs=1"], "run_done"),
+])
+def test_cli_runs_what_needed_training(tmp_path, capsys, argv, event):
+    command, *over = argv
+    assert cli.main([command, "--config", SMOKE, "--device", "cpu", *TINY,
+                     f"train.checkpoint_dir={tmp_path / 'ckpt'}", *over]) == 0
+    out = _summary(capsys)
+    assert out["event"] == event
+    if command == "score":
+        assert out["n_scores"] == 96 and np.isfinite(out["mean"])
+    elif command == "train":
+        assert out["epochs"] == 1 and 0.0 <= out["final_test_accuracy"] <= 1.0
+    else:
+        assert out["score_method"] == "aum" and out["n_kept"] == 48
 
 
 def test_cli_train_fits_and_checkpoints(tmp_path, capsys):

@@ -137,7 +137,14 @@ def test_init_variables_recipe():
 
 
 def test_unknown_arch_and_remat_raise():
+    """An unknown arch and remat on the tiny CNN (which has no blocks) raise,
+    as in the JAX package; remat on a ResNet or WideResNet builds the same
+    parameters."""
     with pytest.raises(ValueError, match="unknown arch"):
-        create_model("wideresnet28_10", 10)
-    with pytest.raises(NotImplementedError):
-        create_model("resnet18", 10, remat=True)
+        create_model("wideresnet40_4", 10)
+    with pytest.raises(ValueError, match="no remat variant"):
+        create_model("tiny_cnn", 10, remat=True)
+    for arch in ("resnet18", "wideresnet28_10"):
+        model = create_model(arch, 10, remat=True)
+        assert model.remat and list(model.state_dict()) == list(
+            create_model(arch, 10).state_dict())

@@ -93,8 +93,24 @@ def test_pretrained_engine_scores_like_score_dataset():
 
 
 def test_engine_refuses_unported_recipes_and_missing_cuda():
-    with pytest.raises(NotImplementedError, match="remat"):
-        ServeEngine(_cfg(**{"model.remat": "true"}), device="cpu")
+    """``model.remat`` is a training-memory option: an engine built with it
+    serves the scores of one built without it, bit for bit. Without CUDA the
+    default device refuses."""
+    rng = np.random.default_rng(5)
+    ds = ArrayDataset(rng.normal(size=(12, 8, 8, 3)).astype(np.float32),
+                      rng.integers(0, 10, 12).astype(np.int32),
+                      np.arange(12, dtype=np.int32), 10)
+    variables = [init_variables("resnet18", 0, "cpu")]
+    served = {}
+    for remat in ("false", "true"):
+        engine = ServeEngine(_cfg(**{"model.arch": "resnet18", "model.remat": remat,
+                                     "score.batch_size": "8"}), device="cpu")
+        assert engine.model.remat == (remat == "true")
+        engine.register_tenant("t", ds, variables)
+        served[remat] = (engine.full_scores("t", "grand"),
+                         engine.score_batch("t", "grand", *engine.examples_for("t", [3, 7])))
+    for a, b in zip(served["false"], served["true"]):
+        assert a.dtype == np.float32 and np.isfinite(a).all() and np.array_equal(a, b)
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default device is then valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):

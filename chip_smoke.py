@@ -33,7 +33,7 @@ Phases (the first failure exits non-zero; nothing is caught):
    the working dtype and int64 labels as given and are bitwise from run to
    run, on a permuted batch and on a 5-row slice (that each call launches one
    CUDA kernel and nothing else is checked under ``torch.profiler`` after the
-   timed phases, phase 12: the profiler slows every later launch of the
+   timed phases, phase 13: the profiler slows every later launch of the
    process); stacked BatchNorm at the four ResNet-18 BN shapes
    singly and 5 deep (every launch in the ``vector`` mode) and at ragged rows
    (``BN_RAGGED``: batch 37, C = 72, 100 and 98, S = 1, use_scale and use_bias
@@ -173,7 +173,35 @@ Phases (the first failure exits non-zero; nothing is caught):
    seed 1 only, bitwise the uninterrupted one. Cuts: ``WRN_N`` of 50,000
    examples, 1 of 10 pretrain epochs, 1 of 200 retrain epochs per level;
    widths and seeds as published.
-12. Calls: each EL2N and last-layer row of phase 3 runs one CUDA kernel per
+12. Dist: the port across ranks (``torch.distributed``), each step as worker
+   processes of this script with a timeout. W = 1 over NCCL: the north-star
+   ``cli run`` (``TRAIN_N`` examples, seeds [0, 1]) with ``mesh.multihost=true
+   mesh.num_processes=1`` bitwise the same run without a group (scores, kept
+   set, final checkpoint; launches equal), and the all-reduce of ResNet-18's
+   44.7 MB fp32 gradient timed. Two NCCL ranks on cuda:0 must both fail at
+   their first all-reduce ("Duplicate GPU detected"). W = 2 as two processes
+   on cuda:0 over gloo
+   with CUDA tensors: (a) a bf16 ResNet-18 fit (``DIST_FIT_N`` examples,
+   batch 128, augmented) ends bitwise equal on both ranks, and 3 fp32 steps
+   (TF32 off) are within rtol 1e-5 (losses) and rtol 1e-4, atol 1e-6
+   (variables: the train phase's card-against-CPU gate at its atol floor) of
+   the fit at W = 1 here; (b)
+   ZeRO-1 and the sharded update bitwise the replicated update, with rank 0's
+   optimizer bytes; (c) GraNd and EL2N ``score_dataset`` over ``N_PATH`` x 2
+   seeds at batch 512: both ranks' vectors bitwise equal, within
+   ``tests/test_distributed.py``'s tolerances (GraNd rtol 1e-4 + 1e-5, EL2N
+   rtol 1e-5 + 1e-6) of W = 1 at the rank's batch of 256, exactly 12 direct
+   (tensor-core), 3 Gram and 1 EL2N launches per rank per batch per seed,
+   ex/s per rank; (d) consensus drills, two CLI ranks each on tiny_cnn: a
+   SIGTERM to rank 1 ends both with exit 75 at step 4, durable at 4, and the
+   resume ends bitwise the uninterrupted W = 2 run; a NaN on rank 1 ends
+   both with exit 69 at epoch 1 (``recovery_refused``); rank 1's newest step
+   hidden makes both restore step 8 and end bitwise the uninterrupted run; a
+   hang on rank 1 ends both with exit 69 (rank 1 from its watchdog or the
+   peer's poison, the two deadlines running out together) and rank 0 within
+   ``DRILL_GRACE_S`` + ``DRILL_EXIT_BOUND_S`` of the first poison;
+   (e) the ZeRO-1 checkpoint written at W = 2 restores bitwise here at W = 1.
+13. Calls: each EL2N and last-layer row of phase 3 runs one CUDA kernel per
    call, its own, and no copy, cast or memset (``torch.profiler``).
 
 With ``--profile``: one batch under ``torch.profiler`` on each of the default,
@@ -200,6 +228,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import dataclasses
 import io
 import json
 import os
@@ -2769,6 +2798,465 @@ def function_properties(log: str, needle: str) -> list[str]:
             if "Function properties for" in line and needle in line]
 
 
+# Dist phase: the port across ranks over torch.distributed, on the one card. W = 1
+# over NCCL; W = 2 as two processes sharing cuda:0 over gloo with CUDA tensors (NCCL
+# refuses two ranks on one card). Each step is a pair of ``--dist-worker``
+# processes of this script (one for W = 1), each with a timeout; a rank that
+# fails fails the phase.
+DIST_ROOT = os.path.join(REPO, "chip_smoke_out", "dist")
+DIST_TIMEOUT_S = 300           # each worker process
+DIST_FIT_N = 2048              # (a): full-width ResNet-18, batch 128, 16 steps
+DIST_PARITY_N = 384            # (a) fp32: 3 steps of batch 128 ...
+DIST_SHARD_N = 384             # (b): 3 steps per update layout
+DIST_GRAD_ELEMS = 11_173_962   # ResNet-18's parameters (10 classes): the gradient
+DRILL_GRACE_S = 3.0            # resilience.consensus_grace_s of the drills
+DRILL_TIMEOUT_S = 10.0         # resilience.step_timeout_s of the hang drill
+DRILL_EXIT_BOUND_S = 10.0      # rank 0 exits within grace + this of the first poison
+
+
+def dist_ms(torch, fn, iters: int = 5) -> float:
+    """Host wall of ``fn()`` ending in a synchronize, median of ``iters``."""
+    times = []
+    for _ in range(iters + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times[1:])
+
+
+def state_digest(torch, state) -> str:
+    """sha256 over every params, batch_stats and momentum tensor's fp32 bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for g in ("params", "batch_stats", "momentum"):
+        for k in sorted(getattr(state, g)):
+            t = getattr(state, g)[k].detach().float().cpu()
+            h.update(k.encode() + t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_worker(argv: list[str]) -> int:
+    """``--dist-worker STEP RANK WORLD PORT OUT``: one rank of a dist step."""
+    import torch
+    step, rank, world, port_no, out = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    check(torch.cuda.is_available(), "CUDA is not available")
+    port = load_port()
+    from data_diet_distributed_tpu_torch.config import MeshConfig
+    from data_diet_distributed_tpu_torch.parallel import collectives, mesh
+    from data_diet_distributed_tpu_torch.train.state import gather_slots, optimizer_bytes
+    K = port["kernels"]
+    result: dict = {"rank": rank}
+    mc = MeshConfig(multihost=True, coordinator_address=f"127.0.0.1:{port_no}",
+                    num_processes=world, process_id=rank)
+    if step == "w1":
+        # The north-star run without a group, then the same run joined to a W = 1
+        # NCCL group through the mesh keys.
+        cli = port["data"]["cli"]
+        base = ["run", "--config", os.path.join(REPO, "configs",
+                                                "cifar10_resnet18_grand10.yaml"),
+                "data.dataset=synthetic", f"data.synthetic_size={TRAIN_N}",
+                "score.seeds=[0,1]", "train.num_epochs=2"]
+        for name, over in (("plain", []),
+                           ("nccl", ["mesh.multihost=true", f"mesh.coordinator_address="
+                                     f"127.0.0.1:{port_no}", "mesh.num_processes=1",
+                                     "mesh.process_id=0"])):
+            ckpt = os.path.join(out, f"w1_{name}")
+            t0 = time.perf_counter()
+            K.reset_launch_counts()
+            rc = cli.main([*base, f"train.checkpoint_dir={ckpt}", *over])
+            check(rc == 0, f"w1 {name}: cli run exit {rc}")
+            result[name] = {"wall_s": time.perf_counter() - t0,
+                            "launches": K.launch_counts(), "ckpt": ckpt}
+        # A group of its own for the timing (the run's port may linger in TIME_WAIT).
+        mesh.initialize_multihost(dataclasses.replace(mc, coordinator_address=
+                                                      f"127.0.0.1:{free_port()}"), "cuda")
+        grads = torch.ones(DIST_GRAD_ELEMS, device="cuda")
+        result["backend"] = torch.distributed.get_backend()
+        result["all_reduce_ms"] = dist_ms(torch, lambda: collectives.all_reduce_sum_(grads))
+    elif step == "nccl_shared":
+        # Two NCCL ranks on one card: NCCL refuses them at the first collective,
+        # and nothing in the port catches that.
+        mesh.initialize_multihost(mc, "cuda:0")
+        x = torch.ones(4, device="cuda:0")
+        torch.distributed.all_reduce(x)
+        torch.cuda.synchronize()
+    elif step == "w2":
+        mesh.initialize_multihost(mc, "cuda:0", backend="gloo")
+        device = "cuda:0"
+        T = port["train"]
+        grads = [torch.ones(DIST_GRAD_ELEMS, device=device)]
+        result["all_reduce_ms"] = dist_ms(torch, lambda: collectives.all_reduce_flat(grads))
+        # (a) bf16: 16 steps of batch 128 (64 a rank), augmented.
+        cfg = train_cfg(port, f"data.synthetic_size={DIST_FIT_N}", "train.num_epochs=2",
+                        "data.augment=true")
+        ds, _ = T["load_data_for"](cfg)
+        res = T["fit"](cfg, ds, None, device=device)
+        result["fit"] = {"digest": state_digest(torch, res.state),
+                         "history": res.history}
+        # (a) fp32, TF32 off: three epochs of one step.
+        port["set_parity_mode"](True)
+        cfg32 = train_cfg(port, f"data.synthetic_size={TRAIN_B}", "train.num_epochs=3",
+                          "train.half_precision=false")
+        ds32, _ = T["load_data_for"](cfg32)
+        res = T["fit"](cfg32, ds32, None, device=device)
+        port["set_parity_mode"](False)
+        result["fp32_losses"] = [h["train_loss"] for h in res.history]
+        if rank == 0:
+            np.savez(os.path.join(out, "w2_fp32.npz"),
+                     **{k: v.float().cpu().numpy() for k, v in res.state.variables.items()})
+        # (b) the three update layouts, 3 steps each; (e) the ZeRO-1 one checkpoints.
+        result["layouts"] = {}
+        for name, over in (("replicated", ()), ("zero1", ("mesh.shard_opt_state=true",)),
+                           ("sharded", ("mesh.shard_weight_update=true",))):
+            lcfg = train_cfg(port, f"data.synthetic_size={DIST_SHARD_N}",
+                             "train.num_epochs=1", *over)
+            lds, _ = T["load_data_for"](lcfg)
+            ckpt = os.path.join(out, "w2_zero1_ckpt") if name == "zero1" else None
+            res = T["fit"](lcfg, lds, None, device=device, checkpoint_dir=ckpt)
+            opt = T["make_optimizer"](lcfg, 3)
+            result["layouts"][name] = {
+                "digest": state_digest(torch, gather_slots(res.state, opt)),
+                "optimizer_bytes": optimizer_bytes(res.state)}
+        # (c) GraNd and EL2N over 8,192 examples x 2 seeds at batch 512 (256 a rank).
+        model = port["create_model_from_cfg"](cfg)
+        sds, _ = port["load_dataset"]("synthetic", synthetic_size=N_PATH, seed=0)
+        variables = [port["init_variables"]("resnet18", s, device) for s in SEEDS]
+        port["score_dataset"](model, variables[:1], sds.subset(sds.indices[:B]),
+                              method="grand", batch_size=B, device=device)   # warm-up
+        result["scores"] = {}
+        for method in ("grand", "el2n"):
+            K.reset_launch_counts()
+            modes0 = K.mode_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = port["score_dataset"](model, variables, sds, method=method,
+                                           batch_size=B, device=device)
+            wall = time.perf_counter() - t0
+            modes = K.mode_counts()
+            result["scores"][method] = {
+                "wall_s": wall, "launches": K.launch_counts(),
+                "direct_modes": {m: modes["conv_grad_norm_direct"][m]
+                                 - modes0["conv_grad_norm_direct"][m]
+                                 for m in modes["conv_grad_norm_direct"]}}
+            np.save(os.path.join(out, f"w2_{method}_{rank}.npy"), scores)
+    else:
+        fail(f"unknown dist step {step!r}")
+    with open(os.path.join(out, f"{step}_{rank}.json"), "w") as fh:
+        json.dump(result, fh, default=str)
+    sys.stdout.flush()
+    # No teardown: the W = 2 group is left to the exit.
+    os._exit(0)
+
+
+def drill_worker(argv: list[str]) -> int:
+    """``--drill-worker RANK PORT [cli arguments]``: ``cli.main`` as one of two
+    ranks sharing cuda:0 over gloo (joined here: the command line has no
+    backend key, and NCCL refuses two ranks on one card)."""
+    rank, port_no, cli_argv = int(argv[0]), argv[1], argv[2:]
+    port = load_port()
+    from data_diet_distributed_tpu_torch.config import MeshConfig
+    from data_diet_distributed_tpu_torch.parallel import mesh
+    mesh.initialize_multihost(MeshConfig(multihost=True,
+                                         coordinator_address=f"127.0.0.1:{port_no}",
+                                         num_processes=2, process_id=rank),
+                              "cuda:0", backend="gloo")
+    rc = port["data"]["cli"].main([*cli_argv, "--device", "cuda:0"])
+    sys.stdout.flush()
+    os._exit(rc)
+
+
+def spawn(args: list[str], tag: str, plan: str | None = None) -> dict:
+    """Start this script as a worker (with ``plan`` as its ``DDT_FAULT_PLAN``);
+    its output goes to ``DIST_ROOT/<tag>.log``."""
+    log = open(os.path.join(DIST_ROOT, f"{tag}.log"), "w")
+    env = {k: v for k, v in os.environ.items() if k != "DDT_FAULT_PLAN"}
+    env["PYTHONPATH"] = REPO
+    if plan is not None:
+        env["DDT_FAULT_PLAN"] = plan
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), *args], cwd=REPO,
+                            stdout=log, stderr=subprocess.STDOUT, env=env)
+    log.close()
+    return {"proc": proc, "tag": tag, "t0": time.time()}
+
+
+def finish(workers: list[dict], timeout: float = DIST_TIMEOUT_S) -> None:
+    """Wait for every worker (each within ``timeout``); record exit codes and
+    times. A worker past its timeout is killed, with every other one."""
+    try:
+        for w in workers:
+            w["rc"] = w["proc"].wait(timeout=max(1.0, w["t0"] + timeout - time.time()))
+            w["t_exit"] = time.time()
+    finally:
+        for w in workers:
+            if w["proc"].poll() is None:
+                w["proc"].kill()
+                w["proc"].wait(timeout=30)
+    for w in workers:
+        with open(os.path.join(DIST_ROOT, f"{w['tag']}.log")) as fh:
+            w["log"] = fh.read()
+
+
+def worker_tail(w: dict) -> str:
+    return f"{w['tag']} exit {w.get('rc')}:\n{w.get('log', '')[-2500:]}"
+
+
+def free_port() -> str:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return str(s.getsockname()[1])
+
+
+def pair(step: str, world: int = 2) -> list[dict]:
+    ws = start_pair(step, world)
+    finish(ws)
+    for w in ws:
+        check(w["rc"] == 0, f"dist {step}: a rank failed: {worker_tail(w)}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(DIST_ROOT, f"{step}_{r}.json")) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def start_pair(step: str, world: int = 2) -> list[dict]:
+    port_no = free_port()
+    return [spawn(["--dist-worker", step, str(r), str(world), port_no, DIST_ROOT],
+                  f"{step}_r{r}") for r in range(world)]
+
+
+def records(log: str) -> list[dict]:
+    """The JSON records of a CLI rank's output (stderr and stdout joined)."""
+    out = []
+    for line in log.splitlines():
+        if line.startswith("{"):
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                continue
+    return out
+
+
+DRILL_ARGV = ["train", "--config", os.path.join(REPO, "configs", "synthetic_smoke.yaml"),
+              "data.synthetic_size=256", "data.batch_size=64", "data.eval_batch_size=64",
+              "model.arch=tiny_cnn", "train.num_epochs=3", "train.checkpoint_every=1",
+              "train.log_every_steps=1000", f"resilience.consensus_grace_s={DRILL_GRACE_S}"]
+
+
+def drills(name_plans: list[tuple[str, str | None, list[str]]]) -> dict:
+    """Run each ``(name, DDT_FAULT_PLAN or None, extra arguments)`` drill as two
+    CLI ranks, all drills at once; returns the workers by drill."""
+    running = {}
+    for name, plan, extra in name_plans:
+        port_no = free_port()
+        running[name] = [spawn(["--drill-worker", str(r), port_no, *DRILL_ARGV,
+                                f"train.checkpoint_dir={os.path.join(DIST_ROOT, name)}",
+                                *extra], f"drill_{name}_{len(running)}_r{r}", plan)
+                         for r in range(2)]
+    finish([w for ws in running.values() for w in ws])
+    return running
+
+
+def dist_phase(torch, port, details_out, card: str, path: dict, trained: dict) -> None:
+    shutil.rmtree(DIST_ROOT, ignore_errors=True)
+    os.makedirs(DIST_ROOT)
+    rec: dict = {}
+    t_phase = time.perf_counter()
+    T = port["train"]
+
+    # W = 1 over NCCL: the north-star run joined to a group, bitwise the run without.
+    w1 = pair("w1", world=1)[0]
+    plain, nccl = w1["plain"], w1["nccl"]
+    for what in ("scores", "kept"):
+        with np.load(T["scores_npz_path"](plain["ckpt"])) as a, \
+                np.load(T["scores_npz_path"](nccl["ckpt"])) as b:
+            check(np.array_equal(a[what], b[what]), f"W=1 NCCL: {what} differ")
+    check(arrays_equal(ckpt_arrays(plain["ckpt"])[1], ckpt_arrays(nccl["ckpt"])[1]),
+          "W=1 NCCL: final parameters differ from the run without a group")
+    check(nccl["launches"] == plain["launches"], f"W=1 NCCL launches {nccl['launches']}")
+    check(w1["backend"] == "nccl", f"W=1 backend {w1['backend']}")
+    with np.load(T["scores_npz_path"](plain["ckpt"])) as a:
+        same_as_phase8 = (np.array_equal(a["scores"], trained["run"]["scores"])
+                          and arrays_equal(ckpt_arrays(plain["ckpt"])[1],
+                                           trained["run"]["arrays"]))
+    grad_mb = DIST_GRAD_ELEMS * 4 / 1e6
+    rec["w1"] = {"wall_s": {"plain": plain["wall_s"], "nccl": nccl["wall_s"]},
+                 "all_reduce_ms": w1["all_reduce_ms"], "grad_mb": grad_mb,
+                 "same_as_train_phase": same_as_phase8}
+    print(f"  W=1 NCCL: north-star run ({TRAIN_N} examples, seeds [0, 1]) in a group "
+          f"{nccl['wall_s']:.1f} s, without {plain['wall_s']:.1f} s: scores, kept and "
+          f"final parameters bitwise equal (and {'equal' if same_as_phase8 else 'NOT equal'}"
+          f" to the train phase's run in this process); launches {nccl['launches']}; "
+          f"all-reduce of the {grad_mb:.1f} MB fp32 gradient {w1['all_reduce_ms']:.3f} ms "
+          f"on {card}", flush=True)
+
+    # NCCL refuses two ranks on one card: the reason W = 2 runs over gloo here.
+    refused = start_pair("nccl_shared")
+    finish(refused, timeout=120)
+    for w in refused:
+        check(w["rc"] not in (0, None) and "Duplicate GPU detected" in w["log"],
+              f"two NCCL ranks on one card were not refused: {worker_tail(w)}")
+    quote = next(line.strip() for line in refused[0]["log"].splitlines()
+                 if "Duplicate GPU detected" in line)
+    rec["nccl_shared_card"] = quote
+    print(f"  two NCCL ranks on cuda:0: both exit non-zero at the first all-reduce: "
+          f"{quote}", flush=True)
+
+    # W = 2 on the one card over gloo: (a) fits, (b) update layouts, (c) scoring, (e).
+    w2 = pair("w2")
+    r0, r1 = w2
+    check(r0["fit"]["digest"] == r1["fit"]["digest"],
+          "W=2 bf16 fit: the ranks' final states differ")
+    steady = [h["examples_per_s"] for h in r0["fit"]["history"]][1:]
+    # The W = 1 reference of the fp32 fit, here, TF32 off.
+    port["set_parity_mode"](True)
+    cfg32 = train_cfg(port, f"data.synthetic_size={TRAIN_B}", "train.num_epochs=3",
+                      "train.half_precision=false")
+    ds32, _ = T["load_data_for"](cfg32)
+    ref = T["fit"](cfg32, ds32, None, device="cuda")
+    port["set_parity_mode"](False)
+    want_losses = [h["train_loss"] for h in ref.history]
+    loss_rel = float(np.max(np.abs(np.asarray(r0["fp32_losses"]) - want_losses)
+                            / np.abs(want_losses)))
+    check(r0["fp32_losses"] == r1["fp32_losses"] and loss_rel <= 1e-5,
+          f"W=2 fp32 losses {r0['fp32_losses']} vs W=1 {want_losses} (rel {loss_rel:.3e})")
+    worst = 0.0   # the largest |W=2 - W=1| of any variable
+    with np.load(os.path.join(DIST_ROOT, "w2_fp32.npz")) as f:
+        for k, v in ref.state.variables.items():
+            w = v.float().cpu().numpy()
+            worst = max(worst, float(np.abs(f[k] - w).max()))
+            check(bool(np.all(np.abs(f[k] - w) <= 1e-4 * np.abs(w) + 1e-6)),
+                  f"W=2 fp32 {k}: beyond rtol 1e-4, atol 1e-6 of W=1")
+    print(f"  W=2 gloo on cuda:0 (a): bf16 fit of {DIST_FIT_N} examples at batch {TRAIN_B} "
+          f"({TRAIN_B // 2} a rank, augmented), 2 epochs: ranks bitwise equal; rank 0 "
+          f"steady epoch {steady[0]:.1f} ex/s of the global batch; all-reduce of the "
+          f"{grad_mb:.1f} MB gradient through the host {r0['all_reduce_ms']:.3f} ms; fp32 "
+          f"3 steps vs W=1: losses rel {loss_rel:.3e} (<= 1e-5), variables within rtol "
+          f"1e-4, atol 1e-6 (largest difference {worst:.3e})", flush=True)
+    lay = [r["layouts"] for r in w2]
+    for r in lay:
+        check(r["zero1"]["digest"] == r["replicated"]["digest"] == r["sharded"]["digest"],
+              f"W=2 (b): update layouts differ: {r}")
+    check(lay[0]["zero1"]["digest"] == lay[1]["zero1"]["digest"], "W=2 (b): ranks differ")
+    opt = {k: v["optimizer_bytes"] for k, v in lay[0].items()}
+    print(f"  W=2 (b): ZeRO-1 and the sharded update bitwise the replicated update after "
+          f"3 steps; rank 0 optimizer bytes {opt}", flush=True)
+    restored = port["CheckpointManager"](os.path.join(DIST_ROOT, "w2_zero1_ckpt")).restore(
+        device="cuda")
+    check(state_digest(torch, restored) == lay[0]["zero1"]["digest"],
+          "W=2 (e): the ZeRO-1 checkpoint does not restore bitwise at W=1")
+    print("  W=2 (e): the ZeRO-1 checkpoint written at W=2 restores bitwise at W=1",
+          flush=True)
+    nb = -(-N_PATH // B)
+    sds, _ = port["load_dataset"]("synthetic", synthetic_size=N_PATH, seed=0)
+    model = port["create_model_from_cfg"](path["cfg"])
+    rec["scores"] = {}
+    for method, rtol, atol in (("grand", 1e-4, 1e-5), ("el2n", 1e-5, 1e-6)):
+        got = [np.load(os.path.join(DIST_ROOT, f"w2_{method}_{r}.npy")) for r in range(2)]
+        check(np.array_equal(got[0], got[1]), f"W=2 {method}: the ranks' vectors differ")
+        w1_256 = port["score_dataset"](model, path["variables"], sds, method=method,
+                                       batch_size=B // 2, device="cuda")
+        rel = float(np.max(np.abs(got[0] - w1_256) / np.maximum(np.abs(w1_256), 1e-30)))
+        check(bool(np.all(np.abs(got[0] - w1_256) <= rtol * np.abs(w1_256) + atol)),
+              f"W=2 {method} vs W=1 at batch {B // 2}: rel {rel:.3e}")
+        w1_512 = path["results"][method]["scores"]
+        rel512 = float(np.max(np.abs(got[0] - w1_512) / np.maximum(np.abs(w1_512), 1e-30)))
+        s = [r["scores"][method] for r in w2]
+        want = dict.fromkeys(port["kernels"].KERNELS, 0)
+        if method == "grand":
+            want.update(conv_grad_norm_direct=12 * nb * 2, conv_grad_norm_gram=3 * nb * 2)
+        else:
+            want["el2n"] = nb * 2
+        for r, x in enumerate(s):
+            check(x["launches"] == want, f"W=2 {method} rank {r}: launches {x['launches']}")
+            if method == "grand":
+                check(x["direct_modes"] == {m: (12 * nb * 2 if m == "tensor_core" else 0)
+                                            for m in x["direct_modes"]},
+                      f"W=2 grand rank {r}: direct modes {x['direct_modes']}")
+        # The pass's rate (every example, both ranks) and each rank's own rows.
+        ex_s = [N_PATH * 2 / x["wall_s"] for x in s]
+        rec["scores"][method] = {"ex_per_s": ex_s, "rank_ex_per_s": [e / 2 for e in ex_s],
+                                 "rel_w1_256": rel, "rel_w1_512": rel512,
+                                 "launches_per_rank": s[0]["launches"]}
+        print(f"  W=2 (c) {method}: {N_PATH} x 2 seeds at batch {B} ({B // 2} a rank): ranks "
+              f"bitwise equal; vs W=1 at batch {B // 2} max rel {rel:.3e} (rtol {rtol}, "
+              f"atol {atol}), vs W=1 at batch {B} {rel512:.3e}; per rank per batch per "
+              f"seed {[f'{k} {v // (nb * 2)}' for k, v in s[0]['launches'].items() if v]}"
+              f" (tensor-core); the pass {ex_s[0]:.1f}, {ex_s[1]:.1f} ex/s as each rank "
+              f"timed it, {ex_s[0] / 2:.1f}, {ex_s[1] / 2:.1f} ex/s of each rank's own rows "
+              "(the two ranks share the card)", flush=True)
+    rec["w2"] = {"all_reduce_ms": r0["all_reduce_ms"], "steady_ex_per_s": steady,
+                 "fp32_loss_rel": loss_rel, "fp32_var_max_abs": worst,
+                 "optimizer_bytes": opt}
+
+    # (d) Consensus drills: two CLI ranks each, tiny_cnn, 256 examples, 4 steps an epoch.
+    wave1 = drills([
+        ("whole", None, []),
+        ("sigterm", '{"rank": 1, "sigterm_at_epoch_end": 0}', []),
+        ("nan", '{"rank": 1, "nan_loss_at_epoch": 1}', []),
+        ("hang", '{"rank": 1, "hang_at": 5, "hang_seconds": 600}',
+         [f"resilience.step_timeout_s={DRILL_TIMEOUT_S}"])])
+    for w in wave1["whole"]:
+        check(w["rc"] == 0, f"drill whole: {worker_tail(w)}")
+    for w in wave1["sigterm"]:
+        check(w["rc"] == 75 and "[preempted] preempted by" in w["log"]
+              and "at step 4; checkpoint durable at step 4" in w["log"],
+              f"drill sigterm: {worker_tail(w)}")
+    pre = [r for r in records(wave1["sigterm"][0]["log"]) if r.get("kind") == "preempted"]
+    check(len(pre) == 1 and pre[0]["step"] == pre[0]["durable_step"] == 4,
+          f"drill sigterm: preempted records {pre}")
+    for w in wave1["nan"]:
+        check(w["rc"] == 69 and "DivergenceError" in w["log"] and "at epoch 1 " in w["log"],
+              f"drill nan: {worker_tail(w)}")
+    check(any(r.get("kind") == "recovery_refused" for r in records(wave1["nan"][0]["log"])),
+          "drill nan: no recovery_refused record")
+    hang0, hang1 = wave1["hang"]
+    check(hang0["rc"] == 69 and hang1["rc"] == 69,
+          f"drill hang: {worker_tail(hang0)}\n{worker_tail(hang1)}")
+    # Both watchdogs' deadlines run out about together (rank 0 waits in a
+    # collective from the step rank 1 hangs in): the first poison may be either's.
+    channel = os.path.join(DIST_ROOT, "hang_sidechannel")
+    poisons = []
+    for name in sorted(os.listdir(channel)):
+        with open(os.path.join(channel, name)) as fh:
+            poisons.append(json.load(fh))
+    check(bool(poisons), "drill hang: no rank poisoned the side channel")
+    first = min(poisons, key=lambda p: p["ts"])
+    after = hang0["t_exit"] - first["ts"]
+    check(after <= DRILL_GRACE_S + DRILL_EXIT_BOUND_S,
+          f"drill hang: rank 0 exited {after:.1f} s after the first poison {first}")
+    shutil.copytree(os.path.join(DIST_ROOT, "whole"), os.path.join(DIST_ROOT, "hidden"))
+    wave2 = drills([("sigterm", None, ["train.resume=true"]),
+                    ("hidden", '{"rank": 1, "hide_latest_durable": true}',
+                     ["train.resume=true"])])
+    whole_arrays = ckpt_arrays(os.path.join(DIST_ROOT, "whole"))
+    for name in ("sigterm", "hidden"):
+        for w in wave2[name]:
+            check(w["rc"] == 0, f"drill {name} resume: {worker_tail(w)}")
+        check(ckpt_arrays(os.path.join(DIST_ROOT, name))[0] == whole_arrays[0] == 12
+              and arrays_equal(ckpt_arrays(os.path.join(DIST_ROOT, name))[1],
+                               whole_arrays[1]),
+              f"drill {name}: the resumed run's final step differs from the whole run's")
+    agreed = [r for r in records(wave2["hidden"][0]["log"])
+              if r.get("kind") == "consensus" and r.get("event") == "restore_agreed"]
+    check(len(agreed) == 1 and agreed[0]["step"] == 8, f"drill hidden: {agreed}")
+    rec["drills"] = {"hang_rank0_after_poison_s": after,
+                     "walls_s": {n: [w["t_exit"] - w["t0"] for w in ws]
+                                 for wave in (wave1, wave2) for n, ws in wave.items()}}
+    print(f"  (d) drills on tiny_cnn (two CLI ranks each): SIGTERM to rank 1 -> both exit "
+          f"75 at step 4, durable at 4, the resume bitwise the whole W=2 run; NaN on "
+          f"rank 1 -> both exit 69 at epoch 1 (recovery_refused); rank 1's newest step "
+          f"hidden -> both restore step 8 and end bitwise the whole run; a rank-1 hang -> "
+          f"both exit 69, rank 0 {after:.1f} s after the first poison (rank "
+          f"{first['rank']}'s; bound {DRILL_GRACE_S + DRILL_EXIT_BOUND_S:.0f} s)", flush=True)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"  dist phase {rec['wall_s']:.1f} s", flush=True)
+    details_out["dist"] = rec
+    shutil.rmtree(DIST_ROOT, ignore_errors=True)
+
+
 def load_port() -> dict:
     """The port's entry points and modules this script drives, by name; fails
     when the package is not importable next to this script."""
@@ -2836,6 +3324,11 @@ def load_port() -> dict:
 
 
 def main(argv: list[str]) -> int:
+    # The dist phase's processes: one rank each (never run by hand).
+    if argv[:1] == ["--dist-worker"]:
+        return dist_worker(argv[1:])
+    if argv[:1] == ["--drill-worker"]:
+        return drill_worker(argv[1:])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile GraNd batches with torch.profiler")
@@ -2915,6 +3408,9 @@ def main(argv: list[str]) -> int:
 
     phase("wrn")
     wrn = wrn_phase(torch, port, details, card)
+
+    phase("dist")
+    dist_phase(torch, port, details, card, path, trained)
 
     phase("calls")
     calls_phase(torch)

@@ -18,6 +18,14 @@ kept. A restore verifies the arrays against the manifest
 (``integrity.verify_restored``) and refuses with ``CheckpointCorrupt``
 naming the array; ``restore_verified`` falls back past refused steps to the
 newest one that verifies.
+
+Across ranks the format does not change: the caller hands ``save`` the whole
+state (``train.state.gather_slots`` joins ZeRO-1's momentum slices first),
+rank 0 writes, and every rank waits at a barrier after the write, then reads
+the same directory. A checkpoint written at W ranks restores at any other.
+``verified_steps`` (steps whose manifest reads and names its step) is what a
+rank contributes to the consensus restore, which then restores exactly the
+agreed step with no fallback.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .parallel.mesh import is_primary, sync_hosts
 from .resilience.integrity import (FORMAT, CheckpointCorrupt, build_manifest,
                                    verify_restored)
 from .train.state import TrainState
@@ -65,11 +74,19 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState,
              metrics: dict[str, Any] | None = None) -> str:
-        """Write ``state`` as step ``step``; returns its directory."""
+        """Write ``state`` as step ``step``; returns its directory. Across ranks
+        rank 0 writes and every rank returns after it has (a barrier)."""
+        final = self._step_dir(step)
+        if is_primary():
+            self._write(step, state, metrics, final)
+        sync_hosts(f"checkpoint_saved:{step}")
+        return final
+
+    def _write(self, step: int, state: TrainState, metrics: dict[str, Any] | None,
+               final: str) -> None:
         arrays = {f"{group}/{k}": v.detach().float().cpu().numpy()
                   for group in _GROUPS for k, v in getattr(state, group).items()}
         manifest = build_manifest(arrays, step, state.step, metrics)
-        final = self._step_dir(step)
         tmp = f"{final}.tmp{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -83,7 +100,22 @@ class CheckpointManager:
         if self.max_to_keep and len(steps) > self.max_to_keep:
             for old in steps[:-self.max_to_keep]:
                 shutil.rmtree(self._step_dir(old), ignore_errors=True)
-        return final
+
+    def verified_steps(self, max_step: int | None = None) -> list[int]:
+        """Steps (``<= max_step`` when given) whose manifest reads, is of this
+        format and names its own step: a rank's candidates for the consensus
+        restore (no array is read; ``restore`` verifies the agreed one)."""
+        out = []
+        for s in self.all_steps():
+            if max_step is not None and s > max_step:
+                continue
+            try:
+                m = self.manifest(s)
+            except (OSError, ValueError):
+                continue
+            if int(m.get("step", s)) == s:
+                out.append(s)
+        return out
 
     def manifest(self, step: int | None = None) -> dict[str, Any]:
         step = self._resolve(step)

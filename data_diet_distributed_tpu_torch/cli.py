@@ -31,18 +31,30 @@ at their stage (``train`` resumes with ``train.resume=true``). A JSON fault
 plan in ``DDT_FAULT_PLAN`` (``resilience/inject.py``) arms a drill, and
 ``resilience.init_probe=true`` first initializes CUDA in a bounded
 subprocess (exit 69 when it fails).
+
+Several processes: with ``mesh.multihost=true mesh.coordinator_address=H:P
+mesh.num_processes=W mesh.process_id=r`` each process joins the group
+(NCCL on CUDA, gloo with ``--device cpu``) before it loads data, and the W
+processes run the command as one data-parallel job. Rank 0 prints the
+records and the summary and writes the files; every rank exits 75 on an
+agreed preemption, and a failure under the group exits at once (69 for a
+``RuntimeError``, a peer's poison or a hang among them; 1 otherwise), since
+the teardown of a group with a dead peer can hang.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import traceback
 
 import torch
 
 from .config import Config, load_config
 from .device import resolve_device
+from .parallel.mesh import initialize_multihost, is_primary, shutdown, world_size
 from .resilience import inject
 from .resilience.preemption import EXIT_PREEMPTED, Preempted
 from .resilience.watchdog import EXIT_RETRIABLE, probe_devices
@@ -52,8 +64,9 @@ from .utils.io import atomic_savez
 
 
 def _log(kind: str, **fields) -> None:
-    print(json.dumps({"kind": kind, **fields}, default=str), file=sys.stderr,
-          flush=True)
+    if is_primary():
+        print(json.dumps({"kind": kind, **fields}, default=str), file=sys.stderr,
+              flush=True)
 
 
 def score(cfg: Config, device=None) -> dict:
@@ -66,7 +79,8 @@ def score(cfg: Config, device=None) -> dict:
     out = scores_npz_path(cfg.train.checkpoint_dir)
     method = (f"reused:{timings['loaded_from']}" if timings.get("loaded_from")
               else cfg.score.method)
-    atomic_savez(out, scores=scores, indices=train_ds.indices, method=method)
+    if is_primary():   # every rank holds the same scores; one writes
+        atomic_savez(out, scores=scores, indices=train_ds.indices, method=method)
     return {"n_scores": int(len(scores)), "scores_npz": out,
             "score_s": round(timings["score_s"], 3),
             "pretrain_s": round(timings["pretrain_s"], 3), "device": str(device),
@@ -112,13 +126,16 @@ def main(argv: list[str] | None = None) -> int:
     try:
         # Before this process touches CUDA (resolve_device's is_available()
         # would): a wedged driver then hangs the killable child, not us.
-        if cfg.resilience.init_probe and torch.device(args.device or "cuda").type == "cuda":
+        # Skipped under multihost: the child would not join the group.
+        if (cfg.resilience.init_probe and not cfg.mesh.multihost
+                and torch.device(args.device or "cuda").type == "cuda"):
             info = probe_devices(cfg.resilience.probe_attempts,
                                  cfg.resilience.probe_timeout_s,
                                  cfg.resilience.probe_backoff_s)
             if "error" in info:
                 print(f"[resilience] {info['error']}", file=sys.stderr, flush=True)
                 return EXIT_RETRIABLE
+        initialize_multihost(cfg.mesh, args.device)
         try:
             out = _dispatch(args.command, cfg, args.device)
         except Preempted as p:
@@ -126,11 +143,23 @@ def main(argv: list[str] | None = None) -> int:
             # "preempted" event is already logged: report the resume point
             # with a status a supervisor can branch on.
             print(f"[preempted] {p}", flush=True)
+            shutdown()
             return EXIT_PREEMPTED
+        except Exception as exc:  # noqa: BLE001 — a bounded exit under a group
+            if world_size() <= 1:
+                raise
+            traceback.print_exc()
+            print("[resilience] fatal under the process group: bounded exit "
+                  "(a teardown with a dead peer can hang)", file=sys.stderr, flush=True)
+            sys.stdout.flush()
+            os._exit(EXIT_RETRIABLE if isinstance(exc, RuntimeError) else 1)
     finally:
         if plan is not None:
             inject.deactivate()
-    print(json.dumps(out), flush=True)
+    primary = is_primary()
+    shutdown()
+    if primary:
+        print(json.dumps(out), flush=True)
     return 0
 
 

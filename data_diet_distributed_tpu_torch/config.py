@@ -2,17 +2,19 @@
 port reads.
 
 ``DataConfig``, ``ModelConfig``, ``OptimConfig``, ``ScoreConfig``,
-``PruneConfig``, ``TrainConfig`` and ``ResilienceConfig`` are copied whole,
-with the JAX package's validations. ``train.chunk_steps`` is accepted and
+``PruneConfig``, ``TrainConfig``, ``ResilienceConfig`` and ``MeshConfig`` are
+copied whole, with the JAX package's validations. ``train.chunk_steps`` is accepted and
 ignored (the JAX package's dispatch-amortising engine, whose results are by
 contract those of the per-step path, which is the one the port runs). Of
 ``resilience``, the port honours ``step_timeout_s``, ``preemption``,
 ``verify_restore``, ``nan_check``, ``nan_retry_budget``, ``nan_lr_factor``,
-``stage_resume`` and the ``init_probe`` settings; the multi-host consensus
-keys (``consensus``, ``consensus_poll_steps``, ``consensus_grace_s``,
-``sidechannel_dir``) are validated and have no effect in one process. The
-sections the port does not have (mesh, parallel, checkpoint, obs, elastic,
-serve, tuning) are accepted key by key and ignored, so every
+``stage_resume``, the ``init_probe`` settings and, across processes, the
+consensus keys (``consensus``, ``consensus_poll_steps``,
+``consensus_grace_s``, ``sidechannel_dir``). Of ``mesh`` every key takes
+effect (``parallel/mesh.py``) but ``model_axis``, which must be 1 (the
+tensor-parallel classifier is not ported). The sections the port does not
+have (parallel, checkpoint, obs, elastic, serve, tuning) are accepted key by
+key and ignored, so every
 ``configs/*.yaml`` loads unchanged, while an unknown key anywhere still raises
 ``KeyError`` as in JAX.
 """
@@ -150,7 +152,9 @@ class ResilienceConfig:
     probe_attempts: int = 3
     probe_timeout_s: float = 150.0
     probe_backoff_s: float = 20.0
-    # Multi-host consensus: validated, no effect in a single process.
+    # Multi-host consensus (resilience/consensus.py): agreed preemption and
+    # divergence, the min-agreed restore and the poison side channel; no
+    # effect in one process.
     consensus: bool = True
     consensus_poll_steps: int = 1
     consensus_grace_s: float = 15.0
@@ -160,10 +164,29 @@ class ResilienceConfig:
     stage_resume: bool = True
 
 
+@dataclass
+class MeshConfig:
+    """Process geometry (``parallel/mesh.py``): W processes, one device each,
+    compute what the JAX package computes on a mesh ``{data: W, model: 1}``."""
+
+    data_axis: int | None = None     # None -> the process count; else must equal it
+    model_axis: int = 1              # the tensor-parallel classifier: not ported
+    # ZeRO-1: each rank holds the momentum only for its shard of each leaf.
+    shard_opt_state: bool = False
+    # The cross-replica sharded weight update (implies shard_opt_state):
+    # gradients reduce-scatter, each rank updates its shard, the parameters
+    # all-gather. None = armed by DDT_SHARDED_UPDATE=1.
+    shard_weight_update: bool | None = None
+    # Join a torch.distributed group (tcp://coordinator_address) before the
+    # data loads: NCCL for CUDA, gloo for the CPU.
+    multihost: bool = False
+    coordinator_address: str | None = None
+    num_processes: int | None = None
+    process_id: int | None = None
+
+
 #: Keys of the sections the port does not have: accepted, ignored.
 _IGNORED_SECTIONS: dict[str, Any] = {
-    "mesh": {"data_axis", "model_axis", "shard_opt_state", "shard_weight_update",
-             "multihost", "coordinator_address", "num_processes", "process_id"},
     "parallel": {"overlap": {"enabled", "latency_hiding_scheduler",
                              "async_all_gather", "async_reduce_scatter",
                              "async_all_reduce", "async_collective_permute",
@@ -208,6 +231,7 @@ class Config:
     prune: PruneConfig = field(default_factory=PruneConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def validate(self) -> "Config":
         if self.data.dataset not in ("cifar10", "cifar100", "synthetic",
@@ -296,13 +320,32 @@ class Config:
             raise ValueError(
                 f"resilience.consensus_grace_s must be > 0, got "
                 f"{r.consensus_grace_s}")
+        m = self.mesh
+        if m.model_axis != 1:
+            raise ValueError(
+                f"mesh.model_axis={m.model_axis}: the tensor-parallel classifier is "
+                "not ported to the PyTorch package (ROADMAP.md Queue 1 item 2); "
+                "use model_axis=1")
+        if m.multihost:
+            if not m.coordinator_address or not m.num_processes or m.process_id is None:
+                raise ValueError(
+                    "mesh.multihost=true needs mesh.coordinator_address (host:port), "
+                    "mesh.num_processes and mesh.process_id")
+            if not 0 <= m.process_id < m.num_processes:
+                raise ValueError(
+                    f"mesh.process_id={m.process_id} is not in [0, "
+                    f"{m.num_processes})")
+            if m.data_axis is not None and m.data_axis != m.num_processes:
+                raise ValueError(
+                    f"mesh.data_axis={m.data_axis} must equal mesh.num_processes="
+                    f"{m.num_processes} (one device per rank)")
         return self
 
 
 _SECTIONS = {"data": DataConfig, "model": ModelConfig, "optim": OptimConfig,
              "score": ScoreConfig,
              "prune": PruneConfig, "train": TrainConfig,
-             "resilience": ResilienceConfig}
+             "resilience": ResilienceConfig, "mesh": MeshConfig}
 
 
 def _check_ignored(keys: Any, value: Any, where: str) -> None:

@@ -61,7 +61,18 @@ def apply_augment(images: torch.Tensor, flips: torch.Tensor | None,
 
 
 def augment_batch(images: torch.Tensor, seed: int, step: int, crop_pad: int = 4,
-                  flip: bool = True) -> torch.Tensor:
-    """Draw for ``(seed, step)`` and apply: the training step's augmentation."""
-    flips, offsets = draw_augment(seed, step, images.shape[0], crop_pad, flip)
+                  flip: bool = True,
+                  image_slice: tuple[int, int] | None = None) -> torch.Tensor:
+    """Draw for ``(seed, step)`` and apply: the training step's augmentation.
+    With ``image_slice=(r, W)`` the images are rank r's rows of a global batch
+    of ``W·len(images)``: the draws are the global batch's and the rank
+    applies its own rows of them, so W ranks crop as one process does."""
+    b = images.shape[0]
+    if image_slice is None:
+        flips, offsets = draw_augment(seed, step, b, crop_pad, flip)
+    else:
+        r, w = image_slice
+        flips, offsets = draw_augment(seed, step, b * w, crop_pad, flip)
+        flips = None if flips is None else flips[r * b:(r + 1) * b]
+        offsets = None if offsets is None else offsets[r * b:(r + 1) * b]
     return apply_augment(images, flips, offsets, crop_pad)

@@ -14,6 +14,13 @@ and gathers each batch on the device by the same permutation;
 ``prefetch_stream`` is the streaming plane: an assembler thread runs
 ``depth`` batches ahead and, on a CUDA device, uploads each from a ring of
 pinned buffers on a copy stream of its own. All three give the same batches.
+
+Across W ranks (``image_slice=(r, W)``, ``parallel.mesh.image_slice()``) the
+global batch of ``B`` rows (a multiple of W) splits into W contiguous slices
+and rank r holds rows ``[r·B/W, (r+1)·B/W)`` of every batch, as the JAX
+package's ``BatchSharder`` places them: ``iterate_batches`` then gathers the
+images of those rows only, and ``ResidentBatches`` and ``prefetch_stream``
+yield the rank's rows of every key.
 """
 
 from __future__ import annotations
@@ -67,18 +74,54 @@ def _order(n: int, shuffle: bool, seed: int, epoch: int) -> np.ndarray:
 
 
 def iterate_batches(ds: ArrayDataset, batch_size: int, *, shuffle: bool = False,
-                    seed: int = 0, epoch: int = 0) -> Iterator[dict]:
+                    seed: int = 0, epoch: int = 0,
+                    image_slice: tuple[int, int] | None = None) -> Iterator[dict]:
     """Yield padded, masked batches as host numpy dicts ``{image, label,
     index, mask}``, in dataset order or in ``epoch_permutation(n, seed,
     epoch)`` order with ``shuffle``; a lazy dataset's rows are normalized as
-    they are gathered."""
+    they are gathered.
+
+    ``image_slice=(p, P)``: gather only the ``p``-th of ``P`` contiguous row
+    slices of each batch's images (padded with row 0 where the slice runs
+    past the data); label, index and mask stay global, as in the JAX
+    package (``local_rows`` cuts them)."""
     asm = BatchAssembler()
-    order = _order(len(ds), shuffle, seed, epoch)
-    for start in range(0, len(ds), batch_size):
+    n = len(ds)
+    order = _order(n, shuffle, seed, epoch)
+    for start in range(0, n, batch_size):
         take = order[start:start + batch_size].astype(np.int64)
-        image, label, index, mask = asm.assemble(ds.images, ds.labels, ds.indices,
-                                                 take, batch_size, norm=ds.norm)
+        if image_slice is None:
+            image, label, index, mask = asm.assemble(ds.images, ds.labels, ds.indices,
+                                                     take, batch_size, norm=ds.norm)
+        else:
+            p, nprocs = image_slice
+            if batch_size % nprocs:
+                raise ValueError(
+                    f"batch of {batch_size} rows does not divide over {nprocs} "
+                    "processes; use parallel.mesh.global_batch_size_for")
+            loc = batch_size // nprocs
+            mask = np.zeros(batch_size, np.float32)
+            mask[:len(take)] = 1.0
+            full = np.concatenate([take, np.zeros(batch_size - len(take), np.int64)])
+            label = np.asarray(ds.labels[full], np.int32).copy()
+            index = np.asarray(ds.indices[full], np.int32).copy()
+            label[len(take):] = 0
+            index[len(take):] = 0
+            image = asm.assemble_images(ds.images, take[p * loc:(p + 1) * loc], loc,
+                                        norm=ds.norm)
         yield {"image": image, "label": label, "index": index, "mask": mask}
+
+
+def local_rows(batch: dict, image_slice: tuple[int, int] | None) -> dict:
+    """A host batch of ``iterate_batches(..., image_slice=...)`` with its
+    global label, index and mask cut to the rank's rows (the image already
+    is); the batch itself when ``image_slice`` is None."""
+    if image_slice is None:
+        return batch
+    p, nprocs = image_slice
+    loc = len(batch["mask"]) // nprocs
+    return {k: (v if k == "image" else v[p * loc:(p + 1) * loc])
+            for k, v in batch.items()}
 
 
 def to_device(batch: dict, device) -> dict:
@@ -91,13 +134,20 @@ class ResidentBatches:
     model's compute dtype: it casts its input anyway), then each batch an
     on-device gather by the epoch's permutation: per epoch only the
     permutation crosses to the device. Batches equal ``iterate_batches``'
-    (order, row-0 tail padding, zeroed label and index, mask)."""
+    (order, row-0 tail padding, zeroed label and index, mask); with
+    ``image_slice`` each is the rank's rows of the global batch of
+    ``batch_size``."""
 
     def __init__(self, ds: ArrayDataset, batch_size: int, device,
-                 image_dtype: torch.dtype = torch.float32):
+                 image_dtype: torch.dtype = torch.float32,
+                 image_slice: tuple[int, int] | None = None):
         ds = ds.dense()   # a lazy dataset uploads its normalized rows
         self.n = len(ds)
         self.batch_size = batch_size
+        self.image_slice = image_slice
+        if image_slice is not None and batch_size % image_slice[1]:
+            raise ValueError(f"batch of {batch_size} rows does not divide over "
+                             f"{image_slice[1]} processes")
         self.device = torch.device(device)
         self.images = torch.from_numpy(np.ascontiguousarray(ds.images)).to(
             self.device, image_dtype)
@@ -115,8 +165,13 @@ class ResidentBatches:
         mask[:self.n] = 1.0
         # One upload an epoch: a copy from pageable host memory waits for the
         # device's queue to drain, so a copy a batch would serialize the steps.
-        take_d = torch.from_numpy(take.reshape(nb, -1)).to(self.device)
-        mask_d = torch.from_numpy(mask.reshape(nb, -1)).to(self.device)
+        take, mask = take.reshape(nb, -1), mask.reshape(nb, -1)
+        if self.image_slice is not None:
+            p, nprocs = self.image_slice
+            loc = self.batch_size // nprocs
+            take, mask = take[:, p * loc:(p + 1) * loc], mask[:, p * loc:(p + 1) * loc]
+        take_d = torch.from_numpy(np.ascontiguousarray(take)).to(self.device)
+        mask_d = torch.from_numpy(np.ascontiguousarray(mask)).to(self.device)
         for rows, m in zip(take_d, mask_d):
             valid = m.to(torch.int32)
             yield {"image": self.images.index_select(0, rows),
@@ -127,7 +182,8 @@ class ResidentBatches:
 
 def maybe_resident(ds: ArrayDataset, batch_size: int, device,
                    image_dtype: torch.dtype = torch.float32,
-                   enabled: bool | None = None) -> ResidentBatches | None:
+                   enabled: bool | None = None,
+                   image_slice: tuple[int, int] | None = None) -> ResidentBatches | None:
     """``ResidentBatches`` when ``enabled`` is True, or when it is None and
     the images fit ``RESIDENT_MAX_BYTES`` in ``image_dtype`` (the logical
     shape: a lazy dataset uploads normalized rows); else None (the caller
@@ -138,7 +194,7 @@ def maybe_resident(ds: ArrayDataset, batch_size: int, device,
               * torch.empty((), dtype=image_dtype).element_size())
     if enabled is None and nbytes > RESIDENT_MAX_BYTES:
         return None
-    return ResidentBatches(ds, batch_size, device, image_dtype)
+    return ResidentBatches(ds, batch_size, device, image_dtype, image_slice)
 
 
 class PrefetchIterator:
@@ -325,14 +381,18 @@ def _pinned_uploads(host_batches, device: torch.device, slots: int):
 
 def prefetch_stream(ds: ArrayDataset, batch_size: int, device, *, shuffle: bool = False,
                     seed: int = 0, epoch: int = 0, depth: int = 2,
-                    stage: str = "train") -> PrefetchIterator:
+                    stage: str = "train",
+                    image_slice: tuple[int, int] | None = None) -> PrefetchIterator:
     """The streaming plane: ``iterate_batches``' batches as tensors on
     ``device``, assembled ``depth`` batches ahead on a thread (``depth <= 0``:
-    inline). On a CUDA device each is uploaded from a ring of ``depth + 1``
-    pinned buffers on a copy stream of its own, and the consumer's stream
-    waits for its copy; on the CPU the host arrays are the tensors."""
+    inline); with ``image_slice`` the rank's rows of each (``local_rows``).
+    On a CUDA device each is uploaded from a ring of ``depth + 1`` pinned
+    buffers on a copy stream of its own, and the consumer's stream waits for
+    its copy; on the CPU the host arrays are the tensors."""
     device = torch.device(device)
-    host = iterate_batches(ds, batch_size, shuffle=shuffle, seed=seed, epoch=epoch)
+    host = (local_rows(hb, image_slice)
+            for hb in iterate_batches(ds, batch_size, shuffle=shuffle, seed=seed,
+                                      epoch=epoch, image_slice=image_slice))
     if device.type != "cuda":
         return PrefetchIterator((to_device(hb, device) for hb in host), depth, stage)
     if device.index is None:   # the assembler thread has a current device of its own
@@ -421,11 +481,13 @@ class EvalBatchCache:
         self._key = None
         self._batches: list | None = None
 
-    def stream(self, ds: ArrayDataset, batch_size: int, device):
-        key = (id(ds), len(ds), batch_size, str(device))
+    def stream(self, ds: ArrayDataset, batch_size: int, device,
+               image_slice: tuple[int, int] | None = None):
+        key = (id(ds), len(ds), batch_size, str(device), image_slice)
         if self._batches is not None and self._key == key:
             return iter(self._batches)
-        batches = prefetch_stream(ds, batch_size, device, depth=0, stage="eval")
+        batches = prefetch_stream(ds, batch_size, device, depth=0, stage="eval",
+                                  image_slice=image_slice)
         if int(np.prod(ds.images.shape)) * 4 > self.max_bytes:
             return batches
         self._key, self._batches = key, list(batches)

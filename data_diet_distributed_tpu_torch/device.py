@@ -9,16 +9,22 @@ from __future__ import annotations
 
 import torch
 
+from .parallel.mesh import world_size
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means CUDA. Raises when a CUDA device is asked for (or implied)
-    and none is available."""
+    and none is available. In a process group of several ranks, CUDA without
+    an index is the rank's own card (``cuda:{current device}``, which
+    ``parallel.mesh.initialize_multihost`` set)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev} (cuda | cpu)")
+    if dev.type == "cuda" and dev.index is None and world_size() > 1:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

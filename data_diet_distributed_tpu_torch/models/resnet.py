@@ -11,8 +11,10 @@ Submodules carry the Flax parameter paths (``stem_conv``, ``BasicBlock_3.Conv_1`
 ``dtype`` (bf16 under half precision) while parameters and BatchNorm
 statistics stay fp32, as Flax's ``dtype``/``param_dtype``. No op works in
 place: the batched-GraNd hooks keep references to layer inputs and outputs.
-In train mode BatchNorm follows Flax (``BatchNorm2d``). With ``remat`` each
-block's activations are recomputed in the backward pass (``remat_block``).
+In train mode BatchNorm follows Flax (``BatchNorm2d``); inside
+``global_batch_stats`` its statistics are those of the global batch across
+the ranks of the process group. With ``remat`` each block's activations are
+recomputed in the backward pass (``remat_block``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel.collectives import all_reduce_with_grad
+from ..parallel.mesh import world_size
 
 
 class Conv2d(nn.Conv2d):
@@ -74,6 +79,24 @@ def _remat_contexts():
     """Checkpoint's (forward, recompute) contexts: the recomputed forward
     records no batch statistics, so each layer's reach the sink once."""
     return contextlib.nullcontext(), _no_stats_sink()
+
+
+_GLOBAL_STATS: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "global_batch_stats", default=False)
+
+
+@contextlib.contextmanager
+def global_batch_stats() -> Iterator[None]:
+    """Within the block, train-mode ``BatchNorm2d`` normalizes by the statistics
+    of the global batch across the ranks (the JAX package's BatchNorm under a
+    data-sharded ``jit``): the training step sets it at W > 1. Train-mode
+    scoring does not, so it normalizes by the rank's own rows, as the JAX
+    package's ``shard_map`` does."""
+    token = _GLOBAL_STATS.set(True)
+    try:
+        yield
+    finally:
+        _GLOBAL_STATS.reset(token)
 
 
 _REMAT_OFF: contextvars.ContextVar[bool] = contextvars.ContextVar("remat_off",
@@ -126,7 +149,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``collect_batch_stats`` the batch statistics go to the sink, from which
     the training step forms Flax's ``m · running + (1 − m) · batch``
     (``flax_momentum``). Outside it (train-mode scoring, ``vmap``) they are
-    dropped, as the JAX package drops them."""
+    dropped, as the JAX package drops them.
+
+    Inside ``global_batch_stats`` at W ranks, each rank's per-channel fp32
+    ``Σx`` and ``Σx²`` are summed across the ranks (a differentiable
+    all-reduce, whose backward sums the cotangents) and divided by the global
+    count; the same formula then follows, so every rank normalizes, and
+    records, the global batch's statistics."""
 
     @property
     def flax_momentum(self) -> float:
@@ -137,8 +166,15 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if _GLOBAL_STATS.get() and world_size() > 1:
+            n = xf.shape[0] * xf.shape[2] * xf.shape[3] * world_size()
+            sums = all_reduce_with_grad(torch.stack([xf.sum(dim=(0, 2, 3)),
+                                                     (xf * xf).sum(dim=(0, 2, 3))]))
+            mean, mean2 = sums[0] / n, sums[1] / n
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            mean2 = (xf * xf).mean(dim=(0, 2, 3))
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
         sink = _STATS_SINK.get()
         if sink is not None:
             sink[self] = (mean.detach(), var.detach())

@@ -7,6 +7,13 @@ resident plane uploads the dataset once as ``[nb, B, ...]`` batch tensors (the
 ``ScoreResident`` layout) and reuses them for every seed; the streaming plane
 (``ScoreStream``) assembles and uploads the same batches per seed through
 ``prefetch_stream``, so its scores are bitwise the resident plane's.
+
+Across W ranks each rank scores its rows of every global batch (the batch
+rounded up to a multiple of W), as the JAX package's ``shard_map`` over the
+flattened mesh does, so train-mode scoring normalizes by the rank's rows.
+Per seed each rank fills the positions it owns in a float64 ``[N]`` vector,
+and one float64 SUM across the ranks joins them (``collectives.sum_float64``):
+each position has one owner, so every rank holds the same vector bitwise.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from ..data.datasets import ArrayDataset, make_position_joiner
 from ..data.pipeline import (logging_data_plane, merge_stall_stats, num_batches,
                              pad_batch, prefetch_stream)
 from ..device import resolve_device, set_scoring_determinism
+from ..parallel.collectives import sum_float64
+from ..parallel.mesh import global_batch_size_for, image_slice, world_size
 from ..weights import variables_to
 from .scores import make_local_scores, resolve_score_method, resolve_use_kernels
 
@@ -32,9 +41,11 @@ class ScoreResident:
     """The dataset pre-batched on the device: ``images`` [nb, B, H, W, C],
     ``labels`` and ``mask`` [nb, B], in dataset order with the tail batch
     padded by row-0 images, zeroed labels and mask 0. ``index`` and
-    ``valid`` stay on the host for the score join."""
+    ``valid`` stay on the host for the score join. With ``image_slice=(r,
+    W)`` only the rank's ``B/W`` rows of each batch are held."""
 
-    def __init__(self, ds: ArrayDataset, batch_size: int, device):
+    def __init__(self, ds: ArrayDataset, batch_size: int, device,
+                 image_slice: tuple[int, int] | None = None):
         ds = ds.dense()   # a lazy dataset uploads its normalized rows
         self.n = len(ds)
         self.nb = num_batches(self.n, batch_size)
@@ -44,11 +55,19 @@ class ScoreResident:
         index = np.zeros(total, np.int32)
         index[:self.n] = ds.indices
         shape = (self.nb, batch_size)
-        self.images = torch.from_numpy(imgs.reshape(*shape, *imgs.shape[1:])).to(device)
-        self.labels = torch.from_numpy(labels.reshape(shape)).to(device)
-        self.mask = torch.from_numpy(mask.reshape(shape)).to(device)
-        self.index = index.reshape(shape)
-        self.valid = mask.reshape(shape).astype(bool)
+        imgs = imgs.reshape(*shape, *imgs.shape[1:])
+        labels, mask, index = labels.reshape(shape), mask.reshape(shape), index.reshape(shape)
+        if image_slice is not None:
+            p, nprocs = image_slice
+            loc = batch_size // nprocs
+            cut = slice(p * loc, (p + 1) * loc)
+            imgs, labels, mask, index = (np.ascontiguousarray(a[:, cut])
+                                         for a in (imgs, labels, mask, index))
+        self.images = torch.from_numpy(imgs).to(device)
+        self.labels = torch.from_numpy(labels).to(device)
+        self.mask = torch.from_numpy(mask).to(device)
+        self.index = index
+        self.valid = mask.astype(bool)
 
     def batches(self):
         for i in range(self.nb):
@@ -73,26 +92,32 @@ class ScoreStream:
     batches in dataset order on the prefetch thread and uploads them through
     ``prefetch_stream`` (``prefetch_depth`` ahead), so nothing dataset-sized
     is held on the device. ``stall_stats`` totals the passes' prefetch
-    accounting."""
+    accounting. With ``image_slice`` each batch is the rank's rows."""
 
-    def __init__(self, ds: ArrayDataset, batch_size: int, device, prefetch_depth: int = 2):
+    def __init__(self, ds: ArrayDataset, batch_size: int, device, prefetch_depth: int = 2,
+                 image_slice: tuple[int, int] | None = None):
         self.ds = ds
         self.batch_size = batch_size
         self.device = device
         self.prefetch_depth = prefetch_depth
+        self.image_slice = image_slice
         self.stall_stats: dict = {}
 
     def batches(self):
         it = prefetch_stream(self.ds, self.batch_size, self.device,
-                             depth=self.prefetch_depth, stage="score")
+                             depth=self.prefetch_depth, stage="score",
+                             image_slice=self.image_slice)
         n, bs = len(self.ds), self.batch_size
+        p, nprocs = self.image_slice or (0, 1)
+        loc = bs // nprocs
         try:
             for start, b in zip(range(0, n, bs), it):
                 # The join's index and validity on the host, without a fetch.
-                rows = min(bs, n - start)
-                index = np.zeros(bs, np.int32)
-                index[:rows] = self.ds.indices[start:start + rows]
-                yield (index, np.arange(bs) < rows, (b["image"], b["label"], b["mask"]))
+                pos = start + p * loc + np.arange(loc)
+                valid = pos < n
+                index = np.zeros(loc, np.int32)
+                index[valid] = self.ds.indices[pos[valid]]
+                yield (index, valid, (b["image"], b["label"], b["mask"]))
         finally:
             it.close()
             merge_stall_stats(self.stall_stats, it.stats())
@@ -140,7 +165,11 @@ def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
     A streamed pass logs one ``data_plane`` record to ``log(kind, **fields)``,
     after the shard-read fault records it drains, even when it fails.
     ``on_seed_done(k, seed_scores)`` fires after seed ``k``'s pass with its
-    float64 vector."""
+    float64 vector (the whole ``[N]`` one on every rank).
+
+    In a process group of W ranks the call is a collective: ``batch_size``
+    rounds up to a multiple of W and each rank scores its rows of every
+    batch."""
     device = resolve_device(device)
     if device.type == "cuda":
         set_scoring_determinism()
@@ -149,6 +178,8 @@ def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
                               chunk=chunk, eval_mode=eval_mode,
                               use_kernels=resolve_use_kernels(use_kernels))
     variables_seeds = [variables_to(v, device) for v in variables_seeds]
+    batch_size = global_batch_size_for(batch_size)
+    rows = image_slice()
     n = len(ds)
     pos_of = make_position_joiner(ds.indices)
     if data_plane == "streaming":
@@ -157,13 +188,15 @@ def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
         device_resident = True
     if device_resident is None:
         device_resident = resident_by_default(len(variables_seeds), ds)
-    feed = (ScoreResident(ds, batch_size, device) if device_resident
-            else ScoreStream(ds, batch_size, device, prefetch_depth))
+    feed = (ScoreResident(ds, batch_size, device, rows) if device_resident
+            else ScoreStream(ds, batch_size, device, prefetch_depth, rows))
     total = np.zeros(n, np.float64)
     with logging_data_plane(None if device_resident else log, "score", "stream",
                             getattr(feed, "stall_stats", {}), ds):
         for k, variables in enumerate(variables_seeds):
             seed_scores = score_pass(local, variables, feed.batches(), n, pos_of)
+            if world_size() > 1:
+                seed_scores = sum_float64(seed_scores)
             total += seed_scores
             if on_seed_done is not None:
                 on_seed_done(k, seed_scores)

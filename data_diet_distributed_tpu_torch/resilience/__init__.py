@@ -1,5 +1,5 @@
 """Resilience core of the PyTorch port (counterpart of
-``data_diet_distributed_tpu/resilience/``, single process):
+``data_diet_distributed_tpu/resilience/``):
 
 ==================  =========================================================
 preemption.py       SIGTERM/SIGINT -> final synchronous checkpoint ->
@@ -13,14 +13,17 @@ integrity.py        the checkpoint manifest, verified at restore; corruption
                     falls back to the newest earlier step
 stages.py           durable stage manifest and per-seed score partials: the
                     run/sweep/score pipeline re-enters at the exact stage
+consensus.py        across ranks: agreed preemption and divergence, the
+                    min-agreed restore, the poison side channel
 inject.py           deterministic fault injection for all of the above
 ==================  =========================================================
 
 Configured by the ``resilience:`` config block and ``train.auto_resume_retries``;
 events go through the entry points' ``log(kind, **fields)`` as ``fault``,
-``recovery``, ``preempted``, ``stage`` and ``score_seeds_resumed`` records with
-the JAX package's field names. Not here yet: multi-host consensus, elastic
-supervision, the checkpoint tiers and the other fault classes (ROADMAP.md).
+``recovery``, ``preempted``, ``stage``, ``score_seeds_resumed``,
+``consensus`` and ``recovery_refused`` records with the JAX package's field
+names. Not here yet: elastic supervision, the checkpoint tiers and the host
+kill, rejoin and serve fault classes (ROADMAP.md).
 """
 
 from . import inject  # noqa: F401

@@ -21,11 +21,14 @@ or from the environment for a drill through the CLI:
 ``DDT_FAULT_PLAN='{"sigterm_at_epoch_end": 0}' python -m
 data_diet_distributed_tpu_torch.cli train ...``.
 
-The classes here are the JAX package's single-process training classes and
-its storage classes (the ``shard_read`` site of ``data/sharded.py``), under
-its field names. Its other classes (``NOT_PORTED``: rank targeting, host
-kill and rejoin, the consensus restore drill, the serve classes) have no site
-in this package yet; a plan that arms one is refused by name.
+The classes here are the JAX package's training classes, its storage
+classes (the ``shard_read`` site of ``data/sharded.py``) and its consensus
+ones, under its field names: ``rank`` targets a plan at one process of a
+process group, and ``hide_latest_durable`` drops a rank's newest verified
+step from its consensus-restore candidates (the ``durable_candidates`` site
+of ``fit``). Its other classes (``NOT_PORTED``: host kill and rejoin, which
+belong to elastic supervision, and the serve classes) have no site in this
+package yet; a plan that arms one is refused by name.
 """
 
 from __future__ import annotations
@@ -36,12 +39,15 @@ import signal
 import time
 from dataclasses import dataclass, fields
 
+from ..parallel.mesh import process_index
+
 
 @dataclass
 class FaultPlan:
     """One coordinate per fault class; ``None`` = that class is off. Step
     coordinates are GLOBAL step indices within a fit (``epoch *
-    steps_per_epoch + i``); epoch coordinates are epoch indices."""
+    steps_per_epoch + i``); epoch coordinates are epoch indices. ``rank``
+    targets the whole plan at one process of a group (None = every one)."""
 
     step_exception_at: int | None = None   # raise RuntimeError before step N
     hang_at: int | None = None             # sleep hang_seconds before step N
@@ -64,13 +70,17 @@ class FaultPlan:
     eio_on_read: int = 1
     # This much latency on every shard read (slow storage); not fired once.
     slow_shard_read_ms: float | None = None
+    # Drop the newest step from this rank's consensus-restore candidates, as
+    # if its final save never landed (the min-agreed restore drill).
+    hide_latest_durable: bool = False
+    rank: int | None = None                # target process index (None = all)
 
 
 #: The JAX package's FaultPlan fields this package cannot fire yet.
-NOT_PORTED = ("kill_rank_after_epoch", "rejoin_after_stage", "hide_latest_durable",
+NOT_PORTED = ("kill_rank_after_epoch", "rejoin_after_stage",
               "kill_replica_after_requests", "wedge_dispatcher_after",
               "partition_replica_after", "partition_seconds", "slow_replica_ms",
-              "slow_if_step", "rank")
+              "slow_if_step")
 
 
 class FaultInjector:
@@ -78,17 +88,22 @@ class FaultInjector:
         self.plan: FaultPlan | None = None
         self.fired: set[str] = set()
 
+    def _rank_targeted(self) -> bool:
+        """Whether this process is the plan's target (always, untargeted)."""
+        return self.plan.rank is None or process_index() == self.plan.rank
+
     def _due(self, fault: str, coord) -> bool:
-        """True exactly once, when the plan arms ``fault`` at ``coord``."""
+        """True exactly once, when the plan arms ``fault`` at ``coord`` and this
+        process is the targeted rank."""
         if self.plan is None or fault in self.fired:
             return False
-        if getattr(self.plan, fault) != coord:
+        if getattr(self.plan, fault) != coord or not self._rank_targeted():
             return False
         self.fired.add(fault)
         return True
 
     def fire(self, site: str, **ctx) -> None:
-        if self.plan is None:
+        if self.plan is None or not self._rank_targeted():
             return
         if site == "step":
             step = ctx["step"]
@@ -123,10 +138,14 @@ class FaultInjector:
                 truncate_checkpoint(ctx["directory"], ctx["step"])
 
     def transform(self, site: str, value, **ctx):
-        if self.plan is None:
+        if self.plan is None or not self._rank_targeted():
             return value
         if site == "epoch_loss" and self._due("nan_loss_at_epoch", ctx["epoch"]):
             return float("nan")
+        if (site == "durable_candidates" and self.plan.hide_latest_durable
+                and "hide_latest_durable" not in self.fired and len(value)):
+            self.fired.add("hide_latest_durable")
+            return [s for s in value if s != max(value)]
         if (site == "shard_read" and self.plan.torn_shard_read is not None
                 and ctx["shard"] == self.plan.torn_shard_read
                 and ctx["read"] >= self.plan.torn_on_read):

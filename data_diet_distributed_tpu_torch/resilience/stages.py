@@ -12,12 +12,13 @@ re-enter at the exact stage (copy of
   is bitwise an uninterrupted one), validated on load: a truncated, corrupt or
   mismatched file is recomputed, never trusted.
 
-Writes are atomic (temp + ``os.replace``). The JSON layout (``version``,
-``fingerprint``, ``stages``) and the partials' validation (method, seed,
-indices, fingerprint, shape, finite) are the JAX package's. Single process:
-the JAX package's broadcast of the loaded manifest from rank 0, its
-primary-only writes and its cross-rank agreement on usable partials have
-nothing to do here and are dropped.
+Writes are atomic (temp + ``os.replace``) and rank 0's alone. The JSON
+layout (``version``, ``fingerprint``, ``stages``) and the partials' validation
+(method, seed, indices, fingerprint, shape, finite) are the JAX package's.
+Across ranks the loaded manifest is rank 0's, broadcast
+(``consensus.broadcast_json``), so every rank makes the same skip and resume
+decisions, and the usable partials are those every rank can load
+(``consensus.agree_common``).
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ import time
 
 import numpy as np
 
+from ..parallel.mesh import is_primary, world_size
 from ..utils.io import atomic_savez
+from .consensus import agree_common, broadcast_json
 
 MANIFEST_VERSION = 1
 
@@ -81,11 +84,12 @@ class StageManifest:
             self._log("manifest", "reset", reason="config fingerprint changed",
                       path=self.path)
             data = None
+        data = broadcast_json(data)   # rank 0's view on every rank
         if data is not None:
             self._data = data
 
     def _write(self) -> None:
-        if not self.enabled:
+        if not self.enabled or not is_primary():
             return
         parent = os.path.dirname(os.path.abspath(self.path))
         os.makedirs(parent, exist_ok=True)
@@ -153,6 +157,8 @@ class ScorePartialStore:
                      path=self.path(seed), error=error[:200])
 
     def save(self, seed: int, scores: np.ndarray) -> None:
+        if not is_primary():
+            return
         os.makedirs(self.directory, exist_ok=True)
         atomic_savez(self.path(seed), scores=np.asarray(scores, np.float64),
                      indices=self.indices, method=self.method, seed=int(seed),
@@ -182,5 +188,10 @@ class ScorePartialStore:
         return scores
 
     def load_all(self, seeds) -> dict[int, np.ndarray]:
-        """Every seed with a valid partial, in ``seeds`` order."""
-        return {int(s): arr for s in seeds if (arr := self.load(int(s))) is not None}
+        """Every seed with a valid partial, in ``seeds`` order; across ranks
+        those valid on every rank (a collective)."""
+        loaded = {int(s): arr for s in seeds if (arr := self.load(int(s))) is not None}
+        if world_size() > 1:
+            agreed = agree_common(list(loaded))
+            loaded = {s: arr for s, arr in loaded.items() if s in agreed}
+        return loaded

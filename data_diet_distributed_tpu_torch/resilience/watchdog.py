@@ -66,22 +66,34 @@ class Watchdog:
     SIGNAL = signal.SIGUSR1
 
     def __init__(self, timeout_s: float, label: str = "section", *,
-                 escalate_s: float | None = None,
+                 on_fire=None, peer_check=None, escalate_s: float | None = None,
                  escalate_code: int = EXIT_RETRIABLE):
-        """``escalate_s``: after firing, if the guarded section is still
-        running this much later (the main thread is stuck in a native call the
-        handler cannot reach), ``os._exit(escalate_code)``. None = never. The
-        JAX package's consensus hooks (``on_fire``, ``peer_check``,
-        ``diagnose``) wait for the multi-host port."""
+        """The consensus wiring (``Consensus.watchdog_kwargs``), all optional:
+
+        * ``on_fire(reason)``: called from the monitor thread when the
+          deadline passes, before the signal: the poison write, so the peers
+          learn of the hang even if this process never runs Python again;
+        * ``peer_check()``: polled each monitor tick; an exception it returns
+          is raised in the main thread (a peer's poison aborts this rank);
+        * ``escalate_s``: after firing (own deadline or a peer's poison), if
+          the guarded section still runs this much later (the main thread is
+          stuck in a native call, a collective, that the handler cannot
+          reach), ``os._exit(escalate_code)``. None = never.
+
+        The JAX package's ``diagnose`` (per-rank heartbeats) waits for the
+        observability port."""
         if timeout_s <= 0:
             raise ValueError(f"watchdog timeout must be > 0, got {timeout_s}")
         self.timeout_s = float(timeout_s)
         self.label = label
+        self._on_fire = on_fire
+        self._peer_check = peer_check
         self._escalate_s = escalate_s
         self._escalate_code = escalate_code
         self._poll_s = max(0.05, min(1.0, self.timeout_s / 10.0))
         self._deadline = 0.0
         self._fired = False
+        self._pending: BaseException | None = None
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._saved = None
@@ -105,13 +117,28 @@ class Watchdog:
                                "(silent hang converted to a retriable failure)")
 
     def _on_signal(self, signum, frame):
-        raise self._timeout_error()
+        raise self._pending or self._timeout_error()
 
     def _watch(self) -> None:
         while not self._stop.wait(self._poll_s):
-            if time.monotonic() <= self._deadline:
+            peer_exc = None
+            if self._peer_check is not None:
+                try:
+                    peer_exc = self._peer_check()
+                except OSError:   # a side channel that does not read is no verdict
+                    peer_exc = None
+            expired = time.monotonic() > self._deadline
+            if peer_exc is None and not expired:
                 continue
             self._fired = True
+            self._pending = peer_exc if peer_exc is not None else self._timeout_error()
+            if expired and self._on_fire is not None:
+                # Own expiry only (a peer's poison is already written), from
+                # this thread: the main thread may never run Python again.
+                try:
+                    self._on_fire(str(self._pending))
+                except OSError:
+                    pass
             # To the MAIN thread: raise_signal would deliver to this thread and
             # leave the main thread's blocking call (sleep, lock) running.
             signal.pthread_kill(threading.main_thread().ident, self.SIGNAL)
@@ -133,7 +160,9 @@ class Watchdog:
         self._stop.set()
         if self._thread is not None:
             self._thread.join()
-        if self._fired and not isinstance(exc, WatchdogTimeout):
+        handled = exc is not None and (isinstance(exc, WatchdogTimeout)
+                                       or exc is self._pending)
+        if self._fired and not handled:
             # Fired, but the raise has not surfaced in the main thread yet.
             # Drain it while OUR handler is still installed: restoring first
             # could hand a pending SIGUSR1 to SIG_DFL, which kills the process.
@@ -141,11 +170,11 @@ class Watchdog:
             try:
                 while time.monotonic() < deadline:
                     time.sleep(self._poll_s / 10)
-            except WatchdogTimeout:
+            except (WatchdogTimeout, type(self._pending)):
                 pass
         signal.signal(self.SIGNAL, self._saved)
         if self._fired and exc_type is None:
-            raise self._timeout_error() from None
+            raise (self._pending or self._timeout_error()) from None
         return False
 
 

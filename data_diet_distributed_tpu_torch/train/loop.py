@@ -40,8 +40,16 @@ re-enters a started retrain from its checkpoints. Entry points take
 (``epoch``, ``resume``, ``prune``, ``summary``, ``fault``, ``recovery``,
 ``preempted``, ``stage``, ``score_seeds_resumed``, ...).
 
-Not ported here: the chunked engine and the observability, consensus and
-elastic hooks.
+Across W ranks (a ``torch.distributed`` group, ``parallel/mesh.py``) every
+entry point is a collective that computes what the JAX package computes on a
+``{data: W}`` mesh: each rank trains, evaluates and scores its rows of every
+global batch, the sums cross the ranks, rank 0 alone writes files (after
+which every rank waits at a barrier and reads them), and ``fit`` runs the
+consensus hooks (``resilience/consensus.py``): the agreed preemption poll,
+the peer check, the agreed NaN verdict and the min-agreed restore.
+``fit_with_recovery`` refuses to retry in process across ranks.
+
+Not ported here: the chunked engine and the observability and elastic hooks.
 """
 
 from __future__ import annotations
@@ -69,9 +77,13 @@ from ..models import create_model_from_cfg
 from ..ops.forgetting import AUMTracker, ForgettingTracker
 from ..ops.scores import make_local_scores
 from ..ops.scoring import resident_by_default, score_dataset
+from ..parallel.collectives import sum_float64
+from ..parallel.mesh import (global_batch_size_for, image_slice, is_primary, make_mesh,
+                             sync_hosts, world_size)
 from ..pruning import (build_prune_manifest, select_indices, verify_prune_manifest,
                        write_prune_manifest)
 from ..resilience import inject
+from ..resilience.consensus import Consensus, agree_any
 from ..resilience.preemption import Preempted, PreemptionHandler
 from ..resilience.sentinel import DivergenceError, LossSentinel
 from ..resilience.stages import (ScorePartialStore, StageManifest,
@@ -79,7 +91,8 @@ from ..resilience.stages import (ScorePartialStore, StageManifest,
 from ..resilience.watchdog import Watchdog, WatchdogTimeout
 from ..utils.io import atomic_savez, load_scores_npz, provenance_path
 from ..weights import init_variables
-from .state import TrainState, create_train_state, make_optimizer
+from .state import (TrainState, create_train_state, gather_slots, make_optimizer,
+                    shard_slots)
 from .steps import eval_step, train_step
 
 Log = Callable[..., None]
@@ -146,7 +159,8 @@ def train_resident(cfg: Config, ds: ArrayDataset, device) -> ResidentBatches | N
     enabled = cfg.train.device_resident_data
     if cfg.data.data_plane == "resident" and enabled is None:
         enabled = True
-    return maybe_resident(ds, cfg.data.batch_size, device, image_dtype(cfg), enabled)
+    return maybe_resident(ds, global_batch_size_for(cfg.data.batch_size), device,
+                          image_dtype(cfg), enabled, image_slice())
 
 
 def _with_epochs(cfg: Config, num_epochs: int | None, seed: int | None) -> Config:
@@ -179,20 +193,28 @@ def evaluate(model, state: TrainState, ds: ArrayDataset, batch_size: int, *,
              device=None, resident: ResidentBatches | None = None,
              cache: EvalBatchCache | None = None) -> dict[str, float]:
     """Masked loss and accuracy over ``ds``: ``{loss, accuracy, examples}``,
-    from ``resident`` batches, or streamed (through ``cache`` when given)."""
+    from ``resident`` batches, or streamed (through ``cache`` when given).
+    Across ranks ``batch_size`` rounds up to a multiple of W, each rank
+    evaluates its rows and the sums are the ranks' sums."""
     device = resolve_device(device)
+    batch_size = global_batch_size_for(batch_size)
+    rows = image_slice()
     if resident is not None and resident.batch_size != batch_size:
         raise ValueError(
             f"evaluate: resident batches were built at batch size "
             f"{resident.batch_size} but batch_size={batch_size} was requested")
     batches = (resident() if resident is not None
-               else cache.stream(ds, batch_size, device) if cache is not None
-               else prefetch_stream(ds, batch_size, device, depth=0, stage="eval"))
+               else cache.stream(ds, batch_size, device, rows) if cache is not None
+               else prefetch_stream(ds, batch_size, device, depth=0, stage="eval",
+                                    image_slice=rows))
     outs = [eval_step(model, state, b) for b in batches]
     totals = {"loss_sum": 0.0, "correct": 0.0, "examples": 0.0}
     for m in _fetch(outs, tuple(totals)):
         for k in totals:
             totals[k] += m[k]
+    if rows:
+        summed = sum_float64(np.array([totals[k] for k in totals], np.float64))
+        totals = dict(zip(totals, summed.tolist()))
     n = max(totals["examples"], 1.0)
     return {"loss": totals["loss_sum"] / n, "accuracy": totals["correct"] / n,
             "examples": int(n)}
@@ -225,17 +247,28 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
     synchronous checkpoint; a mid-epoch one records ``epoch`` as the last
     completed epoch (-1 when none), so a resume replays the interrupted epoch
     from its start while the step counter continues (at least once, as in the
-    JAX package)."""
+    JAX package).
+
+    Across W ranks the batch rounds up to a multiple of W and each rank holds
+    its rows (``train_batches`` included); the momentum is sharded under
+    ZeRO-1 and the sharded update and gathered whole into each checkpoint,
+    which rank 0 writes. With ``resilience.consensus`` the ranks agree on the
+    preemption step, on a NaN epoch and on the restore step (the newest every
+    rank verified, restored exactly), and a peer's poison aborts the fit
+    before the next collective."""
     cfg = _with_epochs(cfg, num_epochs, seed)
     device = resolve_device(device)
     if device.type == "cuda":
         set_scoring_determinism()
     log = log or _no_log
-    batch_size = cfg.data.batch_size
+    make_mesh(cfg.mesh)   # the geometry check
+    rows = image_slice()
+    batch_size = global_batch_size_for(cfg.data.batch_size)
     steps_per_epoch = num_batches(len(train_ds), batch_size)
     model = create_model_from_cfg(cfg).to(device)
     state = create_train_state(cfg, cfg.train.seed, device, model)
     optimizer = make_optimizer(cfg, steps_per_epoch)
+    consensus = Consensus.create(cfg, log=log, tag=tag)
 
     ckpt = None
     start_epoch = 0
@@ -243,7 +276,18 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
         ckpt = CheckpointManager(checkpoint_dir, max_to_keep=cfg.train.keep_checkpoints)
         if cfg.train.resume and (resume_step is not None
                                  or ckpt.latest_step() is not None):
-            if cfg.resilience.verify_restore:
+            if consensus is not None:
+                # The newest step every rank verified, restored exactly: a
+                # per-rank fallback would resume the ranks at different steps.
+                candidates = inject.transform(
+                    "durable_candidates", ckpt.verified_steps(max_step=resume_step))
+                used_step = consensus.agree_restore_step(candidates)
+                if used_step is None:
+                    raise FileNotFoundError(
+                        f"{checkpoint_dir}: no checkpoint step is durable on every "
+                        f"rank — nothing all {consensus.world} ranks can resume from")
+                state = ckpt.restore(used_step, device)
+            elif cfg.resilience.verify_restore:
                 # A truncated or drifted newest step falls back to the newest
                 # earlier one that verifies, each refusal logged.
                 state, used_step = ckpt.restore_verified(
@@ -265,6 +309,7 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
             start_epoch = (int(meta["epoch"]) + 1 if "epoch" in meta
                            else state.step // steps_per_epoch)
             log("resume", tag=tag, step=state.step, epoch=start_epoch)
+    state = shard_slots(state, optimizer)
 
     augment = ((cfg.data.crop_pad, cfg.data.flip, cfg.train.seed)
                if cfg.data.augment else None)
@@ -273,9 +318,10 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
     test_batches = eval_cache = None
     if test_ds is not None:
         test_batches = maybe_resident(
-            test_ds, cfg.data.eval_batch_size, device, image_dtype(cfg),
+            test_ds, global_batch_size_for(cfg.data.eval_batch_size), device,
+            image_dtype(cfg),
             enabled=(False if cfg.data.data_plane == "streaming"
-                     else cfg.train.device_resident_data))
+                     else cfg.train.device_resident_data), image_slice=rows)
         if test_batches is None:
             eval_cache = EvalBatchCache()
     plane_stats: dict = {}
@@ -286,7 +332,9 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
     # polled flag, a missed heartbeat raises a retriable WatchdogTimeout, and
     # a NaN/inf epoch loss raises DivergenceError before the state is saved.
     timeout = cfg.resilience.step_timeout_s
-    watchdog = Watchdog(timeout, label=f"{tag} step loop") if timeout else None
+    watchdog = (Watchdog(timeout, label=f"{tag} step loop",
+                         **(consensus.watchdog_kwargs() if consensus is not None else {}))
+                if timeout else None)
     preempt = PreemptionHandler(enabled=cfg.resilience.preemption)
     sentinel = LossSentinel(enabled=cfg.resilience.nan_check)
     with logging_data_plane(log, tag, "resident" if train_batches is not None
@@ -299,21 +347,29 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
                        if train_batches is not None else
                        prefetch_stream(train_ds, batch_size, device, shuffle=shuffle,
                                        seed=seed, epoch=epoch,
-                                       depth=cfg.data.prefetch_depth, stage=tag))
+                                       depth=cfg.data.prefetch_depth, stage=tag,
+                                       image_slice=rows))
             metrics = []
             try:
                 for i, b in enumerate(batches):
                     if watchdog is not None:
                         watchdog.beat()
-                    inject.fire("step", epoch=epoch, step=epoch * steps_per_epoch + i)
+                    unit = epoch * steps_per_epoch + i
+                    if consensus is not None:
+                        # A peer's poison aborts here, before a collective the
+                        # poisoned peer will never join.
+                        consensus.check_peers(unit)
+                    inject.fire("step", epoch=epoch, step=unit)
                     metrics.append(train_step(model, optimizer, state, b, augment))
                     if (i + 1) % cfg.train.log_every_steps == 0:
                         # Host arithmetic only: the loss waits for the epoch's one fetch.
                         log("train_step", tag=tag, epoch=epoch, step=state.step)
-                    # The poll reads a host flag: no device sync per step.
-                    if preempt.requested:
-                        _preempt_exit(preempt, ckpt, state, log, tag, epoch - 1,
-                                      steps_per_epoch, saved_steps, watchdog=watchdog)
+                    # One rank: a host flag, no device sync per step. Across
+                    # ranks: the flags OR-reduced over the host group.
+                    if _preempt_due(preempt, consensus, unit):
+                        _preempt_exit(preempt, ckpt, optimizer, state, log, tag,
+                                      epoch - 1, steps_per_epoch, saved_steps,
+                                      watchdog=watchdog)
             finally:
                 # Preempted or failed mid-epoch, the assembler thread stops here.
                 batches.close()
@@ -334,7 +390,8 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
             record["train_loss"] = inject.transform("epoch_loss", record["train_loss"],
                                                     epoch=epoch)
             try:
-                sentinel.check(record["train_loss"], epoch=epoch, tag=tag)
+                sentinel.check(record["train_loss"], epoch=epoch, tag=tag,
+                               agree=consensus.agree if consensus is not None else None)
             except DivergenceError:
                 # Before eval and checkpoint: the diverged state is never made
                 # durable. (The loss as a string: NaN is not JSON.)
@@ -359,7 +416,7 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
                 (epoch + 1) % cfg.train.checkpoint_every == 0
                 or epoch + 1 == cfg.train.num_epochs)
             if save_now:
-                ckpt.save(state.step, state, metrics={
+                ckpt.save(state.step, gather_slots(state, optimizer), metrics={
                     "epoch": epoch, "steps_per_epoch": steps_per_epoch,
                     **{k: v for k, v in record.items() if isinstance(v, (int, float))}})
                 if saved_steps is not None:
@@ -369,17 +426,28 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
                 if watchdog is not None:
                     watchdog.beat()
             inject.fire("epoch_end", epoch=epoch)
-            if preempt.requested:
-                _preempt_exit(preempt, ckpt, state, log, tag, epoch, steps_per_epoch,
-                              saved_steps, already_durable=state.step if save_now else None,
+            if _preempt_due(preempt, consensus):   # an epoch end: a forced poll
+                _preempt_exit(preempt, ckpt, optimizer, state, log, tag, epoch,
+                              steps_per_epoch, saved_steps,
+                              already_durable=state.step if save_now else None,
                               watchdog=watchdog)
     result.state = state
     result.wall_s = time.perf_counter() - t_start
     return result
 
 
+def _preempt_due(preempt: PreemptionHandler, consensus: Consensus | None,
+                 unit: int | None = None) -> bool:
+    """The preemption poll: the local flag, or under consensus the flags
+    OR-reduced across the ranks on the poll cadence (``unit=None`` forces a
+    poll), so a SIGTERM to one rank ends every rank at the same step."""
+    if consensus is not None:
+        return consensus.agree_preempt(preempt.requested, unit=unit)
+    return preempt.requested
+
+
 def _preempt_exit(preempt: PreemptionHandler, ckpt: CheckpointManager | None,
-                  state: TrainState, log: Log, tag: str, epoch: int,
+                  optimizer, state: TrainState, log: Log, tag: str, epoch: int,
                   steps_per_epoch: int, saved_steps: list[int] | None,
                   already_durable: int | None = None,
                   watchdog: Watchdog | None = None) -> None:
@@ -395,7 +463,7 @@ def _preempt_exit(preempt: PreemptionHandler, ckpt: CheckpointManager | None,
     step = state.step
     durable = already_durable
     if ckpt is not None and durable is None:
-        ckpt.save(step, state, metrics={"epoch": epoch,
+        ckpt.save(step, gather_slots(state, optimizer), metrics={"epoch": epoch,
                                         "steps_per_epoch": steps_per_epoch,
                                         "preempted": True})
         if saved_steps is not None:
@@ -411,7 +479,7 @@ def fit_with_recovery(cfg: Config, train_ds: ArrayDataset,
                       checkpoint_dir: str | None = None, log: Log | None = None,
                       **kwargs) -> FitResult:
     """``fit`` with restart-based recovery (the JAX package's
-    ``fit_with_recovery``, single process).
+    ``fit_with_recovery``).
 
     * ``Preempted`` propagates: the final checkpoint is durable and the
       process is being evicted.
@@ -425,8 +493,19 @@ def fit_with_recovery(cfg: Config, train_ds: ArrayDataset,
 
     Only this call's checkpoints are resumed from: a stale checkpoint left in
     the directory by an earlier run would otherwise make the retry skip every
-    epoch. With no ``checkpoint_dir`` it is exactly ``fit``."""
+    epoch. With no ``checkpoint_dir`` it is exactly ``fit``.
+
+    Across ranks there is no retry in process (one rank re-entering ``fit``
+    while its peers do not would desync every collective): a failure is
+    logged as ``recovery_refused`` (``reason=multihost``) and raised; the job
+    restarts with ``train.resume=true``."""
     log = log or _no_log
+
+    def _refuse_if_multihost(err: Exception, attempt_no: int) -> None:
+        if world_size() > 1:
+            log("recovery_refused", reason="multihost", retry=attempt_no,
+                error=repr(err)[:300])
+            raise err
     attempt = nan_attempts = 0
     cfg_try = cfg
     resume_step = None
@@ -449,6 +528,7 @@ def fit_with_recovery(cfg: Config, train_ds: ArrayDataset,
             raise
         except DivergenceError as err:
             nan_attempts += 1
+            _refuse_if_multihost(err, nan_attempts)
             if nan_attempts > cfg.resilience.nan_retry_budget or checkpoint_dir is None:
                 raise
             resume_step = _latest_durable()
@@ -461,6 +541,7 @@ def fit_with_recovery(cfg: Config, train_ds: ArrayDataset,
                 lr=cfg_try.optim.lr, error=repr(err)[:300])
         except Exception as err:  # noqa: BLE001 — any step failure is recoverable
             attempt += 1
+            _refuse_if_multihost(err, attempt)
             if attempt > cfg.train.auto_resume_retries or checkpoint_dir is None:
                 raise
             fault = "hang" if isinstance(err, WatchdogTimeout) else "step_exception"
@@ -584,7 +665,8 @@ def compute_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
                 vectors[todo[k]] = seed_scores
                 partials.save(todo[k], seed_scores)
                 inject.fire("seed_scored", seed=todo[k], completed=len(done) + k + 1)
-                if preempt.requested:
+                # Agreed across ranks, so every rank leaves at this boundary.
+                if agree_any(preempt.requested):
                     # The finished seed's partial is durable: the clean exit
                     # (CLI 75) loses at most the next seed's work.
                     raise Preempted(preempt.signame)
@@ -653,7 +735,13 @@ def trajectory_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
     log = log or _no_log
     seeds = [int(s) for s in cfg.score.seeds]
     n = len(train_ds)
-    batch_size = cfg.data.batch_size
+    batch_size = global_batch_size_for(cfg.data.batch_size)
+    rows = image_slice()
+    # Dataset position of each row this rank holds in each batch of the pass.
+    p, nprocs = rows or (0, 1)
+    loc = batch_size // nprocs
+    pos = (np.arange(num_batches(n, batch_size))[:, None] * batch_size + p * loc
+           + np.arange(loc)).reshape(-1)
     local = make_local_scores(create_model_from_cfg(cfg).to(device), kind,
                               eval_mode=cfg.score.eval_mode)
     shared = train_resident(cfg, train_ds, device)
@@ -678,13 +766,19 @@ def trajectory_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
                 batches = (shared(shuffle=False) if shared is not None else
                            prefetch_stream(train_ds, batch_size, device,
                                            depth=cfg.data.prefetch_depth,
-                                           stage=f"{method}_pass"))
+                                           stage=f"{method}_pass", image_slice=rows))
                 try:
                     outs = [local(state.variables, b["image"], b["label"], b["mask"])
                             for b in batches]
                 finally:
                     batches.close()
-                tracker.update(to_obs(torch.cat(outs).cpu().numpy()[:n]))
+                vals = torch.cat(outs).cpu().numpy()
+                if rows:
+                    # Each position has one owner: the float64 sum joins the ranks.
+                    vec = np.zeros(n, np.float64)
+                    vec[pos[pos < n]] = vals[pos < n]
+                    vals = sum_float64(vec).astype(vals.dtype)
+                tracker.update(to_obs(vals[:n]))
 
             fit(cfg, train_ds, None, device=device, log=log,
                 num_epochs=cfg.score.pretrain_epochs, seed=seed,
@@ -702,7 +796,7 @@ def trajectory_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
             if partials is not None:
                 partials.save(seed, seed_scores)
                 inject.fire("seed_scored", seed=seed, completed=completed)
-                if preempt.requested:
+                if agree_any(preempt.requested):
                     # The finished seed's partial is durable: the clean exit
                     # (CLI 75) loses nothing, and a resume starts at the next seed.
                     raise Preempted(preempt.signame)
@@ -826,10 +920,12 @@ def _retrain_level(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset,
         manifest["quarantined_rows"] = int(len(q_rows))
         manifest["quarantined_dropped_from_kept"] = int(q_dropped)
     npz = scores_npz_path(ckpt_dir)
-    atomic_savez(npz, scores=scores, indices=train_ds.indices, kept=kept,
-                 keep=cfg.prune.keep, class_balance=cfg.prune.class_balance,
-                 method=method)
-    write_prune_manifest(npz, manifest)
+    if is_primary():   # every rank holds the same scores and kept set; one writes
+        atomic_savez(npz, scores=scores, indices=train_ds.indices, kept=kept,
+                     keep=cfg.prune.keep, class_balance=cfg.prune.class_balance,
+                     method=method)
+        write_prune_manifest(npz, manifest)
+    sync_hosts(f"prune:{tag}")
     log("prune_decision", manifest=provenance_path(npz),
         **{k: manifest[k] for k in ("fingerprint", "method", "sparsity", "keep",
                                     "class_balance", "n_total", "n_kept", "n_dropped",

@@ -12,6 +12,18 @@ parameter (BatchNorm scale and bias and the classifier bias included), then
 ``g + m·t`` with Nesterov) scaled by ``-lr(step)``, where the schedule is read
 at the step count before the update. The schedule is optax's, evaluated in
 float32 as optax evaluates it.
+
+Across W ranks the update takes each rank's partial gradients (of its
+share of the global loss) and sums them, as the JAX package's data-sharded
+step does: replicated, one all-reduce of every gradient, then the same
+update on every rank. Under ZeRO-1 (``mesh.shard_opt_state``) each rank keeps
+the momentum only for its slice of each leaf ``UpdateSharding`` shards,
+updates that slice of the parameters, and the slices all-gather; the
+sharded weight update (``mesh.shard_weight_update``) reduce-scatters the
+gradients of those leaves instead of all-reducing them. Every step is
+elementwise on the same sums, so both are bitwise the replicated update;
+``optim.grad_clip_norm`` clips by the norm of the whole gradient, whose
+squares then sum in another order.
 """
 
 from __future__ import annotations
@@ -25,6 +37,9 @@ import torch
 from ..config import Config
 from ..device import resolve_device
 from ..models import create_model_from_cfg
+from ..parallel import collectives
+from ..parallel.mesh import (UpdateSharding, resolve_slot_sharding,
+                             resolve_update_sharding, world_size)
 from ..weights import init_variables
 
 
@@ -94,23 +109,66 @@ def make_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], np.float
 
 @dataclass(frozen=True)
 class SGD:
-    """The optax chain of ``make_optimizer``; ``update`` applies one step."""
+    """The optax chain of ``make_optimizer``; ``update`` applies one step.
+
+    ``world`` ranks sum their gradients in ``update`` (1: none); ``slots``
+    shards the momentum (ZeRO-1), and ``scatter`` reduce-scatters the
+    gradients of the sharded leaves (the sharded weight update)."""
 
     schedule: Callable[[int], np.float32]
     momentum: float
     weight_decay: float
     nesterov: bool = False
     grad_clip_norm: float | None = None
+    world: int = 1
+    slots: UpdateSharding | None = None
+    scatter: bool = False
 
     @torch.no_grad()
     def update(self, state: TrainState, grads: dict[str, torch.Tensor]) -> None:
         """Update ``state.params`` and ``state.momentum`` in place from the
-        fp32 ``grads`` (named like the params), and advance ``state.step``."""
+        fp32 ``grads`` (named like the params; at W ranks each rank's partial
+        gradients, summed here), and advance ``state.step``."""
         names = list(state.params)
-        params = [state.params[k] for k in names]
-        g = [grads[k] for k in names]
+        sh = self.slots
+        if sh is None:
+            g = [grads[k] for k in names]
+            if self.world > 1:
+                g = collectives.all_reduce_flat(g)
+            self._apply(state, [state.params[k] for k in names], g, names, None)
+            return
+        split = [k for k in names if sh.spec_for(state.params[k].shape) is not None]
+        whole = [k for k in names if k not in split]
+        if self.scatter:
+            per_rank = [list(r) for r in zip(*(sh.slices(grads[k]) for k in split))]
+            g = (collectives.reduce_scatter_flat(per_rank)
+                 + collectives.all_reduce_flat([grads[k] for k in whole]))
+        else:
+            full = collectives.all_reduce_flat([grads[k] for k in split + whole])
+            g = [sh.shard(t) for t in full[:len(split)]] + full[len(split):]
+        # The rank's slices of the sharded parameters are views: updated in place.
+        self._apply(state, [sh.shard(state.params[k]) for k in split]
+                    + [state.params[k] for k in whole], g, split + whole, len(split))
+        gathered = collectives.all_gather_flat([sh.shard(state.params[k]) for k in split])
+        for i, k in enumerate(split):
+            d = sh.spec_for(state.params[k].shape)
+            state.params[k].copy_(torch.cat([rank[i] for rank in gathered], dim=d))
+
+    def _apply(self, state: TrainState, params: list, g: list, names: list,
+               n_split: int | None) -> None:
+        """The chain on ``params`` (tensors updated in place) from gradients
+        ``g`` and the momentum of ``names``; the first ``n_split`` are slices
+        whose squares the global clip norm sums across the ranks."""
         if self.grad_clip_norm:
-            norm = torch.sqrt(sum(torch.sum(t * t) for t in g))
+            if n_split is None:
+                sq = sum(torch.sum(t * t) for t in g)
+            else:
+                zero = torch.zeros((), dtype=torch.float32, device=g[0].device)
+                parts = torch.stack([sum((torch.sum(t * t) for t in g[:n_split]), zero),
+                                     sum((torch.sum(t * t) for t in g[n_split:]), zero)])
+                collectives.all_reduce_sum_(parts[:1])
+                sq = parts[0] + parts[1]
+            norm = torch.sqrt(sq)
             keep = norm < self.grad_clip_norm
             g = [torch.where(keep, t, t / norm * self.grad_clip_norm) for t in g]
         g = torch._foreach_add(g, torch._foreach_mul(params, self.weight_decay))
@@ -125,8 +183,43 @@ class SGD:
 
 
 def make_optimizer(cfg: Config, steps_per_epoch: int) -> SGD:
+    """The configured chain, across the process group's ranks with the ``mesh``
+    config's ZeRO-1 and sharded update."""
     return SGD(make_schedule(cfg, steps_per_epoch), cfg.optim.momentum,
-               cfg.optim.weight_decay, cfg.optim.nesterov, cfg.optim.grad_clip_norm)
+               cfg.optim.weight_decay, cfg.optim.nesterov, cfg.optim.grad_clip_norm,
+               world=world_size(), slots=resolve_slot_sharding(cfg.mesh),
+               scatter=resolve_update_sharding(cfg.mesh) is not None)
+
+
+def shard_slots(state: TrainState, optimizer: SGD) -> TrainState:
+    """``state`` with each sharded leaf's momentum cut to this rank's slice
+    (a copy) when the optimizer shards its slots; ``state`` itself otherwise."""
+    sh = optimizer.slots
+    if sh is None:
+        return state
+    momentum = {k: sh.shard(v).clone() for k, v in state.momentum.items()}
+    return TrainState(state.params, state.batch_stats, momentum, state.step)
+
+
+def gather_slots(state: TrainState, optimizer: SGD) -> TrainState:
+    """``state`` with every rank's momentum slices joined into whole leaves (a
+    collective when the optimizer shards its slots): what a checkpoint holds,
+    whatever W wrote it."""
+    sh = optimizer.slots
+    if sh is None:
+        return state
+    split = [k for k, v in state.params.items() if sh.spec_for(v.shape) is not None]
+    gathered = collectives.all_gather_flat([state.momentum[k] for k in split])
+    momentum = dict(state.momentum)
+    for i, k in enumerate(split):
+        momentum[k] = torch.cat([rank[i] for rank in gathered],
+                                dim=sh.spec_for(state.params[k].shape))
+    return TrainState(state.params, state.batch_stats, momentum, state.step)
+
+
+def optimizer_bytes(state: TrainState) -> int:
+    """Bytes of momentum this rank holds."""
+    return sum(t.numel() * t.element_size() for t in state.momentum.values())
 
 
 def state_from_variables(variables: dict[str, torch.Tensor],

@@ -11,16 +11,29 @@ the layers cast their weights per call, so gradients land in fp32; there is
 no autocast and no loss scaling. ``eval_step`` returns the masked sums
 ``loss_sum``, ``correct`` and ``examples``. Both return device scalars, which
 the caller fetches once per epoch.
+
+Across W ranks (a process group) each rank holds its rows of the global
+batch, and the step computes what the JAX package's data-sharded step does:
+the augmentation draws are the global batch's, BatchNorm normalizes by the
+global batch's statistics (``global_batch_stats``), each rank differentiates
+its masked sum over the all-reduced mask count, the optimizer sums the
+gradients, and the returned loss, ``correct`` and ``examples`` are the global
+batch's. (Not DDP's mean of per-rank means, which is wrong on the padded
+last batch.) ``eval_step`` stays per rank; ``evaluate`` sums the ranks.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch.func import functional_call
 
 from ..data.augment import augment_batch
-from ..models.resnet import collect_batch_stats
+from ..models.resnet import collect_batch_stats, global_batch_stats
 from ..ops.scores import cross_entropy
+from ..parallel.collectives import all_reduce_sum_
+from ..parallel.mesh import image_slice
 from .state import SGD, TrainState
 
 
@@ -37,15 +50,20 @@ def train_step(model: torch.nn.Module, optimizer: SGD, state: TrainState, batch:
     updating ``state`` in place; returns ``{loss, correct, examples}``.
     ``augment`` is ``(crop_pad, flip, seed)`` or None."""
     image, label, mask = batch["image"], batch["label"], batch["mask"]
+    rows = image_slice()
     if augment is not None:
         crop_pad, flip, seed = augment
-        image = augment_batch(image, seed, state.step, crop_pad, flip)
+        image = augment_batch(image, seed, state.step, crop_pad, flip, image_slice=rows)
     model.train()
     params = {k: v.detach().requires_grad_() for k, v in state.params.items()}
-    with collect_batch_stats() as batch_stats:
+    with collect_batch_stats() as batch_stats, \
+            (global_batch_stats() if rows else contextlib.nullcontext()):
         logits = functional_call(model, {**params, **state.batch_stats}, (image,))
     per_ex = cross_entropy(logits, label) * mask
-    loss = per_ex.sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    if rows:
+        count = all_reduce_sum_(count.clone())
+    loss = per_ex.sum() / torch.clamp(count, min=1.0)
     grads = torch.autograd.grad(loss, list(params.values()))
     optimizer.update(state, dict(zip(params, grads)))
     with torch.no_grad():
@@ -55,6 +73,10 @@ def train_step(model: torch.nn.Module, optimizer: SGD, state: TrainState, batch:
             state.batch_stats[mean_key] = m * state.batch_stats[mean_key] + (1 - m) * mean
             state.batch_stats[var_key] = m * state.batch_stats[var_key] + (1 - m) * var
         correct = ((logits.argmax(dim=-1) == label) * mask).sum()
+        if rows:
+            # Each rank's loss is its share of the global one: the sum is it.
+            summed = all_reduce_sum_(torch.stack([loss.detach(), correct.float()]))
+            return {"loss": summed[0], "correct": summed[1], "examples": count}
     return {"loss": loss.detach(), "correct": correct, "examples": mask.sum()}
 
 

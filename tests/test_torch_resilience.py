@@ -247,9 +247,20 @@ def test_fault_plan_from_env_matches_jax(monkeypatch):
             inj.activate_from_env()
 
 
-@pytest.mark.parametrize("key,value", [("rank", 1), ("kill_rank_after_epoch", 0),
+@pytest.mark.parametrize("key,value", [("rank", 1), ("hide_latest_durable", True)])
+def test_fault_plan_consensus_classes_arm_as_in_jax(monkeypatch, key, value):
+    """Rank targeting and the hidden newest step fire in the port too (their
+    drills: ``test_torch_consensus.py``)."""
+    import json
+    monkeypatch.setenv("DDT_FAULT_PLAN", json.dumps({"hang_at": 1, key: value}))
+    want = jax_inject.activate_from_env()
+    got = inject.activate_from_env()
+    assert (getattr(got, key), got.hang_at) == (getattr(want, key), want.hang_at) == (value, 1)
+    inject.deactivate()
+
+
+@pytest.mark.parametrize("key,value", [("kill_rank_after_epoch", 0),
                                        ("rejoin_after_stage", "score"),
-                                       ("hide_latest_durable", True),
                                        ("wedge_dispatcher_after", 2),
                                        ("kill_replica_after_requests", 2)])
 def test_fault_plan_arming_an_unported_class_refuses_by_name(monkeypatch, key, value):

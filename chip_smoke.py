@@ -68,6 +68,29 @@ Phases (the first failure exits non-zero; nothing is caught):
    bitwise equal to ``full_scores``, plus ``topk`` and ``rank``, for both
    methods; the keep-hardest count at sparsity 0.5. Then ``grand_last_layer``
    (kernel route) and ``grand`` on the fused megakernel route, bitwise too.
+6b. Service: the port's HTTP service (``serve/``) on the path's model, data,
+   seeds, batch and dtype. 1: ``ServeEngine`` + ``ServeService`` on port 0,
+   the warm passes (the walls, each program key's first-call ``compile_s``)
+   bitwise the path's scores; one served 512-row dispatch launches exactly
+   12 direct (tensor-core) and 3 Gram per seed for GraNd, 1 EL2N per seed
+   for EL2N; ``SERVICE_CLIENTS`` threads x ``SERVICE_REQUESTS`` ``POST
+   /v1/score`` of 1..``SERVICE_MAX_IDS`` random ids per method, every answer
+   200 and bitwise ``full_scores`` (request p50/p95 ms at the client and in
+   the batcher, served ex/s, dispatches, ``batch_fill``, the phase summary);
+   ``/v1/rank`` on 100 ids and ``/v1/topk?k=100`` bitwise the engine's, and a
+   100-row images request bitwise the indices request. 2: ``serve.max_queue=2``
+   with the first dispatch wedged (``DDT_FAULT_PLAN``
+   ``wedge_dispatcher_after``): 429 + Retry-After past the queue, /healthz
+   critical naming the stalled dispatcher, every queued request bitwise
+   after the wedge. 3: steps 1 (init) and 2 (BN-randomized) written by the
+   port's ``CheckpointManager``: ``/v1/refresh {"step": 2}`` installs, served
+   scores and topk bitwise ``score_dataset`` on step 2; a truncated step 3
+   -> 409, step 2 still serving. 4: ``cli serve`` as a subprocess (port from
+   its ``obs_server`` record, first dispatch wedged): the accepted requests
+   200 bitwise the in-process scores, a request after SIGTERM 503, exit 75
+   with ``[preempted]`` within ``SERVICE_DRAIN_S`` + ``SERVICE_EXIT_GRACE_S``;
+   every record of both services passes ``tools/validate_metrics.py``. Cuts:
+   8,192 of 50,000 examples, 2 of 10 seeds; widths as published.
 7. ResNet-50: ``create_model("resnet50", 100)`` on synthetic CIFAR-100-geometry
    data (1,024 examples, one seed, batch 512, bf16) through ``score_dataset``
    for ``el2n`` and ``grand_last_layer``: one launch of the kernel a batch,
@@ -211,7 +234,7 @@ route; the cuDNN dgrad launches must drop from 19 to 9 on the megakernel
 route, and the profiled BN and Gram time per batch is printed beside the
 ``device_ms`` sums.
 
-Every counted run (phases 4, 5 and 7, phase 8's ``run``, phase 9's runs of
+Every counted run (phases 4, 5, 6b and 7, phase 8's ``run``, phase 9's runs of
 ``run_datadiet``, phase 10's ``cli run``, phase 11's ``score_dataset`` passes and
 ``cli sweep``) starts with the launch counts at 0
 and is read right after; the kernels line sums them. The line before the last is a
@@ -2663,6 +2686,440 @@ def serve_phase(torch, port, path, details_out) -> None:
               f"rank(64) ok, keep-hardest at sparsity 0.5 keeps {len(kept)}", flush=True)
 
 
+# Service phase: the port's HTTP service (``serve/``, ``cli serve``) at the path's
+# geometry. Its checkpoints and records go to the ignored chip_smoke_out/ and are
+# removed after a pass.
+SERVICE_ROOT = os.path.join(REPO, "chip_smoke_out", "service")
+SERVICE_CLIENTS = 4            # client threads per method
+SERVICE_REQUESTS = 25          # requests per client thread
+SERVICE_MAX_IDS = 64           # a request scores 1..64 random ids
+SERVICE_WEDGE_S = 3.0          # the wedged dispatch's hang
+SERVICE_STALL_S = 0.5          # serve.dispatch_stall_s of the admission drill
+SERVICE_DRAIN_S = 10.0         # serve.drain_timeout_s of the cli serve process
+SERVICE_EXIT_GRACE_S = 20.0    # its exit after the drain: teardown of the CUDA context
+
+
+def http_call(port: int, path: str, body=None, timeout: float = 120.0):
+    """``(status, headers, body bytes)`` of one request to the local service;
+    an HTTP error status is a result, a transport error raises."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, dict(err.headers), err.read()
+
+
+def scores_of(raw: bytes) -> np.ndarray:
+    return np.asarray(json.loads(raw)["scores"], np.float32)
+
+
+def service_cfg(port, *over):
+    return port["load_config"](os.path.join(REPO, "configs", "cifar10_resnet18.yaml"), [
+        "data.dataset=synthetic", f"data.synthetic_size={N_PATH}",
+        "score.pretrain_epochs=0", f"score.seeds={list(SEEDS)}",
+        f"score.batch_size={B}", "train.half_precision=true", "serve.port=0",
+        "serve.methods=[el2n,grand]", "serve.tenant=synthetic",
+        f"obs.metrics_path={SERVICE_ROOT}/metrics.jsonl",
+        f"obs.heartbeat_dir={SERVICE_ROOT}/hb",
+        f"train.checkpoint_dir={SERVICE_ROOT}/ckpt", *over])
+
+
+def validate_stream(path: str) -> int:
+    """Every record of a metrics stream passes ``tools/validate_metrics.py``'s
+    ``validate_lines`` (a stdlib-only file, loaded by path); returns the count."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "validate_metrics", os.path.join(REPO, "tools", "validate_metrics.py"))
+    vm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(vm)
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    problems = vm.validate_lines(lines, where=path)
+    check(problems == [], f"{path}: {problems[:5]}")
+    return len(lines)
+
+
+def service_phase(torch, port, path, details_out, card: str) -> dict:
+    """The serving slice end to end on the card (ResNet-18 full width, the path's
+    ``N_PATH`` examples, seeds [0, 1], batch 512, bf16, ``el2n`` and ``grand``):
+    1, an in-process ``ServeService`` on port 0 under load, every answer bitwise
+    the offline pass and the launches of one served dispatch exact; 2, admission
+    (429) and a wedged dispatcher (/healthz critical); 3, refresh to a
+    checkpoint step (bitwise an offline pass on it) and the refusal of a
+    truncated one (409); 4, ``cli serve`` as a subprocess: bitwise over HTTP and
+    the SIGTERM drain to exit 75. Nothing is caught; the walls are printed."""
+    t0 = time.perf_counter()
+    shutil.rmtree(SERVICE_ROOT, ignore_errors=True)
+    os.makedirs(SERVICE_ROOT)
+    rec = details_out.setdefault("service", {})
+    counts = _service_in_process(torch, port, path, rec, card)
+    _service_cli(torch, port, path, rec)
+    rec["phase_wall_s"] = wall = time.perf_counter() - t0
+    print(f"  service phase: {wall:.1f} s", flush=True)
+    shutil.rmtree(SERVICE_ROOT, ignore_errors=True)
+    return {"counts": counts}
+
+
+def _service_in_process(torch, port, path, rec: dict, card: str) -> dict:
+    sv = port["serve"]
+    K = port["kernels"]
+    ds, full = path["ds"], {m: path["results"][m]["scores"] for m in ("el2n", "grand")}
+    cfg = service_cfg(port)
+    logger = sv["MetricsLogger"](cfg.obs.metrics_path, echo=False)
+    with sv["ObsSession"](cfg, logger=logger):
+        K.reset_launch_counts()
+        engine = port["ServeEngine"](cfg, device="cuda", logger=logger)
+        engine.register_tenant("synthetic", ds, path["variables"])
+        warm = {}
+        for method in ("el2n", "grand"):
+            t0 = time.perf_counter()
+            got = engine.full_scores("synthetic", method)
+            warm[method] = time.perf_counter() - t0
+            check(np.array_equal(got, full[method]),
+                  f"service {method}: the warm pass differs from score_dataset")
+        programs = engine.program_stats()
+        print(f"  warm (full_scores on the main thread, before the socket binds): "
+              + ", ".join(f"{m} {w:.3f} s" for m, w in warm.items())
+              + "; first call per program key: "
+              + ", ".join(f"{k} {v['compile_s']} s" for k, v in programs.items()), flush=True)
+        rec["warm_s"], rec["programs"] = warm, programs
+        service = sv["ServeService"](engine, cfg, logger=logger)
+        check(service.start(), "service: the socket did not bind")
+        try:
+            _service_load(torch, sv, K, service, ds, full, rec, card)
+        finally:
+            service.stop()
+        counts = K.launch_counts()
+        for kern in ("conv_grad_norm_direct", "conv_grad_norm_gram", "el2n"):
+            check(counts[kern] > 0, f"service: {kern} never launched: {counts}")
+        _service_admission(torch, port, engine, ds, full, rec)
+        _service_refresh(torch, port, engine, ds, rec)
+    logger.close()
+    n = validate_stream(cfg.obs.metrics_path)
+    print(f"  service records: {n} lines, all valid", flush=True)
+    return counts
+
+
+def _service_load(torch, sv, K, service, ds, full, rec: dict, card: str) -> None:
+    import threading
+    sp = service.port
+    tenant = service.engine.tenant("synthetic")
+    # Launches of one served full-batch dispatch, exact.
+    for method in ("grand", "el2n"):
+        ids = np.random.default_rng(7).choice(ds.indices, size=B, replace=False)
+        before, modes0 = K.launch_counts(), K.mode_counts()
+        status, _, raw = http_call(sp, "/v1/score", {"indices": ids.tolist(),
+                                                    "method": method})
+        after = K.launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        want = dict.fromkeys(K.KERNELS, 0)
+        if method == "grand":
+            want.update(conv_grad_norm_direct=12 * len(SEEDS),
+                        conv_grad_norm_gram=3 * len(SEEDS))
+            for kern in ("conv_grad_norm_direct", "conv_grad_norm_gram"):
+                check_modes(K, modes0[kern], want[kern], "tensor_core", "served grand", kern)
+        else:
+            want["el2n"] = len(SEEDS)
+        check(status == 200 and delta == want,
+              f"served {method} dispatch of {B} rows: status {status}, launches {delta}, "
+              f"want {want}")
+        check(np.array_equal(scores_of(raw), full[method][tenant.pos_of(ids)]),
+              f"served {method} full batch not bitwise full_scores")
+        print(f"  one served {method} dispatch of {B} rows: launches "
+              f"{ {k: v for k, v in delta.items() if v} } (per seed: "
+              f"{ {k: v // len(SEEDS) for k, v in delta.items() if v} }), bitwise", flush=True)
+    # Four client threads x 25 requests of 1..64 random ids, per method.
+    for method in ("el2n", "grand"):
+        sv["registry"].install(sv["registry"].MetricsRegistry())   # per-method phases
+        b0 = service.batcher.stats()
+        lat, bad, n_ids = [], [], [0]
+        lock = threading.Lock()
+
+        def client(k: int) -> None:
+            rng = np.random.default_rng(100 + k)
+            for _ in range(SERVICE_REQUESTS):
+                ids = rng.choice(ds.indices, size=int(rng.integers(1, SERVICE_MAX_IDS + 1)),
+                                 replace=False)
+                t1 = time.perf_counter()
+                status, _, raw = http_call(sp, "/v1/score", {"indices": ids.tolist(),
+                                                            "method": method})
+                ms = 1e3 * (time.perf_counter() - t1)
+                ok = status == 200 and np.array_equal(
+                    scores_of(raw), full[method][tenant.pos_of(ids)])
+                with lock:
+                    lat.append(ms)
+                    n_ids[0] += len(ids)
+                    if not ok:
+                        bad.append((status, raw[:200]))
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVICE_CLIENTS)]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t1
+        check(not any(t.is_alive() for t in threads), f"service {method}: clients hung")
+        check(not bad, f"service {method}: {len(bad)} answers not 200 and bitwise: {bad[:3]}")
+        b1 = service.batcher.stats()
+        dispatches = b1["dispatches"] - b0["dispatches"]
+        rows = b1["rows_dispatched"] - b0["rows_dispatched"]
+        phases = sv["reqtrace"].phase_summary()
+        # The batcher's own wall (enqueue -> scores ready), without HTTP and JSON.
+        queued = sv["registry"].current().snapshot()["histograms"]["serve_request_ms"]
+        out = {"requests": len(lat), "p50_ms": float(np.percentile(lat, 50)),
+               "p95_ms": float(np.percentile(lat, 95)), "ex_per_s": n_ids[0] / wall,
+               "wall_s": wall, "dispatches": dispatches,
+               "batch_fill": rows / max(1, dispatches * B),
+               "batcher_p50_ms": queued["p50"], "batcher_p95_ms": queued["p95"],
+               "phases_p50_ms": {k: v["p50"] for k, v in phases.items()},
+               "phases_p95_ms": {k: v["p95"] for k, v in phases.items()}}
+        rec.setdefault("load", {})[method] = out
+        print(f"  {method}: {SERVICE_CLIENTS} clients x {SERVICE_REQUESTS} requests "
+              f"({n_ids[0]} ids) all 200 and bitwise; request p50 {out['p50_ms']:.2f} ms, "
+              f"p95 {out['p95_ms']:.2f} ms (in the batcher p50 {queued['p50']:.2f}, p95 "
+              f"{queued['p95']:.2f}); {out['ex_per_s']:.1f} served ex/s; "
+              f"{dispatches} dispatches, batch_fill {out['batch_fill']:.4f}; phase p50/p95 ms "
+              + ", ".join(f"{k} {v['p50']:.3f}/{v['p95']:.3f}" for k, v in phases.items())
+              + f" on {card}", flush=True)
+    # /v1/rank on 100 ids, /v1/topk?k=100, and the images route.
+    rng = np.random.default_rng(11)
+    for method in ("el2n", "grand"):
+        ids = rng.choice(ds.indices, size=100, replace=False)
+        status, _, raw = http_call(sp, "/v1/rank", {"indices": ids.tolist(), "method": method})
+        r_ids, r_scores = service.engine.rank("synthetic", method, ids)
+        got = json.loads(raw)
+        check(status == 200 and got["indices"] == r_ids.tolist()
+              and np.array_equal(np.asarray(got["scores"], np.float32), r_scores),
+              f"service {method}: /v1/rank not the engine's rank")
+        status, _, raw = http_call(sp, f"/v1/topk?k=100&method={method}")
+        items = [json.loads(x) for x in raw.splitlines() if x.strip()]
+        want = list(service.engine.topk("synthetic", method, 100))
+        check(status == 200 and [(i["index"], np.float32(i["score"])) for i in items]
+              == [(i, np.float32(s)) for i, s in want],
+              f"service {method}: /v1/topk not the engine's topk")
+        rows = rng.choice(ds.indices, size=100, replace=False)
+        images, labels = service.engine.examples_for("synthetic", rows)
+        s_img, _, raw_img = http_call(sp, "/v1/score", {
+            "images": images.tolist(), "labels": labels.tolist(), "method": method})
+        s_idx, _, raw_idx = http_call(sp, "/v1/score", {"indices": rows.tolist(),
+                                                        "method": method})
+        check(s_img == s_idx == 200 and np.array_equal(scores_of(raw_img), scores_of(raw_idx)),
+              f"service {method}: the images route differs from the indices route")
+    print("  /v1/rank (100 ids) and /v1/topk?k=100 bitwise the engine's; a 100-row "
+          "images request bitwise the indices request, both methods", flush=True)
+
+
+def _service_admission(torch, port, engine, ds, full, rec: dict) -> None:
+    """``serve.max_queue=2`` and a dispatcher wedged by ``DDT_FAULT_PLAN``: a
+    submit past the queue gets 429 + Retry-After, /healthz turns critical
+    naming the stalled dispatcher, and every queued request completes bitwise."""
+    import threading
+    sv, inject = port["serve"], port["inject"]
+    cfg = service_cfg(port, "serve.max_queue=2", f"serve.dispatch_stall_s={SERVICE_STALL_S}")
+    service = sv["ServeService"](engine, cfg, logger=None)
+    check(service.start(), "admission drill: the socket did not bind")
+    os.environ["DDT_FAULT_PLAN"] = json.dumps({"wedge_dispatcher_after": 1,
+                                               "hang_seconds": SERVICE_WEDGE_S})
+    inject.activate_from_env()
+    try:
+        sp, pos_of = service.port, engine.tenant("synthetic").pos_of
+        out: dict = {}
+
+        def send(key, ids):
+            out[key] = (ids, http_call(sp, "/v1/score", {"indices": ids, "method": "grand"}))
+
+        threads = []
+        for i, key in enumerate(("wedged", "queued1", "queued2")):
+            threads.append(threading.Thread(target=send, args=(key, [3 * i, 3 * i + 1])))
+            threads[-1].start()
+            time.sleep(0.3)   # the first is taken and wedged, the next two queue
+        status, headers, raw = http_call(sp, "/v1/score", {"indices": [99],
+                                                           "method": "grand"})
+        check(status == 429 and int(headers.get("Retry-After", 0)) >= 1,
+              f"admission: a submit past serve.max_queue got {status} {headers}")
+        deadline, health = time.monotonic() + 10, None
+        while time.monotonic() < deadline:
+            code, _, raw = http_call(sp, "/healthz")
+            health = json.loads(raw)
+            if code == 503:
+                break
+            time.sleep(0.05)
+        check(health["status"] == "critical"
+              and any("serve dispatcher stalled" in r for r in health["reasons"]),
+              f"admission: /healthz did not turn critical: {health}")
+        for t in threads:
+            t.join(120)
+        for key, (ids, (code, _, raw)) in out.items():
+            check(code == 200 and np.array_equal(scores_of(raw),
+                                                 full["grand"][pos_of(np.asarray(ids))]),
+                  f"admission: {key} request got {code} or differs after the wedge")
+        check(json.loads(http_call(sp, "/healthz")[2])["status"] == "ok",
+              "admission: /healthz not ok after the wedge")
+    finally:
+        inject.deactivate()
+        del os.environ["DDT_FAULT_PLAN"]
+        service.stop()
+    rec["admission"] = {"reject_status": 429, "retry_after_s": headers.get("Retry-After"),
+                        "healthz_reasons": health["reasons"]}
+    print(f"  admission: 429 + Retry-After {headers.get('Retry-After')} past "
+          f"serve.max_queue=2; /healthz critical ({health['reasons'][0]}); the wedged and "
+          "queued requests completed bitwise after the wedge", flush=True)
+
+
+def _service_refresh(torch, port, engine, ds, rec: dict) -> None:
+    """Steps 1 (init) and 2 (BN-randomized) written with the port's
+    ``CheckpointManager``: ``/v1/refresh {"step": 2}`` installs, and the served
+    scores and topk equal an offline ``score_dataset`` on step 2's variables
+    bitwise; a truncated step 3 gives 409 and step 2 keeps serving."""
+    sv, inject = port["serve"], port["inject"]
+    cfg = service_cfg(port)
+    model = port["create_model_from_cfg"](cfg)
+    mngr = port["CheckpointManager"](cfg.train.checkpoint_dir)
+    to_state = port["train"]["state_from_variables"]
+    mngr.save(1, to_state(port["init_variables"]("resnet18", 0, "cuda"), model))
+    mngr.save(2, to_state(bn_randomized(torch, port, 2), model))
+    mngr.save(3, to_state(bn_randomized(torch, port, 3), model))
+    inject.truncate_checkpoint(cfg.train.checkpoint_dir, 3)
+    service = sv["ServeService"](engine, cfg, logger=None)
+    check(service.start(), "refresh: the socket did not bind")
+    try:
+        sp = service.port
+        t0 = time.perf_counter()
+        status, _, raw = http_call(sp, "/v1/refresh", {"step": 2})
+        wall = time.perf_counter() - t0
+        check(status == 200 and json.loads(raw)["status"] == "installed",
+              f"refresh to step 2: {status} {raw[:300]}")
+        v2 = mngr.restore_variables(2, "cuda")
+        ids = np.random.default_rng(5).choice(ds.indices, size=200, replace=False)
+        pos = engine.tenant("synthetic").pos_of(ids)
+        offline = {}
+        for method in ("el2n", "grand"):
+            offline[method] = port["score_dataset"](model, [v2], ds, method=method,
+                                                    batch_size=B, device="cuda")
+            code, _, raw = http_call(sp, "/v1/score", {"indices": ids.tolist(),
+                                                       "method": method})
+            check(code == 200 and np.array_equal(scores_of(raw), offline[method][pos]),
+                  f"refresh: served {method} not bitwise score_dataset on step 2")
+            code, _, raw = http_call(sp, f"/v1/topk?k=100&method={method}")
+            order = np.lexsort((ds.indices, -offline[method]))[:100]
+            items = [json.loads(x) for x in raw.splitlines() if x.strip()]
+            check([i["index"] for i in items] == ds.indices[order].tolist()
+                  and np.array_equal(np.asarray([i["score"] for i in items], np.float32),
+                                     offline[method][order]),
+                  f"refresh: {method} topk not bitwise score_dataset on step 2")
+        code, _, raw = http_call(sp, "/v1/refresh", {"step": 3})
+        check(code == 409 and json.loads(raw)["status"] == "rejected",
+              f"refresh to truncated step 3: {code} {raw[:300]}")
+        code, _, raw = http_call(sp, "/v1/score", {"indices": ids.tolist(), "method": "grand"})
+        check(code == 200 and np.array_equal(scores_of(raw), offline["grand"][pos]),
+              "refresh: after the refused step 3 the scores are not step 2's")
+    finally:
+        service.stop()
+    rec["refresh_ms"] = 1e3 * wall
+    print(f"  refresh: step 2 installed in {1e3 * wall:.1f} ms; served scores and topk "
+          "bitwise score_dataset on step 2; truncated step 3 -> 409, step 2 still "
+          "serving bitwise", flush=True)
+
+
+def _service_cli(torch, port, path, rec: dict) -> None:
+    """``python -m data_diet_distributed_tpu_torch.cli serve`` on the card: the
+    port from its ``obs_server`` record; with its first dispatch wedged
+    (``DDT_FAULT_PLAN``) several requests are accepted, a SIGTERM lands, a later
+    request gets 503, every accepted one answers 200 bitwise the in-process
+    scores, and the process exits 75 with ``[preempted]`` within
+    ``SERVICE_DRAIN_S`` + ``SERVICE_EXIT_GRACE_S``; every record is valid."""
+    import queue
+    import signal
+    import threading
+    metrics = os.path.join(SERVICE_ROOT, "cli_metrics.jsonl")
+    args = [sys.executable, "-m", "data_diet_distributed_tpu_torch.cli", "serve",
+            "--config", os.path.join(REPO, "configs", "cifar10_resnet18.yaml"),
+            "data.dataset=synthetic", f"data.synthetic_size={N_PATH}",
+            "score.pretrain_epochs=0", f"score.seeds={list(SEEDS)}",
+            f"score.batch_size={B}", "train.half_precision=true", "serve.port=0",
+            "serve.methods=[el2n,grand]", f"serve.drain_timeout_s={SERVICE_DRAIN_S}",
+            f"obs.metrics_path={metrics}", f"train.checkpoint_dir={SERVICE_ROOT}/cli_ckpt"]
+    env = {**os.environ, "PYTHONPATH": REPO,
+           "DDT_FAULT_PLAN": json.dumps({"wedge_dispatcher_after": 1,
+                                         "hang_seconds": SERVICE_WEDGE_S})}
+    t_boot = time.perf_counter()
+    proc = subprocess.Popen(args, cwd=SERVICE_ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    # Its stderr (records and the banner) drains on a thread, so the process
+    # never blocks on a full pipe and the wait for the port has a deadline.
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stderr], daemon=True).start()
+    try:
+        sp = None
+        while sp is None:
+            left = 300 - (time.perf_counter() - t_boot)
+            check(left > 0 and proc.poll() is None,
+                  f"cli serve never announced its port (exit {proc.poll()})")
+            try:
+                line = lines.get(timeout=min(left, 5.0))
+            except queue.Empty:
+                continue
+            if line.startswith("{") and json.loads(line).get("kind") == "obs_server":
+                sp = json.loads(line)["port"]
+        boot = time.perf_counter() - t_boot
+        full = path["results"]["grand"]["scores"]
+        out: dict = {}
+
+        def send(key, ids):
+            out[key] = (ids, http_call(sp, "/v1/score", {"indices": ids, "method": "grand"}))
+
+        threads = []
+        for i in range(6):   # the first wedges the dispatcher, the rest queue
+            threads.append(threading.Thread(target=send, args=(i, [5 * i, 5 * i + 2, N_PATH // 2 + i])))
+            threads[-1].start()
+            time.sleep(0.1)
+        proc.send_signal(signal.SIGTERM)
+        t_term = time.perf_counter()
+        time.sleep(0.5)
+        late, _, late_raw = http_call(sp, "/v1/score", {"indices": [1], "method": "grand"})
+        for t in threads:
+            t.join(120)
+        rc = proc.wait(timeout=SERVICE_DRAIN_S + SERVICE_EXIT_GRACE_S)
+        exit_s = time.perf_counter() - t_term
+        stdout = proc.stdout.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    check(late == 503, f"cli serve: a request after SIGTERM got {late} {late_raw[:200]}")
+    ds = path["ds"]
+    pos = {int(i): k for k, i in enumerate(ds.indices)}
+    for key, (ids, (code, _, raw)) in sorted(out.items()):
+        check(code == 200 and np.array_equal(scores_of(raw), full[[pos[i] for i in ids]]),
+              f"cli serve: accepted request {key} got {code} or differs from the "
+              "in-process scores")
+    check(rc == 75 and "[preempted]" in stdout, f"cli serve: exit {rc}, stdout {stdout[-500:]}")
+    check(exit_s <= SERVICE_DRAIN_S + SERVICE_EXIT_GRACE_S, f"cli serve: exit took {exit_s:.1f} s")
+    n = validate_stream(metrics)
+    with open(metrics) as fh:
+        recs = [json.loads(x) for x in fh if x.strip()]
+    warm = {r["method"]: r["warm_s"] for r in recs
+            if r["kind"] == "serve_stats" and r.get("event") == "warm"}
+    programs = next(r["programs"] for r in recs if r["kind"] == "serve_stats"
+                    and r.get("programs"))
+    check(recs[-1]["kind"] == "run_summary" and recs[-1]["exit_class"] == "preempted",
+          f"cli serve: the stream ends with {recs[-1]}")
+    rec["cli"] = {"boot_s": boot, "warm_s": warm, "programs": programs,
+                  "exit_after_sigterm_s": exit_s, "records": n}
+    print(f"  cli serve: port {sp} announced {boot:.1f} s after launch (warm "
+          + ", ".join(f"{m} {w} s" for m, w in warm.items()) + "; first calls "
+          + ", ".join(f"{k} {v['compile_s']} s" for k, v in programs.items())
+          + f"); {len(out)} accepted requests 200 and bitwise the in-process scores, a "
+          f"request after SIGTERM 503; exit 75 with [preempted] {exit_s:.1f} s after "
+          f"SIGTERM; {n} records valid", flush=True)
+
+
 # Device-time groups for the profile, by kernel name (first match wins).
 PROFILE_GROUPS = (
     ("conv_grad_norm_direct", ("::direct_kernel<", "::direct_mma_kernel(",
@@ -3282,6 +3739,10 @@ def load_port() -> dict:
         from data_diet_distributed_tpu_torch.resilience.preemption import Preempted
         from data_diet_distributed_tpu_torch.resilience.stages import StageManifest
         from data_diet_distributed_tpu_torch.serve.engine import ServeEngine
+        from data_diet_distributed_tpu_torch.serve.server import ServeService
+        from data_diet_distributed_tpu_torch.obs import registry, reqtrace
+        from data_diet_distributed_tpu_torch.obs.metrics import MetricsLogger
+        from data_diet_distributed_tpu_torch.obs.session import ObsSession
         from data_diet_distributed_tpu_torch.train import loop, state, steps
         from data_diet_distributed_tpu_torch.weights import init_variables, variables_to
     except ImportError as err:
@@ -3293,6 +3754,9 @@ def load_port() -> dict:
             "build": build, "grand_batched": grand_batched,
             "score_dataset": score_dataset, "select_indices": select_indices,
             "ServeEngine": ServeEngine, "init_variables": init_variables,
+            "serve": {"ServeService": ServeService, "MetricsLogger": MetricsLogger,
+                      "ObsSession": ObsSession, "registry": registry,
+                      "reqtrace": reqtrace},
             "variables_to": variables_to,
             "set_scoring_determinism": set_scoring_determinism,
             "inject": inject, "Preempted": Preempted, "StageManifest": StageManifest,
@@ -3394,6 +3858,9 @@ def main(argv: list[str]) -> int:
     serve_phase(torch, port, path, details)
     serve_routes_phase(torch, port, routes, details)
 
+    phase("service")
+    service = service_phase(torch, port, path, details, card)
+
     phase("resnet50")
     r50 = resnet50_phase(torch, port, details, card)
 
@@ -3427,9 +3894,9 @@ def main(argv: list[str]) -> int:
     # it, bf16; launches summed over the counted runs of the path, routes and
     # resnet50 phases, the train phase's run, the resilience phase's runs, the data
     # phase's run and the wrn phase's passes and sweep.
-    launches = {k: path["counts"][k] + routes["counts"][k] + r50["counts"][k]
-                + trained["counts"][k] + resil["counts"][k] + data["counts"][k]
-                + wrn["counts"][k] for k in K.KERNELS}
+    launches = {k: path["counts"][k] + routes["counts"][k] + service["counts"][k]
+                + r50["counts"][k] + trained["counts"][k] + resil["counts"][k]
+                + data["counts"][k] + wrn["counts"][k] for k in K.KERNELS}
     check(all(launches[k] > 0 for k in KERNEL_INFO), f"a kernel never launched: {launches}")
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():

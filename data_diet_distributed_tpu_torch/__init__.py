@@ -11,7 +11,8 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
 
 * ``device.py`` -> (new) device resolution, TF32 parity mode, cuDNN determinism
 * ``config.py`` -> ``config.py`` (data/model/optim/score/prune/train/
-  resilience/mesh; other sections accepted and ignored)
+  resilience/mesh/serve, the ``obs`` keys the service reads; other keys
+  accepted and ignored)
 * ``parallel/mesh.py`` + ``parallel/collectives.py`` -> ``parallel/mesh.py``
   (``initialize_multihost`` over ``torch.distributed``: NCCL for CUDA, gloo
   for the CPU, a gloo host group beside NCCL; rank and world, ``is_primary``,
@@ -76,11 +77,21 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   ``SideChannel``, ``Consensus``), and ``inject.py`` with the training,
   storage and consensus fault classes, ``rank`` targeting included)
 * ``utils/io.py`` -> ``utils/io.py`` (atomic writes, ``load_scores_npz``)
-* ``serve/engine.py`` -> ``serve/engine.py`` (``ServeEngine`` scoring units)
-* ``cli.py`` -> ``cli.py`` (``train``, ``run``, ``sweep``, ``score``; exit 75
-  on preemption, ``DDT_FAULT_PLAN`` drills; ``mesh.multihost`` joins the
-  group first, rank 0 prints and writes, a failure under the group exits 69
-  or 1 at once)
+* ``serve/`` -> ``serve/engine.py``, ``batcher.py``, ``server.py``
+  (``ServeEngine`` with ``fit``/``evaluate``/``score``, tenants and weights,
+  the verified checkpoint refresh and the program cache; the coalescing
+  ``ScoreBatcher`` with 429 backpressure and weighted round-robin;
+  ``ServeServer``/``ServeService`` with ``/v1/score``, ``/v1/rank``, streamed
+  ``/v1/topk``, ``/v1/refresh``, the SIGTERM drain and the refresh watcher;
+  ``run_serve``)
+* ``obs/`` -> ``obs/metrics.py`` (``MetricsLogger``'s record shape),
+  ``registry.py``, ``reqtrace.py``, ``heartbeat.py``, ``slo.py`` (the serve
+  objectives), ``server.py`` (the ``StatusServer`` chassis: /healthz,
+  /metrics, /status, /flightrec), ``session.py``
+* ``cli.py`` -> ``cli.py`` (``train``, ``run``, ``sweep``, ``score``,
+  ``serve``; exit 75 on preemption or a serve drain, ``DDT_FAULT_PLAN``
+  drills; ``mesh.multihost`` joins the group first, rank 0 prints and writes,
+  a failure under the group exits 69 or 1 at once)
 
 Across W processes (``mesh.multihost``), one device each, every entry point
 computes what the JAX package computes on a ``{data: W, model: 1}`` mesh:
@@ -92,10 +103,13 @@ Not ported yet: the tensor-parallel classifier (``mesh.model_axis > 1``),
 ``parallel/overlap.py`` (XLA flags for the TPU; ``parallel.overlap`` is
 accepted and ignored), elastic supervision and resize (``remap_mesh``,
 ``remap_state``, ``resilience/elastic.py``), the checkpoint tiers, the host
-kill and rejoin and serve fault classes of ``resilience/``, the chunked
-training engine and its ``StreamingBatches``, the serving
-batcher/server/router/fleet (``cli serve``), observability (``obs/comm.py``
-and the flight recorder: shard-fault records go to the caller's ``log``) and
-the tools (``tools/make_shards.py``, ``tools/npz_to_npy.py``; their formats
-are the port's too).
+kill and rejoin fault classes of ``resilience/``, the chunked training
+engine and its ``StreamingBatches``, the serving router and fleet
+(``serve/router.py``, ``serve/fleet.py``: ``cli serve`` refuses
+``serve.replicas > 1`` and ``serve.max_replicas``), and the rest of
+observability (``obs/lineage.py``, the flight recorder, whose ``/flightrec``
+answers "not installed", the tracer, ``obs/comm.py``, ``obs/xla.py``, the
+training, fleet and recovery SLOs; the training entry points' records go to
+the caller's ``log``) and the tools (``tools/make_shards.py``,
+``tools/npz_to_npy.py``; their formats are the port's too).
 """

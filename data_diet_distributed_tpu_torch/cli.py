@@ -1,6 +1,6 @@
 """Command line of the PyTorch port (counterpart of ``data_diet_distributed_tpu/cli.py``)::
 
-    python -m data_diet_distributed_tpu_torch.cli {train|run|sweep|score} \\
+    python -m data_diet_distributed_tpu_torch.cli {train|run|sweep|score|serve} \\
         --config configs/x.yaml [key=value ...] [--device cpu]
 
 * ``train``: dense training through ``fit_with_recovery``, checkpoints in
@@ -12,7 +12,19 @@
 * ``score``: score only (after ``score.pretrain_epochs`` epochs per seed, from
   ``score.score_ckpt_step``, or reused from ``score.scores_npz``) and write
   ``<train.checkpoint_dir>_scores.npz`` with ``scores``, ``indices`` and
-  ``method``.
+  ``method``;
+* ``serve``: scoring as a service (``serve/server.py::run_serve``): register
+  the dataset as tenant ``serve.tenant`` (default ``data.dataset``) with the
+  scoring variables of the ``score`` recipe, score ``serve.methods`` (this
+  builds the CUDA kernels), bind ``serve.host:serve.port`` (0 = a free port,
+  announced by the ``obs_server`` record on stderr) and answer
+  ``/v1/score``, ``/v1/rank``, ``/v1/topk``, ``/v1/refresh``, ``/healthz``,
+  ``/metrics``, ``/status`` and ``/flightrec`` until SIGTERM/SIGINT, which
+  drains the accepted requests (``serve.drain_timeout_s``) and exits 75 with
+  ``[preempted] ...`` on stdout. Its records (``{"ts", "kind", ...}``) go to
+  ``obs.metrics_path`` and stderr, ending in ``run_summary``. One process on
+  one device: ``serve.replicas > 1``, ``serve.max_replicas`` (the serving
+  fleet) and ``mesh.multihost`` refuse by name.
 
 ``score``, ``run`` and ``sweep`` take every ``score.method``, the trajectory
 scores ``forgetting`` and ``aum`` included (their per-seed fits are the
@@ -21,8 +33,8 @@ scoring pass), and every command takes ``model.remat``.
 Each command prints its summary as one JSON line on stdout; the event records
 along the way (epochs, prune decisions, faults, recoveries, stages) go to
 stderr as JSON lines. The device is CUDA unless ``--device cpu``; without
-CUDA the command raises. ``serve`` is not ported yet and raises
-``NotImplementedError``.
+CUDA the command raises. Drive a CPU service with ``tools/serve_client.py
+--url http://127.0.0.1:<port>`` and end it with ``kill -TERM <pid>`` (exit 75).
 
 Resilience as in the JAX package: a SIGTERM/SIGINT ends the command after a
 final checkpoint with ``[preempted] ...`` on stdout and exit status 75;
@@ -48,16 +60,20 @@ import argparse
 import json
 import os
 import sys
+import time
 import traceback
 
 import torch
 
 from .config import Config, load_config
 from .device import resolve_device
+from .obs.metrics import MetricsLogger
+from .obs.session import ObsSession
 from .parallel.mesh import initialize_multihost, is_primary, shutdown, world_size
 from .resilience import inject
 from .resilience.preemption import EXIT_PREEMPTED, Preempted
 from .resilience.watchdog import EXIT_RETRIABLE, probe_devices
+from .serve.server import run_serve
 from .train.loop import (compute_scores, fit_with_recovery, load_data_for,
                          pipeline_stages, run_datadiet, run_sweep, scores_npz_path)
 from .utils.io import atomic_savez
@@ -97,7 +113,50 @@ def train(cfg: Config, device=None) -> dict:
             "device": str(device)}
 
 
+def serve(cfg: Config, device=None) -> dict:
+    """The ``serve`` command: ``run_serve`` under the observability session
+    (registry, heartbeat, serve SLOs), its records to ``obs.metrics_path``
+    and stderr; the stream ends with a registry snapshot and ``run_summary``
+    (``exit_class`` ``preempted`` after a drain). Returns only by raising
+    (``Preempted`` on SIGTERM)."""
+    logger = MetricsLogger(cfg.obs.metrics_path)
+    t0 = time.perf_counter()
+    exit_class = "ok"
+    try:
+        with ObsSession(cfg, logger=logger) as obs:
+            try:
+                return run_serve(cfg, logger, device)
+            except Preempted:
+                exit_class = "preempted"
+                raise
+            except BaseException as exc:
+                exit_class = f"fatal:{type(exc).__name__}"
+                raise
+            finally:
+                logger.log("metrics", **obs.registry.snapshot())
+                logger.log("run_summary", wall_s=round(time.perf_counter() - t0, 3),
+                           exit_class=exit_class, command="serve")
+    finally:
+        logger.close()
+
+
+def _refuse_serve(cfg: Config) -> None:
+    """``cli serve`` is one process on one device: the JAX package's serving
+    fleet and a multi-host service are not ported."""
+    if cfg.serve.replicas > 1 or cfg.serve.max_replicas is not None:
+        raise NotImplementedError(
+            "serve.replicas > 1 / serve.max_replicas start the serving fleet "
+            "(ServeFleet + ServeRouter: serve/fleet.py, serve/router.py), which is "
+            "not ported to the PyTorch package; use serve.replicas=1")
+    if cfg.mesh.multihost:
+        raise NotImplementedError(
+            "cli serve is one process on one device; mesh.multihost is not "
+            "supported for serving")
+
+
 def _dispatch(command: str, cfg: Config, device) -> dict:
+    if command == "serve":
+        return {"event": "serve_done", **serve(cfg, device)}
     if command == "score":
         return {"event": "scores_saved", **score(cfg, device)}
     if command == "train":
@@ -115,10 +174,9 @@ def main(argv: list[str] | None = None) -> int:
                         help="cuda (default; raises without CUDA) or cpu")
     parser.add_argument("overrides", nargs="*", help="dotted.key=value overrides")
     args = parser.parse_intermixed_args(argv)
-    if args.command == "serve":
-        raise NotImplementedError(
-            "the 'serve' command (batcher, HTTP server, router) is not ported yet")
     cfg = load_config(args.config, args.overrides)
+    if args.command == "serve":
+        _refuse_serve(cfg)
     plan = inject.activate_from_env()
     if plan is not None:
         print(f"[resilience] fault plan armed from DDT_FAULT_PLAN: {plan}",

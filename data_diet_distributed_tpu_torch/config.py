@@ -12,11 +12,18 @@ contract those of the per-step path, which is the one the port runs). Of
 consensus keys (``consensus``, ``consensus_poll_steps``,
 ``consensus_grace_s``, ``sidechannel_dir``). Of ``mesh`` every key takes
 effect (``parallel/mesh.py``) but ``model_axis``, which must be 1 (the
-tensor-parallel classifier is not ported). The sections the port does not
-have (parallel, checkpoint, obs, elastic, serve, tuning) are accepted key by
-key and ignored, so every
-``configs/*.yaml`` loads unchanged, while an unknown key anywhere still raises
-``KeyError`` as in JAX.
+tensor-parallel classifier is not ported).
+
+``ServeConfig`` is copied whole with its validation; ``cli serve`` reads the
+single-process keys, and the serving fleet's (``replicas > 1``,
+``max_replicas``, the router, autoscaler, probation and canary keys) are
+validated and accepted, but a fleet is refused by name (not ported).
+``ObsConfig`` holds the ``obs`` keys the serving slice reads
+(``metrics_path``, the heartbeat and the serve SLOs); the other ``obs`` keys
+and the sections the port does not have (parallel, checkpoint, elastic,
+tuning) are accepted key by key and ignored, so every ``configs/*.yaml``
+loads unchanged, while an unknown key anywhere still raises ``KeyError`` as in
+JAX.
 """
 
 from __future__ import annotations
@@ -185,7 +192,96 @@ class MeshConfig:
     process_id: int | None = None
 
 
-#: Keys of the sections the port does not have: accepted, ignored.
+#: Checkpoint-based score methods the serving layer can hold warm (trajectory
+#: methods score a training run, not a checkpoint). ONE definition:
+#: ``Config.validate`` checks ``serve.methods`` against it and the serve
+#: engine dispatches on it.
+SERVABLE_METHODS = ("el2n", "margin", "grand", "grand_vmap", "grand_last_layer")
+
+
+@dataclass
+class ObsConfig:
+    """The ``obs`` keys the serving slice reads (``obs/``): the metrics JSONL,
+    the per-rank heartbeat file and the serve SLOs. The other ``obs`` keys of
+    the JAX package are accepted and ignored."""
+
+    # JSON lines {"ts", "kind", ...} of the service's records; None = none.
+    metrics_path: str | None = "./metrics.jsonl"
+    # Per-rank heartbeat file; None dir -> <train.checkpoint_dir>_heartbeats.
+    heartbeat: bool = True
+    heartbeat_dir: str | None = None
+    heartbeat_interval_s: float = 0.5
+    # Heartbeat staleness budget of /healthz (None -> the server's default).
+    slo_heartbeat_stale_s: float | None = None
+    # Serving SLOs, judged at every serve_stats point: p95 request latency
+    # (ms), pending queue depth, and the tolerated rejected fraction.
+    slo_serve_p95_ms: float | None = None
+    slo_serve_queue_depth: int | None = None
+    slo_serve_reject_frac: float | None = None
+
+
+@dataclass
+class ServeConfig:
+    """Scoring as a service (``serve/``, ``cli serve``): one process keeps the
+    dataset and the score functions warm on the card and answers
+    ``POST /v1/score``, ``POST /v1/rank``, ``GET /v1/topk`` and
+    ``POST /v1/refresh`` over HTTP, plus /healthz /metrics /status /flightrec.
+    Requests coalesce into padded batches (``serve/batcher.py``), with 429 +
+    Retry-After past ``max_queue`` and weighted round-robin across tenants;
+    SIGTERM drains bounded by ``drain_timeout_s`` and exits 75. The fleet keys
+    (``replicas`` > 1 onwards) are validated and accepted; a fleet is not
+    ported."""
+
+    port: int = 0                    # 0 = auto-pick; logged as obs_server
+    host: str = "127.0.0.1"
+    tenant: str | None = None        # default tenant; None -> data.dataset
+    # Methods scored at boot; () -> score.method (el2n when not servable).
+    methods: tuple[str, ...] = ()
+    batch_size: int | None = None    # request geometry B; None -> score.batch_size
+    max_queue: int = 64              # per-tenant pending requests before 429
+    retry_after_s: float = 1.0       # the 429 Retry-After hint
+    coalesce_ms: float = 5.0         # a partial batch waits at most this long
+    request_timeout_s: float = 60.0  # per-request completion bound
+    drain_timeout_s: float = 30.0    # SIGTERM drain bound
+    stats_every_s: float = 10.0      # serve_stats + serve-SLO cadence
+    warm: bool = True                # score serve.methods at boot
+    request_log: bool = True         # one serve_request record per request
+    # --- serving fleet (not ported: cli serve refuses replicas > 1) -------
+    replicas: int = 1
+    router_port: int = 0
+    # A dispatch in flight longer than this makes /healthz critical.
+    dispatch_stall_s: float | None = 30.0
+    # Poll the refresh source for a newer step this often (None = manual).
+    refresh_poll_s: float | None = None
+    # Checkpoint dir refreshes restore from; None -> train.checkpoint_dir.
+    refresh_from: str | None = None
+    route_retries: int = 2
+    breaker_failures: int = 3
+    breaker_reset_s: float = 2.0
+    hedge_ms: float | None = None
+    health_poll_s: float = 0.5
+    idempotency_cache: int = 256
+    hosts: tuple[str, ...] = ()
+    remote_launch: str | None = None
+    min_replicas: int | None = None
+    max_replicas: int | None = None
+    scale_up_after: int = 2
+    scale_down_after: int = 5
+    scale_cooldown_s: float = 10.0
+    partition_after_misses: int = 3
+    probe_backoff_s: float = 0.5
+    probe_backoff_max_s: float = 8.0
+    canary_requests: int | None = None
+    canary_timeout_s: float = 30.0
+    # --- request tracing (obs/reqtrace.py) --------------------------------
+    # Head-sampled fraction of healthy requests' serve_trace records (failed
+    # and slow ones are always kept).
+    trace_sample_frac: float = 0.02
+    # "Slow" wall threshold; None -> obs.slo_serve_p95_ms, else 250 ms.
+    trace_slow_ms: float | None = None
+
+
+#: Keys the port does not have: accepted, ignored.
 _IGNORED_SECTIONS: dict[str, Any] = {
     "parallel": {"overlap": {"enabled", "latency_hiding_scheduler",
                              "async_all_gather", "async_reduce_scatter",
@@ -193,31 +289,18 @@ _IGNORED_SECTIONS: dict[str, Any] = {
                              "extra_flags"}},
     "checkpoint": {"local_tier", "local_dir", "promote", "drain_timeout_s",
                    "promote_delay_s"},
-    "obs": {"metrics_path", "monitor", "monitor_path", "profile_dir", "plots_dir",
-            "trace", "trace_path", "snapshot_every_s", "prom_path", "heartbeat",
-            "heartbeat_dir", "heartbeat_interval_s", "flightrec",
+    # The obs keys ObsConfig does not hold.
+    "obs": {"monitor", "monitor_path", "profile_dir", "plots_dir",
+            "trace", "trace_path", "snapshot_every_s", "prom_path", "flightrec",
             "flightrec_capacity", "flightrec_dir", "xla_introspect",
             "hbm_jump_frac", "profile_window_chunks", "score_telemetry",
             "score_hist_bins", "perf_ledger", "server_port", "server_host",
             "fleet", "slo_throughput_floor", "slo_throughput_frac",
-            "slo_heartbeat_stale_s", "slo_nonfinite_frac",
-            "slo_eval_accuracy_floor", "slo_serve_p95_ms", "slo_serve_queue_depth",
-            "slo_serve_reject_frac", "slo_fleet_p95_ms",
+            "slo_nonfinite_frac", "slo_eval_accuracy_floor", "slo_fleet_p95_ms",
             "slo_fleet_available_frac", "slo_recovery_s"},
     "elastic": {"enabled", "world", "min_world", "max_world", "max_restarts",
                 "backoff_s", "reap_timeout_s", "heartbeat_stale_s",
                 "resume_preempted"},
-    "serve": {"port", "host", "tenant", "methods", "batch_size", "max_queue",
-              "retry_after_s", "coalesce_ms", "request_timeout_s",
-              "drain_timeout_s", "stats_every_s", "warm", "request_log",
-              "replicas", "router_port", "dispatch_stall_s", "refresh_poll_s",
-              "refresh_from", "route_retries", "breaker_failures",
-              "breaker_reset_s", "hedge_ms", "health_poll_s", "idempotency_cache",
-              "hosts", "remote_launch", "min_replicas", "max_replicas",
-              "scale_up_after", "scale_down_after", "scale_cooldown_s",
-              "partition_after_misses", "probe_backoff_s", "probe_backoff_max_s",
-              "canary_requests", "canary_timeout_s", "trace_sample_frac",
-              "trace_slow_ms"},
     "tuning": {"manifest", "apply"},
 }
 
@@ -232,6 +315,8 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
 
     def validate(self) -> "Config":
         if self.data.dataset not in ("cifar10", "cifar100", "synthetic",
@@ -339,13 +424,137 @@ class Config:
                 raise ValueError(
                     f"mesh.data_axis={m.data_axis} must equal mesh.num_processes="
                     f"{m.num_processes} (one device per rank)")
+        self._validate_obs_serve()
         return self
+
+    def _validate_obs_serve(self) -> None:
+        o = self.obs
+        if o.heartbeat_interval_s < 0:
+            raise ValueError(
+                f"obs.heartbeat_interval_s must be >= 0, got {o.heartbeat_interval_s}")
+        if o.slo_heartbeat_stale_s is not None and o.slo_heartbeat_stale_s <= 0:
+            raise ValueError(
+                f"obs.slo_heartbeat_stale_s must be > 0, got {o.slo_heartbeat_stale_s}")
+        if o.slo_serve_p95_ms is not None and o.slo_serve_p95_ms <= 0:
+            raise ValueError(f"obs.slo_serve_p95_ms must be > 0, got {o.slo_serve_p95_ms}")
+        if o.slo_serve_queue_depth is not None and o.slo_serve_queue_depth < 1:
+            raise ValueError(
+                f"obs.slo_serve_queue_depth must be >= 1, got {o.slo_serve_queue_depth}")
+        if (o.slo_serve_reject_frac is not None
+                and not 0.0 <= o.slo_serve_reject_frac < 1.0):
+            raise ValueError(
+                f"obs.slo_serve_reject_frac must be in [0, 1), got "
+                f"{o.slo_serve_reject_frac}")
+        sv = self.serve
+        if not 0 <= sv.port <= 65535:
+            raise ValueError(
+                f"serve.port must be in [0, 65535] (0 = auto-pick), got {sv.port}")
+        for m in sv.methods:
+            if m not in SERVABLE_METHODS:
+                raise ValueError(
+                    f"serve.methods entries must be checkpoint-based score "
+                    f"methods (trajectory methods cannot serve a warm "
+                    f"checkpoint), got {m!r}")
+        if sv.batch_size is not None and sv.batch_size < 1:
+            raise ValueError(
+                f"serve.batch_size must be >= 1 (or null for score.batch_size), "
+                f"got {sv.batch_size}")
+        if sv.max_queue < 1:
+            raise ValueError(f"serve.max_queue must be >= 1, got {sv.max_queue}")
+        if sv.coalesce_ms < 0:
+            raise ValueError(f"serve.coalesce_ms must be >= 0, got {sv.coalesce_ms}")
+        if (sv.retry_after_s <= 0 or sv.request_timeout_s <= 0
+                or sv.drain_timeout_s <= 0 or sv.stats_every_s <= 0):
+            raise ValueError(
+                "serve timings need retry_after_s/request_timeout_s/"
+                "drain_timeout_s/stats_every_s > 0; got "
+                f"{sv.retry_after_s}/{sv.request_timeout_s}/"
+                f"{sv.drain_timeout_s}/{sv.stats_every_s}")
+        if sv.replicas < 1:
+            raise ValueError(f"serve.replicas must be >= 1, got {sv.replicas}")
+        if not 0 <= sv.router_port <= 65535:
+            raise ValueError(
+                f"serve.router_port must be in [0, 65535] (0 = auto-pick), "
+                f"got {sv.router_port}")
+        if sv.dispatch_stall_s is not None and sv.dispatch_stall_s <= 0:
+            raise ValueError(
+                f"serve.dispatch_stall_s must be > 0 (or null for no "
+                f"watchdog), got {sv.dispatch_stall_s}")
+        if sv.refresh_poll_s is not None and sv.refresh_poll_s <= 0:
+            raise ValueError(
+                f"serve.refresh_poll_s must be > 0 (or null for manual "
+                f"refresh only), got {sv.refresh_poll_s}")
+        if sv.route_retries < 0:
+            raise ValueError(f"serve.route_retries must be >= 0, got {sv.route_retries}")
+        if sv.breaker_failures < 1:
+            raise ValueError(
+                f"serve.breaker_failures must be >= 1, got {sv.breaker_failures}")
+        if sv.breaker_reset_s <= 0:
+            raise ValueError(f"serve.breaker_reset_s must be > 0, got {sv.breaker_reset_s}")
+        if sv.hedge_ms is not None and sv.hedge_ms <= 0:
+            raise ValueError(
+                f"serve.hedge_ms must be > 0 (or null for no hedging), got {sv.hedge_ms}")
+        if sv.health_poll_s <= 0:
+            raise ValueError(f"serve.health_poll_s must be > 0, got {sv.health_poll_s}")
+        if sv.idempotency_cache < 1:
+            raise ValueError(
+                f"serve.idempotency_cache must be >= 1, got {sv.idempotency_cache}")
+        if sv.hosts and sv.remote_launch is None:
+            raise ValueError(
+                "serve.hosts names remote placements but serve.remote_launch "
+                "is null — every listed host is spawned through the launch "
+                "template")
+        if sv.remote_launch is not None and "{host}" not in sv.remote_launch:
+            raise ValueError(
+                f"serve.remote_launch must contain a {{host}} placeholder, "
+                f"got {sv.remote_launch!r}")
+        if sv.min_replicas is not None and sv.max_replicas is None:
+            raise ValueError(
+                "serve.min_replicas without serve.max_replicas — the "
+                "autoscaler is enabled by setting max_replicas")
+        if sv.max_replicas is not None:
+            min_eff = sv.min_replicas if sv.min_replicas is not None else sv.replicas
+            if not 1 <= min_eff <= sv.replicas <= sv.max_replicas:
+                raise ValueError(
+                    f"autoscaler bounds need 1 <= min_replicas ({min_eff}) <= "
+                    f"replicas ({sv.replicas}) <= max_replicas ({sv.max_replicas})")
+        if sv.scale_up_after < 1 or sv.scale_down_after < 1:
+            raise ValueError(
+                f"serve.scale_up_after/scale_down_after must be >= 1 "
+                f"(hysteresis windows in stats ticks), got "
+                f"{sv.scale_up_after}/{sv.scale_down_after}")
+        if sv.scale_cooldown_s < 0:
+            raise ValueError(
+                f"serve.scale_cooldown_s must be >= 0, got {sv.scale_cooldown_s}")
+        if sv.partition_after_misses < 1:
+            raise ValueError(
+                f"serve.partition_after_misses must be >= 1, got "
+                f"{sv.partition_after_misses}")
+        if not 0 < sv.probe_backoff_s <= sv.probe_backoff_max_s:
+            raise ValueError(
+                f"probation backoff needs 0 < probe_backoff_s <= "
+                f"probe_backoff_max_s, got {sv.probe_backoff_s}/"
+                f"{sv.probe_backoff_max_s}")
+        if sv.canary_requests is not None and sv.canary_requests < 1:
+            raise ValueError(
+                f"serve.canary_requests must be >= 1 (or null for no canary "
+                f"hold), got {sv.canary_requests}")
+        if sv.canary_timeout_s <= 0:
+            raise ValueError(f"serve.canary_timeout_s must be > 0, got {sv.canary_timeout_s}")
+        if not 0.0 <= sv.trace_sample_frac <= 1.0:
+            raise ValueError(
+                f"serve.trace_sample_frac must be in [0, 1], got {sv.trace_sample_frac}")
+        if sv.trace_slow_ms is not None and sv.trace_slow_ms <= 0:
+            raise ValueError(
+                f"serve.trace_slow_ms must be > 0 (or null to follow "
+                f"obs.slo_serve_p95_ms), got {sv.trace_slow_ms}")
 
 
 _SECTIONS = {"data": DataConfig, "model": ModelConfig, "optim": OptimConfig,
              "score": ScoreConfig,
              "prune": PruneConfig, "train": TrainConfig,
-             "resilience": ResilienceConfig, "mesh": MeshConfig}
+             "resilience": ResilienceConfig, "mesh": MeshConfig,
+             "obs": ObsConfig, "serve": ServeConfig}
 
 
 def _check_ignored(keys: Any, value: Any, where: str) -> None:
@@ -362,8 +571,11 @@ def _check_ignored(keys: Any, value: Any, where: str) -> None:
 
 def _section_from_dict(cls, d: dict[str, Any], where: str):
     valid = {f.name: f for f in fields(cls)}
+    ignored = _IGNORED_SECTIONS.get(where, set())
     kwargs = {}
     for key, value in d.items():
+        if key in ignored:
+            continue
         if key not in valid:
             raise KeyError(f"unknown config key {key!r} for {cls.__name__}")
         if isinstance(value, list) and isinstance(valid[key].default, tuple):
@@ -412,9 +624,10 @@ def load_config(path: str | None = None, overrides: list[str] | None = None) -> 
         value = yaml.safe_load(raw_value)
         *parents, leaf = dotted.split(".")
         if parents and parents[0] in _IGNORED_SECTIONS:
-            if not _ignored_leaf(dotted.split(".")):
+            if _ignored_leaf(dotted.split(".")):
+                continue
+            if parents[0] not in _SECTIONS:
                 raise KeyError(f"unknown config key {dotted!r}")
-            continue
         node: Any = cfg
         for part in parents:
             if not hasattr(node, part):

@@ -22,13 +22,18 @@ or from the environment for a drill through the CLI:
 data_diet_distributed_tpu_torch.cli train ...``.
 
 The classes here are the JAX package's training classes, its storage
-classes (the ``shard_read`` site of ``data/sharded.py``) and its consensus
-ones, under its field names: ``rank`` targets a plan at one process of a
-process group, and ``hide_latest_durable`` drops a rank's newest verified
-step from its consensus-restore candidates (the ``durable_candidates`` site
-of ``fit``). Its other classes (``NOT_PORTED``: host kill and rejoin, which
-belong to elastic supervision, and the serve classes) have no site in this
-package yet; a plan that arms one is refused by name.
+classes (the ``shard_read`` site of ``data/sharded.py``), its consensus ones
+and its serve ones, under its field names: ``rank`` targets a plan at one
+process of a process group (in a serve replica, its ``DDT_SERVE_REPLICA``
+index), ``hide_latest_durable`` drops a rank's newest verified step from its
+consensus-restore candidates (the ``durable_candidates`` site of ``fit``),
+``kill_replica_after_requests`` and ``wedge_dispatcher_after`` fire at the
+batcher's ``serve_dispatch`` site (``serve/batcher.py``), and the partition
+and slow-replica classes in the HTTP handler's fault gate
+(``serve/server.py``, through ``serve_partitioned`` and ``serve_slow_ms``).
+Its other classes (``NOT_PORTED``: host kill and rejoin, which belong to
+elastic supervision) have no site in this package yet; a plan that arms one
+is refused by name.
 """
 
 from __future__ import annotations
@@ -73,24 +78,46 @@ class FaultPlan:
     # Drop the newest step from this rank's consensus-restore candidates, as
     # if its final save never landed (the min-agreed restore drill).
     hide_latest_durable: bool = False
+    # Serve (the batcher's serve_dispatch site): SIGKILL self once >= K
+    # requests completed, at the start of the next dispatch, so its HTTP
+    # requests die unanswered (non-graceful, no drain)...
+    kill_replica_after_requests: int | None = None
+    # ...and hang the dispatcher (a sleep of hang_seconds) at the start of
+    # dispatch K: requests queue, /healthz goes critical past
+    # serve.dispatch_stall_s.
+    wedge_dispatcher_after: int | None = None
+    # Serve network (the HTTP fault gate): once >= K requests completed, drop
+    # every connection unanswered for partition_seconds (the process lives)...
+    partition_replica_after: int | None = None
+    partition_seconds: float = 30.0
+    # ...and delay every response by this much, only while the installed
+    # model is checkpoint step slow_if_step when that is set.
+    slow_replica_ms: float | None = None
+    slow_if_step: int | None = None
     rank: int | None = None                # target process index (None = all)
 
 
 #: The JAX package's FaultPlan fields this package cannot fire yet.
-NOT_PORTED = ("kill_rank_after_epoch", "rejoin_after_stage",
-              "kill_replica_after_requests", "wedge_dispatcher_after",
-              "partition_replica_after", "partition_seconds", "slow_replica_ms",
-              "slow_if_step")
+NOT_PORTED = ("kill_rank_after_epoch", "rejoin_after_stage")
 
 
 class FaultInjector:
     def __init__(self):
         self.plan: FaultPlan | None = None
         self.fired: set[str] = set()
+        # Until when this replica's HTTP surface drops connections (armed by
+        # partition_replica_after at the serve_dispatch site).
+        self.partition_until: float | None = None
 
     def _rank_targeted(self) -> bool:
-        """Whether this process is the plan's target (always, untargeted)."""
-        return self.plan.rank is None or process_index() == self.plan.rank
+        """Whether this process is the plan's target (always, untargeted). A
+        serve replica's rank is its index in ``DDT_SERVE_REPLICA``."""
+        if self.plan.rank is None:
+            return True
+        replica = os.environ.get("DDT_SERVE_REPLICA")
+        if replica is not None:
+            return int(replica) == self.plan.rank
+        return process_index() == self.plan.rank
 
     def _due(self, fault: str, coord) -> bool:
         """True exactly once, when the plan arms ``fault`` at ``coord`` and this
@@ -136,6 +163,44 @@ class FaultInjector:
         elif site == "checkpoint_saved":
             if self._due("truncate_after_save_step", ctx["step"]):
                 truncate_checkpoint(ctx["directory"], ctx["step"])
+        elif site == "serve_dispatch":
+            # Threshold coordinates (>=): a dispatch coalesces a variable
+            # number of requests, so the completed count can jump past K.
+            k = self.plan.kill_replica_after_requests
+            if (k is not None and ctx["completed"] >= k
+                    and "kill_replica_after_requests" not in self.fired):
+                self.fired.add("kill_replica_after_requests")
+                os.kill(os.getpid(), signal.SIGKILL)
+            k = self.plan.wedge_dispatcher_after
+            if (k is not None and ctx["dispatch"] >= k
+                    and "wedge_dispatcher_after" not in self.fired):
+                self.fired.add("wedge_dispatcher_after")
+                time.sleep(self.plan.hang_seconds)
+            k = self.plan.partition_replica_after
+            if (k is not None and ctx["completed"] >= k
+                    and "partition_replica_after" not in self.fired):
+                self.fired.add("partition_replica_after")
+                self.partition_until = time.monotonic() + self.plan.partition_seconds
+
+    def serve_partitioned(self) -> bool:
+        """True while the armed partition window is open; expiry clears it."""
+        if self.partition_until is None:
+            return False
+        if time.monotonic() >= self.partition_until:
+            self.partition_until = None
+            return False
+        return True
+
+    def serve_slow_ms(self, model_step: int | None = None) -> float | None:
+        """Injected per-response latency of this replica, or None; gated to
+        the installed model step when ``slow_if_step`` is armed."""
+        if self.plan is None or self.plan.slow_replica_ms is None:
+            return None
+        if not self._rank_targeted():
+            return None
+        if self.plan.slow_if_step is not None and model_step != self.plan.slow_if_step:
+            return None
+        return self.plan.slow_replica_ms
 
     def transform(self, site: str, value, **ctx):
         if self.plan is None or not self._rank_targeted():
@@ -167,11 +232,13 @@ def activate(plan: FaultPlan) -> None:
         raise TypeError(f"activate takes a FaultPlan, got {type(plan).__name__}")
     _INJECTOR.plan = plan
     _INJECTOR.fired = set()
+    _INJECTOR.partition_until = None
 
 
 def deactivate() -> None:
     _INJECTOR.plan = None
     _INJECTOR.fired = set()
+    _INJECTOR.partition_until = None
 
 
 def active_plan() -> FaultPlan | None:
@@ -184,6 +251,14 @@ def fire(site: str, **ctx) -> None:
 
 def transform(site: str, value, **ctx):
     return _INJECTOR.transform(site, value, **ctx)
+
+
+def serve_partitioned() -> bool:
+    return _INJECTOR.serve_partitioned()
+
+
+def serve_slow_ms(model_step: int | None = None) -> float | None:
+    return _INJECTOR.serve_slow_ms(model_step)
 
 
 def plan_from_dict(spec: dict, where: str = "fault plan") -> FaultPlan:

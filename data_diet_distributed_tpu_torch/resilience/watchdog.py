@@ -102,6 +102,15 @@ class Watchdog:
     def fired(self) -> bool:
         return self._fired
 
+    def status(self) -> dict:
+        """The ``/healthz`` watchdog block (``obs/server.py``): the remaining
+        margin in seconds (None while suspended), the deadline, and whether
+        the guard fired."""
+        margin = self._deadline - time.monotonic()
+        return {"label": self.label, "timeout_s": self.timeout_s,
+                "fired": self._fired,
+                "margin_s": None if margin == float("inf") else round(margin, 3)}
+
     def beat(self) -> None:
         self._deadline = time.monotonic() + self.timeout_s
 

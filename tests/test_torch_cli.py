@@ -10,6 +10,7 @@ import textwrap
 
 import numpy as np
 import pytest
+import torch
 
 from data_diet_distributed_tpu_torch import cli
 from data_diet_distributed_tpu_torch.checkpoint import CheckpointManager
@@ -45,13 +46,68 @@ def _summary(capsys) -> dict:
     return json.loads(lines[-1])
 
 
-# What is not ported yet still refuses by name.
+# What is not ported yet still refuses by name: the serving fleet, and a
+# multi-host service.
 @pytest.mark.parametrize("argv,match", [
-    (["serve", "--config", SMOKE, "--device", "cpu"], "'serve' command"),
+    (["serve", "--config", SMOKE, "--device", "cpu", "serve.replicas=2"], "serving fleet"),
+    (["serve", "--config", SMOKE, "--device", "cpu", "serve.max_replicas=2"],
+     "serving fleet"),
+    (["serve", "--config", SMOKE, "--device", "cpu", "mesh.multihost=true",
+      "mesh.coordinator_address=127.0.0.1:1", "mesh.num_processes=1",
+      "mesh.process_id=0"], "one process on one device"),
 ])
 def test_cli_refuses_what_needs_training(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv)
+
+
+def test_cli_serve_subprocess_scores_bitwise_and_exits_75(tmp_path):
+    """``cli serve --device cpu`` boots on port 0 (announced on stderr), scores
+    a request bitwise the in-process engine on the same init variables, and a
+    SIGTERM drains it to exit 75 with ``[preempted]``; without CUDA and without
+    ``--device cpu`` the command raises."""
+    import signal
+    import time
+    import urllib.request
+
+    from data_diet_distributed_tpu_torch.config import load_config
+    from data_diet_distributed_tpu_torch.serve.engine import ServeEngine
+
+    over = ["data.dataset=synthetic", "data.synthetic_size=40", "model.arch=tiny_cnn",
+            "train.half_precision=false", "score.pretrain_epochs=0", "score.batch_size=16",
+            "score.seeds=[0,1]", "serve.port=0", "serve.methods=[el2n,grand]",
+            f"obs.metrics_path={tmp_path}/m.jsonl", f"train.checkpoint_dir={tmp_path}/c"]
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "DDT_FAULT_PLAN")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.Popen([sys.executable, "-m", "data_diet_distributed_tpu_torch.cli",
+                             "serve", "--config", SMOKE, "--device", "cpu", *over],
+                            cwd=tmp_path, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        port, deadline = None, time.monotonic() + 120
+        while port is None and time.monotonic() < deadline:
+            line = proc.stderr.readline()
+            assert line or proc.poll() is None, proc.returncode
+            if line.startswith("{") and json.loads(line).get("kind") == "obs_server":
+                port = json.loads(line)["port"]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/score",
+            data=json.dumps({"indices": [3, 17, 39], "method": "grand"}).encode())
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            served = np.asarray(json.load(resp)["scores"], np.float32)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+    assert proc.returncode == 75 and "[preempted]" in out, (proc.returncode, out)
+    engine = ServeEngine(load_config(SMOKE, over), device="cpu")
+    engine.register_tenant("synthetic", loop.load_data_for(engine.cfg)[0])
+    assert np.array_equal(served, engine.full_scores("synthetic", "grand")[[3, 17, 39]])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["serve", "--config", SMOKE, *over])
 
 
 # The trajectory scores and model.remat, refused before they were ported, run.

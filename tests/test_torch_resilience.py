@@ -259,10 +259,27 @@ def test_fault_plan_consensus_classes_arm_as_in_jax(monkeypatch, key, value):
     inject.deactivate()
 
 
+@pytest.mark.parametrize("key,value", [("wedge_dispatcher_after", 2),
+                                       ("kill_replica_after_requests", 2),
+                                       ("partition_replica_after", 3),
+                                       ("partition_seconds", 5.0),
+                                       ("slow_replica_ms", 250.0),
+                                       ("slow_if_step", 4)])
+def test_fault_plan_serve_classes_arm_as_in_jax(monkeypatch, key, value):
+    """The six serve classes arm in the port as in the JAX package (their
+    sites fire in ``test_torch_serve_service.py``)."""
+    import json
+    monkeypatch.setenv("DDT_FAULT_PLAN", json.dumps({"hang_at": 1, key: value}))
+    want = jax_inject.activate_from_env()
+    got = inject.activate_from_env()
+    assert getattr(got, key) == getattr(want, key) == value
+    assert got.hang_at == want.hang_at == 1
+    inject.deactivate()
+    jax_inject.deactivate()
+
+
 @pytest.mark.parametrize("key,value", [("kill_rank_after_epoch", 0),
-                                       ("rejoin_after_stage", "score"),
-                                       ("wedge_dispatcher_after", 2),
-                                       ("kill_replica_after_requests", 2)])
+                                       ("rejoin_after_stage", "score")])
 def test_fault_plan_arming_an_unported_class_refuses_by_name(monkeypatch, key, value):
     import json
     monkeypatch.setenv("DDT_FAULT_PLAN", json.dumps({"hang_at": 1, key: value}))

@@ -115,3 +115,41 @@ def test_engine_refuses_unported_recipes_and_missing_cuda():
         pytest.skip("a CUDA card is present; the default device is then valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServeEngine(_cfg())
+
+
+def test_engine_units_fit_evaluate_score_and_checkpoint_refresh(tmp_path):
+    """The composable units: ``fit``/``evaluate`` are ``train/loop``'s on the
+    engine's device, ``score`` is ``full_scores``, ``serve.batch_size``
+    overrides ``score.batch_size``, tenant weights feed the batcher, and
+    ``load_checkpoint_variables`` restores the newest (or the named) step
+    verified, then ``refresh_tenant`` serves it and clears the cached scores."""
+    from data_diet_distributed_tpu_torch.checkpoint import CheckpointManager
+    from data_diet_distributed_tpu_torch.train.loop import evaluate, fit
+
+    images, labels = _synthetic(24, 10, 4, "train")
+    ds = ArrayDataset(images, labels, np.arange(24, dtype=np.int32), 10)
+    cfg = _cfg(**{"serve.batch_size": "8", "data.batch_size": "8",
+                  "train.checkpoint_dir": str(tmp_path / "ckpt"), "train.num_epochs": "1"})
+    engine = ServeEngine(cfg, device="cpu")
+    assert engine.batch_size == 8
+    res = engine.fit(ds, checkpoint_dir=cfg.train.checkpoint_dir)
+    want = fit(cfg, ds, device="cpu")
+    for k, v in want.state.params.items():
+        assert torch.equal(res.state.params[k], v), k
+    assert engine.evaluate(res.state, ds) == evaluate(engine.model, want.state, ds,
+                                                      cfg.data.eval_batch_size, device="cpu")
+    engine.register_tenant("t", ds, [init_variables("tiny_cnn", 0, "cpu")], weight=3)
+    assert engine.tenant_weight("t") == 3 and engine.tenant_weight("nobody") == 1
+    assert np.array_equal(engine.score("t", "el2n"), engine.full_scores("t", "el2n"))
+    variables, step = engine.load_checkpoint_variables(cfg.train.checkpoint_dir)
+    assert step == CheckpointManager(cfg.train.checkpoint_dir).latest_step()
+    engine.refresh_tenant("t", [variables])
+    assert engine.tenant("t").scores == {}
+    offline = score_dataset(create_model_from_cfg(cfg), [variables], ds, method="grand",
+                            batch_size=8, device="cpu")
+    assert np.array_equal(engine.full_scores("t", "grand"), offline)
+    with pytest.raises(FileNotFoundError):
+        engine.load_checkpoint_variables(cfg.train.checkpoint_dir, step + 100)
+    stats = engine.program_stats()
+    assert set(stats) == {"tiny_cnn:(8, 32, 32, 3):el2n", "tiny_cnn:(8, 32, 32, 3):grand"}
+    assert all(e["compiles"] == 1 and e["compile_s"] >= 0 for e in stats.values())

@@ -118,6 +118,33 @@ Phases (the first failure exits non-zero; nothing is caught):
    1e-4; EL2N + atol 1e-6). Cuts: 8,192 of CIFAR-10's 50,000 examples, 2 of
    the recipes' 198 epochs, 2 of the north star's 10 seeds; widths as
    published.
+8b. Obs: the observability slice. The north-star ``run`` (``OBS_N``
+   examples, seeds [0, 1, 2], 3 retrain epochs) through ``python -m
+   data_diet_distributed_tpu_torch.cli`` as a subprocess, once with every
+   instrument on (trace, flight recorder, introspection, memory watermark,
+   score telemetry, SLOs, ``torch.profiler`` windows, resource monitor,
+   perf ledger, Prometheus file, ``obs.server_port=0``) and once with none:
+   exit 0 both; the scores and kept set bitwise equal; the stream passes
+   ``tools/validate_metrics.py`` and ends in ``metrics`` then
+   ``run_summary``, whose ``mfu`` is in (0, 1] with the peak from the table
+   (``table:NVIDIA H100 80GB HBM3`` on that card); ``xla_program`` records of
+   ``train_step`` and ``score_batch`` with FLOPs (the score program's kernel
+   work counted), an ``hbm_watermark`` peak, ``score_stats`` for seeds 0-2
+   and ``score_stability``; the trace nests run -> score -> seed -> fit ->
+   epoch -> eval and run -> retrain -> fit; one capture per stage
+   (``score_pretrain``, ``score``, ``final``), the ``score`` one holding the
+   direct and Gram kernels; a ``/status`` poll
+   after the first epoch answers with ``epoch``, ``mfu``, the watermark, the
+   ETA and the lineage; the ledger line says ``cuda`` and the card; the
+   monitor's duty samples. The two walls are printed (start-up included).
+   Then three processes at once: ``cli score`` with EL2N and a profile
+   window (its capture holds ``el2n_kernel``), and two ``cli train`` drills
+   at ``OBS_DRILL_N`` examples under ``DDT_FAULT_PLAN``: a NaN at epoch 1
+   leaves ``flightrec_rank0.json`` with reason ``divergence:epoch1``, and a
+   600-s hang under an ``OBS_HANG_TIMEOUT_S`` watchdog (introspection off: the
+   flop counter's first step outlasts so short a deadline) is one ``hang``
+   fault whose ``WatchdogTimeout`` names rank 0's last progress. Files in
+   ``chip_smoke_out/obs/``, removed after a pass.
 9. Resilience: on the north-star ``run`` of phase 8 (its own directory), A:
    a fault plan SIGTERMs after seed 0's score partial -> ``Preempted``, seed 0's
    partial on disk, ``score`` not complete; the re-invoked run pretrains and
@@ -259,6 +286,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -468,20 +496,6 @@ def bound_ms(flops: float, nbytes: float, dtype_name: str) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def conv_work(kernel: str, xs, gs, ks, itemsize: int) -> tuple[float, float]:
-    """FLOPs the kernel's algorithm needs and the bytes it must move (x and g
-    read once, [B] fp32 out written once)."""
-    b, h, w, c = xs
-    _, ho, wo, k = gs
-    s = ho * wo
-    if kernel == "conv_grad_norm_direct":
-        flops = 2.0 * b * ks[0] * ks[1] * s * c * k
-    else:   # input-pixel Gram, cotangent Gram, offset gather and the final dot
-        flops = 2.0 * b * ((h * w) ** 2 * c + s * s * k) + b * s * s * (ks[0] * ks[1] + 2)
-    nbytes = (np.prod(xs) + np.prod(gs)) * itemsize + 4 * b
-    return flops, float(nbytes)
-
-
 def check_modes(K, before: dict, n: int, mode: str, what: str,
                 kernel: str = "conv_grad_norm_direct") -> None:
     """Exactly ``n`` launches of ``kernel`` since ``before`` (its mode counts),
@@ -595,7 +609,9 @@ def kernel_phase(torch, K, dtype, rtol, details) -> None:
         ref = plain()
         err = (got - ref).abs()
         rel = float((err / ref.abs().clamp_min(1e-30)).max())
-        flops, nbytes = conv_work(kernel, xs, gs, ks, x.element_size())
+        # The package's one count of the work, which the MFU harvest reads too.
+        flops, nbytes = K.kernel_work(kernel, x=xs, g=gs, kernel_size=ks,
+                                      itemsize=x.element_size())
         bnd, by = bound_ms(flops, nbytes, dname)
         rec = {"kernel": kernel, "entry": entry, "dtype": dname, "x": list(xs),
                "g": list(gs), "kernel_size": list(ks), "strides": list(st),
@@ -639,13 +655,13 @@ def kernel_phase(torch, K, dtype, rtol, details) -> None:
         err = (got - ref).abs()
         rel = float((err / ref.abs().clamp_min(1e-6)).max())
         check_rows_bitwise(torch, gen, lambda z, y, m: K.el2n(z, y, m), (z, y, m), got, what)
-        nbytes = B * c * z.element_size() + B * 8 + B * 4 + B * 4
+        flops, nbytes = K.kernel_work("el2n", batch=B, classes=c, itemsize=z.element_size())
         rec = _measure(torch, {"kernel": "el2n", "entry": "el2n", "dtype": dname,
                                "logits": [B, c], "labels": "int64",
                                "layers_per_batch": 1 if c == 10 else 0,
                                "max_abs_err": float(err.max()), "max_rel_err": rel},
                        lambda: K.el2n(z, y, m), lambda: K.el2n_plain(z, y, m),
-                       5.0 * B * c, nbytes, "float32")
+                       flops, nbytes, "float32")
         details.append(rec)
         CALL_CHECKS.append((rec, what, "el2n_kernel", lambda z=z, y=y, m=m: K.el2n(z, y, m)))
         print(f"  {what} (int64 labels): abs_err={rec['max_abs_err']:.3e} "
@@ -700,15 +716,15 @@ def bn_row(torch, K, gen, dtype, rtol, details, shape, depth: int, scale: bool,
     check_bn_bitwise(torch, gen, call, xs, gs, got, what)
     ref = K.bn_grad_norm_sq_plain(xs, gs, stats, scale, bias)
     abs_err, rel = _rel_err(got, ref)
-    n = depth * float(np.prod(shape))
+    flops, nbytes = K.kernel_work("bn_grad_norm", elements=depth * int(np.prod(shape)),
+                                  layers=depth, channels=c, batch=shape[0], itemsize=item)
     rec = _measure(torch, {"kernel": "bn_grad_norm", "entry": "bn", "dtype": dname,
                            "x": list(shape), "layers": depth, "use_scale": scale,
                            "use_bias": bias, "mode": mode, "layers_per_batch": layers,
                            "max_abs_err": abs_err, "max_rel_err": rel},
                    lambda: call(xs, gs),
                    lambda: K.bn_grad_norm_sq_plain(xs, gs, stats, scale, bias),
-                   3.0 * n, 2.0 * n * item + 8.0 * depth * c + 4.0 * depth * shape[0],
-                   "float32")
+                   flops, nbytes, "float32")
     if rec["l2_warm"] and main_path:
         copies = [([t.clone() for t in xs], [t.clone() for t in gs])
                   for _ in range(cold_copies(rec["input_bytes"]))]
@@ -757,8 +773,9 @@ def mega_row(torch, K, gen, dtype, rtol, details, xs_, gs_, ks, pad, bias: bool,
     dx_err = (dx.float() - rdx.float()).abs()
     scale = float(rdx.float().abs().max())
     dx_excess = float((dx_err - MEGA_DX_TOL[dname] * rdx.float().abs()).max())
-    flops = 2.0 * 2.0 * xs_[0] * gs_[1] * gs_[2] * ks[0] * ks[1] * xs_[3] * gs_[3]
-    nbytes = (2 * np.prod(xs_) + np.prod(gs_)) * item + 4.0 * w.numel() + 4.0 * xs_[0]
+    flops, nbytes = K.kernel_work("conv_bwd_grad_norm", x=tuple(xs_), g=tuple(gs_),
+                                  kernel_size=tuple(ks), itemsize=item,
+                                  weight_numel=w.numel())
     rec = _measure(torch, {"kernel": "conv_bwd_grad_norm", "entry": "mega",
                            "dtype": dname, "x": list(xs_), "g": list(gs_),
                            "kernel_size": list(ks), "padding": [list(p) for p in pad],
@@ -816,8 +833,8 @@ def route_kernel_phase(torch, K, dtype, rtol, details) -> None:
         abs_err, rel = _rel_err(got, ref)
         check_rows_bitwise(torch, gen, lambda h, y, m: K.grand_last_layer(h, w, bias, y, m),
                            (h, y, m), got, what)
-        flops = 2.0 * B * f * c + 2.0 * B * f + 6.0 * B * c
-        nbytes = B * f * item + 4.0 * (c * f + c) + B * (8 + 4 + 4)
+        flops, nbytes = K.kernel_work("grand_last_layer", batch=B, features=f, classes=c,
+                                      itemsize=item)
         rec = _measure(torch, {"kernel": "grand_last_layer", "entry": "gll", "dtype": dname,
                                "features": [B, f], "classes": c, "labels": "int64",
                                "layers_per_batch": layers, "max_abs_err": abs_err,
@@ -880,8 +897,8 @@ def route_kernel_phase(torch, K, dtype, rtol, details) -> None:
                                "max_rel_err": rel},
                        lambda: call(x, g),
                        lambda: K.conv_grad_norm_sq_catdot_plain(x, g, ks, pad),
-                       2.0 * xs_[0] * gs_[1] * gs_[2] * ks[0] * ks[1] * xs_[3] * gs_[3],
-                       (np.prod(xs_) + np.prod(gs_)) * item + 4.0 * xs_[0], dname)
+                       *K.kernel_work("conv_grad_norm_catdot", x=xs_, g=gs_,
+                                      kernel_size=ks, itemsize=item), dname)
         if K.conv_grad_norm_v2_eligible(xs_, gs_, ks, (1, 1), pad):
             rec["direct_ms"] = time_ms(torch, lambda: K.conv_grad_norm_sq_v2(x, g, ks, pad))
         else:
@@ -1785,7 +1802,8 @@ def conv_geometry_rows(torch, K, geo: dict) -> list[dict]:
 
             def plain_fn(x=x, g=g, ks=ks, pad=pad, bias=bias):
                 return K.conv_grad_norm_sq_gram_plain(x, g, ks, pad, use_bias=bias)
-        flops, nbytes = conv_work(kern, xs, gs, ks, x.element_size())
+        flops, nbytes = K.kernel_work(kern, x=xs, g=gs, kernel_size=ks,
+                                      itemsize=x.element_size())
         kernel_rows.append(_measure(torch, {
             "kernel": kern, "entry": route, "dtype": dname, "x": list(xs), "g": list(gs),
             "kernel_size": list(ks), "strides": list(st), "layers_per_batch": row["layers"],
@@ -2272,12 +2290,13 @@ def _wrn_phase(torch, port, rec: dict, card: str) -> dict:
         for kern, shape, call, plain, flops, nbytes, peak in (
                 ("el2n", f"logits [{B}, {WRN_CLASSES}]", lambda: K.el2n(z, y, m),
                  lambda: K.el2n_plain(z, y, m),
-                 5.0 * B * WRN_CLASSES, B * WRN_CLASSES * item + B * 16, "float32"),
+                 *K.kernel_work("el2n", batch=B, classes=WRN_CLASSES, itemsize=item),
+                 "float32"),
                 ("grand_last_layer", f"[{B}, {feats}] -> {WRN_CLASSES}",
                  lambda: K.grand_last_layer(h, w, bias, y, m),
                  lambda: K.grand_last_layer_plain(h, w, bias, y, m),
-                 2.0 * B * feats * WRN_CLASSES + 2.0 * B * feats + 6.0 * B * WRN_CLASSES,
-                 B * feats * item + 4.0 * (WRN_CLASSES * feats + WRN_CLASSES) + B * 16,
+                 *K.kernel_work("grand_last_layer", batch=B, features=feats,
+                                classes=WRN_CLASSES, itemsize=item),
                  "bfloat16")):
             got, ref = call(), plain()
             abs_err, rel = _rel_err(got, ref)
@@ -2729,9 +2748,10 @@ def service_cfg(port, *over):
         f"train.checkpoint_dir={SERVICE_ROOT}/ckpt", *over])
 
 
-def validate_stream(path: str) -> int:
+def validate_stream(path: str, expect_terminal: bool = False) -> int:
     """Every record of a metrics stream passes ``tools/validate_metrics.py``'s
-    ``validate_lines`` (a stdlib-only file, loaded by path); returns the count."""
+    ``validate_lines`` (a stdlib-only file, loaded by path), ending in
+    ``run_summary`` when ``expect_terminal``; returns the count."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "validate_metrics", os.path.join(REPO, "tools", "validate_metrics.py"))
@@ -2739,7 +2759,7 @@ def validate_stream(path: str) -> int:
     spec.loader.exec_module(vm)
     with open(path) as fh:
         lines = fh.read().splitlines()
-    problems = vm.validate_lines(lines, where=path)
+    problems = vm.validate_lines(lines, where=path, expect_terminal=expect_terminal)
     check(problems == [], f"{path}: {problems[:5]}")
     return len(lines)
 
@@ -3714,6 +3734,273 @@ def dist_phase(torch, port, details_out, card: str, path: dict, trained: dict) -
     shutil.rmtree(DIST_ROOT, ignore_errors=True)
 
 
+
+# ------------------------------------------------------------------ obs phase
+
+OBS_ROOT = os.path.join(REPO, "chip_smoke_out", "obs")
+#: Examples of the obs phase's north-star runs (a cut of the train phase's).
+OBS_N = 4096
+OBS_TIMEOUT_S = 400
+#: Examples of the drills' ``cli train`` runs and the drill watchdog's timeout.
+OBS_DRILL_N = 512
+OBS_HANG_TIMEOUT_S = 10
+#: The CUDA functions of the path's kernels, as a profile capture names them.
+OBS_KERNEL_FUNCTIONS = {"conv_grad_norm_direct": "direct_mma_kernel",
+                        "conv_grad_norm_gram": "gram_kernel", "el2n": "el2n_kernel"}
+#: Every instrument off (the metrics stream too).
+OBS_OFF = ["obs.metrics_path=null", "obs.trace=false", "obs.heartbeat=false",
+           "obs.flightrec=false", "obs.xla_introspect=false", "obs.score_telemetry=false",
+           "obs.fleet=false"]
+
+
+def obs_on(d: str) -> list[str]:
+    """Every instrument on, its files under ``d``."""
+    return [f"obs.metrics_path={d}/m.jsonl", f"obs.profile_dir={d}/prof",
+            "obs.monitor=true", f"obs.monitor_path={d}/util.jsonl",
+            f"obs.perf_ledger={d}/ledger.jsonl", f"obs.prom_path={d}/m.prom",
+            "obs.server_port=0", "obs.slo_throughput_floor=1",
+            "obs.slo_nonfinite_frac=0.0", "obs.slo_eval_accuracy_floor=0.0"]
+
+
+class CliProcess:
+    """``python -m data_diet_distributed_tpu_torch.cli`` as a subprocess of
+    the repo root; its stderr records are read on a thread as they come."""
+
+    def __init__(self, args: list[str], plan: dict | None = None):
+        env = {**os.environ, "PYTHONPATH": REPO}
+        if plan is not None:
+            env["DDT_FAULT_PLAN"] = json.dumps(plan)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "data_diet_distributed_tpu_torch.cli", *args],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.records: list[dict] = []
+        self.tail: list[str] = []
+        self.stdout: list[str] = []
+
+        def drain():
+            for line in self.proc.stderr:
+                self.tail = (self.tail + [line])[-40:]
+                if line.startswith("{"):
+                    try:
+                        self.records.append(json.loads(line))
+                    except ValueError:
+                        pass
+        # One reader per pipe (``communicate`` would read stderr too and split
+        # its lines between two readers).
+        self._readers = [threading.Thread(target=drain, daemon=True),
+                         threading.Thread(target=lambda: self.stdout.extend(self.proc.stdout),
+                                          daemon=True)]
+        for t in self._readers:
+            t.start()
+
+    def first(self, kind: str, timeout: float) -> dict:
+        """The first record of ``kind`` (waits for it)."""
+        deadline = time.perf_counter() + timeout
+        while True:
+            for r in list(self.records):
+                if r.get("kind") == kind:
+                    return r
+            check(time.perf_counter() < deadline and self.proc.poll() is None,
+                  f"cli never logged a {kind} record (exit {self.proc.poll()}): "
+                  f"{''.join(self.tail)[-2000:]}")
+            time.sleep(0.1)
+
+    def wait(self, timeout: float = OBS_TIMEOUT_S) -> tuple[int, str, float]:
+        """(exit status, stdout, wall s); kills it past ``timeout``."""
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            fail(f"cli did not end within {timeout} s: {''.join(self.tail)[-2000:]}")
+        wall = time.perf_counter() - self.t0
+        for t in self._readers:
+            t.join(timeout=30)
+        return self.proc.returncode, "".join(self.stdout), wall
+
+
+def span_nesting(path: str) -> set:
+    """(parent, child) span-name pairs of a trace: a span's parent is the
+    innermost span of its thread that contains it."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh) if e]
+    spans = sorted((e for e in events if e.get("ph") == "X"),
+                   key=lambda e: (e["tid"], e["ts"], -e["dur"]))
+    pairs, stack = set(), []
+    for e in spans:
+        while stack and not (stack[-1]["tid"] == e["tid"]
+                             and e["ts"] + e["dur"] <= stack[-1]["ts"] + stack[-1]["dur"]):
+            stack.pop()
+        pairs.add((stack[-1]["name"] if stack else None, e["name"]))
+        stack.append(e)
+    return pairs
+
+
+def capture_kernels(path: str) -> dict[str, int]:
+    """Device-kernel events of a profile capture (``export_chrome_trace``), by
+    the path's kernel they belong to."""
+    with open(path) as fh:
+        trace = json.load(fh)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(fn in n for n in names) for k, fn in OBS_KERNEL_FUNCTIONS.items()}
+
+
+def obs_phase(torch, port, details_out, card: str) -> None:
+    """The observability slice on the card; see the module docstring. Files in
+    ``OBS_ROOT`` (removed after a pass)."""
+    shutil.rmtree(OBS_ROOT, ignore_errors=True)
+    os.makedirs(OBS_ROOT)
+    rec: dict = {}
+    details_out["obs"] = rec
+    north = os.path.join(REPO, "configs", "cifar10_resnet18_grand10.yaml")
+
+    def run_args(d: str) -> list[str]:
+        return ["run", "--config", north, "data.dataset=synthetic",
+                f"data.synthetic_size={OBS_N}", "score.seeds=[0,1,2]", "train.num_epochs=3",
+                f"train.checkpoint_dir={d}/ckpt"]
+
+    # 1: every instrument on; /status polled once an epoch is done.
+    on = os.path.join(OBS_ROOT, "on")
+    cp = CliProcess(run_args(on) + obs_on(on))
+    sport = cp.first("obs_server", OBS_TIMEOUT_S)["port"]
+    cp.first("epoch", OBS_TIMEOUT_S)
+    code, _, raw = http_call(sport, "/status", timeout=30)
+    status = json.loads(raw)
+    check(code == 200 and {"epoch", "mfu", "hbm_peak_bytes", "eta_s", "lineage"} <= set(status),
+          f"/status mid-run: {code} {status}")
+    rc, out_on, wall_on = cp.wait()
+    check(rc == 0, f"cli run with every instrument on exited {rc}: {''.join(cp.tail)[-2000:]}")
+    # 2: every instrument off.
+    off = os.path.join(OBS_ROOT, "off")
+    cp_off = CliProcess(run_args(off) + OBS_OFF)
+    rc, out_off, wall_off = cp_off.wait()
+    check(rc == 0, f"cli run with every instrument off exited {rc}")
+    walls = {side: {k: round(v, 3) for k, v in json.loads(out.strip().splitlines()[-1]).items()
+                    if k.endswith("_wall_s")}
+             for side, out in (("on", out_on), ("off", out_off))}
+    with np.load(f"{on}/ckpt_scores.npz") as a, np.load(f"{off}/ckpt_scores.npz") as b:
+        check(np.array_equal(a["scores"], b["scores"]) and np.array_equal(a["kept"], b["kept"]),
+              "scores or kept set differ with the instruments on")
+    n_records = validate_stream(f"{on}/m.jsonl", expect_terminal=True)
+    with open(f"{on}/m.jsonl") as fh:
+        recs = [json.loads(line) for line in fh]
+    summary = recs[-1]
+    check([r["kind"] for r in recs[-2:]] == ["metrics", "run_summary"]
+          and summary["exit_class"] == "ok", f"stream ends {recs[-2:]}")
+    mfu = summary.get("mfu")
+    want_source = (f"table:{torch.cuda.get_device_name(0)}"
+                   if torch.cuda.get_device_name(0) in ("NVIDIA H100 80GB HBM3",)
+                   else "calibrated")
+    check(mfu is not None and 0 < mfu <= 1 and summary.get("peak_flops_source") == want_source,
+          f"run_summary mfu {mfu} from {summary.get('peak_flops_source')}, want {want_source}")
+    programs = {r["program"]: r for r in recs if r["kind"] == "xla_program"}
+    check(all(programs.get(p, {}).get("flops", 0) > 0 for p in ("train_step", "score_batch")),
+          f"xla_program records: {list(programs)}")
+    check(programs["score_batch"]["kernel_flops"] > 0,
+          "the score program counted no kernel work")
+    marks = [r for r in recs if r["kind"] == "hbm_watermark"]
+    check(marks and max(r["peak_bytes"] or 0 for r in marks) > 0, f"hbm_watermark: {marks}")
+    stats = sorted(r["seed"] for r in recs if r["kind"] == "score_stats")
+    check(stats == [0, 1, 2] and any(r["kind"] == "score_stability" for r in recs)
+          and "score_stability" in summary, f"score telemetry: seeds {stats}")
+    pairs = span_nesting(f"{on}/trace.json")
+    want_pairs = {("run", "score"), ("score", "seed"), ("seed", "fit"), ("fit", "epoch"),
+                  ("run", "retrain:final"), ("retrain:final", "fit"), ("epoch", "eval"),
+                  ("fit", "checkpoint_save")}
+    check(want_pairs <= pairs, f"span nesting: missing {want_pairs - pairs}")
+    captures = {}
+    for tag in ("score_pretrain", "score", "final"):
+        path = os.path.join(on, "prof", tag, "trace.json")
+        check(os.path.exists(path), f"no profile capture for stage {tag}")
+        captures[tag] = capture_kernels(path)
+    check(captures["score"]["conv_grad_norm_direct"] > 0
+          and captures["score"]["conv_grad_norm_gram"] > 0,
+          f"the score capture lacks the GraNd kernels: {captures['score']}")
+    with open(f"{on}/ledger.jsonl") as fh:
+        ledger = [json.loads(line) for line in fh]
+    check(len(ledger) == 1 and ledger[0]["backend"] == "cuda"
+          and ledger[0]["device_kind"] == torch.cuda.get_device_name(0), f"ledger {ledger}")
+    with open(f"{on}/util.jsonl") as fh:
+        util = [json.loads(line) for line in fh]
+    duty = [u["duty_cycle"] for u in util if u.get("duty_cycle") is not None]
+    check(util and duty, f"utilization samples {len(util)}, duty {duty}")
+    hbm_peak = max((r["peak_bytes"] or 0 for r in marks), default=0)
+    xla = summary["xla"]
+    rec.update(wall_on_s=wall_on, wall_off_s=wall_off, stage_walls=walls,
+               compile_s={p: xla[p].get("compile_s") for p in xla},
+               n_records=n_records, mfu=mfu,
+               mfu_train_step=summary_gauge(recs, "mfu:train_step"),
+               mfu_score_batch=summary_gauge(recs, "mfu:score_batch"),
+               peak_flops_source=summary["peak_flops_source"],
+               flops_per_example={p: xla[p]["flops_per_example"] for p in xla},
+               kernel_flops_score_batch=xla["score_batch"]["kernel_flops"],
+               program_peak_bytes={p: xla[p].get("peak_bytes") for p in xla},
+               hbm_peak_bytes=hbm_peak,
+               duty_cycle_mean=sum(duty) / len(duty) if duty else None,
+               duty_samples=len(duty), stage_s=summary["stage_s"], captures=captures,
+               status_keys=sorted(status))
+    print(f"  cli run x{OBS_N} (seeds [0, 1, 2], 3 retrain epochs): wall with every "
+          f"instrument {wall_on:.1f} s, without {wall_off:.1f} s (subprocess, start-up "
+          f"included); scores bitwise; stage walls on {walls['on']}, off {walls['off']}; "
+          f"first calls (compile_s) {rec['compile_s']}", flush=True)
+    print(f"  mfu {mfu:.4f} (train_step {rec['mfu_train_step']}, score_batch "
+          f"{rec['mfu_score_batch']}; peak {rec['peak_flops_source']}); flops/example "
+          f"{rec['flops_per_example']}; HBM peak {hbm_peak / 2**30:.2f} GiB, program peaks "
+          f"{rec['program_peak_bytes']}; duty {rec['duty_cycle_mean']} over "
+          f"{len(duty)} samples; {n_records} records; captures {captures}", flush=True)
+    # 3: EL2N's kernel in a capture, and the drills, three processes at once.
+    el2n = os.path.join(OBS_ROOT, "el2n")
+    drill_args = ["train", "--config", os.path.join(REPO, "configs", "cifar10_resnet18.yaml"),
+                  "data.dataset=synthetic", f"data.synthetic_size={OBS_DRILL_N}",
+                  "train.num_epochs=2"]
+    nan_d, hang_d = os.path.join(OBS_ROOT, "nan"), os.path.join(OBS_ROOT, "hang")
+    procs = {
+        "el2n": CliProcess(["score", "--config", north, "data.dataset=synthetic",
+                            f"data.synthetic_size={OBS_N}", "score.method=el2n",
+                            "score.pretrain_epochs=0", "score.seeds=[0]",
+                            f"train.checkpoint_dir={el2n}/ckpt",
+                            f"obs.metrics_path={el2n}/m.jsonl",
+                            f"obs.profile_dir={el2n}/prof"]),
+        "nan": CliProcess(drill_args + [f"train.checkpoint_dir={nan_d}/ckpt",
+                                        f"obs.metrics_path={nan_d}/m.jsonl"],
+                          plan={"nan_loss_at_epoch": 1}),
+        # Without the harvest, whose first step (~8 s on the card, the flop
+        # counter's first use) would itself outlast this short deadline.
+        "hang": CliProcess(drill_args + [f"train.checkpoint_dir={hang_d}/ckpt",
+                                         f"obs.metrics_path={hang_d}/m.jsonl",
+                                         "obs.xla_introspect=false",
+                                         f"resilience.step_timeout_s={OBS_HANG_TIMEOUT_S}",
+                                         "train.auto_resume_retries=1"],
+                           plan={"hang_at": 2, "hang_seconds": 600})}
+    done = {k: p.wait() for k, p in procs.items()}
+    for k, (rc, _, _) in done.items():
+        check(rc == 0, f"{k}: exit {rc}: {''.join(procs[k].tail)[-2000:]}")
+    el2n_capture = capture_kernels(os.path.join(el2n, "prof", "score", "trace.json"))
+    check(el2n_capture["el2n"] > 0, f"the EL2N capture lacks its kernel: {el2n_capture}")
+    with open(os.path.join(nan_d, "flightrec_rank0.json")) as fh:
+        nan_dump = json.load(fh)
+    check(nan_dump["reason"] == "divergence:epoch1", f"NaN drill dump: {nan_dump['reason']}")
+    hangs = [r for r in procs["hang"].records if r.get("kind") == "fault"
+             and r.get("fault") == "hang"]
+    check(len(hangs) == 1 and "rank0 last progress" in hangs[0]["error"],
+          f"hang drill: {hangs}; faults "
+          f"{[r for r in procs['hang'].records if r.get('kind') == 'fault']}; "
+          f"{''.join(procs['hang'].tail)[-1500:]}")
+    rec.update(el2n_capture=el2n_capture, nan_dump_reason=nan_dump["reason"],
+               hang_error=hangs[0]["error"])
+    print(f"  EL2N capture {el2n_capture}; NaN drill dump {nan_dump['reason']!r}; hang "
+          f"drill: {hangs[0]['error'][:160]}", flush=True)
+    shutil.rmtree(OBS_ROOT, ignore_errors=True)
+
+
+def summary_gauge(recs: list[dict], name: str):
+    """A gauge of the stream's last registry snapshot."""
+    snaps = [r for r in recs if r["kind"] == "metrics"]
+    return snaps[-1]["gauges"].get(name) if snaps else None
+
+
 def load_port() -> dict:
     """The port's entry points and modules this script drives, by name; fails
     when the package is not importable next to this script."""
@@ -3866,6 +4153,9 @@ def main(argv: list[str]) -> int:
 
     phase("train")
     trained = train_phase(torch, port, details, card)
+
+    phase("obs")
+    obs_phase(torch, port, details, card)
 
     phase("resilience")
     resil = resilience_phase(torch, port, details, trained)

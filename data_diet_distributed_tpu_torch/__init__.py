@@ -11,8 +11,9 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
 
 * ``device.py`` -> (new) device resolution, TF32 parity mode, cuDNN determinism
 * ``config.py`` -> ``config.py`` (data/model/optim/score/prune/train/
-  resilience/mesh/serve, the ``obs`` keys the service reads; other keys
-  accepted and ignored)
+  resilience/mesh/obs/serve; ``obs.plots_dir``, ``slo_fleet_*`` and
+  ``slo_recovery_s`` refuse by name; the unported sections' keys accepted
+  and ignored)
 * ``parallel/mesh.py`` + ``parallel/collectives.py`` -> ``parallel/mesh.py``
   (``initialize_multihost`` over ``torch.distributed``: NCCL for CUDA, gloo
   for the CPU, a gloo host group beside NCCL; rank and world, ``is_primary``,
@@ -39,7 +40,9 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   step's BatchNorm statistics are the global batch's)
 * ``weights.py`` -> (new) Flax weight port, seeded init (``resnet.py:29-32,57``)
 * ``ops/kernels.py`` + ``ops/csrc/*.cu`` + ``ops/build.py`` ->
-  ``ops/pallas_kernels.py``, every Pallas kernel: ``conv_grad_norm_direct`` (v1
+  ``ops/pallas_kernels.py`` (and ``kernel_work``, each kernel's FLOPs and
+  bytes, which the MFU harvest and the on-card bounds share), every Pallas
+  kernel: ``conv_grad_norm_direct`` (v1
   ``:327`` and v2 ``:683``), ``conv_grad_norm_gram`` (``:797``), ``el2n``
   (``:100``), ``grand_last_layer`` (``:933``), ``bn_grad_norm`` (``:883``),
   ``conv_grad_norm_catdot`` (``:156``) and ``conv_bwd_grad_norm`` (the
@@ -53,22 +56,28 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   ``batched_grand_scores_fused`` with the megakernel route, the ``DDT_GRAND_*``
   toggles under the JAX names)
 * ``ops/scoring.py`` -> ``ops/scoring.py`` (``score_dataset`` with the data
-  planes, ``ScoreResident``, ``ScoreStream``)
+  planes, ``ScoreResident``, ``ScoreStream``; the ``score_batch`` program,
+  ``score_fetch_s``, the scoreboard's seed notes, the scoring profile window)
 * ``pruning.py`` -> ``pruning.py`` (``select_indices``, the prune-provenance
   manifest)
 * ``train/state.py`` -> ``train/state.py`` (``TrainState``, the LR schedule,
   the SGD chain; across ranks the gradient sum, ZeRO-1 and the sharded
   weight update)
 * ``train/steps.py`` -> ``train/steps.py`` (``train_step``, ``eval_step``; the
-  per-step path; across ranks the global-count loss and global metrics)
+  per-step path; across ranks the global-count loss and global metrics;
+  ``dispatch_train_step``/``dispatch_eval_step``: the dispatch counters and
+  the ``train_step`` harvest, as JAX's ``_counted``)
 * ``train/loop.py`` -> ``train/loop.py`` (``fit`` with the resilience hooks,
   ``fit_with_recovery``, ``evaluate``, ``score_variables_for_seeds``,
   ``compute_scores`` with per-seed partials, ``trajectory_scores`` (forgetting,
   AUM) through ``fit``'s ``epoch_hook``, ``run_datadiet`` and
-  ``run_sweep`` with the stage manifest, the fingerprints)
+  ``run_sweep`` with the stage manifest, the fingerprints; the observability
+  hooks: spans, registry timers, heartbeats, profile windows, memory polls,
+  MFU, SLO checks, ``fleet_status``, ``comm_stats``, flight-recorder dumps)
 * ``checkpoint.py`` -> ``checkpoint.py`` (the single-tier ``CheckpointManager``,
   in the port's own format; ``restore_verified`` falls back past corrupt
-  steps; across ranks rank 0 writes, then a barrier; ``verified_steps``)
+  steps; across ranks rank 0 writes, then a barrier; ``verified_steps``;
+  ``checkpoint_save``/``checkpoint_restore`` spans and walls)
 * ``resilience/`` -> ``resilience/`` (``preemption.py``, ``sentinel.py``
   with the agreed verdict, ``watchdog.py`` with ``probe_devices`` through
   torch and the consensus hooks, ``integrity.py`` for the port's manifest,
@@ -76,7 +85,9 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   ``consensus.py`` (``agree_any``, ``agree_common``, ``broadcast_json``,
   ``SideChannel``, ``Consensus``), and ``inject.py`` with the training,
   storage and consensus fault classes, ``rank`` targeting included)
-* ``utils/io.py`` -> ``utils/io.py`` (atomic writes, ``load_scores_npz``)
+* ``utils/io.py`` -> ``utils/io.py`` (atomic writes, ``load_scores_npz``,
+  ``atomic_append_jsonl``)
+* ``utils/stats.py`` -> ``utils/stats.py`` (Spearman rho with ties)
 * ``serve/`` -> ``serve/engine.py``, ``batcher.py``, ``server.py``
   (``ServeEngine`` with ``fit``/``evaluate``/``score``, tenants and weights,
   the verified checkpoint refresh and the program cache; the coalescing
@@ -84,14 +95,27 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   ``ServeServer``/``ServeService`` with ``/v1/score``, ``/v1/rank``, streamed
   ``/v1/topk``, ``/v1/refresh``, the SIGTERM drain and the refresh watcher;
   ``run_serve``)
-* ``obs/`` -> ``obs/metrics.py`` (``MetricsLogger``'s record shape),
-  ``registry.py``, ``reqtrace.py``, ``heartbeat.py``, ``slo.py`` (the serve
-  objectives), ``server.py`` (the ``StatusServer`` chassis: /healthz,
-  /metrics, /status, /flightrec), ``session.py``
+* ``obs/`` -> ``obs/``: ``lineage.py``, ``flightrec.py``, ``metrics.py``
+  (``MetricsLogger`` with the ring mirror and the lineage stamp,
+  ``emit_run_summary``), ``registry.py`` (snapshots, Prometheus textfile,
+  stage seconds), ``tracing.py``, ``profiler.py`` (``ProfileWindow`` over
+  ``torch.profiler``, ``StepTimer``), ``introspect.py`` -> ``xla.py``
+  (``FlopCounterMode`` plus the kernels' analytic work on a program's first
+  real call, MFU against the peak table or a calibration,
+  ``HbmMonitor`` over ``torch.cuda.memory_stats``), ``monitor.py`` (host
+  CPU, device memory, the latency-probe duty cycle), ``scoreboard.py``,
+  ``comm.py``, ``slo.py`` (training and serve objectives, ``ledger_baseline``
+  by ``cuda``/``cpu`` backend), ``fleet.py``, ``heartbeat.py`` (with lineage,
+  ``describe_stale``, the residue files), ``reqtrace.py``, ``server.py``
+  (/healthz, /metrics, /status with MFU, watermark, ETA and lineage, the
+  live /flightrec), ``session.py`` (every instrument)
 * ``cli.py`` -> ``cli.py`` (``train``, ``run``, ``sweep``, ``score``,
-  ``serve``; exit 75 on preemption or a serve drain, ``DDT_FAULT_PLAN``
-  drills; ``mesh.multihost`` joins the group first, rank 0 prints and writes,
-  a failure under the group exits 69 or 1 at once)
+  ``serve``, each under ``ObsSession`` and a ``run`` span, its records in
+  ``obs.metrics_path`` and on stderr ending in ``metrics`` and
+  ``run_summary``, ``obs.monitor`` and the ``perf_history`` ledger line;
+  exit 75 on preemption or a serve drain, ``DDT_FAULT_PLAN`` drills;
+  ``mesh.multihost`` joins the group first, rank 0 prints and writes, a
+  failure under the group exits 69 or 1 at once)
 
 Across W processes (``mesh.multihost``), one device each, every entry point
 computes what the JAX package computes on a ``{data: W, model: 1}`` mesh:
@@ -106,10 +130,11 @@ accepted and ignored), elastic supervision and resize (``remap_mesh``,
 kill and rejoin fault classes of ``resilience/``, the chunked training
 engine and its ``StreamingBatches``, the serving router and fleet
 (``serve/router.py``, ``serve/fleet.py``: ``cli serve`` refuses
-``serve.replicas > 1`` and ``serve.max_replicas``), and the rest of
-observability (``obs/lineage.py``, the flight recorder, whose ``/flightrec``
-answers "not installed", the tracer, ``obs/comm.py``, ``obs/xla.py``, the
-training, fleet and recovery SLOs; the training entry points' records go to
-the caller's ``log``) and the tools (``tools/make_shards.py``,
-``tools/npz_to_npy.py``; their formats are the port's too).
+``serve.replicas > 1`` and ``serve.max_replicas``), the autotuner's
+manifest (``tuning.py``: no ``tuning_applied`` record), what remains of
+observability (``obs/plots.py``: ``obs.plots_dir`` refuses by name;
+``obs/timeline.py``, which merges elastic attempts; the fleet and recovery
+SLOs and ``judge_canary``, with the serving fleet) and the tools
+(``tools/make_shards.py``, ``tools/npz_to_npy.py``; their formats are the
+port's too).
 """

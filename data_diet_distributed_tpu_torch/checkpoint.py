@@ -41,6 +41,8 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .obs import registry as obs_registry
+from .obs import tracing
 from .parallel.mesh import is_primary, sync_hosts
 from .resilience.integrity import (FORMAT, CheckpointCorrupt, build_manifest,
                                    verify_restored)
@@ -77,9 +79,11 @@ class CheckpointManager:
         """Write ``state`` as step ``step``; returns its directory. Across ranks
         rank 0 writes and every rank returns after it has (a barrier)."""
         final = self._step_dir(step)
-        if is_primary():
-            self._write(step, state, metrics, final)
-        sync_hosts(f"checkpoint_saved:{step}")
+        with tracing.span("checkpoint_save", cat="checkpoint", step=int(step)), \
+                obs_registry.timed("checkpoint_save_s"):
+            if is_primary():
+                self._write(step, state, metrics, final)
+            sync_hosts(f"checkpoint_saved:{step}")
         return final
 
     def _write(self, step: int, state: TrainState, metrics: dict[str, Any] | None,
@@ -141,8 +145,14 @@ class CheckpointManager:
         return int(step)
 
     def _load(self, step: int | None) -> tuple[dict, dict[str, dict]]:
-        """The manifest and the verified arrays by group."""
+        """The manifest and the verified arrays by group (a
+        ``checkpoint_restore`` span and ``checkpoint_restore_s`` wall)."""
         step = self._resolve(step)
+        with tracing.span("checkpoint_restore", cat="checkpoint", step=step), \
+                obs_registry.timed("checkpoint_restore_s"):
+            return self._load_step(step)
+
+    def _load_step(self, step: int) -> tuple[dict, dict[str, dict]]:
         manifest = self.manifest(step)
         path = os.path.join(self._step_dir(step), "arrays.npz")
         try:

@@ -31,10 +31,16 @@ scores ``forgetting`` and ``aum`` included (their per-seed fits are the
 scoring pass), and every command takes ``model.remat``.
 
 Each command prints its summary as one JSON line on stdout; the event records
-along the way (epochs, prune decisions, faults, recoveries, stages) go to
-stderr as JSON lines. The device is CUDA unless ``--device cpu``; without
-CUDA the command raises. Drive a CPU service with ``tools/serve_client.py
---url http://127.0.0.1:<port>`` and end it with ``kill -TERM <pid>`` (exit 75).
+along the way (epochs, prune decisions, faults, recoveries, stages, the
+introspection and telemetry records) go to ``obs.metrics_path`` and to stderr
+as JSON lines, ending in a registry snapshot (``metrics``) and ``run_summary``.
+Every command runs under ``obs/session.py::ObsSession`` inside a ``run``
+span; ``obs.monitor`` samples utilization into ``obs.monitor_path`` for the
+command's duration, and ``obs.perf_ledger`` gets one ``perf_history`` record
+per command (``backend`` ``cuda`` or ``cpu``, ``device_kind`` the card's
+name). The device is CUDA unless ``--device cpu``; without CUDA the command
+raises. Drive a CPU service with ``tools/serve_client.py --url
+http://127.0.0.1:<port>`` and end it with ``kill -TERM <pid>`` (exit 75).
 
 Resilience as in the JAX package: a SIGTERM/SIGINT ends the command after a
 final checkpoint with ``[preempted] ...`` on stdout and exit status 75;
@@ -67,7 +73,9 @@ import torch
 
 from .config import Config, load_config
 from .device import resolve_device
-from .obs.metrics import MetricsLogger
+from .obs import lineage, tracing
+from .obs.metrics import MetricsLogger, emit_run_summary
+from .obs.monitor import ResourceMonitor
 from .obs.session import ObsSession
 from .parallel.mesh import initialize_multihost, is_primary, shutdown, world_size
 from .resilience import inject
@@ -76,22 +84,15 @@ from .resilience.watchdog import EXIT_RETRIABLE, probe_devices
 from .serve.server import run_serve
 from .train.loop import (compute_scores, fit_with_recovery, load_data_for,
                          pipeline_stages, run_datadiet, run_sweep, scores_npz_path)
-from .utils.io import atomic_savez
+from .utils.io import atomic_append_jsonl, atomic_savez
 
 
-def _log(kind: str, **fields) -> None:
-    if is_primary():
-        print(json.dumps({"kind": kind, **fields}, default=str), file=sys.stderr,
-              flush=True)
-
-
-def score(cfg: Config, device=None) -> dict:
+def score(cfg: Config, device, log) -> dict:
     """The ``score`` command: score (stage-resumable, like ``run``), save the
     npz, return a summary."""
-    device = resolve_device(device)
     train_ds, _ = load_data_for(cfg)
-    scores, timings = compute_scores(cfg, train_ds, device=device, log=_log,
-                                     stages=pipeline_stages(cfg, _log))
+    scores, timings = compute_scores(cfg, train_ds, device=device, log=log,
+                                     stages=pipeline_stages(cfg, log))
     out = scores_npz_path(cfg.train.checkpoint_dir)
     method = (f"reused:{timings['loaded_from']}" if timings.get("loaded_from")
               else cfg.score.method)
@@ -103,41 +104,13 @@ def score(cfg: Config, device=None) -> dict:
             "mean": float(scores.mean()), "std": float(scores.std())}
 
 
-def train(cfg: Config, device=None) -> dict:
+def train(cfg: Config, device, log) -> dict:
     """The ``train`` command: a dense fit with checkpoints and recovery."""
-    device = resolve_device(device)
     train_ds, test_ds = load_data_for(cfg)
-    res = fit_with_recovery(cfg, train_ds, test_ds, device=device, log=_log,
+    res = fit_with_recovery(cfg, train_ds, test_ds, device=device, log=log,
                             checkpoint_dir=cfg.train.checkpoint_dir, tag="dense")
     return {**res.throughput_summary(), "train_wall_s": round(res.wall_s, 3),
             "device": str(device)}
-
-
-def serve(cfg: Config, device=None) -> dict:
-    """The ``serve`` command: ``run_serve`` under the observability session
-    (registry, heartbeat, serve SLOs), its records to ``obs.metrics_path``
-    and stderr; the stream ends with a registry snapshot and ``run_summary``
-    (``exit_class`` ``preempted`` after a drain). Returns only by raising
-    (``Preempted`` on SIGTERM)."""
-    logger = MetricsLogger(cfg.obs.metrics_path)
-    t0 = time.perf_counter()
-    exit_class = "ok"
-    try:
-        with ObsSession(cfg, logger=logger) as obs:
-            try:
-                return run_serve(cfg, logger, device)
-            except Preempted:
-                exit_class = "preempted"
-                raise
-            except BaseException as exc:
-                exit_class = f"fatal:{type(exc).__name__}"
-                raise
-            finally:
-                logger.log("metrics", **obs.registry.snapshot())
-                logger.log("run_summary", wall_s=round(time.perf_counter() - t0, 3),
-                           exit_class=exit_class, command="serve")
-    finally:
-        logger.close()
 
 
 def _refuse_serve(cfg: Config) -> None:
@@ -154,16 +127,114 @@ def _refuse_serve(cfg: Config) -> None:
             "supported for serving")
 
 
-def _dispatch(command: str, cfg: Config, device) -> dict:
-    if command == "serve":
-        return {"event": "serve_done", **serve(cfg, device)}
+def _dispatch(command: str, cfg: Config, device, logger: MetricsLogger) -> dict:
+    """Run the command; returns its summary line."""
+    if command == "serve":   # returns only by raising (Preempted on SIGTERM)
+        return {"event": "serve_done", **run_serve(cfg, logger, device)}
     if command == "score":
-        return {"event": "scores_saved", **score(cfg, device)}
+        return {"event": "scores_saved", **score(cfg, device, logger)}
     if command == "train":
-        return {"event": "train_done", **train(cfg, device)}
+        return {"event": "train_done", **train(cfg, device, logger)}
     if command == "run":
-        return {"event": "run_done", **run_datadiet(cfg, device=device, log=_log)}
-    return {"event": "sweep_done", "levels": run_sweep(cfg, device=device, log=_log)}
+        return {"event": "run_done", **run_datadiet(cfg, device=device, log=logger)}
+    return {"event": "sweep_done", "levels": run_sweep(cfg, device=device, log=logger)}
+
+
+def _final(out: dict | None) -> dict | None:
+    """The ``run_summary`` ``final`` block: the headline numbers of a summary
+    line (the JAX package's per command)."""
+    if out is None:
+        return None
+    if out["event"] == "sweep_done":
+        return {"levels": [s.get("sparsity") for s in out["levels"]],
+                "final_test_accuracy": [s.get("final_test_accuracy")
+                                        for s in out["levels"]]}
+    keys = {"run_done": ("final_test_accuracy", "sparsity", "score_method", "n_kept",
+                         "total_wall_s"),
+            "train_done": ("epochs", "epoch_s", "examples_per_s",
+                           "final_test_accuracy"),
+            "scores_saved": ("n_scores", "scores_npz", "score_s", "pretrain_s")}
+    return {k: out.get(k) for k in keys.get(out["event"], ())}
+
+
+def _append_perf_ledger(cfg: Config, command: str, summary: dict, device) -> None:
+    """One ``{"kind": "perf_history"}`` record per command into
+    ``obs.perf_ledger`` (off when None), with the JAX package's fields; rank 0
+    only, and never the thing that fails a run. ``backend`` is ``cuda`` or
+    ``cpu`` and ``device_kind`` the card's name, so ``tools/perf_sentry.py``
+    never groups a port record with a TPU one."""
+    if not cfg.obs.perf_ledger or not is_primary():
+        return
+    try:
+        final = summary.get("final") or {}
+        lin = lineage.ensure()
+        dev = torch.device(device) if device is not None else torch.device("cpu")
+        rec = {
+            "kind": "perf_history", "ts": round(time.time(), 3),
+            "run_id": lin.run_id, "attempt": lin.attempt,
+            "source": "cli", "metric": f"cli_{command}_wall_s",
+            "value": summary.get("wall_s"), "unit": "seconds",
+            "exit_class": summary.get("exit_class"),
+            "backend": dev.type,
+            "device_kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                            else "cpu"),
+            "n_devices": world_size(),
+            "geometry": {"dataset": cfg.data.dataset, "arch": cfg.model.arch,
+                         "batch": cfg.data.batch_size, "epochs": cfg.train.num_epochs,
+                         "method": cfg.score.method},
+        }
+        for k in ("examples_per_s", "final_test_accuracy", "total_wall_s"):
+            if isinstance(final.get(k), (int, float)):
+                rec[k] = final[k]
+        if "mfu" in summary:
+            rec["mfu"] = summary["mfu"]
+        if isinstance(summary.get("slo"), dict):
+            rec["slo"] = {"ok": summary["slo"].get("ok"),
+                          "violations": summary["slo"].get("violations")}
+        atomic_append_jsonl(cfg.obs.perf_ledger, rec)
+    except Exception as exc:   # noqa: BLE001 — the ledger is observability
+        print(f"[obs] perf ledger append failed: {exc!r}", file=sys.stderr, flush=True)
+
+
+def _observed(command: str, cfg: Config, device_arg) -> dict:
+    """The command under ``ObsSession`` and a ``run`` span, its records in
+    ``obs.metrics_path`` and on stderr; the stream ends in the registry
+    snapshot and ``run_summary`` however the command ends."""
+    device = resolve_device(device_arg)
+    monitor = (ResourceMonitor(cfg.obs.monitor_path, device=device)
+               if cfg.obs.monitor and is_primary() else None)
+    if monitor is not None:
+        monitor.start()
+    logger = MetricsLogger(cfg.obs.metrics_path)
+    t0 = time.perf_counter()
+    out = None
+    exit_class = "ok"
+    try:
+        with ObsSession(cfg, logger=logger, device=device) as obs:
+            try:
+                with tracing.span("run", cat="run", command=command):
+                    out = _dispatch(command, cfg, device, logger)
+                return out
+            except Preempted:
+                exit_class = "preempted"
+                raise
+            except BaseException as exc:
+                exit_class = f"fatal:{type(exc).__name__}"
+                raise
+            finally:
+                try:
+                    logger.log("metrics", **obs.registry.snapshot())
+                    summary = emit_run_summary(
+                        logger, wall_s=time.perf_counter() - t0, exit_class=exit_class,
+                        command=command, final=_final(out), registry=obs.registry)
+                    _append_perf_ledger(cfg, command, summary, device)
+                except Exception as exc:   # noqa: BLE001 — never masks the outcome
+                    print(f"[obs] run_summary emission failed: {exc!r}",
+                          file=sys.stderr, flush=True)
+    finally:
+        logger.close()
+        if monitor is not None:
+            monitor.stop()
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -195,7 +266,7 @@ def main(argv: list[str] | None = None) -> int:
                 return EXIT_RETRIABLE
         initialize_multihost(cfg.mesh, args.device)
         try:
-            out = _dispatch(args.command, cfg, args.device)
+            out = _observed(args.command, cfg, args.device)
         except Preempted as p:
             # The final checkpoint (or the seed's partial) is durable and the
             # "preempted" event is already logged: report the resume point

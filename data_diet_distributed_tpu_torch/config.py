@@ -18,12 +18,12 @@ tensor-parallel classifier is not ported).
 single-process keys, and the serving fleet's (``replicas > 1``,
 ``max_replicas``, the router, autoscaler, probation and canary keys) are
 validated and accepted, but a fleet is refused by name (not ported).
-``ObsConfig`` holds the ``obs`` keys the serving slice reads
-(``metrics_path``, the heartbeat and the serve SLOs); the other ``obs`` keys
-and the sections the port does not have (parallel, checkpoint, elastic,
-tuning) are accepted key by key and ignored, so every ``configs/*.yaml``
-loads unchanged, while an unknown key anywhere still raises ``KeyError`` as in
-JAX.
+``ObsConfig`` is copied whole with its validation; every key takes effect
+but ``plots_dir``, ``slo_fleet_*`` and ``slo_recovery_s``, which raise by name
+when set (not ported). The sections the port does not have (parallel,
+checkpoint, elastic, tuning) are accepted key by key and ignored, so every
+``configs/*.yaml`` loads unchanged, while an unknown key anywhere still raises
+``KeyError`` as in JAX.
 """
 
 from __future__ import annotations
@@ -201,23 +201,71 @@ SERVABLE_METHODS = ("el2n", "margin", "grand", "grand_vmap", "grand_last_layer")
 
 @dataclass
 class ObsConfig:
-    """The ``obs`` keys the serving slice reads (``obs/``): the metrics JSONL,
-    the per-rank heartbeat file and the serve SLOs. The other ``obs`` keys of
-    the JAX package are accepted and ignored."""
+    """Observability (``obs/``), the JAX package's keys and defaults: the
+    metrics stream, the trace, the registry snapshots and Prometheus
+    textfile, the heartbeat, the flight recorder, program introspection and
+    the memory watermark, the ``torch.profiler`` window, score telemetry, the
+    perf-history ledger, the status server, the fleet view, the resource
+    monitor and the training and serving SLOs. ``plots_dir`` (the post-run
+    plots), the fleet SLOs (``slo_fleet_*``) and the recovery SLO
+    (``slo_recovery_s``) are not ported and raise by name when set."""
 
-    # JSON lines {"ts", "kind", ...} of the service's records; None = none.
+    # JSON lines {"ts", "kind", ...} of the command's records; None = none.
     metrics_path: str | None = "./metrics.jsonl"
+    # Host/device utilization sampled by a thread into monitor_path.
+    monitor: bool = False
+    monitor_path: str = "./utilization.jsonl"
+    # torch.profiler captures: one steady window per stage under this dir.
+    profile_dir: str | None = None
+    profile_window_chunks: int = 8
+    plots_dir: str | None = None
+    # Chrome-trace spans; None path -> trace.json next to the metrics stream.
+    trace: bool = True
+    trace_path: str | None = None
+    # A {"kind": "metrics"} snapshot at most every this-many seconds (epoch
+    # boundaries; 0 = only the final one), and a Prometheus textfile.
+    snapshot_every_s: float = 60.0
+    prom_path: str | None = None
     # Per-rank heartbeat file; None dir -> <train.checkpoint_dir>_heartbeats.
     heartbeat: bool = True
     heartbeat_dir: str | None = None
     heartbeat_interval_s: float = 0.5
-    # Heartbeat staleness budget of /healthz (None -> the server's default).
+    # Flight recorder: a ring of the last events, dumped on faults to
+    # <dir>/flightrec_rank<k>.json (None dir -> next to the metrics stream).
+    flightrec: bool = True
+    flightrec_capacity: int = 256
+    flightrec_dir: str | None = None
+    # Program introspection (FLOPs, compile wall, memory, MFU) and the
+    # device-memory watermark trail (a record per peak jump of this fraction).
+    xla_introspect: bool = True
+    hbm_jump_frac: float = 0.10
+    # Score telemetry: score_stats per seed pass, score_stability per pass.
+    score_telemetry: bool = True
+    score_hist_bins: int = 32
+    # Append-only perf-history ledger: one perf_history record per command.
+    perf_ledger: str | None = None
+    # Status server (/healthz /metrics /status /flightrec); 0 = a free port.
+    server_port: int | None = None
+    server_host: str = "127.0.0.1"
+    # fleet_status records from the merged heartbeats (multi-rank runs).
+    fleet: bool = True
+    # Training SLOs: throughput floor (absolute, and/or a fraction of the
+    # perf ledger's baseline), heartbeat staleness budget (also /healthz's),
+    # nonfinite-score budget, eval-accuracy floor.
+    slo_throughput_floor: float | None = None
+    slo_throughput_frac: float | None = None
     slo_heartbeat_stale_s: float | None = None
+    slo_nonfinite_frac: float | None = None
+    slo_eval_accuracy_floor: float | None = None
     # Serving SLOs, judged at every serve_stats point: p95 request latency
     # (ms), pending queue depth, and the tolerated rejected fraction.
     slo_serve_p95_ms: float | None = None
     slo_serve_queue_depth: int | None = None
     slo_serve_reject_frac: float | None = None
+    # Not ported: refused by name when set.
+    slo_fleet_p95_ms: float | None = None
+    slo_fleet_available_frac: float | None = None
+    slo_recovery_s: float | None = None
 
 
 @dataclass
@@ -289,15 +337,6 @@ _IGNORED_SECTIONS: dict[str, Any] = {
                              "extra_flags"}},
     "checkpoint": {"local_tier", "local_dir", "promote", "drain_timeout_s",
                    "promote_delay_s"},
-    # The obs keys ObsConfig does not hold.
-    "obs": {"monitor", "monitor_path", "profile_dir", "plots_dir",
-            "trace", "trace_path", "snapshot_every_s", "prom_path", "flightrec",
-            "flightrec_capacity", "flightrec_dir", "xla_introspect",
-            "hbm_jump_frac", "profile_window_chunks", "score_telemetry",
-            "score_hist_bins", "perf_ledger", "server_port", "server_host",
-            "fleet", "slo_throughput_floor", "slo_throughput_frac",
-            "slo_nonfinite_frac", "slo_eval_accuracy_floor", "slo_fleet_p95_ms",
-            "slo_fleet_available_frac", "slo_recovery_s"},
     "elastic": {"enabled", "world", "min_world", "max_world", "max_restarts",
                 "backoff_s", "reap_timeout_s", "heartbeat_stale_s",
                 "resume_preempted"},
@@ -429,12 +468,52 @@ class Config:
 
     def _validate_obs_serve(self) -> None:
         o = self.obs
+        for key, what in (("plots_dir", "the post-run plots (obs/plots.py)"),
+                          ("slo_fleet_p95_ms", "the serving fleet's SLOs"),
+                          ("slo_fleet_available_frac", "the serving fleet's SLOs"),
+                          ("slo_recovery_s", "the elastic supervisor's recovery SLO")):
+            if getattr(o, key) is not None:
+                raise NotImplementedError(
+                    f"obs.{key}: {what} are not ported to the PyTorch package "
+                    "(ROADMAP.md Queue 1); leave it null")
+        if o.snapshot_every_s < 0:
+            raise ValueError(
+                f"obs.snapshot_every_s must be >= 0 (0 disables periodic "
+                f"snapshots), got {o.snapshot_every_s}")
         if o.heartbeat_interval_s < 0:
             raise ValueError(
                 f"obs.heartbeat_interval_s must be >= 0, got {o.heartbeat_interval_s}")
+        if o.flightrec_capacity < 1:
+            raise ValueError(
+                f"obs.flightrec_capacity must be >= 1, got {o.flightrec_capacity}")
+        if o.profile_window_chunks < 1:
+            raise ValueError(
+                f"obs.profile_window_chunks must be >= 1, got {o.profile_window_chunks}")
+        if o.hbm_jump_frac <= 0:
+            raise ValueError(f"obs.hbm_jump_frac must be > 0, got {o.hbm_jump_frac}")
+        if o.score_hist_bins < 1:
+            raise ValueError(f"obs.score_hist_bins must be >= 1, got {o.score_hist_bins}")
+        if o.server_port is not None and not 0 <= o.server_port <= 65535:
+            raise ValueError(
+                f"obs.server_port must be in [0, 65535] (0 = auto-pick, "
+                f"null = off), got {o.server_port}")
+        if o.slo_throughput_floor is not None and o.slo_throughput_floor <= 0:
+            raise ValueError(
+                f"obs.slo_throughput_floor must be > 0, got {o.slo_throughput_floor}")
+        if o.slo_throughput_frac is not None and not 0.0 < o.slo_throughput_frac <= 1.0:
+            raise ValueError(
+                f"obs.slo_throughput_frac must be in (0, 1], got {o.slo_throughput_frac}")
         if o.slo_heartbeat_stale_s is not None and o.slo_heartbeat_stale_s <= 0:
             raise ValueError(
                 f"obs.slo_heartbeat_stale_s must be > 0, got {o.slo_heartbeat_stale_s}")
+        if o.slo_nonfinite_frac is not None and not 0.0 <= o.slo_nonfinite_frac < 1.0:
+            raise ValueError(
+                f"obs.slo_nonfinite_frac must be in [0, 1), got {o.slo_nonfinite_frac}")
+        if (o.slo_eval_accuracy_floor is not None
+                and not 0.0 <= o.slo_eval_accuracy_floor <= 1.0):
+            raise ValueError(
+                f"obs.slo_eval_accuracy_floor must be in [0, 1], got "
+                f"{o.slo_eval_accuracy_floor}")
         if o.slo_serve_p95_ms is not None and o.slo_serve_p95_ms <= 0:
             raise ValueError(f"obs.slo_serve_p95_ms must be > 0, got {o.slo_serve_p95_ms}")
         if o.slo_serve_queue_depth is not None and o.slo_serve_queue_depth < 1:

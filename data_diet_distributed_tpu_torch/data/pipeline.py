@@ -431,12 +431,12 @@ def data_plane_record(stage: str, engine: str, stats: dict | None,
 
 @contextlib.contextmanager
 def logging_data_plane(log, stage: str, engine: str, stats: dict,
-                       ds: ArrayDataset | None):
+                       ds: ArrayDataset | None, tag: str | None = None):
     """Around one pass (a fit, a scoring pass): when it ends, however it ends,
     drain the pending shard-read fault records into ``log(kind, **fields)``
     and log one ``data_plane`` record from ``stats`` (filled during the pass),
-    with ``fault`` naming the exception that ended it (None when none did).
-    ``log`` None logs nothing."""
+    with ``fault`` naming the exception that ended it (None when none did)
+    and, for a fit, its ``tag``. ``log`` None logs nothing."""
     fault = None
     try:
         yield
@@ -453,7 +453,8 @@ def logging_data_plane(log, stage: str, engine: str, stats: dict,
                 record["read_retries_used"] = int(images.retries_used)
             if getattr(images, "quarantined", None):
                 record["quarantined_shards"] = sorted(int(s) for s in images.quarantined)
-            log("data_plane", **record, fault=fault)
+            log("data_plane", **({"tag": tag} if tag is not None else {}), **record,
+                fault=fault)
 
 
 def merge_stall_stats(total: dict, stats: dict) -> dict:

@@ -1,7 +1,11 @@
-"""Observability of the serving slice (counterpart of
-``data_diet_distributed_tpu/obs/``): ``metrics.MetricsLogger``, the metrics
-registry, request tracing, per-rank heartbeats, the serve SLOs and the
-status-server chassis. Every instrument sits in a module-level slot and is a
-no-op until installed (``session.ObsSession`` installs them for a command).
-``registry``, ``reqtrace``, ``heartbeat``, ``slo`` and ``server`` import no
-torch."""
+"""Observability (counterpart of ``data_diet_distributed_tpu/obs/``): the run's
+lineage, ``metrics.MetricsLogger`` and ``run_summary``, the metrics registry,
+the tracer, the flight recorder, program introspection and MFU
+(``introspect.py``, the JAX package's ``xla.py``), the memory watermark, the
+``torch.profiler`` window, the resource monitor, score telemetry,
+communication telemetry, the SLO engine, per-rank heartbeats and the fleet
+view, request tracing and the status server. Every instrument sits in a
+module-level slot and is a no-op until installed (``session.ObsSession``
+installs them for a command). The modules import torch only inside the
+functions that need it. ``obs/plots.py`` and ``obs/timeline.py`` are not
+ported."""

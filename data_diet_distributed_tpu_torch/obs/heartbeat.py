@@ -17,12 +17,17 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import socket
 import threading
 import time
 
+from . import lineage
+
 __all__ = ["Heartbeat", "default_dir", "dir_from_cfg", "heartbeat_path",
-           "read_heartbeats", "install", "uninstall", "current", "beat"]
+           "read_heartbeats", "describe_beats", "describe_stale", "archive_heartbeat",
+           "read_heartbeat_residue", "install", "uninstall", "current", "beat",
+           "describe"]
 
 
 def default_dir(checkpoint_dir: str) -> str:
@@ -65,6 +70,10 @@ class Heartbeat:
                 self._made_dir = True
             payload = {"rank": self.rank, "ts": round(time.time(), 3),
                        "pid": os.getpid(), "host": socket.gethostname()}
+            lin = lineage.current()
+            if lin is not None:
+                payload["attempt"] = lin.attempt
+                payload["run_id"] = lin.run_id
             if step is not None:
                 payload["step"] = int(step)
             if epoch is not None:
@@ -103,6 +112,62 @@ def read_heartbeats(directory: str) -> dict[int, dict]:
     return out
 
 
+def residue_path(directory: str, rank: int, attempt: int) -> str:
+    """A departed rank's archived heartbeat: ``.a<attempt>`` after ``.json``,
+    so ``read_heartbeats`` never reads it as a live rank."""
+    return f"{heartbeat_path(directory, rank)}.a{int(attempt)}"
+
+
+def archive_heartbeat(directory: str, rank: int, attempt: int) -> bool:
+    """Move a rank's heartbeat aside (its last recorded progress); returns
+    whether a file moved."""
+    try:
+        os.replace(heartbeat_path(directory, rank), residue_path(directory, rank, attempt))
+        return True
+    except OSError:
+        return False
+
+
+def read_heartbeat_residue(directory: str) -> list[dict]:
+    """Archived heartbeats, each with its ``rank`` and ``attempt``."""
+    out: list[dict] = []
+    try:
+        names = sorted(os.listdir(directory))
+    except OSError:
+        return out
+    for name in names:
+        m = re.match(r"heartbeat_rank(\d+)\.json\.a(\d+)$", name)
+        if m is None:
+            continue
+        try:
+            with open(os.path.join(directory, name)) as fh:
+                rec = json.load(fh)
+        except (OSError, ValueError):
+            continue
+        rec["rank"] = int(m.group(1))
+        rec["attempt"] = int(m.group(2))
+        out.append(rec)
+    return out
+
+
+def describe_beats(beats: dict[int, dict], now: float | None = None) -> list[str]:
+    """One line per rank naming its last progress, stalest first."""
+    now = time.time() if now is None else now
+    lines = []
+    for rank, rec in sorted(beats.items(), key=lambda kv: kv[1].get("ts", 0.0)):
+        age = now - float(rec.get("ts", now))
+        where = ", ".join(f"{k}={rec[k]}" for k in ("stage", "epoch", "step") if k in rec)
+        lines.append(f"rank{rank} last progress {age:.1f}s ago"
+                     + (f" ({where})" if where else ""))
+    return lines
+
+
+def describe_stale(directory: str, now: float | None = None) -> str:
+    """The per-rank summary as one line (empty without heartbeats): appended
+    to watchdog timeout messages."""
+    return "; ".join(describe_beats(read_heartbeats(directory), now))
+
+
 # --------------------------------------------------------- module-level slot
 
 _HEARTBEAT: Heartbeat | None = None
@@ -127,3 +192,11 @@ def beat(**kwargs) -> None:
     """Library-code entry: no-op until a Heartbeat is installed."""
     if _HEARTBEAT is not None:
         _HEARTBEAT.beat(**kwargs)
+
+
+def describe() -> str:
+    """Staleness summary of the installed heartbeat's directory (the
+    watchdog's ``diagnose``); empty when none is installed."""
+    if _HEARTBEAT is None:
+        return ""
+    return describe_stale(_HEARTBEAT.directory)

@@ -1,9 +1,12 @@
 """Metrics registry: counters, gauges and streaming histograms (counterpart of
 ``data_diet_distributed_tpu/obs/registry.py``).
 
-One process-wide place the serving layer reports its numbers to (request
-latency, dispatch and first-call walls, per-phase trace histograms, the SLO
-gauges), read live by ``/metrics`` (Prometheus text) and ``/status``.
+One process-wide place every layer reports its numbers to (epoch, eval,
+step-dispatch, scoring, checkpoint and per-stage walls, throughput, request
+latency, the introspection and SLO gauges), read live by ``/metrics``
+(Prometheus text) and ``/status``, snapshotted into the stream as
+``{"kind": "metrics"}`` records and, with ``obs.prom_path``, into a
+Prometheus textfile.
 
 Histograms keep exact count/sum/max and reservoir-sampled quantiles: the
 first ``reservoir`` samples, then uniform replacement (Vitter's algorithm R),
@@ -17,13 +20,15 @@ unconditionally, and an uninstrumented caller pays one ``is None`` check.
 from __future__ import annotations
 
 import contextlib
+import os
 import random
 import re
 import threading
 import time
 
 __all__ = ["MetricsRegistry", "Counter", "Gauge", "Histogram", "percentile",
-           "install", "uninstall", "current", "inc", "set_gauge", "observe", "timed"]
+           "install", "uninstall", "current", "inc", "set_gauge", "observe", "timed",
+           "maybe_snapshot"]
 
 
 def percentile(values: list[float], q: float) -> float:
@@ -107,12 +112,16 @@ def _prom_name(prefix: str, name: str) -> str:
 class MetricsRegistry:
     """Create-or-get named instruments; snapshot and export the lot."""
 
-    def __init__(self, prefix: str = "ddt"):
+    def __init__(self, prefix: str = "ddt", prom_path: str | None = None):
         self.prefix = prefix
+        # Where snapshots also land as a Prometheus textfile (None = off);
+        # rank 0 only (ObsSession), so ranks never overwrite each other.
+        self.prom_path = prom_path
         self._lock = threading.Lock()
         self._counters: dict[str, Counter] = {}
         self._gauges: dict[str, Gauge] = {}
         self._histograms: dict[str, Histogram] = {}
+        self._last_snapshot = 0.0
 
     def counter(self, name: str) -> Counter:
         with self._lock:
@@ -125,6 +134,11 @@ class MetricsRegistry:
     def histogram(self, name: str) -> Histogram:
         with self._lock:
             return self._histograms.setdefault(name, Histogram())
+
+    def peek_histogram(self, name: str) -> Histogram | None:
+        """The named histogram if it exists; never creates one."""
+        with self._lock:
+            return self._histograms.get(name)
 
     @contextlib.contextmanager
     def timed(self, name: str):
@@ -143,6 +157,14 @@ class MetricsRegistry:
                 "gauges": {k: round(g.value, 6) for k, g in self._gauges.items()},
                 "histograms": {k: h.summary() for k, h in self._histograms.items()},
             }
+
+    def stage_seconds(self) -> dict[str, float]:
+        """Per-stage wall seconds from the ``stage_s:<stage>`` histograms,
+        keyed by the stage manifest's names (``score``, ``retrain:<tag>``,
+        ``dense:final``): the ``run_summary`` breakdown."""
+        with self._lock:
+            return {k.split(":", 1)[1]: round(h.total, 3)
+                    for k, h in self._histograms.items() if k.startswith("stage_s:")}
 
     def to_prometheus(self) -> str:
         """node-exporter textfile format; histogram quantiles use the
@@ -165,6 +187,31 @@ class MetricsRegistry:
             if s["max"] is not None:
                 lines += [f"# TYPE {n}_max gauge", f"{n}_max {s['max']}"]
         return "\n".join(lines) + "\n"
+
+    def write_prometheus(self, path: str) -> None:
+        """Atomic (temp + rename): a scraper never reads a half-written file."""
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        tmp = f"{path}.tmp"
+        with open(tmp, "w") as fh:
+            fh.write(self.to_prometheus())
+        os.replace(tmp, path)
+
+    def snapshot_event(self, logger) -> None:
+        """One ``{"kind": "metrics"}`` record and a ``prom_path`` refresh."""
+        self._last_snapshot = time.monotonic()
+        logger.log("metrics", **self.snapshot())
+        if self.prom_path:
+            self.write_prometheus(self.prom_path)
+
+    def maybe_snapshot(self, logger, every_s: float) -> bool:
+        """A snapshot when ``every_s`` (> 0) has passed since the last one;
+        called from the epoch boundary."""
+        if every_s <= 0 or time.monotonic() - self._last_snapshot < every_s:
+            return False
+        self.snapshot_event(logger)
+        return True
 
 
 # --------------------------------------------------------- module-level slot
@@ -207,3 +254,8 @@ def timed(name: str):
     if _REGISTRY is None:
         return contextlib.nullcontext()
     return _REGISTRY.timed(name)
+
+
+def maybe_snapshot(logger, every_s: float) -> None:
+    if _REGISTRY is not None and logger is not None:
+        _REGISTRY.maybe_snapshot(logger, every_s)

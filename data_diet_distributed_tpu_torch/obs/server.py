@@ -10,10 +10,14 @@ while the main thread is busy:
   poison side channel and the SLO engine's violations; 200 for ok/degraded,
   503 for critical.
 * ``GET /metrics``: Prometheus text from the live registry (``obs/registry.py``).
-* ``GET /status``: JSON progress (stage, epoch, step, throughput, dispatch
-  accounting, ETA) from ``note_progress`` and the live registry.
-* ``GET /flightrec``: the JAX chassis's "no recorder installed" payload,
-  ``{"installed": false, "events": []}``: the flight recorder is not ported.
+* ``GET /status``: JSON progress (stage, seed, epoch, step, throughput,
+  ``mfu``, the device-memory watermark, dispatch accounting, ETA) from
+  ``note_progress`` and the live registry, with the run's lineage.
+* ``GET /flightrec``: the flight recorder's live ring (``obs/flightrec.py``).
+
+The training loop reports through the module-level ``note_progress`` and
+attaches its watchdog and consensus for a fit's duration (``attach`` /
+``detach``); all three are no-ops until a server is installed.
 
 Port 0 auto-picks a free port, logged as an ``{"kind": "obs_server"}`` record.
 A bind failure degrades to a disabled server with one warning. The handler
@@ -31,7 +35,8 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-__all__ = ["StatusServer", "install", "uninstall", "current", "DEFAULT_STALE_S"]
+__all__ = ["StatusServer", "install", "uninstall", "current", "note_progress",
+           "attach", "detach", "DEFAULT_STALE_S"]
 
 #: Heartbeat staleness budget of the verdict when ``obs.slo_heartbeat_stale_s``
 #: is not set.
@@ -209,7 +214,12 @@ class StatusServer:
         return reg.to_prometheus() if reg is not None else None
 
     def flightrec(self) -> dict:
-        return {"installed": False, "events": []}
+        from . import flightrec as obs_flightrec
+        rec = obs_flightrec.current()
+        if rec is None:
+            return {"installed": False, "events": []}
+        return {"installed": True, "rank": rec.rank, "capacity": rec.capacity,
+                "events": rec.snapshot()}
 
     def _heartbeat_block(self, now: float) -> dict:
         from . import heartbeat as obs_heartbeat
@@ -316,6 +326,11 @@ class StatusServer:
             snap = reg.snapshot()
             gauges, hists = snap["gauges"], snap["histograms"]
         out: dict = {"ts": round(time.time(), 3)}
+        from . import lineage as obs_lineage
+        lin = obs_lineage.current()
+        if lin is not None:
+            out["lineage"] = {"run_id": lin.run_id, "attempt": lin.attempt,
+                              "world": lin.world}
         for k in ("stage", "epoch", "step", "total_epochs", "steps_per_epoch",
                   "chunk_steps", "epochs_done", "dispatches_done",
                   "dispatches_per_epoch", "epoch_s"):
@@ -370,3 +385,19 @@ def uninstall() -> None:
 def current() -> StatusServer | None:
     return _SERVER
 
+
+
+def note_progress(**fields) -> None:
+    """Library-code entry: no-op until a server is installed."""
+    if _SERVER is not None:
+        _SERVER.note_progress(**fields)
+
+
+def attach(**objects) -> None:
+    if _SERVER is not None:
+        _SERVER.attach(**{k: v for k, v in objects.items() if v is not None})
+
+
+def detach(*names: str) -> None:
+    if _SERVER is not None:
+        _SERVER.detach(*names)

@@ -1,8 +1,22 @@
-"""SLO engine, serving objectives (counterpart of
-``data_diet_distributed_tpu/obs/slo.py``).
+"""SLO engine (counterpart of ``data_diet_distributed_tpu/obs/slo.py``):
+objectives declared in config (``obs.slo_*``), evaluated during the run at
+the points where their inputs exist.
 
-Objectives declared in config (``obs.slo_serve_*``), evaluated at every
-``serve_stats`` point of the serve loop:
+Training objectives:
+
+* **throughput floor**: a steady epoch's ``examples_per_s`` against
+  ``slo_throughput_floor`` and/or ``slo_throughput_frac`` × the trailing
+  baseline of the ``obs.perf_ledger`` ledger (``ledger_baseline``: clean
+  ``perf_history`` records of the same geometry and backend, ``cuda`` or
+  ``cpu``, so a port run is never held to a TPU's); the warm-up epoch is
+  exempt;
+* **eval-accuracy floor**: ``slo_eval_accuracy_floor`` against each eval;
+* **nonfinite scores**: ``slo_nonfinite_frac`` against the NaN/inf fraction
+  of a scoring pass's output;
+* **heartbeat staleness**: ``slo_heartbeat_stale_s`` against the stalest
+  rank's heartbeat age at steady epoch boundaries (``obs/fleet.py``).
+
+Serving objectives, at every ``serve_stats`` point of the serve loop:
 
 * **p95 request latency** against ``slo_serve_p95_ms``; a violation names the
   phase whose live p95 is largest (``dominant_phase``, from the request
@@ -13,27 +27,114 @@ Objectives declared in config (``obs.slo_serve_*``), evaluated at every
 
 Each violation emits ONE ``{"kind": "slo_violation"}`` record, increments the
 ``slo_violations`` counter, sets the ``slo_ok`` / ``slo_margin:<name>``
-gauges, and is retained (bounded) for the ``/healthz`` verdict. A sustained
-breach re-records at each new evaluation point, never twice for one. The
-training, fleet and recovery objectives and the ledger baseline are not
-ported. Module-level slot, no-op until installed. Imports no torch.
+gauges, and is retained (bounded) for the ``/healthz`` verdict and
+``run_summary.slo``. A sustained breach re-records at each new evaluation
+point, never twice for one. The fleet and recovery objectives
+(``slo_fleet_*``, ``slo_recovery_s``) go with the serving fleet and the
+elastic supervisor, which are not ported; the config refuses them by name.
+Module-level slot, no-op until installed. Imports no torch.
 """
 
 from __future__ import annotations
 
+import json
+import os
+
+import numpy as np
+
 from . import registry as obs_registry
 
-__all__ = ["SloEngine", "install", "uninstall", "current", "check_serve"]
+__all__ = ["SloEngine", "ledger_baseline", "install", "uninstall", "current",
+           "check_epoch", "check_scores", "check_serve", "DEFAULT_BASELINE_WINDOW"]
+
+#: Trailing clean records forming the ledger baseline.
+DEFAULT_BASELINE_WINDOW = 5
 
 #: Retained violations (the /healthz verdict); the JSONL holds them all.
 MAX_RETAINED = 64
 
 
+def _clean_value(rec: dict, field: str) -> float | None:
+    """Error records, non-ok exit classes and non-positive or non-numeric
+    values never enter a baseline."""
+    if rec.get("error") or rec.get("exit_class") not in (None, "ok"):
+        return None
+    v = rec.get(field)
+    if not isinstance(v, (int, float)) or isinstance(v, bool):
+        return None
+    v = float(v)
+    if v != v or v <= 0:
+        return None
+    return v
+
+
+def ledger_baseline(path: str | None, *, field: str = "examples_per_s",
+                    metric: str | None = None, geometry: dict | None = None,
+                    backend: str | None = None,
+                    window: int = DEFAULT_BASELINE_WINDOW) -> float | None:
+    """Median of the last ``window`` clean ``perf_history`` records' ``field``
+    (filtered to one metric, geometry and backend when given); None when the
+    ledger is absent or holds no such record."""
+    if not path or not os.path.exists(path):
+        return None
+    values: list[float] = []
+    try:
+        with open(path) as fh:
+            for line in fh:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except json.JSONDecodeError:
+                    continue
+                if not isinstance(rec, dict) or rec.get("kind") != "perf_history":
+                    continue
+                if metric is not None and rec.get("metric") != metric:
+                    continue
+                if geometry is not None and rec.get("geometry") != geometry:
+                    continue
+                if backend is not None and rec.get("backend") != backend:
+                    continue
+                v = _clean_value(rec, field)
+                if v is not None:
+                    values.append(v)
+    except OSError:
+        return None
+    if not values:
+        return None
+    return float(np.median(values[-window:]))
+
+
+def geometry_of(cfg) -> dict:
+    """The ledger's grouping key of a run (``cli._append_perf_ledger`` writes
+    the same block)."""
+    return {"dataset": cfg.data.dataset, "arch": cfg.model.arch,
+            "batch": cfg.data.batch_size, "epochs": cfg.train.num_epochs,
+            "method": cfg.score.method}
+
+
 class SloEngine:
-    def __init__(self, *, heartbeat_stale_s: float | None = None,
+    def __init__(self, *, throughput_floor: float | None = None,
+                 throughput_frac: float | None = None, ledger: str | None = None,
+                 heartbeat_stale_s: float | None = None,
+                 nonfinite_frac: float | None = None,
+                 eval_accuracy_floor: float | None = None,
                  serve_p95_ms: float | None = None,
                  serve_queue_depth: int | None = None,
-                 serve_reject_frac: float | None = None, logger=None):
+                 serve_reject_frac: float | None = None,
+                 baseline_window: int = DEFAULT_BASELINE_WINDOW,
+                 geometry: dict | None = None, backend: str | None = None,
+                 logger=None):
+        self.throughput_floor = throughput_floor
+        self.throughput_frac = throughput_frac
+        self.ledger = ledger
+        # The baseline's grouping: runs of this shape on this backend only.
+        self.geometry = geometry
+        self.backend = backend
+        self.baseline_window = baseline_window
+        self.nonfinite_frac = nonfinite_frac
+        self.eval_accuracy_floor = eval_accuracy_floor
         self.heartbeat_stale_s = heartbeat_stale_s
         self.serve_p95_ms = serve_p95_ms
         self.serve_queue_depth = serve_queue_depth
@@ -42,26 +143,57 @@ class SloEngine:
         self.violations: list[dict] = []   # bounded retention (MAX_RETAINED)
         self.total_violations = 0          # exact count, never trimmed
         self._seen_points: set = set()
+        # The ledger is read once, at the first steady check.
+        self._baseline: float | None = None
+        self._baseline_resolved = False
 
     @classmethod
-    def from_cfg(cls, cfg, logger=None) -> "SloEngine | None":
-        """None when the config declares none of the objectives the port holds
-        (is-not-None: ``slo_serve_reject_frac=0.0``, zero tolerated
-        rejections, arms it)."""
+    def from_cfg(cls, cfg, logger=None, backend: str | None = None) -> "SloEngine | None":
+        """None when the config declares no objective (is-not-None:
+        ``slo_serve_reject_frac=0.0`` and ``slo_nonfinite_frac=0.0`` arm it).
+        ``backend`` (``cuda`` / ``cpu``) filters the ledger baseline."""
         o = cfg.obs
-        if all(v is None for v in (o.slo_heartbeat_stale_s, o.slo_serve_p95_ms,
-                                   o.slo_serve_queue_depth, o.slo_serve_reject_frac)):
+        if all(v is None for v in (
+                o.slo_throughput_floor, o.slo_throughput_frac, o.slo_heartbeat_stale_s,
+                o.slo_nonfinite_frac, o.slo_eval_accuracy_floor, o.slo_serve_p95_ms,
+                o.slo_serve_queue_depth, o.slo_serve_reject_frac)):
             return None
-        return cls(heartbeat_stale_s=o.slo_heartbeat_stale_s,
+        return cls(throughput_floor=o.slo_throughput_floor,
+                   throughput_frac=o.slo_throughput_frac, ledger=o.perf_ledger,
+                   geometry=geometry_of(cfg), backend=backend,
+                   heartbeat_stale_s=o.slo_heartbeat_stale_s,
+                   nonfinite_frac=o.slo_nonfinite_frac,
+                   eval_accuracy_floor=o.slo_eval_accuracy_floor,
                    serve_p95_ms=o.slo_serve_p95_ms,
                    serve_queue_depth=o.slo_serve_queue_depth,
                    serve_reject_frac=o.slo_serve_reject_frac, logger=logger)
 
     def objectives(self) -> dict:
-        """The configured budgets (for the verdict)."""
-        return {k: getattr(self, k) for k in
-                ("heartbeat_stale_s", "serve_p95_ms", "serve_queue_depth",
-                 "serve_reject_frac") if getattr(self, k) is not None}
+        """The configured floors and budgets (for the verdict), the resolved
+        ledger baseline once known."""
+        out = {k: getattr(self, k) for k in
+               ("throughput_floor", "throughput_frac", "heartbeat_stale_s",
+                "nonfinite_frac", "eval_accuracy_floor", "serve_p95_ms",
+                "serve_queue_depth", "serve_reject_frac")
+               if getattr(self, k) is not None}
+        if self._baseline_resolved:
+            out["throughput_baseline"] = self._baseline
+        return out
+
+    def _resolved_floor(self) -> float | None:
+        """The larger of the absolute floor and frac × the ledger baseline."""
+        floors = []
+        if self.throughput_floor is not None:
+            floors.append(float(self.throughput_floor))
+        if self.throughput_frac is not None:
+            if not self._baseline_resolved:
+                self._baseline = ledger_baseline(
+                    self.ledger, geometry=self.geometry, backend=self.backend,
+                    window=self.baseline_window)
+                self._baseline_resolved = True
+            if self._baseline is not None:
+                floors.append(self.throughput_frac * self._baseline)
+        return max(floors) if floors else None
 
     def _violate(self, name: str, value, threshold, *, logger=None,
                  point=None, **ctx) -> None:
@@ -92,6 +224,56 @@ class SloEngine:
                 "violations": self.total_violations,
                 "recent": self.violations[-5:],
                 "objectives": self.objectives()}
+
+    def check_epoch(self, *, tag: str, epoch: int,
+                    examples_per_s: float | None = None,
+                    eval_accuracy: float | None = None,
+                    steady: bool = True, logger=None) -> None:
+        """An epoch boundary: the throughput floor (steady epochs), the
+        eval-accuracy floor, and the heartbeat staleness budget (steady)."""
+        if steady and examples_per_s is not None:
+            floor = self._resolved_floor()
+            if floor is not None and examples_per_s < floor:
+                self._violate("throughput", round(float(examples_per_s), 1),
+                              round(floor, 1), logger=logger,
+                              point=("epoch", tag, epoch), tag=tag, epoch=epoch,
+                              baseline=self._baseline)
+        if (eval_accuracy is not None and self.eval_accuracy_floor is not None
+                and eval_accuracy < self.eval_accuracy_floor):
+            self._violate("eval_accuracy", round(float(eval_accuracy), 4),
+                          self.eval_accuracy_floor, logger=logger,
+                          point=("eval", tag, epoch), tag=tag, epoch=epoch)
+        if self.heartbeat_stale_s is not None and steady:
+            self._check_heartbeats(tag=tag, epoch=epoch, logger=logger)
+        self._mark_ok()
+
+    def _check_heartbeats(self, *, tag: str, epoch: int, logger=None) -> None:
+        from . import heartbeat as obs_heartbeat
+        hb = obs_heartbeat.current()
+        if hb is None:
+            return
+        from .fleet import fleet_view
+        view = fleet_view(hb.directory, stale_budget_s=self.heartbeat_stale_s)
+        if view is None or view["straggler_rank"] is None:
+            return
+        self._violate("heartbeat_staleness", view["stalest_age_s"],
+                      self.heartbeat_stale_s, logger=logger,
+                      point=("heartbeat", tag, epoch), tag=tag, epoch=epoch,
+                      rank=view["straggler_rank"], reason=view["straggler_reason"])
+
+    def check_scores(self, method: str, scores, *, logger=None) -> None:
+        """A scoring pass: the nonfinite-score budget over its output."""
+        if self.nonfinite_frac is None:
+            return
+        arr = np.asarray(scores)
+        if arr.size == 0:
+            return
+        frac = float(np.mean(~np.isfinite(arr)))
+        if frac > self.nonfinite_frac:
+            self._violate("nonfinite_scores", round(frac, 6), self.nonfinite_frac,
+                          logger=logger, point=("scores", method), method=method,
+                          n=int(arr.size))
+        self._mark_ok()
 
     def check_serve(self, *, point, p95_ms: float | None = None,
                     queue_depth: int | None = None,
@@ -141,6 +323,17 @@ def uninstall() -> None:
 
 def current() -> SloEngine | None:
     return _ENGINE
+
+
+def check_epoch(**kwargs) -> None:
+    """Library-code entry (the epoch boundary): no-op until installed."""
+    if _ENGINE is not None:
+        _ENGINE.check_epoch(**kwargs)
+
+
+def check_scores(method: str, scores, *, logger=None) -> None:
+    if _ENGINE is not None:
+        _ENGINE.check_scores(method, scores, logger=logger)
 
 
 def check_serve(**kwargs) -> None:

@@ -49,12 +49,22 @@ plain version (the same arithmetic in PyTorch ops); given CUDA tensors it
 launches its kernel or raises — it never falls back. Each kernel counts its
 launches (``launch_counts``), and a kernel with modes counts each launch
 under its mode too (``mode_counts``), so a run can show which path it took.
+
+``kernel_work`` is the one count of each kernel's work: the FLOPs its
+function needs and the bytes it must move, from the call's shapes. The
+on-card bounds (``chip_smoke.py``) and the MFU harvest
+(``obs/introspect.py``) both read it. While a harvest counts a program
+(``observe_work``), every public function reports its call's analytic FLOPs,
+whichever implementation runs it, since the launch through ``ctypes`` is
+invisible to ``torch.utils.flop_counter``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -212,6 +222,118 @@ def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
         k.mode_launches = dict.fromkeys(k.mode_launches, 0)
+
+
+# -------------------------------------------------------------------- work
+
+
+def kernel_work(kernel: str, **shape) -> tuple[float, float]:
+    """``(flops, bytes)`` of one call of ``kernel``'s function: the operations
+    its algorithm needs and the bytes it must move (each input read once, each
+    output written once). Keywords by kernel:
+
+    * ``conv_grad_norm_direct`` / ``conv_grad_norm_gram`` /
+      ``conv_grad_norm_catdot``: ``x`` and ``g`` shapes (NHWC),
+      ``kernel_size``, ``itemsize``;
+    * ``conv_bwd_grad_norm``: those and ``weight_numel`` (fp32 weight read,
+      dx written in x's dtype);
+    * ``el2n``: ``batch``, ``classes``, ``itemsize`` of the logits,
+      ``label_itemsize`` (8 for int64);
+    * ``grand_last_layer``: ``batch``, ``features``, ``classes``, ``itemsize``
+      of the features (fp32 weight and bias);
+    * ``bn_grad_norm``: ``elements`` (of x over the stacked layers),
+      ``layers``, ``channels``, ``batch``, ``itemsize``."""
+    if kernel in ("conv_grad_norm_direct", "conv_grad_norm_gram",
+                  "conv_grad_norm_catdot", "conv_bwd_grad_norm"):
+        xs, gs, ks, item = shape["x"], shape["g"], shape["kernel_size"], shape["itemsize"]
+        b, h, w, c = xs
+        _, ho, wo, k = gs
+        s = ho * wo
+        nbytes = (math.prod(xs) + math.prod(gs)) * item + 4.0 * b
+        if kernel == "conv_grad_norm_gram":
+            # Input-pixel Gram, cotangent Gram, the offset gather, the final dot.
+            flops = 2.0 * b * ((h * w) ** 2 * c + s * s * k) + b * s * s * (ks[0] * ks[1] + 2)
+        else:
+            flops = 2.0 * b * ks[0] * ks[1] * s * c * k
+        if kernel == "conv_bwd_grad_norm":   # dx as well: the same product again
+            flops *= 2.0
+            nbytes += math.prod(xs) * item + 4.0 * shape["weight_numel"]
+        return flops, float(nbytes)
+    if kernel == "el2n":
+        b, c = shape["batch"], shape["classes"]
+        return 5.0 * b * c, float(b * c * shape["itemsize"]
+                                  + b * shape.get("label_itemsize", 8) + 8 * b)
+    if kernel == "grand_last_layer":
+        b, f, c = shape["batch"], shape["features"], shape["classes"]
+        return (2.0 * b * f * c + 2.0 * b * f + 6.0 * b * c,
+                float(b * f * shape["itemsize"] + 4.0 * (c * f + c) + 16 * b))
+    if kernel == "bn_grad_norm":
+        n, depth = float(shape["elements"]), shape["layers"]
+        return 3.0 * n, (2.0 * n * shape["itemsize"] + 8.0 * depth * shape["channels"]
+                         + 4.0 * depth * shape["batch"])
+    raise ValueError(f"unknown kernel {kernel!r}; known: {sorted(KERNELS)}")
+
+
+#: ``observer(kernel, flops, run)`` while a harvest counts a program
+#: (``observe_work``); None otherwise.
+_WORK_OBSERVER = None
+
+
+@contextlib.contextmanager
+def observe_work(observer):
+    """Route every public kernel function's call through ``observer(kernel,
+    flops, run)``, which must return ``run()``, for the body's duration."""
+    global _WORK_OBSERVER
+    prev, _WORK_OBSERVER = _WORK_OBSERVER, observer
+    try:
+        yield
+    finally:
+        _WORK_OBSERVER = prev
+
+
+def _reports_work(kernel: str, work):
+    """Decorate a public kernel function: under ``observe_work`` its call is
+    handed to the observer with ``work(*args, **kwargs)``'s FLOPs."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            observer = _WORK_OBSERVER
+            if observer is None:
+                return fn(*args, **kwargs)
+            return observer(kernel, work(*args, **kwargs),
+                            lambda: fn(*args, **kwargs))
+        return call
+    return deco
+
+
+def _conv_flops(kernel: str):
+    def work(x, g, kernel_size, *args, **kwargs):
+        return kernel_work(kernel, x=tuple(x.shape), g=tuple(g.shape),
+                           kernel_size=tuple(kernel_size), itemsize=x.element_size())[0]
+    return work
+
+
+def _el2n_flops(logits, labels, mask):
+    return kernel_work("el2n", batch=logits.shape[0], classes=logits.shape[1],
+                       itemsize=logits.element_size())[0]
+
+
+def _gll_flops(features, weight, bias, labels, mask):
+    return kernel_work("grand_last_layer", batch=features.shape[0],
+                       features=features.shape[1], classes=weight.shape[0],
+                       itemsize=features.element_size())[0]
+
+
+def _bn_flops(xs, gs, stats, *args, **kwargs):
+    return kernel_work("bn_grad_norm", elements=sum(x.numel() for x in xs),
+                       layers=len(xs), channels=xs[0].shape[-1],
+                       batch=xs[0].shape[0], itemsize=xs[0].element_size())[0]
+
+
+def _mega_flops(x, g, weight, kernel_size, *args, **kwargs):
+    return kernel_work("conv_bwd_grad_norm", x=tuple(x.shape), g=tuple(g.shape),
+                       kernel_size=tuple(kernel_size), itemsize=x.element_size(),
+                       weight_numel=weight.numel())[0]
 
 
 # ------------------------------------------------------------------ checks
@@ -752,6 +874,7 @@ def _direct_launch(x, g, kernel_size, strides, padding, use_bias, resident,
     return out
 
 
+@_reports_work("conv_grad_norm_direct", _conv_flops("conv_grad_norm_direct"))
 def conv_grad_norm_sq(x: torch.Tensor, g: torch.Tensor, kernel_size, strides,
                       padding) -> torch.Tensor:
     """[B] ⟵ ‖per-example conv weight gradient‖²_F (v1 entry, any stride).
@@ -770,6 +893,7 @@ def conv_grad_norm_sq(x: torch.Tensor, g: torch.Tensor, kernel_size, strides,
                           False, False, name)
 
 
+@_reports_work("conv_grad_norm_direct", _conv_flops("conv_grad_norm_direct"))
 def conv_grad_norm_sq_v2(x: torch.Tensor, g: torch.Tensor, kernel_size, padding,
                          use_bias: bool = False) -> torch.Tensor:
     """[B] ⟵ ‖per-example conv weight gradient‖²_F (+ bias-grad² when
@@ -787,6 +911,7 @@ def conv_grad_norm_sq_v2(x: torch.Tensor, g: torch.Tensor, kernel_size, padding,
                           True, name)
 
 
+@_reports_work("conv_grad_norm_gram", _conv_flops("conv_grad_norm_gram"))
 def conv_grad_norm_sq_gram(x: torch.Tensor, g: torch.Tensor, kernel_size,
                            padding, use_bias: bool = False) -> torch.Tensor:
     """[B] ⟵ Gram-form ‖per-example conv weight gradient‖²_F (+ bias-grad²),
@@ -814,6 +939,7 @@ def conv_grad_norm_sq_gram(x: torch.Tensor, g: torch.Tensor, kernel_size,
     return out
 
 
+@_reports_work("el2n", _el2n_flops)
 def el2n(logits: torch.Tensor, labels: torch.Tensor,
          mask: torch.Tensor) -> torch.Tensor:
     """EL2N scores [B] from logits [B, C], labels [B] and mask [B]."""
@@ -860,6 +986,7 @@ def _gll_tickets(device: torch.device, tiles: int) -> torch.Tensor:
     return held[-1]
 
 
+@_reports_work("grand_last_layer", _gll_flops)
 def grand_last_layer(features: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor, labels: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
@@ -905,6 +1032,7 @@ def grand_last_layer(features: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+@_reports_work("bn_grad_norm", _bn_flops)
 def bn_grad_norm_sq(xs, gs, stats: torch.Tensor, use_scale: bool = True,
                     use_bias: bool = True) -> torch.Tensor:
     """[L·B] ⟵ eval-mode BatchNorm per-example grad-norm² of L same-shape
@@ -942,6 +1070,7 @@ def bn_grad_norm_sq(xs, gs, stats: torch.Tensor, use_scale: bool = True,
     return out
 
 
+@_reports_work("conv_grad_norm_catdot", _conv_flops("conv_grad_norm_catdot"))
 def conv_grad_norm_sq_catdot(x: torch.Tensor, g: torch.Tensor, kernel_size,
                              padding) -> torch.Tensor:
     """[B] ⟵ ‖per-example conv weight gradient‖²_F in cat-dot form, unit
@@ -971,6 +1100,7 @@ def conv_grad_norm_sq_catdot(x: torch.Tensor, g: torch.Tensor, kernel_size,
     return out
 
 
+@_reports_work("conv_bwd_grad_norm", _mega_flops)
 def conv_bwd_grad_norm_sq(x: torch.Tensor, g: torch.Tensor, weight: torch.Tensor,
                           kernel_size, padding, use_bias: bool = False):
     """``(dx [B, H, W, C] in x's dtype, norm² [B] fp32)`` of a unit-stride

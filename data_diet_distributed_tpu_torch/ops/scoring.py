@@ -14,6 +14,13 @@ flattened mesh does, so train-mode scoring normalizes by the rank's rows.
 Per seed each rank fills the positions it owns in a float64 ``[N]`` vector,
 and one float64 SUM across the ranks joins them (``collectives.sum_float64``):
 each position has one owner, so every rank holds the same vector bitwise.
+
+Observability, as in the JAX package: each batch counts a
+``dispatches_score_batch`` dispatch, the first batch of each geometry is the
+introspector's ``score_batch`` program (``obs/introspect.py``), the fetch is
+timed into ``score_fetch_s``, each completed seed goes to the scoreboard
+(``score_stats``) before ``on_seed_done``, and a ``ProfileWindow`` may
+capture the pass's steady batches.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from ..data.datasets import ArrayDataset, make_position_joiner
 from ..data.pipeline import (logging_data_plane, merge_stall_stats, num_batches,
                              pad_batch, prefetch_stream)
 from ..device import resolve_device, set_scoring_determinism
+from ..obs import introspect, scoreboard
+from ..obs import registry as obs_registry
 from ..parallel.collectives import sum_float64
 from ..parallel.mesh import global_batch_size_for, image_slice, world_size
 from ..weights import variables_to
@@ -123,20 +132,33 @@ class ScoreStream:
             merge_stall_stats(self.stall_stats, it.stats())
 
 
+def score_batch(local_scores: Callable, variables: dict, image, label, mask):
+    """One batch's scores: counted (``dispatches_score_batch``) and, the first
+    time a geometry is seen, harvested as the ``score_batch`` program."""
+    obs_registry.inc("dispatches_score_batch")
+    shape = tuple(image.shape)
+    return introspect.call("score_batch", local_scores, (variables, image, label, mask),
+                           key=shape, examples=shape[0])
+
+
 def score_pass(local_scores: Callable, variables: dict, batches: Iterable,
-               n: int, pos_of: Callable) -> np.ndarray:
+               n: int, pos_of: Callable, profile=None, unit: int = 0) -> np.ndarray:
     """One seed's pass: ``local_scores`` over every batch, then ONE fetch of
     the stacked scores; returns the float64 ``[n]`` vector in dataset order
     (joined by global index). Shared by ``score_dataset`` and the serving
-    engine so the two cannot drift."""
+    engine so the two cannot drift. ``profile`` (a ``ProfileWindow``) ticks
+    before each batch with ``unit`` as its epoch."""
     metas, outs = [], []
     for idx, valid, (image, label, mask) in batches:
         metas.append((idx, valid))
-        outs.append(local_scores(variables, image, label, mask))
+        if profile is not None:
+            profile.tick(unit)
+        outs.append(score_batch(local_scores, variables, image, label, mask))
     seed_scores = np.zeros(n, np.float64)
     if not outs:
         return seed_scores
-    fetched = torch.stack(outs).cpu().numpy()
+    with obs_registry.timed("score_fetch_s"):
+        fetched = torch.stack(outs).cpu().numpy()
     for (idx, valid), scores in zip(metas, fetched):
         seed_scores[pos_of(idx[valid])] += scores[valid]
     return seed_scores
@@ -147,7 +169,8 @@ def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
                   eval_mode: bool = True, use_kernels: bool | None = None,
                   device_resident: bool | None = None, on_seed_done=None,
                   data_plane: str = "auto", prefetch_depth: int = 2, log=None,
-                  device=None) -> np.ndarray:
+                  device=None, seed_ids: Sequence[int] | None = None,
+                  profile=None) -> np.ndarray:
     """Score every example; returns ``scores[N]`` float32 aligned with ``ds``.
 
     ``variables_seeds`` holds one variables mapping per scoring seed; the
@@ -165,7 +188,9 @@ def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
     A streamed pass logs one ``data_plane`` record to ``log(kind, **fields)``,
     after the shard-read fault records it drains, even when it fails.
     ``on_seed_done(k, seed_scores)`` fires after seed ``k``'s pass with its
-    float64 vector (the whole ``[N]`` one on every rank).
+    float64 vector (the whole ``[N]`` one on every rank), after the
+    scoreboard noted it under ``seed_ids[k]`` (default ``k``). ``profile``
+    (a ``ProfileWindow`` whose epochs are the seeds) captures steady batches.
 
     In a process group of W ranks the call is a collective: ``batch_size``
     rounds up to a multiple of W and each rank scores its rows of every
@@ -194,10 +219,17 @@ def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
     with logging_data_plane(None if device_resident else log, "score", "stream",
                             getattr(feed, "stall_stats", {}), ds):
         for k, variables in enumerate(variables_seeds):
-            seed_scores = score_pass(local, variables, feed.batches(), n, pos_of)
+            seed_scores = score_pass(local, variables, feed.batches(), n, pos_of,
+                                     profile=profile, unit=k)
+            if profile is not None:
+                profile.epoch_end(k)
             if world_size() > 1:
-                seed_scores = sum_float64(seed_scores)
+                with obs_registry.timed("score_fetch_s"):
+                    seed_scores = sum_float64(seed_scores)
             total += seed_scores
+            # Before the caller's hook, which may raise at a seed boundary.
+            scoreboard.note_seed_scores(
+                method, seed_ids[k] if seed_ids is not None else k, seed_scores)
             if on_seed_done is not None:
                 on_seed_done(k, seed_scores)
     return (total / len(variables_seeds)).astype(np.float32)

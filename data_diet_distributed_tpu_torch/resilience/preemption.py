@@ -80,6 +80,13 @@ class PreemptionHandler:
         self._seen.add(signum)
         self._signame = signal.Signals(signum).name
         self._requested.set()
+        # Each rank's receipt in its flight recorder (the stream's
+        # "preempted" record is rank 0's, after the next poll).
+        try:
+            from ..obs import flightrec
+            flightrec.record("signal", signal=self._signame)
+        except Exception:   # noqa: BLE001 — forensics never break signal handling
+            pass
 
     def __enter__(self) -> "PreemptionHandler":
         if not self.enabled:

@@ -50,6 +50,11 @@ class LossSentinel:
         if not self.enabled:
             return
         bad = not math.isfinite(value)
+        if bad:
+            # The rank-local verdict, before any agreement: the ring says which
+            # rank's own loss was non-finite.
+            from ..obs import flightrec
+            flightrec.record("divergence_local", tag=tag, epoch=epoch, loss=str(value))
         if agree is not None:
             agreed_bad = agree(bad)
             if agreed_bad and not bad:

@@ -67,7 +67,7 @@ class Watchdog:
 
     def __init__(self, timeout_s: float, label: str = "section", *,
                  on_fire=None, peer_check=None, escalate_s: float | None = None,
-                 escalate_code: int = EXIT_RETRIABLE):
+                 escalate_code: int = EXIT_RETRIABLE, diagnose=None):
         """The consensus wiring (``Consensus.watchdog_kwargs``), all optional:
 
         * ``on_fire(reason)``: called from the monitor thread when the
@@ -78,10 +78,14 @@ class Watchdog:
         * ``escalate_s``: after firing (own deadline or a peer's poison), if
           the guarded section still runs this much later (the main thread is
           stuck in a native call, a collective, that the handler cannot
-          reach), ``os._exit(escalate_code)``. None = never.
+          reach), ``os._exit(escalate_code)``. None = never;
+        * ``diagnose()``: context appended to the timeout message
+          (``obs/heartbeat.describe``: which rank last progressed, and
+          where); a raising ``diagnose`` never masks the timeout.
 
-        The JAX package's ``diagnose`` (per-rank heartbeats) waits for the
-        observability port."""
+        On firing, the monitor thread records the fault in the flight
+        recorder and dumps it (``watchdog:<label>``): the main thread may
+        never run Python again."""
         if timeout_s <= 0:
             raise ValueError(f"watchdog timeout must be > 0, got {timeout_s}")
         self.timeout_s = float(timeout_s)
@@ -90,6 +94,7 @@ class Watchdog:
         self._peer_check = peer_check
         self._escalate_s = escalate_s
         self._escalate_code = escalate_code
+        self._diagnose = diagnose
         self._poll_s = max(0.05, min(1.0, self.timeout_s / 10.0))
         self._deadline = 0.0
         self._fired = False
@@ -122,8 +127,16 @@ class Watchdog:
         self._deadline = float("inf")
 
     def _timeout_error(self) -> WatchdogTimeout:
-        return WatchdogTimeout(f"{self.label}: no heartbeat within {self.timeout_s:g}s "
-                               "(silent hang converted to a retriable failure)")
+        msg = (f"{self.label}: no heartbeat within {self.timeout_s:g}s "
+               "(silent hang converted to a retriable failure)")
+        if self._diagnose is not None:
+            try:
+                extra = self._diagnose()
+            except Exception:   # noqa: BLE001 — diagnosis never masks the timeout
+                extra = ""
+            if extra:
+                msg += f" | {extra}"
+        return WatchdogTimeout(msg)
 
     def _on_signal(self, signum, frame):
         raise self._pending or self._timeout_error()
@@ -141,6 +154,13 @@ class Watchdog:
                 continue
             self._fired = True
             self._pending = peer_exc if peer_exc is not None else self._timeout_error()
+            try:
+                from ..obs import flightrec
+                flightrec.record("fault", fault="peer_poisoned" if peer_exc else "hang",
+                                 label=self.label, error=str(self._pending)[:300])
+                flightrec.dump(f"watchdog:{self.label}")
+            except Exception:   # noqa: BLE001 — forensics never kill the guard
+                pass
             if expired and self._on_fire is not None:
                 # Own expiry only (a peer's poison is already written), from
                 # this thread: the main thread may never run Python again.

@@ -49,7 +49,21 @@ consensus hooks (``resilience/consensus.py``): the agreed preemption poll,
 the peer check, the agreed NaN verdict and the min-agreed restore.
 ``fit_with_recovery`` refuses to retry in process across ranks.
 
-Not ported here: the chunked engine and the observability and elastic hooks.
+Observability, at the JAX package's points (each a no-op until
+``obs/session.py::ObsSession`` installs its instrument): spans ``fit``,
+``epoch``, ``eval``, ``seed`` and the stages (``score``, ``prune:<tag>``,
+``retrain:<tag>``, ``dense:final``, each also a ``stage_s:<stage>``
+histogram); the registry's ``epoch_s``, ``eval_s``, ``step_dispatch_s``,
+``score_s`` and ``score_pretrain_s``; per-step and per-epoch heartbeats; the
+status server's progress and the fit's watchdog and consensus; the profile
+window (``obs.profile_dir``: a fit's steady steps, the scoring pass's steady
+batches); the memory polls and the MFU at steady epochs and after scoring;
+the SLO checks; ``fleet_status`` on rank 0; one ``comm_stats`` record per
+fit; score telemetry; flight-recorder dumps on preemption
+(``preempted:<sig>``), divergence (``divergence:epoch<k>``) and a retried
+fault (``<fault>:attempt<k>``).
+
+Not ported here: the chunked engine and the elastic hooks.
 """
 
 from __future__ import annotations
@@ -58,6 +72,7 @@ import contextlib
 import copy
 import hashlib
 import json
+import re
 import time
 from collections.abc import Callable
 from dataclasses import dataclass, field
@@ -74,12 +89,22 @@ from ..data.pipeline import (EvalBatchCache, PrefetchIterator, ResidentBatches,
                              num_batches, prefetch_stream)
 from ..device import resolve_device, set_scoring_determinism
 from ..models import create_model_from_cfg
+from ..obs import comm as obs_comm
+from ..obs import fleet as obs_fleet
+from ..obs import flightrec, introspect, scoreboard, tracing
+from ..obs import heartbeat as obs_heartbeat
+from ..obs import registry as obs_registry
+from ..obs import server as obs_server
+from ..obs import slo as obs_slo
+from ..obs.profiler import ProfileWindow
+from ..obs.registry import percentile
 from ..ops.forgetting import AUMTracker, ForgettingTracker
 from ..ops.scores import make_local_scores
 from ..ops.scoring import resident_by_default, score_dataset
 from ..parallel.collectives import sum_float64
 from ..parallel.mesh import (global_batch_size_for, image_slice, is_primary, make_mesh,
-                             sync_hosts, world_size)
+                             process_index, resolve_update_sharding, sync_hosts,
+                             world_size)
 from ..pruning import (build_prune_manifest, select_indices, verify_prune_manifest,
                        write_prune_manifest)
 from ..resilience import inject
@@ -93,7 +118,7 @@ from ..utils.io import atomic_savez, load_scores_npz, provenance_path
 from ..weights import init_variables
 from .state import (TrainState, create_train_state, gather_slots, make_optimizer,
                     shard_slots)
-from .steps import eval_step, train_step
+from .steps import dispatch_eval_step, dispatch_train_step
 
 Log = Callable[..., None]
 
@@ -102,12 +127,16 @@ def _no_log(kind: str, **fields) -> None:
     del kind, fields
 
 
-def percentile(values: list[float], q: float) -> float:
-    """Nearest-rank percentile (NaN when empty), as the JAX package's."""
-    if not values:
-        return float("nan")
-    s = sorted(values)
-    return s[min(len(s) - 1, max(0, int(round(q * (len(s) - 1)))))]
+@contextlib.contextmanager
+def _stage_span(name: str):
+    """A pipeline stage's trace span and ``stage_s:<name>`` histogram, named
+    as the stage manifest names it."""
+    t0 = time.perf_counter()
+    with tracing.span(name, cat="stage"):
+        try:
+            yield
+        finally:
+            obs_registry.observe(f"stage_s:{name}", time.perf_counter() - t0)
 
 
 @dataclass
@@ -207,7 +236,7 @@ def evaluate(model, state: TrainState, ds: ArrayDataset, batch_size: int, *,
                else cache.stream(ds, batch_size, device, rows) if cache is not None
                else prefetch_stream(ds, batch_size, device, depth=0, stage="eval",
                                     image_slice=rows))
-    outs = [eval_step(model, state, b) for b in batches]
+    outs = [dispatch_eval_step(model, state, b) for b in batches]
     totals = {"loss_sum": 0.0, "correct": 0.0, "examples": 0.0}
     for m in _fetch(outs, tuple(totals)):
         for k in totals:
@@ -261,7 +290,7 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
     if device.type == "cuda":
         set_scoring_determinism()
     log = log or _no_log
-    make_mesh(cfg.mesh)   # the geometry check
+    mesh = make_mesh(cfg.mesh)   # the geometry check
     rows = image_slice()
     batch_size = global_batch_size_for(cfg.data.batch_size)
     steps_per_epoch = num_batches(len(train_ds), batch_size)
@@ -333,107 +362,190 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
     # a NaN/inf epoch loss raises DivergenceError before the state is saved.
     timeout = cfg.resilience.step_timeout_s
     watchdog = (Watchdog(timeout, label=f"{tag} step loop",
+                         # A timeout names the rank that last progressed.
+                         diagnose=obs_heartbeat.describe,
                          **(consensus.watchdog_kwargs() if consensus is not None else {}))
                 if timeout else None)
     preempt = PreemptionHandler(enabled=cfg.resilience.preemption)
     sentinel = LossSentinel(enabled=cfg.resilience.nan_check)
-    with logging_data_plane(log, tag, "resident" if train_batches is not None
-                            else "stream", plane_stats, train_ds), \
-            preempt, (watchdog or contextlib.nullcontext()):
-        for epoch in range(start_epoch, cfg.train.num_epochs):
-            epoch_t0 = time.perf_counter()
-            shuffle, seed = cfg.data.shuffle_each_epoch, cfg.train.seed
-            batches = (train_batches(shuffle=shuffle, seed=seed, epoch=epoch)
-                       if train_batches is not None else
-                       prefetch_stream(train_ds, batch_size, device, shuffle=shuffle,
-                                       seed=seed, epoch=epoch,
-                                       depth=cfg.data.prefetch_depth, stage=tag,
-                                       image_slice=rows))
-            metrics = []
-            try:
-                for i, b in enumerate(batches):
-                    if watchdog is not None:
-                        watchdog.beat()
-                    unit = epoch * steps_per_epoch + i
-                    if consensus is not None:
-                        # A peer's poison aborts here, before a collective the
-                        # poisoned peer will never join.
-                        consensus.check_peers(unit)
-                    inject.fire("step", epoch=epoch, step=unit)
-                    metrics.append(train_step(model, optimizer, state, b, augment))
-                    if (i + 1) % cfg.train.log_every_steps == 0:
-                        # Host arithmetic only: the loss waits for the epoch's one fetch.
-                        log("train_step", tag=tag, epoch=epoch, step=state.step)
-                    # One rank: a host flag, no device sync per step. Across
-                    # ranks: the flags OR-reduced over the host group.
-                    if _preempt_due(preempt, consensus, unit):
-                        _preempt_exit(preempt, ckpt, optimizer, state, log, tag,
-                                      epoch - 1, steps_per_epoch, saved_steps,
-                                      watchdog=watchdog)
-            finally:
-                # Preempted or failed mid-epoch, the assembler thread stops here.
-                batches.close()
-                if isinstance(batches, PrefetchIterator):
-                    merge_stall_stats(plane_stats, batches.stats())
-            steps = _fetch(metrics, ("loss", "correct", "examples"))
-            if watchdog is not None:
-                watchdog.beat()   # the epoch fetch, eval and save are progress too
-            epoch_s = time.perf_counter() - epoch_t0
-            examples = sum(m["examples"] for m in steps)
-            record: dict[str, Any] = {
-                "epoch": epoch, "epoch_s": round(epoch_s, 3),
-                "examples_per_s": len(train_ds) / epoch_s if epoch_s > 0 else 0.0,
-                "train_loss": (sum(m["loss"] * m["examples"] for m in steps)
-                               / max(examples, 1.0)),
-                "train_accuracy": sum(m["correct"] for m in steps) / max(examples, 1.0),
-            }
-            record["train_loss"] = inject.transform("epoch_loss", record["train_loss"],
-                                                    epoch=epoch)
-            try:
-                sentinel.check(record["train_loss"], epoch=epoch, tag=tag,
-                               agree=consensus.agree if consensus is not None else None)
-            except DivergenceError:
-                # Before eval and checkpoint: the diverged state is never made
-                # durable. (The loss as a string: NaN is not JSON.)
-                log("fault", fault="divergence", tag=tag, epoch=epoch, step=state.step,
-                    loss=str(record["train_loss"]))
-                raise
-            if test_ds is not None and ((epoch + 1) % cfg.train.eval_every == 0
-                                        or epoch + 1 == cfg.train.num_epochs):
-                ev = evaluate(model, state, test_ds, cfg.data.eval_batch_size,
-                              device=device, resident=test_batches, cache=eval_cache)
-                record["test_accuracy"] = ev["accuracy"]
-                record["test_loss"] = ev["loss"]
-                if watchdog is not None:
-                    watchdog.beat()
-            if epoch_hook is not None:
-                epoch_hook(model, state, epoch)
-                if watchdog is not None:
-                    watchdog.beat()
-            log("epoch", tag=tag, **record)
-            result.history.append(record)
-            save_now = ckpt is not None and (
-                (epoch + 1) % cfg.train.checkpoint_every == 0
-                or epoch + 1 == cfg.train.num_epochs)
-            if save_now:
-                ckpt.save(state.step, gather_slots(state, optimizer), metrics={
-                    "epoch": epoch, "steps_per_epoch": steps_per_epoch,
-                    **{k: v for k, v in record.items() if isinstance(v, (int, float))}})
-                if saved_steps is not None:
-                    saved_steps.append(state.step)
-                inject.fire("checkpoint_saved", step=state.step,
-                            directory=ckpt.directory)
-                if watchdog is not None:
-                    watchdog.beat()
-            inject.fire("epoch_end", epoch=epoch)
-            if _preempt_due(preempt, consensus):   # an epoch end: a forced poll
-                _preempt_exit(preempt, ckpt, optimizer, state, log, tag, epoch,
-                              steps_per_epoch, saved_steps,
-                              already_durable=state.step if save_now else None,
-                              watchdog=watchdog)
-    result.state = state
+    # One capture for a stage's seeds (score_pretrain_seed<k> -> score_pretrain):
+    # the window's budget of captures then reaches the scoring pass and the
+    # retrain however many seeds there are.
+    profile = (ProfileWindow(cfg.obs.profile_dir, re.sub(r"_seed\d+$", "", tag),
+                             start_epoch=start_epoch,
+                             num_epochs=cfg.train.num_epochs,
+                             window_chunks=cfg.obs.profile_window_chunks,
+                             device_type=device.type)
+               if cfg.obs.profile_dir and process_index() == 0 else None)
+    obs_server.attach(watchdog=watchdog, consensus=consensus)
+    obs_server.note_progress(stage=tag, total_epochs=cfg.train.num_epochs,
+                             steps_per_epoch=steps_per_epoch, chunk_steps=1,
+                             epochs_done=start_epoch, epoch=start_epoch,
+                             dispatches_done=0, dispatches_per_epoch=steps_per_epoch)
+    try:
+        with logging_data_plane(log, tag, "resident" if train_batches is not None
+                                else "stream", plane_stats, train_ds, tag=tag), \
+                preempt, (watchdog or contextlib.nullcontext()), \
+                tracing.span("fit", cat="fit", tag=tag, epochs=cfg.train.num_epochs):
+            _fit_epochs(cfg, train_ds, test_ds, model, optimizer, state, log, ckpt,
+                        start_epoch, batch_size, steps_per_epoch, tag, result,
+                        saved_steps, train_batches, test_batches, eval_cache,
+                        plane_stats, augment, epoch_hook, device, rows,
+                        watchdog=watchdog, preempt=preempt, sentinel=sentinel,
+                        consensus=consensus, profile=profile)
+        # After the epochs, so the overlap estimate reads the harvested flops.
+        obs_comm.note_update_comm(result.state.params, mesh,
+                                  resolve_update_sharding(cfg.mesh), logger=log,
+                                  program="train_step", tag=tag, device=device)
+    finally:
+        if profile is not None:
+            profile.close()   # a capture a fault left open stops here
+        obs_server.detach("watchdog", "consensus")
     result.wall_s = time.perf_counter() - t_start
     return result
+
+
+def _fit_epochs(cfg, train_ds, test_ds, model, optimizer, state, log, ckpt, start_epoch,
+                batch_size, steps_per_epoch, tag, result, saved_steps, train_batches,
+                test_batches, eval_cache, plane_stats, augment, epoch_hook, device, rows,
+                *, watchdog, preempt, sentinel, consensus, profile) -> None:
+    """``fit``'s epochs (inside its resilience envelope and ``fit`` span)."""
+    for epoch in range(start_epoch, cfg.train.num_epochs):
+        epoch_t0 = time.perf_counter()
+        obs_heartbeat.beat(epoch=epoch, stage=tag, force=True)
+        shuffle, seed = cfg.data.shuffle_each_epoch, cfg.train.seed
+        batches = (train_batches(shuffle=shuffle, seed=seed, epoch=epoch)
+                   if train_batches is not None else
+                   prefetch_stream(train_ds, batch_size, device, shuffle=shuffle,
+                                   seed=seed, epoch=epoch,
+                                   depth=cfg.data.prefetch_depth, stage=tag,
+                                   image_slice=rows))
+        metrics = []
+        try:
+            for i, b in enumerate(batches):
+                if watchdog is not None:
+                    watchdog.beat()
+                unit = epoch * steps_per_epoch + i
+                # Throttled (obs.heartbeat_interval_s): progress without a
+                # write per step.
+                obs_heartbeat.beat(step=unit, epoch=epoch, stage=tag)
+                if consensus is not None:
+                    # A peer's poison aborts here, before a collective the
+                    # poisoned peer will never join.
+                    consensus.check_peers(unit)
+                inject.fire("step", epoch=epoch, step=unit)
+                if profile is not None:
+                    profile.tick(epoch)
+                t_disp = time.perf_counter()
+                metrics.append(dispatch_train_step(model, optimizer, state, b,
+                                                   augment))
+                obs_registry.observe("step_dispatch_s", time.perf_counter() - t_disp)
+                if (i + 1) % cfg.train.log_every_steps == 0:
+                    # Host arithmetic only: the loss waits for the epoch's one fetch.
+                    obs_server.note_progress(step=unit + 1, dispatches_done=i + 1)
+                    log("train_step", tag=tag, epoch=epoch, step=state.step)
+                # One rank: a host flag, no device sync per step. Across
+                # ranks: the flags OR-reduced over the host group.
+                if _preempt_due(preempt, consensus, unit):
+                    _preempt_exit(preempt, ckpt, optimizer, state, log, tag,
+                                  epoch - 1, steps_per_epoch, saved_steps,
+                                  watchdog=watchdog)
+        finally:
+            # Preempted or failed mid-epoch, the assembler thread stops here.
+            batches.close()
+            if isinstance(batches, PrefetchIterator):
+                merge_stall_stats(plane_stats, batches.stats())
+        steps = _fetch(metrics, ("loss", "correct", "examples"))
+        if watchdog is not None:
+            watchdog.beat()   # the epoch fetch, eval and save are progress too
+        epoch_s = time.perf_counter() - epoch_t0
+        examples = sum(m["examples"] for m in steps)
+        record: dict[str, Any] = {
+            "epoch": epoch, "epoch_s": round(epoch_s, 3),
+            "examples_per_s": len(train_ds) / epoch_s if epoch_s > 0 else 0.0,
+            "train_loss": (sum(m["loss"] * m["examples"] for m in steps)
+                           / max(examples, 1.0)),
+            "train_accuracy": sum(m["correct"] for m in steps) / max(examples, 1.0),
+        }
+        record["train_loss"] = inject.transform("epoch_loss", record["train_loss"],
+                                                epoch=epoch)
+        try:
+            sentinel.check(record["train_loss"], epoch=epoch, tag=tag,
+                           agree=consensus.agree if consensus is not None else None)
+        except DivergenceError:
+            # Before eval and checkpoint: the diverged state is never made
+            # durable. (The loss as a string: NaN is not JSON.)
+            log("fault", fault="divergence", tag=tag, epoch=epoch, step=state.step,
+                loss=str(record["train_loss"]))
+            # Every rank dumps its ring, which ends with this fault.
+            flightrec.dump(f"divergence:epoch{epoch}")
+            raise
+        if test_ds is not None and ((epoch + 1) % cfg.train.eval_every == 0
+                                    or epoch + 1 == cfg.train.num_epochs):
+            with tracing.span("eval", cat="eval", epoch=epoch, tag=tag), \
+                    obs_registry.timed("eval_s"):
+                ev = evaluate(model, state, test_ds, cfg.data.eval_batch_size,
+                              device=device, resident=test_batches, cache=eval_cache)
+            record["test_accuracy"] = ev["accuracy"]
+            record["test_loss"] = ev["loss"]
+            if watchdog is not None:
+                watchdog.beat()
+        if epoch_hook is not None:
+            epoch_hook(model, state, epoch)
+            if watchdog is not None:
+                watchdog.beat()
+        log("epoch", tag=tag, **record)
+        result.history.append(record)
+        _epoch_obs(cfg, log, tag, epoch, start_epoch, steps_per_epoch, epoch_s,
+                   record, profile, epoch_t0)
+        save_now = ckpt is not None and (
+            (epoch + 1) % cfg.train.checkpoint_every == 0
+            or epoch + 1 == cfg.train.num_epochs)
+        if save_now:
+            ckpt.save(state.step, gather_slots(state, optimizer), metrics={
+                "epoch": epoch, "steps_per_epoch": steps_per_epoch,
+                **{k: v for k, v in record.items() if isinstance(v, (int, float))}})
+            if saved_steps is not None:
+                saved_steps.append(state.step)
+            inject.fire("checkpoint_saved", step=state.step,
+                        directory=ckpt.directory)
+            if watchdog is not None:
+                watchdog.beat()
+        inject.fire("epoch_end", epoch=epoch)
+        if _preempt_due(preempt, consensus):   # an epoch end: a forced poll
+            _preempt_exit(preempt, ckpt, optimizer, state, log, tag, epoch,
+                          steps_per_epoch, saved_steps,
+                          already_durable=state.step if save_now else None,
+                          watchdog=watchdog)
+    result.state = state
+
+
+def _epoch_obs(cfg, log, tag, epoch, start_epoch, steps_per_epoch, epoch_s, record,
+               profile, epoch_t0) -> None:
+    """The epoch boundary's observability, in the JAX package's order: the
+    registry, the status server's progress, the SLO point, ``fleet_status``,
+    the MFU of a steady epoch (the first folds warm-up into its wall), the
+    memory poll, the profile window, the ``epoch`` span and a cadenced
+    ``metrics`` snapshot."""
+    obs_registry.inc("epochs")
+    obs_registry.inc("steps", steps_per_epoch)
+    obs_registry.observe("epoch_s", epoch_s)
+    obs_registry.set_gauge("examples_per_s", record["examples_per_s"])
+    obs_server.note_progress(epoch=epoch, epochs_done=epoch + 1, epoch_s=epoch_s,
+                             dispatches_done=0, examples_per_s=record["examples_per_s"])
+    obs_slo.check_epoch(tag=tag, epoch=epoch, examples_per_s=record["examples_per_s"],
+                        eval_accuracy=record.get("test_accuracy"),
+                        steady=epoch > start_epoch)
+    obs_fleet.maybe_emit()
+    if epoch > start_epoch and (profile is None or profile.captured_epoch != epoch):
+        # A steady epoch: not the first (warm-up, the harvest), nor one that
+        # held a profile capture (the capture and its export are in its wall).
+        introspect.note_throughput("train_step", record["examples_per_s"])
+    introspect.poll_memory()
+    if profile is not None:
+        profile.epoch_end(epoch)
+    tracing.complete("epoch", epoch_t0, cat="epoch", epoch=epoch, tag=tag)
+    obs_registry.maybe_snapshot(log, cfg.obs.snapshot_every_s)
 
 
 def _preempt_due(preempt: PreemptionHandler, consensus: Consensus | None,
@@ -471,6 +583,8 @@ def _preempt_exit(preempt: PreemptionHandler, ckpt: CheckpointManager | None,
         durable = step
     log("preempted", tag=tag, signal=preempt.signame, step=step, epoch=epoch,
         durable_step=durable)
+    # Every rank's final moments (the signal receipt, this record) on disk.
+    flightrec.dump(f"preempted:{preempt.signame}")
     raise Preempted(preempt.signame, step=step, epoch=epoch, durable_step=durable)
 
 
@@ -546,6 +660,8 @@ def fit_with_recovery(cfg: Config, train_ds: ArrayDataset,
                 raise
             fault = "hang" if isinstance(err, WatchdogTimeout) else "step_exception"
             log("fault", fault=fault, retry=attempt, error=repr(err)[:300])
+            # The final moments, before the retry refills the ring.
+            flightrec.dump(f"{fault}:attempt{attempt}")
             resume_step = _latest_durable()
             log("recovery", cause="exception", retry=attempt,
                 retries_left=cfg.train.auto_resume_retries - attempt,
@@ -595,10 +711,14 @@ def score_variables_for_seeds(cfg: Config, train_ds: ArrayDataset, *, device=Non
                                num_classes=cfg.model.num_classes, stem=cfg.model.stem)
                 for s in seeds]
     shared = train_resident(cfg, train_ds, device)
-    return [fit(cfg, train_ds, None, device=device, log=log,
-                num_epochs=cfg.score.pretrain_epochs, seed=int(s),
-                tag=f"score_pretrain_seed{s}", train_batches=shared).state.variables
-            for s in seeds]
+    out = []
+    for s in seeds:
+        with tracing.span("seed", cat="seed", seed=int(s), role="score_pretrain"):
+            out.append(fit(cfg, train_ds, None, device=device, log=log,
+                           num_epochs=cfg.score.pretrain_epochs, seed=int(s),
+                           tag=f"score_pretrain_seed{s}",
+                           train_batches=shared).state.variables)
+    return out
 
 
 def keep_fractions(cfg: Config) -> tuple[float, ...]:
@@ -613,6 +733,27 @@ def keep_fractions(cfg: Config) -> tuple[float, ...]:
 def compute_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
                    log: Log | None = None,
                    stages: StageManifest | None = None) -> tuple[np.ndarray, dict[str, Any]]:
+    """``_compute_scores`` under the ``score`` stage span, then the pass's
+    observability: cross-seed stability at this run's keep fractions, the
+    nonfinite-score SLO, the ``score_s`` and ``score_pretrain_s`` walls, the
+    ``score_batch`` MFU at the pass's rate and a memory poll."""
+    with _stage_span("score"):
+        scores, timings = _compute_scores(cfg, train_ds, device=device, log=log,
+                                          stages=stages)
+    scoreboard.note_stability(cfg.score.method, keep_fractions=keep_fractions(cfg))
+    obs_slo.check_scores(cfg.score.method, scores)
+    obs_registry.observe("score_s", timings["score_s"])
+    obs_registry.observe("score_pretrain_s", timings["pretrain_s"])
+    steady = timings.get("steady_walls")
+    if steady and sum(steady) > 0:
+        introspect.note_throughput("score_batch", len(train_ds) * len(steady) / sum(steady))
+    introspect.poll_memory()
+    return scores, timings
+
+
+def _compute_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
+                    log: Log | None = None,
+                    stages: StageManifest | None = None) -> tuple[np.ndarray, dict[str, Any]]:
     """The configured scores of ``train_ds`` and their timings
     ``{pretrain_s, score_s, passes}`` (``loaded_from`` when
     ``score.scores_npz`` was reused).
@@ -647,10 +788,14 @@ def compute_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
     todo = [s for s in seeds if s not in done]
     if done:
         log("score_seeds_resumed", method=cfg.score.method, done=sorted(done), todo=todo)
+    for s, arr in done.items():
+        # The stream describes every seed the mean holds, resumed ones too.
+        scoreboard.note_seed_scores(cfg.score.method, s, arr, resumed=True)
     vectors: dict[int, np.ndarray] = dict(done)   # by seed
     pretrain_s = score_s = 0.0
     passes = 0
     scores = None
+    steady_walls: list[float] = []
     if todo:
         preempt = PreemptionHandler(enabled=(partials is not None
                                              and cfg.resilience.preemption))
@@ -660,9 +805,19 @@ def compute_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
                 seeds=todo if partials is not None else None)
             pretrain_s = time.perf_counter() - t0
             t1 = time.perf_counter()
+            seed_walls: list[float] = []   # each seed's pass, for the MFU
+            profile = (ProfileWindow(cfg.obs.profile_dir, "score", start_epoch=0,
+                                     num_epochs=len(seeds_vars),
+                                     window_chunks=cfg.obs.profile_window_chunks,
+                                     device_type=device.type)
+                       if cfg.obs.profile_dir and process_index() == 0 else None)
 
             def on_seed_done(k: int, seed_scores: np.ndarray) -> None:
+                seed_walls.append(time.perf_counter() - t1 - sum(seed_walls))
                 vectors[todo[k]] = seed_scores
+                tracing.instant("seed_scored", cat="seed", seed=todo[k])
+                if partials is None:
+                    return
                 partials.save(todo[k], seed_scores)
                 inject.fire("seed_scored", seed=todo[k], completed=len(done) + k + 1)
                 # Agreed across ranks, so every rank leaves at this boundary.
@@ -681,10 +836,11 @@ def compute_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
                 device_resident=(resident_by_default(len(seeds), train_ds)
                                  if partials is not None and cfg.data.data_plane == "auto"
                                  else None),
-                on_seed_done=on_seed_done if partials is not None else None,
+                on_seed_done=on_seed_done,
                 data_plane=cfg.data.data_plane, prefetch_depth=cfg.data.prefetch_depth,
-                log=log, device=device)
+                log=log, device=device, seed_ids=todo[:len(seeds_vars)], profile=profile)
             score_s = time.perf_counter() - t1
+            steady_walls = _steady(seed_walls, profile)
         passes = len(seeds_vars)
     if partials is not None:
         # The done seeds join the new ones: the float64 sum in seed order.
@@ -695,7 +851,20 @@ def compute_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
     if stages is not None:
         stages.complete("score", method=cfg.score.method, n=int(len(scores)),
                         reused_seeds=sorted(done))
-    return scores, {"pretrain_s": pretrain_s, "score_s": score_s, "passes": passes}
+    return scores, {"pretrain_s": pretrain_s, "score_s": score_s, "passes": passes,
+                    "steady_walls": steady_walls}
+
+
+def _steady(walls: list[float], profile: ProfileWindow | None) -> list[float]:
+    """The walls of a fit's epochs or a pass's seeds that are steady, for the
+    MFU: not the one a profile window captured (its capture and export are in
+    its wall), nor the first, which holds the warm-up and the program harvest,
+    when another remains."""
+    captured = profile.captured_epoch if profile is not None else None
+    clean = [(k, w) for k, w in enumerate(walls) if k != captured]
+    if len(clean) > 1:
+        clean = clean[1:]
+    return [w for _, w in clean]
 
 
 def trajectory_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
@@ -758,6 +927,7 @@ def trajectory_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
         for seed in seeds:
             if seed in done:
                 total += done[seed]
+                scoreboard.note_seed_scores(method, seed, done[seed], resumed=True)
                 continue
             tracker = make_tracker(n)
 
@@ -780,9 +950,10 @@ def trajectory_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
                     vals = sum_float64(vec).astype(vals.dtype)
                 tracker.update(to_obs(vals[:n]))
 
-            fit(cfg, train_ds, None, device=device, log=log,
-                num_epochs=cfg.score.pretrain_epochs, seed=seed,
-                tag=f"{method}_seed{seed}", train_batches=shared, epoch_hook=hook)
+            with tracing.span("seed", cat="seed", seed=seed, role=method):
+                fit(cfg, train_ds, None, device=device, log=log,
+                    num_epochs=cfg.score.pretrain_epochs, seed=seed,
+                    tag=f"{method}_seed{seed}", train_batches=shared, epoch_hook=hook)
             rec: dict[str, Any] = {"seed": seed, "epochs": tracker.updates}
             if method == "forgetting":
                 rec.update(never_learned=int((~tracker.learned).sum()),
@@ -791,6 +962,7 @@ def trajectory_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
                 rec.update(mean_margin=float(tracker.scores().mean()))
             log(f"{method}_seed_done", **rec)
             seed_scores = np.asarray(tracker.scores(), np.float64)
+            scoreboard.note_seed_scores(method, seed, seed_scores)
             total += seed_scores
             completed += 1
             if partials is not None:
@@ -897,6 +1069,57 @@ def _retrain_level(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset,
             final_test_accuracy=summary.get("final_test_accuracy"))
         return summary
     t0 = time.perf_counter()
+    with _stage_span(f"prune:{tag}"):
+        kept, npz = _prune(cfg, train_ds, scores, sparsity, tag, log, score_t, ckpt_dir)
+    score_s, pretrain_s = score_t["score_s"], score_t["pretrain_s"]
+    loaded_from = score_t.get("loaded_from")
+    method = f"reused:{loaded_from}" if loaded_from else cfg.score.method
+    prune_rec = {"n_total": len(train_ds), "n_kept": len(kept),
+                 "score_s": round(score_s, 3), "pretrain_s": round(pretrain_s, 3)}
+    if not loaded_from and score_t.get("passes") and score_s > 0:
+        prune_rec["score_examples_per_s"] = len(train_ds) * score_t["passes"] / score_s
+    log("prune", **prune_rec)
+    if stages is not None:
+        stages.complete(f"prune:{tag}", n_kept=int(len(kept)), sparsity=float(sparsity))
+    cfg_retrain = cfg
+    if stages is not None and stages.started(stage) and not cfg.train.resume:
+        # This stage was interrupted mid-retrain: re-enter from its own
+        # checkpoints (never on a fresh stage, whose directory may hold an
+        # invalidated earlier config's checkpoints).
+        cfg_retrain = copy.deepcopy(cfg)
+        cfg_retrain.train.resume = True
+        log("stage", stage=stage, status="resuming", ckpt_dir=ckpt_dir)
+    if stages is not None:
+        stages.start(stage, ckpt_dir=ckpt_dir)
+    verify_prune_manifest(npz, kept)
+    prune_s = time.perf_counter() - t0
+    with _stage_span(stage):
+        res = fit_with_recovery(cfg_retrain, train_ds.subset(kept), test_ds,
+                                device=device, log=log, checkpoint_dir=ckpt_dir, tag=tag)
+    summary = {
+        "dataset": cfg.data.dataset, "n_train": len(train_ds),
+        "sparsity": float(sparsity), "score_method": method,
+        "n_kept": int(len(kept)), "score_wall_s": score_s,
+        "pretrain_wall_s": pretrain_s, "prune_wall_s": prune_s,
+        "final_test_accuracy": res.final_test_accuracy,
+        "train_wall_s": res.wall_s,
+        "total_wall_s": (res.wall_s if scoring_shared
+                         else pretrain_s + score_s + prune_s + res.wall_s),
+        "prune_manifest": provenance_path(npz),
+    }
+    if scoring_shared:
+        summary["scoring_shared"] = True
+    log("summary", **{k: v for k, v in summary.items() if v is not None})
+    if stages is not None:
+        stages.complete(stage, summary=summary)
+    return summary
+
+
+def _prune(cfg: Config, train_ds: ArrayDataset, scores: np.ndarray, sparsity: float,
+           tag: str, log: Log, score_t: dict[str, Any],
+           ckpt_dir: str) -> tuple[np.ndarray, str]:
+    """The kept set at ``sparsity`` and the scores npz written with it (its
+    provenance sidecar beside it; ``prune_decision`` logged)."""
     kept = select_indices(scores, train_ds.indices, sparsity, keep=cfg.prune.keep,
                           seed=cfg.train.seed, labels=train_ds.labels,
                           class_balance=cfg.prune.class_balance)
@@ -930,46 +1153,9 @@ def _retrain_level(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset,
         **{k: manifest[k] for k in ("fingerprint", "method", "sparsity", "keep",
                                     "class_balance", "n_total", "n_kept", "n_dropped",
                                     "nonfinite_scores", "threshold_score",
-                                    "kept_digest", "dropped_digest")})
-    score_s, pretrain_s = score_t["score_s"], score_t["pretrain_s"]
-    prune_rec = {"n_total": len(train_ds), "n_kept": len(kept),
-                 "score_s": round(score_s, 3), "pretrain_s": round(pretrain_s, 3)}
-    if not loaded_from and score_t.get("passes") and score_s > 0:
-        prune_rec["score_examples_per_s"] = len(train_ds) * score_t["passes"] / score_s
-    log("prune", **prune_rec)
-    if stages is not None:
-        stages.complete(f"prune:{tag}", n_kept=int(len(kept)), sparsity=float(sparsity))
-    cfg_retrain = cfg
-    if stages is not None and stages.started(stage) and not cfg.train.resume:
-        # This stage was interrupted mid-retrain: re-enter from its own
-        # checkpoints (never on a fresh stage, whose directory may hold an
-        # invalidated earlier config's checkpoints).
-        cfg_retrain = copy.deepcopy(cfg)
-        cfg_retrain.train.resume = True
-        log("stage", stage=stage, status="resuming", ckpt_dir=ckpt_dir)
-    if stages is not None:
-        stages.start(stage, ckpt_dir=ckpt_dir)
-    verify_prune_manifest(npz, kept)
-    prune_s = time.perf_counter() - t0
-    res = fit_with_recovery(cfg_retrain, train_ds.subset(kept), test_ds, device=device,
-                            log=log, checkpoint_dir=ckpt_dir, tag=tag)
-    summary = {
-        "dataset": cfg.data.dataset, "n_train": len(train_ds),
-        "sparsity": float(sparsity), "score_method": method,
-        "n_kept": int(len(kept)), "score_wall_s": score_s,
-        "pretrain_wall_s": pretrain_s, "prune_wall_s": prune_s,
-        "final_test_accuracy": res.final_test_accuracy,
-        "train_wall_s": res.wall_s,
-        "total_wall_s": (res.wall_s if scoring_shared
-                         else pretrain_s + score_s + prune_s + res.wall_s),
-        "prune_manifest": provenance_path(npz),
-    }
-    if scoring_shared:
-        summary["scoring_shared"] = True
-    log("summary", **{k: v for k, v in summary.items() if v is not None})
-    if stages is not None:
-        stages.complete(stage, summary=summary)
-    return summary
+                                    "kept_digest", "dropped_digest", "top_k",
+                                    "bottom_k")})
+    return kept, npz
 
 
 def sweep_suffix(sparsity: float) -> str:
@@ -1044,8 +1230,9 @@ def run_datadiet(cfg: Config, *, device=None, log: Log | None = None) -> dict[st
         cfg_dense.train.resume = True
         log("stage", stage=stage, status="resuming", ckpt_dir=cfg.train.checkpoint_dir)
     stages.start(stage, ckpt_dir=cfg.train.checkpoint_dir)
-    res = fit_with_recovery(cfg_dense, train_ds, test_ds, device=device, log=log,
-                            checkpoint_dir=cfg.train.checkpoint_dir, tag="final")
+    with _stage_span(stage):
+        res = fit_with_recovery(cfg_dense, train_ds, test_ds, device=device, log=log,
+                                checkpoint_dir=cfg.train.checkpoint_dir, tag="final")
     summary = {"dataset": cfg.data.dataset, "n_train": len(train_ds),
                "sparsity": cfg.prune.sparsity, "score_method": cfg.score.method,
                "final_test_accuracy": res.final_test_accuracy,

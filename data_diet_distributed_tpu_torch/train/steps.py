@@ -20,6 +20,12 @@ its masked sum over the all-reduced mask count, the optimizer sums the
 gradients, and the returned loss, ``correct`` and ``examples`` are the global
 batch's. (Not DDP's mean of per-rank means, which is wrong on the padded
 last batch.) ``eval_step`` stays per rank; ``evaluate`` sums the ranks.
+
+``dispatch_train_step`` and ``dispatch_eval_step`` are what the epoch loop
+calls, as the JAX package's ``_counted``: a ``dispatches_<name>`` registry
+count per call and, for ``train_step``, the introspector's harvest of the
+first call of each batch geometry (``obs/introspect.py``); both no-ops when
+nothing is installed, and neither touches the arithmetic.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from torch.func import functional_call
 
 from ..data.augment import augment_batch
 from ..models.resnet import collect_batch_stats, global_batch_stats
+from ..obs import introspect
+from ..obs import registry as obs_registry
 from ..ops.scores import cross_entropy
 from ..parallel.collectives import all_reduce_sum_
 from ..parallel.mesh import image_slice
@@ -89,3 +97,20 @@ def eval_step(model: torch.nn.Module, state: TrainState, batch: dict) -> dict:
         per_ex = cross_entropy(logits, label) * mask
         correct = ((logits.argmax(dim=-1) == label) * mask).sum()
     return {"loss_sum": per_ex.sum(), "correct": correct, "examples": mask.sum()}
+
+
+def dispatch_train_step(model: torch.nn.Module, optimizer: SGD, state: TrainState,
+                        batch: dict, augment: tuple[int, bool, int] | None = None) -> dict:
+    """``train_step``, counted (``dispatches_train_step``) and harvested once
+    per batch geometry as the ``train_step`` program."""
+    obs_registry.inc("dispatches_train_step")
+    shape = tuple(batch["image"].shape)
+    return introspect.call("train_step", train_step,
+                           (model, optimizer, state, batch, augment),
+                           key=shape, examples=shape[0])
+
+
+def dispatch_eval_step(model: torch.nn.Module, state: TrainState, batch: dict) -> dict:
+    """``eval_step``, counted (``dispatches_eval_step``)."""
+    obs_registry.inc("dispatches_eval_step")
+    return eval_step(model, state, batch)

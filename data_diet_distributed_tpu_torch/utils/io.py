@@ -106,3 +106,30 @@ def load_scores_npz(path: str, train_ds, expect_method: str | None = None) -> np
                       f"({os.path.basename(provenance_path(path))})", stacklevel=2)
     pos = make_position_joiner(indices)(train_ds.indices)
     return scores[pos].astype(np.float32)
+
+
+def atomic_append_jsonl(path: str, record: dict) -> None:
+    """Append one JSON record to an append-only ledger: serialized to one line
+    first, then one ``write`` on an ``O_APPEND`` descriptor, so concurrent
+    writers interleave whole records. Non-finite floats become null; parent
+    directories are created."""
+    line = json.dumps(_finite(record)) + "\n"
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    try:
+        os.write(fd, line.encode())
+    finally:
+        os.close(fd)
+
+
+def _finite(v):
+    """Non-finite floats replaced by None, recursively (JSON has no NaN)."""
+    if isinstance(v, dict):
+        return {k: _finite(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_finite(x) for x in v]
+    if isinstance(v, float) and (v != v or v in (float("inf"), float("-inf"))):
+        return None
+    return v

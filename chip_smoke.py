@@ -251,6 +251,36 @@ Phases (the first failure exits non-zero; nothing is caught):
    peer's poison, the two deadlines running out together) and rank 0 within
    ``DRILL_GRACE_S`` + ``DRILL_EXIT_BOUND_S`` of the first poison;
    (e) the ZeRO-1 checkpoint written at W = 2 restores bitwise here at W = 1.
+12b. Elastic: ``cli run`` of the north star (``ELASTIC_N`` examples, seeds
+   [0, 1], one pretrain epoch, 3 retrain epochs of batch 128, a checkpoint
+   every epoch, ``checkpoint.local_tier=true``) as subprocesses on the card,
+   the supervised ones with ``elastic.enabled=true elastic.world=1`` and
+   ``obs.slo_recovery_s=ELASTIC_SLO_S``, introspection off; all five at once:
+   the GraNd run unsupervised and uninterrupted (R), the same with
+   ``score.method=el2n`` (R_el2n), (a) and (b) below, and (c) GraNd
+   supervised with ``rejoin_after_stage=score`` at
+   ``elastic.max_world=1``: the join is denied and cleared and the run
+   completes, its scores, kept set and final retrain state bitwise R's (when
+   its stage barrier tripped on the pending join, the relaunch re-enters
+   through the stage manifest). (a), host loss: ``{"rank": 0,
+   "kill_rank_after_epoch": 1}`` SIGKILLs the worker after the retrain's
+   epoch 1; the supervisor exits 0 with exactly ``launch ->
+   children_exited(shrink) -> shrink(dead_ranks [0], new_world 1) ->
+   launch(resume) -> complete``, the relaunch's ``resume`` record names a
+   promoted tier step (``saved_world`` 1), and the scores, kept set and final
+   state are bitwise R's. (a) runs with ``resilience.stage_resume=false``, so
+   its relaunch pretrains and scores again: the attempt's ``metrics`` record
+   counts the direct and Gram launches. (b), SIGTERM mid-promotion: EL2N,
+   ``stage_resume=false``, ``checkpoint.promote_delay_s=ELASTIC_DELAY_S``,
+   ``{"rank": 0, "sigterm_at_epoch_end": 1}``: the worker drains the tier and
+   exits 75 (its ``preempted`` record durable at epoch 1's step, with the
+   drain's wait and budget), the supervisor relaunches it (``restart``), the
+   relaunch counts EL2N launches, and the result is bitwise R_el2n's. (d)
+   ``python -m data_diet_distributed_tpu_torch.obs.postmortem`` over (a)'s
+   directory exits 0 naming the shrink of rank 0 and the resume; the
+   recovery wall (the classification to the first training step of attempt
+   1, from the records) and the SLO's verdict are printed. Cuts: as phase
+   8b; one card runs W = 1 only (NCCL refuses two ranks on one card).
 13. Calls: each EL2N and last-layer row of phase 3 runs one CUDA kernel per
    call, its own, and no copy, cast or memset (``torch.profiler``).
 
@@ -263,7 +293,8 @@ route, and the profiled BN and Gram time per batch is printed beside the
 
 Every counted run (phases 4, 5, 6b and 7, phase 8's ``run``, phase 9's runs of
 ``run_datadiet``, phase 10's ``cli run``, phase 11's ``score_dataset`` passes and
-``cli sweep``) starts with the launch counts at 0
+``cli sweep``, and the relaunched attempts of phase 12b, each a new process)
+starts with the launch counts at 0
 and is read right after; the kernels line sums them. The line before the last is a
 JSON object with one entry per kernel (launches on the main paths, max error,
 ms, device ms, plain ms, bound ms); the last line is ``{"ok": true, "device":
@@ -422,8 +453,12 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """A phase's banner, with the seconds since the script started."""
+    print(f"== {name} (+{time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def time_ms(torch, fn, warmup: int = 2, iters: int = 7) -> float:
@@ -559,17 +594,24 @@ def check_rows_bitwise(torch, gen, call, args, got, what: str) -> None:
 CALL_CHECKS: list = []
 
 
-def kernels_per_call(torch, call) -> list[str]:
+def kernels_per_call(torch, call, tries: int = 3) -> list[str]:
     """Names of the CUDA kernels (copies and memsets included) one warmed-up
-    ``call()`` runs, under ``torch.profiler``."""
+    ``call()`` runs, under ``torch.profiler``. A capture that recorded no
+    device event at all lost its trace (a call launches at least one kernel;
+    seen once in a whole run of this script), and is taken again, up to
+    ``tries`` captures."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def kernel_phase(torch, K, dtype, rtol, details) -> None:
@@ -1398,7 +1440,7 @@ RES_DIR = os.path.join(REPO, "chip_smoke_out", "resilience_ckpt")
 HANG_TIMEOUT_S = 10      # resilience.step_timeout_s of drill E
 HANG_WALL_S = 60         # drill E's whole fit_with_recovery must end within this
 G_N = 2048               # drill G's examples (two CLI processes)
-OVERHEAD_PAIRS = 3
+OVERHEAD_PAIRS = 2
 
 
 class Events:
@@ -1656,7 +1698,7 @@ def _resilience_phase(torch, port, details_out, trained: dict) -> dict:
           f"({walls[1]:.1f} s)", flush=True)
 
     # The hooks' cost: fit's steady-epoch ex/s with resilience at its defaults
-    # against preemption and the NaN check off, three alternating pairs.
+    # against preemption and the NaN check off, OVERHEAD_PAIRS alternating pairs.
     rates = {"on": [], "off": []}
     for i in range(OVERHEAD_PAIRS):
         for label in (("on", "off") if i % 2 == 0 else ("off", "on")):
@@ -2130,7 +2172,7 @@ WRN_REMAT_STEPS = 20
 # Trajectory scores on the ResNet-18 north-star geometry. The synthetic set's default
 # pixel noise (0.4) is learned whole in two epochs, which leaves every forgetting count
 # at 0: TRAJ_NOISE makes examples that are forgotten or never learned.
-TRAJ_N = 8192
+TRAJ_N = 4096
 TRAJ_EPOCHS = 2
 TRAJ_SEEDS = (0, 1)
 TRAJ_NOISE = 6.0
@@ -3995,6 +4037,194 @@ def obs_phase(torch, port, details_out, card: str) -> None:
     shutil.rmtree(OBS_ROOT, ignore_errors=True)
 
 
+# -------------------------------------------------------------- elastic phase
+
+ELASTIC_ROOT = os.path.join(REPO, "chip_smoke_out", "elastic")
+#: Examples of the elastic phase's runs (the obs phase's cut).
+ELASTIC_N = 4096
+ELASTIC_TIMEOUT_S = 300
+#: The recovery SLO's budget (classification to the first training step).
+ELASTIC_SLO_S = 60
+#: The promotion delay that lands (b)'s SIGTERM while a promotion is in flight.
+ELASTIC_DELAY_S = 2.0
+#: The supervisor's events of a W = 1 host loss, in order.
+ELASTIC_CHAIN = ["supervise", "launch", "children_exited", "shrink", "launch",
+                 "children_exited", "complete"]
+
+
+def final_state(port, directory: str):
+    """The newest checkpoint of ``directory`` on the CPU, restored through the
+    port's manager (digests checked)."""
+    mngr = port["CheckpointManager"](directory)
+    return mngr.latest_step(), mngr.restore(device="cpu")
+
+
+def same_run(torch, port, a: str, b: str) -> bool:
+    """Whether two ``cli run`` directories hold the same scores, kept set and
+    final retrain state, bit for bit."""
+    with np.load(f"{a}/ckpt_scores.npz") as x, np.load(f"{b}/ckpt_scores.npz") as y:
+        if not (np.array_equal(x["scores"], y["scores"])
+                and np.array_equal(x["kept"], y["kept"])):
+            return False
+    (sa, ta), (sb, tb) = final_state(port, f"{a}/ckpt"), final_state(port, f"{b}/ckpt")
+    return sa == sb and state_equal(torch, ta, tb)
+
+
+def attempt_launches(recs: list[dict], attempt: int) -> dict[str, int]:
+    """The kernels' launches of one attempt's worker (its ``metrics`` record)."""
+    snaps = [r for r in recs if r["kind"] == "metrics" and r.get("attempt") == attempt]
+    gauges = snaps[-1]["gauges"] if snaps else {}
+    return {k[len("kernel_launches:"):]: int(v) for k, v in gauges.items()
+            if k.startswith("kernel_launches:")}
+
+
+def elastic_phase(torch, port, details_out, card: str) -> dict:
+    """The elastic slice on the card; see the module docstring. Returns the
+    relaunched attempts' launches by kernel. Files in ``ELASTIC_ROOT``
+    (removed after a pass)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(ELASTIC_ROOT, ignore_errors=True)
+    os.makedirs(ELASTIC_ROOT)
+    rec: dict = {}
+    details_out["elastic"] = rec
+    north = os.path.join(REPO, "configs", "cifar10_resnet18_grand10.yaml")
+    supervised = ["elastic.enabled=true", "elastic.world=1", "elastic.backoff_s=0",
+                  f"obs.slo_recovery_s={ELASTIC_SLO_S}"]
+
+    def run_args(name: str, *over: str) -> list[str]:
+        d = os.path.join(ELASTIC_ROOT, name)
+        # Without the introspection harvest, whose first step (~10 s on the
+        # card) every worker start would pay.
+        return ["run", "--config", north, "data.dataset=synthetic",
+                f"data.synthetic_size={ELASTIC_N}", "score.seeds=[0,1]",
+                "train.num_epochs=3", "train.checkpoint_every=1",
+                "checkpoint.local_tier=true", f"train.checkpoint_dir={d}/ckpt",
+                f"obs.metrics_path={d}/m.jsonl", "obs.xla_introspect=false", *over]
+
+    def finished(name: str, cp: CliProcess) -> tuple[list[dict], float]:
+        rc, _, wall = cp.wait(ELASTIC_TIMEOUT_S)
+        logs = "".join(cp.tail)[-1500:]
+        child = os.path.join(ELASTIC_ROOT, name, "ckpt_elastic")
+        for log in sorted(os.listdir(child)) if os.path.isdir(child) else []:
+            with open(os.path.join(child, log), errors="replace") as fh:
+                logs += f"\n[{log}] " + fh.read()[-1500:]
+        check(rc == 0, f"elastic {name}: exit {rc}: {logs}")
+        with open(os.path.join(ELASTIC_ROOT, name, "m.jsonl")) as fh:
+            return records(fh.read()), wall
+
+    def events(recs: list[dict]) -> list[dict]:
+        return [r for r in recs if r["kind"] == "elastic_event"]
+
+    # All five at once on the card.
+    procs = {"ref": CliProcess(run_args("ref")),
+             "ref_el2n": CliProcess(run_args("ref_el2n", "score.method=el2n")),
+             "join": CliProcess(run_args("join", *supervised, "elastic.max_world=1"),
+                                plan={"rejoin_after_stage": "score"}),
+             "term": CliProcess(run_args("term", *supervised, "score.method=el2n",
+                                         "resilience.stage_resume=false",
+                                         f"checkpoint.promote_delay_s={ELASTIC_DELAY_S}"),
+                                plan={"rank": 0, "sigterm_at_epoch_end": 1}),
+             "kill": CliProcess(run_args("kill", *supervised, "resilience.stage_resume=false"),
+                                plan={"rank": 0, "kill_rank_after_epoch": 1})}
+    done = {name: finished(name, cp) for name, cp in procs.items()}
+    join_events = [e["event"] for e in events(done["join"][0])]
+    check("join_denied" in join_events and join_events[-1] == "complete"
+          and not os.path.exists(os.path.join(ELASTIC_ROOT, "join", "ckpt_elastic",
+                                              "join.json")),
+          f"(c) join at max_world=1: {join_events}")
+    check(same_run(torch, port, os.path.join(ELASTIC_ROOT, "ref"),
+                   os.path.join(ELASTIC_ROOT, "join")), "(c) not bitwise the reference")
+    join_resumed = [r for r in done["join"][0] if r["kind"] == "score_seeds_resumed"]
+    rec["c"] = {"events": join_events, "wall_s": done["join"][1],
+                "stage_manifest_reentry": bool(join_resumed)}
+    print(f"  five at once: R {done['ref'][1]:.1f} s, R_el2n {done['ref_el2n'][1]:.1f} s, "
+          f"(a) {done['kill'][1]:.1f} s, (b) {done['term'][1]:.1f} s, (c) "
+          f"{done['join'][1]:.1f} s; (c) join denied: {join_events}; its relaunch "
+          f"through the stage manifest: {bool(join_resumed)}", flush=True)
+
+    # (b): SIGTERM while epoch 1's promotion is in flight.
+    recs_b, wall_b = done["term"]
+    ev_b = [e["event"] for e in events(recs_b)]
+    check(ev_b == ["supervise", "launch", "children_exited", "restart", "launch",
+                   "children_exited", "complete"]
+          and events(recs_b)[2]["action"] == "preempted" and events(recs_b)[2]["rcs"] == [75],
+          f"(b) chain {ev_b}")
+    pre = [r for r in recs_b if r["kind"] == "preempted" and r.get("attempt") == 0]
+    check(len(pre) == 1 and pre[0]["durable_step"] == pre[0]["step"]
+          and pre[0].get("drain_timed_out") is False
+          and pre[0].get("drain_wait_s", 0) > 0 and pre[0].get("drain_budget_s") == 120.0,
+          f"(b) preempted {pre}")
+    resumes_b = [r for r in recs_b if r["kind"] == "resume" and r.get("attempt") == 1]
+    check(len(resumes_b) == 1 and resumes_b[0]["step"] == pre[0]["durable_step"],
+          f"(b) resume {resumes_b} after {pre}")
+    check(same_run(torch, port, os.path.join(ELASTIC_ROOT, "ref_el2n"),
+                   os.path.join(ELASTIC_ROOT, "term")), "(b) not bitwise R_el2n")
+    b_counts = attempt_launches(recs_b, 1)
+    check(b_counts.get("el2n", 0) > 0, f"(b)'s relaunch launched {b_counts}")
+    rec["b"] = {"wall_s": wall_b, "preempted": pre[0], "resume": resumes_b[0],
+                "launches_relaunch": b_counts}
+    print(f"  (b) SIGTERM mid-promotion: {ev_b}; drained {pre[0]['drain_wait_s']} s of "
+          f"{pre[0]['drain_budget_s']} s, durable at {pre[0]['durable_step']}; bitwise "
+          f"R_el2n; relaunch launches {b_counts}", flush=True)
+
+    # (a): host loss.
+    recs, wall_a = done["kill"]
+    ev = events(recs)
+    check([e["event"] for e in ev] == ELASTIC_CHAIN, f"(a) chain {[e['event'] for e in ev]}")
+    check(ev[2]["action"] == "shrink" and ev[2]["rcs"] == [-9]
+          and ev[3]["dead_ranks"] == [0] and ev[3]["new_world"] == 1
+          and ev[4]["resume"] is True, f"(a) events {ev}")
+    resumes = [r for r in recs if r["kind"] == "resume" and r.get("attempt") == 1]
+    tiers = port["tier_steps"](os.path.join(ELASTIC_ROOT, "kill", "ckpt"))
+    check(len(resumes) == 1 and resumes[0]["tag"] == "final"
+          and resumes[0]["step"] in tiers and resumes[0]["saved_world"] == 1
+          and resumes[0]["world"] == 1, f"(a) resume {resumes}; tier steps {tiers}")
+    check(same_run(torch, port, os.path.join(ELASTIC_ROOT, "ref"),
+                   os.path.join(ELASTIC_ROOT, "kill")), "(a) not bitwise the reference")
+    a_counts = attempt_launches(recs, 1)
+    check(a_counts.get("conv_grad_norm_direct", 0) > 0
+          and a_counts.get("conv_grad_norm_gram", 0) > 0,
+          f"(a)'s relaunch launched {a_counts}")
+    validate_stream(os.path.join(ELASTIC_ROOT, "kill", "m.jsonl"), expect_terminal=True)
+    summary = recs[-1]
+    slo_wall = summary_gauge([r for r in recs if r.get("attempt") == 1
+                              and r["kind"] != "elastic_event"], "slo_recovery_wall_s")
+    worker_slo = [r["slo"] for r in recs if r["kind"] == "run_summary"
+                  and r.get("attempt") == 1 and "slo" in r]
+    rec["a"] = {"wall_s": wall_a, "resume": resumes[0], "lineage": summary["lineage"],
+                "launches_relaunch": a_counts, "slo_recovery_wall_s": slo_wall,
+                "slo": worker_slo[-1] if worker_slo else None}
+    print(f"  (a) kill after epoch 1: chain "
+          f"{[e['event'] for e in ev]}; resume at step {resumes[0]['step']} (tier steps "
+          f"{tiers}); bitwise R; relaunch launches {a_counts}; lineage "
+          f"{summary['lineage']}", flush=True)
+
+    # (d): the post-mortem of (a).
+    pm = subprocess.run([sys.executable, "-m", "data_diet_distributed_tpu_torch.obs.postmortem",
+                         os.path.join(ELASTIC_ROOT, "kill", "m.jsonl"), "--json"],
+                        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+                        capture_output=True, text=True, timeout=120)
+    check(pm.returncode == 0, f"(d) post-mortem exit {pm.returncode}: {pm.stdout[-2000:]}")
+    report = json.loads(pm.stdout.strip().splitlines()[-1])
+    chains = [c for c in report["recoveries"] if c["type"] == "relaunch"]
+    check(len(chains) == 1 and chains[0]["action"] == "shrink"
+          and chains[0]["dead_ranks"] == [0]
+          and chains[0]["resume_step"] == resumes[0]["step"]
+          and chains[0]["recovery_wall_s"] is not None, f"(d) chains {chains}")
+    slo_ok = bool(rec["a"]["slo"] and rec["a"]["slo"]["ok"]) and report["slo_violations"] == 0
+    rec["d"] = {"recovery_wall_s": chains[0]["recovery_wall_s"],
+                "lost_wall_s": report["lost_wall_s"], "slo_held": slo_ok}
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"  (d) post-mortem exit 0: kill -> shrink(dead [0]) -> resume at step "
+          f"{chains[0]['resume_step']}; recovery wall {chains[0]['recovery_wall_s']} s "
+          f"(classification to the first training record), SLO clock {slo_wall} s "
+          f"against {ELASTIC_SLO_S} s: {'held' if slo_ok else 'MISSED'}", flush=True)
+    check(slo_ok, f"(a) recovery SLO missed: {rec['a']['slo']}")
+    print(f"  elastic phase {rec['wall_s']:.1f} s", flush=True)
+    shutil.rmtree(ELASTIC_ROOT, ignore_errors=True)
+    return {k: a_counts.get(k, 0) + b_counts.get(k, 0) for k in port["kernels"].KERNELS}
+
+
 def summary_gauge(recs: list[dict], name: str):
     """A gauge of the stream's last registry snapshot."""
     snaps = [r for r in recs if r["kind"] == "metrics"]
@@ -4017,7 +4247,7 @@ def load_port() -> dict:
         from data_diet_distributed_tpu_torch.ops.scoring import score_dataset
         from data_diet_distributed_tpu_torch.pruning import select_indices
         from data_diet_distributed_tpu_torch.pruning import verify_prune_manifest
-        from data_diet_distributed_tpu_torch.checkpoint import CheckpointManager
+        from data_diet_distributed_tpu_torch.checkpoint import CheckpointManager, tier_steps
         from data_diet_distributed_tpu_torch import cli
         from data_diet_distributed_tpu_torch.data import native, sharded
         from data_diet_distributed_tpu_torch.data.datasets import _chunked_channel_stats
@@ -4047,7 +4277,7 @@ def load_port() -> dict:
             "variables_to": variables_to,
             "set_scoring_determinism": set_scoring_determinism,
             "inject": inject, "Preempted": Preempted, "StageManifest": StageManifest,
-            "CheckpointManager": CheckpointManager,
+            "CheckpointManager": CheckpointManager, "tier_steps": tier_steps,
             "make_local_scores": make_local_scores,
             "data": {"cli": cli, "native": native, "write_split": sharded.write_split,
                      "write_manifest": sharded.write_manifest,
@@ -4169,6 +4399,9 @@ def main(argv: list[str]) -> int:
     phase("dist")
     dist_phase(torch, port, details, card, path, trained)
 
+    phase("elastic")
+    elastic = elastic_phase(torch, port, details, card)
+
     phase("calls")
     calls_phase(torch)
 
@@ -4183,10 +4416,11 @@ def main(argv: list[str]) -> int:
     # One entry per kernel: per-batch sums over the layers of the route that runs
     # it, bf16; launches summed over the counted runs of the path, routes and
     # resnet50 phases, the train phase's run, the resilience phase's runs, the data
-    # phase's run and the wrn phase's passes and sweep.
+    # phase's run, the wrn phase's passes and sweep, and the elastic phase's
+    # relaunched attempts.
     launches = {k: path["counts"][k] + routes["counts"][k] + service["counts"][k]
                 + r50["counts"][k] + trained["counts"][k] + resil["counts"][k]
-                + data["counts"][k] + wrn["counts"][k] for k in K.KERNELS}
+                + data["counts"][k] + wrn["counts"][k] + elastic[k] for k in K.KERNELS}
     check(all(launches[k] > 0 for k in KERNEL_INFO), f"a kernel never launched: {launches}")
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -11,13 +11,14 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
 
 * ``device.py`` -> (new) device resolution, TF32 parity mode, cuDNN determinism
 * ``config.py`` -> ``config.py`` (data/model/optim/score/prune/train/
-  resilience/mesh/obs/serve; ``obs.plots_dir``, ``slo_fleet_*`` and
-  ``slo_recovery_s`` refuse by name; the unported sections' keys accepted
-  and ignored)
+  resilience/mesh/obs/serve/checkpoint/elastic; ``obs.plots_dir`` and
+  ``slo_fleet_*`` refuse by name; the unported sections' keys (parallel,
+  tuning) accepted and ignored)
 * ``parallel/mesh.py`` + ``parallel/collectives.py`` -> ``parallel/mesh.py``
   (``initialize_multihost`` over ``torch.distributed``: NCCL for CUDA, gloo
   for the CPU, a gloo host group beside NCCL; rank and world, ``is_primary``,
-  ``sync_hosts``, the geometry check, ``_zero1_spec``, ``UpdateSharding``,
+  ``sync_hosts``, the geometry check, ``run_mesh``/``remap_mesh`` (a stale
+  ``data_axis`` recomputed under elastic), ``_zero1_spec``, ``UpdateSharding``,
   ``resolve_update_sharding``; the all-reduces, reduce-scatter, all-gather
   and float64 score sum XLA inserts in the JAX package)
 * ``data/datasets.py`` -> ``data/datasets.py`` (synthetic, synthetic_imagenet,
@@ -73,18 +74,27 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   AUM) through ``fit``'s ``epoch_hook``, ``run_datadiet`` and
   ``run_sweep`` with the stage manifest, the fingerprints; the observability
   hooks: spans, registry timers, heartbeats, profile windows, memory polls,
-  MFU, SLO checks, ``fleet_status``, ``comm_stats``, flight-recorder dumps)
-* ``checkpoint.py`` -> ``checkpoint.py`` (the single-tier ``CheckpointManager``,
-  in the port's own format; ``restore_verified`` falls back past corrupt
-  steps; across ranks rank 0 writes, then a barrier; ``verified_steps``;
-  ``checkpoint_save``/``checkpoint_restore`` spans and walls)
+  MFU, SLO checks, ``fleet_status``, ``comm_stats``, flight-recorder dumps;
+  the elastic hooks: tier saves, the drain and ``await_step`` on preemption,
+  ``resume`` with ``world``/``saved_world``, the recovery SLO's clock,
+  ``stage_barrier`` at the score -> retrain boundary and between levels)
+* ``checkpoint.py`` -> ``checkpoint.py`` (``CheckpointManager`` in the port's
+  own format; ``restore_verified`` falls back past corrupt steps; across
+  ranks rank 0 writes, then a barrier; ``verified_steps``;
+  ``checkpoint_save``/``checkpoint_restore`` spans and walls; the local tier:
+  ``LocalTier`` (each rank its own part, ZeRO-1 slices with their index,
+  background promotion with digest checks, retention, a bounded ``drain``),
+  ``tier_steps``, ``restore_tier_payload`` (the whole state at any world),
+  ``tier_map``, ``await_step``, ``drain_info``, ``saved_world``)
 * ``resilience/`` -> ``resilience/`` (``preemption.py``, ``sentinel.py``
   with the agreed verdict, ``watchdog.py`` with ``probe_devices`` through
   torch and the consensus hooks, ``integrity.py`` for the port's manifest,
   ``stages.py`` with the broadcast manifest and the agreed partials,
   ``consensus.py`` (``agree_any``, ``agree_common``, ``broadcast_json``,
-  ``SideChannel``, ``Consensus``), and ``inject.py`` with the training,
-  storage and consensus fault classes, ``rank`` targeting included)
+  ``SideChannel``, ``Consensus``), ``elastic.py`` (``ElasticSupervisor``,
+  the join and resize requests, ``stage_barrier``, ``survivors``,
+  ``classify_rc``, ``RestartBudget``, ``JsonlLogger``), and ``inject.py``
+  with every fault class, ``rank`` targeting included)
 * ``utils/io.py`` -> ``utils/io.py`` (atomic writes, ``load_scores_npz``,
   ``atomic_append_jsonl``)
 * ``utils/stats.py`` -> ``utils/stats.py`` (Spearman rho with ties)
@@ -104,18 +114,23 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   real call, MFU against the peak table or a calibration,
   ``HbmMonitor`` over ``torch.cuda.memory_stats``), ``monitor.py`` (host
   CPU, device memory, the latency-probe duty cycle), ``scoreboard.py``,
-  ``comm.py``, ``slo.py`` (training and serve objectives, ``ledger_baseline``
-  by ``cuda``/``cpu`` backend), ``fleet.py``, ``heartbeat.py`` (with lineage,
-  ``describe_stale``, the residue files), ``reqtrace.py``, ``server.py``
-  (/healthz, /metrics, /status with MFU, watermark, ETA and lineage, the
-  live /flightrec), ``session.py`` (every instrument)
+  ``comm.py``, ``slo.py`` (training, serve and recovery objectives,
+  ``ledger_baseline`` by ``cuda``/``cpu`` backend), ``fleet.py``,
+  ``heartbeat.py`` (with lineage, ``describe_stale``, the residue files),
+  ``reqtrace.py``, ``server.py`` (/healthz, /metrics, /status with MFU,
+  watermark, ETA and lineage, the live /flightrec), ``session.py`` (every
+  instrument), ``timeline.py`` (the cross-attempt timeline, recovery chains,
+  lineage view, merged Perfetto trace); ``postmortem.py`` ->
+  ``tools/postmortem.py``
+  (``python -m data_diet_distributed_tpu_torch.obs.postmortem``)
 * ``cli.py`` -> ``cli.py`` (``train``, ``run``, ``sweep``, ``score``,
   ``serve``, each under ``ObsSession`` and a ``run`` span, its records in
   ``obs.metrics_path`` and on stderr ending in ``metrics`` and
   ``run_summary``, ``obs.monitor`` and the ``perf_history`` ledger line;
   exit 75 on preemption or a serve drain, ``DDT_FAULT_PLAN`` drills;
   ``mesh.multihost`` joins the group first, rank 0 prints and writes, a
-  failure under the group exits 69 or 1 at once)
+  failure under the group exits 69 or 1 at once; ``elastic.enabled``: the
+  restart supervisor, which touches no CUDA)
 
 Across W processes (``mesh.multihost``), one device each, every entry point
 computes what the JAX package computes on a ``{data: W, model: 1}`` mesh:
@@ -125,16 +140,13 @@ float64 sum per seed, primary-only writes, and the consensus drills.
 
 Not ported yet: the tensor-parallel classifier (``mesh.model_axis > 1``),
 ``parallel/overlap.py`` (XLA flags for the TPU; ``parallel.overlap`` is
-accepted and ignored), elastic supervision and resize (``remap_mesh``,
-``remap_state``, ``resilience/elastic.py``), the checkpoint tiers, the host
-kill and rejoin fault classes of ``resilience/``, the chunked training
-engine and its ``StreamingBatches``, the serving router and fleet
+accepted and ignored), the chunked training engine and its
+``StreamingBatches``, the serving router and fleet
 (``serve/router.py``, ``serve/fleet.py``: ``cli serve`` refuses
 ``serve.replicas > 1`` and ``serve.max_replicas``), the autotuner's
 manifest (``tuning.py``: no ``tuning_applied`` record), what remains of
-observability (``obs/plots.py``: ``obs.plots_dir`` refuses by name;
-``obs/timeline.py``, which merges elastic attempts; the fleet and recovery
-SLOs and ``judge_canary``, with the serving fleet) and the tools
+observability (``obs/plots.py``: ``obs.plots_dir`` refuses by name; the
+fleet SLOs and ``judge_canary``, with the serving fleet) and the tools
 (``tools/make_shards.py``, ``tools/npz_to_npy.py``; their formats are the
 port's too).
 """

@@ -50,6 +50,20 @@ plan in ``DDT_FAULT_PLAN`` (``resilience/inject.py``) arms a drill, and
 ``resilience.init_probe=true`` first initializes CUDA in a bounded
 subprocess (exit 69 when it fails).
 
+Supervised: with ``elastic.enabled=true`` the command becomes a restart
+supervisor (``resilience/elastic.py::ElasticSupervisor``) that touches no
+CUDA: it starts ``elastic.world`` workers of the same command (each with
+``DDT_ELASTIC_CHILD=1``, the mesh keys of its rank and the supervisor's
+``--device``; their output in ``<train.checkpoint_dir>_elastic/``), and after
+a worker's death relaunches the survivors with ``train.resume=true``; a join
+request grows the world at the next stage boundary. Its ``elastic_event``
+records and a terminal ``run_summary`` (``exit_class``, ``lineage``; or
+``fatal:supervisor``) go to ``obs.metrics_path`` beside the workers', its
+exit status is the run's. With CUDA each worker takes a card, so one card
+runs ``elastic.world=1``; ``--device cpu`` runs W workers over gloo. Judge
+the run afterwards with ``python -m
+data_diet_distributed_tpu_torch.obs.postmortem <workdir>``.
+
 Several processes: with ``mesh.multihost=true mesh.coordinator_address=H:P
 mesh.num_processes=W mesh.process_id=r`` each process joins the group
 (NCCL on CUDA, gloo with ``--device cpu``) before it loads data, and the W
@@ -77,8 +91,9 @@ from .obs import lineage, tracing
 from .obs.metrics import MetricsLogger, emit_run_summary
 from .obs.monitor import ResourceMonitor
 from .obs.session import ObsSession
+from .ops import kernels
 from .parallel.mesh import initialize_multihost, is_primary, shutdown, world_size
-from .resilience import inject
+from .resilience import elastic, inject
 from .resilience.preemption import EXIT_PREEMPTED, Preempted
 from .resilience.watchdog import EXIT_RETRIABLE, probe_devices
 from .serve.server import run_serve
@@ -223,6 +238,11 @@ def _observed(command: str, cfg: Config, device_arg) -> dict:
                 raise
             finally:
                 try:
+                    # The kernels' launches in this process, for a reader of
+                    # the stream (a supervised attempt's among them).
+                    for name, n in kernels.launch_counts().items():
+                        if n:
+                            obs.registry.gauge(f"kernel_launches:{name}").set(n)
                     logger.log("metrics", **obs.registry.snapshot())
                     summary = emit_run_summary(
                         logger, wall_s=time.perf_counter() - t0, exit_class=exit_class,
@@ -237,6 +257,29 @@ def _observed(command: str, cfg: Config, device_arg) -> dict:
             monitor.stop()
 
 
+def _supervise(command: str, cfg: Config, args) -> int:
+    """``elastic.enabled``: supervise workers of this same command; returns
+    the run's exit status. The terminal ``run_summary`` judges the whole
+    lineage (attempts, worlds, recoveries), not the last attempt."""
+    logger = elastic.JsonlLogger(cfg.obs.metrics_path)
+    supervisor = elastic.ElasticSupervisor(cfg, command, config_path=args.config,
+                                           overrides=args.overrides, logger=logger,
+                                           device=args.device)
+    t0 = time.perf_counter()
+    try:
+        rc = supervisor.run()
+    except BaseException:
+        logger.log("run_summary", wall_s=round(time.perf_counter() - t0, 3),
+                   exit_class="fatal:supervisor", command=command)
+        logger.close()
+        raise
+    logger.log("run_summary", wall_s=round(time.perf_counter() - t0, 3),
+               exit_class=supervisor.exit_class(rc), command=command,
+               lineage=supervisor.lineage_block())
+    logger.close()
+    return rc
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="data_diet_distributed_tpu_torch.cli")
     parser.add_argument("command", choices=("score", "train", "run", "sweep", "serve"))
@@ -248,6 +291,10 @@ def main(argv: list[str] | None = None) -> int:
     cfg = load_config(args.config, args.overrides)
     if args.command == "serve":
         _refuse_serve(cfg)
+    if cfg.elastic.enabled and os.environ.get(elastic.CHILD_ENV) != "1":
+        # Before the fault plan and any device: the supervisor fires no fault
+        # site and never touches the card, which its workers take.
+        return _supervise(args.command, cfg, args)
     plan = inject.activate_from_env()
     if plan is not None:
         print(f"[resilience] fault plan armed from DDT_FAULT_PLAN: {plan}",

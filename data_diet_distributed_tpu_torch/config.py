@@ -2,8 +2,9 @@
 port reads.
 
 ``DataConfig``, ``ModelConfig``, ``OptimConfig``, ``ScoreConfig``,
-``PruneConfig``, ``TrainConfig``, ``ResilienceConfig`` and ``MeshConfig`` are
-copied whole, with the JAX package's validations. ``train.chunk_steps`` is accepted and
+``PruneConfig``, ``TrainConfig``, ``ResilienceConfig``, ``MeshConfig``,
+``CheckpointConfig`` and ``ElasticConfig`` are copied whole, with the JAX
+package's validations. ``train.chunk_steps`` is accepted and
 ignored (the JAX package's dispatch-amortising engine, whose results are by
 contract those of the per-step path, which is the one the port runs). Of
 ``resilience``, the port honours ``step_timeout_s``, ``preemption``,
@@ -12,16 +13,21 @@ contract those of the per-step path, which is the one the port runs). Of
 consensus keys (``consensus``, ``consensus_poll_steps``,
 ``consensus_grace_s``, ``sidechannel_dir``). Of ``mesh`` every key takes
 effect (``parallel/mesh.py``) but ``model_axis``, which must be 1 (the
-tensor-parallel classifier is not ported).
+tensor-parallel classifier is not ported). ``checkpoint`` arms the local tier
+(``checkpoint.py::LocalTier``: per-rank saves promoted in the background to
+``<train.checkpoint_dir>_tiered``), and ``elastic`` makes the CLI a restart
+supervisor over its own workers (``resilience/elastic.py``); every key of
+both takes effect.
 
 ``ServeConfig`` is copied whole with its validation; ``cli serve`` reads the
 single-process keys, and the serving fleet's (``replicas > 1``,
 ``max_replicas``, the router, autoscaler, probation and canary keys) are
 validated and accepted, but a fleet is refused by name (not ported).
 ``ObsConfig`` is copied whole with its validation; every key takes effect
-but ``plots_dir``, ``slo_fleet_*`` and ``slo_recovery_s``, which raise by name
-when set (not ported). The sections the port does not have (parallel,
-checkpoint, elastic, tuning) are accepted key by key and ignored, so every
+but ``plots_dir`` and ``slo_fleet_*``, which raise by name when set (not
+ported); ``slo_recovery_s`` is the cross-attempt recovery objective of a
+supervised run (``obs/slo.py``). The sections the port does not have
+(parallel, tuning) are accepted key by key and ignored, so every
 ``configs/*.yaml`` loads unchanged, while an unknown key anywhere still raises
 ``KeyError`` as in JAX.
 """
@@ -206,9 +212,10 @@ class ObsConfig:
     textfile, the heartbeat, the flight recorder, program introspection and
     the memory watermark, the ``torch.profiler`` window, score telemetry, the
     perf-history ledger, the status server, the fleet view, the resource
-    monitor and the training and serving SLOs. ``plots_dir`` (the post-run
-    plots), the fleet SLOs (``slo_fleet_*``) and the recovery SLO
-    (``slo_recovery_s``) are not ported and raise by name when set."""
+    monitor and the training, serving and recovery SLOs (``slo_recovery_s``:
+    a supervised relaunch's wall from the fault's classification to its
+    first training step). ``plots_dir`` (the post-run plots) and the fleet
+    SLOs (``slo_fleet_*``) are not ported and raise by name when set."""
 
     # JSON lines {"ts", "kind", ...} of the command's records; None = none.
     metrics_path: str | None = "./metrics.jsonl"
@@ -329,17 +336,59 @@ class ServeConfig:
     trace_slow_ms: float | None = None
 
 
+@dataclass
+class CheckpointConfig:
+    """The local checkpoint tier (``checkpoint.py::LocalTier``): each rank
+    saves the arrays it owns to local disk at the step cadence, and a
+    background thread promotes each save to the durable tier
+    (``<train.checkpoint_dir>_tiered``), re-verifying its digests. A step is
+    restorable only once every rank's part is promoted and verified;
+    preemption drains the promotions in flight before exit 75."""
+
+    local_tier: bool = False
+    # Per-rank local (fast) tier ROOT; None -> <checkpoint_dir>_local. A
+    # configured root is namespaced by the checkpoint directory
+    # (checkpoint.local_tier_dir), so jobs may share one.
+    local_dir: str | None = None
+    promote: bool = True             # background promotion to the durable tier
+    drain_timeout_s: float = 120.0   # preemption-path bound on the drain
+    # Seconds each promotion waits before it copies: a drill's hook to land a
+    # SIGTERM while a promotion is in flight.
+    promote_delay_s: float = 0.0
+
+
+@dataclass
+class ElasticConfig:
+    """Elastic supervision (``resilience/elastic.py``): with ``enabled`` the
+    CLI spawns ``world`` workers of the same command and relaunches them with
+    ``train.resume=true`` after a worker's death (on the survivors), a
+    retriable failure (in place), a preemption (``resume_preempted``) or a
+    join request (at the next stage boundary, on the grown world). Every
+    decision is an ``{"kind": "elastic_event"}`` record."""
+
+    enabled: bool = False
+    # Initial worker count; None -> mesh.num_processes or 1. All ranks run on
+    # this host (one card each under CUDA).
+    world: int | None = None
+    min_world: int = 1               # never shrink below this many ranks
+    max_world: int | None = None     # grow ceiling; None -> initial world
+    max_restarts: int = 5            # failure-relaunch budget (grows are free)
+    backoff_s: float = 2.0           # exponential between failure relaunches
+    # After an uncoordinated exit, how long the other workers get to exit on
+    # their own before the supervisor terminates them (then kills them).
+    reap_timeout_s: float = 60.0
+    # Heartbeat age past which a rank is reported stale.
+    heartbeat_stale_s: float = 30.0
+    # Relaunch (with resume) after a clean preemption exit 75.
+    resume_preempted: bool = True
+
+
 #: Keys the port does not have: accepted, ignored.
 _IGNORED_SECTIONS: dict[str, Any] = {
     "parallel": {"overlap": {"enabled", "latency_hiding_scheduler",
                              "async_all_gather", "async_reduce_scatter",
                              "async_all_reduce", "async_collective_permute",
                              "extra_flags"}},
-    "checkpoint": {"local_tier", "local_dir", "promote", "drain_timeout_s",
-                   "promote_delay_s"},
-    "elastic": {"enabled", "world", "min_world", "max_world", "max_restarts",
-                "backoff_s", "reap_timeout_s", "heartbeat_stale_s",
-                "resume_preempted"},
     "tuning": {"manifest", "apply"},
 }
 
@@ -356,6 +405,8 @@ class Config:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    elastic: ElasticConfig = field(default_factory=ElasticConfig)
 
     def validate(self) -> "Config":
         if self.data.dataset not in ("cifar10", "cifar100", "synthetic",
@@ -459,19 +510,60 @@ class Config:
                 raise ValueError(
                     f"mesh.process_id={m.process_id} is not in [0, "
                     f"{m.num_processes})")
-            if m.data_axis is not None and m.data_axis != m.num_processes:
+            # Under elastic supervision a relaunch at another world keeps the
+            # pin of the first: parallel.mesh.run_mesh recomputes it.
+            if (m.data_axis is not None and m.data_axis != m.num_processes
+                    and not self.elastic.enabled):
                 raise ValueError(
                     f"mesh.data_axis={m.data_axis} must equal mesh.num_processes="
                     f"{m.num_processes} (one device per rank)")
+        self._validate_checkpoint_elastic()
         self._validate_obs_serve()
         return self
+
+    def _validate_checkpoint_elastic(self) -> None:
+        c = self.checkpoint
+        if c.drain_timeout_s <= 0:
+            raise ValueError(
+                f"checkpoint.drain_timeout_s must be > 0, got {c.drain_timeout_s}")
+        if c.promote_delay_s < 0:
+            raise ValueError(
+                f"checkpoint.promote_delay_s must be >= 0, got {c.promote_delay_s}")
+        e = self.elastic
+        if e.world is not None and e.world < 1:
+            raise ValueError(f"elastic.world must be >= 1, got {e.world}")
+        if e.min_world < 1:
+            raise ValueError(f"elastic.min_world must be >= 1, got {e.min_world}")
+        if e.max_world is not None and e.max_world < e.min_world:
+            raise ValueError(
+                f"elastic.max_world ({e.max_world}) must be >= "
+                f"elastic.min_world ({e.min_world})")
+        if e.world is not None and e.world < e.min_world:
+            raise ValueError(
+                f"elastic.world ({e.world}) must be >= elastic.min_world "
+                f"({e.min_world}) — the supervisor never shrinks below the "
+                "floor, so it cannot start there either")
+        if e.world is not None and e.max_world is not None and e.world > e.max_world:
+            raise ValueError(
+                f"elastic.world ({e.world}) must be <= elastic.max_world "
+                f"({e.max_world})")
+        if e.max_restarts < 0:
+            raise ValueError(f"elastic.max_restarts must be >= 0, got {e.max_restarts}")
+        if e.backoff_s < 0:
+            raise ValueError(f"elastic.backoff_s must be >= 0, got {e.backoff_s}")
+        if e.reap_timeout_s <= 0 or e.heartbeat_stale_s <= 0:
+            raise ValueError(
+                "elastic.reap_timeout_s and elastic.heartbeat_stale_s must "
+                f"be > 0; got {e.reap_timeout_s}/{e.heartbeat_stale_s}")
+        if self.obs.slo_recovery_s is not None and self.obs.slo_recovery_s <= 0:
+            raise ValueError(
+                f"obs.slo_recovery_s must be > 0, got {self.obs.slo_recovery_s}")
 
     def _validate_obs_serve(self) -> None:
         o = self.obs
         for key, what in (("plots_dir", "the post-run plots (obs/plots.py)"),
                           ("slo_fleet_p95_ms", "the serving fleet's SLOs"),
-                          ("slo_fleet_available_frac", "the serving fleet's SLOs"),
-                          ("slo_recovery_s", "the elastic supervisor's recovery SLO")):
+                          ("slo_fleet_available_frac", "the serving fleet's SLOs")):
             if getattr(o, key) is not None:
                 raise NotImplementedError(
                     f"obs.{key}: {what} are not ported to the PyTorch package "
@@ -633,7 +725,8 @@ _SECTIONS = {"data": DataConfig, "model": ModelConfig, "optim": OptimConfig,
              "score": ScoreConfig,
              "prune": PruneConfig, "train": TrainConfig,
              "resilience": ResilienceConfig, "mesh": MeshConfig,
-             "obs": ObsConfig, "serve": ServeConfig}
+             "obs": ObsConfig, "serve": ServeConfig,
+             "checkpoint": CheckpointConfig, "elastic": ElasticConfig}
 
 
 def _check_ignored(keys: Any, value: Any, where: str) -> None:

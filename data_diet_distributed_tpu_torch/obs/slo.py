@@ -14,7 +14,14 @@ Training objectives:
 * **nonfinite scores**: ``slo_nonfinite_frac`` against the NaN/inf fraction
   of a scoring pass's output;
 * **heartbeat staleness**: ``slo_heartbeat_stale_s`` against the stalest
-  rank's heartbeat age at steady epoch boundaries (``obs/fleet.py``).
+  rank's heartbeat age at steady epoch boundaries (``obs/fleet.py``);
+* **recovery**: ``slo_recovery_s``, the one objective across attempts: on a
+  supervised relaunch (lineage attempt > 0), the wall from the supervisor's
+  classification of the previous attempt (its ``children_exited`` record in
+  the shared stream; else the last fault record) to this attempt's first
+  training step. One verdict per relaunched attempt; a requested grow or
+  resize never arms it. ``obs/postmortem.py --recovery-budget-s`` applies
+  the same budget offline.
 
 Serving objectives, at every ``serve_stats`` point of the serve loop:
 
@@ -29,9 +36,8 @@ Each violation emits ONE ``{"kind": "slo_violation"}`` record, increments the
 ``slo_violations`` counter, sets the ``slo_ok`` / ``slo_margin:<name>``
 gauges, and is retained (bounded) for the ``/healthz`` verdict and
 ``run_summary.slo``. A sustained breach re-records at each new evaluation
-point, never twice for one. The fleet and recovery objectives
-(``slo_fleet_*``, ``slo_recovery_s``) go with the serving fleet and the
-elastic supervisor, which are not ported; the config refuses them by name.
+point, never twice for one. The fleet objectives (``slo_fleet_*``) go with
+the serving fleet, which is not ported; the config refuses them by name.
 Module-level slot, no-op until installed. Imports no torch.
 """
 
@@ -45,7 +51,8 @@ import numpy as np
 from . import registry as obs_registry
 
 __all__ = ["SloEngine", "ledger_baseline", "install", "uninstall", "current",
-           "check_epoch", "check_scores", "check_serve", "DEFAULT_BASELINE_WINDOW"]
+           "check_epoch", "check_scores", "check_serve", "arm_recovery",
+           "note_training_step", "DEFAULT_BASELINE_WINDOW"]
 
 #: Trailing clean records forming the ledger baseline.
 DEFAULT_BASELINE_WINDOW = 5
@@ -120,6 +127,7 @@ class SloEngine:
                  heartbeat_stale_s: float | None = None,
                  nonfinite_frac: float | None = None,
                  eval_accuracy_floor: float | None = None,
+                 recovery_s: float | None = None,
                  serve_p95_ms: float | None = None,
                  serve_queue_depth: int | None = None,
                  serve_reject_frac: float | None = None,
@@ -136,6 +144,12 @@ class SloEngine:
         self.nonfinite_frac = nonfinite_frac
         self.eval_accuracy_floor = eval_accuracy_floor
         self.heartbeat_stale_s = heartbeat_stale_s
+        self.recovery_s = recovery_s
+        # The recovery clock: the classification's ts (read at resume) and
+        # the latch of the attempt's one verdict.
+        self._recovery_anchor: float | None = None
+        self._recovery_attempt = 0
+        self._recovery_done = False
         self.serve_p95_ms = serve_p95_ms
         self.serve_queue_depth = serve_queue_depth
         self.serve_reject_frac = serve_reject_frac
@@ -155,7 +169,8 @@ class SloEngine:
         o = cfg.obs
         if all(v is None for v in (
                 o.slo_throughput_floor, o.slo_throughput_frac, o.slo_heartbeat_stale_s,
-                o.slo_nonfinite_frac, o.slo_eval_accuracy_floor, o.slo_serve_p95_ms,
+                o.slo_nonfinite_frac, o.slo_eval_accuracy_floor, o.slo_recovery_s,
+                o.slo_serve_p95_ms,
                 o.slo_serve_queue_depth, o.slo_serve_reject_frac)):
             return None
         return cls(throughput_floor=o.slo_throughput_floor,
@@ -164,6 +179,7 @@ class SloEngine:
                    heartbeat_stale_s=o.slo_heartbeat_stale_s,
                    nonfinite_frac=o.slo_nonfinite_frac,
                    eval_accuracy_floor=o.slo_eval_accuracy_floor,
+                   recovery_s=o.slo_recovery_s,
                    serve_p95_ms=o.slo_serve_p95_ms,
                    serve_queue_depth=o.slo_serve_queue_depth,
                    serve_reject_frac=o.slo_serve_reject_frac, logger=logger)
@@ -173,7 +189,7 @@ class SloEngine:
         ledger baseline once known."""
         out = {k: getattr(self, k) for k in
                ("throughput_floor", "throughput_frac", "heartbeat_stale_s",
-                "nonfinite_frac", "eval_accuracy_floor", "serve_p95_ms",
+                "nonfinite_frac", "eval_accuracy_floor", "recovery_s", "serve_p95_ms",
                 "serve_queue_depth", "serve_reject_frac")
                if getattr(self, k) is not None}
         if self._baseline_resolved:
@@ -275,6 +291,66 @@ class SloEngine:
                           n=int(arr.size))
         self._mark_ok()
 
+    def arm_recovery(self, metrics_path: str | None) -> bool:
+        """Arm the recovery clock at resume time (attempt > 0 only): read the
+        shared lineage-stamped stream for the supervisor's classification of
+        an earlier attempt (``children_exited``; else the last fault-class
+        record) and anchor the clock there, so the budget covers relaunch,
+        restore and first step, not only this process's start. A requested
+        grow or resize never arms (it is no failure). Returns whether armed."""
+        if self.recovery_s is None or self._recovery_done \
+                or self._recovery_anchor is not None:
+            return self._recovery_anchor is not None
+        from . import lineage
+        lin = lineage.current() or lineage.ensure()
+        if lin.attempt == 0 or not metrics_path:
+            return False
+        from .timeline import read_records
+        classified = fault_ts = None
+        requested = False
+        for rec in read_records(metrics_path):
+            if not isinstance(rec.get("ts"), (int, float)):
+                continue
+            att = rec.get("attempt")
+            if not isinstance(att, int) or att >= lin.attempt:
+                continue
+            if rec.get("kind") == "elastic_event":
+                if rec.get("event") == "children_exited":
+                    classified = rec["ts"]
+                    requested = False
+                elif rec.get("event") in ("shrink", "grow", "resize", "restart"):
+                    # The decision after the classification: the last pair
+                    # (the transition into this attempt) stands at the end.
+                    requested = rec["event"] in ("grow", "resize")
+            elif rec.get("kind") in ("fault", "preempted"):
+                fault_ts = rec["ts"]   # the last fault-class record wins
+        if classified is not None and requested:
+            return False
+        anchor = classified if classified is not None else fault_ts
+        if anchor is None:
+            return False
+        self._recovery_anchor = anchor
+        self._recovery_attempt = lin.attempt
+        return True
+
+    def note_training_step(self, *, logger=None, now: float | None = None) -> None:
+        """The recovery clock's far end: the first training step after an
+        armed resume. One verdict per attempt: the wall as the
+        ``slo_recovery_wall_s`` gauge, and a violation only past the budget."""
+        if self._recovery_anchor is None or self._recovery_done:
+            return
+        self._recovery_done = True
+        import time as _time
+        wall = (now if now is not None else _time.time()) - self._recovery_anchor
+        # Disarmed: the module-level hook is one attribute check again.
+        self._recovery_anchor = None
+        obs_registry.set_gauge("slo_recovery_wall_s", round(wall, 3))
+        if self.recovery_s is not None and wall > self.recovery_s:
+            self._violate("recovery", round(wall, 3), self.recovery_s, logger=logger,
+                          point=("recovery", self._recovery_attempt),
+                          attempt=self._recovery_attempt)
+        self._mark_ok()
+
     def check_serve(self, *, point, p95_ms: float | None = None,
                     queue_depth: int | None = None,
                     reject_frac: float | None = None, logger=None,
@@ -341,3 +417,16 @@ def check_serve(**kwargs) -> None:
     engine is installed."""
     if _ENGINE is not None:
         _ENGINE.check_serve(**kwargs)
+
+
+def arm_recovery(metrics_path: str | None) -> None:
+    """Library-code entry (``fit``'s resume): no-op until installed."""
+    if _ENGINE is not None:
+        _ENGINE.arm_recovery(metrics_path)
+
+
+def note_training_step(*, logger=None) -> None:
+    """The train loop's per-step hook: one attribute check unless the
+    recovery clock is armed."""
+    if _ENGINE is not None and _ENGINE._recovery_anchor is not None:
+        _ENGINE.note_training_step(logger=logger)

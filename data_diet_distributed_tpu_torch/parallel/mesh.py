@@ -14,7 +14,9 @@ package computes on a mesh ``{data: W, model: 1}``:
   the group (1, 0, True and nothing without one); ``image_slice`` is the
   ``(rank, W)`` the data planes take, None at W = 1.
 * ``make_mesh`` checks the geometry: ``mesh.data_axis`` must equal W, and a
-  tensor-parallel ``model`` axis is refused.
+  tensor-parallel ``model`` axis is refused. Under elastic supervision
+  ``run_mesh`` goes through ``remap_mesh`` instead, which recomputes a
+  ``data_axis`` pinned for the world of an earlier attempt.
 * ZeRO-1 (``mesh.shard_opt_state``) and the cross-replica sharded weight
   update (``mesh.shard_weight_update`` or ``DDT_SHARDED_UPDATE=1``) share one
   layout, ``UpdateSharding``: each leaf that ``_zero1_spec`` shards keeps only
@@ -141,6 +143,30 @@ def make_mesh(cfg_mesh=None, world: int | None = None) -> Mesh:
         raise ValueError(f"mesh {data}x{model} does not tile {w} processes "
                          "(one device per rank)")
     return Mesh(data, model)
+
+
+def run_mesh(cfg_mesh=None, elastic: bool = False, world: int | None = None) -> Mesh:
+    """The run's mesh: ``make_mesh``, except under elastic supervision, where
+    a relaunch after a shrink or a grow arrives with the ``data_axis`` pinned
+    for the first world and ``remap_mesh`` recomputes it."""
+    return remap_mesh(cfg_mesh, world) if elastic else make_mesh(cfg_mesh, world)
+
+
+def remap_mesh(cfg_mesh=None, world: int | None = None) -> Mesh:
+    """The mesh of a CHANGED world (elastic shrink or grow): ``make_mesh``,
+    but a pinned ``data_axis`` that no longer tiles the W ranks becomes W.
+    The ``model`` axis is never changed silently: a world it cannot tile
+    raises, and ``model_axis > 1`` raises as in ``make_mesh``."""
+    w = world_size() if world is None else int(world)
+    model = cfg_mesh.model_axis if cfg_mesh is not None else 1
+    if w % model:
+        raise ValueError(
+            f"remap_mesh: {w} surviving ranks cannot tile model_axis={model}")
+    data = cfg_mesh.data_axis if cfg_mesh is not None else None
+    if data is None or data * model != w:
+        data = w // model
+    pinned = dataclasses.replace(cfg_mesh, data_axis=data) if cfg_mesh is not None else None
+    return make_mesh(pinned, w)
 
 
 def _zero1_spec(shape, data_size: int) -> int | None:

@@ -15,18 +15,20 @@ stages.py           durable stage manifest and per-seed score partials: the
                     run/sweep/score pipeline re-enters at the exact stage
 consensus.py        across ranks: agreed preemption and divergence, the
                     min-agreed restore, the poison side channel
+elastic.py          the restart supervisor (``elastic.enabled``): worker loss
+                    shrinks the world, a join grows it at a stage boundary
 inject.py           deterministic fault injection for all of the above
 ==================  =========================================================
 
 Configured by the ``resilience:`` config block and ``train.auto_resume_retries``;
 events go through the entry points' ``log(kind, **fields)`` as ``fault``,
 ``recovery``, ``preempted``, ``stage``, ``score_seeds_resumed``,
-``consensus`` and ``recovery_refused`` records with the JAX package's field
-names. Not here yet: elastic supervision, the checkpoint tiers and the host
-kill, rejoin and serve fault classes (ROADMAP.md).
+``consensus``, ``recovery_refused`` and ``elastic_event`` records with the
+JAX package's field names. The checkpoint tiers the supervisor restores from
+are ``checkpoint.py``'s.
 """
 
-from . import inject  # noqa: F401
+from . import elastic, inject  # noqa: F401
 from .preemption import EXIT_PREEMPTED, Preempted, PreemptionHandler  # noqa: F401
 from .sentinel import DivergenceError, LossSentinel  # noqa: F401
 from .watchdog import Watchdog, WatchdogTimeout, probe_devices  # noqa: F401

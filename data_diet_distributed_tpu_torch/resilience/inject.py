@@ -21,9 +21,13 @@ or from the environment for a drill through the CLI:
 ``DDT_FAULT_PLAN='{"sigterm_at_epoch_end": 0}' python -m
 data_diet_distributed_tpu_torch.cli train ...``.
 
-The classes here are the JAX package's training classes, its storage
-classes (the ``shard_read`` site of ``data/sharded.py``), its consensus ones
-and its serve ones, under its field names: ``rank`` targets a plan at one
+The classes here are all of the JAX package's, under its field names: the
+training classes, the storage classes (the ``shard_read`` site of
+``data/sharded.py``), the consensus ones, the elastic ones
+(``kill_rank_after_epoch``: a SIGKILL at the ``epoch_end`` site, with no
+handler, save or agreed exit; ``rejoin_after_stage``: a join request
+(``resilience/elastic.py::request_join``) at the ``stage_done`` site of
+``resilience/stages.py``) and the serve ones: ``rank`` targets a plan at one
 process of a process group (in a serve replica, its ``DDT_SERVE_REPLICA``
 index), ``hide_latest_durable`` drops a rank's newest verified step from its
 consensus-restore candidates (the ``durable_candidates`` site of ``fit``),
@@ -31,9 +35,9 @@ consensus-restore candidates (the ``durable_candidates`` site of ``fit``),
 batcher's ``serve_dispatch`` site (``serve/batcher.py``), and the partition
 and slow-replica classes in the HTTP handler's fault gate
 (``serve/server.py``, through ``serve_partitioned`` and ``serve_slow_ms``).
-Its other classes (``NOT_PORTED``: host kill and rejoin, which belong to
-elastic supervision) have no site in this package yet; a plan that arms one
-is refused by name.
+An unknown key refuses by name. The elastic supervisor drops
+``DDT_FAULT_PLAN`` from every relaunch, so a plan fires in the first attempt
+only.
 """
 
 from __future__ import annotations
@@ -59,10 +63,17 @@ class FaultPlan:
     hang_seconds: float = 3600.0
     sigterm_at_step: int | None = None     # SIGTERM self before step N (mid-epoch)
     sigterm_at_epoch_end: int | None = None  # SIGTERM self after epoch N
+    # SIGKILL self after epoch N (after its checkpoint): a lost host, with no
+    # handler, no final save and no agreed exit.
+    kill_rank_after_epoch: int | None = None
     truncate_after_save_step: int | None = None  # corrupt the ckpt saved at step N
     nan_loss_at_epoch: int | None = None   # replace epoch N's train loss with NaN
     # SIGTERM self after N seed score passes have persisted their partials.
     sigterm_after_seed_scores: int | None = None
+    # When the named pipeline stage completes ("score", "retrain:final",
+    # ...), write an elastic join request beside the stage manifest: the
+    # supervisor grows the world at the next stage boundary.
+    rejoin_after_stage: str | None = None
     # Storage (the shard_read site). Shard S's raw bytes are flipped before
     # the digest check on every read from torn_on_read on: NOT fired once,
     # on-disk corruption does not heal between retries, so the read path
@@ -95,10 +106,6 @@ class FaultPlan:
     slow_replica_ms: float | None = None
     slow_if_step: int | None = None
     rank: int | None = None                # target process index (None = all)
-
-
-#: The JAX package's FaultPlan fields this package cannot fire yet.
-NOT_PORTED = ("kill_rank_after_epoch", "rejoin_after_stage")
 
 
 class FaultInjector:
@@ -146,6 +153,13 @@ class FaultInjector:
         elif site == "epoch_end":
             if self._due("sigterm_at_epoch_end", ctx["epoch"]):
                 os.kill(os.getpid(), signal.SIGTERM)
+            if self._due("kill_rank_after_epoch", ctx["epoch"]):
+                os.kill(os.getpid(), signal.SIGKILL)
+        elif site == "stage_done":
+            if self._due("rejoin_after_stage", ctx["stage"]):
+                from .elastic import checkpoint_dir_from_manifest, request_join
+                request_join(checkpoint_dir_from_manifest(ctx["manifest_path"]),
+                             ranks=1, reason=f"injected rejoin after {ctx['stage']}")
         elif site == "seed_scored":
             if self._due("sigterm_after_seed_scores", ctx["completed"]):
                 os.kill(os.getpid(), signal.SIGTERM)
@@ -262,14 +276,8 @@ def serve_slow_ms(model_step: int | None = None) -> float | None:
 
 
 def plan_from_dict(spec: dict, where: str = "fault plan") -> FaultPlan:
-    """A ``FaultPlan`` from JAX-package keys. A key of a class this package
-    cannot fire yet, or an unknown key, raises ``ValueError`` naming it: a
-    drill is never silently disarmed."""
-    unported = sorted(set(spec) & set(NOT_PORTED))
-    if unported:
-        raise ValueError(
-            f"{where}: fault classes {unported} are not ported to the PyTorch "
-            "package yet (no site fires them; ROADMAP.md Queue 1)")
+    """A ``FaultPlan`` from JAX-package keys. An unknown key raises
+    ``ValueError`` naming it: a drill is never silently disarmed."""
     valid = {f.name for f in fields(FaultPlan)}
     unknown = set(spec) - valid
     if unknown:

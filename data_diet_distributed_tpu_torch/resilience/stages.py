@@ -129,6 +129,11 @@ class StageManifest:
         self._data["stages"][stage] = entry
         self._write()
         self._log(stage, status)
+        if status == "done":
+            # The stage-completion fault site (the elastic rejoin drill):
+            # after the durable mark, so a fault here never loses the stage.
+            from . import inject
+            inject.fire("stage_done", stage=stage, manifest_path=self.path)
 
 
 class ScorePartialStore:

@@ -63,7 +63,18 @@ fit; score telemetry; flight-recorder dumps on preemption
 (``preempted:<sig>``), divergence (``divergence:epoch<k>``) and a retried
 fault (``<fault>:attempt<k>``).
 
-Not ported here: the chunked engine and the elastic hooks.
+The elastic hooks (``resilience/elastic.py``): with ``checkpoint.local_tier``
+each rank saves its own part of the state through the local tier (no
+gather, no barrier) and a preemption drains the promotions in flight and
+waits for the peers' markers before it claims a durable step (the
+``preempted`` record carries the drain's wait and budget); the ``resume``
+record carries the world and the world that saved the step; under
+``elastic.enabled`` the mesh's ``data_axis`` follows the relaunched world
+and ``stage_barrier`` runs at the score -> retrain boundary and between
+sweep levels; ``obs.slo_recovery_s`` is armed at resume and read at the
+first training step.
+
+Not ported here: the chunked engine.
 """
 
 from __future__ import annotations
@@ -81,7 +92,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..checkpoint import CheckpointManager
+from ..checkpoint import CheckpointManager, tier_map
 from ..config import Config
 from ..data.datasets import ArrayDataset, load_dataset
 from ..data.pipeline import (EvalBatchCache, PrefetchIterator, ResidentBatches,
@@ -102,13 +113,14 @@ from ..ops.forgetting import AUMTracker, ForgettingTracker
 from ..ops.scores import make_local_scores
 from ..ops.scoring import resident_by_default, score_dataset
 from ..parallel.collectives import sum_float64
-from ..parallel.mesh import (global_batch_size_for, image_slice, is_primary, make_mesh,
-                             process_index, resolve_update_sharding, sync_hosts,
+from ..parallel.mesh import (global_batch_size_for, image_slice, is_primary,
+                             process_index, resolve_update_sharding, run_mesh, sync_hosts,
                              world_size)
 from ..pruning import (build_prune_manifest, select_indices, verify_prune_manifest,
                        write_prune_manifest)
 from ..resilience import inject
 from ..resilience.consensus import Consensus, agree_any
+from ..resilience.elastic import stage_barrier
 from ..resilience.preemption import Preempted, PreemptionHandler
 from ..resilience.sentinel import DivergenceError, LossSentinel
 from ..resilience.stages import (ScorePartialStore, StageManifest,
@@ -290,7 +302,7 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
     if device.type == "cuda":
         set_scoring_determinism()
     log = log or _no_log
-    mesh = make_mesh(cfg.mesh)   # the geometry check
+    mesh = run_mesh(cfg.mesh, elastic=cfg.elastic.enabled)   # the geometry check
     rows = image_slice()
     batch_size = global_batch_size_for(cfg.data.batch_size)
     steps_per_epoch = num_batches(len(train_ds), batch_size)
@@ -301,45 +313,76 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
 
     ckpt = None
     start_epoch = 0
-    if checkpoint_dir:
-        ckpt = CheckpointManager(checkpoint_dir, max_to_keep=cfg.train.keep_checkpoints)
-        if cfg.train.resume and (resume_step is not None
-                                 or ckpt.latest_step() is not None):
-            if consensus is not None:
-                # The newest step every rank verified, restored exactly: a
-                # per-rank fallback would resume the ranks at different steps.
-                candidates = inject.transform(
-                    "durable_candidates", ckpt.verified_steps(max_step=resume_step))
-                used_step = consensus.agree_restore_step(candidates)
-                if used_step is None:
-                    raise FileNotFoundError(
-                        f"{checkpoint_dir}: no checkpoint step is durable on every "
-                        f"rank — nothing all {consensus.world} ranks can resume from")
-                state = ckpt.restore(used_step, device)
-            elif cfg.resilience.verify_restore:
-                # A truncated or drifted newest step falls back to the newest
-                # earlier one that verifies, each refusal logged.
-                state, used_step = ckpt.restore_verified(
-                    resume_step, device,
-                    on_fallback=lambda **kw: log("fault", fault="checkpoint_corrupt",
-                                                 tag=tag, **kw))
-            else:
-                state = ckpt.restore(resume_step, device)
-                used_step = resume_step if resume_step is not None else ckpt.latest_step()
-            meta = ckpt.metrics(used_step)
-            saved_spe = meta.get("steps_per_epoch")
-            if saved_spe is not None and int(saved_spe) != steps_per_epoch:
-                raise ValueError(
-                    f"resume: this run has steps_per_epoch={steps_per_epoch} but the "
-                    f"checkpoint was saved with {saved_spe} (different batch size or "
-                    "dataset). The cosine LR schedule is step-indexed, so continuing "
-                    "would silently change the learning-rate trajectory; resume with "
-                    "the saving run's data.batch_size, or train fresh with resume=false")
-            start_epoch = (int(meta["epoch"]) + 1 if "epoch" in meta
-                           else state.step // steps_per_epoch)
-            log("resume", tag=tag, step=state.step, epoch=start_epoch)
-    state = shard_slots(state, optimizer)
+    try:
+        if checkpoint_dir:
+            # checkpoint.local_tier arms the tier's write path; every reader
+            # finds tier steps with no config.
+            ckpt = CheckpointManager(checkpoint_dir, max_to_keep=cfg.train.keep_checkpoints,
+                                     tier=cfg.checkpoint if cfg.checkpoint.local_tier
+                                     else None, log=log)
+            if cfg.train.resume and (resume_step is not None
+                                     or ckpt.latest_step() is not None):
+                state, start_epoch = _resume(cfg, ckpt, consensus, resume_step,
+                                             steps_per_epoch, tag, log, device)
+        # The recovery SLO's clock, on a relaunched attempt: from the previous
+        # attempt's classification in the shared stream to the first step.
+        obs_slo.arm_recovery(cfg.obs.metrics_path)
+        state = shard_slots(state, optimizer)
+        return _fit_run(cfg, train_ds, test_ds, model, optimizer, state, log, ckpt,
+                        start_epoch, batch_size, steps_per_epoch, tag, saved_steps,
+                        train_batches, epoch_hook, device, rows, mesh, consensus)
+    finally:
+        if ckpt is not None:
+            ckpt.close()   # the tier's promotions land before the fit returns
 
+
+def _resume(cfg, ckpt: CheckpointManager, consensus, resume_step, steps_per_epoch: int,
+            tag: str, log: Log, device) -> tuple[TrainState, int]:
+    """The restored state and the epoch to start at (``fit``'s resume)."""
+    if consensus is not None:
+        # The newest step every rank verified, restored exactly: a
+        # per-rank fallback would resume the ranks at different steps.
+        candidates = inject.transform(
+            "durable_candidates", ckpt.verified_steps(max_step=resume_step))
+        used_step = consensus.agree_restore_step(candidates)
+        if used_step is None:
+            raise FileNotFoundError(
+                f"{ckpt.directory}: no checkpoint step is durable on every "
+                f"rank — nothing all {consensus.world} ranks can resume from")
+        state = ckpt.restore(used_step, device)
+    elif cfg.resilience.verify_restore:
+        # A truncated or drifted newest step falls back to the newest
+        # earlier one that verifies, each refusal logged.
+        state, used_step = ckpt.restore_verified(
+            resume_step, device,
+            on_fallback=lambda **kw: log("fault", fault="checkpoint_corrupt",
+                                         tag=tag, **kw))
+    else:
+        state = ckpt.restore(resume_step, device)
+        used_step = resume_step if resume_step is not None else ckpt.latest_step()
+    meta = ckpt.metrics(used_step)
+    saved_spe = meta.get("steps_per_epoch")
+    if saved_spe is not None and int(saved_spe) != steps_per_epoch:
+        raise ValueError(
+            f"resume: this run has steps_per_epoch={steps_per_epoch} but the "
+            f"checkpoint was saved with {saved_spe} (different batch size or "
+            "dataset). The cosine LR schedule is step-indexed, so continuing "
+            "would silently change the learning-rate trajectory; resume with "
+            "the saving run's data.batch_size, or train fresh with resume=false")
+    start_epoch = (int(meta["epoch"]) + 1 if "epoch" in meta
+                   else state.step // steps_per_epoch)
+    # saved_world: the world that WROTE the step (tier steps record it), so
+    # a recovery onto another world is pinned in the stream.
+    log("resume", tag=tag, step=state.step, epoch=start_epoch, world=world_size(),
+        saved_world=ckpt.saved_world(used_step))
+    return state, start_epoch
+
+
+def _fit_run(cfg, train_ds, test_ds, model, optimizer, state, log, ckpt, start_epoch,
+             batch_size, steps_per_epoch, tag, saved_steps, train_batches, epoch_hook,
+             device, rows, mesh, consensus) -> FitResult:
+    """``fit`` after its resume: the data, the resilience envelope and the
+    epochs."""
     augment = ((cfg.data.crop_pad, cfg.data.flip, cfg.train.seed)
                if cfg.data.augment else None)
     if train_batches is None:
@@ -440,6 +483,9 @@ def _fit_epochs(cfg, train_ds, test_ds, model, optimizer, state, log, ckpt, star
                 metrics.append(dispatch_train_step(model, optimizer, state, b,
                                                    augment))
                 obs_registry.observe("step_dispatch_s", time.perf_counter() - t_disp)
+                # The recovery SLO's far end: the first step after an armed
+                # resume (one attribute check otherwise).
+                obs_slo.note_training_step()
                 if (i + 1) % cfg.train.log_every_steps == 0:
                     # Host arithmetic only: the loss waits for the epoch's one fetch.
                     obs_server.note_progress(step=unit + 1, dispatches_done=i + 1)
@@ -502,7 +548,7 @@ def _fit_epochs(cfg, train_ds, test_ds, model, optimizer, state, log, ckpt, star
             (epoch + 1) % cfg.train.checkpoint_every == 0
             or epoch + 1 == cfg.train.num_epochs)
         if save_now:
-            ckpt.save(state.step, gather_slots(state, optimizer), metrics={
+            _save(ckpt, state, optimizer, {
                 "epoch": epoch, "steps_per_epoch": steps_per_epoch,
                 **{k: v for k, v in record.items() if isinstance(v, (int, float))}})
             if saved_steps is not None:
@@ -548,6 +594,16 @@ def _epoch_obs(cfg, log, tag, epoch, start_epoch, steps_per_epoch, epoch_s, reco
     obs_registry.maybe_snapshot(log, cfg.obs.snapshot_every_s)
 
 
+def _save(ckpt: CheckpointManager, state: TrainState, optimizer, metrics: dict) -> None:
+    """Checkpoint ``state`` at its step: through the tier each rank its own
+    part (its ZeRO-1 slices included), else the whole state gathered for
+    rank 0's write."""
+    if ckpt.tiered:
+        ckpt.save(state.step, state, metrics, slots=optimizer.slots)
+    else:
+        ckpt.save(state.step, gather_slots(state, optimizer), metrics)
+
+
 def _preempt_due(preempt: PreemptionHandler, consensus: Consensus | None,
                  unit: int | None = None) -> bool:
     """The preemption poll: the local flag, or under consensus the flags
@@ -574,15 +630,31 @@ def _preempt_exit(preempt: PreemptionHandler, ckpt: CheckpointManager | None,
         watchdog.suspend()
     step = state.step
     durable = already_durable
-    if ckpt is not None and durable is None:
-        ckpt.save(step, gather_slots(state, optimizer), metrics={"epoch": epoch,
-                                        "steps_per_epoch": steps_per_epoch,
-                                        "preempted": True})
-        if saved_steps is not None:
-            saved_steps.append(step)
-        durable = step
+    drain: dict = {}
+    if ckpt is not None:
+        if durable is None:
+            _save(ckpt, state, optimizer, {"epoch": epoch,
+                                           "steps_per_epoch": steps_per_epoch,
+                                           "preempted": True})
+            if saved_steps is not None:
+                saved_steps.append(step)
+            durable = step
+        # The durability barrier: the tier's promotions drain, then a bounded
+        # wait for the peers' markers (a tier step counts once every rank's
+        # lands). The claim must match the LISTING: a promotion that failed
+        # or timed out leaves the step off it.
+        landed = ckpt.await_step(durable)
+        info = ckpt.drain_info() or {}
+        if info:
+            drain = {"drain_wait_s": info.get("wait_s"),
+                     "drain_budget_s": info.get("budget_s"),
+                     "drain_timed_out": info.get("timed_out")}
+        if durable not in landed:
+            log("fault", fault="checkpoint_not_durable", tag=tag, step=durable,
+                durable_steps=landed[-3:], **drain)
+            durable = None
     log("preempted", tag=tag, signal=preempt.signame, step=step, epoch=epoch,
-        durable_step=durable)
+        durable_step=durable, **drain)
     # Every rank's final moments (the signal receipt, this record) on disk.
     flightrec.dump(f"preempted:{preempt.signame}")
     raise Preempted(preempt.signame, step=step, epoch=epoch, durable_step=durable)
@@ -1111,7 +1183,10 @@ def _retrain_level(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset,
         summary["scoring_shared"] = True
     log("summary", **{k: v for k, v in summary.items() if v is not None})
     if stages is not None:
-        stages.complete(stage, summary=summary)
+        # Which tier each of the stage's steps lives in ("durable", "local",
+        # "plain"): what a resume of it would trust.
+        stages.complete(stage, summary=summary,
+                        ckpt_tiers=tier_map(ckpt_dir, cfg.checkpoint.local_dir))
     return summary
 
 
@@ -1189,13 +1264,16 @@ def run_sweep(cfg: Config, *, device=None, log: Log | None = None) -> list[dict[
                                      stages=stages)
     log("sweep_scored", n=len(train_ds), score_s=round(score_t["score_s"], 3),
         pretrain_s=round(score_t["pretrain_s"], 3), levels=list(levels))
-    summaries = [_retrain_level(cfg, train_ds, test_ds, scores, sparsity, device=device,
-                                log=log,
-                                ckpt_dir=sweep_level_dir(cfg.train.checkpoint_dir,
-                                                         sparsity),
-                                tag=f"final_{sweep_suffix(sparsity)}", score_t=score_t,
-                                scoring_shared=True, stages=stages)
-                 for sparsity in levels]
+    summaries = []
+    for sparsity in levels:
+        # Elastic: a pending resize (a join) is honoured here, between levels;
+        # the relaunched world's stage resume skips the finished ones.
+        stage_barrier(cfg, log, boundary=f"retrain:final_{sweep_suffix(sparsity)}")
+        summaries.append(_retrain_level(
+            cfg, train_ds, test_ds, scores, sparsity, device=device, log=log,
+            ckpt_dir=sweep_level_dir(cfg.train.checkpoint_dir, sparsity),
+            tag=f"final_{sweep_suffix(sparsity)}", score_t=score_t,
+            scoring_shared=True, stages=stages))
     log("sweep_done", levels=list(levels),
         total_wall_s=round(score_t["pretrain_s"] + score_t["score_s"]
                            + sum(s["train_wall_s"] for s in summaries), 3))
@@ -1215,6 +1293,8 @@ def run_datadiet(cfg: Config, *, device=None, log: Log | None = None) -> dict[st
     if cfg.prune.sparsity > 0.0:
         scores, score_t = compute_scores(cfg, train_ds, device=device, log=log,
                                          stages=stages)
+        # Elastic: the score -> retrain boundary (see run_sweep).
+        stage_barrier(cfg, log, boundary="retrain:final")
         return _retrain_level(cfg, train_ds, test_ds, scores, cfg.prune.sparsity,
                               device=device, log=log, ckpt_dir=cfg.train.checkpoint_dir,
                               tag="final", score_t=score_t, stages=stages)
@@ -1238,5 +1318,6 @@ def run_datadiet(cfg: Config, *, device=None, log: Log | None = None) -> dict[st
                "final_test_accuracy": res.final_test_accuracy,
                "train_wall_s": res.wall_s, "total_wall_s": time.perf_counter() - t0}
     log("summary", **{k: v for k, v in summary.items() if v is not None})
-    stages.complete(stage, summary=summary)
+    stages.complete(stage, summary=summary,
+                    ckpt_tiers=tier_map(cfg.train.checkpoint_dir, cfg.checkpoint.local_dir))
     return summary

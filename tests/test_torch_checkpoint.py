@@ -11,6 +11,7 @@ from data_diet_distributed_tpu_torch.config import load_config
 from data_diet_distributed_tpu_torch.models import create_model_from_cfg
 from data_diet_distributed_tpu_torch.ops.scoring import score_dataset
 from data_diet_distributed_tpu_torch.train import loop
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 BASE = ["data.dataset=synthetic", "data.synthetic_size=160", "data.batch_size=32",
         "data.eval_batch_size=64", "model.arch=tiny_cnn", "optim.lr=0.1",

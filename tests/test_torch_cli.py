@@ -16,6 +16,7 @@ from data_diet_distributed_tpu_torch import cli
 from data_diet_distributed_tpu_torch.checkpoint import CheckpointManager
 from data_diet_distributed_tpu_torch.pruning import verify_prune_manifest
 from data_diet_distributed_tpu_torch.train import loop
+from torch_threads import SUBPROCESS_ENV, one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "data_diet_distributed_tpu_torch")
@@ -78,7 +79,7 @@ def test_cli_serve_subprocess_scores_bitwise_and_exits_75(tmp_path):
             "score.seeds=[0,1]", "serve.port=0", "serve.methods=[el2n,grand]",
             f"obs.metrics_path={tmp_path}/m.jsonl", f"train.checkpoint_dir={tmp_path}/c"]
     env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "DDT_FAULT_PLAN")}
-    env["PYTHONPATH"] = REPO
+    env.update(PYTHONPATH=REPO, **SUBPROCESS_ENV)   # this process's one thread
     proc = subprocess.Popen([sys.executable, "-m", "data_diet_distributed_tpu_torch.cli",
                              "serve", "--config", SMOKE, "--device", "cpu", *over],
                             cwd=tmp_path, env=env,
@@ -248,8 +249,10 @@ def test_cli_run_preempted_exits_75_then_resumes(tmp_path):
 
 
 def test_cli_refuses_an_unported_fault_class(tmp_path, monkeypatch):
-    monkeypatch.setenv("DDT_FAULT_PLAN", '{"kill_rank_after_epoch": 0}')
-    with pytest.raises(ValueError, match="not ported"):
+    """Every JAX fault class is ported now: a class neither package has
+    refuses by name before any work."""
+    monkeypatch.setenv("DDT_FAULT_PLAN", '{"kill_host_after_epoch": 0}')
+    with pytest.raises(ValueError, match="kill_host_after_epoch"):
         cli.main(["train", "--config", SMOKE, "--device", "cpu", *TINY,
                   f"train.checkpoint_dir={tmp_path}/c"])
 

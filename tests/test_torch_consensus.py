@@ -15,6 +15,7 @@ import time
 import pytest
 
 from test_torch_dist import launch, wait
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 EXIT_RETRIABLE = 69
 

@@ -40,6 +40,7 @@ from data_diet_distributed_tpu_torch.train.steps import train_step
 from data_diet_distributed_tpu_torch.weights import params_from_flax
 from test_torch_models import ported, randomize_bn
 from test_torch_train import both_cfgs, flax_train_state, to_port
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_dist_worker.py")
 TRAIN_OVER = ["train.num_epochs=1", "optim.lr=0.1", "optim.weight_decay=0.01",

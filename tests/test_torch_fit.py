@@ -20,6 +20,7 @@ from data_diet_distributed_tpu_torch.train import loop, state as state_mod
 from data_diet_distributed_tpu_torch.weights import variables_to
 from test_torch_models import ported
 from test_torch_train import BASE, assert_variables_close, both_cfgs, to_port
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,7 @@ import torch
 
 from data_diet_distributed_tpu_torch.ops import build
 from data_diet_distributed_tpu_torch.ops import kernels as K
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 PAD1 = ((1, 1), (1, 1))
 PAD0 = ((0, 0), (0, 0))

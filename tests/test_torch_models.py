@@ -19,6 +19,7 @@ from data_diet_distributed_tpu_torch.models import (BasicBlock, BottleneckBlock,
                                                     create_model)
 from data_diet_distributed_tpu_torch.weights import (init_variables,
                                                      params_from_flax)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def numpy_tree(tree):

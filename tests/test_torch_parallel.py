@@ -34,6 +34,7 @@ from data_diet_distributed_tpu_torch.resilience import consensus, inject
 from data_diet_distributed_tpu_torch.resilience.sentinel import DivergenceError, LossSentinel
 from data_diet_distributed_tpu_torch.resilience.watchdog import Watchdog, WatchdogTimeout
 from data_diet_distributed_tpu_torch.weights import init_variables
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

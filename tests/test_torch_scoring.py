@@ -22,6 +22,7 @@ from data_diet_distributed_tpu_torch.models import create_model
 from data_diet_distributed_tpu_torch.ops.scoring import score_dataset
 from data_diet_distributed_tpu_torch.weights import params_from_flax
 from test_torch_models import randomize_bn
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -70,7 +71,7 @@ def test_tail_batch_rule_matches_jax():
 def test_repo_configs_load(name):
     path = os.path.join(REPO, "configs", name)
     got, want = load_config(path), flax_load_config(path)
-    for section in ("data", "model", "score", "prune", "train"):
+    for section in ("data", "model", "score", "prune", "train", "checkpoint", "elastic"):
         assert vars(getattr(got, section)) == vars(getattr(want, section)), section
 
 

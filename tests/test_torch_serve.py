@@ -11,6 +11,7 @@ from data_diet_distributed_tpu_torch.ops.scoring import score_dataset
 from data_diet_distributed_tpu_torch.serve.engine import ServeEngine
 from data_diet_distributed_tpu_torch.train.loop import score_variables_for_seeds
 from data_diet_distributed_tpu_torch.weights import init_variables
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _cfg(**over):

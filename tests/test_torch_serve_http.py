@@ -33,6 +33,7 @@ from data_diet_distributed_tpu_torch.obs.metrics import MetricsLogger
 from data_diet_distributed_tpu_torch.serve.engine import ServeEngine
 from data_diet_distributed_tpu_torch.serve.server import ServeService
 from data_diet_distributed_tpu_torch.weights import params_from_flax
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 N, B = 64, 16

@@ -28,6 +28,7 @@ from data_diet_distributed_tpu_torch.train.loop import (load_data_for, load_scor
                                                         pipeline_fingerprint,
                                                         run_datadiet, run_sweep,
                                                         score_fingerprint)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

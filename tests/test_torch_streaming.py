@@ -33,6 +33,7 @@ from data_diet_distributed_tpu_torch.weights import params_from_flax
 from test_torch_data import to_npy, write_npz
 from test_torch_models import randomize_bn
 from test_torch_sharded import write as write_shards
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -35,6 +35,7 @@ from data_diet_distributed_tpu_torch.train.state import (TrainState, make_optimi
 from data_diet_distributed_tpu_torch.train.steps import train_step
 from data_diet_distributed_tpu_torch.weights import params_from_flax
 from test_torch_models import numpy_tree, ported
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 BASE = ["data.dataset=synthetic", "data.synthetic_size=200", "data.batch_size=64",
         "data.eval_batch_size=64", "model.arch=tiny_cnn", "optim.lr=0.1",

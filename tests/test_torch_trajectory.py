@@ -31,6 +31,7 @@ from data_diet_distributed_tpu_torch.train import loop
 from data_diet_distributed_tpu_torch.train.state import make_optimizer, state_from_variables
 from data_diet_distributed_tpu_torch.train.steps import train_step
 from test_torch_models import ported
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "configs", "synthetic_smoke.yaml")

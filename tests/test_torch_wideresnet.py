@@ -30,6 +30,7 @@ from data_diet_distributed_tpu_torch.ops import kernels
 from data_diet_distributed_tpu_torch.ops.scores import make_local_scores
 from data_diet_distributed_tpu_torch.weights import init_variables, params_from_flax
 from test_torch_models import numpy_tree, randomize_bn
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 NARROW = {"wrn10_1": (10, 1), "wrn16_2": (16, 2)}
 

@@ -3,6 +3,8 @@
 
     python3 tools/multi_card.py [--out DIR]                # W = every visible card
     python3 tools/multi_card.py --device cpu --world 4 --examples 512  # gloo rehearsal
+    python3 tools/multi_card.py --only-elastic [--out DIR]  # step 7 alone
+    python3 tools/multi_card.py --only-elastic --device cpu --world 4 --examples 256
 
 Starts W rank processes of this script (each with a timeout; a rank that
 fails fails the run) that join a group through
@@ -33,7 +35,26 @@ fails fails the run) that join a group through
    gathered state;
 6. run ``cli train`` (tiny_cnn, 256 examples) as W ranks: whole; a SIGTERM to
    rank 1 (every rank exits 75 at step 4, durable at 4) and its resume
-   (bitwise the whole run); a hang on rank 1 (every rank exits 69).
+   (bitwise the whole run); a hang on rank 1 (every rank exits 69);
+7. the elastic drill: ``cli sweep`` (ResNet-18 at full width, GraNd at
+   initialization over seeds [0, 1], ``prune.sweep=[0.5,0.7]``, 3 retrain
+   epochs at a global batch of ``ELASTIC_BATCH``, ZeRO-1, the local tier)
+   under an ``ElasticSupervisor`` of W ranks, each rank one process of this
+   script around ``cli.main`` that records a digest of its replicated
+   variables after every fit and of its scores. Attempt 0's fault plan
+   SIGKILLs rank W-1 after the first level's retrain epoch 1: the supervisor
+   names it dead (survivors wedged in NCCL are reaped, not counted) and
+   relaunches W-1 ranks, which restore a tier step saved at W (the ZeRO-1
+   momentum re-sliced) and finish the level; attempt 1's plan writes a join
+   request when that level completes, and the supervisor grows the world
+   back to W at the second level's boundary. Checks: the supervisor exits 0
+   with shrink (dead [W-1]), join_requested, grow (W) and complete; the
+   ``resume`` of attempt 1 is at W-1 from a step saved at W; each attempt's
+   ranks hold bitwise equal variables and scores; the scores against W = 1
+   here at the rank's batch (bitwise or not is reported; within
+   ``tests/test_distributed.py``'s tolerance); the port's post-mortem exits
+   0 over the stream; the walls. With ``--only-elastic`` only this step
+   (and its W = 1 reference) runs.
 
 Prints one line per step and, as the last line, a JSON object of the
 numbers (also written to ``<out>/multi_card.json``), with the cards' name and
@@ -63,6 +84,8 @@ WORKER_TIMEOUT_S = 600
 DRILL_GRACE_S = 3.0
 SEEDS = (0, 1)
 SCORE_B = 512
+ELASTIC_BATCH = 384           # a multiple of W and of W - 1 (4 and 3)
+ELASTIC_TIMEOUT_S = 1200
 DRILL_ARGV = ["train", "--config", os.path.join(REPO, "configs", "synthetic_smoke.yaml"),
               "data.synthetic_size=256", "data.batch_size=64", "data.eval_batch_size=64",
               "model.arch=tiny_cnn", "train.num_epochs=3", "train.checkpoint_every=1",
@@ -275,6 +298,123 @@ def drill_rank(rank: int, world: int, port: str, device: str, cli_argv: list[str
     os._exit(rc)
 
 
+def elastic_rank(digest_path: str, cli_argv: list[str]) -> None:
+    """One rank of the elastic drill: ``cli.main`` with every fit's replicated
+    variables and every scoring pass's scores digested into ``digest_path``
+    (the ranks of an attempt must agree)."""
+    from data_diet_distributed_tpu_torch import cli
+    from data_diet_distributed_tpu_torch.train import loop
+    digests: dict = {}
+
+    def dump() -> None:
+        with open(digest_path, "w") as fh:
+            json.dump(digests, fh)
+
+    real_fit, real_scores = loop.fit, loop.compute_scores
+
+    def fit(*a, **kw):
+        res = real_fit(*a, **kw)
+        h = hashlib.sha256()
+        for g in ("params", "batch_stats"):
+            for k in sorted(getattr(res.state, g)):
+                h.update(k.encode() + getattr(res.state, g)[k].float().cpu().numpy().tobytes())
+        digests[f"fit:{kw.get('tag', 'train')}"] = h.hexdigest()
+        dump()
+        return res
+
+    def compute_scores(*a, **kw):
+        scores, timings = real_scores(*a, **kw)
+        digests["scores"] = hashlib.sha256(np.ascontiguousarray(scores).tobytes()).hexdigest()
+        dump()
+        return scores, timings
+
+    loop.fit, loop.compute_scores = fit, compute_scores
+    rc = cli.main(cli_argv)
+    sys.stdout.flush()
+    os._exit(rc)
+
+
+def elastic_drill(world: int, device: str, n: int, work: str, load_config) -> dict:
+    """Step 7 (see the module docstring); returns its numbers."""
+    from data_diet_distributed_tpu_torch.obs import postmortem, timeline
+    from data_diet_distributed_tpu_torch.resilience import elastic
+    d = os.path.join(work, "elastic")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    over = ["data.dataset=synthetic", f"data.synthetic_size={n}", "score.seeds=[0,1]",
+            "score.pretrain_epochs=0", "prune.sweep=[0.5,0.7]", "train.num_epochs=3",
+            "train.checkpoint_every=1", f"data.batch_size={ELASTIC_BATCH}",
+            "checkpoint.local_tier=true", "mesh.shard_opt_state=true",
+            "resilience.step_timeout_s=60", f"train.checkpoint_dir={d}/ckpt",
+            f"obs.metrics_path={d}/metrics.jsonl", "elastic.enabled=true",
+            f"elastic.world={world}", f"elastic.max_world={world}", "elastic.backoff_s=0",
+            "elastic.reap_timeout_s=30"]
+    if device == "cpu":
+        over += ["model.arch=tiny_cnn", "train.half_precision=false", "score.batch_size=128"]
+    config = os.path.join(REPO, "configs", "cifar10_resnet18_grand10.yaml")
+    cfg = load_config(config, over)
+    plans = {0: {"rank": world - 1, "kill_rank_after_epoch": 1},
+             1: {"rejoin_after_stage": "retrain:final_s0p5"}}
+
+    class Drill(elastic.ElasticSupervisor):
+        def _child_argv(self, w, rank):
+            argv = super()._child_argv(w, rank)
+            return [sys.executable, os.path.abspath(__file__), "--elastic-rank",
+                    os.path.join(d, f"digests_a{self.attempt}_r{rank}.json"), *argv[3:]]
+
+    logger = elastic.JsonlLogger(cfg.obs.metrics_path, echo=False)
+    sup = Drill(cfg, "sweep", config_path=config, overrides=over, logger=logger,
+                device="cpu" if device == "cpu" else None,
+                fault_env=lambda a: ({"DDT_FAULT_PLAN": json.dumps(plans[a])}
+                                     if a in plans else {}))
+    t0 = time.perf_counter()
+    rc = sup.run()
+    wall = time.perf_counter() - t0
+    logger.log("run_summary", wall_s=round(wall, 3), exit_class=sup.exit_class(rc),
+               command="sweep", lineage=sup.lineage_block())
+    logger.close()
+    logs = ""
+    for name in sorted(os.listdir(f"{d}/ckpt_elastic")):
+        if name.endswith(".log"):
+            with open(os.path.join(d, "ckpt_elastic", name), errors="replace") as fh:
+                logs += f"\n[{name}] " + fh.read()[-1500:]
+    events = [e["event"] for e in sup.events]
+    check(rc == 0, f"7. the supervised sweep exited {rc}: {events}{logs}")
+    by = {e["event"]: e for e in sup.events}
+    check(by.get("shrink", {}).get("dead_ranks") == [world - 1]
+          and by["shrink"]["new_world"] == world - 1
+          and by.get("grow", {}).get("new_world") == world and events[-1] == "complete"
+          and "join_requested" in events and sup.worlds == [world, world - 1, world],
+          f"7. events {sup.events}")
+    records = timeline.read_records(cfg.obs.metrics_path)
+    resume = [r for r in records if r.get("kind") == "resume" and r.get("attempt") == 1]
+    check(len(resume) == 1 and resume[0]["world"] == world - 1
+          and resume[0]["saved_world"] == world, f"7. attempt 1's resume: {resume}")
+    agree = {}
+    for a, w in enumerate(sup.worlds):
+        ranks = []
+        for r in range(w):
+            with open(os.path.join(d, f"digests_a{a}_r{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        keys = set.intersection(*(set(x) for x in ranks))
+        check(keys and all(len({x[k] for x in ranks}) == 1 for k in keys),
+              f"7. attempt {a}'s ranks disagree: {ranks}")
+        agree[a] = sorted(keys)
+    report = postmortem.build_report(timeline.discover_artifacts(cfg.obs.metrics_path))
+    check(report["exit_code"] == 0, f"7. post-mortem: {report['problems']}")
+    chains = [{k: c.get(k) for k in ("action", "dead_ranks", "reaped_ranks", "new_world",
+                                     "resume_step", "saved_world", "recovery_wall_s")}
+              for c in report["recoveries"] if c["type"] == "relaunch"]
+    with np.load(f"{d}/ckpt_s0p5_scores.npz") as f:
+        scores = f["scores"]
+    shutil.copy(cfg.obs.metrics_path,
+                os.path.join(os.path.dirname(work), "multi_card_elastic_metrics.jsonl"))
+    return {"wall_s": wall, "events": events, "worlds": sup.worlds, "resume": resume[0],
+            "agreeing_keys": agree, "chains": chains, "lost_wall_s": report["lost_wall_s"],
+            "lineage": sup.lineage_block(), "scores": scores, "config": config,
+            "over": over}
+
+
 def spawn(args: list[str], log_path: str, plan: str | None = None) -> dict:
     env = {k: v for k, v in os.environ.items() if k != "DDT_FAULT_PLAN"}
     env["PYTHONPATH"] = REPO
@@ -336,12 +476,16 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--drill"]:
         r, w, port, device = argv[1:5]
         drill_rank(int(r), int(w), port, device, argv[5:])
+    if argv[:1] == ["--elastic-rank"]:
+        elastic_rank(argv[1], argv[2:])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--world", type=int, default=None,
                         help="ranks (default: every visible card; required with --device cpu)")
     parser.add_argument("--examples", type=int, default=8192)
     parser.add_argument("--out", default=os.path.join(REPO, "chip_smoke_out"))
+    parser.add_argument("--only-elastic", action="store_true",
+                        help="run step 7 (the elastic drill) alone")
     args = parser.parse_args(argv)
     import torch
     cuda = args.device == "cuda"
@@ -374,6 +518,10 @@ def main(argv: list[str]) -> int:
     os.makedirs(work)
     print(f"{world} ranks on {args.device}; torch {torch.__version__}", flush=True)
     t_run = time.perf_counter()
+    if args.only_elastic:
+        out = {"world": world, "cards": cards, "elastic": elastic_step(
+            torch, world, args.device, args.examples, work, load_config)}
+        return finish_run(args, out, work, cards, t_run)
     port = free_port()
     ranks = [spawn(["--worker", str(r), str(world), port, work, args.device,
                     str(args.examples)], os.path.join(work, f"rank_{r}.log"))
@@ -540,6 +688,38 @@ def main(argv: list[str]) -> int:
     print(f"  6. cli train as {world} ranks: whole exit 0; SIGTERM to rank 1 -> every rank "
           f"75 at step 4, durable at 4, the resume bitwise the whole run; a hang on rank 1 "
           f"-> every rank 69, within {hang_s:.1f} s of each other", flush=True)
+    out["elastic"] = elastic_step(torch, world, args.device, args.examples, work, load_config)
+    return finish_run(args, out, work, cards, t_run)
+
+
+def elastic_step(torch, world: int, device: str, n: int, work: str, load_config) -> dict:
+    """Step 7 and its W = 1 reference here; prints its line."""
+    from data_diet_distributed_tpu_torch.data.datasets import load_dataset
+    from data_diet_distributed_tpu_torch.models import create_model_from_cfg
+    from data_diet_distributed_tpu_torch.ops.scoring import score_dataset
+    from data_diet_distributed_tpu_torch.weights import init_variables
+    e = elastic_drill(world, device, n, work, load_config)
+    cfg = load_config(e["config"], [o for o in e["over"] if not o.startswith("elastic.")])
+    dev = "cuda" if device == "cuda" else "cpu"
+    ds, _ = load_dataset("synthetic", synthetic_size=n, seed=0)
+    variables = [init_variables(cfg.model.arch, s, dev) for s in SEEDS]
+    want = score_dataset(create_model_from_cfg(cfg), variables, ds, method="grand",
+                         batch_size=-(-cfg.score.batch_size // world), device=dev)
+    got = e.pop("scores")
+    rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+    check(bool(np.all(np.abs(got - want) <= 1e-4 * np.abs(want) + 1e-5)),
+          f"7. scores vs W=1: rel {rel:.3e}")
+    e.update(scores_bitwise_w1=bool(np.array_equal(got, want)), scores_rel_w1=rel)
+    print(f"  7. elastic sweep: {e['events']}; worlds {e['worlds']}; attempt 1 resumed at "
+          f"step {e['resume']['step']} (world {e['resume']['world']}, saved at "
+          f"{e['resume']['saved_world']}); ranks agree per attempt on {e['agreeing_keys']}; "
+          f"scores vs W=1 bitwise {e['scores_bitwise_w1']} (max rel {rel:.3e}); chains "
+          f"{e['chains']}; supervised wall {e['wall_s']:.1f} s, lost {e['lost_wall_s']} s",
+          flush=True)
+    return e
+
+
+def finish_run(args, out: dict, work: str, cards: list[str], t_run: float) -> int:
     out["wall_s"] = time.perf_counter() - t_run
     with open(os.path.join(args.out, "multi_card.json"), "w") as fh:
         json.dump(out, fh, indent=1)

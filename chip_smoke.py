@@ -91,6 +91,38 @@ Phases (the first failure exits non-zero; nothing is caught):
    with ``[preempted]`` within ``SERVICE_DRAIN_S`` + ``SERVICE_EXIT_GRACE_S``;
    every record of both services passes ``tools/validate_metrics.py``. Cuts:
    8,192 of 50,000 examples, 2 of 10 seeds; widths as published.
+6c. Fleet: ``cli serve --device cuda serve.replicas=2`` (the path's model, data,
+   seeds, batch and dtype, both methods warm; the two replicas share the card)
+   as a subprocess, driven through the router with ``tools/serve_client.py``
+   and Idempotency-Keys. Two such fleets boot at once (four replicas on the
+   card); B's (c) runs first, then B's tuning roll (d) beside A's kill (a),
+   and A's latency is read once B has stopped. Fleet A, with ``{"rank": 1,
+   "kill_replica_after_requests": FLEET_KILL_AFTER}``: (f) neither fleet's
+   supervisor is among ``nvidia-smi --query-compute-apps`` or holds a
+   ``/dev/nvidia*`` file, while each of their replicas does; (a) ``FLEET_KILL_CLIENTS`` x
+   ``FLEET_KILL_REQUESTS`` keyed requests through the kill, 0 failures, every
+   answer bitwise the path's scores, a ``died`` (SIGKILL) and a ``respawn`` on
+   the same port, the respawn wall; the router's p50/p95 per method at the
+   service phase's load, every answer bitwise; the launches of one 512-row
+   dispatch on each replica from its ``/status`` ``kernel_launches`` (24
+   direct, 6 Gram; 2 EL2N); (b) a stepless refresh onto a torn newest step
+   -> 409 ``roll_aborted``, old model serving; a good step rolled one
+   replica at a time under a hammer (capacity never 0, every answer bitwise
+   the old or the new model's offline scores), the roll wall; (e) SIGTERM ->
+   exit 75, the stream valid and ending in ``run_summary``. Fleet B, with
+   ``{"rank": 0, "slow_replica_ms": FLEET_SLOW_MS, "slow_if_step": 4}``,
+   ``serve.canary_requests`` and ``obs.slo_fleet_p95_ms``: (c) a good step in
+   the watched directory rolls (canary pass), the regressed step 4 fails its
+   canary on replica 0 and is rolled back, the prior model's answers bitwise;
+   (d) a manifest signed by the port's ``build_tuning_manifest`` for backend
+   ``cuda``, this card and the geometry, pinning ``DDT_GRAND_BN_KERNEL=1``:
+   ``tuning_roll``, two ``tuning_respawn``, ``tuning_roll_complete``, each new
+   replica's ``tuning_applied``, GraNd within ``FLEET_GRAND_RTOL`` of the
+   default route on the config's model (a respawned replica boots on it, not
+   on the step (c) rolled, as in JAX), a dispatch's launches those of the
+   BN_KERNEL route; (e) again, and each tuned replica's ``metrics`` record
+   counts ``bn_grad_norm``. Files in ``chip_smoke_out/fleet/`` (removed after a
+   pass).
 7. ResNet-50: ``create_model("resnet50", 100)`` on synthetic CIFAR-100-geometry
    data (1,024 examples, one seed, batch 512, bf16) through ``score_dataset``
    for ``el2n`` and ``grand_last_layer``: one launch of the kernel a batch,
@@ -119,7 +151,7 @@ Phases (the first failure exits non-zero; nothing is caught):
    the recipes' 198 epochs, 2 of the north star's 10 seeds; widths as
    published.
 8b. Obs: the observability slice. The north-star ``run`` (``OBS_N``
-   examples, seeds [0, 1, 2], 3 retrain epochs) through ``python -m
+   examples, ``OBS_SEEDS``, ``OBS_EPOCHS`` retrain epochs) through ``python -m
    data_diet_distributed_tpu_torch.cli`` as a subprocess, once with every
    instrument on (trace, flight recorder, introspection, memory watermark,
    score telemetry, SLOs, ``torch.profiler`` windows, resource monitor,
@@ -129,7 +161,7 @@ Phases (the first failure exits non-zero; nothing is caught):
    ``run_summary``, whose ``mfu`` is in (0, 1] with the peak from the table
    (``table:NVIDIA H100 80GB HBM3`` on that card); ``xla_program`` records of
    ``train_step`` and ``score_batch`` with FLOPs (the score program's kernel
-   work counted), an ``hbm_watermark`` peak, ``score_stats`` for seeds 0-2
+   work counted), an ``hbm_watermark`` peak, ``score_stats`` for each seed
    and ``score_stability``; the trace nests run -> score -> seed -> fit ->
    epoch -> eval and run -> retrain -> fit; one capture per stage
    (``score_pretrain``, ``score``, ``final``), the ``score`` one holding the
@@ -279,8 +311,9 @@ Phases (the first failure exits non-zero; nothing is caught):
    ``python -m data_diet_distributed_tpu_torch.obs.postmortem`` over (a)'s
    directory exits 0 naming the shrink of rank 0 and the resume; the
    recovery wall (the classification to the first training step of attempt
-   1, from the records) and the SLO's verdict are printed. Cuts: as phase
-   8b; one card runs W = 1 only (NCCL refuses two ranks on one card).
+   1, from the records) and the SLO's verdict are printed. Cuts: ``ELASTIC_N``
+   of 50,000 examples, 2 of 10 seeds, 3 of 198 retrain epochs; one card runs
+   W = 1 only (NCCL refuses two ranks on one card).
 13. Calls: each EL2N and last-layer row of phase 3 runs one CUDA kernel per
    call, its own, and no copy, cast or memset (``torch.profiler``).
 
@@ -291,10 +324,10 @@ route; the cuDNN dgrad launches must drop from 19 to 9 on the megakernel
 route, and the profiled BN and Gram time per batch is printed beside the
 ``device_ms`` sums.
 
-Every counted run (phases 4, 5, 6b and 7, phase 8's ``run``, phase 9's runs of
-``run_datadiet``, phase 10's ``cli run``, phase 11's ``score_dataset`` passes and
-``cli sweep``, and the relaunched attempts of phase 12b, each a new process)
-starts with the launch counts at 0
+Every counted run (phases 4, 5, 6b and 7, phase 6c's replicas, phase 8's
+``run``, phase 9's runs of ``run_datadiet``, phase 10's ``cli run``, phase 11's
+``score_dataset`` passes and ``cli sweep``, and the relaunched attempts of
+phase 12b, each a new process) starts with the launch counts at 0
 and is read right after; the kernels line sums them. The line before the last is a
 JSON object with one entry per kernel (launches on the main paths, max error,
 ms, device ms, plain ms, bound ms); the last line is ``{"ok": true, "device":
@@ -2172,7 +2205,7 @@ WRN_REMAT_STEPS = 20
 # Trajectory scores on the ResNet-18 north-star geometry. The synthetic set's default
 # pixel noise (0.4) is learned whole in two epochs, which leaves every forgetting count
 # at 0: TRAJ_NOISE makes examples that are forgotten or never learned.
-TRAJ_N = 4096
+TRAJ_N = 2048
 TRAJ_EPOCHS = 2
 TRAJ_SEEDS = (0, 1)
 TRAJ_NOISE = 6.0
@@ -3585,8 +3618,14 @@ def dist_phase(torch, port, details_out, card: str, path: dict, trained: dict) -
     t_phase = time.perf_counter()
     T = port["train"]
 
+    # NCCL refuses two ranks on one card: the reason W = 2 runs over gloo here.
+    # That pair is started beside the W = 1 run and read after it.
+    refused = start_pair("nccl_shared")
     # W = 1 over NCCL: the north-star run joined to a group, bitwise the run without.
-    w1 = pair("w1", world=1)[0]
+    try:
+        w1 = pair("w1", world=1)[0]
+    finally:
+        finish(refused, timeout=120)
     plain, nccl = w1["plain"], w1["nccl"]
     for what in ("scores", "kept"):
         with np.load(T["scores_npz_path"](plain["ckpt"])) as a, \
@@ -3611,9 +3650,6 @@ def dist_phase(torch, port, details_out, card: str, path: dict, trained: dict) -
           f"all-reduce of the {grad_mb:.1f} MB fp32 gradient {w1['all_reduce_ms']:.3f} ms "
           f"on {card}", flush=True)
 
-    # NCCL refuses two ranks on one card: the reason W = 2 runs over gloo here.
-    refused = start_pair("nccl_shared")
-    finish(refused, timeout=120)
     for w in refused:
         check(w["rc"] not in (0, None) and "Duplicate GPU detected" in w["log"],
               f"two NCCL ranks on one card were not refused: {worker_tail(w)}")
@@ -3782,6 +3818,8 @@ def dist_phase(torch, port, details_out, card: str, path: dict, trained: dict) -
 OBS_ROOT = os.path.join(REPO, "chip_smoke_out", "obs")
 #: Examples of the obs phase's north-star runs (a cut of the train phase's).
 OBS_N = 4096
+OBS_SEEDS = (0, 1)            # the north-star run's seeds (of 10)
+OBS_EPOCHS = 2                # its retrain epochs (of 198)
 OBS_TIMEOUT_S = 400
 #: Examples of the drills' ``cli train`` runs and the drill watchdog's timeout.
 OBS_DRILL_N = 512
@@ -3900,7 +3938,9 @@ def obs_phase(torch, port, details_out, card: str) -> None:
 
     def run_args(d: str) -> list[str]:
         return ["run", "--config", north, "data.dataset=synthetic",
-                f"data.synthetic_size={OBS_N}", "score.seeds=[0,1,2]", "train.num_epochs=3",
+                f"data.synthetic_size={OBS_N}",
+                f"score.seeds=[{','.join(str(x) for x in OBS_SEEDS)}]",
+                f"train.num_epochs={OBS_EPOCHS}",
                 f"train.checkpoint_dir={d}/ckpt"]
 
     # 1: every instrument on; /status polled once an epoch is done.
@@ -3945,7 +3985,7 @@ def obs_phase(torch, port, details_out, card: str) -> None:
     marks = [r for r in recs if r["kind"] == "hbm_watermark"]
     check(marks and max(r["peak_bytes"] or 0 for r in marks) > 0, f"hbm_watermark: {marks}")
     stats = sorted(r["seed"] for r in recs if r["kind"] == "score_stats")
-    check(stats == [0, 1, 2] and any(r["kind"] == "score_stability" for r in recs)
+    check(stats == list(OBS_SEEDS) and any(r["kind"] == "score_stability" for r in recs)
           and "score_stability" in summary, f"score telemetry: seeds {stats}")
     pairs = span_nesting(f"{on}/trace.json")
     want_pairs = {("run", "score"), ("score", "seed"), ("seed", "fit"), ("fit", "epoch"),
@@ -3983,7 +4023,8 @@ def obs_phase(torch, port, details_out, card: str) -> None:
                duty_cycle_mean=sum(duty) / len(duty) if duty else None,
                duty_samples=len(duty), stage_s=summary["stage_s"], captures=captures,
                status_keys=sorted(status))
-    print(f"  cli run x{OBS_N} (seeds [0, 1, 2], 3 retrain epochs): wall with every "
+    print(f"  cli run x{OBS_N} (seeds {list(OBS_SEEDS)}, {OBS_EPOCHS} retrain epochs): "
+          f"wall with every "
           f"instrument {wall_on:.1f} s, without {wall_off:.1f} s (subprocess, start-up "
           f"included); scores bitwise; stage walls on {walls['on']}, off {walls['off']}; "
           f"first calls (compile_s) {rec['compile_s']}", flush=True)
@@ -4225,6 +4266,575 @@ def elastic_phase(torch, port, details_out, card: str) -> dict:
     return {k: a_counts.get(k, 0) + b_counts.get(k, 0) for k in port["kernels"].KERNELS}
 
 
+FLEET_ROOT = os.path.join(REPO, "chip_smoke_out", "fleet")
+FLEET_BOOT_S = 300             # a fleet's replicas answering /healthz, warm-up included
+FLEET_KILL_AFTER = 6           # replica 1 SIGKILLs itself with its 7th dispatch in flight
+FLEET_KILL_CLIENTS = 4         # (a)'s client threads, FLEET_KILL_REQUESTS each
+FLEET_KILL_REQUESTS = 10
+FLEET_HAMMER_IDS = 64          # ids of each request of (b)'s hammer
+FLEET_CANARY_REQUESTS = 4      # serve.canary_requests of (c)
+FLEET_SLOW_MS = 600.0          # the regressed step's injected latency
+# The fleet p95 floor of (c): above a healthy replica's GraNd p95 on the card
+# (~70-200 ms in the service and fleet phases, PERF.md), below FLEET_SLOW_MS.
+FLEET_P95_FLOOR_MS = 400.0
+FLEET_GRAND_RTOL = 1e-4        # (d): the BN-kernel route's GraNd vs the default route's
+FLEET_STEPS = {"good": 2, "torn": 3, "regressed": 4}
+
+
+def fleet_argv(root: str, *over: str) -> list[str]:
+    """``cli serve`` of a two-replica fleet on the path's model, data, seeds,
+    batch and dtype, both methods warm, the router on a free port."""
+    return [sys.executable, "-m", "data_diet_distributed_tpu_torch.cli", "serve",
+            "--device", "cuda",
+            "--config", os.path.join(REPO, "configs", "cifar10_resnet18.yaml"),
+            "data.dataset=synthetic", f"data.synthetic_size={N_PATH}",
+            "score.pretrain_epochs=0", f"score.seeds={list(SEEDS)}",
+            f"score.batch_size={B}", "train.half_precision=true",
+            "serve.methods=[el2n,grand]", "serve.tenant=synthetic", "serve.replicas=2",
+            "serve.router_port=0", "serve.port=0", "serve.health_poll_s=0.25",
+            "serve.breaker_reset_s=0.5", "serve.stats_every_s=2",
+            "serve.request_timeout_s=120", f"serve.drain_timeout_s={SERVICE_DRAIN_S}",
+            "elastic.max_restarts=2", "elastic.backoff_s=0.2",
+            f"obs.metrics_path={root}/metrics.jsonl", f"obs.heartbeat_dir={root}/hb",
+            f"train.checkpoint_dir={root}/ckpt", *over]
+
+
+def jsonl(path: str) -> list[dict]:
+    """The JSON records of a file (``records``: text lines and a killed
+    writer's partial line skipped); none while it does not exist."""
+    if not os.path.exists(path):
+        return []
+    with open(path, errors="replace") as fh:
+        return records(fh.read())
+
+
+class Fleet:
+    """One ``cli serve`` fleet subprocess (its own process group, so a failed
+    phase can stop its replicas too) and the views of it the drills read."""
+
+    def __init__(self, root: str, plan: dict | None, *over: str):
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "serve_client", os.path.join(REPO, "tools", "serve_client.py"))
+        self.sc = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(self.sc)
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+        self.metrics = os.path.join(root, "metrics.jsonl")
+        env = {**os.environ, "PYTHONPATH": REPO}
+        env.pop("DDT_FAULT_PLAN", None)
+        if plan is not None:
+            env["DDT_FAULT_PLAN"] = json.dumps(plan)
+        self.log = open(os.path.join(root, "supervisor.log"), "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(fleet_argv(root, *over), cwd=root, env=env,
+                                     stdout=self.log, stderr=subprocess.STDOUT,
+                                     start_new_session=True)
+        launch = self.wait_record(lambda r: r.get("kind") == "serve_fleet"
+                                  and r.get("event") == "launch", "launch", 120)
+        self.url = f"http://127.0.0.1:{launch['router_port']}"
+        self.client = self.sc.ServeClient(self.url, timeout_s=120.0, retries=6,
+                                          backoff_s=0.25)
+        self.probe = self.sc.ServeClient(self.url, timeout_s=10.0)
+
+    def records(self) -> list[dict]:
+        return jsonl(self.metrics)
+
+    def tail(self) -> str:
+        with open(os.path.join(self.root, "supervisor.log"), errors="replace") as fh:
+            return fh.read()[-3000:]
+
+    def wait_record(self, pred, what: str, budget_s: float, during=None) -> dict:
+        """The first record ``pred`` accepts; ``during()`` runs between looks
+        (traffic a canary hold needs)."""
+        deadline = time.perf_counter() + budget_s
+        while True:
+            check(self.proc.poll() is None,
+                  f"fleet: the supervisor exited {self.proc.returncode} waiting for "
+                  f"{what}: {self.tail()}")
+            hit = next((r for r in self.records() if pred(r)), None)
+            if hit is not None:
+                return hit
+            check(time.perf_counter() < deadline, f"fleet: no {what} within {budget_s} s")
+            if during is not None:
+                during()
+            else:
+                time.sleep(0.25)
+
+    def wait_available(self, n: int, budget_s: float = FLEET_BOOT_S) -> float:
+        """Waits until the router's /healthz reports ``n`` routable replicas;
+        returns the wall clock then."""
+        deadline = time.perf_counter() + budget_s
+        verdict = None
+        while time.perf_counter() < deadline:
+            check(self.proc.poll() is None, f"fleet: the supervisor exited: {self.tail()}")
+            try:
+                verdict = self.probe.healthz()
+            except self.sc.ServeError:
+                verdict = None
+            if verdict and verdict.get("available") == n:
+                return time.time()
+            time.sleep(0.1)
+        fail(f"fleet: never {n} routable replicas within {budget_s} s: {verdict}")
+
+    def replica_ports(self) -> list[int]:
+        return [r["port"] for r in self.records() if r.get("kind") == "replica_event"
+                and r.get("event") == "spawn"]
+
+    def replica_logs(self) -> dict[tuple[int, int], list[dict]]:
+        """(replica, generation) -> that process's records, from its log."""
+        d = os.path.join(self.root, "ckpt_fleet")
+        out = {}
+        for name in sorted(os.listdir(d)) if os.path.isdir(d) else []:
+            if name.startswith("replica") and name.endswith(".log"):
+                r, g = name[len("replica"):-len(".log")].split("_g")
+                out[(int(r), int(g))] = jsonl(os.path.join(d, name))
+        return out
+
+    def stop(self) -> tuple[int, float]:
+        """SIGTERM to the supervisor: drain, exit. Returns (rc, seconds)."""
+        import signal
+        t = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout=SERVICE_DRAIN_S + SERVICE_EXIT_GRACE_S + 30)
+        self.log.close()
+        return rc, time.perf_counter() - t
+
+    def kill(self) -> None:
+        """After a failure: stop the supervisor and every replica."""
+        import signal
+        if self.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                pass
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        with contextlib.suppress(Exception):
+            self.proc.wait(timeout=30)
+        self.log.close()
+
+
+def served(fleet: Fleet, ids, method: str) -> np.ndarray:
+    return np.asarray(fleet.client.score(indices=[int(i) for i in ids],
+                                         method=method)["scores"], np.float32)
+
+
+def replica_delta(fleet: Fleet, port: int, method: str) -> dict:
+    """The launches of one 512-row dispatch on one replica: its /status
+    ``kernel_launches`` across one direct request of B ids."""
+    def launches():
+        code, _, raw = http_call(port, "/status")
+        check(code == 200, f"fleet: replica /status {code}")
+        return json.loads(raw)["kernel_launches"]
+    before = launches()
+    code, _, raw = http_call(port, "/v1/score", {"indices": list(range(B)), "method": method})
+    check(code == 200, f"fleet: direct {method} request to replica {port}: {code} {raw[:200]}")
+    after = launches()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def cuda_holders(pids) -> dict[int, bool]:
+    """pid -> whether it holds a /dev/nvidia* file (a CUDA context opens them)."""
+    out = {}
+    for pid in pids:
+        held = False
+        with contextlib.suppress(OSError):
+            for fd in os.listdir(f"/proc/{pid}/fd"):
+                with contextlib.suppress(OSError):
+                    held |= os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia")
+        out[pid] = held
+    return out
+
+
+def children_of(pid: int) -> list[int]:
+    kids = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            with contextlib.suppress(OSError, ValueError, IndexError):
+                with open(f"/proc/{d}/stat") as fh:
+                    if int(fh.read().rsplit(")", 1)[1].split()[1]) == pid:
+                        kids.append(int(d))
+    return kids
+
+
+def fleet_phase(torch, port, path, details_out, card: str) -> dict:
+    """The fleet slice on the card; see the module docstring. Returns the
+    replicas' launches by kernel (each replica a new process, read from its
+    final ``metrics`` record). Files in ``FLEET_ROOT`` (removed after a pass)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(FLEET_ROOT, ignore_errors=True)
+    os.makedirs(FLEET_ROOT)
+    rec: dict = {}
+    details_out["fleet"] = rec
+    K = port["kernels"]
+    ds, cfg = path["ds"], path["cfg"]
+    pos = {int(i): k for k, i in enumerate(ds.indices)}
+    init = {m: path["results"][m]["scores"] for m in ("el2n", "grand")}
+    rng = np.random.default_rng(16)
+
+    def truth(scores, ids):
+        return scores[[pos[int(i)] for i in ids]]
+
+    # The refresh source: a good step, a newer torn one, and the regressed step
+    # the canary drill sees, written by the port's CheckpointManager.
+    model = port["create_model_from_cfg"](cfg)
+    refresh_dir = os.path.join(FLEET_ROOT, "refresh_ck")
+    mngr = port["CheckpointManager"](refresh_dir)
+    for step, seed in ((FLEET_STEPS["good"], 5), (FLEET_STEPS["torn"], 9)):
+        mngr.save(step, port["train"]["state_from_variables"](
+            port["init_variables"]("resnet18", seed, "cuda"), model))
+    port["inject"].truncate_checkpoint(refresh_dir, FLEET_STEPS["torn"])
+    good_vars = mngr.restore_variables(FLEET_STEPS["good"], "cuda")
+    new = {m: port["score_dataset"](model, [good_vars], ds, method=m, batch_size=B,
+                                    device="cuda") for m in ("el2n", "grand")}
+    check(not np.array_equal(new["grand"], init["grand"]), "fleet: the good step scores as init")
+    counts = dict.fromkeys(K.KERNELS, 0)
+
+    def add_launches(fleet: Fleet) -> dict:
+        """Adds each replica process's launches (its last ``metrics``
+        record) to ``counts``; returns them by ``(replica, generation)``."""
+        per = {}
+        for key, recs in fleet.replica_logs().items():
+            snaps = [r for r in recs if r.get("kind") == "metrics"]
+            if snaps:
+                per[key] = {k[len("kernel_launches:"):]: int(v)
+                            for k, v in snaps[-1]["gauges"].items()
+                            if k.startswith("kernel_launches:")}
+                for k, v in per[key].items():
+                    counts[k] += v
+        return per
+
+    # ---- Both fleets boot at once. A carries (a) the kill, the router's latency,
+    # the launches of a dispatch and (b) the refresh roll; B carries (c) the
+    # canary rollback and (d) the tuning roll, whose two sequential replica boots
+    # run while A's killed replica respawns. The latency is read after B stops.
+    watch = os.path.join(FLEET_ROOT, "watched")
+    manifest_path = os.path.join(FLEET_ROOT, "tuning_manifest.json")
+    fleets: list[Fleet] = []
+    try:
+        fleets.append(Fleet(os.path.join(FLEET_ROOT, "a"),
+                            {"rank": 1, "kill_replica_after_requests": FLEET_KILL_AFTER},
+                            f"serve.refresh_from={refresh_dir}"))
+        fleets.append(Fleet(os.path.join(FLEET_ROOT, "b"),
+                            {"rank": 0, "slow_replica_ms": FLEET_SLOW_MS,
+                             "slow_if_step": FLEET_STEPS["regressed"]},
+                            f"serve.refresh_from={watch}", "serve.refresh_poll_s=0.5",
+                            f"serve.canary_requests={FLEET_CANARY_REQUESTS}",
+                            "serve.canary_timeout_s=30",
+                            f"obs.slo_fleet_p95_ms={FLEET_P95_FLOOR_MS}",
+                            f"tuning.manifest={manifest_path}"))
+        fleet, fleet_b = fleets
+        for f in fleets:
+            f.wait_available(2)
+        rec["boot_s"] = boot = {k: time.perf_counter() - f.t0 for k, f in zip("ab", fleets)}
+        sups = [f.proc.pid for f in fleets]
+        replicas = {sup: children_of(sup) for sup in sups}
+        smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60)
+        check(smi.returncode == 0, f"nvidia-smi --query-compute-apps failed: {smi.stderr}")
+        smi_pids = {int(x) for x in smi.stdout.split() if x.strip().isdigit()}
+        holders = cuda_holders(sups + [p for ps in replicas.values() for p in ps])
+        for sup in sups:
+            check(sup not in smi_pids, f"(f) the supervisor {sup} is a compute app: {smi_pids}")
+            check(not holders[sup] and len(replicas[sup]) == 2
+                  and all(holders[p] for p in replicas[sup]),
+                  f"(f) /dev/nvidia* holders {holders} (supervisor {sup})")
+        rec["f"] = {"supervisors": sups, "replicas": replicas,
+                    "compute_apps": sorted(smi_pids), "nvidia_fds": holders}
+        print(f"  (f) fleets A and B up {boot['a']:.1f} s and {boot['b']:.1f} s after launch "
+              f"(booting at once, 2 replicas each, warm); supervisors {sups} not among "
+              f"nvidia-smi's compute apps {sorted(smi_pids)} and hold no /dev/nvidia* file; "
+              f"the replicas {replicas} hold them", flush=True)
+
+        # (c) on B, A idle: a good step rolls with its canary passing; the regressed
+        # step fails its canary on replica 0 and is rolled back.
+        sweep = rng.choice(N_PATH, size=B, replace=False)
+
+        def burst() -> None:
+            ids = rng.choice(N_PATH, size=8, replace=False)
+            for _ in range(2):
+                served(fleet_b, ids, "el2n")
+
+        def refresh_rec(status, step):
+            return lambda r: (r.get("kind") == "model_refresh" and r.get("status") == status
+                              and r.get("step") == step and "replica" not in r)
+
+        os.makedirs(watch)
+        wm = port["CheckpointManager"](watch)
+        wm.save(FLEET_STEPS["good"], port["train"]["state_from_variables"](good_vars, model))
+        started = fleet_b.wait_record(refresh_rec("roll_started", FLEET_STEPS["good"]),
+                                      "roll_started", 60)
+        done = fleet_b.wait_record(refresh_rec("roll_complete", FLEET_STEPS["good"]),
+                                   "roll_complete", 120, during=burst)
+        check((done.get("canary") or {}).get("verdict") == "pass",
+              f"(c) the good step's canary {done.get('canary')}")
+        check(np.array_equal(served(fleet_b, sweep, "grand"), truth(new["grand"], sweep)),
+              "(c) the good step's answers differ from the offline pass")
+        good_roll_s = done["ts"] - started["ts"]
+        wm.save(FLEET_STEPS["regressed"], port["train"]["state_from_variables"](
+            port["init_variables"]("resnet18", 11, "cuda"), model))
+        started = fleet_b.wait_record(refresh_rec("roll_started", FLEET_STEPS["regressed"]),
+                                      "roll_started", 60)
+        back = fleet_b.wait_record(lambda r: r.get("kind") == "model_refresh"
+                                   and r.get("status") == "rolled_back", "rolled_back", 120,
+                                   during=burst)
+        canary = back.get("canary") or {}
+        check(back.get("step") == FLEET_STEPS["regressed"] and canary.get("verdict") == "fail"
+              and canary.get("replica") == 0
+              and (back.get("prior") or {}).get("step") == FLEET_STEPS["good"]
+              and any("p95" in x for x in canary.get("reasons") or []),
+              f"(c) rollback record {back}")
+        check(not any(refresh_rec("roll_complete", FLEET_STEPS["regressed"])(r)
+                      for r in fleet_b.records()), "(c) the regressed step reached the fleet")
+        for m in ("el2n", "grand"):
+            check(np.array_equal(served(fleet_b, sweep, m), truth(new[m], sweep)),
+                  f"(c) {m} after the rollback is not the prior model's")
+        bad_roll_s = back["ts"] - started["ts"]
+        rec["canary"] = {"good_roll_s": good_roll_s, "rollback_s": bad_roll_s,
+                         "canary": canary}
+        print(f"  (c) step {FLEET_STEPS['good']} rolled with its canary passing in "
+              f"{good_roll_s:.2f} s; step {FLEET_STEPS['regressed']} ({FLEET_SLOW_MS:g} ms "
+              f"slower while installed) failed its canary (p95 {canary.get('p95_ms')} ms > "
+              f"{FLEET_P95_FLOOR_MS:g} ms over {canary.get('requests')} requests) and was "
+              f"rolled back in {bad_roll_s:.2f} s; the prior model serves bitwise", flush=True)
+
+        # (d) starts: a signed manifest for this card pins the BN kernel; B rolls it
+        # one replica at a time while (a) runs on A.
+        tuning = port["tuning"]
+        manifest = tuning.build_tuning_manifest(
+            task="score", method="grand", arch="resnet18", dataset="synthetic",
+            batch_size=B, backend="cuda", device_kind=torch.cuda.get_device_name(0),
+            n_devices=1, env={"DDT_GRAND_BN_KERNEL": "1"}, config={},
+            chosen_combo="bn_kernel", metric="fleet_phase", value=0.0, unit="none",
+            baseline_value=None, exactness=[], candidates_considered=1,
+            source="chip_smoke.py")
+        tuning.write_tuning_manifest(manifest_path, manifest)
+        roll = fleet_b.wait_record(lambda r: r.get("kind") == "serve_fleet"
+                                   and r.get("event") == "tuning_roll", "tuning_roll", 60)
+
+        # (a) replica 1 of A dies mid-dispatch under keyed load: no failure, all bitwise.
+        errors, answers, lat = [], [], []
+
+        def client_loop(k: int) -> None:
+            c = fleet.sc.ServeClient(fleet.url, timeout_s=120.0, retries=6, backoff_s=0.25)
+            r = np.random.default_rng(100 + k)
+            for i in range(FLEET_KILL_REQUESTS):
+                m = ("el2n", "grand")[(k + i) % 2]
+                ids = r.choice(N_PATH, size=int(r.integers(1, SERVICE_MAX_IDS + 1)),
+                               replace=False)
+                t = time.perf_counter()
+                try:
+                    got = np.asarray(c.score(indices=ids.tolist(), method=m)["scores"],
+                                     np.float32)
+                    lat.append((time.perf_counter() - t) * 1e3)
+                    answers.append(np.array_equal(got, truth(init[m], ids)))
+                except Exception as exc:   # noqa: BLE001 — counted, then failed on
+                    errors.append(repr(exc)[:200])
+
+        threads = [threading.Thread(target=client_loop, args=(k,))
+                   for k in range(FLEET_KILL_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        died = fleet.wait_record(lambda r: r.get("kind") == "replica_event"
+                                 and r.get("event") == "died", "died", 60)
+        check(errors == [], f"(a) client-visible failures through the kill: {errors[:3]}")
+        check(len(answers) == FLEET_KILL_CLIENTS * FLEET_KILL_REQUESTS and all(answers),
+              f"(a) {answers.count(False)} of {len(answers)} answers differ from the "
+              "offline pass")
+        check(died["replica"] == 1 and died["signal"] == 9, f"(a) died record {died}")
+        respawn = fleet.wait_record(lambda r: r.get("kind") == "replica_event"
+                                    and r.get("event") == "respawn", "respawn", 60)
+        t_back = fleet.wait_available(2)
+        spawn_port = fleet.replica_ports()[1]
+        check(respawn["replica"] == 1 and respawn["generation"] == 1
+              and respawn["port"] == spawn_port, f"(a) respawn {respawn}, spawn port "
+              f"{spawn_port}")
+        rec["respawn_wall_s"] = respawn_wall = t_back - died["ts"]
+        for m in ("el2n", "grand"):
+            check(np.array_equal(served(fleet, sweep, m), truth(init[m], sweep)),
+                  f"(a) {m} after the respawn differs from the offline pass")
+        print(f"  (a) {len(answers)} keyed requests from {FLEET_KILL_CLIENTS} clients, "
+              f"replica 1 SIGKILLed after {FLEET_KILL_AFTER} requests: 0 failures, every "
+              f"answer bitwise the offline pass; respawned on port {spawn_port} and "
+              f"routable again {respawn_wall:.1f} s after the death (B's tuning roll "
+              "booting beside it)", flush=True)
+
+        # (d) ends, is checked and B stops before the latency is read, so only
+        # A's two replicas are on the card then, as in a fleet of its own.
+        complete = fleet_b.wait_record(lambda r: r.get("kind") == "serve_fleet"
+                                       and r.get("event") in ("tuning_roll_complete",
+                                                              "tuning_roll_abort"),
+                                       "tuning_roll_complete", 2 * FLEET_BOOT_S)
+        check(complete["event"] == "tuning_roll_complete"
+              and complete["digest"] == manifest["digest"], f"(d) {complete}")
+        fleet_b.wait_available(2)
+        # (d) on B: each tuning respawn boots on the config's model, so after the
+        # roll B serves the init weights again, not step 2 that (c) had rolled
+        # (the JAX fleet does the same; ROADMAP Queue 3). The gate expects that.
+        respawns = [r for r in fleet_b.records() if r.get("kind") == "replica_event"
+                    and r.get("event") == "tuning_respawn"]
+        check([r["replica"] for r in respawns] == [0, 1], f"(d) tuning respawns {respawns}")
+        tuned = [(r["replica"], r["generation"]) for r in respawns]
+        logs = fleet_b.replica_logs()
+        for key in tuned:
+            applied = [r for r in logs.get(key, []) if r.get("kind") == "tuning_applied"]
+            check(len(applied) == 1 and applied[0]["applied"]
+                  and applied[0]["knobs"] == {"DDT_GRAND_BN_KERNEL": "1"}
+                  and applied[0]["digest"] == manifest["digest"],
+                  f"(d) replica {key} tuning_applied {applied}")
+        got = served(fleet_b, sweep, "grand")
+        ref = truth(init["grand"], sweep)
+        rel = float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30)))
+        check(rel <= FLEET_GRAND_RTOL, f"(d) BN-kernel GraNd vs the default route: "
+              f"max rel {rel:.3e}")
+        bn = replica_delta(fleet_b, fleet_b.replica_ports()[0], "grand")
+        per_seed = next(r[3] for r in ROUTES if r[0] == "BN_KERNEL")
+        check(bn == {k: v * len(SEEDS) for k, v in per_seed.items()},
+              f"(d) a tuned dispatch's launches {bn}, want {per_seed} per seed")
+        rec["tuning"] = {"roll_s": complete["ts"] - roll["ts"], "grand_max_rel": rel,
+                         "dispatch_launches": bn}
+        print(f"  (d) manifest {manifest['digest'][:12]} (backend cuda, "
+              f"{torch.cuda.get_device_name(0)}, DDT_GRAND_BN_KERNEL=1) rolled one replica "
+              f"at a time in {complete['ts'] - roll['ts']:.1f} s (beside (a)); each new "
+              f"replica logged tuning_applied; served GraNd (the config's model, as the "
+              f"respawns boot on it) max rel {rel:.2e} from the default route's; one {B}-row "
+              f"dispatch launches {bn}", flush=True)
+        rc_b, exit_b = fleet_b.stop()
+
+        # The router's request latency per method at the service phase's load.
+        rec["latency"] = {}
+        for m in ("el2n", "grand"):
+            ms, bad = [], []
+
+            def lat_loop(k: int, m=m, ms=ms, bad=bad) -> None:
+                c = fleet.sc.ServeClient(fleet.url, timeout_s=120.0)
+                r = np.random.default_rng(200 + k)
+                for _ in range(SERVICE_REQUESTS):
+                    ids = r.choice(N_PATH, size=int(r.integers(1, SERVICE_MAX_IDS + 1)),
+                                   replace=False)
+                    t = time.perf_counter()
+                    got = np.asarray(c.score(indices=ids.tolist(), method=m)["scores"],
+                                     np.float32)
+                    ms.append((time.perf_counter() - t) * 1e3)
+                    if not np.array_equal(got, truth(init[m], ids)):
+                        bad.append(ids[:4].tolist())
+
+            threads = [threading.Thread(target=lat_loop, args=(k,))
+                       for k in range(SERVICE_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+            check(len(ms) == SERVICE_CLIENTS * SERVICE_REQUESTS and not bad,
+                  f"fleet latency {m}: {len(ms)} answers, {len(bad)} differ")
+            p50, p95 = (float(np.percentile(ms, q)) for q in (50, 95))
+            rec["latency"][m] = {"p50_ms": p50, "p95_ms": p95, "n": len(ms)}
+            print(f"  router {m}: {SERVICE_CLIENTS} clients x {SERVICE_REQUESTS} requests "
+                  f"of 1-{SERVICE_MAX_IDS} ids, p50 {p50:.2f} ms p95 {p95:.2f} ms, all "
+                  f"bitwise (on {card})", flush=True)
+
+        # Launches of one 512-row dispatch on each replica, by /status deltas.
+        rec["per_dispatch"] = {}
+        for r, p in enumerate(fleet.replica_ports()):
+            g, e = replica_delta(fleet, p, "grand"), replica_delta(fleet, p, "el2n")
+            check(g == {"conv_grad_norm_direct": 12 * len(SEEDS),
+                        "conv_grad_norm_gram": 3 * len(SEEDS)}
+                  and e == {"el2n": len(SEEDS)}, f"fleet: replica {r} dispatch launches "
+                  f"grand {g} el2n {e}")
+            rec["per_dispatch"][r] = {"grand": g, "el2n": e}
+        print(f"  launches of one {B}-row dispatch (both replicas): grand "
+              f"{rec['per_dispatch'][0]['grand']}, el2n {rec['per_dispatch'][0]['el2n']}",
+              flush=True)
+
+        # (b) the torn newest step is refused; the good one rolls one replica at a time.
+        try:
+            torn = fleet.client.refresh()
+        except fleet.sc.ServeError as err:
+            torn = {"status_code": err.status, **err.payload}
+        check(torn.get("status_code") == 409 and torn.get("status") == "roll_aborted",
+              f"(b) a stepless refresh onto the torn step: {torn}")
+        check(np.array_equal(served(fleet, sweep, "grand"), truth(init["grand"], sweep)),
+              "(b) the old model stopped serving after the refused refresh")
+        hammered, avail, stop = [], [], threading.Event()
+
+        def hammer() -> None:
+            c = fleet.sc.ServeClient(fleet.url, timeout_s=120.0, retries=6)
+            r = np.random.default_rng(300)
+            while not stop.is_set():
+                ids = r.choice(N_PATH, size=FLEET_HAMMER_IDS, replace=False)
+                got = np.asarray(c.score(indices=ids.tolist(), method="grand")["scores"],
+                                 np.float32)
+                hammered.append(np.array_equal(got, truth(init["grand"], ids))
+                                or np.array_equal(got, truth(new["grand"], ids)))
+
+        def capacity() -> None:
+            while not stop.is_set():
+                with contextlib.suppress(fleet.sc.ServeError):
+                    avail.append(fleet.probe.healthz().get("available"))
+                time.sleep(0.05)
+
+        threads = [threading.Thread(target=hammer), threading.Thread(target=capacity)]
+        for t in threads:
+            t.start()
+        t = time.perf_counter()
+        try:
+            refreshed = fleet.client.refresh(step=FLEET_STEPS["good"])
+        finally:
+            rec["refresh_roll_s"] = roll_s = time.perf_counter() - t
+            time.sleep(0.3)
+            stop.set()
+            for th in threads:
+                th.join(120)
+        check(refreshed.get("status") == "rolled"
+              and [x.get("code") for x in refreshed["replicas"]] == [200, 200],
+              f"(b) refresh roll {refreshed}")
+        check(hammered and all(hammered), f"(b) {hammered.count(False)} of {len(hammered)} "
+              "answers during the roll are neither the old nor the new model")
+        check(avail and min(avail) >= 1, f"(b) capacity fell to {min(avail or [0])}")
+        for m in ("el2n", "grand"):
+            check(np.array_equal(served(fleet, sweep, m), truth(new[m], sweep)),
+                  f"(b) {m} after the roll differs from the offline pass on the step")
+        print(f"  (b) torn step {FLEET_STEPS['torn']} refused (409 roll_aborted, old model "
+              f"serving); step {FLEET_STEPS['good']} rolled one replica at a time in "
+              f"{roll_s:.2f} s under a hammer of {len(hammered)} requests, each bitwise old "
+              f"or new, capacity never below {min(avail)}", flush=True)
+        rc_a, exit_a = fleet.stop()
+
+    except BaseException:
+        for f in fleets:
+            f.kill()
+        raise
+    fleet, fleet_b = fleets
+    recs = fleet.records()
+    check(rc_a == 75, f"(e) fleet A exit {rc_a}: {fleet.tail()}")
+    validate_stream(fleet.metrics, expect_terminal=True)
+    lin = recs[-1].get("lineage") or {}
+    check(recs[-1]["exit_class"] == "preempted" and lin.get("respawns") == 1,
+          f"(e) fleet A run_summary {recs[-1]}")
+    rec["a_launches"] = {f"r{r}g{g}": v for (r, g), v in add_launches(fleet).items()}
+    check(rc_b == 75, f"(e) fleet B exit {rc_b}: {fleet_b.tail()}")
+    n = validate_stream(fleet_b.metrics, expect_terminal=True)
+    check(fleet_b.records()[-1]["exit_class"] == "preempted", "(e) fleet B run_summary")
+    per = add_launches(fleet_b)
+    for key in tuned:
+        check(per.get(key, {}).get("bn_grad_norm", 0) > 0,
+              f"(d) tuned replica {key}'s metrics record: {per.get(key)}")
+    rec["b_launches"] = {f"r{r}g{g}": v for (r, g), v in per.items()}
+    rec["exit_s"] = {"a": exit_a, "b": exit_b}
+    rec["phase_wall_s"] = wall = time.perf_counter() - t_phase
+    print(f"  (e) both fleets exited 75 on SIGTERM ({exit_a:.1f} s and {exit_b:.1f} "
+          f"s after it), streams valid ({n} records in B); replica launches {counts}; "
+          f"fleet phase: {wall:.1f} s", flush=True)
+    shutil.rmtree(FLEET_ROOT, ignore_errors=True)
+    return counts
+
+
 def summary_gauge(recs: list[dict], name: str):
     """A gauge of the stream's last registry snapshot."""
     snaps = [r for r in recs if r["kind"] == "metrics"]
@@ -4248,7 +4858,7 @@ def load_port() -> dict:
         from data_diet_distributed_tpu_torch.pruning import select_indices
         from data_diet_distributed_tpu_torch.pruning import verify_prune_manifest
         from data_diet_distributed_tpu_torch.checkpoint import CheckpointManager, tier_steps
-        from data_diet_distributed_tpu_torch import cli
+        from data_diet_distributed_tpu_torch import cli, tuning
         from data_diet_distributed_tpu_torch.data import native, sharded
         from data_diet_distributed_tpu_torch.data.datasets import _chunked_channel_stats
         from data_diet_distributed_tpu_torch.ops.scores import make_local_scores
@@ -4277,6 +4887,7 @@ def load_port() -> dict:
             "variables_to": variables_to,
             "set_scoring_determinism": set_scoring_determinism,
             "inject": inject, "Preempted": Preempted, "StageManifest": StageManifest,
+            "tuning": tuning,
             "CheckpointManager": CheckpointManager, "tier_steps": tier_steps,
             "make_local_scores": make_local_scores,
             "data": {"cli": cli, "native": native, "write_split": sharded.write_split,
@@ -4378,6 +4989,9 @@ def main(argv: list[str]) -> int:
     phase("service")
     service = service_phase(torch, port, path, details, card)
 
+    phase("fleet")
+    fleet = fleet_phase(torch, port, path, details, card)
+
     phase("resnet50")
     r50 = resnet50_phase(torch, port, details, card)
 
@@ -4419,7 +5033,7 @@ def main(argv: list[str]) -> int:
     # phase's run, the wrn phase's passes and sweep, and the elastic phase's
     # relaunched attempts.
     launches = {k: path["counts"][k] + routes["counts"][k] + service["counts"][k]
-                + r50["counts"][k] + trained["counts"][k] + resil["counts"][k]
+                + fleet[k] + r50["counts"][k] + trained["counts"][k] + resil["counts"][k]
                 + data["counts"][k] + wrn["counts"][k] + elastic[k] for k in K.KERNELS}
     check(all(launches[k] > 0 for k in KERNEL_INFO), f"a kernel never launched: {launches}")
     entries = []

@@ -11,9 +11,13 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
 
 * ``device.py`` -> (new) device resolution, TF32 parity mode, cuDNN determinism
 * ``config.py`` -> ``config.py`` (data/model/optim/score/prune/train/
-  resilience/mesh/obs/serve/checkpoint/elastic; ``obs.plots_dir`` and
-  ``slo_fleet_*`` refuse by name; the unported sections' keys (parallel,
-  tuning) accepted and ignored)
+  resilience/mesh/obs/serve/checkpoint/elastic/tuning; ``obs.plots_dir``
+  refuses by name; the unported section's keys (parallel) accepted and
+  ignored)
+* ``tuning.py`` -> ``tuning.py`` (the signed tuning manifest: build, write,
+  read and verify, match on geometry and hardware (backend ``cuda``/``cpu``,
+  ``device_kind`` the card's name), apply with user precedence;
+  ``maybe_apply_manifest``, the CLI's startup hook)
 * ``parallel/mesh.py`` + ``parallel/collectives.py`` -> ``parallel/mesh.py``
   (``initialize_multihost`` over ``torch.distributed``: NCCL for CUDA, gloo
   for the CPU, a gloo host group beside NCCL; rank and world, ``is_primary``,
@@ -104,7 +108,13 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   ``ScoreBatcher`` with 429 backpressure and weighted round-robin;
   ``ServeServer``/``ServeService`` with ``/v1/score``, ``/v1/rank``, streamed
   ``/v1/topk``, ``/v1/refresh``, the SIGTERM drain and the refresh watcher;
-  ``run_serve``)
+  ``run_serve``), ``router.py`` (``ServeRouter``: ``CircuitBreaker``,
+  failover of idempotent requests, the replay cache, hedging, 503 +
+  Retry-After, the refresh roll with the canary hold and rollback) and
+  ``fleet.py`` (``ServeFleet``: local and templated remote replicas,
+  respawn under ``RestartBudget``, probation, the ``Autoscaler``, the
+  refresh and tuning-manifest rolls, ``discover_steps`` over the port's
+  checkpoint layouts)
 * ``obs/`` -> ``obs/``: ``lineage.py``, ``flightrec.py``, ``metrics.py``
   (``MetricsLogger`` with the ring mirror and the lineage stamp,
   ``emit_run_summary``), ``registry.py`` (snapshots, Prometheus textfile,
@@ -114,8 +124,9 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   real call, MFU against the peak table or a calibration,
   ``HbmMonitor`` over ``torch.cuda.memory_stats``), ``monitor.py`` (host
   CPU, device memory, the latency-probe duty cycle), ``scoreboard.py``,
-  ``comm.py``, ``slo.py`` (training, serve and recovery objectives,
-  ``ledger_baseline`` by ``cuda``/``cpu`` backend), ``fleet.py``,
+  ``comm.py``, ``slo.py`` (training, serve, fleet and recovery objectives,
+  ``judge_canary``, ``ledger_baseline`` by ``cuda``/``cpu`` backend),
+  ``fleet.py``,
   ``heartbeat.py`` (with lineage, ``describe_stale``, the residue files),
   ``reqtrace.py``, ``server.py`` (/healthz, /metrics, /status with MFU,
   watermark, ETA and lineage, the live /flightrec), ``session.py`` (every
@@ -130,7 +141,9 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   exit 75 on preemption or a serve drain, ``DDT_FAULT_PLAN`` drills;
   ``mesh.multihost`` joins the group first, rank 0 prints and writes, a
   failure under the group exits 69 or 1 at once; ``elastic.enabled``: the
-  restart supervisor, which touches no CUDA)
+  restart supervisor, which touches no CUDA; ``serve.replicas > 1``: the
+  serving fleet's supervisor, which touches no CUDA either; the tuning
+  manifest applied before the gated ops modules import)
 
 Across W processes (``mesh.multihost``), one device each, every entry point
 computes what the JAX package computes on a ``{data: W, model: 1}`` mesh:
@@ -141,12 +154,8 @@ float64 sum per seed, primary-only writes, and the consensus drills.
 Not ported yet: the tensor-parallel classifier (``mesh.model_axis > 1``),
 ``parallel/overlap.py`` (XLA flags for the TPU; ``parallel.overlap`` is
 accepted and ignored), the chunked training engine and its
-``StreamingBatches``, the serving router and fleet
-(``serve/router.py``, ``serve/fleet.py``: ``cli serve`` refuses
-``serve.replicas > 1`` and ``serve.max_replicas``), the autotuner's
-manifest (``tuning.py``: no ``tuning_applied`` record), what remains of
-observability (``obs/plots.py``: ``obs.plots_dir`` refuses by name; the
-fleet SLOs and ``judge_canary``, with the serving fleet) and the tools
-(``tools/make_shards.py``, ``tools/npz_to_npy.py``; their formats are the
-port's too).
+``StreamingBatches``, ``cli serve`` on a mesh (``mesh.multihost`` refuses by
+name for serving), what remains of observability (``obs/plots.py``:
+``obs.plots_dir`` refuses by name) and the tools (``tools/make_shards.py``,
+``tools/npz_to_npy.py``; their formats are the port's too).
 """

@@ -415,6 +415,13 @@ def tier_map(directory: str, local_dir: str | None = None) -> dict[str, str]:
     return out
 
 
+def restorable_steps(directory: str) -> list[int]:
+    """Every restorable step under ``directory``, sorted: the plain
+    ``step_N`` directories holding their manifest and the fully promoted tier
+    steps. Reads the disk only (no tier drain)."""
+    return sorted(set(_plain_steps(os.path.abspath(directory))) | set(tier_steps(directory)))
+
+
 def _plain_steps(directory: str) -> list[int]:
     steps = []
     try:
@@ -458,7 +465,7 @@ class CheckpointManager:
         drains the promotions in flight (the durability barrier)."""
         if self._tier is not None:
             self._tier.drain()
-        return sorted(set(_plain_steps(self.directory)) | set(tier_steps(self.directory)))
+        return restorable_steps(self.directory)
 
     def latest_step(self) -> int | None:
         steps = self.all_steps()

@@ -22,9 +22,17 @@
   ``/metrics``, ``/status`` and ``/flightrec`` until SIGTERM/SIGINT, which
   drains the accepted requests (``serve.drain_timeout_s``) and exits 75 with
   ``[preempted] ...`` on stdout. Its records (``{"ts", "kind", ...}``) go to
-  ``obs.metrics_path`` and stderr, ending in ``run_summary``. One process on
-  one device: ``serve.replicas > 1``, ``serve.max_replicas`` (the serving
-  fleet) and ``mesh.multihost`` refuse by name.
+  ``obs.metrics_path`` and stderr, ending in ``run_summary``. With
+  ``serve.replicas > 1`` or ``serve.max_replicas`` set it is the serving
+  fleet (``serve/fleet.py::ServeFleet``): a supervisor that touches no CUDA
+  starts that many ``cli serve`` replicas (each with ``DDT_SERVE_REPLICA``
+  and the supervisor's ``--device``; on one card they share it), fronts them
+  with the health-aware router on ``serve.router_port`` (0 = a free port,
+  announced by the ``serve_fleet`` ``launch`` record), respawns a dead or
+  wedged replica on its port, rolls refreshes and tuning manifests one
+  replica at a time and exits 75 on SIGTERM after the replicas drain; its
+  terminal ``run_summary`` carries the fleet's ``exit_class`` and
+  ``lineage``. ``mesh.multihost`` refuses by name for serving.
 
 ``score``, ``run`` and ``sweep`` take every ``score.method``, the trajectory
 scores ``forgetting`` and ``aum`` included (their per-seed fits are the
@@ -41,6 +49,14 @@ per command (``backend`` ``cuda`` or ``cpu``, ``device_kind`` the card's
 name). The device is CUDA unless ``--device cpu``; without CUDA the command
 raises. Drive a CPU service with ``tools/serve_client.py --url
 http://127.0.0.1:<port>`` and end it with ``kill -TERM <pid>`` (exit 75).
+
+Tuning: after the device is resolved and before any module that reads a
+``DDT_GRAND_*`` gate is imported, ``tuning.py::maybe_apply_manifest`` applies
+a matching signed manifest (``tuning.manifest``, default
+``artifacts/tuning_manifest.json`` under the working directory;
+``tuning.apply`` auto | off | strict) and logs its decision as a
+``tuning_applied`` record; a corrupt manifest, or under ``strict`` a missing
+or mismatched one, prints ``[tuning] ...`` on stderr and exits 2.
 
 Resilience as in the JAX package: a SIGTERM/SIGINT ends the command after a
 final checkpoint with ``[preempted] ...`` on stdout and exit status 75;
@@ -96,15 +112,21 @@ from .parallel.mesh import initialize_multihost, is_primary, shutdown, world_siz
 from .resilience import elastic, inject
 from .resilience.preemption import EXIT_PREEMPTED, Preempted
 from .resilience.watchdog import EXIT_RETRIABLE, probe_devices
-from .serve.server import run_serve
-from .train.loop import (compute_scores, fit_with_recovery, load_data_for,
-                         pipeline_stages, run_datadiet, run_sweep, scores_npz_path)
+from .tuning import TuningError, maybe_apply_manifest
 from .utils.io import atomic_append_jsonl, atomic_savez
+
+# The training loop and the service are imported inside the commands: they
+# import ops/grand_batched.py, which reads the DDT_GRAND_* gates once, at its
+# import, and a tuning manifest sets those gates after the device resolves.
+
+#: Exit status of a tuning manifest the run must not proceed with.
+EXIT_TUNING = 2
 
 
 def score(cfg: Config, device, log) -> dict:
     """The ``score`` command: score (stage-resumable, like ``run``), save the
     npz, return a summary."""
+    from .train.loop import compute_scores, load_data_for, pipeline_stages, scores_npz_path
     train_ds, _ = load_data_for(cfg)
     scores, timings = compute_scores(cfg, train_ds, device=device, log=log,
                                      stages=pipeline_stages(cfg, log))
@@ -121,6 +143,7 @@ def score(cfg: Config, device, log) -> dict:
 
 def train(cfg: Config, device, log) -> dict:
     """The ``train`` command: a dense fit with checkpoints and recovery."""
+    from .train.loop import fit_with_recovery, load_data_for
     train_ds, test_ds = load_data_for(cfg)
     res = fit_with_recovery(cfg, train_ds, test_ds, device=device, log=log,
                             checkpoint_dir=cfg.train.checkpoint_dir, tag="dense")
@@ -129,13 +152,8 @@ def train(cfg: Config, device, log) -> dict:
 
 
 def _refuse_serve(cfg: Config) -> None:
-    """``cli serve`` is one process on one device: the JAX package's serving
-    fleet and a multi-host service are not ported."""
-    if cfg.serve.replicas > 1 or cfg.serve.max_replicas is not None:
-        raise NotImplementedError(
-            "serve.replicas > 1 / serve.max_replicas start the serving fleet "
-            "(ServeFleet + ServeRouter: serve/fleet.py, serve/router.py), which is "
-            "not ported to the PyTorch package; use serve.replicas=1")
+    """A serve replica is one process on one device: a multi-host service is
+    not ported."""
     if cfg.mesh.multihost:
         raise NotImplementedError(
             "cli serve is one process on one device; mesh.multihost is not "
@@ -145,11 +163,13 @@ def _refuse_serve(cfg: Config) -> None:
 def _dispatch(command: str, cfg: Config, device, logger: MetricsLogger) -> dict:
     """Run the command; returns its summary line."""
     if command == "serve":   # returns only by raising (Preempted on SIGTERM)
+        from .serve.server import run_serve
         return {"event": "serve_done", **run_serve(cfg, logger, device)}
     if command == "score":
         return {"event": "scores_saved", **score(cfg, device, logger)}
     if command == "train":
         return {"event": "train_done", **train(cfg, device, logger)}
+    from .train.loop import run_datadiet, run_sweep
     if command == "run":
         return {"event": "run_done", **run_datadiet(cfg, device=device, log=logger)}
     return {"event": "sweep_done", "levels": run_sweep(cfg, device=device, log=logger)}
@@ -172,6 +192,15 @@ def _final(out: dict | None) -> dict | None:
     return {k: out.get(k) for k in keys.get(out["event"], ())}
 
 
+def _hardware(device) -> tuple[str, str]:
+    """``(backend, device_kind)`` as the ledger and tuning manifests name the
+    port's hardware: ``cuda`` and the card's name, or ``cpu`` and ``cpu``."""
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    if dev.type == "cuda":
+        return "cuda", torch.cuda.get_device_name(dev)
+    return dev.type, dev.type
+
+
 def _append_perf_ledger(cfg: Config, command: str, summary: dict, device) -> None:
     """One ``{"kind": "perf_history"}`` record per command into
     ``obs.perf_ledger`` (off when None), with the JAX package's fields; rank 0
@@ -183,16 +212,15 @@ def _append_perf_ledger(cfg: Config, command: str, summary: dict, device) -> Non
     try:
         final = summary.get("final") or {}
         lin = lineage.ensure()
-        dev = torch.device(device) if device is not None else torch.device("cpu")
+        backend, device_kind = _hardware(device)
         rec = {
             "kind": "perf_history", "ts": round(time.time(), 3),
             "run_id": lin.run_id, "attempt": lin.attempt,
             "source": "cli", "metric": f"cli_{command}_wall_s",
             "value": summary.get("wall_s"), "unit": "seconds",
             "exit_class": summary.get("exit_class"),
-            "backend": dev.type,
-            "device_kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                            else "cpu"),
+            "backend": backend,
+            "device_kind": device_kind,
             "n_devices": world_size(),
             "geometry": {"dataset": cfg.data.dataset, "arch": cfg.model.arch,
                          "batch": cfg.data.batch_size, "epochs": cfg.train.num_epochs,
@@ -216,11 +244,20 @@ def _observed(command: str, cfg: Config, device_arg) -> dict:
     ``obs.metrics_path`` and on stderr; the stream ends in the registry
     snapshot and ``run_summary`` however the command ends."""
     device = resolve_device(device_arg)
+    logger = MetricsLogger(cfg.obs.metrics_path)
+    try:
+        # Before _dispatch imports the modules that read the gates it sets.
+        backend, device_kind = _hardware(device)
+        decision = maybe_apply_manifest(cfg, backend=backend, device_kind=device_kind)
+    except TuningError:
+        logger.close()
+        raise
+    if decision is not None:
+        logger.log("tuning_applied", **decision)
     monitor = (ResourceMonitor(cfg.obs.monitor_path, device=device)
                if cfg.obs.monitor and is_primary() else None)
     if monitor is not None:
         monitor.start()
-    logger = MetricsLogger(cfg.obs.metrics_path)
     t0 = time.perf_counter()
     out = None
     exit_class = "ok"
@@ -257,6 +294,31 @@ def _observed(command: str, cfg: Config, device_arg) -> dict:
             monitor.stop()
 
 
+def _serve_fleet(cfg: Config, args) -> int:
+    """``serve.replicas > 1`` or ``serve.max_replicas``: supervise a fleet of
+    ``cli serve`` replicas behind the router; returns the fleet's exit status
+    (75 after a SIGTERM drain). The terminal ``run_summary`` carries the
+    fleet's ``exit_class`` and ``lineage`` (replicas, generations, respawns,
+    restarts left)."""
+    from .serve.fleet import ServeFleet
+    logger = elastic.JsonlLogger(cfg.obs.metrics_path)
+    fleet = ServeFleet(cfg, config_path=args.config, overrides=args.overrides,
+                       logger=logger, device=args.device)
+    t0 = time.perf_counter()
+    try:
+        rc = fleet.run()
+    except BaseException:
+        logger.log("run_summary", wall_s=round(time.perf_counter() - t0, 3),
+                   exit_class="fatal:supervisor", command="serve")
+        logger.close()
+        raise
+    logger.log("run_summary", wall_s=round(time.perf_counter() - t0, 3),
+               exit_class=fleet.exit_class(rc), command="serve",
+               lineage=fleet.lineage_block())
+    logger.close()
+    return rc
+
+
 def _supervise(command: str, cfg: Config, args) -> int:
     """``elastic.enabled``: supervise workers of this same command; returns
     the run's exit status. The terminal ``run_summary`` judges the whole
@@ -291,6 +353,13 @@ def main(argv: list[str] | None = None) -> int:
     cfg = load_config(args.config, args.overrides)
     if args.command == "serve":
         _refuse_serve(cfg)
+        if ((cfg.serve.replicas > 1 or cfg.serve.max_replicas is not None)
+                and os.environ.get("DDT_SERVE_REPLICA") is None):
+            # Before the elastic branch, the fault plan and any device: a
+            # serve command with replicas is a fleet whatever elastic.enabled
+            # says, and its supervisor never touches the card its replicas
+            # share. An autoscaled fleet is a fleet even at replicas=1.
+            return _serve_fleet(cfg, args)
     if cfg.elastic.enabled and os.environ.get(elastic.CHILD_ENV) != "1":
         # Before the fault plan and any device: the supervisor fires no fault
         # site and never touches the card, which its workers take.
@@ -314,6 +383,10 @@ def main(argv: list[str] | None = None) -> int:
         initialize_multihost(cfg.mesh, args.device)
         try:
             out = _observed(args.command, cfg, args.device)
+        except TuningError as err:
+            print(f"[tuning] {err}", file=sys.stderr, flush=True)
+            shutdown()
+            return EXIT_TUNING
         except Preempted as p:
             # The final checkpoint (or the seed's partial) is durable and the
             # "preempted" event is already logged: report the resume point

@@ -20,16 +20,16 @@ supervisor over its own workers (``resilience/elastic.py``); every key of
 both takes effect.
 
 ``ServeConfig`` is copied whole with its validation; ``cli serve`` reads the
-single-process keys, and the serving fleet's (``replicas > 1``,
-``max_replicas``, the router, autoscaler, probation and canary keys) are
-validated and accepted, but a fleet is refused by name (not ported).
-``ObsConfig`` is copied whole with its validation; every key takes effect
-but ``plots_dir`` and ``slo_fleet_*``, which raise by name when set (not
-ported); ``slo_recovery_s`` is the cross-attempt recovery objective of a
-supervised run (``obs/slo.py``). The sections the port does not have
-(parallel, tuning) are accepted key by key and ignored, so every
-``configs/*.yaml`` loads unchanged, while an unknown key anywhere still raises
-``KeyError`` as in JAX.
+single-process keys, and ``replicas > 1`` or ``max_replicas`` make it the
+serving fleet (``serve/fleet.py``: the router, autoscaler, probation and
+canary keys). ``ObsConfig`` is copied whole with its validation; every key
+takes effect but ``plots_dir``, which raises by name when set (not ported);
+``slo_recovery_s`` is the cross-attempt recovery objective of a supervised
+run and ``slo_fleet_*`` the serving fleet's (``obs/slo.py``). ``TuningConfig``
+is copied whole with its validation (``tuning.py``: the signed manifest the
+CLI applies at startup). The one section the port does not have (parallel)
+is accepted key by key and ignored, so every ``configs/*.yaml`` loads
+unchanged, while an unknown key anywhere still raises ``KeyError`` as in JAX.
 """
 
 from __future__ import annotations
@@ -212,10 +212,11 @@ class ObsConfig:
     textfile, the heartbeat, the flight recorder, program introspection and
     the memory watermark, the ``torch.profiler`` window, score telemetry, the
     perf-history ledger, the status server, the fleet view, the resource
-    monitor and the training, serving and recovery SLOs (``slo_recovery_s``:
-    a supervised relaunch's wall from the fault's classification to its
-    first training step). ``plots_dir`` (the post-run plots) and the fleet
-    SLOs (``slo_fleet_*``) are not ported and raise by name when set."""
+    monitor and the training, serving, fleet and recovery SLOs
+    (``slo_recovery_s``: a supervised relaunch's wall from the fault's
+    classification to its first training step; ``slo_fleet_*``: the serving
+    fleet's router p95 and routable fraction). ``plots_dir`` (the post-run
+    plots) is not ported and raises by name when set."""
 
     # JSON lines {"ts", "kind", ...} of the command's records; None = none.
     metrics_path: str | None = "./metrics.jsonl"
@@ -269,7 +270,9 @@ class ObsConfig:
     slo_serve_p95_ms: float | None = None
     slo_serve_queue_depth: int | None = None
     slo_serve_reject_frac: float | None = None
-    # Not ported: refused by name when set.
+    # Serving-fleet SLOs, judged at every serve_fleet stats point: the
+    # router's p95 (ms; also the canary's floor and the autoscaler's) and the
+    # routable fraction of the replicas.
     slo_fleet_p95_ms: float | None = None
     slo_fleet_available_frac: float | None = None
     slo_recovery_s: float | None = None
@@ -284,8 +287,8 @@ class ServeConfig:
     Requests coalesce into padded batches (``serve/batcher.py``), with 429 +
     Retry-After past ``max_queue`` and weighted round-robin across tenants;
     SIGTERM drains bounded by ``drain_timeout_s`` and exits 75. The fleet keys
-    (``replicas`` > 1 onwards) are validated and accepted; a fleet is not
-    ported."""
+    (``replicas`` onwards) drive ``serve/fleet.py`` and ``serve/router.py``
+    when ``replicas > 1`` or ``max_replicas`` is set."""
 
     port: int = 0                    # 0 = auto-pick; logged as obs_server
     host: str = "127.0.0.1"
@@ -301,7 +304,7 @@ class ServeConfig:
     stats_every_s: float = 10.0      # serve_stats + serve-SLO cadence
     warm: bool = True                # score serve.methods at boot
     request_log: bool = True         # one serve_request record per request
-    # --- serving fleet (not ported: cli serve refuses replicas > 1) -------
+    # --- serving fleet (serve/fleet.py + serve/router.py) ----------------
     replicas: int = 1
     router_port: int = 0
     # A dispatch in flight longer than this makes /healthz critical.
@@ -383,13 +386,27 @@ class ElasticConfig:
     resume_preempted: bool = True
 
 
+@dataclass
+class TuningConfig:
+    """Autotuner manifest consumption (``tuning.py``): ``manifest`` is the
+    path of a sha256-digest-signed ``tuning_manifest.json`` (null = the
+    default ``artifacts/tuning_manifest.json`` if present); ``apply`` is the
+    stale-manifest policy: ``auto`` applies a matching manifest and skips a
+    mismatched one with a logged reason, ``off`` never reads it, ``strict``
+    turns every skip (missing file, geometry or hardware mismatch) into a
+    startup error (exit 2). Explicit user config and already-set env gates
+    always win over manifest knobs, in every mode."""
+
+    manifest: str | None = None
+    apply: str = "auto"
+
+
 #: Keys the port does not have: accepted, ignored.
 _IGNORED_SECTIONS: dict[str, Any] = {
     "parallel": {"overlap": {"enabled", "latency_hiding_scheduler",
                              "async_all_gather", "async_reduce_scatter",
                              "async_all_reduce", "async_collective_permute",
                              "extra_flags"}},
-    "tuning": {"manifest", "apply"},
 }
 
 
@@ -407,8 +424,13 @@ class Config:
     serve: ServeConfig = field(default_factory=ServeConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     elastic: ElasticConfig = field(default_factory=ElasticConfig)
+    tuning: TuningConfig = field(default_factory=TuningConfig)
 
     def validate(self) -> "Config":
+        if self.tuning.apply not in ("auto", "off", "strict"):
+            raise ValueError(
+                f"tuning.apply must be auto | off | strict, got "
+                f"{self.tuning.apply!r}")
         if self.data.dataset not in ("cifar10", "cifar100", "synthetic",
                                      "synthetic_imagenet", "npz", "sharded"):
             raise ValueError(f"unknown dataset {self.data.dataset!r}")
@@ -561,13 +583,10 @@ class Config:
 
     def _validate_obs_serve(self) -> None:
         o = self.obs
-        for key, what in (("plots_dir", "the post-run plots (obs/plots.py)"),
-                          ("slo_fleet_p95_ms", "the serving fleet's SLOs"),
-                          ("slo_fleet_available_frac", "the serving fleet's SLOs")):
-            if getattr(o, key) is not None:
-                raise NotImplementedError(
-                    f"obs.{key}: {what} are not ported to the PyTorch package "
-                    "(ROADMAP.md Queue 1); leave it null")
+        if o.plots_dir is not None:
+            raise NotImplementedError(
+                "obs.plots_dir: the post-run plots (obs/plots.py) are not ported "
+                "to the PyTorch package (ROADMAP.md Queue 1); leave it null")
         if o.snapshot_every_s < 0:
             raise ValueError(
                 f"obs.snapshot_every_s must be >= 0 (0 disables periodic "
@@ -616,6 +635,13 @@ class Config:
             raise ValueError(
                 f"obs.slo_serve_reject_frac must be in [0, 1), got "
                 f"{o.slo_serve_reject_frac}")
+        if o.slo_fleet_p95_ms is not None and o.slo_fleet_p95_ms <= 0:
+            raise ValueError(f"obs.slo_fleet_p95_ms must be > 0, got {o.slo_fleet_p95_ms}")
+        if (o.slo_fleet_available_frac is not None
+                and not 0.0 < o.slo_fleet_available_frac <= 1.0):
+            raise ValueError(
+                f"obs.slo_fleet_available_frac must be in (0, 1], got "
+                f"{o.slo_fleet_available_frac}")
         sv = self.serve
         if not 0 <= sv.port <= 65535:
             raise ValueError(
@@ -726,7 +752,8 @@ _SECTIONS = {"data": DataConfig, "model": ModelConfig, "optim": OptimConfig,
              "prune": PruneConfig, "train": TrainConfig,
              "resilience": ResilienceConfig, "mesh": MeshConfig,
              "obs": ObsConfig, "serve": ServeConfig,
-             "checkpoint": CheckpointConfig, "elastic": ElasticConfig}
+             "checkpoint": CheckpointConfig, "elastic": ElasticConfig,
+             "tuning": TuningConfig}
 
 
 def _check_ignored(keys: Any, value: Any, where: str) -> None:

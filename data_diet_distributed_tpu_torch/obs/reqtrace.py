@@ -25,7 +25,11 @@ phase                      meaning
 ``serialize``              replica: JSON-encoding the response body
 ========================  ==================================================
 
-emitted as ``{"kind": "serve_trace"}`` records. Retention is
+emitted as ``{"kind": "serve_trace"}`` records: a replica's with
+``where="replica"`` (``serve/server.py``), the router's with
+``where="router"`` and the ``replica``, ``retries``, ``hedged``, ``replay``
+and per-attempt ``attempts`` fields (``serve/router.py::ServeRouter``,
+where a failover shows up as ``routing`` time). Retention is
 *tail-biased*: failed, slow, retried, hedged, and replayed requests are
 always kept; healthy traffic is head-sampled by hashing the trace id
 against ``serve.trace_sample_frac`` — a pure function of the id, so the

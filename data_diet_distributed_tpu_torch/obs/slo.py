@@ -32,13 +32,20 @@ Serving objectives, at every ``serve_stats`` point of the serve loop:
 * **admission**: the rejected fraction of all submits so far against
   ``slo_serve_reject_frac``.
 
+Fleet objectives, at every ``serve_fleet`` stats point of the fleet
+supervisor (``serve/fleet.py``):
+
+* **fleet p95**: the router's p95 request latency against
+  ``slo_fleet_p95_ms`` (also the canary's floor, ``judge_canary``, and the
+  autoscaler's pressure signal);
+* **availability**: the routable fraction of the replicas against
+  ``slo_fleet_available_frac``.
+
 Each violation emits ONE ``{"kind": "slo_violation"}`` record, increments the
 ``slo_violations`` counter, sets the ``slo_ok`` / ``slo_margin:<name>``
 gauges, and is retained (bounded) for the ``/healthz`` verdict and
 ``run_summary.slo``. A sustained breach re-records at each new evaluation
-point, never twice for one. The fleet objectives (``slo_fleet_*``) go with
-the serving fleet, which is not ported; the config refuses them by name.
-Module-level slot, no-op until installed. Imports no torch.
+point, never twice for one. Module-level slot, no-op until installed.
 """
 
 from __future__ import annotations
@@ -51,8 +58,9 @@ import numpy as np
 from . import registry as obs_registry
 
 __all__ = ["SloEngine", "ledger_baseline", "install", "uninstall", "current",
-           "check_epoch", "check_scores", "check_serve", "arm_recovery",
-           "note_training_step", "DEFAULT_BASELINE_WINDOW"]
+           "check_epoch", "check_scores", "check_serve", "check_fleet",
+           "arm_recovery", "note_training_step", "judge_canary",
+           "DEFAULT_BASELINE_WINDOW"]
 
 #: Trailing clean records forming the ledger baseline.
 DEFAULT_BASELINE_WINDOW = 5
@@ -131,6 +139,8 @@ class SloEngine:
                  serve_p95_ms: float | None = None,
                  serve_queue_depth: int | None = None,
                  serve_reject_frac: float | None = None,
+                 fleet_p95_ms: float | None = None,
+                 fleet_available_frac: float | None = None,
                  baseline_window: int = DEFAULT_BASELINE_WINDOW,
                  geometry: dict | None = None, backend: str | None = None,
                  logger=None):
@@ -153,6 +163,10 @@ class SloEngine:
         self.serve_p95_ms = serve_p95_ms
         self.serve_queue_depth = serve_queue_depth
         self.serve_reject_frac = serve_reject_frac
+        # The fleet contract (serve/fleet.py): the router's p95 across the
+        # whole pod and the routable-replica floor.
+        self.fleet_p95_ms = fleet_p95_ms
+        self.fleet_available_frac = fleet_available_frac
         self.logger = logger
         self.violations: list[dict] = []   # bounded retention (MAX_RETAINED)
         self.total_violations = 0          # exact count, never trimmed
@@ -170,8 +184,8 @@ class SloEngine:
         if all(v is None for v in (
                 o.slo_throughput_floor, o.slo_throughput_frac, o.slo_heartbeat_stale_s,
                 o.slo_nonfinite_frac, o.slo_eval_accuracy_floor, o.slo_recovery_s,
-                o.slo_serve_p95_ms,
-                o.slo_serve_queue_depth, o.slo_serve_reject_frac)):
+                o.slo_serve_p95_ms, o.slo_serve_queue_depth, o.slo_serve_reject_frac,
+                o.slo_fleet_p95_ms, o.slo_fleet_available_frac)):
             return None
         return cls(throughput_floor=o.slo_throughput_floor,
                    throughput_frac=o.slo_throughput_frac, ledger=o.perf_ledger,
@@ -182,7 +196,9 @@ class SloEngine:
                    recovery_s=o.slo_recovery_s,
                    serve_p95_ms=o.slo_serve_p95_ms,
                    serve_queue_depth=o.slo_serve_queue_depth,
-                   serve_reject_frac=o.slo_serve_reject_frac, logger=logger)
+                   serve_reject_frac=o.slo_serve_reject_frac,
+                   fleet_p95_ms=o.slo_fleet_p95_ms,
+                   fleet_available_frac=o.slo_fleet_available_frac, logger=logger)
 
     def objectives(self) -> dict:
         """The configured floors and budgets (for the verdict), the resolved
@@ -190,7 +206,8 @@ class SloEngine:
         out = {k: getattr(self, k) for k in
                ("throughput_floor", "throughput_frac", "heartbeat_stale_s",
                 "nonfinite_frac", "eval_accuracy_floor", "recovery_s", "serve_p95_ms",
-                "serve_queue_depth", "serve_reject_frac")
+                "serve_queue_depth", "serve_reject_frac", "fleet_p95_ms",
+                "fleet_available_frac")
                if getattr(self, k) is not None}
         if self._baseline_resolved:
             out["throughput_baseline"] = self._baseline
@@ -380,6 +397,23 @@ class SloEngine:
                           point=("serve_admission", point))
         self._mark_ok()
 
+    def check_fleet(self, *, point, p95_ms: float | None = None,
+                    available_frac: float | None = None, logger=None) -> None:
+        """One serve_fleet stats point: the router's p95 vs
+        ``slo_fleet_p95_ms`` and the routable-replica fraction vs
+        ``slo_fleet_available_frac``. A sustained breach re-records at each
+        new point, never twice for one."""
+        if (self.fleet_p95_ms is not None and p95_ms is not None
+                and p95_ms > self.fleet_p95_ms):
+            self._violate("fleet_p95", round(float(p95_ms), 3), self.fleet_p95_ms,
+                          logger=logger, point=("fleet_p95", point))
+        if (self.fleet_available_frac is not None and available_frac is not None
+                and available_frac < self.fleet_available_frac):
+            self._violate("fleet_availability", round(float(available_frac), 6),
+                          self.fleet_available_frac, logger=logger,
+                          point=("fleet_availability", point))
+        self._mark_ok()
+
 
 # --------------------------------------------------------- module-level slot
 
@@ -419,6 +453,13 @@ def check_serve(**kwargs) -> None:
         _ENGINE.check_serve(**kwargs)
 
 
+def check_fleet(**kwargs) -> None:
+    """Library-code entry (the fleet supervisor's stats points): no-op until
+    an engine is installed."""
+    if _ENGINE is not None:
+        _ENGINE.check_fleet(**kwargs)
+
+
 def arm_recovery(metrics_path: str | None) -> None:
     """Library-code entry (``fit``'s resume): no-op until installed."""
     if _ENGINE is not None:
@@ -430,3 +471,23 @@ def note_training_step(*, logger=None) -> None:
     recovery clock is armed."""
     if _ENGINE is not None and _ENGINE._recovery_anchor is not None:
         _ENGINE.note_training_step(logger=logger)
+
+
+def judge_canary(*, served: int, errors: int, p95_ms: float | None,
+                 p95_floor_ms: float | None,
+                 error_frac_floor: float | None = None) -> tuple[bool, list[str]]:
+    """The canary-roll verdict (``serve/router.py``), here because its floors
+    are the fleet SLOs: a canary fails when its window's error rate exceeds
+    the tolerated fraction (default: any error at all) or its window p95
+    exceeds the fleet p95 floor. Returns ``(ok, reasons)``; an empty window
+    is judged inconclusive by the caller before it calls."""
+    reasons: list[str] = []
+    if served > 0:
+        frac = errors / served
+        tol = error_frac_floor if error_frac_floor is not None else 0.0
+        if frac > tol:
+            reasons.append(f"canary error rate {frac:.3f} > {tol:g} "
+                           f"({errors}/{served} requests)")
+        if p95_floor_ms is not None and p95_ms is not None and p95_ms > p95_floor_ms:
+            reasons.append(f"canary p95 {p95_ms:.1f}ms > fleet floor {p95_floor_ms:g}ms")
+    return not reasons, reasons

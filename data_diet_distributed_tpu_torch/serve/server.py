@@ -28,7 +28,9 @@ the CLI maps it to exit 75 like every preempted run. ``run_serve`` is the
 ``cli serve`` entry: one process on one device. It scores ``serve.methods`` on
 the main thread BEFORE the socket binds, which builds the CUDA kernels there
 (``serve.warm=false`` builds them at the first dispatch, on the dispatcher
-thread under the engine lock). The router and the fleet are not ported.
+thread under the engine lock). Several replicas behind the router are
+``fleet.py``'s; each is this ``cli serve`` with ``DDT_SERVE_REPLICA`` set.
+``/status`` also carries the process's ``kernel_launches`` so far.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from ..obs import registry as obs_registry
 from ..obs import reqtrace as obs_reqtrace
 from ..obs import server as obs_server
 from ..obs import slo as obs_slo
+from ..ops import kernels
 from ..resilience.preemption import Preempted, PreemptionHandler
 from .batcher import Backpressure, Draining, ScoreBatcher
 from .engine import ServeEngine
@@ -221,6 +224,8 @@ class ServeServer(obs_server.StatusServer):
     def status(self) -> dict:
         out = super().status()
         out["serve"] = self.service.stats_record()
+        # A reader takes the delta across one request: its dispatch's launches.
+        out["kernel_launches"] = kernels.launch_counts()
         return out
 
     def health(self) -> dict:

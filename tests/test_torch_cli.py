@@ -47,12 +47,8 @@ def _summary(capsys) -> dict:
     return json.loads(lines[-1])
 
 
-# What is not ported yet still refuses by name: the serving fleet, and a
-# multi-host service.
+# What is not ported yet still refuses by name: a multi-host service.
 @pytest.mark.parametrize("argv,match", [
-    (["serve", "--config", SMOKE, "--device", "cpu", "serve.replicas=2"], "serving fleet"),
-    (["serve", "--config", SMOKE, "--device", "cpu", "serve.max_replicas=2"],
-     "serving fleet"),
     (["serve", "--config", SMOKE, "--device", "cpu", "mesh.multihost=true",
       "mesh.coordinator_address=127.0.0.1:1", "mesh.num_processes=1",
       "mesh.process_id=0"], "one process on one device"),

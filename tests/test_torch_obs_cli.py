@@ -3,8 +3,9 @@ package's ``cli run`` on the same tiny config (tiny_cnn, 64 synthetic
 examples, one pretrain epoch a seed, two seeds, GraNd, two retrain epochs):
 
 * both streams pass ``tools/validate_metrics.py --expect-terminal``;
-* every record kind of the JAX stream is in the port's, with at least the
-  JAX record's keys (``JAX_ONLY_KINDS`` names the exception);
+* every record kind of the JAX stream is in the port's (the tuning
+  manifest's ``tuning_applied`` verdict included), with at least the JAX
+  record's keys;
 * ``tools/trace_report.py`` reads the port's trace, and its span names and
   their nesting equal the JAX trace's (the JAX chunked engine's ``chunk``
   span aside; both runs take the per-step path here);
@@ -38,12 +39,6 @@ from data_diet_distributed_tpu_torch.ops.scores import make_local_scores, resolv
 from data_diet_distributed_tpu_torch.weights import init_variables
 
 REPO = Path(__file__).resolve().parent.parent
-
-#: Kinds of the JAX stream the port does not emit, with the reason (ROADMAP
-#: Queue 3 carries them): ``tuning_applied`` is the autotuner's manifest
-#: verdict, and the autotuner (``data_diet_distributed_tpu/tuning.py``) is not
-#: ported.
-JAX_ONLY_KINDS = {"tuning_applied"}
 
 RUN = ["run", "data.dataset=synthetic", "data.synthetic_size=64", "data.batch_size=32",
        "data.eval_batch_size=64", "score.batch_size=32", "score.grand_chunk=8",
@@ -116,8 +111,8 @@ def test_streams_validate_and_port_has_every_jax_kind_and_key(runs):
         return out
 
     want, got = keys_by_kind(jax_recs), keys_by_kind(port_recs)
-    assert JAX_ONLY_KINDS <= set(want)
-    for kind in sorted(set(want) - JAX_ONLY_KINDS):
+    assert "tuning_applied" in want   # the manifest's verdict, in both streams
+    for kind in sorted(want):
         assert kind in got, kind
         assert want[kind] <= got[kind], (kind, want[kind] - got[kind])
     summary = port_recs[-1]

@@ -302,12 +302,13 @@ def test_memory_monitor_stands_down_on_cpu_and_kernels_report_work():
                                  "slo_fleet_available_frac=0.5", "slo_recovery_s=9"])
 def test_unported_obs_keys_refuse_by_name(key):
     """The keys whose instruments the port lacks refuse by name; the recovery
-    SLO, ported with the elastic supervisor, is accepted and armed."""
+    SLO (ported with the elastic supervisor) and the fleet SLOs (ported with
+    the serving fleet) are accepted and armed."""
     name, value = key.split("=")
-    if name == "slo_recovery_s":
+    if name.startswith("slo_"):
         cfg = load_config(None, [f"obs.{key}"])
-        assert cfg.obs.slo_recovery_s == float(value)
-        assert slo.SloEngine.from_cfg(cfg).objectives() == {"recovery_s": 9}
+        assert getattr(cfg.obs, name) == float(value)
+        assert slo.SloEngine.from_cfg(cfg).objectives() == {name[4:]: float(value)}
         return
     with pytest.raises(NotImplementedError, match=f"obs.{name}"):
         load_config(None, [f"obs.{key}"])

@@ -71,7 +71,8 @@ def test_tail_batch_rule_matches_jax():
 def test_repo_configs_load(name):
     path = os.path.join(REPO, "configs", name)
     got, want = load_config(path), flax_load_config(path)
-    for section in ("data", "model", "score", "prune", "train", "checkpoint", "elastic"):
+    for section in ("data", "model", "score", "prune", "train", "checkpoint", "elastic",
+                    "tuning"):
         assert vars(getattr(got, section)) == vars(getattr(want, section)), section
 
 

@@ -123,6 +123,30 @@ Phases (the first failure exits non-zero; nothing is caught):
    BN_KERNEL route; (e) again, and each tuned replica's ``metrics`` record
    counts ``bn_grad_norm``. Files in ``chip_smoke_out/fleet/`` (removed after a
    pass).
+6d. Mesh serve: ``cli serve`` as ``MESH_WORLD`` = 2 ranks on cuda:0 over gloo
+   (NCCL refuses two ranks on one card), each a worker process of this script
+   (``--mesh-serve-worker``), with the service phase's model, data, seeds,
+   batch 512 and bf16, both methods warm. Before ``cli.main`` each rank scores
+   the dataset with ``score_dataset`` on the same two ranks at the same batch,
+   for the boot variables and for the refresh step: the references. (a) every
+   ``/v1/score`` (1, 100 and 512 ids: partial blocks and a full one),
+   ``/v1/rank`` (100 ids) and ``/v1/topk?k=100`` answer bitwise the reference,
+   both methods, with the largest difference from the single process (the
+   path's scores) on the same ids reported; (b) one 512-row dispatch launches
+   12 direct and 3 Gram per seed for GraNd, 1 EL2N per seed for EL2N on EACH
+   rank (``/status`` ``rank_kernel_launches`` deltas, gathered every
+   ``MESH_STATS_S``); (e) ``SERVICE_CLIENTS`` x ``SERVICE_REQUESTS`` requests
+   per method, every answer bitwise, p50/p95 printed beside the single
+   process's (6b) and the fleet router's (6c), not held; (c)
+   ``/v1/refresh`` to a step written by the port's ``CheckpointManager``
+   under a hammer: every answer bitwise the old or the new reference, none
+   mixed, and then ``/v1/score`` and ``/v1/topk`` bitwise the new one; (d) a
+   SIGTERM to rank 1 ends both ranks with exit 75, rank 0 after its drain
+   (its ``preempted`` record: signal ``peer``, drained), and both ranks'
+   streams (``metrics.jsonl``, ``metrics.rank1.jsonl``) pass
+   ``tools/validate_metrics.py`` ending in ``run_summary`` ``preempted``, only
+   rank 0's with an ``obs_server`` record. Files in
+   ``chip_smoke_out/mesh_serve/`` (removed after a pass).
 7. ResNet-50: ``create_model("resnet50", 100)`` on synthetic CIFAR-100-geometry
    data (1,024 examples, one seed, batch 512, bf16) through ``score_dataset``
    for ``el2n`` and ``grand_last_layer``: one launch of the kernel a batch,
@@ -324,7 +348,7 @@ route; the cuDNN dgrad launches must drop from 19 to 9 on the megakernel
 route, and the profiled BN and Gram time per batch is printed beside the
 ``device_ms`` sums.
 
-Every counted run (phases 4, 5, 6b and 7, phase 6c's replicas, phase 8's
+Every counted run (phases 4, 5, 6b and 7, phase 6c's replicas, phase 6d's ranks, phase 8's
 ``run``, phase 9's runs of ``run_datadiet``, phase 10's ``cli run``, phase 11's
 ``score_dataset`` passes and ``cli sweep``, and the relaunched attempts of
 phase 12b, each a new process) starts with the launch counts at 0
@@ -3519,10 +3543,10 @@ def drill_worker(argv: list[str]) -> int:
     os._exit(rc)
 
 
-def spawn(args: list[str], tag: str, plan: str | None = None) -> dict:
+def spawn(args: list[str], tag: str, plan: str | None = None, root: str = DIST_ROOT) -> dict:
     """Start this script as a worker (with ``plan`` as its ``DDT_FAULT_PLAN``);
-    its output goes to ``DIST_ROOT/<tag>.log``."""
-    log = open(os.path.join(DIST_ROOT, f"{tag}.log"), "w")
+    its output goes to ``<root>/<tag>.log``."""
+    log = open(os.path.join(root, f"{tag}.log"), "w")
     env = {k: v for k, v in os.environ.items() if k != "DDT_FAULT_PLAN"}
     env["PYTHONPATH"] = REPO
     if plan is not None:
@@ -3530,7 +3554,7 @@ def spawn(args: list[str], tag: str, plan: str | None = None) -> dict:
     proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), *args], cwd=REPO,
                             stdout=log, stderr=subprocess.STDOUT, env=env)
     log.close()
-    return {"proc": proc, "tag": tag, "t0": time.time()}
+    return {"proc": proc, "tag": tag, "t0": time.time(), "root": root}
 
 
 def finish(workers: list[dict], timeout: float = DIST_TIMEOUT_S) -> None:
@@ -3546,7 +3570,7 @@ def finish(workers: list[dict], timeout: float = DIST_TIMEOUT_S) -> None:
                 w["proc"].kill()
                 w["proc"].wait(timeout=30)
     for w in workers:
-        with open(os.path.join(DIST_ROOT, f"{w['tag']}.log")) as fh:
+        with open(os.path.join(w["root"], f"{w['tag']}.log")) as fh:
             w["log"] = fh.read()
 
 
@@ -4835,6 +4859,297 @@ def fleet_phase(torch, port, path, details_out, card: str) -> dict:
     return counts
 
 
+MESH_ROOT = os.path.join(REPO, "chip_smoke_out", "mesh_serve")
+MESH_WORLD = 2                 # two ranks on cuda:0 over gloo (NCCL refuses two a card)
+MESH_BOOT_S = 300              # both ranks booted, the references and warm passes scored
+MESH_STATS_S = 0.5             # serve.stats_every_s: the cadence of the launches gather
+MESH_GRACE_S = 60.0            # resilience.consensus_grace_s: two ranks share the card
+MESH_REFRESH_STEP = 2
+MESH_PARTIAL = (1, 100, B)     # request sizes of (a): partial blocks and a full one
+
+
+def mesh_serve_worker(argv: list[str]) -> int:
+    """``--mesh-serve-worker RANK PORT REF_DIR [cli serve arguments]``: one of
+    two ranks on cuda:0 over gloo. Before ``cli.main`` it scores the
+    service's dataset with ``score_dataset`` on the same two ranks at the same
+    batch, for the boot variables and for the refresh step, and writes each
+    rank's vectors to ``REF_DIR``: what every served answer is held against."""
+    rank, port_no, ref_dir, cli_argv = int(argv[0]), argv[1], argv[2], argv[3:]
+    port = load_port()
+    from data_diet_distributed_tpu_torch.config import MeshConfig
+    from data_diet_distributed_tpu_torch.parallel import mesh
+    mesh.initialize_multihost(MeshConfig(multihost=True,
+                                         coordinator_address=f"127.0.0.1:{port_no}",
+                                         num_processes=MESH_WORLD, process_id=rank),
+                              "cuda:0", backend="gloo")
+    config = cli_argv[cli_argv.index("--config") + 1]
+    cfg = port["load_config"](config, [a for a in cli_argv if "=" in a])
+    T = port["train"]
+    ds, _ = T["load_data_for"](cfg)
+    model = port["create_model_from_cfg"](cfg)
+    sets = {"boot": T["score_variables_for_seeds"](cfg, ds, device="cuda:0"),
+            "step": [port["CheckpointManager"](cfg.train.checkpoint_dir).restore_variables(
+                MESH_REFRESH_STEP, "cuda:0")]}
+    for name, variables in sets.items():
+        for method in ("el2n", "grand"):
+            scores = port["score_dataset"](model, variables, ds, method=method,
+                                           batch_size=cfg.score.batch_size, device="cuda:0")
+            np.save(os.path.join(ref_dir, f"{name}_{method}_r{rank}.npy"), scores)
+    rc = port["data"]["cli"].main([*cli_argv, "--device", "cuda:0"])
+    sys.stdout.flush()
+    os._exit(rc)
+
+
+def mesh_serve_phase(torch, port, path, details_out, card: str) -> dict:
+    """``cli serve`` as ``MESH_WORLD`` ranks on the card (the service phase's
+    model, data, seeds, batch and dtype, both methods warm); gates (a)-(e) of
+    the module docstring. Returns the ranks' launches by kernel (each rank a
+    new process, read from its stream's last ``metrics`` record). Files in
+    ``MESH_ROOT`` (removed after a pass)."""
+    import signal
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_ROOT, ignore_errors=True)
+    os.makedirs(MESH_ROOT)
+    rec: dict = {}
+    details_out["mesh_serve"] = rec
+    K = port["kernels"]
+    ds, cfg = path["ds"], path["cfg"]
+    pos = {int(i): k for k, i in enumerate(ds.indices)}
+    single = {m: path["results"][m]["scores"] for m in ("el2n", "grand")}
+
+    def truth(scores, ids):
+        return scores[[pos[int(i)] for i in ids]]
+
+    ckpt = os.path.join(MESH_ROOT, "ckpt")
+    port["CheckpointManager"](ckpt).save(MESH_REFRESH_STEP, port["train"][
+        "state_from_variables"](port["init_variables"]("resnet18", 5, "cuda"),
+                                port["create_model_from_cfg"](cfg)))
+    metrics = os.path.join(MESH_ROOT, "metrics.jsonl")
+    argv = ["serve", "--config", os.path.join(REPO, "configs", "cifar10_resnet18.yaml"),
+            "data.dataset=synthetic", f"data.synthetic_size={N_PATH}",
+            "score.pretrain_epochs=0", f"score.seeds={list(SEEDS)}", f"score.batch_size={B}",
+            "train.half_precision=true", "serve.port=0", "serve.methods=[el2n,grand]",
+            f"serve.stats_every_s={MESH_STATS_S}", f"serve.drain_timeout_s={SERVICE_DRAIN_S}",
+            f"resilience.consensus_grace_s={MESH_GRACE_S}", f"obs.metrics_path={metrics}",
+            f"train.checkpoint_dir={ckpt}"]
+    port_no = free_port()
+    ranks = [spawn(["--mesh-serve-worker", str(r), port_no, MESH_ROOT, *argv],
+                   f"rank{r}", root=MESH_ROOT) for r in range(MESH_WORLD)]
+    try:
+        t_boot = time.perf_counter()
+        sp = None
+        while sp is None:
+            check(time.perf_counter() - t_boot < MESH_BOOT_S
+                  and all(w["proc"].poll() is None for w in ranks),
+                  f"mesh_serve: rank 0 never announced its port "
+                  f"({[w['proc'].poll() for w in ranks]})")
+            time.sleep(0.2)
+            with open(os.path.join(MESH_ROOT, "rank0.log")) as fh:
+                sp = next((r["port"] for r in records(fh.read())
+                           if r.get("kind") == "obs_server"), None)
+        rec["boot_s"] = boot = time.perf_counter() - t_boot
+        ref = {}
+        for name in ("boot", "step"):
+            for m in ("el2n", "grand"):
+                got = [np.load(os.path.join(MESH_ROOT, f"{name}_{m}_r{r}.npy"))
+                       for r in range(MESH_WORLD)]
+                check(all(np.array_equal(got[0], g) for g in got),
+                      f"mesh_serve: the ranks' score_dataset vectors differ ({name} {m})")
+                ref[name, m] = got[0]
+        print(f"  {MESH_WORLD} ranks of cli serve on cuda:0 over gloo answered on port {sp} "
+              f"{boot:.1f} s after launch (each rank's score_dataset references and warm "
+              f"passes included)", flush=True)
+
+        def score(ids, m):
+            code, _, raw = http_call(sp, "/v1/score", {"indices": [int(i) for i in ids],
+                                                       "method": m})
+            check(code == 200, f"mesh_serve: /v1/score {m}: {code} {raw[:300]}")
+            return scores_of(raw)
+
+        # (a) bitwise score_dataset on the same ranks at the same batch.
+        rng = np.random.default_rng(17)
+        rec["max_abs_vs_single"] = {}
+        for m in ("el2n", "grand"):
+            worst = 0.0
+            for n in MESH_PARTIAL:
+                ids = rng.choice(ds.indices, size=n, replace=False)
+                got = score(ids, m)
+                check(np.array_equal(got, truth(ref["boot", m], ids)),
+                      f"(a) {m}: {n} ids not bitwise score_dataset at W = {MESH_WORLD}")
+                worst = max(worst, float(np.max(np.abs(got - truth(single[m], ids)))))
+            ids = rng.choice(ds.indices, size=100, replace=False)
+            code, _, raw = http_call(sp, "/v1/rank", {"indices": ids.tolist(), "method": m})
+            s = truth(ref["boot", m], ids)
+            order = np.lexsort((ids, -s))
+            got = json.loads(raw)
+            check(code == 200 and got["indices"] == ids[order].tolist()
+                  and np.array_equal(np.asarray(got["scores"], np.float32), s[order]),
+                  f"(a) {m}: /v1/rank not bitwise score_dataset's ranking")
+            code, _, raw = http_call(sp, f"/v1/topk?k=100&method={m}")
+            order = np.lexsort((ds.indices, -ref["boot", m]))[:100]
+            items = [json.loads(x) for x in raw.splitlines() if x.strip()]
+            check(code == 200 and [i["index"] for i in items] == ds.indices[order].tolist()
+                  and np.array_equal(np.asarray([i["score"] for i in items], np.float32),
+                                     ref["boot", m][order]),
+                  f"(a) {m}: /v1/topk not bitwise score_dataset's")
+            rec["max_abs_vs_single"][m] = worst
+        print(f"  (a) /v1/score of {list(MESH_PARTIAL)} ids, /v1/rank (100 ids) and "
+              f"/v1/topk?k=100 bitwise score_dataset on the same {MESH_WORLD} ranks at "
+              f"batch {B}, both methods; largest |difference| from the single process "
+              f"{rec['max_abs_vs_single']}", flush=True)
+
+        # (b) each rank's launches for one served dispatch, from /status deltas of
+        # the launches gathered at the stats cadence.
+        def rank_launches():
+            time.sleep(3 * MESH_STATS_S)
+            code, _, raw = http_call(sp, "/status")
+            check(code == 200, f"mesh_serve: /status {code}")
+            body = json.loads(raw)
+            check(body.get("world") == MESH_WORLD, f"mesh_serve: /status world {body.get('world')}")
+            return body["rank_kernel_launches"]
+
+        rec["per_dispatch"] = {}
+        want = {"grand": {"conv_grad_norm_direct": 12 * len(SEEDS),
+                          "conv_grad_norm_gram": 3 * len(SEEDS)},
+                "el2n": {"el2n": len(SEEDS)}}
+        for m in ("grand", "el2n"):
+            before = rank_launches()
+            score(rng.choice(ds.indices, size=B, replace=False), m)
+            after = rank_launches()
+            deltas = [{k: a[k] - b.get(k, 0) for k in a if a[k] - b.get(k, 0)}
+                      for a, b in zip(after, before)]
+            check(deltas == [want[m]] * MESH_WORLD,
+                  f"(b) {m}: launches per rank for one {B}-row dispatch {deltas}")
+            rec["per_dispatch"][m] = deltas
+        print(f"  (b) one {B}-row dispatch launches on each rank: grand "
+              f"{rec['per_dispatch']['grand'][0]}, el2n {rec['per_dispatch']['el2n'][0]} "
+              f"(the single process's, per rank)", flush=True)
+
+        # (e) latency at the service phase's load.
+        import threading
+        rec["latency"] = {}
+        for m in ("el2n", "grand"):
+            ms, bad = [], []
+
+            def client(k: int, m=m, ms=ms, bad=bad) -> None:
+                r = np.random.default_rng(400 + k)
+                for _ in range(SERVICE_REQUESTS):
+                    ids = r.choice(ds.indices, size=int(r.integers(1, SERVICE_MAX_IDS + 1)),
+                                   replace=False)
+                    t = time.perf_counter()
+                    code, _, raw = http_call(sp, "/v1/score", {"indices": ids.tolist(),
+                                                               "method": m})
+                    ms.append((time.perf_counter() - t) * 1e3)
+                    if code != 200 or not np.array_equal(scores_of(raw),
+                                                         truth(ref["boot", m], ids)):
+                        bad.append((code, ids[:4].tolist()))
+
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(SERVICE_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+            check(len(ms) == SERVICE_CLIENTS * SERVICE_REQUESTS and not bad,
+                  f"(e) {m}: {len(ms)} answers, {len(bad)} not 200 and bitwise: {bad[:3]}")
+            p50, p95 = (float(np.percentile(ms, q)) for q in (50, 95))
+            one = details_out.get("service", {}).get("load", {}).get(m, {})
+            fl = details_out.get("fleet", {}).get("latency", {}).get(m, {})
+            rec["latency"][m] = {"p50_ms": p50, "p95_ms": p95, "n": len(ms),
+                                 "single": one, "fleet": fl}
+            print(f"  (e) {m}: {SERVICE_CLIENTS} clients x {SERVICE_REQUESTS} requests of "
+                  f"1-{SERVICE_MAX_IDS} ids, all bitwise; p50 {p50:.2f} ms, p95 {p95:.2f} ms "
+                  f"(single process {one.get('p50_ms', float('nan')):.2f} / "
+                  f"{one.get('p95_ms', float('nan')):.2f}, fleet router "
+                  f"{fl.get('p50_ms', float('nan')):.2f} / {fl.get('p95_ms', float('nan')):.2f}) "
+                  f"on {card}", flush=True)
+
+        # (c) a refresh under a hammer: each answer is the old or the new model's,
+        # and after it both ranks answer with the new one.
+        hammered, stop = [], threading.Event()
+
+        def hammer() -> None:
+            r = np.random.default_rng(500)
+            while not stop.is_set():
+                ids = r.choice(ds.indices, size=SERVICE_MAX_IDS, replace=False)
+                code, _, raw = http_call(sp, "/v1/score", {"indices": ids.tolist(),
+                                                           "method": "grand"})
+                got = scores_of(raw) if code == 200 else None
+                hammered.append(f"status {code}" if got is None
+                                else "old" if np.array_equal(got, truth(ref["boot", "grand"],
+                                                                        ids))
+                                else "new" if np.array_equal(got, truth(ref["step", "grand"],
+                                                                        ids))
+                                else "mixed")
+
+        th = threading.Thread(target=hammer)
+        th.start()
+        time.sleep(1.0)
+        t = time.perf_counter()
+        code, _, raw = http_call(sp, "/v1/refresh", {"step": MESH_REFRESH_STEP})
+        rec["refresh_ms"] = 1e3 * (time.perf_counter() - t)
+        time.sleep(1.0)
+        stop.set()
+        th.join(120)
+        check(code == 200 and json.loads(raw)["status"] == "installed",
+              f"(c) refresh: {code} {raw[:300]}")
+        check(set(hammered) == {"old", "new"} and hammered[0] == "old"
+              and hammered[-1] == "new",
+              f"(c) answers during the refresh: {collections.Counter(hammered)}")
+        for m in ("el2n", "grand"):
+            ids = rng.choice(ds.indices, size=100, replace=False)
+            check(np.array_equal(score(ids, m), truth(ref["step", m], ids)),
+                  f"(c) {m} after the refresh: not score_dataset on the step")
+            code, _, raw = http_call(sp, f"/v1/topk?k=100&method={m}")
+            order = np.lexsort((ds.indices, -ref["step", m]))[:100]
+            items = [json.loads(x) for x in raw.splitlines() if x.strip()]
+            check(code == 200 and np.array_equal(
+                np.asarray([i["score"] for i in items], np.float32), ref["step", m][order]),
+                  f"(c) {m}: /v1/topk after the refresh not score_dataset on the step")
+        print(f"  (c) refresh to step {MESH_REFRESH_STEP} installed on both ranks in "
+              f"{rec['refresh_ms']:.1f} ms under a hammer of {len(hammered)} requests "
+              f"({collections.Counter(hammered)}), none mixed; afterwards /v1/score and "
+              "/v1/topk bitwise score_dataset on the step", flush=True)
+
+        # (d) SIGTERM to rank 1: both ranks exit 75, rank 0 after its drain.
+        ranks[1]["proc"].send_signal(signal.SIGTERM)
+        t_term = time.time()
+        finish(ranks, timeout=t_term - ranks[0]["t0"] + SERVICE_DRAIN_S
+               + SERVICE_EXIT_GRACE_S)
+    except BaseException:
+        for w in ranks:
+            if w["proc"].poll() is None:
+                w["proc"].kill()
+        raise
+    check([w["rc"] for w in ranks] == [75] * MESH_WORLD,
+          "(d) " + " | ".join(worker_tail(w) for w in ranks))
+    exit_s = [w["t_exit"] - t_term for w in ranks]
+    counts = dict.fromkeys(K.KERNELS, 0)
+    for r, stream in enumerate([metrics] + [metrics.replace(".jsonl", f".rank{k}.jsonl")
+                                            for k in range(1, MESH_WORLD)]):
+        n = validate_stream(stream, expect_terminal=True)
+        recs = jsonl(stream)
+        check(recs[-1]["kind"] == "run_summary" and recs[-1]["exit_class"] == "preempted"
+              and any(x["kind"] == "preempted" for x in recs)
+              and any(x["kind"] == "obs_server" for x in recs) == (r == 0),
+              f"(d) rank {r}'s stream ({n} records) ends {recs[-1]}")
+        for k in counts:
+            counts[k] += int(summary_gauge(recs, f"kernel_launches:{k}") or 0)
+        if r == 0:
+            drain = next(x for x in recs if x["kind"] == "preempted")
+            check(drain.get("signal") == "peer" and drain.get("drained") is True,
+                  f"(d) rank 0's preempted record {drain}")
+    rec["exit_after_sigterm_s"] = exit_s
+    rec["launches"] = counts
+    rec["phase_wall_s"] = wall = time.perf_counter() - t_phase
+    print(f"  (d) SIGTERM to rank 1: both ranks exit 75 ({', '.join(f'{x:.1f}' for x in exit_s)}"
+          f" s after it; rank 0 drained), both streams valid and ending in run_summary "
+          f"preempted; the ranks' launches {counts}; mesh_serve phase: {wall:.1f} s",
+          flush=True)
+    shutil.rmtree(MESH_ROOT, ignore_errors=True)
+    return counts
+
+
 def summary_gauge(recs: list[dict], name: str):
     """A gauge of the stream's last registry snapshot."""
     snaps = [r for r in recs if r["kind"] == "metrics"]
@@ -4921,6 +5236,8 @@ def main(argv: list[str]) -> int:
         return dist_worker(argv[1:])
     if argv[:1] == ["--drill-worker"]:
         return drill_worker(argv[1:])
+    if argv[:1] == ["--mesh-serve-worker"]:
+        return mesh_serve_worker(argv[1:])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile GraNd batches with torch.profiler")
@@ -4992,6 +5309,9 @@ def main(argv: list[str]) -> int:
     phase("fleet")
     fleet = fleet_phase(torch, port, path, details, card)
 
+    phase("mesh_serve")
+    mesh_serve = mesh_serve_phase(torch, port, path, details, card)
+
     phase("resnet50")
     r50 = resnet50_phase(torch, port, details, card)
 
@@ -5033,7 +5353,7 @@ def main(argv: list[str]) -> int:
     # phase's run, the wrn phase's passes and sweep, and the elastic phase's
     # relaunched attempts.
     launches = {k: path["counts"][k] + routes["counts"][k] + service["counts"][k]
-                + fleet[k] + r50["counts"][k] + trained["counts"][k] + resil["counts"][k]
+                + fleet[k] + mesh_serve[k] + r50["counts"][k] + trained["counts"][k] + resil["counts"][k]
                 + data["counts"][k] + wrn["counts"][k] + elastic[k] for k in K.KERNELS}
     check(all(launches[k] > 0 for k in KERNEL_INFO), f"a kernel never launched: {launches}")
     entries = []

@@ -149,13 +149,16 @@ Across W processes (``mesh.multihost``), one device each, every entry point
 computes what the JAX package computes on a ``{data: W, model: 1}`` mesh:
 rank rows in both data planes, BatchNorm on the global batch, the
 global-count loss with summed gradients, per-rank scoring joined by one
-float64 sum per seed, primary-only writes, and the consensus drills.
+float64 sum per seed, primary-only writes, and the consensus drills; ``cli
+serve`` answers on rank 0 while every rank scores its rows of each request
+(``serve/engine.py``'s operations over the host group).
 
 Not ported yet: the tensor-parallel classifier (``mesh.model_axis > 1``),
 ``parallel/overlap.py`` (XLA flags for the TPU; ``parallel.overlap`` is
 accepted and ignored), the chunked training engine and its
-``StreamingBatches``, ``cli serve`` on a mesh (``mesh.multihost`` refuses by
-name for serving), what remains of observability (``obs/plots.py``:
-``obs.plots_dir`` refuses by name) and the tools (``tools/make_shards.py``,
-``tools/npz_to_npy.py``; their formats are the port's too).
+``StreamingBatches``, a fleet of meshes (``mesh.multihost`` with
+``serve.replicas > 1`` refuses by name), what remains of observability
+(``obs/plots.py``: ``obs.plots_dir`` refuses by name) and the tools
+(``tools/make_shards.py``, ``tools/npz_to_npy.py``; their formats are the
+port's too).
 """

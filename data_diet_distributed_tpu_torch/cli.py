@@ -32,7 +32,13 @@
   wedged replica on its port, rolls refreshes and tuning manifests one
   replica at a time and exits 75 on SIGTERM after the replicas drain; its
   terminal ``run_summary`` carries the fleet's ``exit_class`` and
-  ``lineage``. ``mesh.multihost`` refuses by name for serving.
+  ``lineage``. With the mesh keys below it serves from every rank (one card
+  each): rank 0 binds ``serve.port`` and answers, the other ranks bind
+  nothing and follow its operations (each request's padded block scored
+  ``B/W`` rows a rank), and every rank writes its own stream
+  (``<metrics>.rank<k>.jsonl`` beside rank 0's). ``mesh.multihost`` with
+  ``serve.replicas > 1`` or ``serve.max_replicas`` is refused by name: a
+  fleet of meshes is not ported.
 
 ``score``, ``run`` and ``sweep`` take every ``score.method``, the trajectory
 scores ``forgetting`` and ``aum`` included (their per-seed fits are the
@@ -84,10 +90,11 @@ Several processes: with ``mesh.multihost=true mesh.coordinator_address=H:P
 mesh.num_processes=W mesh.process_id=r`` each process joins the group
 (NCCL on CUDA, gloo with ``--device cpu``) before it loads data, and the W
 processes run the command as one data-parallel job. Rank 0 prints the
-records and the summary and writes the files; every rank exits 75 on an
-agreed preemption, and a failure under the group exits at once (69 for a
-``RuntimeError``, a peer's poison or a hang among them; 1 otherwise), since
-the teardown of a group with a dead peer can hang.
+records and the summary and writes the files (``serve``: every rank writes
+its own stream); every rank exits 75 on an agreed preemption, and a failure
+under the group exits at once (69 for a ``RuntimeError``, a peer's poison or
+a hang among them; 1 otherwise), since the teardown of a group with a dead
+peer can hang.
 """
 
 from __future__ import annotations
@@ -149,15 +156,6 @@ def train(cfg: Config, device, log) -> dict:
                             checkpoint_dir=cfg.train.checkpoint_dir, tag="dense")
     return {**res.throughput_summary(), "train_wall_s": round(res.wall_s, 3),
             "device": str(device)}
-
-
-def _refuse_serve(cfg: Config) -> None:
-    """A serve replica is one process on one device: a multi-host service is
-    not ported."""
-    if cfg.mesh.multihost:
-        raise NotImplementedError(
-            "cli serve is one process on one device; mesh.multihost is not "
-            "supported for serving")
 
 
 def _dispatch(command: str, cfg: Config, device, logger: MetricsLogger) -> dict:
@@ -244,7 +242,10 @@ def _observed(command: str, cfg: Config, device_arg) -> dict:
     ``obs.metrics_path`` and on stderr; the stream ends in the registry
     snapshot and ``run_summary`` however the command ends."""
     device = resolve_device(device_arg)
-    logger = MetricsLogger(cfg.obs.metrics_path)
+    # Every rank of a serving group ends in its own preempted record and
+    # run_summary: each writes a stream.
+    logger = MetricsLogger(cfg.obs.metrics_path,
+                           every_rank=command == "serve" and world_size() > 1)
     try:
         # Before _dispatch imports the modules that read the gates it sets.
         backend, device_kind = _hardware(device)
@@ -352,7 +353,6 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_intermixed_args(argv)
     cfg = load_config(args.config, args.overrides)
     if args.command == "serve":
-        _refuse_serve(cfg)
         if ((cfg.serve.replicas > 1 or cfg.serve.max_replicas is not None)
                 and os.environ.get("DDT_SERVE_REPLICA") is None):
             # Before the elastic branch, the fault plan and any device: a

@@ -20,16 +20,18 @@ supervisor over its own workers (``resilience/elastic.py``); every key of
 both takes effect.
 
 ``ServeConfig`` is copied whole with its validation; ``cli serve`` reads the
-single-process keys, and ``replicas > 1`` or ``max_replicas`` make it the
-serving fleet (``serve/fleet.py``: the router, autoscaler, probation and
-canary keys). ``ObsConfig`` is copied whole with its validation; every key
-takes effect but ``plots_dir``, which raises by name when set (not ported);
-``slo_recovery_s`` is the cross-attempt recovery objective of a supervised
-run and ``slo_fleet_*`` the serving fleet's (``obs/slo.py``). ``TuningConfig``
-is copied whole with its validation (``tuning.py``: the signed manifest the
-CLI applies at startup). The one section the port does not have (parallel)
-is accepted key by key and ignored, so every ``configs/*.yaml`` loads
-unchanged, while an unknown key anywhere still raises ``KeyError`` as in JAX.
+single-process keys (on one rank or, with ``mesh.multihost``, on every rank of
+a group), and ``replicas > 1`` or ``max_replicas`` make it the serving fleet
+(``serve/fleet.py``: the router, autoscaler, probation and canary keys), which
+``mesh.multihost`` refuses by name (a fleet of meshes is not ported).
+``ObsConfig`` is copied whole with its validation; every key takes effect but
+``plots_dir``, which raises by name when set (not ported); ``slo_recovery_s``
+is the cross-attempt recovery objective of a supervised run and
+``slo_fleet_*`` the serving fleet's (``obs/slo.py``). ``TuningConfig`` is
+copied whole with its validation (``tuning.py``: the signed manifest the CLI
+applies at startup). The one section the port does not have (parallel) is
+accepted key by key and ignored, so every ``configs/*.yaml`` loads unchanged,
+while an unknown key anywhere still raises ``KeyError`` as in JAX.
 """
 
 from __future__ import annotations
@@ -539,6 +541,12 @@ class Config:
                 raise ValueError(
                     f"mesh.data_axis={m.data_axis} must equal mesh.num_processes="
                     f"{m.num_processes} (one device per rank)")
+            if self.serve.replicas > 1 or self.serve.max_replicas is not None:
+                raise ValueError(
+                    "mesh.multihost=true with serve.replicas > 1 or "
+                    "serve.max_replicas: a fleet of meshes is not ported to the "
+                    "PyTorch package (each replica would take every rank); "
+                    "serve a mesh with serve.replicas=1")
         self._validate_checkpoint_elastic()
         self._validate_obs_serve()
         return self

@@ -5,8 +5,12 @@ One record per event, ``{"ts", "kind", **fields}``, appended to
 ``obs.metrics_path`` (line-buffered, so a killed process keeps its history)
 and, with ``echo``, printed as the same JSON line on stderr, where the CLI's
 records go: a parent process reads the ``obs_server`` record there to find a
-``serve.port=0`` service. Rank 0 writes and echoes. ``tools/validate_metrics.py``
-checks a stream of these against its known kinds and required fields.
+``serve.port=0`` service. Rank 0 writes and echoes; with ``every_rank`` (the
+ranks of ``cli serve`` across a group, each of which ends in its own
+``preempted`` record and ``run_summary``) rank ``k > 0`` writes its own
+stream, ``rank_stream_path(path, k)``, and echoes it on its own stderr.
+``tools/validate_metrics.py`` checks a stream of these against its known
+kinds and required fields.
 
 Every record is mirrored into the fault flight recorder (``obs/flightrec.py``)
 BEFORE the rank-0 gate, so each rank's ring holds its own final moments, and
@@ -27,8 +31,17 @@ import threading
 import time
 from typing import IO, Any
 
-from ..parallel.mesh import is_primary
+from ..parallel.mesh import is_primary, process_index
 from . import flightrec, lineage
+
+
+def rank_stream_path(path: str, rank: int) -> str:
+    """Rank ``rank``'s metrics stream beside ``path``: ``path`` itself for
+    rank 0, ``<root>.rank<k><ext>`` for the others."""
+    if not rank:
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}.rank{rank}{ext}"
 
 
 def _json_default(v: Any):
@@ -44,14 +57,17 @@ def _json_default(v: Any):
 
 
 class MetricsLogger:
-    def __init__(self, path: str | None, echo: bool = True):
+    def __init__(self, path: str | None, echo: bool = True, every_rank: bool = False):
         self.echo = echo
+        self._writes = every_rank or is_primary()
+        if path and every_rank:
+            path = rank_stream_path(path, process_index())
         self.path = path
         self._fh: IO[str] | None = None
         # Handler threads, the dispatcher, the serve loop and the monitor
         # threads all log: one line at a time.
         self._lock = threading.Lock()
-        if path and is_primary():
+        if path and self._writes:
             parent = os.path.dirname(path)
             if parent:
                 os.makedirs(parent, exist_ok=True)
@@ -60,7 +76,7 @@ class MetricsLogger:
     def log(self, kind: str, **fields: Any) -> None:
         # The ring is the other ranks' only event history.
         flightrec.record(kind, **fields)
-        if not is_primary():
+        if not self._writes:
             return
         record = lineage.stamp({"ts": round(time.time(), 3), "kind": kind, **fields})
         line = json.dumps(record, default=_json_default)

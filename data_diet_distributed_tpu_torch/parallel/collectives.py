@@ -14,10 +14,23 @@ never asked for one.
   collective over a flat buffer of many tensors (the gradients and the
   sharded parameters of ``train/state.py``);
 * ``sum_float64``: a host float64 vector summed over the host group (the
-  per-seed score join of ``ops/scoring.py``).
+  per-seed score join of ``ops/scoring.py``);
+* ``all_gather_host`` and ``broadcast_json``: small host arrays from every
+  rank, and a JSON object from rank 0 (the agreements of
+  ``resilience/consensus.py`` and the serving operation records);
+* ``scatter_rows``, ``gather_rows`` and ``gather_json``: the serving
+  collectives of ``serve/engine.py``, over the host group. Rank 0 cuts a
+  padded request block into W contiguous row slices and each rank receives
+  its own slice only; each rank's scores for those rows go back to rank 0;
+  each rank's small record (its kernel launches) goes to rank 0.
+
+Every host collective is the identity at W = 1 and then runs no
+``torch.distributed`` call.
 """
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 import torch
@@ -127,3 +140,85 @@ def sum_float64(vec: np.ndarray) -> np.ndarray:
     t = torch.from_numpy(np.ascontiguousarray(vec, np.float64).copy())
     dist.all_reduce(t, group=mesh.host_group())
     return t.numpy()
+
+
+def all_gather_host(arr: np.ndarray) -> np.ndarray:
+    """``arr`` from every rank, stacked ``[W, ...]`` (a host collective;
+    ``arr[None]`` at W = 1)."""
+    if mesh.world_size() <= 1:
+        return np.asarray(arr)[None]
+    w = mesh.world_size()
+    t = torch.from_numpy(np.ascontiguousarray(arr)).reshape(-1)
+    out = torch.empty(w * t.numel(), dtype=t.dtype)
+    dist.all_gather_into_tensor(out, t, group=mesh.host_group())
+    return out.numpy().reshape(w, *np.shape(arr))
+
+
+def broadcast_json(obj):
+    """A JSON-serializable object from rank 0 on every rank (identity with one
+    rank): the single view of a file only rank 0 writes, or an operation
+    record only rank 0 makes."""
+    if mesh.world_size() <= 1:
+        return obj
+    primary = mesh.process_index() == 0
+    payload = json.dumps(obj).encode() if primary else b""
+    size = torch.tensor([len(payload)], dtype=torch.int64)
+    dist.broadcast(size, src=0, group=mesh.host_group())
+    buf = torch.zeros(int(size[0]), dtype=torch.uint8)
+    if primary:
+        buf.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
+    dist.broadcast(buf, src=0, group=mesh.host_group())
+    return json.loads(buf.numpy().tobytes().decode())
+
+
+def scatter_rows(block: list[np.ndarray] | None, rows: int,
+                 like: list[tuple[tuple, np.dtype]]) -> list[np.ndarray]:
+    """This rank's rows of a block that rank 0 holds: ``block`` (rank 0 only;
+    None elsewhere) is a list of arrays of ``W·rows`` rows each, and rank
+    ``r`` receives rows ``[r·rows, (r+1)·rows)`` of every one, never the whole
+    block. ``like`` gives, on every rank, each array's ``(row shape,
+    dtype)``. One scatter per array over the host group; ``block`` itself at
+    W = 1."""
+    w = mesh.world_size()
+    if w <= 1:
+        return list(block)
+    primary = mesh.process_index() == 0
+    out = []
+    for k, (row_shape, dtype) in enumerate(like):
+        own = torch.from_numpy(np.empty((rows, *row_shape), dtype))
+        parts = None
+        if primary:
+            whole = torch.from_numpy(np.ascontiguousarray(block[k], dtype))
+            parts = [p.contiguous() for p in whole.reshape(w, rows, *row_shape).unbind(0)]
+        dist.scatter(own, parts, src=0, group=mesh.host_group())
+        out.append(own.numpy())
+    return out
+
+
+def gather_rows(own: np.ndarray) -> np.ndarray | None:
+    """Every rank's ``own`` rows (the same shape on every rank) joined in rank
+    order on rank 0, ``[W·rows, ...]``; None on the other ranks (one gather
+    over the host group; ``own`` itself at W = 1)."""
+    w = mesh.world_size()
+    if w <= 1:
+        return own
+    t = torch.from_numpy(np.ascontiguousarray(own))
+    parts = [torch.empty_like(t) for _ in range(w)] if mesh.process_index() == 0 else None
+    dist.gather(t, parts, dst=0, group=mesh.host_group())
+    return None if parts is None else torch.cat(parts).numpy()
+
+
+def gather_json(obj) -> list | None:
+    """Every rank's JSON-serializable ``obj`` on rank 0, by rank; None on the
+    other ranks (``[obj]`` at W = 1)."""
+    w = mesh.world_size()
+    if w <= 1:
+        return [obj]
+    payload = np.frombuffer(json.dumps(obj).encode(), np.uint8)
+    sizes = all_gather_host(np.asarray([payload.size], np.int64))[:, 0]
+    padded = np.zeros(int(sizes.max()), np.uint8)
+    padded[:payload.size] = payload
+    joined = gather_rows(padded[None])
+    if joined is None:
+        return None
+    return [json.loads(row[:n].tobytes().decode()) for row, n in zip(joined, sizes)]

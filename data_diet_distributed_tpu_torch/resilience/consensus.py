@@ -24,7 +24,8 @@ Four agreements close them:
   ``consensus_grace_s`` (the watchdog's escalation).
 
 The agreements are collectives over the host group (gloo, CPU tensors:
-``parallel.mesh.host_group``), so a host value never waits behind the card's
+``parallel.mesh.host_group``; ``all_gather_host`` and ``broadcast_json`` of
+``parallel/collectives.py``), so a host value never waits behind the card's
 stream. ``Consensus.create`` returns None with one rank or with
 ``resilience.consensus=false``, and the module's functions are identities
 with one rank.
@@ -37,10 +38,9 @@ import os
 import time
 
 import numpy as np
-import torch
-import torch.distributed as dist
 
-from ..parallel.mesh import host_group, process_index, sync_hosts, world_size
+from ..parallel.collectives import all_gather_host, broadcast_json  # noqa: F401
+from ..parallel.mesh import process_index, sync_hosts, world_size
 from .watchdog import EXIT_RETRIABLE  # noqa: F401 — the JAX package exports it here
 
 #: Width of the gathered step and seed sets: each rank's newest this many.
@@ -53,20 +53,12 @@ class PeerPoisoned(RuntimeError):
     restarted and resumed)."""
 
 
-def _allgather(arr: np.ndarray) -> np.ndarray:
-    """``arr`` from every rank, stacked ``[W, ...]`` (a host collective)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr)).reshape(-1)
-    out = torch.empty(world_size() * t.numel(), dtype=t.dtype)
-    dist.all_gather_into_tensor(out, t, group=host_group())
-    return out.numpy().reshape(world_size(), *arr.shape)
-
-
 def agree_any(flag: bool) -> bool:
     """OR of a host boolean across the ranks (identity with one). Collective:
     every rank calls it at the same point."""
     if world_size() <= 1:
         return bool(flag)
-    return bool(_allgather(np.asarray([flag], np.int8)).any())
+    return bool(all_gather_host(np.asarray([flag], np.int8)).any())
 
 
 def agree_common(values, max_items: int = MAX_AGREE_ITEMS) -> set[int]:
@@ -78,23 +70,8 @@ def agree_common(values, max_items: int = MAX_AGREE_ITEMS) -> set[int]:
         return set(local)
     arr = np.full(max_items, -1, np.int64)
     arr[:len(local)] = local
-    rows = _allgather(arr)
+    rows = all_gather_host(arr)
     return set.intersection(*({int(v) for v in row if v >= 0} for row in rows))
-
-
-def broadcast_json(obj):
-    """A JSON-serializable object from rank 0 on every rank (identity with one
-    rank): the single view of a file only rank 0 writes."""
-    if world_size() <= 1:
-        return obj
-    payload = json.dumps(obj).encode() if process_index() == 0 else b""
-    size = torch.tensor([len(payload)], dtype=torch.int64)
-    dist.broadcast(size, src=0, group=host_group())
-    buf = torch.zeros(int(size[0]), dtype=torch.uint8)
-    if process_index() == 0:
-        buf.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
-    dist.broadcast(buf, src=0, group=host_group())
-    return json.loads(buf.numpy().tobytes().decode())
 
 
 class SideChannel:

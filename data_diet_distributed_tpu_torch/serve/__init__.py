@@ -4,13 +4,14 @@ card and answers HTTP requests.
 
 * ``engine.py``: the warm-callable engine (``fit`` / ``score`` /
   ``evaluate``, tenants, checkpoint refresh, the program cache keyed by
-  ``(arch, geometry, method)``);
+  ``(arch, geometry, method)``); across W ranks every operation is a
+  collective that rank 0 announces and the other ranks ``follow``;
 * ``batcher.py``: request coalescing into padded dispatches, admission
   control (429 + Retry-After), weighted round-robin across tenants;
 * ``server.py``: the HTTP surface on the obs chassis (``/v1/score``,
   ``/v1/rank``, ``/v1/topk`` streamed, ``/v1/refresh``, plus /healthz
   /metrics /status /flightrec) and the ``cli serve`` entry with the
-  SIGTERM drain (exit 75);
+  SIGTERM drain (exit 75), on one rank or on every rank of a group;
 * ``router.py``: the health-aware reverse proxy over a replicated pod
   (circuit breaking, failover of idempotent requests with the replay cache,
   optional hedging, the one-at-a-time refresh roll with the canary hold and

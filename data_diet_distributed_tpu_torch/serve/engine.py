@@ -1,21 +1,22 @@
 """The warm scoring engine behind serving (counterpart of
 ``data_diet_distributed_tpu/serve/engine.py::ServeEngine``).
 
-``fit``, ``evaluate`` and ``score`` are composable units over one device and
-one model: ``fit``/``evaluate`` run the port's ``train/loop.py``, ``score``
-the tenant's resident score vector. Per registered TENANT (a named dataset +
-per-seed scoring variables) the engine keeps the dense dataset rows on the
-host, the dataset pre-batched on the device (``ScoreResident``) and the
-resident score vector per method. A request is padded to the engine's one
-batch geometry ``[B]`` (``serve.batch_size``, else ``score.batch_size``)
-exactly as the resident tail is (row-0 images, zeroed labels, mask 0) and
-runs the same per-batch score function, so it scores bit-identical to
-``full_scores`` for the same ids (seeds averaged the same way). That rests on
-fixed per-example arithmetic: deterministic cuDNN algorithm choice for one
-geometry and kernels without atomics. On CUDA the engine sets
-``set_scoring_determinism()``, which is process-wide, so an ``engine.fit`` in a
-serving process trains with cuDNN's deterministic algorithms too (as every
-port fit does); it is never toggled per call.
+``fit``, ``evaluate`` and ``score`` are composable units over the process
+group's devices (one per rank) and one model: ``fit``/``evaluate`` run the
+port's ``train/loop.py``, ``score`` the tenant's resident score vector. Per
+registered TENANT (a named dataset + per-seed scoring variables) the engine
+keeps the dense dataset rows on the host, the dataset pre-batched on the
+device (``ScoreResident``) and the resident score vector per method. A
+request is padded to the engine's one batch geometry ``[B]``
+(``serve.batch_size``, else ``score.batch_size``) exactly as the resident
+tail is (row-0 images, zeroed labels, mask 0) and runs the same per-batch
+score function, so it scores bit-identical to ``full_scores`` for the same
+ids (seeds averaged the same way). That rests on fixed per-example
+arithmetic: deterministic cuDNN algorithm choice for one geometry and kernels
+without atomics. On CUDA the engine sets ``set_scoring_determinism()``, which
+is process-wide, so an ``engine.fit`` in a serving process trains with
+cuDNN's deterministic algorithms too (as every port fit does); it is never
+toggled per call.
 
 The program cache, keyed ``(arch, request geometry, method)`` like the JAX
 package's, has nothing to compile in PyTorch: an entry's ``compile_s`` is the
@@ -34,10 +35,50 @@ the port's ``CheckpointManager``, digest-verified, with no fallback. Thread
 model: every device call (the batcher's dispatcher, handler threads' cold
 ``topk``/``rank`` passes, a refresh install) is serialized behind ``_lock``.
 Grad mode is thread-local; the score functions set it themselves.
+
+Across W ranks (a process group, one device a rank: the counterpart of the
+JAX engine's mesh) the request geometry rounds up to a multiple of W
+(``global_batch_size_for``: 15 -> 16 at W = 2) and every operation is a
+collective over the host group (``parallel/collectives.py``):
+
+* ``score_batch``: rank 0 pads the request to ``B`` as above, each rank
+  receives rows ``[r·B/W, (r+1)·B/W)`` of the padded block (the rows
+  ``image_slice()`` gives ``ScoreResident``), scores them with every seed,
+  and rank 0 gathers the per-seed rows and takes the float64 seed mean and
+  the ``[:n]`` cut as at W = 1;
+* ``full_scores``: ``score_dataset``'s W > 1 pass (``ScoreResident`` of the
+  rank's rows, ``score_pass``, ``sum_float64`` per seed); every rank holds
+  the vector;
+* ``refresh_tenant``: every rank restores the step rank 0 names, and the new
+  variables are installed on every rank only when every rank restored them
+  (else each keeps the old ones and rank 0 raises: the 409);
+* the stats gather of each rank's kernel launches, an idle ``tick`` and
+  ``stop``.
+
+During the boot every rank calls the same methods in the same order
+(``register_tenant``, the warm ``full_scores``). Then rank 0 ``lead``s: it
+announces each operation as a JSON record while it holds ``_lock``, before it
+touches the device, so the peers (in ``follow``) run the operations in rank
+0's one order; it also sends a ``tick`` after ``TICK_S`` idle. Every
+operation ends in a reply that carries each rank's outcome and preemption
+flag: an operation that failed on any rank raises ``OpFailed`` on every rank
+after all of its collectives ran, so the group stays in step, and a
+preempted peer sets ``preempt_agreed`` on rank 0, whose serve loop then drains
+the service as for its own SIGTERM.
+
+The group's deadline is ``resilience.consensus_grace_s``, the watchdog's
+escalation deadline under consensus in ``cli train``: a rank that has waited
+in one of the service's collectives for that long (a dead or wedged peer)
+exits ``EXIT_RETRIABLE`` (69) from a monitor thread, and a collective that a
+dead peer tears raises at once; either way the failure is the group's
+(``group_error``), no later operation runs, and rank 0 never answers from a
+partial group.
 """
 
 from __future__ import annotations
 
+import os
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -52,11 +93,33 @@ from ..data.datasets import ArrayDataset, make_position_joiner
 from ..data.pipeline import pad_batch
 from ..device import resolve_device, set_scoring_determinism
 from ..models import create_model_from_cfg
+from ..obs import flightrec
+from ..obs import heartbeat as obs_heartbeat
 from ..obs import registry as obs_registry
+from ..ops import kernels
 from ..ops.scores import make_local_scores, resolve_score_method, resolve_use_kernels
 from ..ops.scoring import ScoreResident, score_pass
+from ..parallel.collectives import (all_gather_host, broadcast_json, gather_json,
+                                    gather_rows, scatter_rows, sum_float64)
+from ..parallel.mesh import (global_batch_size_for, image_slice, process_index,
+                             sync_hosts, world_size)
+from ..resilience.watchdog import EXIT_RETRIABLE
 from ..train.loop import evaluate, fit, score_variables_for_seeds
 from ..weights import variables_to
+
+#: Rank 0 sends a ``tick`` after this many seconds without an operation, so a
+#: peer's SIGTERM reaches it within about this long.
+TICK_S = 1.0
+
+
+class OpFailed(RuntimeError):
+    """An operation of the service failed on at least one rank. Every
+    collective of the operation ran, so the group is still in step."""
+
+
+class GroupLost(RuntimeError):
+    """A collective of the service failed (a peer died or the group was
+    stopped): no operation runs after it."""
 
 
 @dataclass
@@ -75,11 +138,14 @@ class Tenant:
 
 
 class ServeEngine:
-    """Warm-callable ``fit`` / ``score`` / ``evaluate`` units over one device.
+    """Warm-callable ``fit`` / ``score`` / ``evaluate`` units over the group's
+    devices (one device in one process).
 
     ``cfg`` supplies the model recipe and scoring knobs; ``device`` defaults
     to CUDA and raises without it (pass ``"cpu"`` for the CPU); ``logger`` (a
-    ``MetricsLogger``) gets ``fit``'s records."""
+    ``MetricsLogger``) gets ``fit``'s records. Built on every rank of a
+    group, at the same point (its first barrier absorbs the ranks' start-up
+    skew)."""
 
     def __init__(self, cfg: Config, *, device=None, logger=None):
         self.cfg = cfg
@@ -87,7 +153,8 @@ class ServeEngine:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_scoring_determinism()
-        self.batch_size = int(cfg.serve.batch_size or cfg.score.batch_size)
+        self.world, self.rank_index = world_size(), process_index()
+        self.batch_size = global_batch_size_for(cfg.serve.batch_size or cfg.score.batch_size)
         self.model = create_model_from_cfg(cfg).to(self.device)
         self.tenants: dict[str, Tenant] = {}
         self._local: dict[str, Any] = {}
@@ -97,6 +164,21 @@ class ServeEngine:
         # Phase timing of the latest score_batch, read by the batcher's single
         # dispatcher thread right after the call.
         self.last_dispatch_info: dict | None = None
+        # Each rank's kernel launches by kernel, as of the last stats gather.
+        self.rank_launches: list[dict] = [kernels.launch_counts()]
+        # --- the group (W > 1) ----------------------------------------------
+        self.deadline_s = float(cfg.resilience.consensus_grace_s)
+        self.group_error: BaseException | None = None
+        self.preempt_agreed = threading.Event()
+        self._local_preempt = lambda: False
+        self._leading = self._stopped = False
+        self._waiting_since: float | None = None
+        self._last_op = time.monotonic()
+        self._tick_stop = threading.Event()
+        if self.world > 1:
+            sync_hosts("serve-engine")
+            threading.Thread(target=self._watch_deadline, daemon=True,
+                             name="serve-group-deadline").start()
 
     # ------------------------------------------------------ composable units
 
@@ -154,27 +236,38 @@ class ServeEngine:
         is installed, with no fallback: a missing, truncated or corrupt step
         raises here while the old model keeps serving. Returns ``(variables,
         step)``. Not under ``_lock``: the restore is the slow half of a
-        refresh and must not stall dispatches."""
+        refresh and must not stall dispatches (the other ranks of a group
+        restore inside the refresh operation, so there it does)."""
         mngr = CheckpointManager(directory, max_to_keep=self.cfg.train.keep_checkpoints)
         step = mngr.latest_step() if step is None else int(step)
         if step is None:
             raise FileNotFoundError(f"{directory}: no checkpoint step to refresh from")
         return mngr.restore_variables(step, self.device), step
 
-    def refresh_tenant(self, name: str, variables_seeds: Sequence) -> None:
+    def refresh_tenant(self, name: str, variables_seeds: Sequence, *,
+                       source: tuple[str, int] | None = None) -> None:
         """Install new scoring variables for ``name``: ONE assignment under
         ``_lock``, which every dispatch and resident pass holds for its whole
         duration, so a request is served entirely by the old or entirely by
         the new variables; the cached score vectors (the old model's) are
         cleared in the same critical section. The ``ScoreResident`` upload
-        (the dataset, not the model) survives."""
+        (the dataset, not the model) survives. Across ranks ``source`` names
+        the checkpoint ``(directory, step)`` the variables came from: every
+        other rank restores it inside the operation, and nothing is installed
+        anywhere unless every rank restored it (``OpFailed``)."""
         if not variables_seeds:
             raise ValueError("refresh needs at least one variables dict")
+        if self.world > 1 and source is None:
+            raise ValueError("a refresh across ranks names the checkpoint "
+                             "(directory, step) every rank restores")
         variables_seeds = [variables_to(v, self.device) for v in variables_seeds]
         t = self.tenant(name)
         with self._lock:
-            t.variables_seeds = variables_seeds
-            t.scores = {}
+            op = {"op": "refresh", "tenant": name}
+            if source is not None:
+                op.update(dir=source[0], step=int(source[1]))
+            self._announce(op)
+            self._op_refresh(t, op, variables_seeds)
 
     def tenant(self, name: str) -> Tenant:
         try:
@@ -197,10 +290,14 @@ class ServeEngine:
 
     # ------------------------------------------------------ program cache
 
-    def _local_scores(self, method: str):
+    @staticmethod
+    def _check_method(method: str) -> None:
         if method not in SERVABLE_METHODS:
             raise ValueError(f"unservable score method {method!r} "
                              f"(servable: {', '.join(SERVABLE_METHODS)})")
+
+    def _local_scores(self, method: str):
+        self._check_method(method)
         fn = self._local.get(method)
         if fn is None:
             sc = self.cfg.score
@@ -245,41 +342,70 @@ class ServeEngine:
     def score_batch(self, tenant: str, method: str, images: np.ndarray,
                     labels: np.ndarray) -> np.ndarray:
         """Score ``n <= B`` examples: ``scores[n]`` float32, bit-identical to
-        ``full_scores`` for the same examples. Sets ``last_dispatch_info``."""
+        ``full_scores`` for the same examples. Sets ``last_dispatch_info``
+        (rank 0's: the scatter's time is in ``dispatch_ms``, the gather's in
+        ``fetch_ms``)."""
+        self._check_method(method)
         t = self.tenant(tenant)
         n = len(images)
         with self._lock:
+            block = pad_batch(np.asarray(images, np.float32),
+                              np.asarray(labels, np.int32), self.batch_size, t.images[0])
+            self._announce({"op": "score", "tenant": tenant, "method": method})
+            per_seed = self._op_score(t, method, list(block))
+        total = np.zeros(n, np.float64)
+        for scores in per_seed:
+            total += scores.astype(np.float64)[:n]
+        return (total / len(per_seed)).astype(np.float32)
+
+    def _op_score(self, t: Tenant, method: str, block: list | None) -> np.ndarray | None:
+        """The body of a score operation on every rank (``block``, the padded
+        ``[images, labels, mask]``, on rank 0 only): the rank's rows of the
+        block through every seed's score function; returns the per-seed
+        scores ``[S, B]`` on rank 0, None elsewhere."""
+        key = self._program_key(t, method)
+        cold = key not in self._programs
+        n_seeds, rows = len(t.variables_seeds), self.batch_size // self.world
+        t0 = time.perf_counter()
+        ops = self._collective(scatter_rows, block, rows, [
+            (t.images.shape[1:], np.float32), ((), np.int32), ((), np.float32)])
+        dispatch_s = time.perf_counter() - t0
+        fetch_s = compile_s = 0.0
+        outs, error = [], None
+        try:
             local = self._local_scores(method)
-            key = self._program_key(t, method)
-            cold = key not in self._programs
-            imgs, labs, mask = pad_batch(np.asarray(images, np.float32),
-                                         np.asarray(labels, np.int32),
-                                         self.batch_size, t.images[0])
-            ops = [torch.from_numpy(a).to(self.device) for a in (imgs, labs, mask)]
-            total = np.zeros(n, np.float64)
-            dispatch_s = fetch_s = compile_s = 0.0
-            t0 = time.perf_counter()
+            ops = [torch.from_numpy(a).to(self.device) for a in ops]
             for k, variables in enumerate(t.variables_seeds):
                 td = time.perf_counter()
                 out = (self._first_call(key, local) if k == 0 else local)(variables, *ops)
                 tf = time.perf_counter()
-                total += out.cpu().numpy().astype(np.float64)[:n]
+                outs.append(out.cpu().numpy())
                 now = time.perf_counter()
                 if cold and k == 0:
                     compile_s = now - td
                 else:
                     dispatch_s += tf - td
                     fetch_s += now - tf
-            self._programs[key]["dispatches"] += len(t.variables_seeds)
-            obs_registry.observe("serve_dispatch_s", time.perf_counter() - t0)
-            self.last_dispatch_info = {"cold": cold, "dispatch_ms": dispatch_s * 1e3,
-                                       "fetch_ms": fetch_s * 1e3,
-                                       "compile_ms": compile_s * 1e3}
-        return (total / len(t.variables_seeds)).astype(np.float32)
+            self._programs[key]["dispatches"] += n_seeds
+        except Exception as exc:   # noqa: BLE001 — reported in the reply, on every rank
+            error = exc
+        mine = (np.stack(outs).astype(np.float32, copy=False) if error is None
+                else np.zeros((n_seeds, rows), np.float32))
+        tg = time.perf_counter()
+        joined = self._collective(gather_rows, np.ascontiguousarray(mine.T))
+        self._reply(error, "score")
+        fetch_s += time.perf_counter() - tg
+        obs_registry.observe("serve_dispatch_s", time.perf_counter() - t0)
+        self.last_dispatch_info = {"cold": cold, "dispatch_ms": dispatch_s * 1e3,
+                                   "fetch_ms": fetch_s * 1e3,
+                                   "compile_ms": compile_s * 1e3}
+        return None if joined is None else joined.T
 
     def full_scores(self, tenant: str, method: str) -> np.ndarray:
         """The tenant's whole-dataset score vector (cached), through the same
-        ``score_pass`` as ``score_dataset``."""
+        ``score_pass`` as ``score_dataset`` (and, across ranks, its
+        ``image_slice`` rows and ``sum_float64`` join)."""
+        self._check_method(method)
         t = self.tenant(tenant)
         cached = t.scores.get(method)
         if cached is not None:
@@ -288,20 +414,206 @@ class ServeEngine:
             cached = t.scores.get(method)   # double-checked under the lock
             if cached is not None:
                 return cached
+            self._announce({"op": "full", "tenant": tenant, "method": method})
+            return self._op_full(t, method)
+
+    def _op_full(self, t: Tenant, method: str) -> np.ndarray:
+        """The body of a whole-dataset pass on every rank; every rank caches
+        and returns the same vector."""
+        t0 = time.perf_counter()
+        error = None
+        try:
             local = self._local_scores(method)
             if t.resident is None:
-                t.resident = ScoreResident(t.ds, self.batch_size, self.device)
+                t.resident = ScoreResident(t.ds, self.batch_size, self.device, image_slice())
             key = self._program_key(t, method)
-            total = np.zeros(t.resident.n, np.float64)
-            t0 = time.perf_counter()
-            for k, variables in enumerate(t.variables_seeds):
-                fn = self._first_call(key, local) if k == 0 else local
-                total += score_pass(fn, variables, t.resident.batches(),
-                                    t.resident.n, t.pos_of)
-            obs_registry.observe("serve_dispatch_s", time.perf_counter() - t0)
-            scores = (total / len(t.variables_seeds)).astype(np.float32)
-            t.scores[method] = scores
+        except Exception as exc:   # noqa: BLE001 — reported in the reply, on every rank
+            error = exc
+        n = len(t.ds)
+        total = np.zeros(n, np.float64)
+        for k, variables in enumerate(t.variables_seeds):
+            seed_scores = np.zeros(n, np.float64)
+            if error is None:
+                try:
+                    fn = self._first_call(key, local) if k == 0 else local
+                    seed_scores = score_pass(fn, variables, t.resident.batches(), n, t.pos_of)
+                except Exception as exc:   # noqa: BLE001 — the seeds' sums still run
+                    error = exc
+            total += self._collective(sum_float64, seed_scores)
+        self._reply(error, "full pass")
+        obs_registry.observe("serve_dispatch_s", time.perf_counter() - t0)
+        scores = (total / len(t.variables_seeds)).astype(np.float32)
+        t.scores[method] = scores
         return scores
+
+    def _op_refresh(self, t: Tenant, op: dict, variables_seeds: list | None) -> None:
+        """The body of a refresh on every rank: a rank without
+        ``variables_seeds`` restores ``op``'s step; the install (and the
+        clearing of the cached scores) happens on every rank or on none."""
+        error = None
+        if variables_seeds is None:
+            try:
+                variables_seeds = [self.load_checkpoint_variables(op["dir"], op["step"])[0]]
+            except Exception as exc:   # noqa: BLE001 — every rank keeps the old model
+                error = exc
+        self._reply(error, "refresh")
+        t.variables_seeds = variables_seeds
+        t.scores = {}
+
+    # ------------------------------------------------------------ the group
+
+    def gather_rank_launches(self) -> list[dict]:
+        """Each rank's kernel launches by kernel (``rank_launches``, by rank):
+        a gather at the stats cadence, not per request."""
+        with self._lock:
+            self._announce({"op": "stats"})
+            return self._op_stats()
+
+    def _op_stats(self) -> list[dict] | None:
+        joined = self._collective(gather_json, kernels.launch_counts())
+        self._reply(None, "stats")
+        if joined is not None:
+            self.rank_launches = joined
+        return joined
+
+    def lead(self) -> None:
+        """Rank 0, after the boot's lockstep calls: from here on every
+        operation is announced to the peers (``follow``), and an idle
+        ``tick`` carries their preemption flags. A no-op at W = 1."""
+        if self.world <= 1:
+            return
+        if self.rank_index != 0:
+            raise RuntimeError("only rank 0 leads the service's group")
+        self._leading = True
+        self._last_op = time.monotonic()
+        threading.Thread(target=self._tick_loop, daemon=True, name="serve-group-tick").start()
+
+    def follow(self, preempted=lambda: False) -> dict:
+        """The loop of the ranks above 0: receive rank 0's next operation and
+        run the same body on this rank's rows, until rank 0 sends ``stop``
+        (returned). ``preempted()`` is this rank's preemption flag, carried in
+        every operation's reply. An operation that failed (``OpFailed``)
+        leaves the group in step and the loop goes on; a failed collective
+        raises."""
+        if self.rank_index == 0:
+            raise RuntimeError("rank 0 leads the service's group; it does not follow")
+        self._local_preempt = preempted
+        while True:
+            op = self._collective(broadcast_json, None)
+            obs_heartbeat.beat(stage="serve")
+            kind = op["op"]
+            if kind == "stop":
+                self._stopped = True
+                return op
+            try:
+                if kind == "score":
+                    self._op_score(self.tenant(op["tenant"]), op["method"], None)
+                elif kind == "full":
+                    self._op_full(self.tenant(op["tenant"]), op["method"])
+                elif kind == "refresh":
+                    self._op_refresh(self.tenant(op["tenant"]), op, None)
+                elif kind == "stats":
+                    self._op_stats()
+                elif kind == "tick":
+                    self._reply(None, "tick")
+                else:
+                    raise GroupLost(f"rank {self.rank_index}: unknown operation {op!r}")
+            except OpFailed as exc:
+                flightrec.record("fault", fault="serve_op_failed", op=kind,
+                                 error=str(exc)[:300])
+
+    def stop_group(self, reason: str, **fields) -> None:
+        """Rank 0: send the peers ``stop`` (``reason`` and ``fields`` in the
+        record; ``preempted`` makes them exit 75) and announce nothing after
+        it. Nothing to send at W = 1, before ``lead``, after a failed
+        collective, or twice."""
+        self._tick_stop.set()
+        with self._lock:
+            if self._leading and not self._stopped and self.group_error is None:
+                try:
+                    self._announce({"op": "stop", "reason": reason, **fields})
+                except GroupLost:
+                    pass   # group_error holds the cause
+            self._stopped = True
+
+    def _announce(self, op: dict) -> None:
+        """Rank 0, holding ``_lock``: the operation record to every rank,
+        before any device work. Nothing at W = 1 or before ``lead``."""
+        if not self._leading:
+            return
+        if self._stopped:
+            raise GroupLost(f"the service's group was stopped; {op['op']!r} not run")
+        self._collective(broadcast_json, op)
+        self._last_op = time.monotonic()
+
+    def _collective(self, fn, *args):
+        """``fn(*args)``, one of the service's collectives, timed against the
+        group's deadline; a failure is the group's (``group_error``)."""
+        if self.world <= 1:
+            return fn(*args)
+        if self.group_error is not None:
+            raise GroupLost(f"rank {self.rank_index}: the group failed earlier: "
+                            f"{self.group_error!r}") from self.group_error
+        self._waiting_since = time.monotonic()
+        try:
+            return fn(*args)
+        except Exception as exc:   # noqa: BLE001 — a torn collective ends the group
+            self.group_error = exc
+            raise GroupLost(f"rank {self.rank_index}: a collective of the service failed: "
+                            f"{exc!r}") from exc
+        finally:
+            self._waiting_since = None
+
+    def _reply(self, error: BaseException | None, what: str) -> None:
+        """The end of every operation: each rank's outcome and preemption flag
+        on every rank. Raises on every rank when the operation failed on any
+        (``OpFailed`` across ranks; the error itself at W = 1)."""
+        if self.world <= 1:
+            if error is not None:
+                raise error
+            return
+        flags = self._collective(all_gather_host, np.asarray(
+            [error is not None, bool(self._local_preempt())], np.int8))
+        if flags[:, 1].any():
+            self.preempt_agreed.set()
+        failed = [r for r in range(self.world) if flags[r, 0]]
+        if failed:
+            raise OpFailed(f"{what} failed on rank(s) {failed}"
+                           + (f": {error!r}" if error is not None else "")) from error
+
+    def _tick_loop(self) -> None:
+        while not self._tick_stop.wait(TICK_S / 4):
+            if time.monotonic() - self._last_op < TICK_S:
+                continue
+            with self._lock:
+                if self._stopped or self.group_error is not None:
+                    return
+                if time.monotonic() - self._last_op < TICK_S:
+                    continue
+                try:
+                    self._announce({"op": "tick"})
+                    self._reply(None, "tick")
+                except GroupLost:
+                    return   # group_error holds the cause; the serve loop raises it
+
+    def _watch_deadline(self) -> None:
+        """Exit ``EXIT_RETRIABLE`` when a collective outlasts the deadline: a
+        dead or wedged peer, which no Python in this rank can interrupt."""
+        while True:
+            time.sleep(min(1.0, self.deadline_s / 10))
+            since = self._waiting_since
+            if since is None or time.monotonic() - since <= self.deadline_s:
+                continue
+            msg = (f"rank {self.rank_index}: a collective of the service waited more than "
+                   f"resilience.consensus_grace_s={self.deadline_s:g} s (a peer is gone "
+                   "or wedged): exit without teardown")
+            try:
+                flightrec.record("fault", fault="serve_group_deadline", error=msg)
+                flightrec.dump("serve_group_deadline")
+            except Exception:   # noqa: BLE001 — forensics never block the exit
+                pass
+            print(f"[resilience] {msg}", file=sys.stderr, flush=True)
+            os._exit(EXIT_RETRIABLE)
 
     # ----------------------------------------------------- ranked answers
 

@@ -25,12 +25,27 @@ serve-SLO cadence, and the graceful-drain contract: SIGTERM (via the shared
 ``resilience/preemption`` handler) stops admission, drains in-flight
 requests bounded by ``serve.drain_timeout_s``, and raises ``Preempted`` —
 the CLI maps it to exit 75 like every preempted run. ``run_serve`` is the
-``cli serve`` entry: one process on one device. It scores ``serve.methods`` on
-the main thread BEFORE the socket binds, which builds the CUDA kernels there
-(``serve.warm=false`` builds them at the first dispatch, on the dispatcher
-thread under the engine lock). Several replicas behind the router are
-``fleet.py``'s; each is this ``cli serve`` with ``DDT_SERVE_REPLICA`` set.
-``/status`` also carries the process's ``kernel_launches`` so far.
+``cli serve`` entry, on one device or on every rank of a process group. It
+scores ``serve.methods`` on the main thread BEFORE the socket binds, which
+builds the CUDA kernels there (``serve.warm=false`` builds them at the first
+dispatch, on the dispatcher thread under the engine lock). Several replicas
+behind the router are ``fleet.py``'s; each is this ``cli serve`` with
+``DDT_SERVE_REPLICA`` set. ``/status`` also carries the process's
+``kernel_launches`` so far, the group's ``world`` and each rank's launches as
+of the last stats point (``rank_kernel_launches``).
+
+Across W ranks (``mesh.multihost``; ``ServeEngine`` runs every operation as a
+collective) every rank loads the data, builds the engine, registers the
+tenant and runs the warm passes together, so a rank whose warm pass fails
+fails the boot of every rank. Then rank 0 alone binds ``serve.port`` and runs
+the batcher, the routes, the refresh watcher, ``serve_stats`` and the serve
+SLOs, and the other ranks bind nothing and ``follow`` its operations. A
+SIGTERM to rank 0 drains it and then stops the peers; a SIGTERM to a peer
+reaches rank 0 in the next operation's reply (an idle ``tick`` at the
+latest) and drains the service the same way; either way every rank exits 75
+with its own ``preempted`` record. A rank lost from the group ends every
+other one non-zero within ``resilience.consensus_grace_s`` (the engine's
+deadline).
 """
 
 from __future__ import annotations
@@ -56,7 +71,7 @@ from ..obs import slo as obs_slo
 from ..ops import kernels
 from ..resilience.preemption import Preempted, PreemptionHandler
 from .batcher import Backpressure, Draining, ScoreBatcher
-from .engine import ServeEngine
+from .engine import GroupLost, ServeEngine
 
 
 def default_methods(cfg: Config) -> tuple[str, ...]:
@@ -226,6 +241,9 @@ class ServeServer(obs_server.StatusServer):
         out["serve"] = self.service.stats_record()
         # A reader takes the delta across one request: its dispatch's launches.
         out["kernel_launches"] = kernels.launch_counts()
+        # Every rank's, as of the last stats point (a gather at that cadence).
+        out["world"] = self.service.engine.world
+        out["rank_kernel_launches"] = self.service.engine.rank_launches
         return out
 
     def health(self) -> dict:
@@ -375,12 +393,18 @@ class ServeService:
 
     def wait_until_preempted(self) -> None:
         """The serve loop: heartbeat + stats/SLO cadence until SIGTERM/
-        SIGINT (the shared preemption handler), then drain and raise
-        ``Preempted`` — the CLI maps it to exit 75."""
+        SIGINT (the shared preemption handler) or a peer's agreed preemption,
+        then drain, stop the group's peers and raise ``Preempted`` — the CLI
+        maps it to exit 75. A failed collective of the group raises
+        ``GroupLost`` instead."""
         preempt = PreemptionHandler(enabled=self.cfg.resilience.preemption)
+        engine = self.engine
         last_stats = time.monotonic()
         with preempt:
-            while not preempt.requested:
+            while not (preempt.requested or engine.preempt_agreed.is_set()):
+                if engine.group_error is not None:
+                    raise GroupLost(f"the serving group failed: {engine.group_error!r}"
+                                    ) from engine.group_error
                 time.sleep(0.05)
                 obs_heartbeat.beat(stage="serve")
                 if (time.monotonic() - last_stats
@@ -389,10 +413,12 @@ class ServeService:
                     last_stats = time.monotonic()
         drained = self.drain()
         self.emit_stats()
+        signame = preempt.signame if preempt.requested else "peer"
+        engine.stop_group("preempted", signal=signame, drained=drained)
         if self.logger is not None:
-            self.logger.log("preempted", signal=preempt.signame, tag="serve",
+            self.logger.log("preempted", signal=signame, tag="serve",
                             drained=drained)
-        raise Preempted(preempt.signame)
+        raise Preempted(signame)
 
     # ------------------------------------------------------------ handlers
 
@@ -477,7 +503,8 @@ class ServeService:
             try:
                 variables, used = self.engine.load_checkpoint_variables(
                     directory, step)
-                self.engine.refresh_tenant(tenant, [variables])
+                self.engine.refresh_tenant(tenant, [variables],
+                                           source=(directory, used))
             except KeyError as exc:
                 # Unknown tenant: the caller's mistake, not the checkpoint's.
                 return 400, {"error": str(exc)[:300]}, {}
@@ -600,11 +627,15 @@ class ServeService:
 
     def emit_stats(self) -> dict:
         """One ``{"kind": "serve_stats"}`` record + the serve-SLO evaluation
-        point + the live gauges — the serve loop's cadence unit."""
+        point + the live gauges — the serve loop's cadence unit. The record
+        also carries the group's ``world`` and each rank's kernel launches,
+        gathered here."""
+        launches = self.engine.gather_rank_launches()
         rec = self.stats_record()
         self._stats_seq += 1
         if self.logger is not None:
-            self.logger.log("serve_stats", **rec)
+            self.logger.log("serve_stats", **rec, world=self.engine.world,
+                            rank_kernel_launches=launches)
         queue_depth = sum(rec["queued"].values())
         submitted = rec["requests"] + rec["rejected"]
         reject_frac = rec["rejected"] / submitted if submitted else 0.0
@@ -624,7 +655,8 @@ def run_serve(cfg: Config, logger, device=None) -> dict | None:
     ``"cpu"``), register the configured tenant, score the configured methods
     on this thread (``serve.warm``: the kernels build here, before the socket
     binds), then bind and serve until preempted (SIGTERM -> drain ->
-    ``Preempted`` -> CLI exit 75)."""
+    ``Preempted`` -> CLI exit 75). In a process group every rank boots the
+    same way, then rank 0 serves and the others follow (``_follow``)."""
     from ..train.loop import load_data_for
     device = resolve_device(device)   # without CUDA this raises before any work
     train_ds, _ = load_data_for(cfg)
@@ -634,22 +666,42 @@ def run_serve(cfg: Config, logger, device=None) -> dict | None:
     if cfg.serve.warm:
         for m in default_methods(cfg):
             t0 = time.perf_counter()
-            engine.full_scores(tenant, m)
+            engine.full_scores(tenant, m)   # across ranks: fails on every rank or none
             logger.log("serve_stats", requests=0, dispatches=0, p95_ms=None,
                        event="warm", tenant=tenant, method=m,
                        warm_s=round(time.perf_counter() - t0, 3))
+    if engine.rank_index > 0:
+        return _follow(engine, cfg, logger)
     service = ServeService(engine, cfg, logger=logger)
-    if not service.start():
-        # For the serve command serving IS the run: refuse loudly instead of
-        # heartbeating behind a port nobody can reach.
-        service.stop()
-        raise RuntimeError(
-            f"serve: could not bind {cfg.serve.host}:{cfg.serve.port} — "
-            "the service has no endpoint; pick a free serve.port (0 = auto)")
+    engine.lead()   # before the batcher can dispatch
     try:
+        if not service.start():
+            # For the serve command serving IS the run: refuse loudly instead
+            # of heartbeating behind a port nobody can reach.
+            raise RuntimeError(
+                f"serve: could not bind {cfg.serve.host}:{cfg.serve.port} — "
+                "the service has no endpoint; pick a free serve.port (0 = auto)")
         service.emit_stats()
         service.start_refresh_watch()
         service.wait_until_preempted()   # raises Preempted on SIGTERM
         return {"serve": service.stats_record()}
     finally:
+        engine.stop_group("error")   # a no-op after the preempted stop
         service.stop()
+
+
+def _follow(engine: ServeEngine, cfg: Config, logger) -> None:
+    """A rank above 0: run rank 0's operations until it stops the group, then
+    raise ``Preempted`` (exit 75, after this rank's ``preempted`` record) when
+    it stopped for a preemption, whichever rank received the signal, and
+    ``RuntimeError`` otherwise. This rank's SIGTERM only sets the flag that
+    the next operation's reply carries to rank 0."""
+    preempt = PreemptionHandler(enabled=cfg.resilience.preemption)
+    with preempt:
+        stop = engine.follow(lambda: preempt.requested)
+    if stop.get("reason") != "preempted":
+        raise RuntimeError(f"rank 0 stopped the serving group: {stop.get('reason')!r}")
+    signame = preempt.signame if preempt.requested else str(stop.get("signal") or "peer")
+    logger.log("preempted", signal=signame, tag="serve", drained=stop.get("drained"),
+               rank=engine.rank_index)
+    raise Preempted(signame)

@@ -17,6 +17,12 @@ scenarios of GROUP and writes ``OUT_DIR/result_<RANK>.npz`` and
   rank-1 NaN through ``fit_with_recovery``, and the min-agreed restore.
 * ``hang``: a rank-1 hang; rank 1 exits 69 from its watchdog, rank 0 from
   the peer's poison or its escalation.
+* ``serve`` (``test_torch_serve_mesh.py``): a ``ServeEngine`` of the narrow
+  ResNet on each rank; the warm passes together, then rank 0 leads (partial
+  and full blocks, ``topk``, ``rank``, refreshes to a good, a truncated and
+  a step rank 1 refuses to restore, the launches gather) while rank 1
+  follows; then ``score_dataset`` at W = 2 on the boot and the refreshed
+  variables.
 """
 
 from __future__ import annotations
@@ -196,13 +202,86 @@ def hang(out_dir: str) -> dict:
     return rec
 
 
+def serve(out_dir: str) -> dict:
+    from data_diet_distributed_tpu_torch.checkpoint import CheckpointManager
+    from data_diet_distributed_tpu_torch.serve.engine import ServeEngine
+    from data_diet_distributed_tpu_torch.serve.server import ServeService
+
+    with np.load(os.path.join(out_dir, "inputs.npz")) as f:
+        inputs = {k: f[k] for k in f.files}
+    rank = mesh.process_index()
+    ckpt = os.path.join(out_dir, "ckpt")
+    cfg = load_config(None, ["data.dataset=synthetic", "model.arch=tiny_cnn",
+                             "train.half_precision=false", "score.batch_size=15",
+                             "score.grand_chunk=4", "score.pretrain_epochs=0",
+                             f"train.checkpoint_dir={ckpt}",
+                             "resilience.consensus_grace_s=30"])
+    ds = ArrayDataset(inputs["score_x"], inputs["score_y"], inputs["score_idx"], 10)
+    seeds = [_group(inputs, f"s{s}/") for s in (0, 1)]
+    model = ResNet((1, 1, 1, 1), BasicBlock, width=16).eval()
+    engine = ServeEngine(cfg, device="cpu")
+    engine.model = model
+    engine.register_tenant("syn", ds, seeds)
+    result: dict = {"batch_size": engine.batch_size}
+    methods = ("el2n", "grand")
+    for m in methods:   # the boot's warm passes, every rank together
+        result[f"full:{m}"] = engine.full_scores("syn", m).tolist()
+    if rank == 1:
+        real_load = engine.load_checkpoint_variables
+
+        def refuse_step_4(directory, step=None):
+            if step == 4:
+                raise OSError("rank 1 cannot read step 4")
+            return real_load(directory, step)
+
+        engine.load_checkpoint_variables = refuse_step_4
+        result["stop"] = engine.follow()
+        t = engine.tenant("syn")
+        result["peer_scores"] = {m: v.tolist() for m, v in t.scores.items()}
+        result["peer_seeds"] = len(t.variables_seeds)
+    else:
+        service = ServeService(engine, cfg)
+        engine.lead()
+        partial = inputs["partial_ids"]
+        block = inputs["block_ids"]
+        for m in methods:
+            result[f"partial:{m}"] = engine.score_batch(
+                "syn", m, *engine.examples_for("syn", partial)).tolist()
+            result[f"block:{m}"] = engine.score_batch(
+                "syn", m, *engine.examples_for("syn", block)).tolist()
+            result[f"topk:{m}"] = list(engine.topk("syn", m, 10))
+            ids, scores = engine.rank("syn", m, inputs["rank_ids"])
+            result[f"rank:{m}"] = [ids.tolist(), scores.tolist()]
+        refresh = {}
+        for step in (2, 3, 4):
+            code, payload, _ = service.refresh("syn", step=step)
+            refresh[step] = {"code": code, "status": payload.get("status")}
+            result[f"refresh{step}:partial:grand"] = engine.score_batch(
+                "syn", "grand", *engine.examples_for("syn", partial)).tolist()
+            for m in methods:
+                result[f"refresh{step}:full:{m}"] = engine.full_scores("syn", m).tolist()
+        result["refresh"] = refresh
+        result["rank_launches"] = engine.gather_rank_launches()
+        engine.stop_group("done")
+    # Out of the operations: the port's own W = 2 scoring on the same inputs.
+    step2 = CheckpointManager(ckpt).restore_variables(2, "cpu")
+    for m in methods:
+        result[f"offline:{m}"] = score_dataset(model, seeds, ds, method=m, batch_size=15,
+                                               chunk=4, device="cpu").tolist()
+        result[f"offline2:{m}"] = score_dataset(model, [step2], ds, method=m,
+                                                batch_size=15, chunk=4,
+                                                device="cpu").tolist()
+    return result
+
+
 def main() -> None:
     rank, world, port, out_dir, group = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                                          sys.argv[4], sys.argv[5])
     mesh.initialize_multihost(MeshConfig(multihost=True,
                                          coordinator_address=f"127.0.0.1:{port}",
                                          num_processes=world, process_id=rank), "cpu")
-    result = {"numerics": numerics, "drills": drills, "hang": hang}[group](out_dir)
+    result = {"numerics": numerics, "drills": drills, "hang": hang,
+              "serve": serve}[group](out_dir)
     result["rank"] = rank
     if group == "numerics":
         np.savez(os.path.join(out_dir, f"result_{rank}.npz"), **result)

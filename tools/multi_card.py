@@ -5,6 +5,8 @@
     python3 tools/multi_card.py --device cpu --world 4 --examples 512  # gloo rehearsal
     python3 tools/multi_card.py --only-elastic [--out DIR]  # step 7 alone
     python3 tools/multi_card.py --only-elastic --device cpu --world 4 --examples 256
+    python3 tools/multi_card.py --only-serve [--out DIR]    # step 8 alone
+    python3 tools/multi_card.py --only-serve --device cpu --world 4 --examples 256
 
 Starts W rank processes of this script (each with a timeout; a rank that
 fails fails the run) that join a group through
@@ -54,7 +56,19 @@ fails fails the run) that join a group through
    here at the rank's batch (bitwise or not is reported; within
    ``tests/test_distributed.py``'s tolerance); the port's post-mortem exits
    0 over the stream; the walls. With ``--only-elastic`` only this step
-   (and its W = 1 reference) runs.
+   (and its W = 1 reference) runs;
+8. serving across the cards: ``cli serve`` (the ``cifar10_resnet18.yaml``
+   recipe at full width, the examples, seeds [0, 1], batch 512, both methods,
+   ``serve.warm=false``) as W ranks, one a card, then as one process on the
+   first card. Each service answers on rank 0's port; the first
+   ``/v1/topk?k=100`` per method runs the first whole-dataset pass (its wall is
+   reported at W and at 1); at W every ``/v1/score`` (100 and 512 ids),
+   ``/v1/rank`` (100 ids) and ``/v1/topk`` answer is bitwise ``score_dataset``
+   on the same W ranks at batch 512 (step 4's vectors, or with
+   ``--only-serve`` the same pass by W ranks of this script), and at 1 the
+   largest difference from them is reported; p50/p95 per method under 4
+   clients x 25 requests of 1-64 random ids; a SIGTERM to rank 0 ends every
+   rank with exit 75. With ``--only-serve`` only this step runs.
 
 Prints one line per step and, as the last line, a JSON object of the
 numbers (also written to ``<out>/multi_card.json``), with the cards' name and
@@ -86,6 +100,8 @@ SEEDS = (0, 1)
 SCORE_B = 512
 ELASTIC_BATCH = 384           # a multiple of W and of W - 1 (4 and 3)
 ELASTIC_TIMEOUT_S = 1200
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_MAX_IDS = 4, 25, 64
+SERVE_BOOT_S = 600
 DRILL_ARGV = ["train", "--config", os.path.join(REPO, "configs", "synthetic_smoke.yaml"),
               "data.synthetic_size=256", "data.batch_size=64", "data.eval_batch_size=64",
               "model.arch=tiny_cnn", "train.num_epochs=3", "train.checkpoint_every=1",
@@ -199,7 +215,6 @@ def worker(rank: int, world: int, port: str, out: str, device: str, n: int) -> N
     from data_diet_distributed_tpu_torch.data.datasets import load_dataset
     from data_diet_distributed_tpu_torch.device import set_parity_mode
     from data_diet_distributed_tpu_torch.models import create_model_from_cfg
-    from data_diet_distributed_tpu_torch.ops import kernels as K
     from data_diet_distributed_tpu_torch.ops.scoring import score_dataset
     from data_diet_distributed_tpu_torch.parallel import collectives, mesh
     from data_diet_distributed_tpu_torch.train import loop
@@ -261,19 +276,7 @@ def worker(rank: int, world: int, port: str, out: str, device: str, n: int) -> N
     model = create_model_from_cfg(cfg)
     sds, _ = load_dataset("synthetic", synthetic_size=n, seed=0)
     variables = [init_variables("resnet18", s, dev) for s in SEEDS]
-    score_dataset(model, variables[:1], sds.subset(sds.indices[:SCORE_B]), method="grand",
-                  batch_size=SCORE_B, device=dev)   # warm-up
-    res["scores"] = {}
-    for method in ("grand", "el2n"):
-        K.reset_launch_counts()
-        if cuda:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        scores = score_dataset(model, variables, sds, method=method, batch_size=SCORE_B,
-                               device=dev)
-        res["scores"][method] = {"wall_s": time.perf_counter() - t0,
-                                 "launches": K.launch_counts()}
-        np.save(os.path.join(out, f"scores_{method}_{rank}.npy"), scores)
+    res["scores"] = score_at_batch(torch, cuda, model, variables, sds, dev, rank, out)
     # GraNd again with the batch grown with W (512 rows a rank).
     t0 = time.perf_counter()
     scores = score_dataset(model, variables, sds, method="grand", batch_size=SCORE_B * world,
@@ -282,6 +285,52 @@ def worker(rank: int, world: int, port: str, out: str, device: str, n: int) -> N
     np.save(os.path.join(out, f"scores_grand_wide_{rank}.npy"), scores)
     with open(os.path.join(out, f"rank_{rank}.json"), "w") as fh:
         json.dump(res, fh)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def score_at_batch(torch, cuda: bool, model, variables, sds, dev, rank: int,
+                   out: str) -> dict:
+    """GraNd and EL2N ``score_dataset`` at batch ``SCORE_B`` on this rank
+    (after a one-batch warm-up): walls and launches; the vectors in
+    ``out/scores_<method>_<rank>.npy``."""
+    from data_diet_distributed_tpu_torch.ops import kernels as K
+    from data_diet_distributed_tpu_torch.ops.scoring import score_dataset
+    score_dataset(model, variables[:1], sds.subset(sds.indices[:SCORE_B]), method="grand",
+                  batch_size=SCORE_B, device=dev)   # warm-up
+    res = {}
+    for method in ("grand", "el2n"):
+        K.reset_launch_counts()
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = score_dataset(model, variables, sds, method=method, batch_size=SCORE_B,
+                               device=dev)
+        res[method] = {"wall_s": time.perf_counter() - t0, "launches": K.launch_counts()}
+        np.save(os.path.join(out, f"scores_{method}_{rank}.npy"), scores)
+    return res
+
+
+def score_rank(rank: int, world: int, port: str, out: str, device: str, n: int,
+               config: str, over: list[str]) -> None:
+    """One rank of step 8's reference with ``--only-serve``: step 4's scoring of
+    the service's recipe."""
+    import torch
+
+    from data_diet_distributed_tpu_torch.config import MeshConfig, load_config
+    from data_diet_distributed_tpu_torch.models import create_model_from_cfg
+    from data_diet_distributed_tpu_torch.parallel import mesh
+    from data_diet_distributed_tpu_torch.train import loop
+    cuda = device == "cuda"
+    mesh.initialize_multihost(MeshConfig(multihost=True,
+                                         coordinator_address=f"127.0.0.1:{port}",
+                                         num_processes=world, process_id=rank),
+                              None if cuda else "cpu")
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+    cfg = load_config(config, over)
+    ds, _ = loop.load_data_for(cfg)
+    variables = loop.score_variables_for_seeds(cfg, ds, device=dev)
+    score_at_batch(torch, cuda, create_model_from_cfg(cfg), variables, ds, dev, rank, out)
     sys.stdout.flush()
     os._exit(0)
 
@@ -478,6 +527,9 @@ def main(argv: list[str]) -> int:
         drill_rank(int(r), int(w), port, device, argv[5:])
     if argv[:1] == ["--elastic-rank"]:
         elastic_rank(argv[1], argv[2:])
+    if argv[:1] == ["--score-rank"]:
+        r, w, port, out, device, n, config = argv[1:8]
+        score_rank(int(r), int(w), port, out, device, int(n), config, argv[8:])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--world", type=int, default=None,
@@ -486,6 +538,8 @@ def main(argv: list[str]) -> int:
     parser.add_argument("--out", default=os.path.join(REPO, "chip_smoke_out"))
     parser.add_argument("--only-elastic", action="store_true",
                         help="run step 7 (the elastic drill) alone")
+    parser.add_argument("--only-serve", action="store_true",
+                        help="run step 8 (serving across the cards) alone")
     args = parser.parse_args(argv)
     import torch
     cuda = args.device == "cuda"
@@ -521,6 +575,10 @@ def main(argv: list[str]) -> int:
     if args.only_elastic:
         out = {"world": world, "cards": cards, "elastic": elastic_step(
             torch, world, args.device, args.examples, work, load_config)}
+        return finish_run(args, out, work, cards, t_run)
+    if args.only_serve:
+        out = {"world": world, "cards": cards,
+               "serve": serve_step(world, args.device, args.examples, work, reference=None)}
         return finish_run(args, out, work, cards, t_run)
     port = free_port()
     ranks = [spawn(["--worker", str(r), str(world), port, work, args.device,
@@ -689,6 +747,10 @@ def main(argv: list[str]) -> int:
           f"75 at step 4, durable at 4, the resume bitwise the whole run; a hang on rank 1 "
           f"-> every rank 69, within {hang_s:.1f} s of each other", flush=True)
     out["elastic"] = elastic_step(torch, world, args.device, args.examples, work, load_config)
+    # Step 4's vectors are the service's reference on the card (the CPU
+    # rehearsal serves tiny_cnn, so there step 8 scores its own).
+    out["serve"] = serve_step(world, args.device, args.examples, work,
+                              reference=work if cuda else None)
     return finish_run(args, out, work, cards, t_run)
 
 
@@ -717,6 +779,175 @@ def elastic_step(torch, world: int, device: str, n: int, work: str, load_config)
           f"{e['chains']}; supervised wall {e['wall_s']:.1f} s, lost {e['lost_wall_s']} s",
           flush=True)
     return e
+
+
+def serve_over(device: str, n: int, d: str) -> tuple[str, list[str]]:
+    """Step 8's recipe (config, overrides); tiny on the CPU."""
+    over = ["data.dataset=synthetic", f"data.synthetic_size={n}", "score.pretrain_epochs=0",
+            f"score.seeds={list(SEEDS)}", f"score.batch_size={SCORE_B}",
+            f"train.checkpoint_dir={d}/ckpt"]
+    if device == "cpu":
+        over += ["model.arch=tiny_cnn", "train.half_precision=false"]
+    return os.path.join(REPO, "configs", "cifar10_resnet18.yaml"), over
+
+
+def http(port: int, path: str, body=None) -> tuple[int, bytes]:
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read()
+
+
+def served_port(p: dict, budget_s: float = SERVE_BOOT_S) -> int:
+    """The port rank 0 announced (its ``obs_server`` record)."""
+    t0 = time.time()
+    while time.time() - t0 < budget_s:
+        check(p["proc"].poll() is None, f"8. a serve rank exited: {p['proc'].poll()}")
+        with open(p["log_path"], errors="replace") as fh:
+            for line in fh:
+                if line.startswith("{") and '"obs_server"' in line:
+                    return json.loads(line)["port"]
+        time.sleep(0.2)
+    fail("8. rank 0 never announced its port")
+
+
+def drive_service(sp: int, ds, ref: dict) -> dict:
+    """One service's numbers: the first whole-dataset pass per method (the first
+    ``/v1/topk``), the largest difference of every answer from ``ref`` and
+    whether all were bitwise, and p50/p95 per method under load."""
+    import threading
+    pos = {int(i): k for k, i in enumerate(ds.indices)}
+
+    def truth(m, ids):
+        return ref[m][[pos[int(i)] for i in ids]]
+
+    res = {"first_pass_s": {}, "max_abs": {}, "bitwise": True, "latency": {}}
+
+    def note(m, got, want):
+        res["max_abs"][m] = max(res["max_abs"].get(m, 0.0), float(np.max(np.abs(got - want))))
+        res["bitwise"] &= bool(np.array_equal(got, want))
+
+    rng = np.random.default_rng(8)
+    for m in ("grand", "el2n"):
+        t0 = time.perf_counter()
+        code, raw = http(sp, f"/v1/topk?k=100&method={m}")
+        res["first_pass_s"][m] = time.perf_counter() - t0
+        items = [json.loads(x) for x in raw.splitlines() if x.strip()]
+        order = np.lexsort((ds.indices, -ref[m]))[:100]
+        check(code == 200 and len(items) == 100, f"8. /v1/topk {m}: {code}")
+        note(m, np.asarray([i["score"] for i in items], np.float32), ref[m][order])
+        res["bitwise"] &= [i["index"] for i in items] == ds.indices[order].tolist()
+        for size in (100, min(SCORE_B, len(ds))):
+            ids = rng.choice(ds.indices, size=size, replace=False)
+            code, raw = http(sp, "/v1/score", {"indices": ids.tolist(), "method": m})
+            check(code == 200, f"8. /v1/score {m}: {code} {raw[:200]}")
+            note(m, np.asarray(json.loads(raw)["scores"], np.float32), truth(m, ids))
+        ids = rng.choice(ds.indices, size=100, replace=False)
+        code, raw = http(sp, "/v1/rank", {"indices": ids.tolist(), "method": m})
+        got = json.loads(raw)
+        s = truth(m, ids)
+        o = np.lexsort((ids, -s))
+        check(code == 200, f"8. /v1/rank {m}: {code}")
+        note(m, np.asarray(got["scores"], np.float32), s[o])
+        res["bitwise"] &= got["indices"] == ids[o].tolist()
+    for m in ("el2n", "grand"):
+        ms, bad = [], []
+
+        def client(k: int, m=m, ms=ms, bad=bad) -> None:
+            r = np.random.default_rng(100 + k)
+            for _ in range(SERVE_REQUESTS):
+                ids = r.choice(ds.indices, size=int(r.integers(1, SERVE_MAX_IDS + 1)),
+                               replace=False)
+                t = time.perf_counter()
+                code, raw = http(sp, "/v1/score", {"indices": ids.tolist(), "method": m})
+                ms.append((time.perf_counter() - t) * 1e3)
+                if code != 200:
+                    bad.append(code)
+                else:
+                    note(m, np.asarray(json.loads(raw)["scores"], np.float32), truth(m, ids))
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        check(len(ms) == SERVE_CLIENTS * SERVE_REQUESTS and not bad,
+              f"8. {m}: {len(ms)} answers, statuses {bad[:5]}")
+        res["latency"][m] = {"p50_ms": float(np.percentile(ms, 50)),
+                             "p95_ms": float(np.percentile(ms, 95))}
+    return res
+
+
+def serve_step(world: int, device: str, n: int, work: str, reference: str | None) -> dict:
+    """Step 8 (see the module docstring); ``reference`` holds step 4's vectors,
+    or None to score them here first. Prints its line; returns its numbers."""
+    import signal
+
+    from data_diet_distributed_tpu_torch.config import load_config
+    from data_diet_distributed_tpu_torch.train import loop
+    d = os.path.join(work, "serve")
+    os.makedirs(d, exist_ok=True)
+    config, over = serve_over(device, n, d)
+    if reference is None:
+        reference, port = d, free_port()
+        ranks = [spawn(["--score-rank", str(r), str(world), port, d, device, str(n), config,
+                        *over], os.path.join(d, f"ref_{r}.log")) for r in range(world)]
+        finish(ranks)
+        for p in ranks:
+            check(p["rc"] == 0, f"8. reference: {tail(p)}")
+    ref = {}
+    for m in ("grand", "el2n"):
+        got = [np.load(os.path.join(reference, f"scores_{m}_{r}.npy")) for r in range(world)]
+        check(all(np.array_equal(got[0], g) for g in got), f"8. reference {m}: ranks differ")
+        ref[m] = got[0]
+    ds, _ = loop.load_data_for(load_config(config, over))
+    argv = ["serve", "--config", config, *over, "serve.port=0", "serve.methods=[el2n,grand]",
+            "serve.warm=false", "serve.drain_timeout_s=30"]
+    out = {}
+    for label, w in ((f"w{world}", world), ("w1", 1)):
+        metrics = os.path.join(d, f"{label}_metrics.jsonl")
+        args = [*argv, f"obs.metrics_path={metrics}"]
+        if w > 1:
+            port = free_port()
+            procs = [spawn(["--drill", str(r), str(w), port, device, *args],
+                           os.path.join(d, f"{label}_rank{r}.log")) for r in range(w)]
+        else:
+            procs = [spawn(["--drill", "0", "1", free_port(), device, *args],
+                           os.path.join(d, f"{label}_rank0.log"))]
+        t0 = time.time()
+        try:
+            sp = served_port(procs[0])
+            res = drive_service(sp, ds, ref)
+            res["boot_s"] = time.time() - t0
+        except BaseException:
+            for p in procs:
+                p["proc"].kill()
+            raise
+        procs[0]["proc"].send_signal(signal.SIGTERM)
+        finish(procs)
+        rcs = [p["rc"] for p in procs]
+        check(rcs == [75] * w, f"8. {label}: exits {rcs}: " + tail(procs[0]))
+        if w > 1:
+            check(res["bitwise"], f"8. W = {w}: an answer differs from score_dataset at "
+                                  f"W = {w}: max abs {res['max_abs']}")
+        res["exits"] = rcs
+        out[label] = res
+    big, one = out[f"w{world}"], out["w1"]
+    print(f"  8. cli serve as {world} ranks: every answer bitwise score_dataset on the same "
+          f"{world} ranks at {SCORE_B}; first whole-dataset pass (topk) "
+          f"{ {m: round(v, 3) for m, v in big['first_pass_s'].items()} } s against "
+          f"{ {m: round(v, 3) for m, v in one['first_pass_s'].items()} } s on one card; p50/p95 "
+          f"ms { {m: (round(v['p50_ms'], 2), round(v['p95_ms'], 2)) for m, v in big['latency'].items()} } "
+          f"against { {m: (round(v['p50_ms'], 2), round(v['p95_ms'], 2)) for m, v in one['latency'].items()} }; "
+          f"one card's max abs from the W-rank vectors {one['max_abs']}; SIGTERM -> every "
+          f"rank 75", flush=True)
+    return out
 
 
 def finish_run(args, out: dict, work: str, cards: list[str], t_run: float) -> int:

@@ -279,6 +279,36 @@ Phases (the first failure exits non-zero; nothing is caught):
    seed 1 only, bitwise the uninterrupted one. Cuts: ``WRN_N`` of 50,000
    examples, 1 of 10 pretrain epochs, 1 of 200 retrain epochs per level;
    widths and seeds as published.
+11b. TP: BASELINE config 4's ``cli run`` (``configs/cifar100_wrn28_10.yaml``:
+   WideResNet-28-10, a 640 -> 100 head, GraNd over seeds [0, 1, 2], prune 50 %;
+   bf16, training at batch 128, scoring at batch 512) on ``TP_N`` synthetic
+   CIFAR-100-geometry examples written as npz, as ``TP_WORLD`` = 2 ranks on
+   cuda:0 over gloo with ``mesh.model_axis=2 mesh.data_axis=1`` (each rank
+   one worker process of this script, ``--tp-worker``, joined before
+   ``cli.main``), and as one process (W = 1), all three at once. Each worker
+   first pretrains in fp32 with TF32 off on ``TP_PARITY_N`` examples (three
+   steps, seed 0, through ``score_variables_for_seeds``), then runs ``cli
+   run`` with its launches counted; the ranks then join again for ``cli
+   score`` with EL2N on the run's final checkpoint (``score.score_ckpt_step``).
+   Gates: (a) each rank's pretrain and retrain fits end holding
+   ``classifier.weight`` [50, 640] and ``bias`` [50] (and their momentum),
+   and the two ranks' trunks (every other param and statistic) bitwise equal;
+   (b) the fp32 pretrained variables within rtol 1e-4, atol 1e-6 of W = 1's
+   (the train phase's card gate at its atol floor; the bf16 pretrained
+   variables' largest difference is printed, not held: bf16 sums the head's
+   two row blocks of ``∂L/∂h`` in another order); (c) the run's GraNd scores
+   within rtol 1e-4 + 1e-5 and the EL2N scores within rtol 1e-5 + 1e-6 of
+   ``score_dataset`` at W = 1 at the rank's batch of 256 on the same
+   variables (the ranks' pretrained ones, the final checkpoint's), as the
+   dist phase's (c); the difference from W = 1 at 512 is printed (bf16 WRN
+   scores move with the batch's geometry); (d) each rank's launches: exactly the GraNd
+   route's direct and Gram kernels (``route log`` at the rank's 256 rows) per
+   batch per seed, tensor-core, and one EL2N per batch; (e) the final
+   checkpoint restores at W = 1 to the logits the ranks' split head computed
+   on the final state (fp32, TF32 off; within 1e-5 of the largest |logit|).
+   Walls of both runs printed. Cuts: ``TP_N`` of 50,000 examples, 1 of 10
+   pretrain epochs, 1 of 200 retrain epochs; widths and seeds as published.
+   Files in ``chip_smoke_out/tp/`` (removed after a pass).
 12. Dist: the port across ranks (``torch.distributed``), each step as worker
    processes of this script with a timeout. W = 1 over NCCL: the north-star
    ``cli run`` (``TRAIN_N`` examples, seeds [0, 1]) with ``mesh.multihost=true
@@ -348,7 +378,7 @@ route; the cuDNN dgrad launches must drop from 19 to 9 on the megakernel
 route, and the profiled BN and Gram time per batch is printed beside the
 ``device_ms`` sums.
 
-Every counted run (phases 4, 5, 6b and 7, phase 6c's replicas, phase 6d's ranks, phase 8's
+Every counted run (phases 4, 5, 6b and 7, phase 6c's replicas, phase 6d's and 11b's ranks, phase 8's
 ``run``, phase 9's runs of ``run_datadiet``, phase 10's ``cli run``, phase 11's
 ``score_dataset`` passes and ``cli sweep``, and the relaunched attempts of
 phase 12b, each a new process) starts with the launch counts at 0
@@ -5150,6 +5180,343 @@ def mesh_serve_phase(torch, port, path, details_out, card: str) -> dict:
     return counts
 
 
+TP_ROOT = os.path.join(REPO, "chip_smoke_out", "tp")
+TP_WORLD = 2                   # {data: 1, model: 2}: two ranks on cuda:0 over gloo
+TP_N = 2048                    # train examples (CIFAR-100 has 50,000)
+TP_TEST = 512                  # test examples
+TP_SEEDS = (0, 1, 2)           # config 4's score.seeds
+TP_PARITY_N = 384              # (b): three fp32 steps of batch 128, TF32 off
+TP_LOGIT_ROWS = 64             # (e): the rows whose logits the ranks and W = 1 compute
+TP_LOGIT_RTOL = 1e-5           # (e): of the largest |logit|
+TP_TIMEOUT_S = 600             # each worker process
+
+
+def tp_argv(data_dir: str, ckpt: str, metrics: str, *over) -> list[str]:
+    return ["run", "--config", WRN_CONFIG, "data.dataset=npz", f"data.data_dir={data_dir}",
+            "score.pretrain_epochs=1", "train.num_epochs=1", f"score.batch_size={B}",
+            f"score.seeds=[{','.join(str(s) for s in TP_SEEDS)}]", "prune.sparsity=0.5",
+            "obs.xla_introspect=false", f"obs.metrics_path={metrics}",
+            f"train.checkpoint_dir={ckpt}", *over]
+
+
+def tp_worker(argv: list[str]) -> int:
+    """``--tp-worker RANK WORLD PORT PORT2 OUT [cli run arguments]``: one rank of
+    the tp phase on cuda:0 (over gloo at WORLD > 1, ``mesh.model_axis`` = WORLD,
+    joined at PORT, and at PORT2 for the EL2N ``cli score``; WORLD = 1 joins
+    nothing and scores nothing more). Writes ``OUT/result_<RANK>.json`` and,
+    on rank 0, the fp32 pretrained variables, the bf16 pretrained ones (every
+    seed at WORLD > 1, seed 0 at 1), the final state's logits and the run's
+    GraNd scores."""
+    import torch
+    rank, world, port_no, port2, out = (int(argv[0]), int(argv[1]), argv[2], argv[3],
+                                        argv[4])
+    cli_argv = argv[5:]
+    check(torch.cuda.is_available(), "CUDA is not available")
+    port = load_port()
+    from data_diet_distributed_tpu_torch.config import MeshConfig
+    from data_diet_distributed_tpu_torch.parallel import mesh
+    from data_diet_distributed_tpu_torch.train import loop
+    K, T, cli = port["kernels"], port["train"], port["data"]["cli"]
+    device = "cuda:0"
+    os.makedirs(out, exist_ok=True)
+
+    def join(p: str) -> None:
+        if world > 1:
+            mesh.initialize_multihost(MeshConfig(
+                multihost=True, coordinator_address=f"127.0.0.1:{p}", num_processes=world,
+                process_id=rank, model_axis=world), device, backend="gloo")
+
+    join(port_no)
+    config = cli_argv[cli_argv.index("--config") + 1]
+    over = [a for a in cli_argv if "=" in a]
+    result: dict = {"rank": rank, "world": world}
+    # (b) fp32, TF32 off: the pretrain of seed 0 on TP_PARITY_N examples.
+    port["set_parity_mode"](True)
+    cfg32 = port["load_config"](config, [*over, "train.half_precision=false",
+                                         "score.seeds=[0]"])
+    ds, _ = T["load_data_for"](cfg32)
+    (v32,) = T["score_variables_for_seeds"](cfg32, ds.subset(ds.indices[:TP_PARITY_N]),
+                                            device=device)
+    port["set_parity_mode"](False)
+    if rank == 0:
+        np.savez(os.path.join(out, "fp32_pretrained.npz"),
+                 **{k: v.float().cpu().numpy() for k, v in v32.items()})
+    x = torch.from_numpy(np.asarray(ds.images[:TP_LOGIT_ROWS], np.float32)).to(device)
+    model32 = port["create_model"](cfg32.model.arch, cfg32.model.num_classes).to(device)
+
+    heads: list = []
+    real_fit, real_vars = loop.fit, loop.score_variables_for_seeds
+
+    def recording_fit(*args, **kwargs):
+        res = real_fit(*args, **kwargs)
+        st = res.state
+        heads.append({"tag": kwargs.get("tag"),
+                      "weight": list(st.params["classifier.weight"].shape),
+                      "bias": list(st.params["classifier.bias"].shape),
+                      "momentum": list(st.momentum["classifier.weight"].shape),
+                      "trunk": trunk_digest(st)})
+        if kwargs.get("tag") == "final":
+            # (e): this rank's forward of the final state, the head as it holds it.
+            port["set_parity_mode"](True)
+            with torch.no_grad():
+                logits = torch.func.functional_call(model32.eval(), st.variables, (x,))
+            port["set_parity_mode"](False)
+            if rank == 0:
+                np.savez(os.path.join(out, "final_logits.npz"), x=x.cpu().numpy(),
+                         logits=logits.cpu().numpy())
+        return res
+
+    def saving_vars(*args, **kwargs):
+        got = real_vars(*args, **kwargs)
+        for k, v in enumerate(got):
+            if rank == 0 and (world > 1 or k == 0):
+                torch.save({n: t.float().cpu() for n, t in v.items()},
+                           os.path.join(out, f"pretrained_seed{k}.pt"))
+        return got
+
+    loop.fit, loop.score_variables_for_seeds = recording_fit, saving_vars
+    K.reset_launch_counts()
+    modes0 = K.mode_counts()
+    t0 = time.perf_counter()
+    rc = cli.main([*cli_argv, "--device", device])
+    result["run"] = {"rc": rc, "wall_s": time.perf_counter() - t0,
+                     "launches": K.launch_counts(), "modes": _mode_delta(K, modes0),
+                     "heads": heads}
+    loop.fit, loop.score_variables_for_seeds = real_fit, real_vars
+    cfg = port["load_config"](config, over)
+    ckpt = cfg.train.checkpoint_dir
+    if world > 1 and rc == 0:
+        if rank == 0:
+            shutil.copyfile(T["scores_npz_path"](ckpt), os.path.join(out, "grand_scores.npz"))
+        step = port["CheckpointManager"](ckpt).latest_step()
+        join(port2)
+        score_argv = ["score", *[a for a in cli_argv if a != "run"], "score.method=el2n",
+                      f"score.score_ckpt_step={step}"]
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc2 = cli.main([*score_argv, "--device", device])
+        result["el2n"] = {"rc": rc2, "wall_s": time.perf_counter() - t0, "step": step,
+                          "launches": K.launch_counts()}
+    with open(os.path.join(out, f"result_{rank}.json"), "w") as fh:
+        json.dump(result, fh)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def trunk_digest(state) -> str:
+    """sha256 over the params and statistics a model group holds whole (every
+    leaf but the head's)."""
+    import hashlib
+    h = hashlib.sha256()
+    for g in ("params", "batch_stats"):
+        for k in sorted(getattr(state, g)):
+            if not k.startswith("classifier."):
+                h.update(k.encode() + getattr(state, g)[k].detach().float().cpu().numpy()
+                         .tobytes())
+    return h.hexdigest()
+
+
+def _mode_delta(K, before: dict) -> dict:
+    """Launches by kernel and mode since ``before`` (``K.mode_counts()``)."""
+    now = K.mode_counts()
+    return {k: {m: now[k][m] - before[k].get(m, 0) for m in now[k]} for k in now}
+
+
+def tp_phase(torch, port, details_out, card: str) -> dict:
+    """Config 4's ``cli run`` with ``mesh.model_axis=2`` on the card; gates
+    (a)-(e) of the module docstring. Returns the launches of the counted runs
+    by kernel (each rank's and the W = 1 run's: each a new process, read by
+    it right after). Files in ``TP_ROOT`` (removed after a pass)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()   # the earlier phases' cached blocks: three processes share the card
+    shutil.rmtree(TP_ROOT, ignore_errors=True)
+    os.makedirs(TP_ROOT)
+    rec: dict = {}
+    details_out["tp"] = rec
+    K, T, gb = port["kernels"], port["train"], port["grand_batched"]
+    full = cifar100_dataset(port, TP_N + TP_TEST)
+    data_dir = os.path.join(TP_ROOT, "npz")
+    os.makedirs(data_dir)
+    for split, rows in (("train", slice(0, TP_N)), ("test", slice(TP_N, None))):
+        np.savez(os.path.join(data_dir, f"{split}.npz"), images=full.images[rows],
+                 labels=full.labels[rows])
+    runs = {"tp": os.path.join(TP_ROOT, "tp"), "w1": os.path.join(TP_ROOT, "w1")}
+    argv = {name: tp_argv(data_dir, os.path.join(d, "ckpt"), os.path.join(d, "metrics.jsonl"),
+                          *(["mesh.model_axis=2", "mesh.data_axis=1"] if name == "tp" else []))
+            for name, d in runs.items()}
+    ports = (free_port(), free_port())
+    workers = [spawn(["--tp-worker", str(r), str(TP_WORLD), *ports, runs["tp"], *argv["tp"]],
+                     f"tp_r{r}", root=TP_ROOT) for r in range(TP_WORLD)]
+    workers.append(spawn(["--tp-worker", "0", "1", "-", "-", runs["w1"], *argv["w1"]],
+                         "w1", root=TP_ROOT))
+    # Meanwhile: the GraNd route of one rank's 256 rows (seed 0 at init, bf16).
+    cfg = port["load_config"](WRN_CONFIG, [f"model.num_classes={R50_CLASSES}"])
+    model16 = port["create_model_from_cfg"](cfg).to("cuda")
+    rows_rank = B // TP_WORLD
+    first = next(port["data"]["iterate_batches"](full, rows_rank))
+    batch = [torch.from_numpy(first[k]).cuda() for k in ("image", "label", "mask")]
+    route_log: list = []
+    gb.batched_grand_scores(model16, port["init_variables"](cfg.model.arch, 0, "cuda",
+                                                            num_classes=R50_CLASSES),
+                            *batch, use_kernels=True, route_log=route_log)
+    routes = collections.Counter(r for _, r in route_log)
+    per_batch = {"conv_grad_norm_direct": routes["v1"] + routes["v2"],
+                 "conv_grad_norm_gram": routes["gram"]}
+    finish(workers, timeout=TP_TIMEOUT_S)
+    for w in workers:
+        check(w["rc"] == 0, f"tp: a worker failed: {worker_tail(w)}")
+    res = {name: [] for name in runs}
+    for r in range(TP_WORLD):
+        with open(os.path.join(runs["tp"], f"result_{r}.json")) as fh:
+            res["tp"].append(json.load(fh))
+    with open(os.path.join(runs["w1"], "result_0.json")) as fh:
+        res["w1"].append(json.load(fh))
+    for name, rs in res.items():
+        for r in rs:
+            check(r["run"]["rc"] == 0, f"tp: {name} rank {r['rank']}: cli run exit "
+                                       f"{r['run']['rc']}")
+    for r in res["tp"]:
+        check(r["el2n"]["rc"] == 0, f"tp: rank {r['rank']}: cli score exit {r['el2n']['rc']}")
+
+    # (a) each rank holds its 50 rows of the head through the pretrain and the retrain.
+    classes = R50_CLASSES // TP_WORLD
+    for r in res["tp"]:
+        tags = [h["tag"] for h in r["run"]["heads"]]
+        check(tags == [f"score_pretrain_seed{s}" for s in TP_SEEDS] + ["final"],
+              f"(a) rank {r['rank']}: fits {tags}")
+        for h in r["run"]["heads"]:
+            check(h["weight"] == [classes, 640] and h["bias"] == [classes]
+                  and h["momentum"] == [classes, 640],
+                  f"(a) rank {r['rank']} {h['tag']}: head {h}")
+    digests = [[h["trunk"] for h in r["run"]["heads"]] for r in res["tp"]]
+    check(all(len(set(d)) == 1 for d in zip(*digests)),
+          "(a) the ranks' trunks differ after a fit")
+    print(f"  (a) both ranks of {{data: 1, model: {TP_WORLD}}} end each of "
+          f"{len(TP_SEEDS)} pretrain fits and the retrain holding classifier.weight "
+          f"[{classes}, 640], bias [{classes}] and their momentum, and the same trunk "
+          f"(params and statistics bitwise)", flush=True)
+
+    # (b) the fp32 pretrained variables against W = 1; the bf16 ones reported.
+    with np.load(os.path.join(runs["tp"], "fp32_pretrained.npz")) as a, \
+            np.load(os.path.join(runs["w1"], "fp32_pretrained.npz")) as b:
+        worst = max(float(np.max(np.abs(a[k] - b[k]) - (1e-6 + 1e-4 * np.abs(b[k]))))
+                    for k in b.files)
+        gap32 = max(float(np.max(np.abs(a[k] - b[k]))) for k in b.files)
+    load = lambda name: torch.load(os.path.join(runs[name], "pretrained_seed0.pt"))
+    a16, b16 = load("tp"), load("w1")
+    gaps16 = {k: float((a16[k] - b16[k]).abs().max() / max(float(b16[k].abs().max()), 1e-30))
+              for k in b16}
+    worst16 = max(gaps16, key=gaps16.get)
+    gap16 = gaps16[worst16]
+    del a16, b16
+    rec["pretrained"] = {"fp32_max_abs": gap32, "bf16_max_rel": gap16,
+                         "bf16_worst_tensor": worst16}
+    print(f"  (b) fp32 pretrain ({TP_PARITY_N} examples, 3 steps, TF32 off): largest "
+          f"|difference| from W = 1 {gap32:.3e} (rtol 1e-4, atol 1e-6); bf16 pretrain of "
+          f"seed 0 ({TP_N} examples): largest difference {gap16:.3e} of a tensor's "
+          f"largest magnitude, in {worst16} (not held)", flush=True)
+    check(worst <= 0, f"(b) fp32 pretrained variables differ from W = 1 by {gap32:.3e}")
+
+    # (c) the run's scores against score_dataset at W = 1 on the same variables.
+    cfg_run = port["load_config"](WRN_CONFIG, [a for a in argv["tp"] if "=" in a])
+    train_ds, _ = T["load_data_for"](cfg_run)
+    model = port["create_model_from_cfg"](cfg_run)
+    kw = dict(batch_size=B, chunk=cfg_run.score.grand_chunk, eval_mode=cfg_run.score.eval_mode,
+              use_kernels=cfg_run.score.use_pallas, device="cuda")
+    rec["scores"] = {}
+    pre = [torch.load(os.path.join(runs["tp"], f"pretrained_seed{k}.pt"))
+           for k in range(len(TP_SEEDS))]
+    step = res["tp"][0]["el2n"]["step"]
+    final = port["CheckpointManager"](cfg_run.train.checkpoint_dir).restore_variables(
+        step, "cuda")
+    with np.load(os.path.join(runs["tp"], "grand_scores.npz")) as f:
+        grand = f["scores"]
+    with np.load(T["scores_npz_path"](cfg_run.train.checkpoint_dir)) as f:
+        el2n = f["scores"]
+    for method, got, variables, rtol, atol in (("grand", grand, pre, 1e-4, 1e-5),
+                                               ("el2n", el2n, [final], 1e-5, 1e-6)):
+        # Held at the rank's batch, as the dist phase's (c): in bf16 a WRN's
+        # scores move with the batch's geometry (cuDNN's algorithms), not its rank.
+        want = port["score_dataset"](model, variables, train_ds, method=method,
+                                     **{**kw, "batch_size": rows_rank})
+        at512 = float(np.abs(got - port["score_dataset"](model, variables, train_ds,
+                                                         method=method, **kw)).max())
+        err = np.abs(got - want)
+        ok = bool(np.all(err <= atol + rtol * np.abs(want)))
+        rec["scores"][method] = {"max_abs": float(err.max()), "max_abs_vs_512": at512,
+                                 "bitwise": bool(np.array_equal(got, want)),
+                                 "mean": float(want.mean())}
+        print(f"  (c) {method}: the ranks' flat pass ({rows_rank} rows a rank) against W = 1 "
+              f"at batch {rows_rank} on the same variables: largest |difference| "
+              f"{float(err.max()):.3e} (rtol {rtol} + {atol}), bitwise "
+              f"{rec['scores'][method]['bitwise']}; against W = 1 at {B}: {at512:.3e} "
+              f"(mean score {float(want.mean()):.4f})", flush=True)
+        check(got.shape == (TP_N,) and bool(np.isfinite(got).all()) and ok,
+              f"(c) {method}: scores {float(err.max()):.3e} from W = 1")
+    del pre
+
+    # (d) each rank's launches on the scoring passes.
+    nb = TP_N // B
+    want_g = {k: nb * len(TP_SEEDS) * per_batch.get(k, 0) for k in K.KERNELS}
+    want_e = {k: (nb if k == "el2n" else 0) for k in K.KERNELS}
+    counts = dict.fromkeys(K.KERNELS, 0)
+    for r in res["tp"]:
+        check(r["run"]["launches"] == want_g,
+              f"(d) rank {r['rank']}: GraNd launches {r['run']['launches']}, want {want_g}")
+        for kern in per_batch:
+            modes = r["run"]["modes"][kern]
+            check(modes.get("tensor_core", 0) == want_g[kern]
+                  and sum(modes.values()) == want_g[kern],
+                  f"(d) rank {r['rank']}: {kern} modes {modes}")
+        check(r["el2n"]["launches"] == want_e,
+              f"(d) rank {r['rank']}: EL2N launches {r['el2n']['launches']}, want {want_e}")
+    for r in res["tp"] + res["w1"]:
+        for part in ("run", "el2n"):
+            for k, n in r.get(part, {}).get("launches", {}).items():
+                counts[k] += n
+    rec["launches_per_rank"] = {"grand": want_g, "el2n": want_e, "route": dict(routes)}
+    print(f"  (d) each rank: GraNd {nb} batches x {len(TP_SEEDS)} seeds x {per_batch} "
+          f"(route of {rows_rank} rows: {dict(routes)}), tensor-core; EL2N {nb} launches",
+          flush=True)
+
+    # (e) the final checkpoint at W = 1 against the ranks' split-head logits.
+    with np.load(os.path.join(runs["tp"], "final_logits.npz")) as f:
+        x, split_logits = torch.from_numpy(f["x"]).cuda(), f["logits"]
+    model32 = port["create_model"](cfg_run.model.arch, R50_CLASSES).to("cuda").eval()
+    port["set_parity_mode"](True)
+    with torch.no_grad():
+        whole = torch.func.functional_call(model32, final, (x,)).cpu().numpy()
+    port["set_parity_mode"](False)
+    gap = float(np.max(np.abs(whole - split_logits)) / np.max(np.abs(split_logits)))
+    rec["final_logits_rel"] = gap
+    print(f"  (e) final checkpoint (step {step}) restored at W = 1: fp32 logits of "
+          f"{TP_LOGIT_ROWS} rows within {gap:.3e} of the largest |logit| of the ranks' "
+          f"split head (limit {TP_LOGIT_RTOL}); head {list(final['classifier.weight'].shape)}",
+          flush=True)
+    check(tuple(final["classifier.weight"].shape) == (R50_CLASSES, 640)
+          and gap <= TP_LOGIT_RTOL, f"(e) restored logits {gap:.3e} from the ranks'")
+
+    # Walls.
+    rec["walls"] = {}
+    for name, d in runs.items():
+        recs = jsonl(os.path.join(d, "metrics.jsonl"))
+        summ = next(r for r in recs if r["kind"] == "summary")
+        epochs = [(e["tag"], e["examples_per_s"]) for e in recs if e["kind"] == "epoch"]
+        wall = res[name][0]["run"]["wall_s"]
+        rec["walls"][name] = {"run_wall_s": wall, "epochs": epochs,
+                              **{k: summ[k] for k in ("pretrain_wall_s", "score_wall_s",
+                                                      "train_wall_s", "n_kept")}}
+        print(f"  {name}: cli run in {wall:.1f} s (three processes on the card at once): "
+              f"pretrain {summ['pretrain_wall_s']:.1f} s, score {summ['score_wall_s']:.1f} s, "
+              f"retrain {summ['train_wall_s']:.1f} s, n_kept {summ['n_kept']}; epochs "
+              f"{[(t, round(e, 1)) for t, e in epochs]} ex/s on {card}", flush=True)
+        check(summ["n_kept"] == TP_N // 2, f"tp {name}: n_kept {summ['n_kept']}")
+    shutil.rmtree(TP_ROOT, ignore_errors=True)
+    rec["phase_wall_s"] = wall = time.perf_counter() - t_phase
+    print(f"  tp phase: {wall:.1f} s", flush=True)
+    return counts
+
+
 def summary_gauge(recs: list[dict], name: str):
     """A gauge of the stream's last registry snapshot."""
     snaps = [r for r in recs if r["kind"] == "metrics"]
@@ -5238,6 +5605,8 @@ def main(argv: list[str]) -> int:
         return drill_worker(argv[1:])
     if argv[:1] == ["--mesh-serve-worker"]:
         return mesh_serve_worker(argv[1:])
+    if argv[:1] == ["--tp-worker"]:
+        return tp_worker(argv[1:])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile GraNd batches with torch.profiler")
@@ -5330,6 +5699,9 @@ def main(argv: list[str]) -> int:
     phase("wrn")
     wrn = wrn_phase(torch, port, details, card)
 
+    phase("tp")
+    tp = tp_phase(torch, port, details, card)
+
     phase("dist")
     dist_phase(torch, port, details, card, path, trained)
 
@@ -5350,11 +5722,12 @@ def main(argv: list[str]) -> int:
     # One entry per kernel: per-batch sums over the layers of the route that runs
     # it, bf16; launches summed over the counted runs of the path, routes and
     # resnet50 phases, the train phase's run, the resilience phase's runs, the data
-    # phase's run, the wrn phase's passes and sweep, and the elastic phase's
-    # relaunched attempts.
+    # phase's run, the wrn phase's passes and sweep, the tp phase's ranks and its
+    # W = 1 run, and the elastic phase's relaunched attempts.
     launches = {k: path["counts"][k] + routes["counts"][k] + service["counts"][k]
                 + fleet[k] + mesh_serve[k] + r50["counts"][k] + trained["counts"][k] + resil["counts"][k]
-                + data["counts"][k] + wrn["counts"][k] + elastic[k] for k in K.KERNELS}
+                + data["counts"][k] + wrn["counts"][k] + tp[k] + elastic[k]
+                for k in K.KERNELS}
     check(all(launches[k] > 0 for k in KERNEL_INFO), f"a kernel never launched: {launches}")
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():

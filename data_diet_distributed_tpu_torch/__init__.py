@@ -20,11 +20,16 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   ``maybe_apply_manifest``, the CLI's startup hook)
 * ``parallel/mesh.py`` + ``parallel/collectives.py`` -> ``parallel/mesh.py``
   (``initialize_multihost`` over ``torch.distributed``: NCCL for CUDA, gloo
-  for the CPU, a gloo host group beside NCCL; rank and world, ``is_primary``,
-  ``sync_hosts``, the geometry check, ``run_mesh``/``remap_mesh`` (a stale
-  ``data_axis`` recomputed under elastic), ``_zero1_spec``, ``UpdateSharding``,
-  ``resolve_update_sharding``; the all-reduces, reduce-scatter, all-gather
-  and float64 score sum XLA inserts in the JAX package)
+  for the CPU, a gloo host group beside NCCL, and at ``mesh.model_axis > 1``
+  the data and model groups; rank and world, ``is_primary``, ``sync_hosts``,
+  the ``{data, model}`` layout (``batch_slice`` and ``flat_slice`` for JAX's
+  two sharders), the geometry check, ``run_mesh``/``remap_mesh`` (a stale
+  ``data_axis`` recomputed under elastic, the model axis kept),
+  ``param_layout`` (``_param_spec_for``: the head split by rows),
+  ``_zero1_spec``, ``UpdateSharding``, ``resolve_update_sharding``; the
+  all-reduces, reduce-scatter, all-gather and float64 score sum XLA inserts
+  in the JAX package, and the head's ``copy_to_model`` and
+  ``gather_from_model``)
 * ``data/datasets.py`` -> ``data/datasets.py`` (synthetic, synthetic_imagenet,
   CIFAR pickles, npz, the memory-mapped ``.npy`` splits, lazy normalization)
 * ``data/native.py`` -> ``data/native.py`` (``native/datadiet_native.cpp``
@@ -42,7 +47,9 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   ``models/tiny.py``, ``models/__init__.py`` (BatchNorm in train mode with
   Flax's semantics; ``model.remat`` as ``torch.utils.checkpoint`` around each
   ResNet and WideResNet block in training; across ranks the training
-  step's BatchNorm statistics are the global batch's)
+  step's BatchNorm statistics are the global batch's, over the data group;
+  the classifier is a ``Head`` that runs split over the model group when it
+  holds only its rank's rows)
 * ``weights.py`` -> (new) Flax weight port, seeded init (``resnet.py:29-32,57``)
 * ``ops/kernels.py`` + ``ops/csrc/*.cu`` + ``ops/build.py`` ->
   ``ops/pallas_kernels.py`` (and ``kernel_work``, each kernel's FLOPs and
@@ -66,8 +73,10 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
 * ``pruning.py`` -> ``pruning.py`` (``select_indices``, the prune-provenance
   manifest)
 * ``train/state.py`` -> ``train/state.py`` (``TrainState``, the LR schedule,
-  the SGD chain; across ranks the gradient sum, ZeRO-1 and the sharded
-  weight update)
+  the SGD chain; across ranks the gradient sum over the data group, ZeRO-1
+  and the sharded weight update, the global clip norm over both groups;
+  ``shard_slots``/``gather_slots``/``gather_head``, ``place_state``'s
+  tensor-parallel layout and its inverse)
 * ``train/steps.py`` -> ``train/steps.py`` (``train_step``, ``eval_step``; the
   per-step path; across ranks the global-count loss and global metrics;
   ``dispatch_train_step``/``dispatch_eval_step``: the dispatch counters and
@@ -146,15 +155,17 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   manifest applied before the gated ops modules import)
 
 Across W processes (``mesh.multihost``), one device each, every entry point
-computes what the JAX package computes on a ``{data: W, model: 1}`` mesh:
-rank rows in both data planes, BatchNorm on the global batch, the
-global-count loss with summed gradients, per-rank scoring joined by one
-float64 sum per seed, primary-only writes, and the consensus drills; ``cli
-serve`` answers on rank 0 while every rank scores its rows of each request
-(``serve/engine.py``'s operations over the host group).
+computes what the JAX package computes on a ``{data: W / M, model: M}`` mesh
+(``mesh.model_axis`` = M, default 1): rank rows in both data planes,
+BatchNorm on the global batch, the global-count loss with summed gradients,
+at M > 1 the classifier head split by rows over each model group (training,
+eval and the trajectory scores), per-rank scoring over all W ranks joined
+by one float64 sum per seed, primary-only writes with the head gathered
+whole, and the consensus drills; ``cli serve`` answers on rank 0 while
+every rank scores its rows of each request (``serve/engine.py``'s
+operations over the host group).
 
-Not ported yet: the tensor-parallel classifier (``mesh.model_axis > 1``),
-``parallel/overlap.py`` (XLA flags for the TPU; ``parallel.overlap`` is
+Not ported yet: ``parallel/overlap.py`` (XLA flags for the TPU; ``parallel.overlap`` is
 accepted and ignored), the chunked training engine and its
 ``StreamingBatches``, a fleet of meshes (``mesh.multihost`` with
 ``serve.replicas > 1`` refuses by name), what remains of observability

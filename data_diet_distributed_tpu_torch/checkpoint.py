@@ -20,9 +20,11 @@ naming the array; ``restore_verified`` falls back past refused steps to the
 newest one that verifies.
 
 Across ranks the format does not change: the caller hands ``save`` the whole
-state (``train.state.gather_slots`` joins ZeRO-1's momentum slices first),
+state (``train.state.gather_slots`` joins ZeRO-1's momentum slices over the
+data group and a tensor-parallel head's rows over the model group first),
 rank 0 writes, and every rank waits at a barrier after the write, then reads
-the same directory. A checkpoint written at W ranks restores at any other.
+the same directory. A checkpoint written at W ranks, with or without a model
+axis, restores at any other (``fit`` places it in its own layout).
 ``verified_steps`` (steps whose manifest reads and names its step) is what a
 rank contributes to the consensus restore, which then restores exactly the
 agreed step with no fallback.
@@ -31,7 +33,9 @@ THE LOCAL TIER (``checkpoint.local_tier``, ``LocalTier``): each rank writes
 only what it owns, with no collective and no barrier: rank 0 the replicated
 arrays (params, statistics, the momentum of every leaf ZeRO-1 keeps whole),
 and under ZeRO-1 each rank its own momentum slice with its index in the
-whole leaf. The save is one npz and a manifest of per-array digests on local
+whole leaf (at ``model_axis`` M > 1 the caller gathers the head whole over
+the model group first, and only the ranks of model index 0 write slices:
+the others hold the same ones). The save is one npz and a manifest of per-array digests on local
 disk (``<dir>_local/rank<k>/step_<N>/``); a background thread promotes it to
 the durable tier (``<dir>_tiered/step_<N>/rank<k>.npz``), re-reads the copy
 against the digests, and only then writes the rank's
@@ -109,16 +113,20 @@ def _host(t: torch.Tensor) -> np.ndarray:
 def _owned(state: TrainState, slots: UpdateSharding | None, rank: int):
     """``(leaf, full_shape, host_array, index)`` of every piece of ``state``
     this rank saves: rank 0 every whole leaf, and under ``slots`` (ZeRO-1)
-    each rank its slice of each sharded momentum leaf; ``index`` is the
+    each data rank its slice of each sharded momentum leaf, from the rank of
+    model index 0 (``host_array`` None: nothing to save); ``index`` is the
     slice's ``[[start, stop], ...]`` in the whole leaf (None: the whole)."""
     for group in ("params", "batch_stats"):
         for k, v in getattr(state, group).items():
             yield f"{group}/{k}", tuple(v.shape), (_host(v) if rank == 0 else None), None
     for k, v in state.momentum.items():
         shape = tuple(state.params[k].shape)
-        d = slots.spec_for(shape) if slots is not None else None
+        d = slots.spec_for(shape, k) if slots is not None else None
         if d is None:
             yield f"momentum/{k}", shape, (_host(v) if rank == 0 else None), None
+            continue
+        if rank % slots.model_size:
+            yield f"momentum/{k}", shape, None, None
             continue
         chunk = shape[d] // slots.data_size
         index = [[0, n] for n in shape]
@@ -475,8 +483,9 @@ class CheckpointManager:
              slots: UpdateSharding | None = None) -> str:
         """Write ``state`` as step ``step``; returns its directory. Plain: the
         caller hands the whole state, rank 0 writes and every rank returns
-        after it has (a barrier). Tiered: each rank hands its own state
-        (``slots``: its ZeRO-1 layout) and saves its own part, no barrier."""
+        after it has (a barrier). Tiered: each rank hands its own state, the
+        head whole (``slots``: its ZeRO-1 layout), and saves its own part, no
+        barrier."""
         if self._tier is not None:
             # The span is the local write, the stall the step loop pays; the
             # promotion's wall rides the ckpt_tier records.

@@ -89,7 +89,10 @@ data_diet_distributed_tpu_torch.obs.postmortem <workdir>``.
 Several processes: with ``mesh.multihost=true mesh.coordinator_address=H:P
 mesh.num_processes=W mesh.process_id=r`` each process joins the group
 (NCCL on CUDA, gloo with ``--device cpu``) before it loads data, and the W
-processes run the command as one data-parallel job. Rank 0 prints the
+processes run the command as one job on a ``{data: W / M, model: M}`` mesh
+(``mesh.model_axis`` = M, default 1): training splits each batch over the
+data ranks and, at M > 1, the classifier head over each model group of M
+ranks; scoring and serving split their batches over all W. Rank 0 prints the
 records and the summary and writes the files (``serve``: every rank writes
 its own stream); every rank exits 75 on an agreed preemption, and a failure
 under the group exits at once (69 for a ``RuntimeError``, a peer's poison or

@@ -12,8 +12,8 @@ contract those of the per-step path, which is the one the port runs). Of
 ``stage_resume``, the ``init_probe`` settings and, across processes, the
 consensus keys (``consensus``, ``consensus_poll_steps``,
 ``consensus_grace_s``, ``sidechannel_dir``). Of ``mesh`` every key takes
-effect (``parallel/mesh.py``) but ``model_axis``, which must be 1 (the
-tensor-parallel classifier is not ported). ``checkpoint`` arms the local tier
+effect (``parallel/mesh.py``): ``model_axis`` > 1 splits the classifier head
+over a model group of that many ranks. ``checkpoint`` arms the local tier
 (``checkpoint.py::LocalTier``: per-rank saves promoted in the background to
 ``<train.checkpoint_dir>_tiered``), and ``elastic`` makes the CLI a restart
 supervisor over its own workers (``resilience/elastic.py``); every key of
@@ -182,10 +182,11 @@ class ResilienceConfig:
 @dataclass
 class MeshConfig:
     """Process geometry (``parallel/mesh.py``): W processes, one device each,
-    compute what the JAX package computes on a mesh ``{data: W, model: 1}``."""
+    compute what the JAX package computes on a mesh ``{data: W / M, model:
+    M}``."""
 
-    data_axis: int | None = None     # None -> the process count; else must equal it
-    model_axis: int = 1              # the tensor-parallel classifier: not ported
+    data_axis: int | None = None     # None -> num_processes // model_axis
+    model_axis: int = 1              # M > 1: the classifier head split over M ranks
     # ZeRO-1: each rank holds the momentum only for its shard of each leaf.
     shard_opt_state: bool = False
     # The cross-replica sharded weight update (implies shard_opt_state):
@@ -520,11 +521,8 @@ class Config:
                 f"resilience.consensus_grace_s must be > 0, got "
                 f"{r.consensus_grace_s}")
         m = self.mesh
-        if m.model_axis != 1:
-            raise ValueError(
-                f"mesh.model_axis={m.model_axis}: the tensor-parallel classifier is "
-                "not ported to the PyTorch package (ROADMAP.md Queue 1 item 2); "
-                "use model_axis=1")
+        if m.model_axis < 1:
+            raise ValueError(f"mesh.model_axis must be >= 1, got {m.model_axis}")
         if m.multihost:
             if not m.coordinator_address or not m.num_processes or m.process_id is None:
                 raise ValueError(
@@ -534,13 +532,18 @@ class Config:
                 raise ValueError(
                     f"mesh.process_id={m.process_id} is not in [0, "
                     f"{m.num_processes})")
+            if m.num_processes % m.model_axis:
+                raise ValueError(
+                    f"mesh.model_axis={m.model_axis} does not tile mesh.num_processes="
+                    f"{m.num_processes} (one device per rank)")
             # Under elastic supervision a relaunch at another world keeps the
             # pin of the first: parallel.mesh.run_mesh recomputes it.
-            if (m.data_axis is not None and m.data_axis != m.num_processes
+            if (m.data_axis is not None and m.data_axis * m.model_axis != m.num_processes
                     and not self.elastic.enabled):
                 raise ValueError(
-                    f"mesh.data_axis={m.data_axis} must equal mesh.num_processes="
-                    f"{m.num_processes} (one device per rank)")
+                    f"mesh.data_axis={m.data_axis} x mesh.model_axis={m.model_axis} "
+                    f"must equal mesh.num_processes={m.num_processes} (one device "
+                    "per rank)")
             if self.serve.replicas > 1 or self.serve.max_replicas is not None:
                 raise ValueError(
                     "mesh.multihost=true with serve.replicas > 1 or "
@@ -577,6 +580,12 @@ class Config:
             raise ValueError(
                 f"elastic.world ({e.world}) must be <= elastic.max_world "
                 f"({e.max_world})")
+        model = self.mesh.model_axis
+        for name, value in (("world", e.world), ("max_world", e.max_world)):
+            if value is not None and model > 1 and value % model:
+                raise ValueError(
+                    f"elastic.{name}={value} is not a multiple of mesh.model_axis="
+                    f"{model}: every world of the run keeps whole model groups")
         if e.max_restarts < 0:
             raise ValueError(f"elastic.max_restarts must be >= 0, got {e.max_restarts}")
         if e.backoff_s < 0:
@@ -594,7 +603,7 @@ class Config:
         if o.plots_dir is not None:
             raise NotImplementedError(
                 "obs.plots_dir: the post-run plots (obs/plots.py) are not ported "
-                "to the PyTorch package (ROADMAP.md Queue 1); leave it null")
+                "to the PyTorch package (ROADMAP.md Queue 1 item 3); leave it null")
         if o.snapshot_every_s < 0:
             raise ValueError(
                 f"obs.snapshot_every_s must be >= 0 (0 disables periodic "

@@ -15,10 +15,11 @@ and gathers each batch on the device by the same permutation;
 ``depth`` batches ahead and, on a CUDA device, uploads each from a ring of
 pinned buffers on a copy stream of its own. All three give the same batches.
 
-Across W ranks (``image_slice=(r, W)``, ``parallel.mesh.image_slice()``) the
-global batch of ``B`` rows (a multiple of W) splits into W contiguous slices
-and rank r holds rows ``[r·B/W, (r+1)·B/W)`` of every batch, as the JAX
-package's ``BatchSharder`` places them: ``iterate_batches`` then gathers the
+Across P slices (``image_slice=(r, P)``: ``parallel.mesh.batch_slice()``
+for training and eval, P the data ranks; ``flat_slice()`` for scoring, P
+every rank) the global batch of ``B`` rows (a multiple of P) splits into P
+contiguous slices and slice r holds rows ``[r·B/P, (r+1)·B/P)`` of every
+batch, as the JAX package's ``BatchSharder`` places them: ``iterate_batches`` then gathers the
 images of those rows only, and ``ResidentBatches`` and ``prefetch_stream``
 yield the rank's rows of every key.
 """

@@ -13,8 +13,10 @@ statistics stay fp32, as Flax's ``dtype``/``param_dtype``. No op works in
 place: the batched-GraNd hooks keep references to layer inputs and outputs.
 In train mode BatchNorm follows Flax (``BatchNorm2d``); inside
 ``global_batch_stats`` its statistics are those of the global batch across
-the ranks of the process group. With ``remat`` each block's activations are
-recomputed in the backward pass (``remat_block``).
+the ranks of the data group. The classifier is a ``Head``, which runs split
+over the model group when it is handed only its rank's rows (``mesh.model_axis
+> 1``). With ``remat`` each block's activations are recomputed in the
+backward pass (``remat_block``).
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ import torch.nn.functional as F
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.collectives import all_reduce_with_grad
-from ..parallel.mesh import world_size
+from ..parallel import collectives
+from ..parallel.mesh import data_group, data_size
 
 
 class Conv2d(nn.Conv2d):
@@ -47,6 +49,21 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class Head(Linear):
+    """The classifier: a ``Linear`` that, handed only its rank's rows of the
+    weight and bias (the tensor-parallel layout of ``parallel/mesh.py``,
+    ``param_layout``), computes its columns of the logits between
+    ``copy_to_model`` and ``gather_from_model``, so every rank of the model
+    group returns the whole logits (fp32) and the trunk gets the whole
+    ``∂L/∂h``. Handed the whole head, it is ``Linear``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight.shape[0] == self.out_features:
+            return super().forward(x)
+        x = collectives.copy_to_model(x)
+        return collectives.gather_from_model(super().forward(x).float())
 
 
 _STATS_SINK: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
@@ -89,7 +106,7 @@ _GLOBAL_STATS: contextvars.ContextVar[bool] = contextvars.ContextVar(
 def global_batch_stats() -> Iterator[None]:
     """Within the block, train-mode ``BatchNorm2d`` normalizes by the statistics
     of the global batch across the ranks (the JAX package's BatchNorm under a
-    data-sharded ``jit``): the training step sets it at W > 1. Train-mode
+    data-sharded ``jit``): the training step sets it at D > 1. Train-mode
     scoring does not, so it normalizes by the rank's own rows, as the JAX
     package's ``shard_map`` does."""
     token = _GLOBAL_STATS.set(True)
@@ -151,11 +168,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     (``flax_momentum``). Outside it (train-mode scoring, ``vmap``) they are
     dropped, as the JAX package drops them.
 
-    Inside ``global_batch_stats`` at W ranks, each rank's per-channel fp32
-    ``Σx`` and ``Σx²`` are summed across the ranks (a differentiable
+    Inside ``global_batch_stats`` at D data ranks, each rank's per-channel
+    fp32 ``Σx`` and ``Σx²`` are summed over the data group (a differentiable
     all-reduce, whose backward sums the cotangents) and divided by the global
-    count; the same formula then follows, so every rank normalizes, and
-    records, the global batch's statistics."""
+    count, counted over D (the ranks of a model group hold the same rows); the
+    same formula then follows, so every rank normalizes, and records, the
+    global batch's statistics."""
 
     @property
     def flax_momentum(self) -> float:
@@ -166,10 +184,11 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        if _GLOBAL_STATS.get() and world_size() > 1:
-            n = xf.shape[0] * xf.shape[2] * xf.shape[3] * world_size()
-            sums = all_reduce_with_grad(torch.stack([xf.sum(dim=(0, 2, 3)),
-                                                     (xf * xf).sum(dim=(0, 2, 3))]))
+        if _GLOBAL_STATS.get() and data_size() > 1:
+            n = xf.shape[0] * xf.shape[2] * xf.shape[3] * data_size()
+            sums = collectives.all_reduce_with_grad(
+                torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]),
+                data_group())
             mean, mean2 = sums[0] / n, sums[1] / n
         else:
             mean = xf.mean(dim=(0, 2, 3))
@@ -270,7 +289,7 @@ class ResNet(nn.Module):
                 self.add_module(name, block_cls(c_in, filters, stride))
                 self.block_names.append(name)
                 c_in = filters * block_cls.expansion
-        self.classifier = Linear(c_in, num_classes)
+        self.classifier = Head(c_in, num_classes)
 
     def forward(self, x: torch.Tensor, capture_features: bool = False):
         x = x.permute(0, 3, 1, 2).to(self.dtype)   # NHWC -> NCHW view, channels_last

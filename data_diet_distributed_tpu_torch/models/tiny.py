@@ -6,7 +6,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .resnet import Conv2d, Linear, batch_norm
+from .resnet import Conv2d, Head, batch_norm
 
 
 class TinyCNN(nn.Module):
@@ -22,7 +22,7 @@ class TinyCNN(nn.Module):
                                                 padding=1, bias=False))
             # Flax momentum 0.5 (fast-converging stats for tiny test runs).
             self.add_module(f"BatchNorm_{i}", batch_norm(chans[i + 1], momentum=0.5))
-        self.classifier = Linear(width * 2, num_classes)
+        self.classifier = Head(width * 2, num_classes)
 
     def forward(self, x: torch.Tensor, capture_features: bool = False):
         x = x.permute(0, 3, 1, 2).to(self.dtype)

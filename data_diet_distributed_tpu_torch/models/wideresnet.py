@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .resnet import Conv2d, Linear, batch_norm, remat_block
+from .resnet import Conv2d, Head, batch_norm, remat_block
 
 
 class WideBlock(nn.Module):
@@ -65,7 +65,7 @@ class WideResNet(nn.Module):
                 self.block_names.append(name)
                 c_in = filters
         self.final_norm = batch_norm(c_in)
-        self.classifier = Linear(c_in, num_classes)
+        self.classifier = Head(c_in, num_classes)
 
     def forward(self, x: torch.Tensor, capture_features: bool = False):
         x = x.permute(0, 3, 1, 2).to(self.dtype)   # NHWC -> NCHW view, channels_last

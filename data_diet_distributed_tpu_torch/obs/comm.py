@@ -7,7 +7,10 @@ bytes per step, the schedulable overlap bound, and the score-fetch wall.
   byte (``2 (D-1)/D`` per byte); the sharded update
   (``parallel/mesh.py::UpdateSharding``) reduce-scatters the gradients and
   all-gathers the weights of the shardable leaves (``(D-1)/D`` each) and
-  all-reduces the rest. ``D = 1`` moves nothing (zeros).
+  all-reduces the rest. ``D = 1`` moves nothing (zeros). The bytes are
+  those of the whole parameter tree, as the JAX package's global arrays
+  count them: at ``{data: D, model: M}`` a rank holds only its rows of the
+  head, which count M times.
 * ``overlap_ratio``: ``min(1, compute_s / comm_s)`` with the compute time
   the harvested ``train_step`` FLOPs over the MFU peak
   (``obs/introspect.py``) and the comm time the bytes over the link rate. The
@@ -59,15 +62,19 @@ def link_bandwidth(device=None) -> tuple[float | None, str]:
     return None, "unknown"
 
 
-def _param_bytes(params: dict) -> int:
-    return sum(int(t.numel() * t.element_size()) for t in params.values())
+def _param_bytes(params: dict, model: int = 1) -> int:
+    """Bytes of the whole tree of which ``params`` holds a rank's layout."""
+    from ..parallel.mesh import param_layout
+    return sum(int(t.numel() * t.element_size())
+               * (model if param_layout(k, model) is not None else 1)
+               for k, t in params.items())
 
 
 def estimate_update_comm(params: dict, mesh, update_sharding=None) -> dict[str, Any]:
     """Per-step collective bytes of the weight update over ``mesh``'s data
-    axis (``params``: name -> tensor)."""
+    axis (``params``: name -> tensor, in a rank's layout)."""
     data = int(mesh.data) if mesh is not None else 1
-    param_bytes = _param_bytes(params)
+    param_bytes = _param_bytes(params, int(mesh.model) if mesh is not None else 1)
     ring = (data - 1) / data if data > 1 else 0.0
     sharded_frac = (update_sharding.sharded_fraction(params)
                     if update_sharding is not None and data > 1 else 0.0)

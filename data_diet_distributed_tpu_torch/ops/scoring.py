@@ -10,7 +10,11 @@ resident plane uploads the dataset once as ``[nb, B, ...]`` batch tensors (the
 
 Across W ranks each rank scores its rows of every global batch (the batch
 rounded up to a multiple of W), as the JAX package's ``shard_map`` over the
-flattened mesh does, so train-mode scoring normalizes by the rank's rows.
+flattened mesh does, so train-mode scoring normalizes by the rank's rows. A
+``{data: D, model: M}`` run scores on all W = D x M ranks (``flat_slice``)
+with whole variables: the caller gathers a tensor-parallel head first
+(``train/state.py::gather_head``), once per pass, as the JAX package
+replicates them.
 Per seed each rank fills the positions it owns in a float64 ``[N]`` vector,
 and one float64 SUM across the ranks joins them (``collectives.sum_float64``):
 each position has one owner, so every rank holds the same vector bitwise.
@@ -37,7 +41,7 @@ from ..device import resolve_device, set_scoring_determinism
 from ..obs import introspect, scoreboard
 from ..obs import registry as obs_registry
 from ..parallel.collectives import sum_float64
-from ..parallel.mesh import global_batch_size_for, image_slice, world_size
+from ..parallel.mesh import flat_slice, global_batch_size_for, world_size
 from ..weights import variables_to
 from .scores import make_local_scores, resolve_score_method, resolve_use_kernels
 
@@ -203,8 +207,8 @@ def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
                               chunk=chunk, eval_mode=eval_mode,
                               use_kernels=resolve_use_kernels(use_kernels))
     variables_seeds = [variables_to(v, device) for v in variables_seeds]
-    batch_size = global_batch_size_for(batch_size)
-    rows = image_slice()
+    batch_size = global_batch_size_for(batch_size, flat=True)
+    rows = flat_slice()
     n = len(ds)
     pos_of = make_position_joiner(ds.indices)
     if data_plane == "streaming":

@@ -1,15 +1,23 @@
 """The collectives the port runs across ranks (the all-reduces, reduce-scatters
 and all-gathers that XLA inserts from sharding annotations in the JAX package).
 
-Every function sums or gathers over the world group and is a collective:
-every rank calls it at the same point with tensors of the same shapes.
-Under gloo a CUDA tensor is copied to the host, reduced there and copied
-back; the choice is made by the backend's name, so NCCL always takes the
-device tensors and a gloo build that lacks a collective on CUDA tensors is
-never asked for one.
+Every function sums or gathers over ``group`` (default the world group) and
+is a collective: every rank of the group calls it at the same point with
+tensors of the same shapes. Under gloo a CUDA tensor is copied to the host,
+reduced there and copied back; the choice is made by the backend's name, so
+NCCL always takes the device tensors and a gloo build that lacks a
+collective on CUDA tensors is never asked for one.
 
 * ``all_reduce_with_grad``: a SUM whose backward is the SUM of the
-  cotangents (the global BatchNorm statistics of ``models/resnet.py``);
+  cotangents (the global BatchNorm statistics of ``models/resnet.py``, over
+  the data group);
+* ``copy_to_model`` and ``gather_from_model``: the tensor-parallel head's
+  pair over the model group (Megatron's). The first is the identity whose
+  backward sums the cotangents of the head's input over the model group
+  (each rank's ``∂L/∂h`` holds only its rows' share ``∂L/∂z_m W_m``); the
+  second all-gathers the rank's logit columns and takes back only its own
+  columns of the cotangent (the loss is the same on every rank of the group,
+  so nothing sums);
 * ``all_reduce_flat``, ``reduce_scatter_flat``, ``all_gather_flat``: one
   collective over a flat buffer of many tensors (the gradients and the
   sharded parameters of ``train/state.py``);
@@ -39,36 +47,98 @@ import torch.distributed as dist
 from . import mesh
 
 
-def _staged(t: torch.Tensor) -> bool:
+def _staged(t: torch.Tensor, group=None) -> bool:
     """Whether ``t`` goes through the host: a CUDA tensor under gloo."""
-    return t.is_cuda and dist.get_backend() == "gloo"
+    return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """SUM ``t`` over the ranks in place; returns ``t``."""
-    if _staged(t):
+def _size(group) -> int:
+    return mesh.world_size() if group is None else dist.get_world_size(group)
+
+
+def _rank(group) -> int:
+    return mesh.process_index() if group is None else dist.get_rank(group)
+
+
+def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """SUM ``t`` over the ranks of ``group`` in place; returns ``t``."""
+    if _staged(t, group):
         h = t.cpu()
-        dist.all_reduce(h)
+        dist.all_reduce(h, group=group)
         t.copy_(h)
     else:
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
     return t
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        return all_reduce_sum_(x.clone())
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum_(x.clone(), group)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce_sum_(grad.clone())
+        return all_reduce_sum_(grad.clone(), ctx.group), None
 
 
-def all_reduce_with_grad(x: torch.Tensor) -> torch.Tensor:
-    """``Σ_r x_r`` on every rank, differentiable: each rank's cotangent of its
-    ``x_r`` is the sum of every rank's cotangent of the result."""
-    return _AllReduceSum.apply(x)
+def all_reduce_with_grad(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``Σ_r x_r`` on every rank of ``group``, differentiable: each rank's
+    cotangent of its ``x_r`` is the sum of every rank's cotangent of the
+    result."""
+    return _AllReduceSum.apply(x, group)
+
+
+def _gather(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` (the same shape on each) stacked ``[n, *t.shape]``."""
+    n = _size(group)
+    flat = t.reshape(-1)
+    out = torch.empty(n * flat.numel(), dtype=t.dtype, device=t.device)
+    if _staged(t, group):
+        h = torch.empty(out.shape, dtype=t.dtype)
+        dist.all_gather_into_tensor(h, flat.cpu(), group=group)
+        out.copy_(h)
+    else:
+        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        gather(out, flat, group=group)
+    return out.view(n, *t.shape)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        # In fp32 whatever the compute dtype: the M partial products sum once
+        # (into a copy: autograd may hold the incoming cotangent elsewhere).
+        total = all_reduce_sum_(grad.to(torch.float32, copy=True), mesh.model_group())
+        return total.to(grad.dtype)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z):
+        ctx.cols = z.shape[-1]
+        parts = _gather(z, mesh.model_group())          # [M, ..., C/M]
+        return torch.cat(parts.unbind(0), dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        m = mesh.model_index()
+        return grad[..., m * ctx.cols:(m + 1) * ctx.cols].contiguous()
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself; its cotangent is summed over the model group."""
+    return _CopyToModel.apply(x)
+
+
+def gather_from_model(z: torch.Tensor) -> torch.Tensor:
+    """The model group's column blocks of ``z`` joined in model-index order
+    (the whole logits on every rank); the cotangent's own block comes back."""
+    return _GatherFromModel.apply(z)
 
 
 def _flat(tensors: list[torch.Tensor]) -> torch.Tensor:
@@ -83,52 +153,42 @@ def _unflat(buf: torch.Tensor, like: list[torch.Tensor]) -> list[torch.Tensor]:
     return out
 
 
-def all_reduce_flat(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
-    """The elementwise SUM over the ranks of each of ``tensors`` (new tensors),
-    in one collective."""
+def all_reduce_flat(tensors: list[torch.Tensor], group=None) -> list[torch.Tensor]:
+    """The elementwise SUM over the ranks of ``group`` of each of ``tensors``
+    (new tensors), in one collective."""
     if not tensors:
         return []
-    return _unflat(all_reduce_sum_(_flat(tensors)), tensors)
+    return _unflat(all_reduce_sum_(_flat(tensors), group), tensors)
 
 
-def reduce_scatter_flat(per_rank: list[list[torch.Tensor]]) -> list[torch.Tensor]:
-    """``per_rank[r]`` lists the slices destined for rank r (the same shapes on
-    every rank); returns this rank's slices summed over the ranks, in one
-    collective."""
+def reduce_scatter_flat(per_rank: list[list[torch.Tensor]], group=None) -> list[torch.Tensor]:
+    """``per_rank[r]`` lists the slices destined for rank r of ``group`` (the
+    same shapes on every rank); returns this rank's slices summed over the
+    ranks, in one collective."""
     if not per_rank[0]:
         return []
-    w, r = len(per_rank), mesh.process_index()
+    w, r = len(per_rank), _rank(group)
     buf = torch.cat([_flat(chunks) for chunks in per_rank])
     n = buf.numel() // w
-    if _staged(buf):
+    if _staged(buf, group):
         # gloo: the reduce-scatter as an all-reduce of the host buffer and the
         # rank's slice of it (the same sums).
         h = buf.cpu()
-        dist.all_reduce(h)
+        dist.all_reduce(h, group=group)
         own = h[r * n:(r + 1) * n].to(buf.device)
     else:
         own = torch.empty(n, dtype=buf.dtype, device=buf.device)
         scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
-        scatter(own, buf)
+        scatter(own, buf, group=group)
     return _unflat(own, per_rank[r])
 
 
-def all_gather_flat(own: list[torch.Tensor]) -> list[list[torch.Tensor]]:
-    """Every rank's ``own`` tensors (the same shapes on every rank), by rank,
-    in one collective."""
+def all_gather_flat(own: list[torch.Tensor], group=None) -> list[list[torch.Tensor]]:
+    """Every rank's ``own`` tensors (the same shapes on every rank of
+    ``group``), by rank, in one collective."""
     if not own:
-        return [[] for _ in range(mesh.world_size())]
-    w = mesh.world_size()
-    buf = _flat(own)
-    out = torch.empty(w * buf.numel(), dtype=buf.dtype, device=buf.device)
-    if _staged(buf):
-        h = torch.empty(out.shape, dtype=buf.dtype)
-        dist.all_gather_into_tensor(h, buf.cpu())
-        out.copy_(h)
-    else:
-        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-        gather(out, buf)
-    return [_unflat(chunk, own) for chunk in out.view(w, -1)]
+        return [[] for _ in range(_size(group))]
+    return [_unflat(chunk, own) for chunk in _gather(_flat(own), group)]
 
 
 def sum_float64(vec: np.ndarray) -> np.ndarray:

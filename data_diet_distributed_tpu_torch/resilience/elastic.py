@@ -28,7 +28,10 @@ re-entering ``fit`` desyncs every collective):
 
 Supervision is bounded: ``elastic.max_restarts`` relaunches with exponential
 backoff (``elastic.backoff_s``), never below ``elastic.min_world`` nor above
-``elastic.max_world``. Every decision is an ``{"kind": "elastic_event"}``
+``elastic.max_world``. The model axis (``mesh.model_axis`` = M) is kept
+through every shrink and grow: each new world is a multiple of M (a shrink
+rounds down, a join adds whole model groups, the floor rounds up), so the
+relaunch's ``remap_mesh`` only ever recomputes the data axis. Every decision is an ``{"kind": "elastic_event"}``
 record in the run's metrics stream, with the JAX package's event names and
 fields, so its ``tools/run_monitor.py`` and the port's post-mortem
 (``obs/postmortem.py``) replay what the supervisor did.
@@ -358,7 +361,8 @@ class ElasticSupervisor:
         e = cfg.elastic
         self.world = int(e.world or cfg.mesh.num_processes or 1)
         self.initial_world = self.world
-        self.min_world = int(e.min_world)
+        self.model = max(int(cfg.mesh.model_axis), 1)
+        self.min_world = int(e.min_world) + (-int(e.min_world) % self.model)
         self.max_world = int(e.max_world or self.world)
         self.budget = RestartBudget(int(e.max_restarts), float(e.backoff_s))
         self.backoff_s = float(e.backoff_s)
@@ -404,6 +408,10 @@ class ElasticSupervisor:
                "world": self.world, **fields}
         self.events.append(rec)
         log_elastic_event(self.logger, **rec)
+
+    def _tiled(self, world: int) -> int:
+        """``world`` rounded down to whole model groups."""
+        return world - world % self.model
 
     def _child_argv(self, world: int, rank: int) -> list[str]:
         argv = [sys.executable, "-m", "data_diet_distributed_tpu_torch.cli",
@@ -531,8 +539,8 @@ class ElasticSupervisor:
             # the join STANDING to be re-polled once that resize resolves —
             # clearing it here would silently drop the request.
             return
-        target = min(self.max_world,
-                     self.world + int(req.get("ranks") or 1))
+        ranks = int(req.get("ranks") or 1)
+        target = min(self.max_world, self.world + ranks + (-ranks % self.model))
         request_resize(self.checkpoint_dir, target,
                        reason=f"join: {req.get('reason', '')}"[:200])
         self._event("join_requested", target_world=target,
@@ -619,7 +627,7 @@ class ElasticSupervisor:
                     # operator-directed shrink) to the requested world.
                     new_world = max(self.min_world,
                                     min(self.max_world,
-                                        int(resize["world"])))
+                                        self._tiled(int(resize["world"]))))
                     clear_resize_request(self.checkpoint_dir)
                     self._event("grow" if new_world > world else "resize",
                                 new_world=new_world)
@@ -657,7 +665,7 @@ class ElasticSupervisor:
                 # through its own watchdog grace before exiting 69 is
                 # stale too — and it is exactly the rank coming back.
                 dead = sorted(set(info["dead_ranks"]))
-                new_world = max(self.min_world, world - len(dead))
+                new_world = max(self.min_world, self._tiled(world - len(dead)))
                 clear_rank_artifacts(self.checkpoint_dir, self.heartbeat_dir,
                                      [r for r in range(new_world, world)],
                                      attempt=self.attempt)

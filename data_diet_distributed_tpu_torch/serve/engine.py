@@ -37,13 +37,15 @@ model: every device call (the batcher's dispatcher, handler threads' cold
 Grad mode is thread-local; the score functions set it themselves.
 
 Across W ranks (a process group, one device a rank: the counterpart of the
-JAX engine's mesh) the request geometry rounds up to a multiple of W
+JAX engine's mesh, flattened: a ``{data: D, model: M}`` group serves as W =
+D x M ranks, each with the whole head) the request geometry rounds up to a
+multiple of W
 (``global_batch_size_for``: 15 -> 16 at W = 2) and every operation is a
 collective over the host group (``parallel/collectives.py``):
 
 * ``score_batch``: rank 0 pads the request to ``B`` as above, each rank
   receives rows ``[r·B/W, (r+1)·B/W)`` of the padded block (the rows
-  ``image_slice()`` gives ``ScoreResident``), scores them with every seed,
+  ``flat_slice()`` gives ``ScoreResident``), scores them with every seed,
   and rank 0 gathers the per-seed rows and takes the float64 seed mean and
   the ``[:n]`` cut as at W = 1;
 * ``full_scores``: ``score_dataset``'s W > 1 pass (``ScoreResident`` of the
@@ -101,7 +103,7 @@ from ..ops.scores import make_local_scores, resolve_score_method, resolve_use_ke
 from ..ops.scoring import ScoreResident, score_pass
 from ..parallel.collectives import (all_gather_host, broadcast_json, gather_json,
                                     gather_rows, scatter_rows, sum_float64)
-from ..parallel.mesh import (global_batch_size_for, image_slice, process_index,
+from ..parallel.mesh import (flat_slice, global_batch_size_for, process_index,
                              sync_hosts, world_size)
 from ..resilience.watchdog import EXIT_RETRIABLE
 from ..train.loop import evaluate, fit, score_variables_for_seeds
@@ -154,7 +156,8 @@ class ServeEngine:
         if self.device.type == "cuda":
             set_scoring_determinism()
         self.world, self.rank_index = world_size(), process_index()
-        self.batch_size = global_batch_size_for(cfg.serve.batch_size or cfg.score.batch_size)
+        self.batch_size = global_batch_size_for(cfg.serve.batch_size or cfg.score.batch_size,
+                                                flat=True)
         self.model = create_model_from_cfg(cfg).to(self.device)
         self.tenants: dict[str, Tenant] = {}
         self._local: dict[str, Any] = {}
@@ -404,7 +407,7 @@ class ServeEngine:
     def full_scores(self, tenant: str, method: str) -> np.ndarray:
         """The tenant's whole-dataset score vector (cached), through the same
         ``score_pass`` as ``score_dataset`` (and, across ranks, its
-        ``image_slice`` rows and ``sum_float64`` join)."""
+        ``flat_slice`` rows and ``sum_float64`` join)."""
         self._check_method(method)
         t = self.tenant(tenant)
         cached = t.scores.get(method)
@@ -425,7 +428,7 @@ class ServeEngine:
         try:
             local = self._local_scores(method)
             if t.resident is None:
-                t.resident = ScoreResident(t.ds, self.batch_size, self.device, image_slice())
+                t.resident = ScoreResident(t.ds, self.batch_size, self.device, flat_slice())
             key = self._program_key(t, method)
         except Exception as exc:   # noqa: BLE001 — reported in the reply, on every rank
             error = exc

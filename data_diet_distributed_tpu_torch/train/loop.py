@@ -42,11 +42,16 @@ re-enters a started retrain from its checkpoints. Entry points take
 
 Across W ranks (a ``torch.distributed`` group, ``parallel/mesh.py``) every
 entry point is a collective that computes what the JAX package computes on a
-``{data: W}`` mesh: each rank trains, evaluates and scores its rows of every
-global batch, the sums cross the ranks, rank 0 alone writes files (after
-which every rank waits at a barrier and reads them), and ``fit`` runs the
-consensus hooks (``resilience/consensus.py``): the agreed preemption poll,
-the peer check, the agreed NaN verdict and the min-agreed restore.
+``{data: D, model: M}`` mesh (W = D x M): each rank trains and evaluates its
+data index's rows of every global batch (``batch_slice``; at M > 1 with its
+rows of the classifier head, ``train/state.py::shard_slots``), scores its
+rows of every batch over the flattened mesh (``flat_slice``, with the head
+gathered whole once per pass), the sums cross the ranks, rank 0 alone writes
+files (after which every rank waits at a barrier and reads them), and
+``fit`` runs the consensus hooks (``resilience/consensus.py``): the agreed
+preemption poll, the peer check, the agreed NaN verdict and the min-agreed
+restore. The trajectory scores run on the training layout, as the JAX
+package's hook does.
 ``fit_with_recovery`` refuses to retry in process across ranks.
 
 Observability, at the JAX package's points (each a no-op until
@@ -113,7 +118,7 @@ from ..ops.forgetting import AUMTracker, ForgettingTracker
 from ..ops.scores import make_local_scores
 from ..ops.scoring import resident_by_default, score_dataset
 from ..parallel.collectives import sum_float64
-from ..parallel.mesh import (global_batch_size_for, image_slice, is_primary,
+from ..parallel.mesh import (batch_slice, global_batch_size_for, is_primary, model_index,
                              process_index, resolve_update_sharding, run_mesh, sync_hosts,
                              world_size)
 from ..pruning import (build_prune_manifest, select_indices, verify_prune_manifest,
@@ -128,8 +133,8 @@ from ..resilience.stages import (ScorePartialStore, StageManifest,
 from ..resilience.watchdog import Watchdog, WatchdogTimeout
 from ..utils.io import atomic_savez, load_scores_npz, provenance_path
 from ..weights import init_variables
-from .state import (TrainState, create_train_state, gather_slots, make_optimizer,
-                    shard_slots)
+from .state import (TrainState, create_train_state, gather_head, gather_slots,
+                    make_optimizer, shard_slots)
 from .steps import dispatch_eval_step, dispatch_train_step
 
 Log = Callable[..., None]
@@ -201,7 +206,7 @@ def train_resident(cfg: Config, ds: ArrayDataset, device) -> ResidentBatches | N
     if cfg.data.data_plane == "resident" and enabled is None:
         enabled = True
     return maybe_resident(ds, global_batch_size_for(cfg.data.batch_size), device,
-                          image_dtype(cfg), enabled, image_slice())
+                          image_dtype(cfg), enabled, batch_slice())
 
 
 def _with_epochs(cfg: Config, num_epochs: int | None, seed: int | None) -> Config:
@@ -235,11 +240,12 @@ def evaluate(model, state: TrainState, ds: ArrayDataset, batch_size: int, *,
              cache: EvalBatchCache | None = None) -> dict[str, float]:
     """Masked loss and accuracy over ``ds``: ``{loss, accuracy, examples}``,
     from ``resident`` batches, or streamed (through ``cache`` when given).
-    Across ranks ``batch_size`` rounds up to a multiple of W, each rank
-    evaluates its rows and the sums are the ranks' sums."""
+    Across ranks ``batch_size`` rounds up to a multiple of D, each rank
+    evaluates its data index's rows and the sums are the data ranks' sums
+    (64 examples at ``{data: 4, model: 2}``, not 128)."""
     device = resolve_device(device)
     batch_size = global_batch_size_for(batch_size)
-    rows = image_slice()
+    rows = batch_slice()
     if resident is not None and resident.batch_size != batch_size:
         raise ValueError(
             f"evaluate: resident batches were built at batch size "
@@ -254,11 +260,18 @@ def evaluate(model, state: TrainState, ds: ArrayDataset, batch_size: int, *,
         for k in totals:
             totals[k] += m[k]
     if rows:
-        summed = sum_float64(np.array([totals[k] for k in totals], np.float64))
+        summed = sum_float64(_one_per_data_rank(
+            np.array([totals[k] for k in totals], np.float64)))
         totals = dict(zip(totals, summed.tolist()))
     n = max(totals["examples"], 1.0)
     return {"loss": totals["loss_sum"] / n, "accuracy": totals["correct"] / n,
             "examples": int(n)}
+
+
+def _one_per_data_rank(vec: np.ndarray) -> np.ndarray:
+    """``vec`` on model index 0, zeros on the other ranks of its model group
+    (which hold the same rows): a host sum then counts each data rank once."""
+    return vec if model_index() == 0 else np.zeros_like(vec)
 
 
 def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None, *,
@@ -290,10 +303,11 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
     from its start while the step counter continues (at least once, as in the
     JAX package).
 
-    Across W ranks the batch rounds up to a multiple of W and each rank holds
-    its rows (``train_batches`` included); the momentum is sharded under
-    ZeRO-1 and the sharded update and gathered whole into each checkpoint,
-    which rank 0 writes. With ``resilience.consensus`` the ranks agree on the
+    Across ranks the batch rounds up to a multiple of D and each rank holds
+    its data index's rows (``train_batches`` included); at M > 1 each holds
+    its rows of the head; the momentum is sharded under ZeRO-1 and the
+    sharded update, and the state gathered whole into each checkpoint, which
+    rank 0 writes (every restore places it in the rank's layout again). With ``resilience.consensus`` the ranks agree on the
     preemption step, on a NaN epoch and on the restore step (the newest every
     rank verified, restored exactly), and a peer's poison aborts the fit
     before the next collective."""
@@ -303,7 +317,7 @@ def fit(cfg: Config, train_ds: ArrayDataset, test_ds: ArrayDataset | None = None
         set_scoring_determinism()
     log = log or _no_log
     mesh = run_mesh(cfg.mesh, elastic=cfg.elastic.enabled)   # the geometry check
-    rows = image_slice()
+    rows = batch_slice()
     batch_size = global_batch_size_for(cfg.data.batch_size)
     steps_per_epoch = num_batches(len(train_ds), batch_size)
     model = create_model_from_cfg(cfg).to(device)
@@ -596,10 +610,12 @@ def _epoch_obs(cfg, log, tag, epoch, start_epoch, steps_per_epoch, epoch_s, reco
 
 def _save(ckpt: CheckpointManager, state: TrainState, optimizer, metrics: dict) -> None:
     """Checkpoint ``state`` at its step: through the tier each rank its own
-    part (its ZeRO-1 slices included), else the whole state gathered for
-    rank 0's write."""
+    part (its ZeRO-1 slices included, the head gathered whole over the model
+    group), else the whole state gathered for rank 0's write."""
     if ckpt.tiered:
-        ckpt.save(state.step, state, metrics, slots=optimizer.slots)
+        whole_head = TrainState(gather_head(state.params), state.batch_stats,
+                                gather_head(state.momentum), state.step)
+        ckpt.save(state.step, whole_head, metrics, slots=optimizer.slots)
     else:
         ckpt.save(state.step, gather_slots(state, optimizer), metrics)
 
@@ -790,7 +806,8 @@ def score_variables_for_seeds(cfg: Config, train_ds: ArrayDataset, *, device=Non
                            num_epochs=cfg.score.pretrain_epochs, seed=int(s),
                            tag=f"score_pretrain_seed{s}",
                            train_batches=shared).state.variables)
-    return out
+    # The scoring pass takes whole variables: a split head joins once per seed.
+    return [gather_head(v) for v in out]
 
 
 def keep_fractions(cfg: Config) -> tuple[float, ...]:
@@ -977,7 +994,7 @@ def trajectory_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
     seeds = [int(s) for s in cfg.score.seeds]
     n = len(train_ds)
     batch_size = global_batch_size_for(cfg.data.batch_size)
-    rows = image_slice()
+    rows = batch_slice()
     # Dataset position of each row this rank holds in each batch of the pass.
     p, nprocs = rows or (0, 1)
     loc = batch_size // nprocs
@@ -1019,7 +1036,7 @@ def trajectory_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
                     # Each position has one owner: the float64 sum joins the ranks.
                     vec = np.zeros(n, np.float64)
                     vec[pos[pos < n]] = vals[pos < n]
-                    vals = sum_float64(vec).astype(vals.dtype)
+                    vals = sum_float64(_one_per_data_rank(vec)).astype(vals.dtype)
                 tracker.update(to_obs(vals[:n]))
 
             with tracing.span("seed", cat="seed", seed=seed, role=method):

@@ -13,17 +13,28 @@ parameter (BatchNorm scale and bias and the classifier bias included), then
 at the step count before the update. The schedule is optax's, evaluated in
 float32 as optax evaluates it.
 
-Across W ranks the update takes each rank's partial gradients (of its
-share of the global loss) and sums them, as the JAX package's data-sharded
-step does: replicated, one all-reduce of every gradient, then the same
-update on every rank. Under ZeRO-1 (``mesh.shard_opt_state``) each rank keeps
-the momentum only for its slice of each leaf ``UpdateSharding`` shards,
-updates that slice of the parameters, and the slices all-gather; the
-sharded weight update (``mesh.shard_weight_update``) reduce-scatters the
-gradients of those leaves instead of all-reducing them. Every step is
-elementwise on the same sums, so both are bitwise the replicated update;
-``optim.grad_clip_norm`` clips by the norm of the whole gradient, whose
-squares then sum in another order.
+Across D data ranks the update takes each rank's partial gradients (of its
+share of the global loss) and sums them over the data group, as the JAX
+package's data-sharded step does: replicated, one all-reduce of every
+gradient, then the same update on every rank. Under ZeRO-1
+(``mesh.shard_opt_state``) each rank keeps the momentum only for its slice
+of each leaf ``UpdateSharding`` shards, updates that slice of the
+parameters, and the slices all-gather; the sharded weight update
+(``mesh.shard_weight_update``) reduce-scatters the gradients of those leaves
+instead of all-reducing them. Every step is elementwise on the same sums, so
+both are bitwise the replicated update; ``optim.grad_clip_norm`` clips by
+the norm of the whole gradient, whose squares then sum in another order.
+
+With a model axis (``mesh.model_axis = M > 1``, JAX ``place_state``) each
+rank holds only its rows of the classifier's weight and bias and of their
+momentum (``parallel/mesh.py::param_layout``); ZeRO-1 then slices another
+dim of those leaves. The data group sums the trunk's gradients whole and the
+head's by rows; the trunk's are then equal on the ranks of a model group
+(``copy_to_model`` gave each the whole ``∂L/∂h``), so no model reduction
+follows. The global clip norm sums the head rows' squares over the model
+group and the ZeRO-1 slices' over the data group. ``shard_slots`` places a
+whole state in the rank's layout and ``gather_slots`` joins it whole again
+(what a checkpoint holds); ``gather_head`` joins the head alone.
 """
 
 from __future__ import annotations
@@ -38,8 +49,9 @@ from ..config import Config
 from ..device import resolve_device
 from ..models import create_model_from_cfg
 from ..parallel import collectives
-from ..parallel.mesh import (UpdateSharding, resolve_slot_sharding,
-                             resolve_update_sharding, world_size)
+from ..parallel.mesh import (UpdateSharding, data_group, data_size, model_group,
+                             model_index, model_size, param_layout, resolve_slot_sharding,
+                             resolve_update_sharding)
 from ..weights import init_variables
 
 
@@ -111,9 +123,10 @@ def make_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], np.float
 class SGD:
     """The optax chain of ``make_optimizer``; ``update`` applies one step.
 
-    ``world`` ranks sum their gradients in ``update`` (1: none); ``slots``
-    shards the momentum (ZeRO-1), and ``scatter`` reduce-scatters the
-    gradients of the sharded leaves (the sharded weight update)."""
+    ``world`` data ranks sum their gradients in ``update`` over the data group
+    (1: none); ``slots`` shards the momentum (ZeRO-1), ``scatter``
+    reduce-scatters the gradients of the sharded leaves (the sharded weight
+    update), and ``model`` > 1 ranks each hold their rows of the head."""
 
     schedule: Callable[[int], np.float32]
     momentum: float
@@ -123,36 +136,62 @@ class SGD:
     world: int = 1
     slots: UpdateSharding | None = None
     scatter: bool = False
+    model: int = 1
 
     @torch.no_grad()
     def update(self, state: TrainState, grads: dict[str, torch.Tensor]) -> None:
         """Update ``state.params`` and ``state.momentum`` in place from the
-        fp32 ``grads`` (named like the params; at W ranks each rank's partial
-        gradients, summed here), and advance ``state.step``."""
+        fp32 ``grads`` (named like the params; at D data ranks each rank's
+        partial gradients, summed here), and advance ``state.step``."""
         names = list(state.params)
         sh = self.slots
+        group = data_group()
         if sh is None:
             g = [grads[k] for k in names]
             if self.world > 1:
-                g = collectives.all_reduce_flat(g)
+                g = collectives.all_reduce_flat(g, group)
             self._apply(state, [state.params[k] for k in names], g, names, None)
             return
-        split = [k for k in names if sh.spec_for(state.params[k].shape) is not None]
+        split = [k for k in names if sh.spec_for(state.params[k].shape, k) is not None]
         whole = [k for k in names if k not in split]
         if self.scatter:
-            per_rank = [list(r) for r in zip(*(sh.slices(grads[k]) for k in split))]
-            g = (collectives.reduce_scatter_flat(per_rank)
-                 + collectives.all_reduce_flat([grads[k] for k in whole]))
+            per_rank = [list(r) for r in zip(*(sh.slices(grads[k], k) for k in split))]
+            g = (collectives.reduce_scatter_flat(per_rank, group)
+                 + collectives.all_reduce_flat([grads[k] for k in whole], group))
         else:
-            full = collectives.all_reduce_flat([grads[k] for k in split + whole])
-            g = [sh.shard(t) for t in full[:len(split)]] + full[len(split):]
+            full = collectives.all_reduce_flat([grads[k] for k in split + whole], group)
+            g = [sh.shard(t, k) for t, k in zip(full, split)] + full[len(split):]
         # The rank's slices of the sharded parameters are views: updated in place.
-        self._apply(state, [sh.shard(state.params[k]) for k in split]
+        self._apply(state, [sh.shard(state.params[k], k) for k in split]
                     + [state.params[k] for k in whole], g, split + whole, len(split))
-        gathered = collectives.all_gather_flat([sh.shard(state.params[k]) for k in split])
+        gathered = collectives.all_gather_flat(
+            [sh.shard(state.params[k], k) for k in split], group)
         for i, k in enumerate(split):
-            d = sh.spec_for(state.params[k].shape)
+            d = sh.spec_for(state.params[k].shape, k)
             state.params[k].copy_(torch.cat([rank[i] for rank in gathered], dim=d))
+
+    def _global_sq(self, g: list, names: list, n_split: int | None) -> torch.Tensor:
+        """The squared norm of the whole gradient from this rank's ``g``: the
+        first ``n_split`` are ZeRO-1 slices, whose squares sum over the data
+        group, and the head's rows at M > 1 sum over the model group."""
+        if n_split is None and self.model <= 1:
+            return sum(torch.sum(t * t) for t in g)
+        n = n_split or 0
+        head = [param_layout(k, self.model) is not None for k in names]
+        zero = torch.zeros((), dtype=torch.float32, device=g[0].device)
+
+        def part(sliced: bool, of_head: bool):
+            return sum((torch.sum(t * t) for i, t in enumerate(g)
+                        if (i < n) == sliced and head[i] == of_head), zero)
+        # [trunk slices, head slices, head whole, trunk whole]: the first two
+        # sum over the data group, the middle two over the model group.
+        parts = torch.stack([part(True, False), part(True, True), part(False, True),
+                             part(False, False)])
+        if n_split is not None:
+            collectives.all_reduce_sum_(parts[:2], data_group())
+        if self.model > 1:
+            collectives.all_reduce_sum_(parts[1:3], model_group())
+        return parts[0] + parts[3] + parts[1] + parts[2]
 
     def _apply(self, state: TrainState, params: list, g: list, names: list,
                n_split: int | None) -> None:
@@ -160,15 +199,7 @@ class SGD:
         ``g`` and the momentum of ``names``; the first ``n_split`` are slices
         whose squares the global clip norm sums across the ranks."""
         if self.grad_clip_norm:
-            if n_split is None:
-                sq = sum(torch.sum(t * t) for t in g)
-            else:
-                zero = torch.zeros((), dtype=torch.float32, device=g[0].device)
-                parts = torch.stack([sum((torch.sum(t * t) for t in g[:n_split]), zero),
-                                     sum((torch.sum(t * t) for t in g[n_split:]), zero)])
-                collectives.all_reduce_sum_(parts[:1])
-                sq = parts[0] + parts[1]
-            norm = torch.sqrt(sq)
+            norm = torch.sqrt(self._global_sq(g, names, n_split))
             keep = norm < self.grad_clip_norm
             g = [torch.where(keep, t, t / norm * self.grad_clip_norm) for t in g]
         g = torch._foreach_add(g, torch._foreach_mul(params, self.weight_decay))
@@ -183,38 +214,78 @@ class SGD:
 
 
 def make_optimizer(cfg: Config, steps_per_epoch: int) -> SGD:
-    """The configured chain, across the process group's ranks with the ``mesh``
-    config's ZeRO-1 and sharded update."""
+    """The configured chain, across the process group's data ranks with the
+    ``mesh`` config's ZeRO-1 and sharded update, and its model axis."""
     return SGD(make_schedule(cfg, steps_per_epoch), cfg.optim.momentum,
                cfg.optim.weight_decay, cfg.optim.nesterov, cfg.optim.grad_clip_norm,
-               world=world_size(), slots=resolve_slot_sharding(cfg.mesh),
-               scatter=resolve_update_sharding(cfg.mesh) is not None)
+               world=data_size(), slots=resolve_slot_sharding(cfg.mesh),
+               scatter=resolve_update_sharding(cfg.mesh) is not None, model=model_size())
+
+
+def shard_head(tensors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """``tensors`` (params, momentum or variables, whole) with the head's
+    leaves cut to this rank's rows (copies) at M > 1; ``tensors`` itself at
+    M = 1."""
+    m = model_size()
+    if m <= 1:
+        return tensors
+    out = dict(tensors)
+    for k, v in tensors.items():
+        if param_layout(k, m) is not None:
+            if v.shape[0] % m:
+                raise ValueError(
+                    f"{k}: {v.shape[0]} classes do not split over mesh.model_axis={m}")
+            out[k] = v.chunk(m, dim=0)[model_index()].clone()
+    return out
+
+
+def gather_head(tensors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """``tensors`` with the head's rows joined whole over the model group (a
+    collective at M > 1: every rank of the group calls it); ``tensors``
+    itself at M = 1."""
+    m = model_size()
+    if m <= 1:
+        return tensors
+    keys = [k for k in tensors if param_layout(k, m) is not None]
+    gathered = collectives.all_gather_flat([tensors[k] for k in keys], model_group())
+    out = dict(tensors)
+    for i, k in enumerate(keys):
+        out[k] = torch.cat([rank[i] for rank in gathered], dim=0)
+    return out
 
 
 def shard_slots(state: TrainState, optimizer: SGD) -> TrainState:
-    """``state`` with each sharded leaf's momentum cut to this rank's slice
-    (a copy) when the optimizer shards its slots; ``state`` itself otherwise."""
+    """A whole ``state`` in this rank's layout (JAX ``place_state``): the head's
+    rows of the params and the momentum at M > 1, then each sharded leaf's
+    momentum cut to this rank's slice when the optimizer shards its slots
+    (copies); ``state`` itself when neither applies."""
     sh = optimizer.slots
-    if sh is None:
+    if sh is None and model_size() <= 1:
         return state
-    momentum = {k: sh.shard(v).clone() for k, v in state.momentum.items()}
-    return TrainState(state.params, state.batch_stats, momentum, state.step)
+    momentum = shard_head(state.momentum)
+    if sh is not None:
+        momentum = {k: sh.shard(v, k).clone() for k, v in momentum.items()}
+    return TrainState(shard_head(state.params), state.batch_stats, momentum, state.step)
 
 
 def gather_slots(state: TrainState, optimizer: SGD) -> TrainState:
-    """``state`` with every rank's momentum slices joined into whole leaves (a
-    collective when the optimizer shards its slots): what a checkpoint holds,
-    whatever W wrote it."""
+    """``state`` with every rank's momentum slices joined into whole leaves
+    over the data group and the head's rows joined over the model group
+    (collectives when the optimizer shards its slots or M > 1): what a
+    checkpoint holds, whatever the ``{data, model}`` ranks that wrote it."""
     sh = optimizer.slots
-    if sh is None:
+    if sh is None and model_size() <= 1:
         return state
-    split = [k for k, v in state.params.items() if sh.spec_for(v.shape) is not None]
-    gathered = collectives.all_gather_flat([state.momentum[k] for k in split])
-    momentum = dict(state.momentum)
-    for i, k in enumerate(split):
-        momentum[k] = torch.cat([rank[i] for rank in gathered],
-                                dim=sh.spec_for(state.params[k].shape))
-    return TrainState(state.params, state.batch_stats, momentum, state.step)
+    momentum = state.momentum
+    if sh is not None:
+        split = [k for k, v in state.params.items() if sh.spec_for(v.shape, k) is not None]
+        gathered = collectives.all_gather_flat([momentum[k] for k in split], data_group())
+        momentum = dict(momentum)
+        for i, k in enumerate(split):
+            momentum[k] = torch.cat([rank[i] for rank in gathered],
+                                    dim=sh.spec_for(state.params[k].shape, k))
+    return TrainState(gather_head(state.params), state.batch_stats, gather_head(momentum),
+                      state.step)
 
 
 def optimizer_bytes(state: TrainState) -> int:
@@ -238,8 +309,9 @@ def state_from_variables(variables: dict[str, torch.Tensor],
 def create_train_state(cfg: Config, seed: int, device=None,
                        model: torch.nn.Module | None = None) -> TrainState:
     """Freshly initialized variables for ``cfg.model`` from ``seed`` (see
-    ``weights.init_variables``), zero momentum, step 0. The retrain after a
-    prune calls this again: it trains from scratch, as the reference does."""
+    ``weights.init_variables``), zero momentum, step 0: the whole state, which
+    ``shard_slots`` places in a rank's layout. The retrain after a prune calls
+    this again: it trains from scratch, as the reference does."""
     device = resolve_device(device)
     model = model if model is not None else create_model_from_cfg(cfg)
     variables = init_variables(cfg.model.arch, int(seed), device,

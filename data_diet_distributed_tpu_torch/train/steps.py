@@ -12,14 +12,19 @@ no autocast and no loss scaling. ``eval_step`` returns the masked sums
 ``loss_sum``, ``correct`` and ``examples``. Both return device scalars, which
 the caller fetches once per epoch.
 
-Across W ranks (a process group) each rank holds its rows of the global
-batch, and the step computes what the JAX package's data-sharded step does:
-the augmentation draws are the global batch's, BatchNorm normalizes by the
-global batch's statistics (``global_batch_stats``), each rank differentiates
-its masked sum over the all-reduced mask count, the optimizer sums the
-gradients, and the returned loss, ``correct`` and ``examples`` are the global
-batch's. (Not DDP's mean of per-rank means, which is wrong on the padded
-last batch.) ``eval_step`` stays per rank; ``evaluate`` sums the ranks.
+Across D data ranks (a process group, ``{data: D, model: M}``) each rank
+holds its data index's rows of the global batch (``batch_slice``: the ranks
+of one model group hold the same rows), and the step computes what the JAX
+package's data-sharded step does: the augmentation draws are the global
+batch's, BatchNorm normalizes by the global batch's statistics
+(``global_batch_stats``, over the data group), each rank differentiates its
+masked sum over the mask count all-reduced over the data group, the
+optimizer sums the gradients over the data group, and the returned loss,
+``correct`` and ``examples`` are the global batch's. (Not DDP's mean of
+per-rank means, which is wrong on the padded last batch.) At M > 1 the
+head's rows are the rank's (``models/resnet.py::Head``): its forward
+gathers the logits over the model group, so the loss and ``argmax`` see
+them whole. ``eval_step`` stays per rank; ``evaluate`` sums the data ranks.
 
 ``dispatch_train_step`` and ``dispatch_eval_step`` are what the epoch loop
 calls, as the JAX package's ``_counted``: a ``dispatches_<name>`` registry
@@ -41,7 +46,7 @@ from ..obs import introspect
 from ..obs import registry as obs_registry
 from ..ops.scores import cross_entropy
 from ..parallel.collectives import all_reduce_sum_
-from ..parallel.mesh import image_slice
+from ..parallel.mesh import batch_slice, data_group
 from .state import SGD, TrainState
 
 
@@ -58,7 +63,7 @@ def train_step(model: torch.nn.Module, optimizer: SGD, state: TrainState, batch:
     updating ``state`` in place; returns ``{loss, correct, examples}``.
     ``augment`` is ``(crop_pad, flip, seed)`` or None."""
     image, label, mask = batch["image"], batch["label"], batch["mask"]
-    rows = image_slice()
+    rows = batch_slice()
     if augment is not None:
         crop_pad, flip, seed = augment
         image = augment_batch(image, seed, state.step, crop_pad, flip, image_slice=rows)
@@ -70,7 +75,7 @@ def train_step(model: torch.nn.Module, optimizer: SGD, state: TrainState, batch:
     per_ex = cross_entropy(logits, label) * mask
     count = mask.sum()
     if rows:
-        count = all_reduce_sum_(count.clone())
+        count = all_reduce_sum_(count.clone(), data_group())
     loss = per_ex.sum() / torch.clamp(count, min=1.0)
     grads = torch.autograd.grad(loss, list(params.values()))
     optimizer.update(state, dict(zip(params, grads)))
@@ -83,13 +88,15 @@ def train_step(model: torch.nn.Module, optimizer: SGD, state: TrainState, batch:
         correct = ((logits.argmax(dim=-1) == label) * mask).sum()
         if rows:
             # Each rank's loss is its share of the global one: the sum is it.
-            summed = all_reduce_sum_(torch.stack([loss.detach(), correct.float()]))
+            summed = all_reduce_sum_(torch.stack([loss.detach(), correct.float()]),
+                                     data_group())
             return {"loss": summed[0], "correct": summed[1], "examples": count}
     return {"loss": loss.detach(), "correct": correct, "examples": mask.sum()}
 
 
 def eval_step(model: torch.nn.Module, state: TrainState, batch: dict) -> dict:
-    """Masked ``{loss_sum, correct, examples}`` of an eval-mode forward."""
+    """Masked ``{loss_sum, correct, examples}`` of an eval-mode forward on the
+    rank's rows (whole logits: the head gathers them at M > 1)."""
     model.eval()
     label, mask = batch["label"], batch["mask"]
     with torch.no_grad():

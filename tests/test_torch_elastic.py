@@ -237,6 +237,31 @@ def test_supervisor_events_match_jax(tmp_path, name):
         assert out["rc"] == 75 and events[-1] == "preempted_exit"
 
 
+@pytest.mark.parametrize("case", ["shrink", "grow"])
+def test_supervisor_keeps_whole_model_groups(tmp_path, case):
+    """With ``mesh.model_axis=2`` the port's supervisor keeps whole model
+    groups: 4 ranks that lost one relaunch as 2 (a relaunch at 3 would fail
+    ``remap_mesh``), a join of one rank grows 2 to 4, and the default floor of
+    1 rounds up to 2. A world the axis cannot tile is refused by name."""
+    over = {"mesh.model_axis": 2, "elastic.max_world": 4}
+    if case == "shrink":
+        out = _drive("torch", tmp_path, attempts=[[69, 69, 69, -9], [0, 0]],
+                     over={**over, "elastic.world": 4})
+        event = next(e for e in out["events"] if e["event"] == "shrink")
+        assert event["dead_ranks"] == [3] and event["new_world"] == 2
+    else:
+        out = _drive("torch", tmp_path, attempts=[[75, 75], [0, 0, 0, 0]],
+                     over={**over, "elastic.world": 2},
+                     before_classify=_join("host back", ranks=1))
+        assert next(e for e in out["events"] if e["event"] == "grow")["new_world"] == 4
+    relaunch = [s["world"] for s in out["spawned"] if s["attempt"] == 1]
+    assert out["rc"] == 0 and len(set(relaunch)) == 1 and relaunch[0] % 2 == 0
+    assert out["sup"].min_world == 2
+    for bad in (["elastic.world=3"], ["elastic.max_world=5"]):
+        with pytest.raises(ValueError, match="model_axis"):
+            load_config(None, ["mesh.model_axis=2", *bad])
+
+
 def test_join_is_not_dropped_while_a_resize_is_pending(tmp_path):
     outs = {}
     for side, (mod, _) in SIDES.items():

@@ -100,6 +100,25 @@ def test_update_comm_bytes_match_jax():
     assert comm.estimate_update_comm(params, Mesh(1))["bytes_per_step"] == 0
 
 
+def test_update_comm_bytes_match_jax_with_a_model_axis():
+    """At ``{data: 2, model: 2}`` a rank holds 5 of the head's 10 rows; the
+    bytes are the whole tree's, and the head's weight shards its other dim
+    over ``data``, as JAX's global arrays and TP specs count them."""
+    model = jax_create_model("tiny_cnn", 10)
+    tree = jax.device_get(jax.jit(model.init, static_argnames=("train",))(
+        jax.random.key(0), np.zeros((1, 32, 32, 3), np.float32), train=False))
+    port_model = create_model("tiny_cnn", 10)
+    sd = params_from_flax(tree, port_model)
+    params = {k: (sd[k][:5] if k.startswith("classifier.") else sd[k])
+              for k, _ in port_model.named_parameters()}
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+    mesh = Mesh(2, 2)
+    for jshard, shard in ((None, None), (JaxUpdateSharding(jmesh), UpdateSharding(2, 0, 2))):
+        want = jcomm.estimate_update_comm(tree["params"], jmesh, jshard)
+        got = comm.estimate_update_comm(params, mesh, shard)
+        assert got == want
+
+
 def _ledger(path):
     rows = [{"kind": "perf_history", "examples_per_s": v, "backend": b,
              "geometry": {"arch": "tiny_cnn"}, "exit_class": e}

@@ -133,6 +133,70 @@ def test_rank_rows_equal_jax_rank_slices(world, shuffle):
                 assert np.array_equal(st[k].numpy(), split), k
 
 
+@pytest.mark.parametrize("data,model", [(2, 2), (4, 2), (1, 2), (3, 1)])
+def test_batch_and_flat_slices_follow_the_row_major_layout(monkeypatch, data, model):
+    """Rank r of ``{data: D, model: M}`` sits at ``(r // M, r % M)`` (JAX
+    ``make_mesh``'s ``reshape(data, model)``): training rows by data index over
+    D, scoring rows by rank over W; batch sizes round to D and to W, as the
+    JAX package's ``BatchSharder`` and ``BatchSharder.flat`` on that mesh."""
+    w = data * model
+    jmesh = jax_mesh.make_mesh(jax_config.MeshConfig(data_axis=data, model_axis=model),
+                               jax.devices()[:w])
+    monkeypatch.setattr(mesh, "_MODEL", model)
+    monkeypatch.setattr(mesh, "world_size", lambda: w)
+    for r in range(w):
+        monkeypatch.setattr(mesh, "process_index", lambda r=r: r)
+        assert (mesh.data_index(), mesh.model_index()) == (r // model, r % model)
+        assert jmesh.devices[r // model, r % model] == jax.devices()[r]
+        assert mesh.batch_slice() == ((r // model, data) if data > 1 else None)
+        assert mesh.flat_slice() == (r, w)
+        assert mesh.make_mesh(port_config.MeshConfig(model_axis=model)) == mesh.Mesh(
+            data, model, r // model, r % model)
+    for requested in (15, 60, 64):
+        assert mesh.global_batch_size_for(requested) == \
+            BatchSharder(jmesh).global_batch_size_for(requested)
+        assert mesh.global_batch_size_for(requested, flat=True) == \
+            BatchSharder.flat(jmesh).global_batch_size_for(requested)
+
+
+@pytest.mark.parametrize("arch", ["tiny_cnn", "resnet18"])
+@pytest.mark.parametrize("model", [1, 2])
+def test_param_layout_is_the_jax_param_specs(arch, model):
+    """``param_layout`` against JAX ``param_specs`` on the same tree: the head's
+    weight and bias split by output rows (dim 0 of the port's ``[out, in]``,
+    ``P(None, "model")`` on Flax's ``[in, out]``; the bias ``P("model")``),
+    every other leaf whole; under ZeRO-1 the head's weight shards its other
+    dim over ``data``, as ``_zero1_spec`` does on a TP spec."""
+    fm = flax_create_model(arch, 100)
+    shapes = jax.eval_shape(lambda k, x: fm.init(k, x, train=False), jax.random.key(0),
+                            np.zeros((1, 32, 32, 3), np.float32))["params"]
+    jmesh = jax_mesh.make_mesh(jax_config.MeshConfig(model_axis=model), jax.devices()[:4])
+    specs = {"/".join(str(p.key) for p in path): spec for path, spec in
+             jax.tree_util.tree_flatten_with_path(
+                 jax_mesh.param_specs(shapes, jmesh), is_leaf=lambda x: isinstance(x, P))[0]}
+    params = {k: v for k, v in init_variables(arch, 0, "cpu", num_classes=100).items()
+              if not k.endswith(("running_mean", "running_var"))}
+    assert sum(mesh.param_layout(k, model) is not None for k in params) == (
+        2 if model > 1 else 0)
+    for name in params:
+        prefix, leaf = name.rsplit(".", 1)
+        flax = next(f"{prefix.replace('.', '/')}/{x}" for x in
+                    {"weight": ("kernel", "scale"), "bias": ("bias",)}[leaf]
+                    if f"{prefix.replace('.', '/')}/{x}" in specs)
+        want = specs[flax]
+        got = mesh.param_layout(name, model)
+        assert (got is None) == (want == P()), name
+        if got is not None:
+            assert list(want)[-1] == jax_mesh.MODEL_AXIS and got == 0
+    sh = mesh.UpdateSharding(4 // model, 0, model)
+    if model > 1:
+        w = params["classifier.weight"]
+        jspec = jax_mesh._zero1_spec(P(None, jax_mesh.MODEL_AXIS), tuple(w.shape[::-1]), 2)
+        assert jspec == P(jax_mesh.DATA_AXIS, jax_mesh.MODEL_AXIS)
+        assert sh.spec_for(w.shape, "classifier.weight") == 1
+        assert sh.spec_for((100,), "classifier.bias") is None
+
+
 def test_iterate_batches_refuses_an_indivisible_batch():
     ds, _ = _datasets()
     with pytest.raises(ValueError, match="global_batch_size_for"):
@@ -162,9 +226,14 @@ def test_mesh_config_matches_jax_and_takes_effect():
                              "parallel.overlap.enabled=true"])
     assert (cfg.mesh.multihost, cfg.mesh.process_id, cfg.mesh.shard_opt_state) == (
         True, 1, True)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 2"):
-        load_config(None, ["mesh.model_axis=2"])
+    assert load_config(None, ["mesh.model_axis=2"]).mesh.model_axis == 2
+    tp = load_config(None, ["mesh.multihost=true", "mesh.coordinator_address=h:1",
+                            "mesh.num_processes=4", "mesh.process_id=3",
+                            "mesh.model_axis=2", "mesh.data_axis=2"]).mesh
+    assert (tp.data_axis, tp.model_axis) == (2, 2)
     for bad in (["mesh.multihost=true"],
+                ["mesh.multihost=true", "mesh.coordinator_address=h:1",
+                 "mesh.num_processes=3", "mesh.process_id=0", "mesh.model_axis=2"],
                 ["mesh.multihost=true", "mesh.coordinator_address=h:1",
                  "mesh.num_processes=2", "mesh.process_id=2"],
                 ["mesh.multihost=true", "mesh.coordinator_address=h:1",
@@ -176,13 +245,20 @@ def test_mesh_config_matches_jax_and_takes_effect():
     assert mesh.make_mesh(cfg.mesh, world=1) == mesh.Mesh(1, 1)
     with pytest.raises(ValueError, match="does not tile"):
         mesh.make_mesh(load_config(None, ["mesh.data_axis=3"]).mesh, world=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        mesh.make_mesh(port_config.MeshConfig(model_axis=2), world=2)
+    assert mesh.make_mesh(port_config.MeshConfig(model_axis=2), world=4) == mesh.Mesh(2, 2)
+    # The model axis is never changed: 3 ranks cannot tile it (JAX
+    # test_elastic_restore.py's remap_mesh at 5 devices).
+    with pytest.raises(ValueError, match="cannot tile model_axis=2"):
+        mesh.remap_mesh(port_config.MeshConfig(model_axis=2), world=3)
+    assert mesh.remap_mesh(port_config.MeshConfig(data_axis=4, model_axis=2),
+                           world=6) == mesh.Mesh(3, 2)
 
 
 def test_one_process_has_no_group():
     assert (mesh.world_size(), mesh.process_index(), mesh.is_primary()) == (1, 0, True)
-    assert mesh.image_slice() is None
+    assert mesh.batch_slice() is None and mesh.flat_slice() is None
+    assert (mesh.model_size(), mesh.data_size(), mesh.model_index(), mesh.data_index()) == (
+        1, 1, 0, 0)
     mesh.sync_hosts("no-op")
     mesh.initialize_multihost(port_config.MeshConfig(), "cpu")   # multihost off: no-op
     assert mesh.world_size() == 1

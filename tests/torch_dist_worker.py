@@ -23,6 +23,15 @@ scenarios of GROUP and writes ``OUT_DIR/result_<RANK>.npz`` and
   a step rank 1 refuses to restore, the launches gather) while rank 1
   follows; then ``score_dataset`` at W = 2 on the boot and the refreshed
   variables.
+* ``tp`` (``test_torch_tensor_parallel.py``, W = 4 joined as ``{data: 2,
+  model: 2}``): three training steps of tiny_cnn from ``OUT_DIR/inputs.npz``
+  in the tensor-parallel layout (replicated, ZeRO-1, a global clip norm
+  under the sharded update, and with ``copy_to_model`` turned into the
+  identity) and in the ``{data: 4}`` layout of the same ranks; ``evaluate``;
+  EL2N and GraNd ``score_dataset`` on the flat grid; forgetting
+  ``trajectory_scores``; a ZeRO-1 ``fit`` through the local tier; then the
+  group is left and ``cli run`` joins a new one with ``mesh.multihost=true
+  mesh.model_axis=2``, each fit's head shapes recorded.
 """
 
 from __future__ import annotations
@@ -78,7 +87,7 @@ def three_steps(inputs: dict, over: list[str]) -> dict:
     model = ResNet((1, 1, 1, 1), BasicBlock, width=16)
     ds = ArrayDataset(inputs["x"], inputs["y"], np.arange(len(inputs["y"]), dtype=np.int32),
                       10)
-    rows = mesh.image_slice()
+    rows = mesh.batch_slice()
     state = state_from_variables(_group(inputs, "var/"), model)
     sgd = make_optimizer(cfg, 3)
     state = shard_slots(state, sgd)
@@ -202,6 +211,124 @@ def hang(out_dir: str) -> dict:
     return rec
 
 
+TP_OVER = ["mesh.model_axis=2"]
+
+
+def _layout(model: int):
+    """Switch this rank's layout between the joined ``{data: 2, model: 2}``
+    (``model`` 2) and the ``{data: 4}`` layout of the same four ranks (1)."""
+    saved = (mesh._MODEL, mesh._DATA_GROUP, mesh._MODEL_GROUP)
+    if model == 1:
+        mesh._MODEL, mesh._DATA_GROUP, mesh._MODEL_GROUP = 1, None, None
+    return saved
+
+
+def _restore_layout(saved) -> None:
+    mesh._MODEL, mesh._DATA_GROUP, mesh._MODEL_GROUP = saved
+
+
+def tp_steps(inputs: dict, over: list[str], model: int) -> dict:
+    """Three steps of tiny_cnn on 40 rows at a global batch of 16 (a padded
+    tail) in the ``{data: 4 / model, model: model}`` layout: the whole
+    (gathered) state, per-step metrics and this rank's head shapes."""
+    saved = _layout(model)
+    try:
+        cfg = load_config(None, [*TRAIN_OVER, *over])
+        tm = create_model("tiny_cnn", 10)
+        ds = ArrayDataset(inputs["x"], inputs["y"],
+                          np.arange(len(inputs["y"]), dtype=np.int32), 10)
+        rows = mesh.batch_slice()
+        sgd = make_optimizer(cfg, 3)
+        state = shard_slots(state_from_variables(_group(inputs, "var/"), tm), sgd)
+        out = {f"shape:{g}/{k}": np.asarray(v.shape) for g in ("params", "momentum")
+               for k, v in getattr(state, g).items() if k.startswith("classifier.")}
+        metrics = []
+        for b in iterate_batches(ds, 16, image_slice=rows):
+            m = train_step(tm, sgd, state, to_device(local_rows(b, rows), "cpu"))
+            metrics.append([float(m["loss"]), float(m["correct"]), float(m["examples"])])
+        whole = gather_slots(state, sgd)
+    finally:
+        _restore_layout(saved)
+    out.update({f"{g}/{k}": v.numpy().copy() for g in ("params", "batch_stats", "momentum")
+                for k, v in getattr(whole, g).items()})
+    out["metrics"] = np.asarray(metrics)
+    return out
+
+
+def tp(out_dir: str) -> dict:
+    from data_diet_distributed_tpu_torch import cli
+    from data_diet_distributed_tpu_torch.parallel import collectives
+
+    with np.load(os.path.join(out_dir, "inputs.npz")) as f:
+        inputs = {k: f[k] for k in f.files}
+    result = {}
+    runs = (("tp", TP_OVER, 2), ("tp_zero1", [*TP_OVER, "mesh.shard_opt_state=true"], 2),
+            ("tp_clip", [*TP_OVER, "optim.grad_clip_norm=0.5",
+                         "mesh.shard_weight_update=true"], 2),
+            ("dp", [], 1), ("dp_clip", ["optim.grad_clip_norm=0.5"], 1))
+    for name, over, model in runs:
+        for k, v in tp_steps(inputs, over, model).items():
+            result[f"{name}:{k}"] = v
+    real = collectives.copy_to_model
+    collectives.copy_to_model = lambda x: x
+    try:
+        for k, v in tp_steps(inputs, TP_OVER, 2).items():
+            result[f"tp_nocopy:{k}"] = v
+    finally:
+        collectives.copy_to_model = real
+    tm = create_model("tiny_cnn", 10)
+    cfg = load_config(None, [*TRAIN_OVER, *TP_OVER])
+    eval_state = shard_slots(state_from_variables(_group(inputs, "var/"), tm),
+                             make_optimizer(cfg, 1))
+    ev = loop.evaluate(tm, eval_state, ArrayDataset(
+        inputs["eval_x"], inputs["eval_y"], np.arange(64, dtype=np.int32), 10), 64,
+        device="cpu")
+    result["eval"] = np.asarray([ev["loss"], ev["accuracy"], ev["examples"]])
+    ds = ArrayDataset(inputs["score_x"], inputs["score_y"], inputs["score_idx"], 10)
+    for method in ("el2n", "grand"):
+        result[f"score:{method}"] = score_dataset(tm, [_group(inputs, "var/")], ds,
+                                                  method=method, batch_size=15, chunk=4,
+                                                  device="cpu")
+    traj = load_config(None, [str(o) for o in inputs["traj_over"]] + TP_OVER
+                       + [f"train.checkpoint_dir={out_dir}/traj"])
+    result["forgetting"] = loop.trajectory_scores(traj, loop.load_data_for(traj)[0],
+                                                  device="cpu")
+    fit_cfg = load_config(None, ["data.dataset=synthetic", "data.synthetic_size=64",
+                                 "data.batch_size=32", "model.arch=tiny_cnn",
+                                 "train.num_epochs=1", "train.half_precision=false",
+                                 "mesh.shard_opt_state=true", "checkpoint.local_tier=true",
+                                 f"train.checkpoint_dir={out_dir}/ckpt", *TP_OVER])
+    res = loop.fit(fit_cfg, loop.load_data_for(fit_cfg)[0], None, device="cpu",
+                   checkpoint_dir=fit_cfg.train.checkpoint_dir)
+    whole = gather_slots(res.state, make_optimizer(fit_cfg, 2))
+    for g in ("params", "batch_stats", "momentum"):
+        for k, v in getattr(whole, g).items():
+            result[f"fit:{g}/{k}"] = v.numpy().copy()
+    result["fit:step"] = np.asarray(res.state.step)
+    rank = mesh.process_index()
+    mesh.shutdown()
+
+    # cli run joins a group of its own, as a user would start it.
+    heads = []
+    real_fit = loop.fit
+
+    def recording_fit(*args, **kwargs):
+        res = real_fit(*args, **kwargs)
+        heads.append([kwargs.get("tag", "train"),
+                      list(res.state.params["classifier.weight"].shape),
+                      list(res.state.momentum["classifier.weight"].shape)])
+        return res
+
+    loop.fit = recording_fit
+    argv = ["run", "--device", "cpu", *[str(a) for a in inputs["cli_argv"]],
+            "mesh.multihost=true", f"mesh.coordinator_address=127.0.0.1:{inputs['cli_port']}",
+            "mesh.num_processes=4", f"mesh.process_id={rank}", *TP_OVER]
+    result["cli_rc"] = np.asarray(cli.main(argv))
+    loop.fit = real_fit
+    result["cli_heads"] = np.asarray(json.dumps(heads))
+    return result
+
+
 def serve(out_dir: str) -> dict:
     from data_diet_distributed_tpu_torch.checkpoint import CheckpointManager
     from data_diet_distributed_tpu_torch.serve.engine import ServeEngine
@@ -279,11 +406,12 @@ def main() -> None:
                                          sys.argv[4], sys.argv[5])
     mesh.initialize_multihost(MeshConfig(multihost=True,
                                          coordinator_address=f"127.0.0.1:{port}",
-                                         num_processes=world, process_id=rank), "cpu")
+                                         num_processes=world, process_id=rank,
+                                         model_axis=2 if group == "tp" else 1), "cpu")
     result = {"numerics": numerics, "drills": drills, "hang": hang,
-              "serve": serve}[group](out_dir)
+              "serve": serve, "tp": tp}[group](out_dir)
     result["rank"] = rank
-    if group == "numerics":
+    if group in ("numerics", "tp"):
         np.savez(os.path.join(out_dir, f"result_{rank}.npz"), **result)
     else:
         with open(os.path.join(out_dir, f"result_{rank}.json"), "w") as fh:

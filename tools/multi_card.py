@@ -7,6 +7,8 @@
     python3 tools/multi_card.py --only-elastic --device cpu --world 4 --examples 256
     python3 tools/multi_card.py --only-serve [--out DIR]    # step 8 alone
     python3 tools/multi_card.py --only-serve --device cpu --world 4 --examples 256
+    python3 tools/multi_card.py --only-tp [--out DIR]       # step 9 alone
+    python3 tools/multi_card.py --only-tp --device cpu --world 4 --examples 256
 
 Starts W rank processes of this script (each with a timeout; a rank that
 fails fails the run) that join a group through
@@ -69,6 +71,26 @@ fails fails the run) that join a group through
    largest difference from them is reported; p50/p95 per method under 4
    clients x 25 requests of 1-64 random ids; a SIGTERM to rank 0 ends every
    rank with exit 75. With ``--only-serve`` only this step runs.
+9. tensor parallelism across the cards: BASELINE config 4's ``cli run``
+   (``configs/cifar100_wrn28_10.yaml``: WideResNet-28-10, GraNd over seeds
+   [0, 1, 2], prune 50 %, bf16; tiny_cnn in fp32 on the CPU) on the examples
+   of synthetic CIFAR-100-geometry data written as npz (1 pretrain and 1
+   retrain epoch), as W ranks with ``mesh.model_axis=2`` (``{data: W / 2,
+   model: 2}``, NCCL), then as one process on the first card. Checks: every
+   rank exits 0; each rank ends each pretrain and the retrain holding its
+   ``[50, 640]`` rows of the head and their momentum; the scores within
+   ``tests/test_distributed.py``'s GraNd tolerance (rtol 1e-4 + 1e-5) of
+   ``score_dataset`` at W = 1 at the rank's batch (512 / W) on the ranks'
+   pretrained variables; each
+   rank's launches of the scoring pass equal W = 1's (one a layer a batch,
+   on a W-th of the rows); the
+   final checkpoint restores at W = 1 with the whole head. Walls and
+   per-epoch ex/s of both runs, the one card's scores' largest difference
+   from the W ranks', and before each run ten train steps of the recipe
+   profiled on each rank as in step 4 (host wall, device time, busy share,
+   NCCL time, launches; rank 0's tables in
+   ``<out>/multi_card_tp_profile_w<W>.txt``). With ``--only-tp`` only this
+   step runs.
 
 Prints one line per step and, as the last line, a JSON object of the
 numbers (also written to ``<out>/multi_card.json``), with the cards' name and
@@ -168,16 +190,16 @@ def step_profile(torch, cuda: bool, cfg, ds, dev, steps: int = 10) -> tuple[dict
 
     from data_diet_distributed_tpu_torch.data.pipeline import ResidentBatches
     from data_diet_distributed_tpu_torch.models import create_model_from_cfg
-    from data_diet_distributed_tpu_torch.parallel.mesh import image_slice
+    from data_diet_distributed_tpu_torch.parallel.mesh import batch_slice
     from data_diet_distributed_tpu_torch.train.state import (create_train_state,
-                                                             make_optimizer)
+                                                             make_optimizer, shard_slots)
     from data_diet_distributed_tpu_torch.train.steps import train_step
 
     model = create_model_from_cfg(cfg).to(dev)
-    state = create_train_state(cfg, 0, dev, model)
     sgd = make_optimizer(cfg, 64)
+    state = shard_slots(create_train_state(cfg, 0, dev, model), sgd)
     batches = list(ResidentBatches(ds, cfg.data.batch_size, dev, torch.bfloat16,
-                                   image_slice())())
+                                   batch_slice())())
     augment = (cfg.data.crop_pad, cfg.data.flip, 0)
 
     def run(k):
@@ -527,6 +549,9 @@ def main(argv: list[str]) -> int:
         drill_rank(int(r), int(w), port, device, argv[5:])
     if argv[:1] == ["--elastic-rank"]:
         elastic_rank(argv[1], argv[2:])
+    if argv[:1] == ["--tp-rank"]:
+        r, w, port, port2, out, device = argv[1:7]
+        tp_rank(int(r), int(w), port, port2, out, device, argv[7:])
     if argv[:1] == ["--score-rank"]:
         r, w, port, out, device, n, config = argv[1:8]
         score_rank(int(r), int(w), port, out, device, int(n), config, argv[8:])
@@ -540,6 +565,8 @@ def main(argv: list[str]) -> int:
                         help="run step 7 (the elastic drill) alone")
     parser.add_argument("--only-serve", action="store_true",
                         help="run step 8 (serving across the cards) alone")
+    parser.add_argument("--only-tp", action="store_true",
+                        help="run step 9 (the tensor-parallel head) alone")
     args = parser.parse_args(argv)
     import torch
     cuda = args.device == "cuda"
@@ -579,6 +606,10 @@ def main(argv: list[str]) -> int:
     if args.only_serve:
         out = {"world": world, "cards": cards,
                "serve": serve_step(world, args.device, args.examples, work, reference=None)}
+        return finish_run(args, out, work, cards, t_run)
+    if args.only_tp:
+        out = {"world": world, "cards": cards,
+               "tp": tp_step(torch, world, args.device, args.examples, work, args.out)}
         return finish_run(args, out, work, cards, t_run)
     port = free_port()
     ranks = [spawn(["--worker", str(r), str(world), port, work, args.device,
@@ -948,6 +979,187 @@ def serve_step(world: int, device: str, n: int, work: str, reference: str | None
           f"one card's max abs from the W-rank vectors {one['max_abs']}; SIGTERM -> every "
           f"rank 75", flush=True)
     return out
+
+
+TP_MODEL = 2                   # mesh.model_axis of step 9
+TP_SEEDS = (0, 1, 2)           # config 4's score.seeds
+TP_CLASSES = 100
+
+
+def tp_data(d: str, n: int) -> str:
+    """``n`` train and ``n // 4`` test examples of synthetic CIFAR-100-geometry
+    data (a fixed template per class plus noise, seed 0) as npz in ``d``."""
+    rng = np.random.default_rng(0)
+    total = n + n // 4
+    templates = rng.normal(0.0, 0.5, size=(TP_CLASSES, 32, 32, 3)).astype(np.float32)
+    labels = rng.integers(0, TP_CLASSES, size=total).astype(np.int32)
+    images = templates[labels] + rng.normal(0.0, 0.4, size=(total, 32, 32, 3)).astype(
+        np.float32)
+    os.makedirs(d, exist_ok=True)
+    for split, rows in (("train", slice(0, n)), ("test", slice(n, None))):
+        np.savez(os.path.join(d, f"{split}.npz"), images=images[rows], labels=labels[rows])
+    return d
+
+
+def tp_rank(rank: int, world: int, port: str, port2: str, out: str, device: str,
+            cli_argv: list[str]) -> None:
+    """One rank of step 9 (``world`` 1: the one-card run): train steps of the
+    recipe profiled in a group of their own (joined at ``port``), then ``cli
+    run``, joined through the ``mesh`` keys at ``port2`` at ``world`` > 1,
+    with each fit's head shapes, the launches and the wall recorded, and on
+    rank 0 the pretrained variables of every seed and the profile tables."""
+    import torch
+
+    from data_diet_distributed_tpu_torch import cli
+    from data_diet_distributed_tpu_torch.config import MeshConfig, load_config
+    from data_diet_distributed_tpu_torch.ops import kernels
+    from data_diet_distributed_tpu_torch.parallel import mesh
+    from data_diet_distributed_tpu_torch.train import loop
+    cuda = device == "cuda"
+    model_axis = TP_MODEL if world > 1 else 1
+    mesh.initialize_multihost(MeshConfig(multihost=True, model_axis=model_axis,
+                                         coordinator_address=f"127.0.0.1:{port}",
+                                         num_processes=world, process_id=rank),
+                              None if cuda else "cpu")
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+    config = cli_argv[cli_argv.index("--config") + 1]
+    cfg = load_config(config, [a for a in cli_argv if "=" in a]
+                      + [f"mesh.model_axis={model_axis}"])
+    ds, _ = loop.load_data_for(cfg)
+    step, tables = step_profile(torch, cuda, cfg, ds, dev)
+    if rank == 0:
+        with open(os.path.join(out, f"tp_profile_w{world}.txt"), "w") as fh:
+            fh.write(tables)
+    mesh.shutdown()
+    heads: list = []
+    real_fit, real_vars = loop.fit, loop.score_variables_for_seeds
+
+    def fit(*a, **kw):
+        res = real_fit(*a, **kw)
+        heads.append([kw.get("tag"), list(res.state.params["classifier.weight"].shape),
+                      list(res.state.momentum["classifier.weight"].shape)])
+        return res
+
+    def score_variables_for_seeds(*a, **kw):
+        got = real_vars(*a, **kw)
+        if rank == 0:
+            for k, v in enumerate(got):
+                torch.save({n: t.float().cpu() for n, t in v.items()},
+                           os.path.join(out, f"pretrained_w{world}_seed{k}.pt"))
+        return got
+
+    loop.fit, loop.score_variables_for_seeds = fit, score_variables_for_seeds
+    argv = list(cli_argv)
+    if world > 1:
+        argv += ["mesh.multihost=true", f"mesh.coordinator_address=127.0.0.1:{port2}",
+                 f"mesh.num_processes={world}", f"mesh.process_id={rank}",
+                 f"mesh.model_axis={TP_MODEL}"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main([*argv, "--device", device])
+    with open(os.path.join(out, f"tp_w{world}_rank{rank}.json"), "w") as fh:
+        json.dump({"rc": rc, "wall_s": time.perf_counter() - t0, "heads": heads,
+                   "launches": kernels.launch_counts(), "step": step}, fh)
+    sys.stdout.flush()
+    os._exit(rc)
+
+
+def tp_step(torch, world: int, device: str, n: int, work: str, out_dir: str) -> dict:
+    """Step 9 (see the module docstring). Prints its line; returns its numbers."""
+    from data_diet_distributed_tpu_torch.checkpoint import CheckpointManager
+    from data_diet_distributed_tpu_torch.config import load_config
+    from data_diet_distributed_tpu_torch.models import create_model_from_cfg
+    from data_diet_distributed_tpu_torch.ops.scoring import score_dataset
+    from data_diet_distributed_tpu_torch.train import loop
+    check(world % TP_MODEL == 0, f"9. {world} ranks do not tile model_axis={TP_MODEL}")
+    d = os.path.join(work, "tp")
+    data = tp_data(os.path.join(d, "npz"), n)
+    config = os.path.join(REPO, "configs", "cifar100_wrn28_10.yaml")
+    over = ["data.dataset=npz", f"data.data_dir={data}", "score.pretrain_epochs=1",
+            "train.num_epochs=1", f"score.batch_size={SCORE_B}",
+            f"score.seeds=[{','.join(str(s) for s in TP_SEEDS)}]", "prune.sparsity=0.5",
+            "obs.xla_introspect=false"]
+    if device == "cpu":
+        over += ["model.arch=tiny_cnn", "train.half_precision=false"]
+    out: dict = {}
+    for w in (world, 1):
+        label = f"w{w}"
+        argv = ["run", "--config", config, *over, f"train.checkpoint_dir={d}/{label}_ckpt",
+                f"obs.metrics_path={d}/{label}_metrics.jsonl"]
+        ports = (free_port(), free_port())
+        procs = [spawn(["--tp-rank", str(r), str(w), *ports, d, device, *argv],
+                       os.path.join(d, f"{label}_rank{r}.log")) for r in range(w)]
+        finish(procs)
+        for p in procs:
+            check(p["rc"] == 0, f"9. W = {w}: {tail(p)}")
+        ranks = []
+        for r in range(w):
+            with open(os.path.join(d, f"tp_{label}_rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        recs = [json.loads(x) for x in open(os.path.join(d, f"{label}_metrics.jsonl"))
+                if x.startswith("{")]
+        summary = next(x for x in recs if x["kind"] == "summary")
+        with np.load(loop.scores_npz_path(f"{d}/{label}_ckpt")) as f:
+            scores = f["scores"]
+        out[label] = {"wall_s": ranks[0]["wall_s"], "heads": [x["heads"] for x in ranks],
+                      "step": [x["step"] for x in ranks],
+                      "launches": [x["launches"] for x in ranks], "scores": scores,
+                      "epochs": [(x["tag"], x["examples_per_s"]) for x in recs
+                                 if x["kind"] == "epoch"],
+                      **{k: summary[k] for k in ("pretrain_wall_s", "score_wall_s",
+                                                 "train_wall_s", "n_kept")}}
+    big, one = out[f"w{world}"], out["w1"]
+    for w in (world, 1):
+        shutil.copy(os.path.join(d, f"tp_profile_w{w}.txt"),
+                    os.path.join(out_dir, f"multi_card_tp_profile_w{w}.txt"))
+    cfg = load_config(config, [*over, f"train.checkpoint_dir={d}/w{world}_ckpt"])
+    ds, _ = loop.load_data_for(cfg)
+    rows = cfg.model.num_classes // TP_MODEL
+    for r, heads in enumerate(big["heads"]):
+        check([h[0] for h in heads] == [f"score_pretrain_seed{s}" for s in TP_SEEDS]
+              + ["final"], f"9. rank {r}: fits {heads}")
+        check(all(h[1][0] == rows and h[2][0] == rows for h in heads),
+              f"9. rank {r}: head rows {heads}")
+    check(all(h[1][0] == cfg.model.num_classes for h in one["heads"][0]),
+          f"9. W = 1: head rows {one['heads']}")
+    check(big["n_kept"] == one["n_kept"] == n // 2, f"9. n_kept {big['n_kept']}")
+    dev = "cuda" if device == "cuda" else "cpu"
+    pre = [torch.load(os.path.join(d, f"pretrained_w{world}_seed{k}.pt"))
+           for k in range(len(TP_SEEDS))]
+    # At the rank's batch: in bf16 a WRN's scores move with the batch's geometry.
+    want = score_dataset(create_model_from_cfg(cfg), pre, ds, method=cfg.score.method,
+                         batch_size=SCORE_B // world, chunk=cfg.score.grand_chunk,
+                         eval_mode=cfg.score.eval_mode, use_kernels=cfg.score.use_pallas,
+                         device=dev)
+    err = np.abs(big["scores"] - want)
+    check(bool(np.all(err <= 1e-4 * np.abs(want) + 1e-5)),
+          f"9. the W-rank scores are {float(err.max()):.3e} from W = 1 on their variables")
+    for r, got in enumerate(big["launches"]):
+        check(got == one["launches"][0],
+              f"9. rank {r}: launches {got}, W = 1 {one['launches'][0]}")
+    final = CheckpointManager(f"{d}/w{world}_ckpt").restore_variables(device="cpu")
+    check(final["classifier.weight"].shape[0] == cfg.model.num_classes,
+          "9. the final checkpoint's head is not whole")
+    res = {"mesh": {"data": world // TP_MODEL, "model": TP_MODEL},
+           "max_abs_vs_w1_same_variables": float(err.max()),
+           "max_abs_vs_one_card_run": float(np.max(np.abs(big["scores"] - one["scores"]))),
+           "launches_per_rank": big["launches"][0], "launches_w1": one["launches"][0]}
+    for label, x in out.items():
+        res[label] = {k: x[k] for k in ("wall_s", "pretrain_wall_s", "score_wall_s",
+                                        "train_wall_s", "n_kept", "epochs", "step")}
+    print(f"  9. cli run of config 4 as {{data: {world // TP_MODEL}, model: {TP_MODEL}}}: "
+          f"every rank ends each fit with {rows} rows of the head; {world} ranks in "
+          f"{big['wall_s']:.1f} s (pretrain {big['pretrain_wall_s']:.1f}, score "
+          f"{big['score_wall_s']:.1f}, retrain {big['train_wall_s']:.1f}) against one card's "
+          f"{one['wall_s']:.1f} s ({one['pretrain_wall_s']:.1f}, {one['score_wall_s']:.1f}, "
+          f"{one['train_wall_s']:.1f}); scores within {float(err.max()):.3e} of W = 1 on "
+          f"the same variables at {SCORE_B // world} rows a batch, "
+          f"{res['max_abs_vs_one_card_run']:.3e} from the one card's "
+          f"own run; launches a rank {big['launches'][0]}; epochs {big['epochs']} against "
+          f"{one['epochs']} ex/s; a train step (wall ms (profiled, device, busy, NCCL, "
+          f"launches)) on each rank {[fmt_step(x) for x in big['step']]} against one card's "
+          f"{fmt_step(one['step'][0])}", flush=True)
+    return res
 
 
 def finish_run(args, out: dict, work: str, cards: list[str], t_run: float) -> int:

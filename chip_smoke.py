@@ -174,8 +174,31 @@ Phases (the first failure exits non-zero; nothing is caught):
    1e-4; EL2N + atol 1e-6). Cuts: 8,192 of CIFAR-10's 50,000 examples, 2 of
    the recipes' 198 epochs, 2 of the north star's 10 seeds; widths as
    published.
+8a. Chunked: the chunked engine (``train.chunk_steps``, ``score.chunk_steps``;
+   one CUDA-graph replay a chunk, ``graphs.py``). (a) ``fit`` of the train
+   phase's recipe, augmented, at ``CHUNK_N`` examples (25 steps an epoch: a
+   body of 16 and a tail of 9), 2 epochs, with ``train.chunk_steps`` null (16)
+   twice and 1 once: state and history (walls aside) bitwise; the steady
+   epoch's ex/s and step wall per engine, the device time of a step (CUDA
+   events over ``CHUNK_TIMED`` back-to-back replays of a 16-step chunk) and
+   the device-busy share it gives each engine, the chunk's capture wall and
+   pool bytes. (b) ``evaluate`` over the 25 batches, chunked (with its
+   captures, then replayed) against per batch, bitwise, ex/s each. (c)
+   ``score_dataset`` GraNd (default route) and EL2N over ``N_PATH`` x
+   ``SEEDS`` at batch ``B``: a warm chunked pass (the captures, in a shared
+   ``GraphCache``), then per batch, chunked, per batch, chunked: every pass
+   bitwise the first per-batch one; the counted chunked pass is one K = 16
+   replay a seed (``dispatches_score_chunk`` = ``graph_replays:score_chunk``
+   = 2) and launches exactly what the per-batch pass launches (384 direct and
+   96 Gram; 32 EL2N); ex/s per pass, capture wall and pool bytes per
+   capture. (d) ``cli run`` of the north star at ``CHUNK_RUN_N`` with the
+   chunk settings at their defaults: every fit logs ``train_chunked`` with
+   ``chunk_steps`` 16, its scoring launches the GraNd kernels (counted into
+   the kernels line). (e) every chunk program's ``graph_replays:<program>``
+   equals its ``dispatches_<program>``. Cuts: as phase 8's.
 8b. Obs: the observability slice. The north-star ``run`` (``OBS_N``
-   examples, ``OBS_SEEDS``, ``OBS_EPOCHS`` retrain epochs) through ``python -m
+   examples, ``OBS_SEEDS``, ``OBS_EPOCHS`` retrain epochs, per step:
+   ``train.chunk_steps=1 score.chunk_steps=1``) through ``python -m
    data_diet_distributed_tpu_torch.cli`` as a subprocess, once with every
    instrument on (trace, flight recorder, introspection, memory watermark,
    score telemetry, SLOs, ``torch.profiler`` windows, resource monitor,
@@ -379,7 +402,7 @@ route, and the profiled BN and Gram time per batch is printed beside the
 ``device_ms`` sums.
 
 Every counted run (phases 4, 5, 6b and 7, phase 6c's replicas, phase 6d's and 11b's ranks, phase 8's
-``run``, phase 9's runs of ``run_datadiet``, phase 10's ``cli run``, phase 11's
+``run``, phase 8a's ``cli run``, phase 9's runs of ``run_datadiet``, phase 10's ``cli run``, phase 11's
 ``score_dataset`` passes and ``cli sweep``, and the relaunched attempts of
 phase 12b, each a new process) starts with the launch counts at 0
 and is read right after; the kernels line sums them. The line before the last is a
@@ -1523,6 +1546,217 @@ def _train_phase(torch, port, details_out, card: str) -> dict:
 
 
 # Resilience phase: the north-star run preempted, resumed and corrupted on the card.
+CHUNK_N = 3200          # 25 steps of TRAIN_B an epoch: a chunk of 16 and a tail of 9
+CHUNK_K = 16            # train.chunk_steps null resolves to DEFAULT_CHUNK_STEPS
+CHUNK_RUN_N = 4096      # (d): the north-star cli run
+CHUNK_ROOT = os.path.join(REPO, "chip_smoke_out", "chunked")
+CHUNK_TIMED = 4         # (a): train chunks replayed back to back for the device time
+
+
+def _strip_walls(history: list[dict]) -> list[dict]:
+    return [{k: v for k, v in h.items() if k not in ("epoch_s", "examples_per_s")}
+            for h in history]
+
+
+def chunked_phase(torch, port, details_out, card: str) -> dict:
+    """The chunked engine on the card (phase 8a); see the module docstring.
+    Files in ``CHUNK_ROOT`` (removed after)."""
+    shutil.rmtree(CHUNK_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        return _chunked_phase(torch, port, details_out, card)
+    finally:
+        shutil.rmtree(CHUNK_ROOT, ignore_errors=True)
+        print(f"  chunked phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _chunked_phase(torch, port, details_out, card: str) -> dict:
+    T, K, C = port["train"], port["kernels"], port["chunked"]
+    reg = port["serve"]["registry"]
+    rec: dict = {"card": card}
+    details_out["chunked"] = rec
+    registry = reg.install(reg.MetricsRegistry())
+    # A logger object: with a registry installed a fit snapshots into it.
+    log = port["serve"]["MetricsLogger"](None, echo=False)
+    try:
+        # (a) Fit: 2 epochs of 25 steps, augmented, chunked (null -> 16: a body
+        # graph and a tail graph) against per step, bitwise.
+        cfg = train_cfg(port, "train.num_epochs=2", "data.augment=true",
+                        f"data.synthetic_size={CHUNK_N}")
+        train_ds, test_ds = T["load_data_for"](cfg)
+        spe = -(-CHUNK_N // TRAIN_B)
+        runs = {}
+        for label, over in (("chunked", None), ("per_step", 1), ("chunked2", None)):
+            c = copy.deepcopy(cfg)
+            c.train.chunk_steps = over
+            runs[label] = T["fit"](c, train_ds, test_ds, device="cuda", log=log)
+        a, b = runs["chunked"], runs["per_step"]
+        check(a.chunk_steps == CHUNK_K and b.chunk_steps == 1,
+              f"engines: chunk_steps {a.chunk_steps} and {b.chunk_steps}")
+        check(state_equal(torch, a.state, b.state),
+              "(a) the chunked fit's state differs from the per-step fit's")
+        check(_strip_walls(a.history) == _strip_walls(b.history),
+              f"(a) histories differ: {a.history} vs {b.history}")
+        check(state_equal(torch, a.state, runs["chunked2"].state),
+              "(a) two chunked fits differ")
+        fit = {label: {"examples_per_s": r.history[1]["examples_per_s"],
+                       "step_ms": 1e3 * r.history[1]["epoch_s"] / spe,
+                       "epoch_s": r.history[1]["epoch_s"]} for label, r in runs.items()}
+        # The device time of a train step: chunk replays back to back between
+        # CUDA events, on a throwaway state (the fit's graphs are released).
+        model = port["create_model_from_cfg"](cfg).to("cuda")
+        state = T["create_train_state"](cfg, 0, "cuda", model)
+        sgd = T["make_optimizer"](cfg, spe)
+        resident = T["ResidentBatches"](train_ds, TRAIN_B, "cuda", torch.bfloat16)
+        augment = (cfg.data.crop_pad, cfg.data.flip, cfg.train.seed)
+        prog = C["make_train_chunk"](model, sgd, state, resident, CHUNK_K, augment)
+        idx, mask = next(resident.chunk_indices(CHUNK_K, shuffle=True, seed=0, epoch=0))
+
+        def chunk():
+            C["dispatch_train_chunk"](prog, state, C["chunk_inputs"](sgd, state.step, idx,
+                                                                    mask, augment))
+        t_cap = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        capture_wall = time.perf_counter() - t_cap
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(CHUNK_TIMED):
+            chunk()
+        end.record()
+        torch.cuda.synchronize()
+        device_step_ms = start.elapsed_time(end) / (CHUNK_TIMED * CHUNK_K)
+        train_pool = prog.pool_bytes
+        prog.release()
+        for label in fit:
+            fit[label]["device_busy"] = min(1.0, device_step_ms / fit[label]["step_ms"])
+        rec.update(fit=fit, device_step_ms=device_step_ms, train_capture_s=prog.capture_s,
+                   train_capture_wall_s=capture_wall, train_pool_bytes=train_pool)
+        print(f"  (a) fit: chunked (K={CHUNK_K}, body + tail of {spe % CHUNK_K}) bitwise the "
+              f"per-step fit over 2 epochs of {spe} steps (state and history, augmented); "
+              "steady epoch " + ", ".join(
+                  f"{k} {v['examples_per_s']:.1f} ex/s, step {v['step_ms']:.3f} ms, device "
+                  f"busy {v['device_busy']:.3f}" for k, v in fit.items())
+              + f"; device {device_step_ms:.3f} ms a step (CUDA events over "
+              f"{CHUNK_TIMED} replays); capture of a {CHUNK_K}-step chunk "
+              f"{prog.capture_s:.3f} s (warm-up, capture, first replay), pool "
+              f"{train_pool / 2**20:.1f} MiB on {card}", flush=True)
+
+        # (b) Evaluate: 25 batches of the train set, chunked (16 + 9) and per batch.
+        ev = {}
+        eval_graphs = C["GraphCache"]()   # as a fit keeps its eval captures
+        for label, k in (("chunked", CHUNK_K), ("per_batch", 1), ("chunked2", CHUNK_K),
+                         ("per_batch2", 1)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ev[label] = T["evaluate"](model, a.state, train_ds, TRAIN_B, device="cuda",
+                                      resident=resident, chunk_steps=k,
+                                      graphs=eval_graphs if k > 1 else None)
+            ev[label]["wall_s"] = time.perf_counter() - t1
+        eval_graphs.release()
+        check({k: v for k, v in ev["chunked"].items() if k != "wall_s"}
+              == {k: v for k, v in ev["per_batch"].items() if k != "wall_s"},
+              f"(b) chunked eval differs: {ev}")
+        rec["eval"] = ev
+        print(f"  (b) evaluate: chunked bitwise per batch ({ev['chunked']['examples']} "
+              f"examples, batch {TRAIN_B}); {CHUNK_N / ev['chunked']['wall_s']:.1f} ex/s "
+              f"chunked with its captures, {CHUNK_N / ev['chunked2']['wall_s']:.1f} ex/s "
+              f"replayed, {CHUNK_N / ev['per_batch2']['wall_s']:.1f} ex/s per batch",
+              flush=True)
+
+        # (c) Score: GraNd (default route) and EL2N over N_PATH x SEEDS at B,
+        # one replay of K = 16 a seed, bitwise the per-batch pass; the launches
+        # of the counted chunked pass exactly the per-batch pass's.
+        ds, _ = port["load_dataset"]("synthetic", synthetic_size=N_PATH, seed=0)
+        score_model = port["create_model_from_cfg"](port["load_config"](
+            os.path.join(REPO, "configs", "cifar10_resnet18.yaml"),
+            ["data.dataset=synthetic", "train.half_precision=true"]))
+        seeds = [port["init_variables"]("resnet18", s, "cuda") for s in SEEDS]
+        graphs = C["GraphCache"]()
+        score = {}
+        for method in ("grand", "el2n"):
+            kw = dict(method=method, batch_size=B, device="cuda", device_resident=True)
+            walls, counts, got = {}, {}, {}
+            for label, k, cache in (("warm", None, graphs), ("per_batch", 1, None),
+                                    ("chunked", None, graphs), ("per_batch2", 1, None),
+                                    ("chunked2", None, graphs)):
+                K.reset_launch_counts()
+                before = registry.snapshot()["counters"]
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                got[label] = port["score_dataset"](score_model, seeds, ds, chunk_steps=k,
+                                                   graphs=cache, **kw)
+                walls[label] = time.perf_counter() - t1
+                after = registry.snapshot()["counters"]
+                counts[label] = K.launch_counts()
+                if label == "chunked":
+                    d = after.get("dispatches_score_chunk", 0) - before.get(
+                        "dispatches_score_chunk", 0)
+                    r = after.get("graph_replays:score_chunk", 0) - before.get(
+                        "graph_replays:score_chunk", 0)
+                    check(d == len(SEEDS) and r == d,
+                          f"(c) {method}: {d} chunk dispatches, {r} replays; want "
+                          f"{len(SEEDS)} each (one K = 16 replay a seed)")
+            for label in ("warm", "chunked", "chunked2", "per_batch2"):
+                check(np.array_equal(got[label], got["per_batch"]),
+                      f"(c) {method}: the {label} pass differs from the per-batch pass")
+            batches = (N_PATH // B) * len(SEEDS)
+            want = ({"conv_grad_norm_direct": 12 * batches, "conv_grad_norm_gram": 3 * batches}
+                    if method == "grand" else {"el2n": batches})
+            for kern, n in want.items():
+                check(counts["chunked"][kern] == n == counts["per_batch"][kern],
+                      f"(c) {method}: {kern} launched {counts['chunked'][kern]} times "
+                      f"chunked, {counts['per_batch'][kern]} per batch; want {n}")
+            score[method] = {
+                "examples_per_s": {lbl: N_PATH * len(SEEDS) / walls[lbl] for lbl in walls},
+                "counts": {k2: counts["chunked"][k2] for k2 in want}}
+            print(f"  (c) {method}: chunked bitwise per batch ({N_PATH} x {len(SEEDS)} seeds, "
+                  f"batch {B}, one K = {N_PATH // B} replay a seed); launches "
+                  f"{score[method]['counts']} = per batch; ex/s " + ", ".join(
+                      f"{lbl} {v:.1f}" for lbl, v in score[method]["examples_per_s"].items()),
+                  flush=True)
+        rec["score"] = score
+        rec["score_programs"] = graphs.stats()
+        print("  (c) score captures: " + ", ".join(
+            f"{st['key']} capture {st['capture_s']:.3f} s, pool "
+            f"{st['pool_bytes'] / 2**20:.1f} MiB, {st['replays']} replays"
+            for st in rec["score_programs"]), flush=True)
+        graphs.release()
+
+        # (d) cli run: the north-star at CHUNK_RUN_N with the chunk defaults.
+        K.reset_launch_counts()
+        before = registry.snapshot()["counters"]
+        rc, summary, recs = run_cli(port, [
+            "run", "--config", os.path.join(REPO, "configs", "cifar10_resnet18_grand10.yaml"),
+            "data.dataset=synthetic", f"data.synthetic_size={CHUNK_RUN_N}",
+            "score.seeds=[0,1]", "train.num_epochs=2",
+            f"train.checkpoint_dir={CHUNK_ROOT}/run", "--device", "cuda"])
+        check(rc == 0 and summary is not None, f"(d) cli run exited {rc}")
+        chunked = [r for r in recs if r["kind"] == "train_chunked"]
+        check(chunked and all(r["chunk_steps"] == CHUNK_K for r in chunked),
+              f"(d) train_chunked records: {chunked}")
+        counts = K.launch_counts()
+        check(counts["conv_grad_norm_direct"] > 0 and counts["conv_grad_norm_gram"] > 0,
+              f"(d) the run's scoring launched no GraNd kernel: {counts}")
+        rec["cli_run"] = {"train_chunked": chunked, "counts": counts}
+        print(f"  (d) cli run (north-star at {CHUNK_RUN_N}, seeds [0, 1], chunk defaults): "
+              f"{len(chunked)} fits chunked at K = {CHUNK_K}; launches {counts}", flush=True)
+
+        # (e) Counters: every program's replays equal its dispatches (cuda).
+        snap = registry.snapshot()["counters"]
+        for prog_name in ("train_chunk", "eval_chunk", "score_chunk"):
+            disp = snap.get(f"dispatches_{prog_name}", 0)
+            reps = snap.get(f"graph_replays:{prog_name}", 0)
+            check(disp > 0 and reps == disp,
+                  f"(e) {prog_name}: {disp} dispatches, {reps} graph replays")
+        rec["counters"] = {k: v for k, v in snap.items()
+                           if k.startswith(("dispatches_", "graph_"))}
+        print(f"  (e) replays equal dispatches: {rec['counters']}", flush=True)
+        return {"counts": counts}
+    finally:
+        reg.uninstall()
+
+
 RES_DIR = os.path.join(REPO, "chip_smoke_out", "resilience_ckpt")
 HANG_TIMEOUT_S = 10      # resilience.step_timeout_s of drill E
 HANG_WALL_S = 60         # drill E's whole fit_with_recovery must end within this
@@ -2049,7 +2283,9 @@ def _data_phase(torch, port, rec: dict, card: str) -> dict:
     check([p["stage"] for p in planes] == ["score_pretrain_seed0", "score", "final"],
           f"config 5 run: data_plane records {[p['stage'] for p in planes]}")
     for p in planes:
-        check(p["fault"] is None and p["engine"] == "stream"
+        # Streamed in one process: the chunked stream (score.chunk_steps and
+        # train.chunk_steps null), as in the JAX package.
+        check(p["fault"] is None and p["engine"] == "chunked_stream"
               and p["host_cache_bytes_in_use"] <= p.get("host_cache_budget_bytes",
                                                          DATA_CACHE),
               f"config 5 run: data_plane record {p}")
@@ -2067,8 +2303,8 @@ def _data_phase(torch, port, rec: dict, card: str) -> dict:
           f"verified; stages {walls}; launches {counts} ({per_batch} a batch, "
           f"tensor-core)", flush=True)
     for p in planes:
-        print(f"    data_plane {p['stage']}: stall_frac {p['stall_frac']} (depth "
-              f"{p['prefetch_depth']}, {p.get('items')} batches), cache "
+        print(f"    data_plane {p['stage']}: {p['engine']}, stall_frac {p['stall_frac']} "
+              f"(depth {p['prefetch_depth']}, {p.get('items')} blocks), cache "
               f"{p['host_cache_bytes_in_use']} B, evictions "
               f"{p.get('host_cache_evictions')}", flush=True)
     for e in epochs:
@@ -3991,11 +4227,15 @@ def obs_phase(torch, port, details_out, card: str) -> None:
     north = os.path.join(REPO, "configs", "cifar10_resnet18_grand10.yaml")
 
     def run_args(d: str) -> list[str]:
+        # Per step, as the JAX package's observability tests run: the
+        # train_step and score_batch programs are harvested from kernel-route
+        # calls (the chunked engine's harvest is its warm-up, on the plain
+        # route; the chunked phase drives that engine).
         return ["run", "--config", north, "data.dataset=synthetic",
                 f"data.synthetic_size={OBS_N}",
                 f"score.seeds=[{','.join(str(x) for x in OBS_SEEDS)}]",
-                f"train.num_epochs={OBS_EPOCHS}",
-                f"train.checkpoint_dir={d}/ckpt"]
+                f"train.num_epochs={OBS_EPOCHS}", "train.chunk_steps=1",
+                "score.chunk_steps=1", f"train.checkpoint_dir={d}/ckpt"]
 
     # 1: every instrument on; /status polled once an epoch is done.
     on = os.path.join(OBS_ROOT, "on")
@@ -5554,6 +5794,7 @@ def load_port() -> dict:
         from data_diet_distributed_tpu_torch.obs.session import ObsSession
         from data_diet_distributed_tpu_torch.train import loop, state, steps
         from data_diet_distributed_tpu_torch.weights import init_variables, variables_to
+        from data_diet_distributed_tpu_torch.graphs import GraphCache
     except ImportError as err:
         fail(f"the port package is not importable next to this script: {err}")
     return {"load_config": load_config, "load_dataset": load_dataset,
@@ -5567,6 +5808,9 @@ def load_port() -> dict:
                       "ObsSession": ObsSession, "registry": registry,
                       "reqtrace": reqtrace},
             "variables_to": variables_to,
+            "chunked": {"GraphCache": GraphCache, "make_train_chunk": steps.make_train_chunk,
+                        "dispatch_train_chunk": steps.dispatch_train_chunk,
+                        "chunk_inputs": steps.chunk_inputs},
             "set_scoring_determinism": set_scoring_determinism,
             "inject": inject, "Preempted": Preempted, "StageManifest": StageManifest,
             "tuning": tuning,
@@ -5687,6 +5931,9 @@ def main(argv: list[str]) -> int:
     phase("train")
     trained = train_phase(torch, port, details, card)
 
+    phase("chunked")
+    chunked = chunked_phase(torch, port, details, card)
+
     phase("obs")
     obs_phase(torch, port, details, card)
 
@@ -5725,7 +5972,8 @@ def main(argv: list[str]) -> int:
     # phase's run, the wrn phase's passes and sweep, the tp phase's ranks and its
     # W = 1 run, and the elastic phase's relaunched attempts.
     launches = {k: path["counts"][k] + routes["counts"][k] + service["counts"][k]
-                + fleet[k] + mesh_serve[k] + r50["counts"][k] + trained["counts"][k] + resil["counts"][k]
+                + fleet[k] + mesh_serve[k] + r50["counts"][k] + trained["counts"][k]
+                + chunked["counts"][k] + resil["counts"][k]
                 + data["counts"][k] + wrn["counts"][k] + tp[k] + elastic[k]
                 for k in K.KERNELS}
     check(all(launches[k] > 0 for k in KERNEL_INFO), f"a kernel never launched: {launches}")

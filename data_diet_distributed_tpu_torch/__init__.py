@@ -10,6 +10,11 @@ passes ``device="cpu"``.
 Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``):
 
 * ``device.py`` -> (new) device resolution, TF32 parity mode, cuDNN determinism
+* ``graphs.py`` -> the device half of ``jax.jit`` over the chunked engine's
+  unrolled scans (``train/steps.py:159-230``, ``ops/scores.py:343-400``):
+  ``ChunkProgram`` (K steps in fixed storage, one staged upload, a CUDA graph
+  captured once per chunk length and geometry and replayed; the bodies
+  eagerly on the CPU) and ``GraphCache``
 * ``config.py`` -> ``config.py`` (data/model/optim/score/prune/train/
   resilience/mesh/obs/serve/checkpoint/elastic/tuning; ``obs.plots_dir``
   refuses by name; the unported section's keys (parallel) accepted and
@@ -38,9 +43,11 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
 * ``data/sharded.py`` -> ``data/sharded.py`` (the ``ddt-shards-v1`` format, the
   LRU ``ShardCache``, the digest-verified retrying read with quarantine)
 * ``data/pipeline.py`` -> ``data/pipeline.py`` (``epoch_permutation``,
-  ``iterate_batches``, ``ResidentBatches``, ``maybe_resident``,
-  ``PrefetchIterator``, ``prefetch_stream`` from pinned buffers on a copy
-  stream, ``EvalBatchCache``, the ``data_plane`` record)
+  ``iterate_batches``, ``ResidentBatches`` with ``chunk_indices``,
+  ``gather_resident_batch``, ``maybe_resident``, ``PrefetchIterator``,
+  ``prefetch_stream`` from pinned buffers on a copy stream, ``ChunkBlock``
+  and ``StreamingBatches`` (the chunked stream), ``EvalBatchCache``, the
+  ``data_plane`` record)
 * ``data/augment.py`` -> ``data/augment.py`` (flip and crop, draws split from
   the pixel moves; across ranks the global batch's draws, each rank's rows)
 * ``models/`` -> ``models/resnet.py``, ``models/wideresnet.py``,
@@ -68,8 +75,11 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   ``batched_grand_scores_fused`` with the megakernel route, the ``DDT_GRAND_*``
   toggles under the JAX names)
 * ``ops/scoring.py`` -> ``ops/scoring.py`` (``score_dataset`` with the data
-  planes, ``ScoreResident``, ``ScoreStream``; the ``score_batch`` program,
-  ``score_fetch_s``, the scoreboard's seed notes, the scoring profile window)
+  planes, ``ScoreResident``, ``ScoreStream`` and their ``blocks``; the
+  chunked score engine: ``resolve_score_chunk_steps``,
+  ``score_resident_pass``, ``_dispatch_score_chunk``; the ``score_batch`` and
+  ``score_chunk`` programs, ``score_fetch_s``, the scoreboard's seed notes,
+  the scoring profile window)
 * ``pruning.py`` -> ``pruning.py`` (``select_indices``, the prune-provenance
   manifest)
 * ``train/state.py`` -> ``train/state.py`` (``TrainState``, the LR schedule,
@@ -80,9 +90,16 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
 * ``train/steps.py`` -> ``train/steps.py`` (``train_step``, ``eval_step``; the
   per-step path; across ranks the global-count loss and global metrics;
   ``dispatch_train_step``/``dispatch_eval_step``: the dispatch counters and
-  the ``train_step`` harvest, as JAX's ``_counted``)
-* ``train/loop.py`` -> ``train/loop.py`` (``fit`` with the resilience hooks,
-  ``fit_with_recovery``, ``evaluate``, ``score_variables_for_seeds``,
+  the ``train_step`` harvest, as JAX's ``_counted``; ``make_train_chunk`` and
+  ``make_eval_chunk`` over the same step math, ``dispatch_train_chunk`` and
+  ``dispatch_eval_chunk``: the chunked engine's programs ``train_chunk`` and
+  ``eval_chunk``)
+* ``train/loop.py`` -> ``train/loop.py`` (``fit`` with the resilience hooks
+  and the chunked engine (``DEFAULT_CHUNK_STEPS``, ``MAX_CHUNK_STEPS``,
+  ``resolve_chunk_steps``, ``_dispatch_chunk``/``_dispatch_stream_chunk``,
+  ``_flatten_step_metrics``, the ``train_chunked`` record,
+  ``FitResult.chunk_steps``), ``fit_with_recovery``, ``evaluate`` (chunked
+  over a resident set), ``score_variables_for_seeds``,
   ``compute_scores`` with per-seed partials, ``trajectory_scores`` (forgetting,
   AUM) through ``fit``'s ``epoch_hook``, ``run_datadiet`` and
   ``run_sweep`` with the stage manifest, the fingerprints; the observability
@@ -166,8 +183,7 @@ every rank scores its rows of each request (``serve/engine.py``'s
 operations over the host group).
 
 Not ported yet: ``parallel/overlap.py`` (XLA flags for the TPU; ``parallel.overlap`` is
-accepted and ignored), the chunked training engine and its
-``StreamingBatches``, a fleet of meshes (``mesh.multihost`` with
+accepted and ignored), a fleet of meshes (``mesh.multihost`` with
 ``serve.replicas > 1`` refuses by name), what remains of observability
 (``obs/plots.py``: ``obs.plots_dir`` refuses by name) and the tools
 (``tools/make_shards.py``, ``tools/npz_to_npy.py``; their formats are the

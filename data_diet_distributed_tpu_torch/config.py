@@ -4,9 +4,13 @@ port reads.
 ``DataConfig``, ``ModelConfig``, ``OptimConfig``, ``ScoreConfig``,
 ``PruneConfig``, ``TrainConfig``, ``ResilienceConfig``, ``MeshConfig``,
 ``CheckpointConfig`` and ``ElasticConfig`` are copied whole, with the JAX
-package's validations. ``train.chunk_steps`` is accepted and
-ignored (the JAX package's dispatch-amortising engine, whose results are by
-contract those of the per-step path, which is the one the port runs). Of
+package's validations. ``train.chunk_steps`` and ``score.chunk_steps`` take
+effect with the JAX package's meaning (null = auto, 0 or 1 = per step or per
+batch, K > 1 = requested): the chunked engine runs K steps or K score
+batches as one dispatch, one CUDA-graph replay on the card
+(``train/loop.py::resolve_chunk_steps``,
+``ops/scoring.py::resolve_score_chunk_steps``), and ``data.data_plane=
+streaming`` feeds it prefetched blocks (the ``chunked_stream`` engine). Of
 ``resilience``, the port honours ``step_timeout_s``, ``preemption``,
 ``verify_restore``, ``nan_check``, ``nan_retry_budget``, ``nan_lr_factor``,
 ``stage_resume``, the ``init_probe`` settings and, across processes, the
@@ -106,6 +110,7 @@ class ScoreConfig:
     # Hand-written kernels on the card: None or True = on (CPU tensors always
     # take the plain versions), False = the plain route everywhere.
     use_pallas: bool | None = None
+    # Score batches a dispatch: None = auto (the epoch, up to 32), 0/1 = per batch.
     chunk_steps: int | None = None
     scores_npz: str | None = None
 
@@ -132,7 +137,8 @@ class TrainConfig:
     # Upload the train/test sets to the device once and gather batches there.
     # None = auto: on when the set fits data/pipeline.RESIDENT_MAX_BYTES.
     device_resident_data: bool | None = None
-    chunk_steps: int | None = None           # accepted, ignored (per-step path)
+    # Train steps a dispatch: None = auto (16), 0/1 = per step, K > 1 = K.
+    chunk_steps: int | None = None
     log_every_steps: int = 50
 
 

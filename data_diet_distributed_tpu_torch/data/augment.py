@@ -4,7 +4,11 @@
 Split in two: ``draw_augment`` draws the flip mask and the crop offsets from
 a ``torch.Generator`` seeded from ``(seed, step)`` (on the CPU, so every
 device gets the same draws, and a resumed run the same ones), and
-``apply_augment`` moves the pixels. The draws differ from the JAX package's
+``apply_augment`` moves the pixels. The per-step path draws and applies in
+one step (``augment_batch``); a chunk of K steps draws its K steps' flips
+and offsets on the host and stages them with its inputs, and each body
+applies its own from the device (``train/steps.py::chunk_inputs``): the
+same draws either way. The draws differ from the JAX package's
 ``jax.random`` draws by design, as ``weights.init_variables`` differs from
 Flax's init; given the same draws, ``apply_augment`` equals JAX's
 ``augment_images`` bit for bit. The crop pads the normalized images with

@@ -31,6 +31,7 @@ import queue
 import threading
 import time
 from collections.abc import Iterator
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -130,6 +131,33 @@ def to_device(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+def gather_resident_batch(images: torch.Tensor, labels: torch.Tensor,
+                          indices: torch.Tensor, idx: torch.Tensor,
+                          mask: torch.Tensor) -> dict:
+    """THE device-side batch composition (the JAX package's
+    ``gather_resident_batch``): rows ``idx`` of the resident arrays, the
+    padded rows' label and index zeroed by ``mask``. One definition for the
+    per-step ``ResidentBatches`` gather and the chunk bodies
+    (``train/steps.py::make_train_chunk``), so the two cannot drift."""
+    valid = mask.to(torch.int32)
+    return {"image": images.index_select(0, idx),
+            "label": labels.index_select(0, idx) * valid,
+            "index": indices.index_select(0, idx) * valid,
+            "mask": mask}
+
+
+def _epoch_blocks(n: int, batch_size: int, shuffle: bool, seed: int,
+                  epoch: int) -> tuple[np.ndarray, np.ndarray]:
+    """The epoch's ``[nb, B]`` row indices and mask: the order of
+    ``epoch_permutation``, the tail padded with row 0 and mask 0."""
+    nb = num_batches(n, batch_size)
+    take = np.zeros(nb * batch_size, np.int64)
+    take[:n] = _order(n, shuffle, seed, epoch)
+    mask = np.zeros(nb * batch_size, np.float32)
+    mask[:n] = 1.0
+    return take.reshape(nb, -1), mask.reshape(nb, -1)
+
+
 class ResidentBatches:
     """The set uploaded to the device once (images in ``image_dtype``, the
     model's compute dtype: it casts its input anyway), then each batch an
@@ -157,16 +185,19 @@ class ResidentBatches:
         self.indices = torch.from_numpy(np.ascontiguousarray(ds.indices, np.int32)).to(
             self.device)
 
+    @property
+    def image_shape(self) -> tuple:
+        return tuple(self.images.shape[1:])
+
+    @property
+    def image_dtype(self) -> torch.dtype:
+        return self.images.dtype
+
     def __call__(self, *, shuffle: bool = False, seed: int = 0,
                  epoch: int = 0) -> Iterator[dict]:
-        nb = num_batches(self.n, self.batch_size)
-        take = np.zeros(nb * self.batch_size, np.int64)
-        take[:self.n] = _order(self.n, shuffle, seed, epoch)
-        mask = np.zeros(nb * self.batch_size, np.float32)
-        mask[:self.n] = 1.0
         # One upload an epoch: a copy from pageable host memory waits for the
         # device's queue to drain, so a copy a batch would serialize the steps.
-        take, mask = take.reshape(nb, -1), mask.reshape(nb, -1)
+        take, mask = _epoch_blocks(self.n, self.batch_size, shuffle, seed, epoch)
         if self.image_slice is not None:
             p, nprocs = self.image_slice
             loc = self.batch_size // nprocs
@@ -174,11 +205,20 @@ class ResidentBatches:
         take_d = torch.from_numpy(np.ascontiguousarray(take)).to(self.device)
         mask_d = torch.from_numpy(np.ascontiguousarray(mask)).to(self.device)
         for rows, m in zip(take_d, mask_d):
-            valid = m.to(torch.int32)
-            yield {"image": self.images.index_select(0, rows),
-                   "label": self.labels.index_select(0, rows) * valid,
-                   "index": self.indices.index_select(0, rows) * valid,
-                   "mask": m}
+            yield gather_resident_batch(self.images, self.labels, self.indices, rows, m)
+
+    def chunk_indices(self, chunk_steps: int, *, shuffle: bool = False, seed: int = 0,
+                      epoch: int = 0) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """``(idx, mask)`` host blocks ``[K, B]`` for the chunked engine: the
+        epoch composition of ``__call__`` (order, row-0 tail padding, mask),
+        ``chunk_steps`` steps at a time; the last block carries the remainder
+        (its own chunk length, never a padded dispatch that would run extra
+        optimizer steps). Single process, as the chunked engine is."""
+        if self.image_slice is not None:
+            raise ValueError("chunk_indices: the chunked engine is single-process")
+        take, mask = _epoch_blocks(self.n, self.batch_size, shuffle, seed, epoch)
+        for start in range(0, len(take), chunk_steps):
+            yield take[start:start + chunk_steps], mask[start:start + chunk_steps]
 
 
 def maybe_resident(ds: ArrayDataset, batch_size: int, device,
@@ -334,6 +374,12 @@ class PrefetchIterator:
                 "stall_frac": self.stall_s / elapsed if elapsed > 0 else 0.0}
 
 
+def _tensors(item) -> list[torch.Tensor]:
+    """The tensors of a batch dict or a ``ChunkBlock``."""
+    vals = item.values() if isinstance(item, dict) else item
+    return [t for t in vals if isinstance(t, torch.Tensor)]
+
+
 class _CudaPrefetch(PrefetchIterator):
     """The consumer's half of the pinned upload: its stream waits for the
     batch's copy event, and the batch's memory is marked in use by that
@@ -348,36 +394,63 @@ class _CudaPrefetch(PrefetchIterator):
         batch, copied = super().__next__()
         stream = torch.cuda.current_stream(self.device)
         stream.wait_event(copied)
-        for t in batch.values():
+        for t in _tensors(batch):
             t.record_stream(stream)
         return batch
 
 
-def _pinned_uploads(host_batches, device: torch.device, slots: int):
+def _pinned_uploads(host_batches, device: torch.device, slots: int,
+                    keep_host: tuple = ()):
     """Each host batch copied into one of ``slots`` pinned buffers and
     uploaded from it with ``non_blocking=True`` on a copy stream of this
     thread's own; yields ``(device batch, copy event)``. A slot is refilled
     only once its last copy has completed: a slot reused earlier would send
-    the next batch's bytes in place of the last one's."""
+    the next batch's bytes in place of the last one's. Keys in ``keep_host``
+    pass through as host arrays. A slot is sized by its first batch: a
+    shorter one (an epoch's tail block) gets a ring slot of its own shape."""
     torch.cuda.set_device(device)   # the current device and stream are per thread
     copy_stream = torch.cuda.Stream(device)
     ring: list[dict] = []
     for i, hb in enumerate(host_batches):
-        if len(ring) < slots:
-            ring.append({"event": None, **{
+        up = {k: v for k, v in hb.items() if k not in keep_host}
+        shapes = {k: v.shape for k, v in up.items()}
+        if len(ring) < slots or any(ring[i % slots][k].shape != s
+                                    for k, s in shapes.items()):
+            new = {"event": None, **{
                 k: torch.empty(v.shape, dtype=torch.from_numpy(v[:0]).dtype,
-                               pin_memory=True) for k, v in hb.items()}})
+                               pin_memory=True) for k, v in up.items()}}
+            if len(ring) < slots:
+                ring.append(new)
+            else:
+                if ring[i % slots]["event"] is not None:
+                    ring[i % slots]["event"].synchronize()
+                ring[i % slots] = new
         slot = ring[i % slots]
         if slot["event"] is not None:
             slot["event"].synchronize()
-        for k, v in hb.items():
+        for k, v in up.items():
             slot[k].numpy()[...] = v
         with torch.cuda.stream(copy_stream):
-            batch = {k: slot[k].to(device, non_blocking=True) for k in hb}
+            batch = {k: (hb[k] if k in keep_host else slot[k].to(device, non_blocking=True))
+                     for k in hb}
             copied = torch.cuda.Event()
             copied.record(copy_stream)
         slot["event"] = copied
         yield batch, copied
+
+
+def prefetch_host(host_items, device, depth: int, stage: str) -> PrefetchIterator:
+    """Host dicts of arrays as dicts of tensors on ``device``, ``depth``
+    ahead on an assembler thread: on a CUDA device through the pinned ring
+    of ``depth + 1`` buffers on a copy stream, the consumer's stream waiting
+    for each copy; on the CPU the host arrays are the tensors."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return PrefetchIterator((to_device(hb, device) for hb in host_items), depth, stage)
+    if device.index is None:   # the assembler thread has a current device of its own
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _CudaPrefetch(_pinned_uploads(host_items, device, max(0, depth) + 1), depth,
+                         stage, device)
 
 
 def prefetch_stream(ds: ArrayDataset, batch_size: int, device, *, shuffle: bool = False,
@@ -390,16 +463,84 @@ def prefetch_stream(ds: ArrayDataset, batch_size: int, device, *, shuffle: bool 
     On a CUDA device each is uploaded from a ring of ``depth + 1`` pinned
     buffers on a copy stream of its own, and the consumer's stream waits for
     its copy; on the CPU the host arrays are the tensors."""
-    device = torch.device(device)
     host = (local_rows(hb, image_slice)
             for hb in iterate_batches(ds, batch_size, shuffle=shuffle, seed=seed,
                                       epoch=epoch, image_slice=image_slice))
-    if device.type != "cuda":
-        return PrefetchIterator((to_device(hb, device) for hb in host), depth, stage)
-    if device.index is None:   # the assembler thread has a current device of its own
-        device = torch.device("cuda", torch.cuda.current_device())
-    return _CudaPrefetch(_pinned_uploads(host, device, max(0, depth) + 1), depth,
-                         stage, device)
+    return prefetch_host(host, device, depth, stage)
+
+
+class ChunkBlock(NamedTuple):
+    """One prefetched block of the chunked stream (the JAX package's
+    ``ChunkBlock``): ``images`` ``[K·B, ...]`` float32 (the chunk's copy into
+    its static block casts them to ``image_dtype`` as the resident upload
+    does), ``labels`` and ``indices`` ``[K·B]`` int32 (padded rows zeroed) on the
+    device; ``idx`` (``arange(K·B)`` as ``[K, B]``: the identity gather) and
+    ``mask`` ``[K, B]`` on the host, staged with the chunk's other inputs."""
+
+    images: torch.Tensor
+    labels: torch.Tensor
+    indices: torch.Tensor
+    idx: np.ndarray
+    mask: np.ndarray
+
+
+class StreamingBatches:
+    """The streaming twin of ``ResidentBatches`` for the chunked engine
+    (``data.data_plane=streaming``): nothing stays on the device; an
+    assembler thread gathers the next block of ``chunk_steps`` batches from
+    ``iterate_batches`` (the same permutation, row-0 tail padding and zeroed
+    labels and indices) and uploads it while the current chunk runs, so the
+    chunk reads exactly the batches the resident gather makes. Device memory
+    holds about ``prefetch_depth + 1`` blocks. Single process."""
+
+    def __init__(self, ds: ArrayDataset, batch_size: int, device,
+                 image_dtype: torch.dtype = torch.float32, *, prefetch_depth: int = 2):
+        self.ds = ds
+        self.n = len(ds)
+        self.batch_size = batch_size
+        self.device = torch.device(device)
+        self.image_dtype = image_dtype
+        self.image_shape = tuple(ds.images.shape[1:])
+        self.prefetch_depth = prefetch_depth
+
+    def _host_block(self, pend: list[dict]) -> dict:
+        k, b = len(pend), self.batch_size
+        images = np.concatenate([hb["image"] for hb in pend])
+        return {"images": images, "labels": np.concatenate([hb["label"] for hb in pend]),
+                "indices": np.concatenate([hb["index"] for hb in pend]),
+                "idx": np.arange(k * b, dtype=np.int64).reshape(k, b),
+                "mask": np.stack([hb["mask"] for hb in pend])}
+
+    def chunk_blocks(self, chunk_steps: int, *, shuffle: bool = False, seed: int = 0,
+                     epoch: int = 0) -> PrefetchIterator:
+        """One epoch of ``ChunkBlock``s, assembled and uploaded
+        ``prefetch_depth`` blocks ahead; the tail block is shorter."""
+        def host_blocks():
+            pend: list[dict] = []
+            for hb in iterate_batches(self.ds, self.batch_size, shuffle=shuffle,
+                                      seed=seed, epoch=epoch):
+                pend.append(hb)
+                if len(pend) == chunk_steps:
+                    yield self._host_block(pend)
+                    pend = []
+            if pend:
+                yield self._host_block(pend)
+
+        if self.device.type != "cuda":
+            blocks = (ChunkBlock(torch.from_numpy(hb["images"]),
+                                 torch.from_numpy(hb["labels"]),
+                                 torch.from_numpy(hb["indices"]), hb["idx"], hb["mask"])
+                      for hb in host_blocks())
+            return PrefetchIterator(blocks, self.prefetch_depth, "train")
+        device = self.device
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        uploads = ((ChunkBlock(d["images"], d["labels"], d["indices"], d["idx"], d["mask"]),
+                    ev)
+                   for d, ev in _pinned_uploads(host_blocks(), device,
+                                                max(0, self.prefetch_depth) + 1,
+                                                keep_host=("idx", "mask")))
+        return _CudaPrefetch(uploads, self.prefetch_depth, "train", device)
 
 
 def host_cache_of(ds: ArrayDataset):

@@ -15,8 +15,11 @@ gauge names are the JAX package's: ``xla_program``, ``hbm_watermark``,
   CUDA ``peak_bytes`` is the allocator's peak over the call and
   ``temp_bytes`` that peak above the bytes allocated before it;
   ``bytes_accessed`` has no counter here and stays null. The programs are
-  ``train_step`` and ``score_batch`` (one scoring batch; the JAX package's
-  ``score_chunk`` is K of them).
+  ``train_step`` and ``score_batch`` (one scoring batch) on the per-step
+  path, and the chunked engine's ``train_chunk``, ``eval_chunk`` and
+  ``score_chunk``: on the card the eager warm-up body before a capture (one
+  step or batch; a score chunk's on its plain route), never the capture or
+  a replay; on the CPU the first chunk, run eagerly.
 * MFU: ``note_throughput(program, examples_per_s)`` publishes
   ``examples_per_s × flops_per_example / (peak × ranks)`` as ``mfu:<program>``
   and ``mfu``. The peak per device resolves from ``DDT_PEAK_FLOPS_PER_DEVICE``,

@@ -49,6 +49,8 @@ plain version (the same arithmetic in PyTorch ops); given CUDA tensors it
 launches its kernel or raises — it never falls back. Each kernel counts its
 launches (``launch_counts``), and a kernel with modes counts each launch
 under its mode too (``mode_counts``), so a run can show which path it took.
+A launch captured into a CUDA graph (``recording``) counts at each replay of
+the graph (``add_launches``), where the card runs it.
 
 ``kernel_work`` is the one count of each kernel's work: the FLOPs its
 function needs and the bytes it must move, from the call's shapes. The
@@ -65,6 +67,7 @@ import contextlib
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -149,7 +152,8 @@ class Kernel:
     """One hand-written kernel: its library entry point and a launch count.
 
     ``launches`` grows by one exactly where the kernel is launched (after the
-    launch returned cudaSuccess); plain-version calls never touch it. A kernel
+    launch returned cudaSuccess), or, for a launch captured into a CUDA graph,
+    at each replay of the graph; plain-version calls never touch it. A kernel
     with ``modes`` also counts each launch under the mode it took
     (``mode_launches``)."""
 
@@ -180,9 +184,18 @@ class Kernel:
             raise RuntimeError(
                 f"{self.name}: kernel launch failed with cudaError {err} "
                 f"({lib.ddt_error_string(err).decode()})")
-        self.launches += 1
+        tally = _RECORDING
+        if tally is not None:
+            # Captured into a CUDA graph: it launches on each replay.
+            with _RECORDING_LOCK:
+                tally[(self.name, mode)] = tally.get((self.name, mode), 0) + 1
+            return
+        self._count(mode, 1)
+
+    def _count(self, mode: str | None, n: int) -> None:
+        self.launches += n
         if mode is not None:
-            self.mode_launches[mode] += 1
+            self.mode_launches[mode] += n
 
 
 CONV_GRAD_NORM_DIRECT = Kernel(
@@ -216,6 +229,43 @@ def launch_counts() -> dict[str, int]:
 def mode_counts() -> dict[str, dict[str, int]]:
     """Launches by mode, for each kernel that has modes."""
     return {name: dict(k.mode_launches) for name, k in KERNELS.items() if k.mode_launches}
+
+
+#: The launches a graph capture enqueues (``recording``); None otherwise.
+#: Process-wide, not per thread: a capture's backward launches from the
+#: autograd engine's device thread, and a capture is the only work on the
+#: card while it runs (global capture mode).
+_RECORDING: dict | None = None
+_RECORDING_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block (a CUDA graph capture, ``graphs.py``) a launch is
+    enqueued into the graph, not run: it is tallied by ``(kernel, mode)`` in
+    the yielded dict instead of counted, whichever thread launches it.
+    ``add_launches(tally)`` counts it at each replay."""
+    global _RECORDING
+    prev, _RECORDING = _RECORDING, {}
+    tally = _RECORDING
+    try:
+        yield tally
+    finally:
+        _RECORDING = prev
+
+
+def load_all() -> None:
+    """Build (when needed) and load every kernel's library: a capture's
+    first launch of a kernel then loads nothing."""
+    for k in KERNELS.values():
+        k._function()
+
+
+def add_launches(tally: dict) -> None:
+    """Count the launches of one replay of a graph whose capture recorded
+    ``tally``."""
+    for (name, mode), n in tally.items():
+        KERNELS[name]._count(mode, n)
 
 
 def reset_launch_counts() -> None:

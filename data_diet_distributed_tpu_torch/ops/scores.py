@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from ..graphs import ChunkProgram
 from ..models.resnet import no_remat
 from . import grand_batched, kernels
 
@@ -168,3 +169,55 @@ def resolve_score_method(method: str, eval_mode: bool) -> str:
     if method == "grand":
         return "grand_batched" if eval_mode else "grand_vmap"
     return method
+
+
+def make_warmup_scores(model, method: str, *, chunk: int = 32, eval_mode: bool = True):
+    """``method``'s plain route, which launches no hand-written kernel: a
+    score chunk's warm-up before its capture. The batched GraNd algorithm
+    warms on its two-phase plain route whatever the route toggles (the
+    megakernel route refuses to run without the kernels): the same model's
+    forward and backward at the same geometry."""
+    if method == "grand_batched":
+        def local_scores(variables, image, label, mask):
+            model.eval()
+            return grand_batched.batched_grand_scores(model, variables, image, label, mask,
+                                                      use_kernels=False)
+        return local_scores
+    return make_local_scores(model, method, chunk=chunk, eval_mode=eval_mode,
+                             use_kernels=False)
+
+
+def make_score_chunk(local_scores, variables: dict, k: int, batch: int,
+                     image_shape: tuple, device, warm_scores=None, harvest: bool = True):
+    """K score batches as ONE dispatch (the JAX package's ``make_score_chunk``,
+    ``ops/scores.py:343-400``): a ``graphs.ChunkProgram`` whose static
+    buffers take a seed's ``variables`` and a ``[K, B, ...]`` block of the
+    pre-batched dataset (``ops/scoring.py::ScoreResident.blocks``) before each
+    dispatch, so one capture serves every block and every seed; K calls of
+    ``local_scores`` (the per-batch function, unchanged) write the ``[K, B]``
+    score block. On the card the replay launches what the per-batch calls
+    launch: on the default GraNd route the direct and Gram kernels, for EL2N
+    ``el2n.cu``. The warm-up before the capture is one batch of
+    ``warm_scores``, the method's plain route (``make_warmup_scores``: the same
+    PyTorch operations around the kernels, and no hand-written kernel, whose
+    launches then count only where the card runs them), after every kernel's
+    library is built and loaded (``kernels.load_all``); without
+    ``warm_scores`` the warm-up is a batch of ``local_scores``."""
+    copied = {f"var:{n}": t for n, t in variables.items()}
+    copied.update(images=((k, batch, *image_shape), torch.float32),
+                  labels=((k, batch), torch.int32), mask=((k, batch), torch.float32))
+
+    def body(fn, inputs: dict, j: int) -> torch.Tensor:
+        v = {n: inputs[f"var:{n}"] for n in variables}
+        return fn(v, inputs["images"][j], inputs["labels"][j], inputs["mask"][j])
+
+    def run(inputs: dict) -> dict:
+        return {"scores": torch.stack([body(local_scores, inputs, j) for j in range(k)])}
+
+    def warmup(inputs: dict) -> torch.Tensor:
+        kernels.load_all()
+        return body(warm_scores or local_scores, inputs, 0)
+
+    return ChunkProgram("score_chunk", run, device, k=k, copied=copied,
+                        warmup=warmup, examples=batch, harvest=harvest,
+                        key=("score_chunk", k, (batch, *image_shape), "float32"))

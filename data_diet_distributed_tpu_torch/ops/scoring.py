@@ -19,6 +19,16 @@ Per seed each rank fills the positions it owns in a float64 ``[N]`` vector,
 and one float64 SUM across the ranks joins them (``collectives.sum_float64``):
 each position has one owner, so every rank holds the same vector bitwise.
 
+The chunked score engine (the JAX package's, ``ops/scoring.py:36-58`` and
+``:342-480``): ``score.chunk_steps`` (null = auto: the whole epoch, up to
+``MAX_SCORE_CHUNK_STEPS`` batches a dispatch; 0 or 1 = per batch; K > 1 =
+requested) runs K batches of a single-process pass as one dispatch
+(``scores.py::make_score_chunk``: on the card one CUDA-graph replay) over
+the blocks of ``ScoreResident`` or, streaming, ``ScoreStream``; each seed's
+pass fetches its stacked scores once (``score_resident_pass``), bitwise the
+per-batch pass. Each chunk counts a ``dispatches_score_chunk`` dispatch and
+is harvested as the ``score_chunk`` program.
+
 Observability, as in the JAX package: each batch counts a
 ``dispatches_score_batch`` dispatch, the first batch of each geometry is the
 introspector's ``score_batch`` program (``obs/introspect.py``), the fetch is
@@ -35,15 +45,37 @@ import numpy as np
 import torch
 
 from ..data.datasets import ArrayDataset, make_position_joiner
-from ..data.pipeline import (logging_data_plane, merge_stall_stats, num_batches,
-                             pad_batch, prefetch_stream)
+from ..data.pipeline import (iterate_batches, logging_data_plane, merge_stall_stats,
+                             num_batches, pad_batch, prefetch_host, prefetch_stream)
 from ..device import resolve_device, set_scoring_determinism
+from ..graphs import GraphCache
 from ..obs import introspect, scoreboard
 from ..obs import registry as obs_registry
 from ..parallel.collectives import sum_float64
 from ..parallel.mesh import flat_slice, global_batch_size_for, world_size
 from ..weights import variables_to
-from .scores import make_local_scores, resolve_score_method, resolve_use_kernels
+from .scores import (make_local_scores, make_score_chunk, make_warmup_scores,
+                     resolve_score_method, resolve_use_kernels)
+
+#: Clamp on the score chunk (batches a dispatch), the JAX package's: a chunk
+#: is the granularity a signal can interleave at, and a capture records every
+#: batch. 32 batches of 2048 cover CIFAR's 50k examples in one dispatch a seed.
+MAX_SCORE_CHUNK_STEPS = 32
+
+
+def resolve_score_chunk_steps(chunk_steps: int | None, n_batches: int,
+                              resident: bool) -> int:
+    """The chunked score engine's selection policy (the JAX package's): 1 for
+    the per-batch path. None = auto: the whole epoch per dispatch up to the
+    clamp, on a single-process pass over a block feed (``resident``: the
+    resident blocks or the streamed ones); 0 or 1 = per batch; K > 1 =
+    requested, clamped to the epoch and to ``MAX_SCORE_CHUNK_STEPS``."""
+    if chunk_steps is not None and chunk_steps <= 1:
+        return 1
+    if not resident or world_size() > 1:
+        return 1
+    k = n_batches if chunk_steps is None else int(chunk_steps)
+    return max(1, min(k, n_batches, MAX_SCORE_CHUNK_STEPS))
 
 # Keep the dataset on the device across seeds up to this many bytes of float32
 # images (CIFAR-10's 50k x 32x32x3 is 0.6 GB).
@@ -87,6 +119,13 @@ class ScoreResident:
             yield (self.index[i], self.valid[i],
                    (self.images[i], self.labels[i], self.mask[i]))
 
+    def blocks(self, k_chunk: int):
+        """``(images, labels, mask)`` blocks of at most ``k_chunk`` batches,
+        views of the resident arrays (the chunk copies them into its static
+        block)."""
+        for s in range(0, self.nb, k_chunk):
+            yield self.images[s:s + k_chunk], self.labels[s:s + k_chunk], self.mask[s:s + k_chunk]
+
 
 def fits_residency(ds: ArrayDataset) -> bool:
     """Whether the dataset's uploaded footprint (float32, however it is held on
@@ -114,6 +153,8 @@ class ScoreStream:
         self.device = device
         self.prefetch_depth = prefetch_depth
         self.image_slice = image_slice
+        self.n = len(ds)
+        self.nb = num_batches(self.n, batch_size)
         self.stall_stats: dict = {}
 
     def batches(self):
@@ -131,6 +172,32 @@ class ScoreStream:
                 index = np.zeros(loc, np.int32)
                 index[valid] = self.ds.indices[pos[valid]]
                 yield (index, valid, (b["image"], b["label"], b["mask"]))
+        finally:
+            it.close()
+            merge_stall_stats(self.stall_stats, it.stats())
+
+    def blocks(self, k_chunk: int):
+        """Prefetched ``(images, labels, mask)`` blocks of at most ``k_chunk``
+        batches, ``ScoreResident.blocks``' contract: assembled from
+        ``iterate_batches`` (dataset order, row-0 tail images, zeroed labels,
+        mask 0) and uploaded ``prefetch_depth`` blocks ahead. One process."""
+        def stacked(pend: list[dict]) -> dict:
+            return {k: np.stack([p[k] for p in pend]) for k in ("image", "label", "mask")}
+
+        def host_blocks():
+            pend: list[dict] = []
+            for hb in iterate_batches(self.ds, self.batch_size):
+                pend.append(hb)
+                if len(pend) == k_chunk:
+                    yield stacked(pend)
+                    pend = []
+            if pend:
+                yield stacked(pend)
+
+        it = prefetch_host(host_blocks(), self.device, self.prefetch_depth, "score")
+        try:
+            for b in it:
+                yield b["image"], b["label"], b["mask"]
         finally:
             it.close()
             merge_stall_stats(self.stall_stats, it.stats())
@@ -168,13 +235,79 @@ def score_pass(local_scores: Callable, variables: dict, batches: Iterable,
     return seed_scores
 
 
+def _dispatch_score_chunk(program, variables: dict, images, labels, mask) -> torch.Tensor:
+    """One chunked score dispatch: K batches, counted
+    (``dispatches_score_chunk``). A module-level seam so tests can count and
+    interpose at chunk boundaries."""
+    obs_registry.inc("dispatches_score_chunk")
+    copied = {f"var:{n}": t for n, t in variables.items()}
+    copied.update(images=images, labels=labels, mask=mask)
+    return program(None, copied)["scores"]
+
+
+class ScoreChunks:
+    """The score chunk programs of one scoring function, by chunk length, in
+    a ``GraphCache``: one capture per method, block length and geometry.
+    ``warm_scores`` is the function's plain route, the captures' warm-up;
+    ``harvest=False`` keeps the programs out of the introspector."""
+
+    def __init__(self, local_scores: Callable, graphs: GraphCache, device, tag: str = "",
+                 warm_scores: Callable | None = None, harvest: bool = True):
+        self.local = local_scores
+        self.warm = warm_scores
+        self.harvest = harvest
+        self.graphs = graphs
+        self.device = torch.device(device)
+        self.tag = tag
+
+    def _key(self, images: torch.Tensor) -> tuple:
+        k, b = images.shape[:2]
+        return ("score_chunk", self.tag, k, (b, *images.shape[2:]), str(images.dtype))
+
+    def program(self, variables: dict, images: torch.Tensor):
+        k, b = images.shape[:2]
+        return self.graphs.get(self._key(images), lambda: make_score_chunk(
+            self.local, variables, k, b, tuple(images.shape[2:]), self.device, self.warm,
+            self.harvest))
+
+    def captured(self, images: torch.Tensor) -> bool:
+        """Whether the program of ``images``' block shape exists already."""
+        return self._key(images) in self.graphs.programs
+
+    def dispatch(self, variables: dict, images, labels, mask) -> torch.Tensor:
+        """The ``[K, B]`` scores of one ``[K, B, ...]`` block."""
+        return _dispatch_score_chunk(self.program(variables, images), variables, images,
+                                     labels, mask)
+
+
+def score_resident_pass(chunks: ScoreChunks, feed, variables: dict, k_chunk: int,
+                        profile=None, unit: int = 0) -> np.ndarray:
+    """ONE seed's pass over a block feed (``ScoreResident`` or
+    ``ScoreStream``): ``ceil(nb / K)`` chunked dispatches and ONE fetch of the
+    stacked score blocks. Returns the float64 ``[n]`` vector in dataset order
+    (both feeds are in dataset order; float64 holds every float32, so a
+    resumed partial's mean stays bitwise). Shared by ``score_dataset`` and the
+    serving engine's warm pass. ``profile`` ticks before each dispatch."""
+    outs = []
+    for blk in feed.blocks(k_chunk):
+        if profile is not None:
+            profile.tick(unit)
+        outs.append(chunks.dispatch(variables, *blk))
+    if not outs:
+        return np.zeros(feed.n, np.float64)
+    with obs_registry.timed("score_fetch_s"):
+        fetched = torch.cat(outs).cpu().numpy()
+    return fetched.reshape(-1)[:feed.n].astype(np.float64)
+
+
 def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
                   method: str = "el2n", batch_size: int = 512, chunk: int = 32,
                   eval_mode: bool = True, use_kernels: bool | None = None,
                   device_resident: bool | None = None, on_seed_done=None,
                   data_plane: str = "auto", prefetch_depth: int = 2, log=None,
                   device=None, seed_ids: Sequence[int] | None = None,
-                  profile=None) -> np.ndarray:
+                  profile=None, chunk_steps: int | None = None,
+                  graphs: GraphCache | None = None) -> np.ndarray:
     """Score every example; returns ``scores[N]`` float32 aligned with ``ds``.
 
     ``variables_seeds`` holds one variables mapping per scoring seed; the
@@ -196,6 +329,13 @@ def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
     scoreboard noted it under ``seed_ids[k]`` (default ``k``). ``profile``
     (a ``ProfileWindow`` whose epochs are the seeds) captures steady batches.
 
+    ``chunk_steps`` (``score.chunk_steps``; ``resolve_score_chunk_steps``)
+    arms the chunked engine on a single-process pass over the resident blocks
+    or, under ``data_plane="streaming"``, the streamed ones; its programs go
+    to ``graphs`` (a cache of this call's own when None, released at the
+    end). With ``chunk_steps`` set and ``device_resident`` None the dataset
+    is resident when it fits, as for several seeds.
+
     In a process group of W ranks the call is a collective: ``batch_size``
     rounds up to a multiple of W and each rank scores its rows of every
     batch."""
@@ -216,24 +356,42 @@ def score_dataset(model, variables_seeds: Sequence[dict], ds: ArrayDataset, *,
     elif data_plane == "resident" and device_resident is None:
         device_resident = True
     if device_resident is None:
-        device_resident = resident_by_default(len(variables_seeds), ds)
+        device_resident = ((len(variables_seeds) > 1 or bool(chunk_steps))
+                           and fits_residency(ds))
+    k_chunk = resolve_score_chunk_steps(
+        chunk_steps, num_batches(n, batch_size),
+        bool(device_resident) or data_plane == "streaming")
     feed = (ScoreResident(ds, batch_size, device, rows) if device_resident
             else ScoreStream(ds, batch_size, device, prefetch_depth, rows))
+    own = GraphCache() if graphs is None and k_chunk > 1 else None
+    chunks = (ScoreChunks(local, graphs if graphs is not None else own, device, method,
+                          warm_scores=make_warmup_scores(
+                              model, resolve_score_method(method, eval_mode), chunk=chunk,
+                              eval_mode=eval_mode))
+              if k_chunk > 1 else None)
     total = np.zeros(n, np.float64)
-    with logging_data_plane(None if device_resident else log, "score", "stream",
-                            getattr(feed, "stall_stats", {}), ds):
-        for k, variables in enumerate(variables_seeds):
-            seed_scores = score_pass(local, variables, feed.batches(), n, pos_of,
-                                     profile=profile, unit=k)
-            if profile is not None:
-                profile.epoch_end(k)
-            if world_size() > 1:
-                with obs_registry.timed("score_fetch_s"):
-                    seed_scores = sum_float64(seed_scores)
-            total += seed_scores
-            # Before the caller's hook, which may raise at a seed boundary.
-            scoreboard.note_seed_scores(
-                method, seed_ids[k] if seed_ids is not None else k, seed_scores)
-            if on_seed_done is not None:
-                on_seed_done(k, seed_scores)
+    try:
+        with logging_data_plane(None if device_resident else log, "score",
+                                "chunked_stream" if chunks is not None else "stream",
+                                getattr(feed, "stall_stats", {}), ds):
+            for k, variables in enumerate(variables_seeds):
+                seed_scores = (score_resident_pass(chunks, feed, variables, k_chunk,
+                                                   profile=profile, unit=k)
+                               if chunks is not None else
+                               score_pass(local, variables, feed.batches(), n, pos_of,
+                                          profile=profile, unit=k))
+                if profile is not None:
+                    profile.epoch_end(k)
+                if world_size() > 1:
+                    with obs_registry.timed("score_fetch_s"):
+                        seed_scores = sum_float64(seed_scores)
+                total += seed_scores
+                # Before the caller's hook, which may raise at a seed boundary.
+                scoreboard.note_seed_scores(
+                    method, seed_ids[k] if seed_ids is not None else k, seed_scores)
+                if on_seed_done is not None:
+                    on_seed_done(k, seed_scores)
+    finally:
+        if own is not None:
+            own.release()
     return (total / len(variables_seeds)).astype(np.float32)

@@ -18,15 +18,26 @@ is process-wide, so an ``engine.fit`` in a serving process trains with
 cuDNN's deterministic algorithms too (as every port fit does); it is never
 toggled per call.
 
+In one process the engine scores as the JAX engine does, through the
+chunked score engine (``ops/scoring.py``): the warm pass behind ``/v1/topk``,
+``/v1/rank`` and ``full_scores`` is ``score_resident_pass`` over the
+tenant's resident blocks of up to ``MAX_SCORE_CHUNK_STEPS`` batches, and a
+request is a ``[1, B]`` block through the same score chunk; on the card
+each is one CUDA-graph replay a seed, captured once per method and block
+length (``graphs.py``). Across ranks both stay per batch, as
+``resolve_score_chunk_steps`` rules.
+
 The program cache, keyed ``(arch, request geometry, method)`` like the JAX
 package's, has nothing to compile in PyTorch: an entry's ``compile_s`` is the
-wall of the FIRST call of the score function at that geometry, to the card's
-completion (cuDNN plans, kernel module loads, allocator growth), kept under
-the JAX field names so ``/status`` has the same shape. A dispatch that makes
-that first call is ``cold``: its first seed's call is its ``compile_ms`` and
-the other seeds' calls its ``dispatch_ms`` (until the score function returns)
-and ``fetch_ms`` (the ``.cpu()`` that waits for the card). The GraNd path
-syncs inside the call, so there ``dispatch_ms`` holds the device time.
+wall of the FIRST call at that key (the first seed's warm pass, its graph
+captures included, or the first request), to the card's completion (cuDNN
+plans, kernel module loads, allocator growth), kept under the JAX field names
+so ``/status`` has the same shape. A dispatch that makes its key's first call,
+or captures the request's ``[1, B]`` chunk, is ``cold``: its first seed's
+call is its ``compile_ms`` and the other seeds' calls its ``dispatch_ms``
+(until the score function returns) and ``fetch_ms`` (the ``.cpu()`` that
+waits for the card). The GraNd path syncs inside the call, so there
+``dispatch_ms`` holds the device time.
 
 ``refresh_tenant`` swaps a tenant's variables in one assignment under the
 dispatch lock and clears its cached scores in the same critical section;
@@ -94,13 +105,16 @@ from ..config import SERVABLE_METHODS, Config
 from ..data.datasets import ArrayDataset, make_position_joiner
 from ..data.pipeline import pad_batch
 from ..device import resolve_device, set_scoring_determinism
+from ..graphs import GraphCache
 from ..models import create_model_from_cfg
 from ..obs import flightrec
 from ..obs import heartbeat as obs_heartbeat
 from ..obs import registry as obs_registry
 from ..ops import kernels
-from ..ops.scores import make_local_scores, resolve_score_method, resolve_use_kernels
-from ..ops.scoring import ScoreResident, score_pass
+from ..ops.scores import (make_local_scores, make_warmup_scores, resolve_score_method,
+                          resolve_use_kernels)
+from ..ops.scoring import (MAX_SCORE_CHUNK_STEPS, ScoreChunks, ScoreResident, score_pass,
+                           score_resident_pass)
 from ..parallel.collectives import (all_gather_host, broadcast_json, gather_json,
                                     gather_rows, scatter_rows, sum_float64)
 from ..parallel.mesh import (flat_slice, global_batch_size_for, process_index,
@@ -161,6 +175,9 @@ class ServeEngine:
         self.model = create_model_from_cfg(cfg).to(self.device)
         self.tenants: dict[str, Tenant] = {}
         self._local: dict[str, Any] = {}
+        # One process: the score chunks by method, their captures in _graphs.
+        self._graphs = GraphCache()
+        self._chunks: dict[str, ScoreChunks] = {}
         # (arch, geometry, method) -> {"compiles", "dispatches", "compile_s"}.
         self._programs: dict[tuple, dict] = {}
         self._lock = threading.Lock()
@@ -310,6 +327,19 @@ class ServeEngine:
                 use_kernels=resolve_use_kernels(sc.use_pallas))
         return fn
 
+    def _score_chunks(self, method: str) -> ScoreChunks:
+        """The method's score chunks (one process): one capture per block
+        length, for the warm pass's blocks and the requests' ``[1, B]``."""
+        chunks = self._chunks.get(method)
+        if chunks is None:
+            sc = self.cfg.score
+            plain = make_warmup_scores(self.model, resolve_score_method(method, sc.eval_mode),
+                                       chunk=sc.grand_chunk, eval_mode=sc.eval_mode)
+            chunks = self._chunks[method] = ScoreChunks(self._local_scores(method),
+                                                        self._graphs, self.device, method,
+                                                        warm_scores=plain, harvest=False)
+        return chunks
+
     def _program_key(self, tenant: Tenant, method: str) -> tuple:
         return (self.cfg.model.arch, (self.batch_size, *tenant.images.shape[1:]), method)
 
@@ -378,6 +408,15 @@ class ServeEngine:
         try:
             local = self._local_scores(method)
             ops = [torch.from_numpy(a).to(self.device) for a in ops]
+            if self.world == 1:
+                # The request as a [1, B] block through the score chunk, as
+                # the JAX engine dispatches it.
+                chunks = self._score_chunks(method)
+                ops = [o[None] for o in ops]
+                cold = cold or not chunks.captured(ops[0])
+
+                def local(variables, *blk):
+                    return chunks.dispatch(variables, *blk)[0]
             for k, variables in enumerate(t.variables_seeds):
                 td = time.perf_counter()
                 out = (self._first_call(key, local) if k == 0 else local)(variables, *ops)
@@ -438,8 +477,12 @@ class ServeEngine:
             seed_scores = np.zeros(n, np.float64)
             if error is None:
                 try:
-                    fn = self._first_call(key, local) if k == 0 else local
-                    seed_scores = score_pass(fn, variables, t.resident.batches(), n, t.pos_of)
+                    if self.world == 1:
+                        seed_scores = self._chunked_pass(t, method, key, variables)
+                    else:
+                        fn = self._first_call(key, local) if k == 0 else local
+                        seed_scores = score_pass(fn, variables, t.resident.batches(), n,
+                                                 t.pos_of)
                 except Exception as exc:   # noqa: BLE001 — the seeds' sums still run
                     error = exc
             total += self._collective(sum_float64, seed_scores)
@@ -447,6 +490,22 @@ class ServeEngine:
         obs_registry.observe("serve_dispatch_s", time.perf_counter() - t0)
         scores = (total / len(t.variables_seeds)).astype(np.float32)
         t.scores[method] = scores
+        return scores
+
+    def _chunked_pass(self, t: Tenant, method: str, key: tuple, variables: dict) -> np.ndarray:
+        """One seed's warm pass in one process: ``score_resident_pass`` over
+        the tenant's resident blocks of up to ``MAX_SCORE_CHUNK_STEPS``
+        batches (the JAX engine's), the key's first pass timed as its
+        ``compile_s`` (the captures are in it)."""
+        k_chunk = max(1, min(t.resident.nb, MAX_SCORE_CHUNK_STEPS))
+        t0 = time.perf_counter()
+        scores = score_resident_pass(self._score_chunks(method), t.resident, variables,
+                                     k_chunk)
+        if key not in self._programs:
+            compile_s = time.perf_counter() - t0
+            self._programs[key] = {"compiles": 1, "dispatches": 0,
+                                   "compile_s": round(compile_s, 4)}
+            obs_registry.observe("serve_compile_s", compile_s)
         return scores
 
     def _op_refresh(self, t: Tenant, op: dict, variables_seeds: list | None) -> None:

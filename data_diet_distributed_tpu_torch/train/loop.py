@@ -79,7 +79,27 @@ and ``stage_barrier`` runs at the score -> retrain boundary and between
 sweep levels; ``obs.slo_recovery_s`` is armed at resume and read at the
 first training step.
 
-Not ported here: the chunked engine.
+The chunked engine (the JAX package's, ``train/loop.py:67-118`` and
+``:640-760``): ``train.chunk_steps`` (null = auto, 16 on a single-process
+run with a chunk-capable feed; 0 or 1 = per step; K > 1 = requested,
+clamped to the epoch and to ``MAX_CHUNK_STEPS``) runs K steps as one
+dispatch (``train/steps.py::make_train_chunk``): on the card one CUDA-graph
+replay (``graphs.py``), on the CPU the same bodies eagerly. The feed is the
+resident set (``ResidentBatches.chunk_indices``: the gather runs inside the
+chunk) or, under ``data.data_plane=streaming``, prefetched blocks
+(``StreamingBatches``, the ``chunked_stream`` engine); a chunk never crosses
+an epoch boundary (the tail is a chunk of its own length). Per chunk the host
+stages the index and mask block, the K learning rates and the K steps'
+augmentation draws in one upload; the stacked ``[K]`` metrics are fetched
+once an epoch and unstacked (``_flatten_step_metrics``), so the epoch record
+sums the same scalars in the same order: the chunked fit is bitwise the
+per-step fit. Eval rides the same engine (``make_eval_chunk``). The
+heartbeat, the preemption poll, the ``train_step`` liveness event and the
+profile window's ticks move to chunk boundaries; the watchdog deadline is
+``resilience.step_timeout_s × K``; the NaN sentinel stays at the epoch end.
+Across ranks, under consensus, or with an armed fault plan that names an
+exact step, the fit runs per step (``resolve_chunk_steps``); ``FitResult.
+chunk_steps`` and the ``train_chunked`` record say which engine ran.
 """
 
 from __future__ import annotations
@@ -101,9 +121,10 @@ from ..checkpoint import CheckpointManager, tier_map
 from ..config import Config
 from ..data.datasets import ArrayDataset, load_dataset
 from ..data.pipeline import (EvalBatchCache, PrefetchIterator, ResidentBatches,
-                             logging_data_plane, maybe_resident, merge_stall_stats,
-                             num_batches, prefetch_stream)
+                             StreamingBatches, logging_data_plane, maybe_resident,
+                             merge_stall_stats, num_batches, prefetch_stream)
 from ..device import resolve_device, set_scoring_determinism
+from ..graphs import GraphCache
 from ..models import create_model_from_cfg
 from ..obs import comm as obs_comm
 from ..obs import fleet as obs_fleet
@@ -135,9 +156,86 @@ from ..utils.io import atomic_savez, load_scores_npz, provenance_path
 from ..weights import init_variables
 from .state import (TrainState, create_train_state, gather_head, gather_slots,
                     make_optimizer, shard_slots)
-from .steps import dispatch_eval_step, dispatch_train_step
+from .steps import (chunk_inputs, chunk_key, dispatch_eval_chunk, dispatch_eval_step,
+                    dispatch_train_chunk, dispatch_train_step, make_eval_chunk,
+                    make_train_chunk)
 
 Log = Callable[..., None]
+
+#: Auto chunk size of the chunked engine (K train steps a dispatch), the JAX
+#: package's constant; the card's own choice waits for a benchmark.
+DEFAULT_CHUNK_STEPS = 16
+
+#: Clamp on ``train.chunk_steps``: a chunk is the granularity at which a
+#: preemption or the watchdog is honoured, and a capture records every step.
+MAX_CHUNK_STEPS = 64
+
+
+def _step_targeted_injection() -> bool:
+    """An armed fault plan with an exact-step coordinate (step exception,
+    hang, mid-epoch SIGTERM) needs the per-step loop: the chunked engine only
+    visits chunk boundaries."""
+    plan = inject.active_plan()
+    return plan is not None and any(
+        getattr(plan, f) is not None
+        for f in ("step_exception_at", "hang_at", "sigterm_at_step"))
+
+
+def resolve_chunk_steps(cfg: Config, steps_per_epoch: int, train_source,
+                        consensus) -> int:
+    """The chunked engine's selection policy (the JAX package's): the chunk
+    size, 1 for the per-step path.
+
+    ``train.chunk_steps``: None = auto (``DEFAULT_CHUNK_STEPS``), 0 or 1 =
+    per step, K > 1 = requested. ``train_source`` is the chunk-capable feed
+    (a ``ResidentBatches`` or a ``StreamingBatches`` of a single-process
+    run; None otherwise). Per step, even when requested: no chunk-capable
+    feed, consensus (its per-step polls are collectives), an armed
+    step-targeted fault. Clamped to the epoch and to ``MAX_CHUNK_STEPS``."""
+    k = cfg.train.chunk_steps
+    if k is not None and k <= 1:
+        return 1
+    if train_source is None or consensus is not None or _step_targeted_injection():
+        return 1
+    if k is None:
+        k = DEFAULT_CHUNK_STEPS
+    return max(1, min(int(k), steps_per_epoch, MAX_CHUNK_STEPS))
+
+
+def _train_stream(cfg: Config, ds: ArrayDataset, device, consensus) -> StreamingBatches | None:
+    """The chunked stream's gate: ``data.data_plane=streaming``, one process,
+    no consensus, no step-targeted fault."""
+    if (cfg.data.data_plane != "streaming" or world_size() > 1
+            or consensus is not None or _step_targeted_injection()):
+        return None
+    return StreamingBatches(ds, global_batch_size_for(cfg.data.batch_size), device,
+                            image_dtype(cfg), prefetch_depth=cfg.data.prefetch_depth)
+
+
+def _dispatch_chunk(program, state: TrainState, host: dict) -> dict:
+    """One resident train chunk: K steps, one dispatch. A module-level seam
+    so tests can interpose at chunk boundaries."""
+    return dispatch_train_chunk(program, state, host)
+
+
+def _dispatch_stream_chunk(program, state: TrainState, host: dict, block) -> dict:
+    """The streaming twin of ``_dispatch_chunk``: the block's rows are copied
+    into the program's static block and gathered by the identity index."""
+    return dispatch_train_chunk(program, state, host, block)
+
+
+def _flatten_step_metrics(fetched: list[dict], key: str = "examples") -> list[dict]:
+    """Fetched step metrics in step order: a chunk's entry holds ``[K]``
+    arrays (``key`` names one) and is unstacked, a step's passes through, so
+    the epoch record and the eval totals sum the same scalars in the same
+    order under either engine."""
+    flat: list[dict] = []
+    for m in fetched:
+        if np.ndim(m[key]):
+            flat.extend({k: v[j] for k, v in m.items()} for j in range(len(m[key])))
+        else:
+            flat.append(m)
+    return flat
 
 
 def _no_log(kind: str, **fields) -> None:
@@ -161,6 +259,7 @@ class FitResult:
     state: TrainState
     history: list[dict[str, Any]] = field(default_factory=list)
     wall_s: float = 0.0
+    chunk_steps: int = 1
 
     @property
     def final_test_accuracy(self) -> float | None:
@@ -227,19 +326,31 @@ def _quarantined_rows(ds: ArrayDataset) -> np.ndarray:
 
 
 def _fetch(metrics: list[dict], keys: tuple[str, ...]) -> list[dict[str, float]]:
-    """Per-step device scalars to host floats, in one transfer."""
+    """Per-step device scalars and per-chunk ``[K]`` stacks to host floats
+    in step order (``_flatten_step_metrics``), in one transfer."""
     if not metrics:
         return []
-    rows = torch.stack([torch.stack([m[k].float() for k in keys])
-                        for m in metrics]).cpu().tolist()
-    return [dict(zip(keys, row)) for row in rows]
+    sizes = [m[keys[0]].numel() for m in metrics]
+    host = torch.cat([torch.stack([m[k].float().reshape(-1) for k in keys])
+                      for m in metrics], dim=1).cpu().numpy()
+    fetched, at = [], 0
+    for m, n in zip(metrics, sizes):
+        cols = host[:, at:at + n] if m[keys[0]].dim() else host[:, at]
+        fetched.append(dict(zip(keys, cols)))
+        at += n
+    return [{k: float(v) for k, v in m.items()}
+            for m in _flatten_step_metrics(fetched, key="examples")]
 
 
 def evaluate(model, state: TrainState, ds: ArrayDataset, batch_size: int, *,
              device=None, resident: ResidentBatches | None = None,
-             cache: EvalBatchCache | None = None) -> dict[str, float]:
+             cache: EvalBatchCache | None = None, chunk_steps: int = 1,
+             graphs: GraphCache | None = None) -> dict[str, float]:
     """Masked loss and accuracy over ``ds``: ``{loss, accuracy, examples}``,
     from ``resident`` batches, or streamed (through ``cache`` when given).
+    With ``resident`` and ``chunk_steps`` > 1 (one process) K batches run as
+    one dispatch (``make_eval_chunk``; its programs kept in ``graphs``, or in
+    a cache of this call's own), bitwise the per-batch sums.
     Across ranks ``batch_size`` rounds up to a multiple of D, each rank
     evaluates its data index's rows and the sums are the data ranks' sums
     (64 examples at ``{data: 4, model: 2}``, not 128)."""
@@ -250,15 +361,32 @@ def evaluate(model, state: TrainState, ds: ArrayDataset, batch_size: int, *,
         raise ValueError(
             f"evaluate: resident batches were built at batch size "
             f"{resident.batch_size} but batch_size={batch_size} was requested")
-    batches = (resident() if resident is not None
-               else cache.stream(ds, batch_size, device, rows) if cache is not None
-               else prefetch_stream(ds, batch_size, device, depth=0, stage="eval",
-                                    image_slice=rows))
-    outs = [dispatch_eval_step(model, state, b) for b in batches]
     totals = {"loss_sum": 0.0, "correct": 0.0, "examples": 0.0}
-    for m in _fetch(outs, tuple(totals)):
-        for k in totals:
-            totals[k] += m[k]
+    own = None
+    if resident is not None and chunk_steps > 1 and rows is None:
+        own = GraphCache() if graphs is None else None
+        cache_of = graphs if graphs is not None else own
+        outs = []
+        for idx, mask in resident.chunk_indices(chunk_steps):
+            k = len(idx)
+            program = cache_of.get(
+                chunk_key("eval_chunk", k, resident.image_shape, resident.batch_size,
+                          resident.image_dtype),
+                lambda k=k: make_eval_chunk(model, state.variables, resident, k))
+            outs.append(dispatch_eval_chunk(program, state, idx, mask))
+    else:
+        batches = (resident() if resident is not None
+                   else cache.stream(ds, batch_size, device, rows) if cache is not None
+                   else prefetch_stream(ds, batch_size, device, depth=0, stage="eval",
+                                        image_slice=rows))
+        outs = [dispatch_eval_step(model, state, b) for b in batches]
+    try:
+        for m in _fetch(outs, tuple(totals)):
+            for k in totals:
+                totals[k] += m[k]
+    finally:
+        if own is not None:
+            own.release()
     if rows:
         summed = sum_float64(_one_per_data_rank(
             np.array([totals[k] for k in totals], np.float64)))
@@ -401,6 +529,18 @@ def _fit_run(cfg, train_ds, test_ds, model, optimizer, state, log, ckpt, start_e
                if cfg.data.augment else None)
     if train_batches is None:
         train_batches = train_resident(cfg, train_ds, device)
+    train_stream = (_train_stream(cfg, train_ds, device, consensus)
+                    if train_batches is None else None)
+    # The chunked engine, resolved before the watchdog: K scales its deadline.
+    chunk_steps = resolve_chunk_steps(
+        cfg, steps_per_epoch,
+        (train_batches or train_stream) if world_size() == 1 else None, consensus)
+    if chunk_steps <= 1:
+        train_stream = None   # per-step streaming prefetches batch by batch
+    else:
+        log("train_chunked", tag=tag, chunk_steps=chunk_steps,
+            steps_per_epoch=steps_per_epoch,
+            engine="stream" if train_stream is not None else "resident")
     test_batches = eval_cache = None
     if test_ds is not None:
         test_batches = maybe_resident(
@@ -412,12 +552,15 @@ def _fit_run(cfg, train_ds, test_ds, model, optimizer, state, log, ckpt, start_e
             eval_cache = EvalBatchCache()
     plane_stats: dict = {}
 
-    result = FitResult(state=state)
+    result = FitResult(state=state, chunk_steps=chunk_steps)
     t_start = time.perf_counter()
     # The resilience envelope, as in the JAX package: SIGTERM/SIGINT set a
     # polled flag, a missed heartbeat raises a retriable WatchdogTimeout, and
     # a NaN/inf epoch loss raises DivergenceError before the state is saved.
+    # Chunked, one heartbeat covers K steps: the deadline scales by K.
     timeout = cfg.resilience.step_timeout_s
+    if timeout and chunk_steps > 1:
+        timeout *= chunk_steps
     watchdog = (Watchdog(timeout, label=f"{tag} step loop",
                          # A timeout names the rank that last progressed.
                          diagnose=obs_heartbeat.describe,
@@ -436,12 +579,14 @@ def _fit_run(cfg, train_ds, test_ds, model, optimizer, state, log, ckpt, start_e
                if cfg.obs.profile_dir and process_index() == 0 else None)
     obs_server.attach(watchdog=watchdog, consensus=consensus)
     obs_server.note_progress(stage=tag, total_epochs=cfg.train.num_epochs,
-                             steps_per_epoch=steps_per_epoch, chunk_steps=1,
-                             epochs_done=start_epoch, epoch=start_epoch,
-                             dispatches_done=0, dispatches_per_epoch=steps_per_epoch)
+                             steps_per_epoch=steps_per_epoch, chunk_steps=chunk_steps,
+                             epochs_done=start_epoch, epoch=start_epoch, dispatches_done=0,
+                             dispatches_per_epoch=-(-steps_per_epoch // chunk_steps))
+    engine = ("resident" if train_batches is not None
+              else "chunked_stream" if train_stream is not None else "stream")
+    chunks = _Chunks(chunk_steps, train_stream, GraphCache())
     try:
-        with logging_data_plane(log, tag, "resident" if train_batches is not None
-                                else "stream", plane_stats, train_ds, tag=tag), \
+        with logging_data_plane(log, tag, engine, plane_stats, train_ds, tag=tag), \
                 preempt, (watchdog or contextlib.nullcontext()), \
                 tracing.span("fit", cat="fit", tag=tag, epochs=cfg.train.num_epochs):
             _fit_epochs(cfg, train_ds, test_ds, model, optimizer, state, log, ckpt,
@@ -449,12 +594,13 @@ def _fit_run(cfg, train_ds, test_ds, model, optimizer, state, log, ckpt, start_e
                         saved_steps, train_batches, test_batches, eval_cache,
                         plane_stats, augment, epoch_hook, device, rows,
                         watchdog=watchdog, preempt=preempt, sentinel=sentinel,
-                        consensus=consensus, profile=profile)
+                        consensus=consensus, profile=profile, chunks=chunks)
         # After the epochs, so the overlap estimate reads the harvested flops.
         obs_comm.note_update_comm(result.state.params, mesh,
                                   resolve_update_sharding(cfg.mesh), logger=log,
-                                  program="train_step", tag=tag, device=device)
+                                  program=chunks.program, tag=tag, device=device)
     finally:
+        chunks.graphs.release()   # the fit's captures and their pools
         if profile is not None:
             profile.close()   # a capture a fault left open stops here
         obs_server.detach("watchdog", "consensus")
@@ -462,126 +608,232 @@ def _fit_run(cfg, train_ds, test_ds, model, optimizer, state, log, ckpt, start_e
     return result
 
 
+@dataclass
+class _Chunks:
+    """A fit's engine: the chunk size (1 = per step), the chunked stream's
+    feed (None on the resident engine) and the fit's chunk programs."""
+
+    steps: int
+    stream: StreamingBatches | None
+    graphs: GraphCache
+
+    @property
+    def program(self) -> str:
+        """The training program the introspector harvests."""
+        return "train_chunk" if self.steps > 1 else "train_step"
+
+
+def _train_chunks(cfg, model, optimizer, state, log, ckpt, epoch, steps_per_epoch, tag,
+                  saved_steps, train_batches, plane_stats, augment, chunks: _Chunks, *,
+                  watchdog, preempt, consensus, profile) -> list[dict]:
+    """One epoch of the chunked engine: ``ceil(steps / K)`` dispatches, each
+    staging its block and running K steps; every per-step hook moves to the
+    chunk boundary. Returns the chunks' stacked metrics."""
+    k_steps, stream = chunks.steps, chunks.stream
+    shuffle, seed = cfg.data.shuffle_each_epoch, cfg.train.seed
+    source = stream if stream is not None else train_batches
+    items = (stream.chunk_blocks(k_steps, shuffle=shuffle, seed=seed, epoch=epoch)
+             if stream is not None else
+             train_batches.chunk_indices(k_steps, shuffle=shuffle, seed=seed, epoch=epoch))
+    metrics: list[dict] = []
+    done = 0
+    try:
+        for item in items:
+            idx, mask = (item.idx, item.mask) if stream is not None else item
+            k = len(idx)
+            if watchdog is not None:
+                watchdog.beat()
+            unit = epoch * steps_per_epoch + done
+            obs_heartbeat.beat(step=unit, epoch=epoch, stage=tag)
+            inject.fire("step", epoch=epoch, step=unit)
+            if profile is not None:
+                profile.tick(epoch)
+            program = chunks.graphs.get(
+                chunk_key("train_chunk", k, source.image_shape, source.batch_size,
+                          source.image_dtype),
+                lambda: make_train_chunk(model, optimizer, state, source, k, augment))
+            # The span is the host's dispatch: staging and the enqueue (or, on
+            # the CPU, the chunk itself).
+            with tracing.span("chunk", cat="chunk", step=unit, k=k), \
+                    obs_registry.timed("chunk_dispatch_s"):
+                host = chunk_inputs(optimizer, state.step, idx, mask, augment)
+                metrics.append(_dispatch_stream_chunk(program, state, host, item)
+                               if stream is not None else
+                               _dispatch_chunk(program, state, host))
+            obs_slo.note_training_step()
+            introspect.poll_memory()
+            prev, done = done, done + k
+            obs_server.note_progress(step=epoch * steps_per_epoch + done,
+                                     dispatches_done=-(-done // k_steps))
+            every = cfg.train.log_every_steps
+            if done // every > prev // every:
+                # The liveness event at the first chunk boundary past each
+                # multiple: host arithmetic, the loss waits for the epoch.
+                log("train_step", tag=tag, epoch=epoch, step=state.step)
+            if _preempt_due(preempt, consensus, unit):
+                _preempt_exit(preempt, ckpt, optimizer, state, log, tag, epoch - 1,
+                              steps_per_epoch, saved_steps, watchdog=watchdog)
+    finally:
+        if stream is not None:
+            items.close()   # the assembler thread stops here, however the epoch ends
+            merge_stall_stats(plane_stats, items.stats())
+    chunks.graphs.note_pool()
+    return metrics
+
+
 def _fit_epochs(cfg, train_ds, test_ds, model, optimizer, state, log, ckpt, start_epoch,
                 batch_size, steps_per_epoch, tag, result, saved_steps, train_batches,
                 test_batches, eval_cache, plane_stats, augment, epoch_hook, device, rows,
-                *, watchdog, preempt, sentinel, consensus, profile) -> None:
+                *, watchdog, preempt, sentinel, consensus, profile, chunks: _Chunks) -> None:
     """``fit``'s epochs (inside its resilience envelope and ``fit`` span)."""
     for epoch in range(start_epoch, cfg.train.num_epochs):
         epoch_t0 = time.perf_counter()
         obs_heartbeat.beat(epoch=epoch, stage=tag, force=True)
-        shuffle, seed = cfg.data.shuffle_each_epoch, cfg.train.seed
-        batches = (train_batches(shuffle=shuffle, seed=seed, epoch=epoch)
-                   if train_batches is not None else
-                   prefetch_stream(train_ds, batch_size, device, shuffle=shuffle,
-                                   seed=seed, epoch=epoch,
-                                   depth=cfg.data.prefetch_depth, stage=tag,
-                                   image_slice=rows))
-        metrics = []
-        try:
-            for i, b in enumerate(batches):
-                if watchdog is not None:
-                    watchdog.beat()
-                unit = epoch * steps_per_epoch + i
-                # Throttled (obs.heartbeat_interval_s): progress without a
-                # write per step.
-                obs_heartbeat.beat(step=unit, epoch=epoch, stage=tag)
-                if consensus is not None:
-                    # A peer's poison aborts here, before a collective the
-                    # poisoned peer will never join.
-                    consensus.check_peers(unit)
-                inject.fire("step", epoch=epoch, step=unit)
-                if profile is not None:
-                    profile.tick(epoch)
-                t_disp = time.perf_counter()
-                metrics.append(dispatch_train_step(model, optimizer, state, b,
-                                                   augment))
-                obs_registry.observe("step_dispatch_s", time.perf_counter() - t_disp)
-                # The recovery SLO's far end: the first step after an armed
-                # resume (one attribute check otherwise).
-                obs_slo.note_training_step()
-                if (i + 1) % cfg.train.log_every_steps == 0:
-                    # Host arithmetic only: the loss waits for the epoch's one fetch.
-                    obs_server.note_progress(step=unit + 1, dispatches_done=i + 1)
-                    log("train_step", tag=tag, epoch=epoch, step=state.step)
-                # One rank: a host flag, no device sync per step. Across
-                # ranks: the flags OR-reduced over the host group.
-                if _preempt_due(preempt, consensus, unit):
-                    _preempt_exit(preempt, ckpt, optimizer, state, log, tag,
-                                  epoch - 1, steps_per_epoch, saved_steps,
-                                  watchdog=watchdog)
-        finally:
-            # Preempted or failed mid-epoch, the assembler thread stops here.
-            batches.close()
-            if isinstance(batches, PrefetchIterator):
-                merge_stall_stats(plane_stats, batches.stats())
-        steps = _fetch(metrics, ("loss", "correct", "examples"))
-        if watchdog is not None:
-            watchdog.beat()   # the epoch fetch, eval and save are progress too
-        epoch_s = time.perf_counter() - epoch_t0
-        examples = sum(m["examples"] for m in steps)
-        record: dict[str, Any] = {
-            "epoch": epoch, "epoch_s": round(epoch_s, 3),
-            "examples_per_s": len(train_ds) / epoch_s if epoch_s > 0 else 0.0,
-            "train_loss": (sum(m["loss"] * m["examples"] for m in steps)
-                           / max(examples, 1.0)),
-            "train_accuracy": sum(m["correct"] for m in steps) / max(examples, 1.0),
-        }
-        record["train_loss"] = inject.transform("epoch_loss", record["train_loss"],
-                                                epoch=epoch)
-        try:
-            sentinel.check(record["train_loss"], epoch=epoch, tag=tag,
-                           agree=consensus.agree if consensus is not None else None)
-        except DivergenceError:
-            # Before eval and checkpoint: the diverged state is never made
-            # durable. (The loss as a string: NaN is not JSON.)
-            log("fault", fault="divergence", tag=tag, epoch=epoch, step=state.step,
-                loss=str(record["train_loss"]))
-            # Every rank dumps its ring, which ends with this fault.
-            flightrec.dump(f"divergence:epoch{epoch}")
-            raise
-        if test_ds is not None and ((epoch + 1) % cfg.train.eval_every == 0
-                                    or epoch + 1 == cfg.train.num_epochs):
-            with tracing.span("eval", cat="eval", epoch=epoch, tag=tag), \
-                    obs_registry.timed("eval_s"):
-                ev = evaluate(model, state, test_ds, cfg.data.eval_batch_size,
-                              device=device, resident=test_batches, cache=eval_cache)
-            record["test_accuracy"] = ev["accuracy"]
-            record["test_loss"] = ev["loss"]
-            if watchdog is not None:
-                watchdog.beat()
-        if epoch_hook is not None:
-            epoch_hook(model, state, epoch)
-            if watchdog is not None:
-                watchdog.beat()
-        log("epoch", tag=tag, **record)
-        result.history.append(record)
-        _epoch_obs(cfg, log, tag, epoch, start_epoch, steps_per_epoch, epoch_s,
-                   record, profile, epoch_t0)
-        save_now = ckpt is not None and (
-            (epoch + 1) % cfg.train.checkpoint_every == 0
-            or epoch + 1 == cfg.train.num_epochs)
-        if save_now:
-            _save(ckpt, state, optimizer, {
-                "epoch": epoch, "steps_per_epoch": steps_per_epoch,
-                **{k: v for k, v in record.items() if isinstance(v, (int, float))}})
-            if saved_steps is not None:
-                saved_steps.append(state.step)
-            inject.fire("checkpoint_saved", step=state.step,
-                        directory=ckpt.directory)
-            if watchdog is not None:
-                watchdog.beat()
-        inject.fire("epoch_end", epoch=epoch)
-        if _preempt_due(preempt, consensus):   # an epoch end: a forced poll
-            _preempt_exit(preempt, ckpt, optimizer, state, log, tag, epoch,
-                          steps_per_epoch, saved_steps,
-                          already_durable=state.step if save_now else None,
-                          watchdog=watchdog)
+        if chunks.steps > 1:
+            metrics = _train_chunks(
+                cfg, model, optimizer, state, log, ckpt, epoch, steps_per_epoch, tag,
+                saved_steps, train_batches, plane_stats, augment, chunks,
+                watchdog=watchdog, preempt=preempt, consensus=consensus, profile=profile)
+        else:
+            metrics = _train_steps(
+                cfg, train_ds, model, optimizer, state, log, ckpt, epoch, batch_size,
+                steps_per_epoch, tag, saved_steps, train_batches, plane_stats, augment,
+                device, rows, watchdog=watchdog, preempt=preempt, consensus=consensus,
+                profile=profile)
+        _end_epoch(cfg, train_ds, test_ds, model, optimizer, state, log, ckpt, start_epoch,
+                   steps_per_epoch, tag, result, saved_steps, test_batches, eval_cache,
+                   epoch_hook, device, epoch, epoch_t0, metrics, watchdog=watchdog,
+                   preempt=preempt, sentinel=sentinel, consensus=consensus,
+                   profile=profile, chunks=chunks)
     result.state = state
 
 
+def _train_steps(cfg, train_ds, model, optimizer, state, log, ckpt, epoch, batch_size,
+                 steps_per_epoch, tag, saved_steps, train_batches, plane_stats, augment,
+                 device, rows, *, watchdog, preempt, consensus, profile) -> list[dict]:
+    """One epoch of the per-step engine; returns the steps' metrics."""
+    shuffle, seed = cfg.data.shuffle_each_epoch, cfg.train.seed
+    batches = (train_batches(shuffle=shuffle, seed=seed, epoch=epoch)
+               if train_batches is not None else
+               prefetch_stream(train_ds, batch_size, device, shuffle=shuffle,
+                               seed=seed, epoch=epoch,
+                               depth=cfg.data.prefetch_depth, stage=tag,
+                               image_slice=rows))
+    metrics = []
+    try:
+        for i, b in enumerate(batches):
+            if watchdog is not None:
+                watchdog.beat()
+            unit = epoch * steps_per_epoch + i
+            # Throttled (obs.heartbeat_interval_s): progress without a
+            # write per step.
+            obs_heartbeat.beat(step=unit, epoch=epoch, stage=tag)
+            if consensus is not None:
+                # A peer's poison aborts here, before a collective the
+                # poisoned peer will never join.
+                consensus.check_peers(unit)
+            inject.fire("step", epoch=epoch, step=unit)
+            if profile is not None:
+                profile.tick(epoch)
+            t_disp = time.perf_counter()
+            metrics.append(dispatch_train_step(model, optimizer, state, b,
+                                               augment))
+            obs_registry.observe("step_dispatch_s", time.perf_counter() - t_disp)
+            # The recovery SLO's far end: the first step after an armed
+            # resume (one attribute check otherwise).
+            obs_slo.note_training_step()
+            if (i + 1) % cfg.train.log_every_steps == 0:
+                # Host arithmetic only: the loss waits for the epoch's one fetch.
+                obs_server.note_progress(step=unit + 1, dispatches_done=i + 1)
+                log("train_step", tag=tag, epoch=epoch, step=state.step)
+            # One rank: a host flag, no device sync per step. Across
+            # ranks: the flags OR-reduced over the host group.
+            if _preempt_due(preempt, consensus, unit):
+                _preempt_exit(preempt, ckpt, optimizer, state, log, tag,
+                              epoch - 1, steps_per_epoch, saved_steps,
+                              watchdog=watchdog)
+    finally:
+        # Preempted or failed mid-epoch, the assembler thread stops here.
+        batches.close()
+        if isinstance(batches, PrefetchIterator):
+            merge_stall_stats(plane_stats, batches.stats())
+    return metrics
+
+
+def _end_epoch(cfg, train_ds, test_ds, model, optimizer, state, log, ckpt, start_epoch,
+               steps_per_epoch, tag, result, saved_steps, test_batches, eval_cache,
+               epoch_hook, device, epoch, epoch_t0, metrics, *, watchdog, preempt,
+               sentinel, consensus, profile, chunks: _Chunks) -> None:
+    """The epoch boundary, either engine: the one fetch, the record, the NaN
+    sentinel, eval, the hook, observability, the checkpoint and the forced
+    preemption poll."""
+    steps = _fetch(metrics, ("loss", "correct", "examples"))
+    if watchdog is not None:
+        watchdog.beat()   # the epoch fetch, eval and save are progress too
+    epoch_s = time.perf_counter() - epoch_t0
+    examples = sum(m["examples"] for m in steps)
+    record: dict[str, Any] = {
+        "epoch": epoch, "epoch_s": round(epoch_s, 3),
+        "examples_per_s": len(train_ds) / epoch_s if epoch_s > 0 else 0.0,
+        "train_loss": (sum(m["loss"] * m["examples"] for m in steps)
+                       / max(examples, 1.0)),
+        "train_accuracy": sum(m["correct"] for m in steps) / max(examples, 1.0),
+    }
+    record["train_loss"] = inject.transform("epoch_loss", record["train_loss"],
+                                            epoch=epoch)
+    try:
+        sentinel.check(record["train_loss"], epoch=epoch, tag=tag,
+                       agree=consensus.agree if consensus is not None else None)
+    except DivergenceError:
+        # Before eval and checkpoint: the diverged state is never made
+        # durable. (The loss as a string: NaN is not JSON.)
+        log("fault", fault="divergence", tag=tag, epoch=epoch, step=state.step,
+            loss=str(record["train_loss"]))
+        # Every rank dumps its ring, which ends with this fault.
+        flightrec.dump(f"divergence:epoch{epoch}")
+        raise
+    if test_ds is not None and ((epoch + 1) % cfg.train.eval_every == 0
+                                or epoch + 1 == cfg.train.num_epochs):
+        with tracing.span("eval", cat="eval", epoch=epoch, tag=tag), \
+                obs_registry.timed("eval_s"):
+            ev = evaluate(model, state, test_ds, cfg.data.eval_batch_size,
+                          device=device, resident=test_batches, cache=eval_cache,
+                          chunk_steps=chunks.steps, graphs=chunks.graphs)
+        record["test_accuracy"] = ev["accuracy"]
+        record["test_loss"] = ev["loss"]
+        if watchdog is not None:
+            watchdog.beat()
+    if epoch_hook is not None:
+        epoch_hook(model, state, epoch)
+        if watchdog is not None:
+            watchdog.beat()
+    log("epoch", tag=tag, **record)
+    result.history.append(record)
+    _epoch_obs(cfg, log, tag, epoch, start_epoch, steps_per_epoch, epoch_s,
+               record, profile, epoch_t0, chunks.program)
+    save_now = ckpt is not None and (
+        (epoch + 1) % cfg.train.checkpoint_every == 0
+        or epoch + 1 == cfg.train.num_epochs)
+    if save_now:
+        _save(ckpt, state, optimizer, {
+            "epoch": epoch, "steps_per_epoch": steps_per_epoch,
+            **{k: v for k, v in record.items() if isinstance(v, (int, float))}})
+        if saved_steps is not None:
+            saved_steps.append(state.step)
+        inject.fire("checkpoint_saved", step=state.step,
+                    directory=ckpt.directory)
+        if watchdog is not None:
+            watchdog.beat()
+    inject.fire("epoch_end", epoch=epoch)
+    if _preempt_due(preempt, consensus):   # an epoch end: a forced poll
+        _preempt_exit(preempt, ckpt, optimizer, state, log, tag, epoch,
+                      steps_per_epoch, saved_steps,
+                      already_durable=state.step if save_now else None,
+                      watchdog=watchdog)
+
+
 def _epoch_obs(cfg, log, tag, epoch, start_epoch, steps_per_epoch, epoch_s, record,
-               profile, epoch_t0) -> None:
+               profile, epoch_t0, program: str = "train_step") -> None:
     """The epoch boundary's observability, in the JAX package's order: the
     registry, the status server's progress, the SLO point, ``fleet_status``,
     the MFU of a steady epoch (the first folds warm-up into its wall), the
@@ -600,7 +852,7 @@ def _epoch_obs(cfg, log, tag, epoch, start_epoch, steps_per_epoch, epoch_s, reco
     if epoch > start_epoch and (profile is None or profile.captured_epoch != epoch):
         # A steady epoch: not the first (warm-up, the harvest), nor one that
         # held a profile capture (the capture and its export are in its wall).
-        introspect.note_throughput("train_step", record["examples_per_s"])
+        introspect.note_throughput(program, record["examples_per_s"])
     introspect.poll_memory()
     if profile is not None:
         profile.epoch_end(epoch)
@@ -835,7 +1087,10 @@ def compute_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
     obs_registry.observe("score_pretrain_s", timings["pretrain_s"])
     steady = timings.get("steady_walls")
     if steady and sum(steady) > 0:
-        introspect.note_throughput("score_batch", len(train_ds) * len(steady) / sum(steady))
+        rate = len(train_ds) * len(steady) / sum(steady)
+        # The program the pass ran: the chunk's, else the batch's.
+        if introspect.note_throughput("score_chunk", rate) is None:
+            introspect.note_throughput("score_batch", rate)
     introspect.poll_memory()
     return scores, timings
 
@@ -927,7 +1182,8 @@ def _compute_scores(cfg: Config, train_ds: ArrayDataset, *, device=None,
                                  else None),
                 on_seed_done=on_seed_done,
                 data_plane=cfg.data.data_plane, prefetch_depth=cfg.data.prefetch_depth,
-                log=log, device=device, seed_ids=todo[:len(seeds_vars)], profile=profile)
+                log=log, device=device, seed_ids=todo[:len(seeds_vars)], profile=profile,
+                chunk_steps=cfg.score.chunk_steps)
             score_s = time.perf_counter() - t1
             steady_walls = _steady(seed_walls, profile)
         passes = len(seeds_vars)

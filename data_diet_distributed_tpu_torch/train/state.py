@@ -139,10 +139,14 @@ class SGD:
     model: int = 1
 
     @torch.no_grad()
-    def update(self, state: TrainState, grads: dict[str, torch.Tensor]) -> None:
+    def update(self, state: TrainState, grads: dict[str, torch.Tensor],
+               lr: torch.Tensor | None = None) -> None:
         """Update ``state.params`` and ``state.momentum`` in place from the
         fp32 ``grads`` (named like the params; at D data ranks each rank's
-        partial gradients, summed here), and advance ``state.step``."""
+        partial gradients, summed here), and advance ``state.step``. A chunk
+        body passes ``lr``, the step's rate as a 0-dim fp32 device tensor
+        staged from the same schedule (a captured graph would freeze a host
+        float), and advances the step itself."""
         names = list(state.params)
         sh = self.slots
         group = data_group()
@@ -150,7 +154,7 @@ class SGD:
             g = [grads[k] for k in names]
             if self.world > 1:
                 g = collectives.all_reduce_flat(g, group)
-            self._apply(state, [state.params[k] for k in names], g, names, None)
+            self._apply(state, [state.params[k] for k in names], g, names, None, lr)
             return
         split = [k for k in names if sh.spec_for(state.params[k].shape, k) is not None]
         whole = [k for k in names if k not in split]
@@ -163,7 +167,7 @@ class SGD:
             g = [sh.shard(t, k) for t, k in zip(full, split)] + full[len(split):]
         # The rank's slices of the sharded parameters are views: updated in place.
         self._apply(state, [sh.shard(state.params[k], k) for k in split]
-                    + [state.params[k] for k in whole], g, split + whole, len(split))
+                    + [state.params[k] for k in whole], g, split + whole, len(split), lr)
         gathered = collectives.all_gather_flat(
             [sh.shard(state.params[k], k) for k in split], group)
         for i, k in enumerate(split):
@@ -194,10 +198,12 @@ class SGD:
         return parts[0] + parts[3] + parts[1] + parts[2]
 
     def _apply(self, state: TrainState, params: list, g: list, names: list,
-               n_split: int | None) -> None:
+               n_split: int | None, lr: torch.Tensor | None = None) -> None:
         """The chain on ``params`` (tensors updated in place) from gradients
         ``g`` and the momentum of ``names``; the first ``n_split`` are slices
-        whose squares the global clip norm sums across the ranks."""
+        whose squares the global clip norm sums across the ranks. The update
+        is ``upd · (−lr)`` in fp32 either way: the host float ``−lr`` is an
+        fp32 value, so the product is the same as by the staged tensor."""
         if self.grad_clip_norm:
             norm = torch.sqrt(self._global_sq(g, names, n_split))
             keep = norm < self.grad_clip_norm
@@ -208,9 +214,12 @@ class SGD:
         torch._foreach_add_(trace, g)
         upd = (torch._foreach_add(g, torch._foreach_mul(trace, self.momentum))
                if self.nesterov else trace)
-        lr = float(self.schedule(state.step))
-        torch._foreach_add_(params, torch._foreach_mul(upd, -lr))
-        state.step += 1
+        if lr is None:
+            torch._foreach_add_(params, torch._foreach_mul(
+                upd, -float(self.schedule(state.step))))
+            state.step += 1
+        else:
+            torch._foreach_add_(params, torch._foreach_mul(upd, -lr))
 
 
 def make_optimizer(cfg: Config, steps_per_epoch: int) -> SGD:

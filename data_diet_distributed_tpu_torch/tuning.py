@@ -20,11 +20,11 @@ HBM3``) or ``"cpu"``, so the repo's CPU manifest matches a port CPU run as it
 matches a JAX CPU run, and a TPU manifest never matches on the card.
 
 Knobs the port accepts and applies (and logs) but that change nothing in it:
-``DDT_SCORE_FETCH`` (the JAX package's score-fetch engine), and
-``score.chunk_steps`` and ``train.chunk_steps`` (the port runs the per-batch
-and per-step paths). Every ``DDT_GRAND_*`` gate, ``DDT_SHARDED_UPDATE``,
-``score.use_pallas``, ``mesh.shard_weight_update``, ``data.prefetch_depth``
-and ``data.data_plane`` take effect.
+``DDT_SCORE_FETCH`` (the JAX package's score-fetch engine). Every
+``DDT_GRAND_*`` gate, ``DDT_SHARDED_UPDATE``, ``score.use_pallas``,
+``score.chunk_steps`` and ``train.chunk_steps`` (the chunked engine),
+``mesh.shard_weight_update``, ``data.prefetch_depth`` and ``data.data_plane``
+take effect.
 """
 
 from __future__ import annotations

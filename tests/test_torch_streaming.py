@@ -152,8 +152,10 @@ def test_streaming_scores_equal_resident_and_jax_on_lazy_data(tmp_path, method, 
         assert a.dtype == np.float64 and np.array_equal(a, b)
     assert runs["resident_log"] == []
     (kind, rec), = runs["stream_log"]
-    assert kind == "data_plane" and rec["engine"] == "stream" and rec["fault"] is None
-    assert rec["items"] == 2 * 5 and rec["prefetch_depth"] == 2
+    # score.chunk_steps null: the streamed pass is the chunked stream, as in
+    # JAX, one block of the 5 batches a seed.
+    assert kind == "data_plane" and rec["engine"] == "chunked_stream" and rec["fault"] is None
+    assert rec["items"] == 2 * 1 and rec["prefetch_depth"] == 2
     flax_lazy, _ = jax_load_dataset("npz", str(tmp_path))
     want = flax_score_dataset(fm, [t for t, _ in seeds], flax_lazy, method=method,
                               batch_size=16, device_resident=False)
@@ -183,12 +185,15 @@ def test_streaming_fit_bitwise_resident_and_depth_inert():
                 == [h["test_accuracy"] for h in runs["resident"].history])
         for k, v in runs["resident"].state.variables.items():
             assert torch.equal(v, runs[name].state.variables[k]), (name, k)
-    for name, engine, depth in (("resident", "resident", 0), ("stream2", "stream", 2),
-                                ("stream0", "stream", 0)):
+    # train.chunk_steps null: the streamed fits run the chunked stream, as in
+    # JAX, one block of the epoch's 5 steps an epoch.
+    for name, engine, depth in (("resident", "resident", 0),
+                                ("stream2", "chunked_stream", 2),
+                                ("stream0", "chunked_stream", 0)):
         planes = [f for kind, f in logs[name] if kind == "data_plane"]
         assert len(planes) == 1 and planes[0]["engine"] == engine
         assert planes[0]["prefetch_depth"] == depth and planes[0]["fault"] is None
-    assert [f for k, f in logs["stream2"] if k == "data_plane"][0]["items"] == 2 * 5
+    assert [f for k, f in logs["stream2"] if k == "data_plane"][0]["items"] == 2 * 1
 
 
 def test_run_on_sharded_data_skips_a_quarantined_shard(tmp_path):

@@ -96,20 +96,24 @@ Phases (the first failure exits non-zero; nothing is caught):
    as a subprocess, driven through the router with ``tools/serve_client.py``
    and Idempotency-Keys. Two such fleets boot at once (four replicas on the
    card); B's (c) runs first, then B's tuning roll (d) beside A's kill (a),
-   and A's latency is read once B has stopped. Fleet A, with ``{"rank": 1,
-   "kill_replica_after_requests": FLEET_KILL_AFTER}``: (f) neither fleet's
+   and A's latency is read once B has stopped. Fleet A is a fleet of one-rank
+   meshes (``mesh.multihost=true mesh.num_processes=1``: each replica its own
+   NCCL group of one, started by the supervisor with its coordinator), with
+   ``{"rank": 1, "kill_replica_after_requests": FLEET_KILL_AFTER}``: (f) neither fleet's
    supervisor is among ``nvidia-smi --query-compute-apps`` or holds a
    ``/dev/nvidia*`` file, while each of their replicas does; (a) ``FLEET_KILL_CLIENTS`` x
    ``FLEET_KILL_REQUESTS`` keyed requests through the kill, 0 failures, every
-   answer bitwise the path's scores, a ``died`` (SIGKILL) and a ``respawn`` on
-   the same port, the respawn wall; the router's p50/p95 per method at the
+   answer bitwise the path's scores, a ``died`` (SIGKILL) naming rank 0 and a
+   ``respawn`` of the group on the same port and a new coordinator, the
+   respawn wall; the router's p50/p95 per method at the
    service phase's load, every answer bitwise; the launches of one 512-row
    dispatch on each replica from its ``/status`` ``kernel_launches`` (24
    direct, 6 Gram; 2 EL2N); (b) a stepless refresh onto a torn newest step
    -> 409 ``roll_aborted``, old model serving; a good step rolled one
    replica at a time under a hammer (capacity never 0, every answer bitwise
    the old or the new model's offline scores), the roll wall; (e) SIGTERM ->
-   exit 75, the stream valid and ending in ``run_summary``. Fleet B, with
+   exit 75 (each rank 75), the stream valid and ending in ``run_summary``
+   (its lineage one rank a replica). Fleet B, plain replicas, with
    ``{"rank": 0, "slow_replica_ms": FLEET_SLOW_MS, "slow_if_step": 4}``,
    ``serve.canary_requests`` and ``obs.slo_fleet_p95_ms``: (c) a good step in
    the watched directory rolls (canary pass), the regressed step 4 fails its
@@ -215,7 +219,12 @@ Phases (the first failure exits non-zero; nothing is caught):
    direct and Gram kernels; a ``/status`` poll
    after the first epoch answers with ``epoch``, ``mfu``, the watermark, the
    ETA and the lineage; the ledger line says ``cuda`` and the card; the
-   monitor's duty samples. The two walls are printed (start-up included).
+   monitor's duty samples; with ``obs.plots_dir`` on the first run, the
+   ``[plots] wrote`` files (printed, with whether matplotlib imports) are
+   ``OBS_PLOTS_CPU`` (what the same ``cli run --device cpu`` writes in
+   ``tests/test_torch_plots.py``) and ``OBS_PLOTS_CARD`` where matplotlib
+   imports, and none where it does not. The two walls are printed (start-up
+   included).
    Then three processes at once: ``cli score`` with EL2N and a profile
    window (its capture holds ``el2n_kernel``), and two ``cli train`` drills
    at ``OBS_DRILL_N`` examples under ``DDT_FAULT_PLAN``: a NaN at epoch 1
@@ -240,16 +249,21 @@ Phases (the first failure exits non-zero; nothing is caught):
    step at half the LR, bitwise a resume by hand; E, a 600-s hang in epoch 1
    with ``resilience.step_timeout_s`` = ``HANG_TIMEOUT_S`` -> one ``hang``
    (``WatchdogTimeout``) and a retry, under ``HANG_WALL_S`` of wall, bitwise
-   an uninterrupted fit. G: ``python -m data_diet_distributed_tpu_torch.cli
-   run`` at ``G_N`` examples exits 75 with ``[preempted]`` under
-   ``DDT_FAULT_PLAN`` and 0 without it (``n_kept`` half). Then the hooks'
+   an uninterrupted fit. G (in processes of its own, beside A-F):
+   ``python -m data_diet_distributed_tpu_torch.cli run`` at ``G_N`` examples
+   exits 75 with ``[preempted]`` under ``DDT_FAULT_PLAN`` and 0 without it
+   (``n_kept`` half). Then the hooks'
    cost: ``OVERHEAD_PAIRS`` alternating pairs of fit's steady-epoch ex/s with
    resilience at its defaults and with preemption and the NaN check off.
 10. Data: BASELINE config 5 (``configs/imagenet_resnet50_grand.yaml``: ResNet-50,
    imagenet stem, GraNd, batch 256, bf16) on ``DATA_N`` synthetic_imagenet
    examples (96x96, 100 classes) quantized to uint8 and written by the port as
    npz splits, ``.npy`` splits with ``stats.npz`` and ``DATA_SHARD``-row shards
-   read through a two-shard cache (``DATA_CACHE``). 1: the native assembler
+   read through a two-shard cache (``DATA_CACHE``); the npy and shard planes
+   built again from the npz plane by ``python -m
+   data_diet_distributed_tpu_torch.tools.npz_to_npy`` and ``.make_shards``
+   (subprocesses at once) are bitwise the inline writer's, arrays, shards and
+   manifest. 1: the native assembler
    loads, and ``prefetch_stream`` over the shards yields CUDA batches bitwise
    the npy plane's host batches (all taken at once, so a pinned slot reused
    early would show). 2: ``cli run`` on the streamed shards (one seed, one
@@ -417,9 +431,11 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -1760,7 +1776,7 @@ def _chunked_phase(torch, port, details_out, card: str) -> dict:
 RES_DIR = os.path.join(REPO, "chip_smoke_out", "resilience_ckpt")
 HANG_TIMEOUT_S = 10      # resilience.step_timeout_s of drill E
 HANG_WALL_S = 60         # drill E's whole fit_with_recovery must end within this
-G_N = 2048               # drill G's examples (two CLI processes)
+G_N = 1024               # drill G's examples (two CLI processes)
 OVERHEAD_PAIRS = 2
 
 
@@ -1806,19 +1822,61 @@ def counted(K, fn):
 
 def resilience_phase(torch, port, details_out, trained: dict) -> dict:
     """The resilience core on the card (drills A-G and the hooks' overhead).
-    Checkpoints go to ``RES_DIR`` and are removed after."""
+    Checkpoints go to ``RES_DIR`` and are removed after. Drill G runs in
+    processes of its own beside drills A-F (they share only the card) and is
+    read before the hooks' overhead is timed."""
     shutil.rmtree(RES_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    try:
-        return _resilience_phase(torch, port, details_out, trained)
-    finally:
-        shutil.rmtree(RES_DIR, ignore_errors=True)
-        wall = time.perf_counter() - t0
-        details_out.setdefault("resilience", {})["phase_wall_s"] = wall
-        print(f"  resilience phase: {wall:.1f} s", flush=True)
+    torch.cuda.empty_cache()   # room on the card for G's processes
+    g_procs: list = []
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        drill_g = pool.submit(run_drill_g, g_procs)
+        try:
+            return _resilience_phase(torch, port, details_out, trained, drill_g)
+        finally:
+            for proc in g_procs:
+                if proc.poll() is None:
+                    proc.kill()
+            shutil.rmtree(RES_DIR, ignore_errors=True)
+            wall = time.perf_counter() - t0
+            details_out.setdefault("resilience", {})["phase_wall_s"] = wall
+            print(f"  resilience phase: {wall:.1f} s", flush=True)
 
 
-def _resilience_phase(torch, port, details_out, trained: dict) -> dict:
+def run_drill_g(procs: list) -> list[float]:
+    """Drill G: the real command line in a process of its own exits 75 under a
+    fault plan, then the same command finishes. Returns the two walls; each
+    process is appended to ``procs`` as it starts."""
+    dir_g = os.path.join(RES_DIR, "g")
+    cmd = [sys.executable, "-m", "data_diet_distributed_tpu_torch.cli", "run",
+           "--config", os.path.join(REPO, "configs", "cifar10_resnet18_grand10.yaml"),
+           "data.dataset=synthetic", f"data.synthetic_size={G_N}", "score.seeds=[0,1]",
+           "train.num_epochs=2", f"train.checkpoint_dir={dir_g}"]
+    env = {k: v for k, v in os.environ.items() if k != "DDT_FAULT_PLAN"}
+    env["PYTHONPATH"] = REPO
+    walls = []
+    for plan in ('{"sigterm_after_seed_scores": 1}', None):
+        t1 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                env={**env, "DDT_FAULT_PLAN": plan} if plan else env)
+        procs.append(proc)
+        stdout, stderr = proc.communicate(timeout=300)
+        walls.append(time.perf_counter() - t1)
+        if plan:
+            check(proc.returncode == 75 and "[preempted]" in stdout,
+                  f"G: exit {proc.returncode}, stdout {stdout[-300:]!r}, "
+                  f"stderr {stderr[-1500:]!r}")
+        else:
+            check(proc.returncode == 0, f"G rerun: exit {proc.returncode}, "
+                                        f"stderr {stderr[-1500:]!r}")
+            out = json.loads(stdout.strip().splitlines()[-1])
+            check(out["event"] == "run_done" and out["n_kept"] == G_N // 2,
+                  f"G rerun: {out}")
+    return walls
+
+
+def _resilience_phase(torch, port, details_out, trained: dict, drill_g) -> dict:
     T, K = port["train"], port["kernels"]
     rec: dict = {}
     details_out["resilience"] = rec
@@ -1987,32 +2045,8 @@ def _resilience_phase(torch, port, details_out, trained: dict) -> dict:
     print(f"  E hang: WatchdogTimeout after {HANG_TIMEOUT_S} s, retried from step {spe}; "
           f"{wall:.3f} s of wall; bitwise equal to an uninterrupted fit", flush=True)
 
-    # G. The real command line in a process of its own: exit 75 under a fault
-    # plan, then the same command finishes.
-    torch.cuda.empty_cache()
-    dir_g = os.path.join(RES_DIR, "g")
-    cmd = [sys.executable, "-m", "data_diet_distributed_tpu_torch.cli", "run",
-           "--config", os.path.join(REPO, "configs", "cifar10_resnet18_grand10.yaml"),
-           "data.dataset=synthetic", f"data.synthetic_size={G_N}", "score.seeds=[0,1]",
-           "train.num_epochs=2", f"train.checkpoint_dir={dir_g}"]
-    env = {k: v for k, v in os.environ.items() if k != "DDT_FAULT_PLAN"}
-    env["PYTHONPATH"] = REPO
-    walls = []
-    for plan in ('{"sigterm_after_seed_scores": 1}', None):
-        t1 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
-                              env={**env, "DDT_FAULT_PLAN": plan} if plan else env)
-        walls.append(time.perf_counter() - t1)
-        if plan:
-            check(proc.returncode == 75 and "[preempted]" in proc.stdout,
-                  f"G: exit {proc.returncode}, stdout {proc.stdout[-300:]!r}, "
-                  f"stderr {proc.stderr[-1500:]!r}")
-        else:
-            check(proc.returncode == 0, f"G rerun: exit {proc.returncode}, "
-                                        f"stderr {proc.stderr[-1500:]!r}")
-            out = json.loads(proc.stdout.strip().splitlines()[-1])
-            check(out["event"] == "run_done" and out["n_kept"] == G_N // 2,
-                  f"G rerun: {out}")
+    # G (started beside A by resilience_phase): the real command line.
+    walls = drill_g.result()
     rec["G"] = {"walls_s": walls}
     print(f"  G cli run ({G_N} examples): exit 75 with [preempted] under "
           f"DDT_FAULT_PLAN ({walls[0]:.1f} s), then exit 0, n_kept {G_N // 2} "
@@ -2078,6 +2112,66 @@ def write_data_planes(port, train, test) -> dict:
               for s in ("train", "test")}
     D["write_manifest"](dirs["shards"], splits, DATA_CLASSES, norm)
     return dirs
+
+
+def tool_planes(dirs: dict, root: str, shard_size: int) -> dict:
+    """The npy and shard planes built again from ``dirs["npz"]`` by the port's
+    ``tools.npz_to_npy`` and ``tools.make_shards``, two subprocesses at once
+    on this host, under ``root``; each array, shard and manifest entry is held
+    bitwise to the inline writer's in ``dirs``. Returns the tools' wall and
+    the manifests' digests."""
+    out = {"npy": os.path.join(root, "npy_tool"), "shards": os.path.join(root, "shards_tool")}
+    tool = "data_diet_distributed_tpu_torch.tools."
+    cmds = {"npy": [sys.executable, "-m", tool + "npz_to_npy", "--data-dir", dirs["npz"],
+                    "--out", out["npy"]],
+            "shards": [sys.executable, "-m", tool + "make_shards", dirs["npz"], "--out",
+                       out["shards"], "--shard-size", str(shard_size)]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for k, c in cmds.items()}
+    for k, p in procs.items():
+        text, _ = p.communicate(timeout=600)
+        check(p.returncode == 0, f"tools ({k}) exited {p.returncode}: {text[-2000:]}")
+    wall = time.perf_counter() - t0
+
+    def arrays(path: str) -> dict:
+        if path.endswith(".npz"):
+            with np.load(path) as f:
+                return {k: f[k] for k in f.files}
+        return {"": np.load(path)}
+
+    names = sorted(os.listdir(dirs["npy"]))
+    check(sorted(os.listdir(out["npy"])) == names, f"tools npy plane: {os.listdir(out['npy'])}")
+    for name in names:
+        a, b = arrays(os.path.join(dirs["npy"], name)), arrays(os.path.join(out["npy"], name))
+        check(a.keys() == b.keys() and all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                                           for k in a),
+              f"tools npy plane: {name} is not bitwise the inline writer's")
+    manifests = {}
+    for side, d in (("inline", dirs["shards"]), ("tool", out["shards"])):
+        with open(os.path.join(d, "manifest.json")) as fh:
+            manifests[side] = json.load(fh)
+    conversion = manifests["tool"].pop("conversion", None)
+    check(manifests["tool"] == manifests["inline"],
+          "tools shard plane: the manifest differs from the inline writer's")
+    files = sorted(os.listdir(dirs["shards"]))
+    check(sorted(os.listdir(out["shards"])) == files,
+          f"tools shard plane: {os.listdir(out['shards'])}")
+    for name in files:
+        if name != "manifest.json":
+            with open(os.path.join(dirs["shards"], name), "rb") as fa, \
+                    open(os.path.join(out["shards"], name), "rb") as fb:
+                check(fa.read() == fb.read(), f"tools shard plane: {name} differs")
+    digest = hashlib.sha256(json.dumps(manifests["inline"], sort_keys=True).encode()).hexdigest()
+    print(f"  tools: python -m data_diet_distributed_tpu_torch.tools.npz_to_npy and "
+          f".make_shards rebuilt the npy plane ({len(names)} files) and the shard plane "
+          f"({sum(len(x['shards']) for x in manifests['inline']['splits'].values())} shards, "
+          f"manifest sha256 {digest[:16]}) from the npz plane in {wall:.1f} s, bitwise the "
+          f"inline writer's; conversion {conversion}", flush=True)
+    shutil.rmtree(out["npy"], ignore_errors=True)
+    shutil.rmtree(out["shards"], ignore_errors=True)
+    return {"wall_s": wall, "manifest_sha256": digest, "files": names}
 
 
 def run_cli(port, argv: list[str]) -> tuple[int, dict | None, list[dict]]:
@@ -2215,6 +2309,7 @@ def _data_phase(torch, port, rec: dict, card: str) -> dict:
     t0 = time.perf_counter()
     train, test = load("synthetic_imagenet", synthetic_size=DATA_N, seed=0)
     dirs = write_data_planes(port, train, test)
+    rec["tools"] = tool_planes(dirs, DATA_ROOT, DATA_SHARD)
     npz_train, _ = load("npz", dirs["npz"])
     npy_train, _ = load("npz", dirs["npy"])
 
@@ -2495,7 +2590,7 @@ WRN_REMAT_STEPS = 20
 # Trajectory scores on the ResNet-18 north-star geometry. The synthetic set's default
 # pixel noise (0.4) is learned whole in two epochs, which leaves every forgetting count
 # at 0: TRAJ_NOISE makes examples that are forgotten or never learned.
-TRAJ_N = 2048
+TRAJ_N = 1024
 TRAJ_EPOCHS = 2
 TRAJ_SEEDS = (0, 1)
 TRAJ_NOISE = 6.0
@@ -4107,7 +4202,7 @@ def dist_phase(torch, port, details_out, card: str, path: dict, trained: dict) -
 
 OBS_ROOT = os.path.join(REPO, "chip_smoke_out", "obs")
 #: Examples of the obs phase's north-star runs (a cut of the train phase's).
-OBS_N = 4096
+OBS_N = 2048
 OBS_SEEDS = (0, 1)            # the north-star run's seeds (of 10)
 OBS_EPOCHS = 2                # its retrain epochs (of 198)
 OBS_TIMEOUT_S = 400
@@ -4121,6 +4216,40 @@ OBS_KERNEL_FUNCTIONS = {"conv_grad_norm_direct": "direct_mma_kernel",
 OBS_OFF = ["obs.metrics_path=null", "obs.trace=false", "obs.heartbeat=false",
            "obs.flightrec=false", "obs.xla_introspect=false", "obs.score_telemetry=false",
            "obs.fleet=false"]
+
+
+#: The PNGs ``obs.plots_dir`` holds after the obs phase's ``cli run``: what
+#: the same ``cli run --device cpu`` writes in ``tests/test_torch_plots.py``
+#: (which holds its files to this list), and on a card the monitor's duty
+#: and memory charts.
+OBS_PLOTS_CPU = ("cpu_utilization.png", "eval_accuracy.png", "score_distribution.png",
+                 "score_stats_grand.png", "throughput.png", "train_loss.png")
+OBS_PLOTS_CARD = ("device_duty_cycle.png", "device_memory.png")
+
+
+def summary_line(stdout: str) -> dict:
+    """A command's summary: its last JSON line (``[plots]`` lines follow it)."""
+    return json.loads([x for x in stdout.splitlines() if x.startswith("{")][-1])
+
+
+def check_plots(stdout: str, plots_dir: str) -> dict:
+    """The ``[plots] wrote`` lines of a ``cli run`` with ``obs.plots_dir``:
+    every file of ``OBS_PLOTS_CPU`` and ``OBS_PLOTS_CARD`` where matplotlib
+    imports, none where it does not."""
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    lines = [x for x in stdout.splitlines() if x.startswith("[plots]")]
+    check(all(x.startswith("[plots] wrote ") for x in lines), f"plots: {lines}")
+    names = sorted(os.path.basename(x[len("[plots] wrote "):]) for x in lines)
+    on_disk = sorted(os.listdir(plots_dir)) if os.path.isdir(plots_dir) else []
+    want = sorted(OBS_PLOTS_CPU + OBS_PLOTS_CARD) if has_mpl else []
+    check(names == on_disk == want, f"plots: wrote {names}, on disk {on_disk}, want {want}")
+    print(f"  plots: matplotlib {'imports' if has_mpl else 'does not import'}; "
+          f"obs.plots_dir holds {len(names)} files {names}", flush=True)
+    return {"matplotlib": has_mpl, "files": names}
 
 
 def obs_on(d: str) -> list[str]:
@@ -4239,7 +4368,7 @@ def obs_phase(torch, port, details_out, card: str) -> None:
 
     # 1: every instrument on; /status polled once an epoch is done.
     on = os.path.join(OBS_ROOT, "on")
-    cp = CliProcess(run_args(on) + obs_on(on))
+    cp = CliProcess(run_args(on) + obs_on(on) + [f"obs.plots_dir={on}/plots"])
     sport = cp.first("obs_server", OBS_TIMEOUT_S)["port"]
     cp.first("epoch", OBS_TIMEOUT_S)
     code, _, raw = http_call(sport, "/status", timeout=30)
@@ -4253,7 +4382,8 @@ def obs_phase(torch, port, details_out, card: str) -> None:
     cp_off = CliProcess(run_args(off) + OBS_OFF)
     rc, out_off, wall_off = cp_off.wait()
     check(rc == 0, f"cli run with every instrument off exited {rc}")
-    walls = {side: {k: round(v, 3) for k, v in json.loads(out.strip().splitlines()[-1]).items()
+    rec["plots"] = check_plots(out_on, f"{on}/plots")
+    walls = {side: {k: round(v, 3) for k, v in summary_line(out).items()
                     if k.endswith("_wall_s")}
              for side, out in (("on", out_on), ("off", out_off))}
     with np.load(f"{on}/ckpt_scores.npz") as a, np.load(f"{off}/ckpt_scores.npz") as b:
@@ -4676,13 +4806,15 @@ class Fleet:
                 and r.get("event") == "spawn"]
 
     def replica_logs(self) -> dict[tuple[int, int], list[dict]]:
-        """(replica, generation) -> that process's records, from its log."""
+        """(replica, generation) -> that process's records (rank 0's in a
+        fleet of meshes), from its log."""
+        import re
         d = os.path.join(self.root, "ckpt_fleet")
         out = {}
         for name in sorted(os.listdir(d)) if os.path.isdir(d) else []:
-            if name.startswith("replica") and name.endswith(".log"):
-                r, g = name[len("replica"):-len(".log")].split("_g")
-                out[(int(r), int(g))] = jsonl(os.path.join(d, name))
+            m = re.fullmatch(r"replica(\d+)(?:_r(\d+))?_g(\d+)\.log", name)
+            if m and m.group(2) in (None, "0"):
+                out[(int(m.group(1)), int(m.group(3)))] = jsonl(os.path.join(d, name))
         return out
 
     def stop(self) -> tuple[int, float]:
@@ -4809,9 +4941,11 @@ def fleet_phase(torch, port, path, details_out, card: str) -> dict:
     manifest_path = os.path.join(FLEET_ROOT, "tuning_manifest.json")
     fleets: list[Fleet] = []
     try:
+        # A: a fleet of one-rank meshes, each replica its own NCCL group.
         fleets.append(Fleet(os.path.join(FLEET_ROOT, "a"),
                             {"rank": 1, "kill_replica_after_requests": FLEET_KILL_AFTER},
-                            f"serve.refresh_from={refresh_dir}"))
+                            f"serve.refresh_from={refresh_dir}", "mesh.multihost=true",
+                            "mesh.num_processes=1"))
         fleets.append(Fleet(os.path.join(FLEET_ROOT, "b"),
                             {"rank": 0, "slow_replica_ms": FLEET_SLOW_MS,
                              "slow_if_step": FLEET_STEPS["regressed"]},
@@ -4941,23 +5075,28 @@ def fleet_phase(torch, port, path, details_out, card: str) -> dict:
         check(len(answers) == FLEET_KILL_CLIENTS * FLEET_KILL_REQUESTS and all(answers),
               f"(a) {answers.count(False)} of {len(answers)} answers differ from the "
               "offline pass")
-        check(died["replica"] == 1 and died["signal"] == 9, f"(a) died record {died}")
+        check(died["replica"] == 1 and died["signal"] == 9 and died.get("rank") == 0,
+              f"(a) died record {died}")
         respawn = fleet.wait_record(lambda r: r.get("kind") == "replica_event"
                                     and r.get("event") == "respawn", "respawn", 60)
         t_back = fleet.wait_available(2)
-        spawn_port = fleet.replica_ports()[1]
+        spawn = [r for r in fleet.records() if r.get("kind") == "replica_event"
+                 and r.get("event") == "spawn"][1]
+        spawn_port = spawn["port"]
         check(respawn["replica"] == 1 and respawn["generation"] == 1
-              and respawn["port"] == spawn_port, f"(a) respawn {respawn}, spawn port "
-              f"{spawn_port}")
+              and respawn["port"] == spawn_port and respawn.get("dead_rank") == 0
+              and respawn["coordinator"] != spawn["coordinator"],
+              f"(a) respawn {respawn}, spawn {spawn}")
         rec["respawn_wall_s"] = respawn_wall = t_back - died["ts"]
         for m in ("el2n", "grand"):
             check(np.array_equal(served(fleet, sweep, m), truth(init[m], sweep)),
                   f"(a) {m} after the respawn differs from the offline pass")
         print(f"  (a) {len(answers)} keyed requests from {FLEET_KILL_CLIENTS} clients, "
-              f"replica 1 SIGKILLed after {FLEET_KILL_AFTER} requests: 0 failures, every "
-              f"answer bitwise the offline pass; respawned on port {spawn_port} and "
-              f"routable again {respawn_wall:.1f} s after the death (B's tuning roll "
-              "booting beside it)", flush=True)
+              f"replica 1 (rank 0 of its one-rank mesh) SIGKILLed after {FLEET_KILL_AFTER} "
+              f"requests: 0 failures, every answer bitwise the offline pass; the group "
+              f"respawned on port {spawn_port} with coordinator {spawn['coordinator']} -> "
+              f"{respawn['coordinator']} and routable again {respawn_wall:.1f} s after the "
+              "death (B's tuning roll booting beside it)", flush=True)
 
         # (d) ends, is checked and B stops before the latency is read, so only
         # A's two replicas are on the card then, as in a fleet of its own.
@@ -5109,8 +5248,12 @@ def fleet_phase(torch, port, path, details_out, card: str) -> dict:
     check(rc_a == 75, f"(e) fleet A exit {rc_a}: {fleet.tail()}")
     validate_stream(fleet.metrics, expect_terminal=True)
     lin = recs[-1].get("lineage") or {}
-    check(recs[-1]["exit_class"] == "preempted" and lin.get("respawns") == 1,
-          f"(e) fleet A run_summary {recs[-1]}")
+    check(recs[-1]["exit_class"] == "preempted" and lin.get("respawns") == 1
+          and lin.get("ranks") == 1, f"(e) fleet A run_summary {recs[-1]}")
+    ended = [r for r in recs if r.get("kind") == "serve_fleet"
+             and r.get("event") == "preempted_exit"]
+    check(len(ended) == 1 and ended[0].get("rank_rcs") == [[75], [75]],
+          f"(e) fleet A's ranks' exits {ended}")
     rec["a_launches"] = {f"r{r}g{g}": v for (r, g), v in add_launches(fleet).items()}
     check(rc_b == 75, f"(e) fleet B exit {rc_b}: {fleet_b.tail()}")
     n = validate_stream(fleet_b.metrics, expect_terminal=True)

@@ -16,9 +16,8 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   captured once per chunk length and geometry and replayed; the bodies
   eagerly on the CPU) and ``GraphCache``
 * ``config.py`` -> ``config.py`` (data/model/optim/score/prune/train/
-  resilience/mesh/obs/serve/checkpoint/elastic/tuning; ``obs.plots_dir``
-  refuses by name; the unported section's keys (parallel) accepted and
-  ignored)
+  resilience/mesh/obs/serve/checkpoint/elastic/tuning, every key in
+  effect; the parallel section's keys accepted and ignored, see below)
 * ``tuning.py`` -> ``tuning.py`` (the signed tuning manifest: build, write,
   read and verify, match on geometry and hardware (backend ``cuda``/``cpu``,
   ``device_kind`` the card's name), apply with user precedence;
@@ -128,6 +127,13 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
 * ``utils/io.py`` -> ``utils/io.py`` (atomic writes, ``load_scores_npz``,
   ``atomic_append_jsonl``)
 * ``utils/stats.py`` -> ``utils/stats.py`` (Spearman rho with ties)
+* ``utils/trees.py`` -> ``utils/trees.py`` (``param_count``, ``tree_bytes``
+  over a state dict or any nesting of tensors and arrays)
+* ``tools/`` -> ``tools/make_shards.py``, ``npz_to_npy.py``,
+  ``score_report.py``, ``trace_report.py``, ``request_report.py``,
+  ``run_monitor.py`` (the same arguments and output on the port's modules,
+  for a host without JAX: ``python -m
+  data_diet_distributed_tpu_torch.tools.<name>``)
 * ``serve/`` -> ``serve/engine.py``, ``batcher.py``, ``server.py``
   (``ServeEngine`` with ``fit``/``evaluate``/``score``, tenants and weights,
   the verified checkpoint refresh and the program cache; the coalescing
@@ -140,7 +146,9 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   ``fleet.py`` (``ServeFleet``: local and templated remote replicas,
   respawn under ``RestartBudget``, probation, the ``Autoscaler``, the
   refresh and tuning-manifest rolls, ``discover_steps`` over the port's
-  checkpoint layouts)
+  checkpoint layouts; with ``mesh.multihost`` each replica a
+  ``ReplicaGroup`` of W ranks, respawned whole when any rank dies; replicas
+  placed on cards through ``CUDA_VISIBLE_DEVICES``)
 * ``obs/`` -> ``obs/``: ``lineage.py``, ``flightrec.py``, ``metrics.py``
   (``MetricsLogger`` with the ring mirror and the lineage stamp,
   ``emit_run_summary``), ``registry.py`` (snapshots, Prometheus textfile,
@@ -157,7 +165,8 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   ``reqtrace.py``, ``server.py`` (/healthz, /metrics, /status with MFU,
   watermark, ETA and lineage, the live /flightrec), ``session.py`` (every
   instrument), ``timeline.py`` (the cross-attempt timeline, recovery chains,
-  lineage view, merged Perfetto trace); ``postmortem.py`` ->
+  lineage view, merged Perfetto trace), ``plots.py`` (the post-run PNGs of
+  ``obs.plots_dir``); ``postmortem.py`` ->
   ``tools/postmortem.py``
   (``python -m data_diet_distributed_tpu_torch.obs.postmortem``)
 * ``cli.py`` -> ``cli.py`` (``train``, ``run``, ``sweep``, ``score``,
@@ -168,8 +177,10 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   ``mesh.multihost`` joins the group first, rank 0 prints and writes, a
   failure under the group exits 69 or 1 at once; ``elastic.enabled``: the
   restart supervisor, which touches no CUDA; ``serve.replicas > 1``: the
-  serving fleet's supervisor, which touches no CUDA either; the tuning
-  manifest applied before the gated ops modules import)
+  serving fleet's supervisor (of plain replicas or, with ``mesh.multihost``,
+  of meshes), which touches no CUDA either; the tuning manifest applied
+  before the gated ops modules import; ``obs.plots_dir``'s PNGs after a
+  command on rank 0)
 
 Across W processes (``mesh.multihost``), one device each, every entry point
 computes what the JAX package computes on a ``{data: W / M, model: M}`` mesh
@@ -182,10 +193,9 @@ whole, and the consensus drills; ``cli serve`` answers on rank 0 while
 every rank scores its rows of each request (``serve/engine.py``'s
 operations over the host group).
 
-Not ported yet: ``parallel/overlap.py`` (XLA flags for the TPU; ``parallel.overlap`` is
-accepted and ignored), a fleet of meshes (``mesh.multihost`` with
-``serve.replicas > 1`` refuses by name), what remains of observability
-(``obs/plots.py``: ``obs.plots_dir`` refuses by name) and the tools
-(``tools/make_shards.py``, ``tools/npz_to_npy.py``; their formats are the
-port's too).
+Not ported: ``parallel/overlap.py`` alone. It sets XLA's latency-hiding
+scheduler flags for the TPU so that XLA overlaps collectives with compute;
+PyTorch has no such scheduler to configure (NCCL runs on its own stream and
+the port's collectives are explicit calls), so the module has no meaning
+here, and ``parallel.overlap`` is accepted and ignored.
 """

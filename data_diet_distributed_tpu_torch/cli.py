@@ -36,9 +36,26 @@
   each): rank 0 binds ``serve.port`` and answers, the other ranks bind
   nothing and follow its operations (each request's padded block scored
   ``B/W`` rows a rank), and every rank writes its own stream
-  (``<metrics>.rank<k>.jsonl`` beside rank 0's). ``mesh.multihost`` with
-  ``serve.replicas > 1`` or ``serve.max_replicas`` is refused by name: a
-  fleet of meshes is not ported.
+  (``<metrics>.rank<k>.jsonl`` beside rank 0's). ``mesh.multihost=true
+  mesh.num_processes=W`` with ``serve.replicas > 1`` or
+  ``serve.max_replicas`` is a fleet of meshes: each replica is a group of W
+  ranks that the supervisor starts with their coordinator and process ids
+  (an operator's values for those two keys give way, and the ``launch``
+  record says so); the death of any rank respawns the whole group on its
+  port. Under CUDA the j-th replica on the supervisor's host takes its
+  cards ``j*W .. j*W+W-1`` (plain replicas too, W = 1, round-robin past the
+  cards); a fleet of meshes that needs more cards than the host has is
+  refused by name, as is ``--device cuda:<k>`` with W > 1, and a
+  ``serve.hosts`` replica keeps its host's own view. The ``launch`` record and the
+  ``lineage`` block carry R, W and the placement.
+
+With ``obs.plots_dir`` set, rank 0 renders PNGs there after a command that
+was not preempted, as the JAX package does (``obs/plots.py``): the metrics
+curves and per-seed score distributions of the stream, the scores npz's
+histogram (``run`` and ``score``; each level's for ``sweep``) and, with
+``obs.monitor``, the utilization; each file is announced as ``[plots] wrote
+<path>`` after the summary line, and a rendering failure prints ``[plots]
+rendering failed: ...`` and leaves the exit status 0.
 
 ``score``, ``run`` and ``sweep`` take every ``score.method``, the trajectory
 scores ``forgetting`` and ``aum`` included (their per-seed fits are the
@@ -298,12 +315,38 @@ def _observed(command: str, cfg: Config, device_arg) -> dict:
             monitor.stop()
 
 
+def _render_plots(command: str, cfg: Config, since_ts: float) -> None:
+    """The JAX CLI's post-run plots into ``obs.plots_dir``: best-effort, a
+    failure is printed and the command still succeeds."""
+    from .obs.plots import plot_metrics, plot_score_stats, plot_scores, plot_utilization
+    from .train.loop import scores_npz_path, sweep_level_dir, sweep_levels, sweep_suffix
+    out = cfg.obs.plots_dir
+    try:
+        written = plot_metrics(cfg.obs.metrics_path, out, since_ts=since_ts)
+        written += plot_score_stats(cfg.obs.metrics_path, out, since_ts=since_ts)
+        if command in ("run", "score"):
+            written += plot_scores(scores_npz_path(cfg.train.checkpoint_dir), out)
+        elif command == "sweep":
+            for level in sweep_levels(cfg):
+                written += plot_scores(
+                    scores_npz_path(sweep_level_dir(cfg.train.checkpoint_dir, level)),
+                    out, name=f"score_distribution_{sweep_suffix(level)}.png")
+        if cfg.obs.monitor:
+            written += plot_utilization(cfg.obs.monitor_path, out, since_ts=since_ts)
+        for p in written:
+            print(f"[plots] wrote {p}", flush=True)
+    except Exception as exc:   # noqa: BLE001 — plots are best-effort; the run succeeded
+        print(f"[plots] rendering failed: {exc!r}", flush=True)
+
+
 def _serve_fleet(cfg: Config, args) -> int:
     """``serve.replicas > 1`` or ``serve.max_replicas``: supervise a fleet of
-    ``cli serve`` replicas behind the router; returns the fleet's exit status
+    ``cli serve`` replicas (each a group of ``mesh.num_processes`` ranks under
+    ``mesh.multihost``) behind the router; returns the fleet's exit status
     (75 after a SIGTERM drain). The terminal ``run_summary`` carries the
-    fleet's ``exit_class`` and ``lineage`` (replicas, generations, respawns,
-    restarts left)."""
+    fleet's ``exit_class`` and ``lineage`` (replicas, ranks, placement,
+    generations, respawns, restarts left). A layout the fleet cannot place
+    raises ValueError before any spawn."""
     from .serve.fleet import ServeFleet
     logger = elastic.JsonlLogger(cfg.obs.metrics_path)
     fleet = ServeFleet(cfg, config_path=args.config, overrides=args.overrides,
@@ -354,6 +397,7 @@ def main(argv: list[str] | None = None) -> int:
                         help="cuda (default; raises without CUDA) or cpu")
     parser.add_argument("overrides", nargs="*", help="dotted.key=value overrides")
     args = parser.parse_intermixed_args(argv)
+    run_started = time.time()
     cfg = load_config(args.config, args.overrides)
     if args.command == "serve":
         if ((cfg.serve.replicas > 1 or cfg.serve.max_replicas is not None)
@@ -412,6 +456,8 @@ def main(argv: list[str] | None = None) -> int:
     shutdown()
     if primary:
         print(json.dumps(out), flush=True)
+        if cfg.obs.plots_dir:
+            _render_plots(args.command, cfg, run_started)
     return 0
 
 

@@ -26,10 +26,11 @@ both takes effect.
 ``ServeConfig`` is copied whole with its validation; ``cli serve`` reads the
 single-process keys (on one rank or, with ``mesh.multihost``, on every rank of
 a group), and ``replicas > 1`` or ``max_replicas`` make it the serving fleet
-(``serve/fleet.py``: the router, autoscaler, probation and canary keys), which
-``mesh.multihost`` refuses by name (a fleet of meshes is not ported).
-``ObsConfig`` is copied whole with its validation; every key takes effect but
-``plots_dir``, which raises by name when set (not ported); ``slo_recovery_s``
+(``serve/fleet.py``: the router, autoscaler, probation and canary keys); with
+``mesh.multihost`` each replica of the fleet is a group of
+``mesh.num_processes`` ranks, whose ``coordinator_address`` and ``process_id``
+the fleet sets. ``ObsConfig`` is copied whole with its validation; every key
+takes effect (``plots_dir``: the post-run plots, ``obs/plots.py``); ``slo_recovery_s``
 is the cross-attempt recovery objective of a supervised run and
 ``slo_fleet_*`` the serving fleet's (``obs/slo.py``). ``TuningConfig`` is
 copied whole with its validation (``tuning.py``: the signed manifest the CLI
@@ -224,8 +225,8 @@ class ObsConfig:
     monitor and the training, serving, fleet and recovery SLOs
     (``slo_recovery_s``: a supervised relaunch's wall from the fault's
     classification to its first training step; ``slo_fleet_*``: the serving
-    fleet's router p95 and routable fraction). ``plots_dir`` (the post-run
-    plots) is not ported and raises by name when set."""
+    fleet's router p95 and routable fraction) and ``plots_dir`` (the post-run
+    plots, rendered by rank 0 after a command that was not preempted)."""
 
     # JSON lines {"ts", "kind", ...} of the command's records; None = none.
     metrics_path: str | None = "./metrics.jsonl"
@@ -529,12 +530,16 @@ class Config:
         m = self.mesh
         if m.model_axis < 1:
             raise ValueError(f"mesh.model_axis must be >= 1, got {m.model_axis}")
+        # A fleet of meshes: the fleet sets each rank's coordinator and id.
+        fleet = self.serve.replicas > 1 or self.serve.max_replicas is not None
         if m.multihost:
-            if not m.coordinator_address or not m.num_processes or m.process_id is None:
+            if not m.num_processes or m.num_processes < 1:
+                raise ValueError("mesh.multihost=true needs mesh.num_processes >= 1")
+            if not fleet and (not m.coordinator_address or m.process_id is None):
                 raise ValueError(
                     "mesh.multihost=true needs mesh.coordinator_address (host:port), "
                     "mesh.num_processes and mesh.process_id")
-            if not 0 <= m.process_id < m.num_processes:
+            if m.process_id is not None and not 0 <= m.process_id < m.num_processes:
                 raise ValueError(
                     f"mesh.process_id={m.process_id} is not in [0, "
                     f"{m.num_processes})")
@@ -550,12 +555,6 @@ class Config:
                     f"mesh.data_axis={m.data_axis} x mesh.model_axis={m.model_axis} "
                     f"must equal mesh.num_processes={m.num_processes} (one device "
                     "per rank)")
-            if self.serve.replicas > 1 or self.serve.max_replicas is not None:
-                raise ValueError(
-                    "mesh.multihost=true with serve.replicas > 1 or "
-                    "serve.max_replicas: a fleet of meshes is not ported to the "
-                    "PyTorch package (each replica would take every rank); "
-                    "serve a mesh with serve.replicas=1")
         self._validate_checkpoint_elastic()
         self._validate_obs_serve()
         return self
@@ -606,10 +605,6 @@ class Config:
 
     def _validate_obs_serve(self) -> None:
         o = self.obs
-        if o.plots_dir is not None:
-            raise NotImplementedError(
-                "obs.plots_dir: the post-run plots (obs/plots.py) are not ported "
-                "to the PyTorch package (ROADMAP.md Queue 1 item 3); leave it null")
         if o.snapshot_every_s < 0:
             raise ValueError(
                 f"obs.snapshot_every_s must be >= 0 (0 disables periodic "

@@ -6,8 +6,12 @@ the tracer, the flight recorder, program introspection and MFU
 communication telemetry, the SLO engine, per-rank heartbeats and the fleet
 view, request tracing and the status server; after a run, the
 cross-attempt timeline (``timeline.py``) and the post-mortem
-(``postmortem.py``, ``python -m data_diet_distributed_tpu_torch.obs.postmortem``).
+(``postmortem.py``, ``python -m data_diet_distributed_tpu_torch.obs.postmortem``)
+and the post-run plots (``plots.py``, exported here as in the JAX package).
 Every instrument sits in a module-level slot and is a no-op until installed
 (``session.ObsSession`` installs them for a command). The modules import
-torch only inside the functions that need it. ``obs/plots.py`` is not
-ported."""
+torch only inside the functions that need it."""
+
+from .plots import plot_metrics, plot_score_stats, plot_scores, plot_utilization
+
+__all__ = ["plot_metrics", "plot_score_stats", "plot_scores", "plot_utilization"]

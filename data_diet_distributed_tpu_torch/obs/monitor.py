@@ -147,8 +147,11 @@ class ResourceMonitor:
                         probe = None
                         duty = {"duty_cycle": None, "probe_ms": None,
                                 "probe_base_ms": None}
-                elif self._stop.wait(self.interval_s):
-                    break
+                else:
+                    # A stop mid-interval still ends in a sample of it, as the
+                    # JAX monitor's probe window always does: a command shorter
+                    # than one interval leaves one sample, not none.
+                    self._stop.wait(self.interval_s)
                 total, idle = _cpu_times()
                 dt, di = total - prev_total, idle - prev_idle
                 prev_total, prev_idle = total, idle

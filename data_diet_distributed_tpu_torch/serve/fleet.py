@@ -7,7 +7,29 @@ data_diet_distributed_tpu_torch.cli serve`` with the supervisor's
 ``--device``, each its own CUDA context and port, each knowing its index via
 ``DDT_SERVE_REPLICA``), fronted by the health-aware router (``router.py``) —
 the one address clients keep while replicas die, wedge, and come back. The
-supervisor never touches CUDA: on one card the replicas share it and own it.
+supervisor never touches CUDA (it counts the cards without it,
+``visible_cards``).
+
+A fleet of meshes (``mesh.multihost=true``): each replica is a group of W =
+``mesh.num_processes`` ranks (``ReplicaGroup``), one serving mesh of its own
+(``serve/server.py``: rank 0 binds the slot's port and answers, the other
+ranks follow). The fleet sets every rank's ``mesh.coordinator_address`` (a
+fresh port each generation) and ``mesh.process_id``; the router dials rank 0.
+The death of any rank is the replica's: it goes unroutable at once, its peers
+are SIGKILLed and reaped (a peer blocked in a collective would otherwise wait
+out ``resilience.consensus_grace_s``) and the whole group respawns on the
+slot's port, its ``died`` and ``respawn`` records naming the rank.
+
+A plain replica is a group of one process: the supervisor spawns, polls,
+reaps and respawns every replica as a ``ReplicaGroup``.
+
+Placement (``place_replicas``): under CUDA the j-th slot on the supervisor's
+host gets cards ``j*W .. j*W+W-1`` of that host through
+``CUDA_VISIBLE_DEVICES`` (rank r then takes ``cuda:r``); one-rank replicas
+past the cards wrap round-robin, and a mesh whose slots need more cards than
+the host has is refused by name before any spawn (NCCL refuses two ranks of
+a group on one card). A slot on a ``serve.hosts`` host keeps that host's own
+view.
 
 The machinery is the elastic pod's (``resilience/elastic.py``), re-aimed at
 serving: the same ``RestartBudget`` bounds respawns with exponential
@@ -105,6 +127,126 @@ from .router import Replica, ServeRouter
 #: A serve child's fleet index — set by the supervisor, read by the fault
 #: injector (replica-targeted plans) and the replica's own stats records.
 REPLICA_ENV = "DDT_SERVE_REPLICA"
+
+#: Run on a remote host through ``serve.remote_launch``: prints a free port.
+_FREE_PORT_PY = ("import socket; s = socket.socket(); s.bind(('', 0)); "
+                 "print(s.getsockname()[1])")
+
+
+def visible_cards() -> list[str]:
+    """The CUDA cards this process may hand out, counted without a CUDA
+    context: ``CUDA_VISIBLE_DEVICES`` when set, else the cards ``nvidia-smi
+    -L`` lists (a container may hide the NVIDIA module's ``/proc`` entries);
+    none on a host without it."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if env is not None:
+        return [c.strip() for c in env.split(",") if c.strip()]
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True, text=True,
+                             timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return []
+    return [str(i) for i in range(sum(line.startswith("GPU ")
+                                      for line in out.splitlines()))]
+
+
+def place_replicas(hosts: list[str | None], world: int, device: str | None,
+                   cards: list[str]) -> list[list[str] | None]:
+    """Each slot's cards (its ranks' ``CUDA_VISIBLE_DEVICES``), or None where
+    the slot keeps its host's own view. ``hosts`` holds each slot's remote
+    host, None for a slot on this host; ``cards`` are this host's. The j-th
+    slot on this host takes cards ``j*W .. j*W+W-1``; one-rank replicas past
+    the cards wrap round-robin. A remote slot is not placed: this host cannot
+    count that host's cards, and its ranks take ``cuda:0 .. cuda:W-1`` of
+    that host (``parallel/mesh.py``). Raises ValueError, before any spawn,
+    for a layout whose ranks of one group would share a card under NCCL."""
+    dev = device or "cuda"
+    if not dev.startswith("cuda"):
+        return [None] * len(hosts)
+    if ":" in dev:
+        if world > 1:
+            raise ValueError(
+                f"--device {dev} with mesh.num_processes={world}: every rank of a "
+                "replica would take that one card, and NCCL refuses two ranks on "
+                "one card; pass --device cuda and let the fleet place the ranks")
+        return [None] * len(hosts)   # the card the operator named, shared
+    local = [i for i, host in enumerate(hosts) if host is None]
+    if world > 1 and len(cards) < len(local) * world:
+        raise ValueError(
+            f"a fleet of {len(local)} replicas of {world} ranks on this host needs "
+            f"{len(local) * world} cards (one a rank: NCCL refuses two ranks of a "
+            f"group on one card); {len(cards)} visible")
+    out: list[list[str] | None] = [None] * len(hosts)
+    for j, i in enumerate(local):
+        if cards:
+            out[i] = [cards[(j * world + r) % len(cards)] for r in range(world)]
+    return out
+
+
+class ReplicaGroup:
+    """The rank processes of one replica (W in a fleet of meshes, else one),
+    supervised as one ``Popen``-like child (``poll``, ``wait``,
+    ``terminate``, ``kill``, ``returncode``, ``pid``). The group has ended
+    once any rank has: ``dead_rank`` is that rank (a rank killed by a signal
+    before one that exited, as the others exit because of it) and
+    ``returncode`` its status."""
+
+    def __init__(self, procs: list, coordinator: str | None,
+                 cards: list[str] | None):
+        self.procs = procs
+        self.coordinator = coordinator
+        self.cards = cards
+        self.dead_rank: int | None = None
+
+    @property
+    def pid(self) -> int:
+        return self.procs[0].pid
+
+    @property
+    def pids(self) -> list[int]:
+        return [p.pid for p in self.procs]
+
+    @property
+    def returncode(self) -> int | None:
+        return None if self.dead_rank is None else self.procs[self.dead_rank].returncode
+
+    @property
+    def rank_rcs(self) -> list[int | None]:
+        return [p.returncode for p in self.procs]
+
+    def poll(self) -> int | None:
+        rcs = [p.poll() for p in self.procs]
+        if self.dead_rank is None:
+            ended = [r for r, rc in enumerate(rcs) if rc is not None]
+            if not ended:
+                return None
+            self.dead_rank = min(ended, key=lambda r: (rcs[r] >= 0, r))
+        return self.returncode
+
+    def wait(self, timeout: float | None = None) -> int | None:
+        """Waits for every rank (``subprocess.TimeoutExpired`` past
+        ``timeout``)."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        for p in self.procs:
+            p.wait(timeout=None if deadline is None
+                   else max(0.0, deadline - time.monotonic()))
+        return self.poll()
+
+    def terminate(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.terminate()
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+
+    def close_logs(self) -> None:
+        for p in self.procs:
+            fh = getattr(p, "_ddt_log_fh", None)
+            if fh is not None:
+                fh.close()
 
 
 def fleet_dir(checkpoint_dir: str) -> str:
@@ -226,25 +368,45 @@ class ServeFleet:
     """Bounded-restart supervisor over N serve replicas + the router.
 
     ``spawn(index, generation)`` (injectable for tests) must return a
-    ``subprocess.Popen``-like object; ``fault_env(index, generation)``
+    ``subprocess.Popen``-like object, one rank of the slot's group;
+    ``fault_env(index, generation)``
     returns extra child environment — generation-0 children inherit the
     operator's ``DDT_FAULT_PLAN``, respawns never do (a replica-killing
     plan re-arming on every respawn would burn the budget on one fault).
     ``device`` is the supervisor's ``--device``, passed to every replica.
+    ``cards`` (default ``visible_cards()``) are this host's cards that
+    ``place_replicas`` hands out; a layout it refuses raises ValueError here,
+    before any spawn.
     """
 
     def __init__(self, cfg, *, config_path: str | None = None,
                  overrides: list[str] | None = None, logger=None,
-                 spawn=None, fault_env=None, device: str | None = None):
+                 spawn=None, fault_env=None, device: str | None = None,
+                 cards: list[str] | None = None):
         self.cfg = cfg
         self.config_path = config_path
         self.overrides = list(overrides or [])
         self.device = device
         self.logger = logger
-        self._spawn = spawn or self._spawn_backend
+        self._spawn_rank = ((lambda index, gen, rank, coordinator: spawn(index, gen))
+                            if spawn is not None else self._spawn_process)
         self._fault_env = fault_env
         sv = cfg.serve
         self.n = int(sv.replicas)
+        # A fleet of meshes: each replica W ranks that meet at a coordinator.
+        self.mesh = bool(cfg.mesh.multihost)
+        self.world = int(cfg.mesh.num_processes) if self.mesh else 1
+        if cards is None:   # counted only where the replicas run on cards
+            cards = visible_cards() if (device or "cuda").startswith("cuda") else []
+        # Every slot the fleet may fill (the autoscaler's bound included).
+        slots = max(self.n, int(sv.max_replicas or 0))
+        self.placement = place_replicas([self._host_for(i) for i in range(slots)],
+                                        self.world, device, cards)
+        # An operator's coordinator and process id give way to the fleet's.
+        self.mesh_overridden = ({k: getattr(cfg.mesh, k) for k in
+                                 ("coordinator_address", "process_id")
+                                 if getattr(cfg.mesh, k) is not None}
+                                if self.mesh else {})
         self.budget = RestartBudget(int(cfg.elastic.max_restarts),
                                     float(cfg.elastic.backoff_s))
         self.reap_timeout_s = float(cfg.elastic.reap_timeout_s)
@@ -349,7 +511,10 @@ class ServeFleet:
             return None
         return hosts[index % len(hosts)]
 
-    def _child_argv(self, index: int) -> list[str]:
+    def _child_argv(self, index: int, rank: int = 0,
+                    coordinator: str | None = None) -> list[str]:
+        """A replica's argv; in a fleet of meshes, rank ``rank``'s of the
+        group that meets at ``coordinator``."""
         argv = [sys.executable, "-m", "data_diet_distributed_tpu_torch.cli",
                 "serve"]
         if self.config_path:
@@ -359,8 +524,8 @@ class ServeFleet:
         argv += self.overrides
         # Appended LAST so the fleet's geometry wins over the operator's:
         # one replica per child (no recursion), its own port/bind-host and
-        # heartbeat root (replicas are all rank 0 — a shared heartbeat file
-        # would make them overwrite each other), refresh rolled by the
+        # heartbeat root (every replica has a rank 0 — a shared root would
+        # make them overwrite each other's files), refresh rolled by the
         # FLEET (a per-replica watcher racing the roll could tear the
         # one-at-a-time discipline), and no elastic supervision inside.
         # A remote slot binds its own host — the address the router dials.
@@ -374,6 +539,12 @@ class ServeFleet:
                  "serve.refresh_poll_s=null",
                  "elastic.enabled=false",
                  f"obs.heartbeat_dir={os.path.join(self.log_dir, f'hb_r{index}')}"]
+        if self.mesh:
+            # The group's geometry is the fleet's, whatever the operator's
+            # mesh keys said.
+            argv += ["mesh.multihost=true", f"mesh.num_processes={self.world}",
+                     f"mesh.coordinator_address={coordinator}",
+                     f"mesh.process_id={rank}"]
         return argv
 
     def _child_env(self, index: int, generation: int) -> dict:
@@ -381,6 +552,8 @@ class ServeFleet:
         supervisor env + these; remote: these ride the launch argv)."""
         env = dict(os.environ)
         env[REPLICA_ENV] = str(index)
+        if self.placement[index] is not None:
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(self.placement[index])
         # Lineage attempt stays 0 (see module docstring); world = fleet size.
         env.update(lineage.child_env(self.run_id, 0, self.n))
         if generation > 0:
@@ -393,25 +566,41 @@ class ServeFleet:
             env.update(self._fault_env(index, generation) or {})
         return env
 
-    def _open_log(self, index: int, generation: int):
+    def _log_path(self, index: int, generation: int, rank: int = 0) -> str:
+        return os.path.join(self.log_dir, f"replica{index}_r{rank}_g{generation}.log")
+
+    def _open_log(self, index: int, generation: int, rank: int = 0):
         os.makedirs(self.log_dir, exist_ok=True)
-        log_path = os.path.join(self.log_dir,
-                                f"replica{index}_g{generation}.log")
+        log_path = self._log_path(index, generation, rank)
         return log_path, open(log_path, "ab")
 
-    def _spawn_backend(self, index: int, generation: int):
-        """Default spawn: local fork, or the remote-launch template when
-        the slot has a ``serve.hosts`` placement."""
+    def _spawn(self, index: int, generation: int) -> ReplicaGroup:
+        """Starts slot ``index``'s ranks, all on its host, as one group. A
+        mesh's coordinator is a fresh port of that host each generation."""
+        host = self._host_for(index)
+        coordinator = None
+        if self.mesh:
+            port = free_port() if host is None else self._remote_free_port(host)
+            coordinator = f"{host or '127.0.0.1'}:{port}"
+        return ReplicaGroup([self._spawn_rank(index, generation, rank, coordinator)
+                             for rank in range(self.world)],
+                            coordinator, self.placement[index])
+
+    def _spawn_process(self, index: int, generation: int, rank: int,
+                       coordinator: str | None):
+        """One rank: a local fork, or the remote-launch template when the
+        slot has a ``serve.hosts`` placement."""
         host = self._host_for(index)
         if host is None:
-            return self._spawn_local(index, generation)
-        return self._spawn_remote(index, generation, host)
+            return self._spawn_local(index, generation, rank, coordinator)
+        return self._spawn_remote(index, generation, host, rank, coordinator)
 
-    def _spawn_local(self, index: int, generation: int):
+    def _spawn_local(self, index: int, generation: int, rank: int = 0,
+                     coordinator: str | None = None):
         env = self._child_env(index, generation)
-        log_path, log_fh = self._open_log(index, generation)
-        proc = subprocess.Popen(self._child_argv(index), stdout=log_fh,
-                                stderr=subprocess.STDOUT, env=env)
+        log_path, log_fh = self._open_log(index, generation, rank)
+        proc = subprocess.Popen(self._child_argv(index, rank, coordinator),
+                                stdout=log_fh, stderr=subprocess.STDOUT, env=env)
         proc._ddt_log_path = log_path       # type: ignore[attr-defined]
         proc._ddt_log_fh = log_fh           # type: ignore[attr-defined]
         return proc
@@ -426,8 +615,8 @@ class ServeFleet:
                           lineage.RUN_ID_ENV, lineage.ATTEMPT_ENV,
                           lineage.WORLD_ENV)
 
-    def _remote_argv(self, index: int, generation: int,
-                     host: str) -> list[str]:
+    def _remote_argv(self, index: int, generation: int, host: str,
+                     rank: int = 0, coordinator: str | None = None) -> list[str]:
         """The RemoteReplicaBackend launch line: the ``serve.remote_launch``
         template (formatted with {host}) yields the argv prefix that
         executes a command on the host — the same worker-launch plumbing
@@ -444,25 +633,47 @@ class ServeFleet:
         # too — unset it explicitly so both template styles agree with ssh
         # semantics (a real remote login env never had it).
         unset = ["-u", "DDT_FAULT_PLAN"] if generation > 0 else []
-        return prefix + ["env", *unset, *carried] + self._child_argv(index)
+        return (prefix + ["env", *unset, *carried]
+                + self._child_argv(index, rank, coordinator))
 
-    def _spawn_remote(self, index: int, generation: int, host: str):
+    def _remote_free_port(self, host: str) -> int:
+        """A free port on ``host``, asked of it through the launch template:
+        a group's coordinator listens on its rank 0's host, not here."""
+        prefix = shlex.split(self.cfg.serve.remote_launch.format(host=host))
+        out = subprocess.run(prefix + [sys.executable, "-c", _FREE_PORT_PY],
+                             capture_output=True, text=True, timeout=60)
+        try:
+            return int(out.stdout.split()[-1])
+        except (IndexError, ValueError):
+            raise RuntimeError(
+                f"no free port from {host} through serve.remote_launch "
+                f"(exit {out.returncode}): {out.stderr[-500:]}") from None
+
+    def _spawn_remote(self, index: int, generation: int, host: str,
+                      rank: int = 0, coordinator: str | None = None):
         """Spawn a serve child on ``host`` via the launch template. The
         launcher is supervised exactly like a local child — poll, SIGTERM,
         reap — and its lifetime is the remote process's lifetime (ssh
         semantics: the remote side gets HUP when the launcher dies).
         stdout/stderr land in the same per-replica fleet logs."""
-        log_path, log_fh = self._open_log(index, generation)
-        proc = subprocess.Popen(self._remote_argv(index, generation, host),
-                                stdout=log_fh, stderr=subprocess.STDOUT)
+        log_path, log_fh = self._open_log(index, generation, rank)
+        proc = subprocess.Popen(
+            self._remote_argv(index, generation, host, rank, coordinator),
+            stdout=log_fh, stderr=subprocess.STDOUT)
         proc._ddt_log_path = log_path       # type: ignore[attr-defined]
         proc._ddt_log_fh = log_fh           # type: ignore[attr-defined]
         proc._ddt_remote_host = host        # type: ignore[attr-defined]
         return proc
 
-    def _tail(self, index: int, generation: int) -> str:
-        path = os.path.join(self.log_dir,
-                            f"replica{index}_g{generation}.log")
+    def _spawn_fields(self, index: int) -> dict:
+        """Where slot ``index``'s new group runs, for its ``spawn`` or
+        ``respawn`` record: its rank pids, coordinator and cards."""
+        group = self.procs[index]
+        return {"pids": group.pids, "coordinator": group.coordinator,
+                "cards": group.cards}
+
+    def _tail(self, index: int, generation: int, rank: int = 0) -> str:
+        path = self._log_path(index, generation, rank)
         try:
             with open(path, "rb") as fh:
                 fh.seek(0, os.SEEK_END)
@@ -486,16 +697,19 @@ class ServeFleet:
             self.router.set_health(index, False)
             if term_first and proc.poll() is None:
                 proc.terminate()
+            else:
+                # A rank is gone: its peers are torn (the group's next
+                # collective would only fail after the consensus grace).
+                proc.kill()
             try:
                 proc.wait(timeout=self.reap_timeout_s)
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait()
             rc = proc.returncode
-            fh = getattr(proc, "_ddt_log_fh", None)
-            if fh is not None:
-                fh.close()
+            proc.close_logs()
             gen = self.gens[index]
+            rank = proc.dead_rank or 0
             died_by_signal = rc is not None and rc < 0
             self._replica_event(
                 index,
@@ -504,10 +718,11 @@ class ServeFleet:
                 cause=cause, rc=rc,
                 signal=(-rc if died_by_signal else None),
                 exit_class=(classify_rc(rc) if not died_by_signal else None),
-                generation=gen)
+                generation=gen, rank=rank, rank_rcs=proc.rank_rcs,
+                coordinator=proc.coordinator)
             if self.budget.exhausted():
                 print(f"[fleet] replica {index} g{gen} rc={rc} tail:\n"
-                      f"{self._tail(index, gen)}", file=sys.stderr,
+                      f"{self._tail(index, gen, rank)}", file=sys.stderr,
                       flush=True)
                 self._give_up = True
                 self._stop.set()
@@ -525,7 +740,8 @@ class ServeFleet:
             self._replica_event(index, "respawn",
                                 generation=self.gens[index],
                                 port=self.ports[index],
-                                restarts_left=self.budget.left)
+                                restarts_left=self.budget.left, dead_rank=rank,
+                                **self._spawn_fields(index))
 
     # -------------------------------------------------------------- polling
 
@@ -734,7 +950,8 @@ class ServeFleet:
             self.n += 1
             self.procs[index] = self._spawn(index, 0)
             self._replica_event(index, "spawn", generation=0, port=port,
-                                cause="autoscale")
+                                cause="autoscale",
+                                **self._spawn_fields(index))
         return True
 
     def _shrink_one(self) -> int | None:
@@ -763,9 +980,8 @@ class ServeFleet:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait()
-        fh = getattr(proc, "_ddt_log_fh", None)
-        if fh is not None:
-            fh.close()
+        if proc is not None:
+            proc.close_logs()
         self._retiring.discard(index)
         self._replica_event(index, "retired", cause="autoscale",
                             rc=(proc.returncode if proc is not None
@@ -865,9 +1081,8 @@ class ServeFleet:
                 except subprocess.TimeoutExpired:
                     proc.kill()
                     proc.wait()
-            fh = getattr(proc, "_ddt_log_fh", None)
-            if fh is not None:
-                fh.close()
+            if proc is not None:
+                proc.close_logs()
             self.gens[index] += 1
             self.replicas[index].generation = self.gens[index]
             # Fresh generation: its boot window is not a partition.
@@ -877,7 +1092,8 @@ class ServeFleet:
             self.procs[index] = self._spawn(index, self.gens[index])
             self._replica_event(index, "tuning_respawn",
                                 generation=self.gens[index],
-                                port=self.ports[index])
+                                port=self.ports[index],
+                                **self._spawn_fields(index))
         deadline = time.monotonic() + self.tuning_roll_wait_s
         rep = self.replicas[index]
         while time.monotonic() < deadline and not self._stop.is_set():
@@ -903,15 +1119,20 @@ class ServeFleet:
                 self.procs[index] = self._spawn(index, 0)
                 self._replica_event(index, "spawn", generation=0,
                                     port=self.ports[index],
-                                    host=self.slot_hosts[index])
+                                    host=self.slot_hosts[index],
+                                    **self._spawn_fields(index))
         # Unroutable until their first reachable /healthz — the router must
         # not send real traffic into a replica that is still compiling.
         for rep in self.replicas:
             rep.healthy = False
         port = self.router.bind()
-        self._event("launch", router_port=port)
+        self._event("launch", router_port=port, ranks=self.world,
+                    placement=self.placement[:self.n],
+                    **({"mesh_overridden": self.mesh_overridden}
+                       if self.mesh_overridden else {}))
         print(f"[fleet] router on http://{self.cfg.serve.host}:{port} "
-              f"({self.n} replicas, ports {self.ports})", flush=True)
+              f"({self.n} replicas of {self.world} ranks, ports "
+              f"{self.ports}, cards {self.placement[:self.n]})", flush=True)
         self._threads = [
             threading.Thread(target=self._health_loop,
                              name="fleet-health", daemon=True),
@@ -979,16 +1200,14 @@ class ServeFleet:
                 proc.kill()
                 proc.wait()
             rcs.append(proc.returncode)
-            fh = getattr(proc, "_ddt_log_fh", None)
-            if fh is not None:
-                fh.close()
+            proc.close_logs()
         self._emit_stats()
         self.router.stop()
         if self._give_up:
             self._event("give_up", rcs=rcs)
             return max((rc for rc in rcs if rc and rc > 0), default=1)
         self._event("preempted_exit" if self._preempted else "complete",
-                    rcs=rcs)
+                    rcs=rcs, rank_rcs=[p.rank_rcs for p in procs if p is not None])
         return EXIT_PREEMPTED if self._preempted else 0
 
     # ------------------------------------------------------------- terminal
@@ -998,6 +1217,8 @@ class ServeFleet:
         lineage twin): replica count, per-slot generations (how many times
         each was respawned), and the budget left."""
         return {"run_id": self.run_id, "replicas": self.n,
+                "ranks": self.world,
+                "placement": self.placement[:len(self.gens)],
                 "generations": list(self.gens),
                 "respawns": sum(self.gens),
                 "restarts_left": self.budget.left}

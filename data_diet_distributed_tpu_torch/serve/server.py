@@ -9,8 +9,9 @@ endpoints:
   (``{"indices": [...]}`` for registered-dataset examples, or
   ``{"images": [...], "labels": [...]}`` for new ones); requests coalesce
   through the batcher into padded dispatches on the card. 429 + Retry-After
-  past the admission bound, 503 while draining, 504 past the request budget,
-  500 when the dispatch itself failed (never a plain-route answer).
+  past the admission bound, 503 while draining or once the serving group is
+  lost (a peer rank died), 504 past the request budget, 500 when the
+  dispatch itself failed (never a plain-route answer).
 * ``POST /v1/rank`` — re-rank a slice hardest-first from resident scores.
 * ``GET /v1/topk?tenant=&method=&k=`` — top-k hardest, streamed as
   newline-delimited JSON so a ``[N]``-sized response body never exists.
@@ -30,7 +31,9 @@ scores ``serve.methods`` on the main thread BEFORE the socket binds, which
 builds the CUDA kernels there (``serve.warm=false`` builds them at the first
 dispatch, on the dispatcher thread under the engine lock). Several replicas
 behind the router are ``fleet.py``'s; each is this ``cli serve`` with
-``DDT_SERVE_REPLICA`` set. ``/status`` also carries the process's
+``DDT_SERVE_REPLICA`` set (in a fleet of meshes, each rank of the replica's
+group; rank 0's ``/healthz`` turns critical once the group is lost).
+``/status`` also carries the process's
 ``kernel_launches`` so far, the group's ``world`` and each rank's launches as
 of the last stats point (``rank_kernel_launches``).
 
@@ -273,6 +276,14 @@ class ServeServer(obs_server.StatusServer):
             out.setdefault("reasons", []).append(
                 f"serve dispatcher stalled: dispatch in flight "
                 f"{age:.1f}s > serve.dispatch_stall_s={budget:g}")
+        lost = self.service.engine.group_error
+        if lost is not None:
+            # A peer of the serving group is gone: no operation can run, so
+            # a fleet's router stops routing here before its supervisor
+            # has seen the death.
+            out["status"] = "critical"
+            out.setdefault("reasons", []).append(
+                f"serving group lost: {lost!r}"[:300])
         return out
 
 
@@ -447,6 +458,12 @@ class ServeService:
                     {"Retry-After": max(1, round(exc.retry_after_s))})
         except Draining:
             return 503, {"error": "service is draining; admission stopped"}, {}
+        except GroupLost as exc:
+            # A peer rank is gone and this replica with it: a keyed client
+            # retries, and the fleet's router has stopped routing here.
+            return (503, {"error": f"serving group lost: {exc}"[:300],
+                          "retry_after_s": self.cfg.serve.retry_after_s},
+                    {"Retry-After": max(1, round(self.cfg.serve.retry_after_s))})
         except TimeoutError as exc:
             return 504, {"error": str(exc)[:300]}, {}
         except (KeyError, ValueError) as exc:

@@ -1,1 +1,2 @@
-"""Artifact I/O helpers (counterpart of ``data_diet_distributed_tpu/utils``)."""
+"""Artifact I/O, statistics and size helpers (counterpart of
+``data_diet_distributed_tpu/utils``)."""

@@ -47,21 +47,6 @@ def _summary(capsys) -> dict:
     return json.loads(lines[-1])
 
 
-# What is not ported yet still refuses by name, before any work: a fleet of
-# meshes (a serving group behind the router).
-@pytest.mark.parametrize("argv,match", [
-    (["serve", "--config", SMOKE, "--device", "cpu", "mesh.multihost=true",
-      "mesh.coordinator_address=127.0.0.1:1", "mesh.num_processes=1",
-      "mesh.process_id=0", "serve.replicas=2"], "a fleet of meshes is not ported"),
-    (["serve", "--config", SMOKE, "--device", "cpu", "mesh.multihost=true",
-      "mesh.coordinator_address=127.0.0.1:1", "mesh.num_processes=1",
-      "mesh.process_id=0", "serve.max_replicas=3"], "a fleet of meshes is not ported"),
-])
-def test_cli_refuses_what_is_not_ported(argv, match):
-    with pytest.raises(ValueError, match=match):
-        cli.main(argv)
-
-
 def test_cli_serve_subprocess_scores_bitwise_and_exits_75(tmp_path):
     """``cli serve --device cpu`` boots on port 0 (announced on stderr), scores
     a request bitwise the in-process engine on the same init variables, and a

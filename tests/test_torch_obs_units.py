@@ -317,20 +317,15 @@ def test_memory_monitor_stands_down_on_cpu_and_kernels_report_work():
     assert math.isclose(introspect.device_peak_flops("cpu")[0] or 0, 0) is False
 
 
-@pytest.mark.parametrize("key", ["plots_dir=/tmp/p", "slo_fleet_p95_ms=5",
+@pytest.mark.parametrize("key", ["slo_fleet_p95_ms=5",
                                  "slo_fleet_available_frac=0.5", "slo_recovery_s=9"])
 def test_unported_obs_keys_refuse_by_name(key):
-    """The keys whose instruments the port lacks refuse by name; the recovery
-    SLO (ported with the elastic supervisor) and the fleet SLOs (ported with
-    the serving fleet) are accepted and armed."""
+    """The recovery SLO (ported with the elastic supervisor) and the fleet
+    SLOs (ported with the serving fleet) are accepted and armed."""
     name, value = key.split("=")
-    if name.startswith("slo_"):
-        cfg = load_config(None, [f"obs.{key}"])
-        assert getattr(cfg.obs, name) == float(value)
-        assert slo.SloEngine.from_cfg(cfg).objectives() == {name[4:]: float(value)}
-        return
-    with pytest.raises(NotImplementedError, match=f"obs.{name}"):
-        load_config(None, [f"obs.{key}"])
+    cfg = load_config(None, [f"obs.{key}"])
+    assert getattr(cfg.obs, name) == float(value)
+    assert slo.SloEngine.from_cfg(cfg).objectives() == {name[4:]: float(value)}
 
 
 def test_mfu_units_leave_out_the_warm_up_and_a_capture(tmp_path, monkeypatch):

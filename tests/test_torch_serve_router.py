@@ -448,11 +448,17 @@ def restore_lineage():
 
 
 class _RollProc:
+    pid = None
+
     def __init__(self):
         self.terminated = False
 
     def poll(self):
         return 0 if self.terminated else None
+
+    @property
+    def returncode(self):
+        return self.poll()
 
     def terminate(self):
         self.terminated = True
@@ -479,8 +485,10 @@ def _tuning_roll(fleet_mod, load, tmp):
 
     f = fleet_mod.ServeFleet(_fleet_cfg(load, tmp), logger=log, spawn=spawn)
     originals = [_RollProc() for _ in range(f.n)]
+    # The port supervises every replica as a group (of one process here).
+    group = getattr(fleet_mod, "ReplicaGroup", None)
     for i, p in enumerate(originals):
-        f.procs[i] = p
+        f.procs[i] = p if group is None else group([p], None, None)
     f._poll_health = lambda rep: {"status": "ok"}
     ok = f._tuning_roll("m.json", "d1")
     first = {"ok": ok, "spawned": list(spawned), "terminated": [p.terminated for p in originals],

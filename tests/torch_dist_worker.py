@@ -32,6 +32,10 @@ scenarios of GROUP and writes ``OUT_DIR/result_<RANK>.npz`` and
   ``trajectory_scores``; a ZeRO-1 ``fit`` through the local tier; then the
   group is left and ``cli run`` joins a new one with ``mesh.multihost=true
   mesh.model_axis=2``, each fit's head shapes recorded.
+* ``fleet_ref`` (``test_torch_serve_fleet_mesh.py``): EL2N and GraNd
+  ``score_dataset`` at W = 2 of the served configuration whose overrides
+  ``OUT_DIR/args.json`` holds, on the checkpoint ``score.score_ckpt_step``
+  it serves.
 """
 
 from __future__ import annotations
@@ -401,6 +405,21 @@ def serve(out_dir: str) -> dict:
     return result
 
 
+def fleet_ref(out_dir: str) -> dict:
+    from data_diet_distributed_tpu_torch.checkpoint import CheckpointManager
+    from data_diet_distributed_tpu_torch.models import create_model_from_cfg
+
+    with open(os.path.join(out_dir, "args.json")) as fh:
+        cfg = load_config(None, json.load(fh))
+    ds, _ = loop.load_data_for(cfg)
+    variables = CheckpointManager(cfg.train.checkpoint_dir).restore_variables(
+        cfg.score.score_ckpt_step, "cpu")
+    model = create_model_from_cfg(cfg)
+    return {m: score_dataset(model, [variables], ds, method=m,
+                             batch_size=cfg.score.batch_size, chunk=cfg.score.grand_chunk,
+                             device="cpu").tolist() for m in ("el2n", "grand")}
+
+
 def main() -> None:
     rank, world, port, out_dir, group = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                                          sys.argv[4], sys.argv[5])
@@ -409,7 +428,7 @@ def main() -> None:
                                          num_processes=world, process_id=rank,
                                          model_axis=2 if group == "tp" else 1), "cpu")
     result = {"numerics": numerics, "drills": drills, "hang": hang,
-              "serve": serve, "tp": tp}[group](out_dir)
+              "serve": serve, "tp": tp, "fleet_ref": fleet_ref}[group](out_dir)
     result["rank"] = rank
     if group in ("numerics", "tp"):
         np.savez(os.path.join(out_dir, f"result_{rank}.npz"), **result)

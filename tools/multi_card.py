@@ -9,6 +9,8 @@
     python3 tools/multi_card.py --only-serve --device cpu --world 4 --examples 256
     python3 tools/multi_card.py --only-tp [--out DIR]       # step 9 alone
     python3 tools/multi_card.py --only-tp --device cpu --world 4 --examples 256
+    python3 tools/multi_card.py --only-fleet-mesh [--out DIR]  # step 10 alone
+    python3 tools/multi_card.py --only-fleet-mesh --device cpu --world 4 --examples 256
 
 Starts W rank processes of this script (each with a timeout; a rank that
 fails fails the run) that join a group through
@@ -91,6 +93,28 @@ fails fails the run) that join a group through
    NCCL time, launches; rank 0's tables in
    ``<out>/multi_card_tp_profile_w<W>.txt``). With ``--only-tp`` only this
    step runs.
+10. a fleet of meshes across the cards (``--only-fleet-mesh`` runs it, and
+   only it): ``cli serve serve.replicas=W/2 mesh.multihost=true
+   mesh.num_processes=2`` (step 8's recipe, ``serve.warm=false``; NCCL, each
+   replica on its own two cards, placed by the fleet), each rank's card
+   shown from outside it (its ``CUDA_VISIBLE_DEVICES``, the card uuids a
+   CUDA process sees under that list matched to ``nvidia-smi``'s indices)
+   and from the cards' side: the memory in use per card, read before the
+   fleet starts and once it is routable, must rise by at least
+   ``CONTEXT_MIB`` on every placed card and by less on any other
+   (``nvidia-smi --query-compute-apps`` is reported beside it). Every answer
+   through the
+   router (``/v1/topk``, ``/v1/score`` of 100 and 512 ids, ``/v1/rank``, and
+   4 clients x 25 requests of 1-64 ids per method) is bitwise
+   ``score_dataset`` on two ranks at batch 512, scored first by two ranks of
+   this script; p50/p95 per method. Then rank 1 of replica 1 is SIGKILLed
+   under keyed load (2 clients, retries): 0 failures, every answer bitwise,
+   a ``died`` record naming that rank, the group respawned on its port on a
+   new coordinator, the respawn wall (death to both replicas routable);
+   SIGTERM -> 75 from the supervisor and every rank. Then ``serve.replicas=W``
+   plain replicas, one a card: the same answers, bitwise ``score_dataset`` on
+   one rank at 512, p50/p95, SIGTERM -> 75. On the CPU (gloo) nothing is
+   placed.
 
 Prints one line per step and, as the last line, a JSON object of the
 numbers (also written to ``<out>/multi_card.json``), with the cards' name and
@@ -567,6 +591,8 @@ def main(argv: list[str]) -> int:
                         help="run step 8 (serving across the cards) alone")
     parser.add_argument("--only-tp", action="store_true",
                         help="run step 9 (the tensor-parallel head) alone")
+    parser.add_argument("--only-fleet-mesh", action="store_true",
+                        help="run step 10 (a fleet of meshes across the cards) alone")
     args = parser.parse_args(argv)
     import torch
     cuda = args.device == "cuda"
@@ -610,6 +636,10 @@ def main(argv: list[str]) -> int:
     if args.only_tp:
         out = {"world": world, "cards": cards,
                "tp": tp_step(torch, world, args.device, args.examples, work, args.out)}
+        return finish_run(args, out, work, cards, t_run)
+    if args.only_fleet_mesh:
+        out = {"world": world, "cards": cards,
+               "fleet_mesh": fleet_mesh_step(world, args.device, args.examples, work)}
         return finish_run(args, out, work, cards, t_run)
     port = free_port()
     ranks = [spawn(["--worker", str(r), str(world), port, work, args.device,
@@ -978,6 +1008,300 @@ def serve_step(world: int, device: str, n: int, work: str, reference: str | None
           f"against { {m: (round(v['p50_ms'], 2), round(v['p95_ms'], 2)) for m, v in one['latency'].items()} }; "
           f"one card's max abs from the W-rank vectors {one['max_abs']}; SIGTERM -> every "
           f"rank 75", flush=True)
+    return out
+
+
+FLEET_RANKS = 2                # ranks a replica of step 10's fleet of meshes
+FLEET_BOOT_S = 600
+
+
+def fleet_records(path: str) -> list[dict]:
+    out = []
+    if os.path.exists(path):
+        with open(path, errors="replace") as fh:
+            for line in fh:
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    continue
+    return out
+
+
+def card_evidence(pids: list[int]) -> dict:
+    """Where the ranks run, from outside them: each process's
+    ``CUDA_VISIBLE_DEVICES``; which cards (``nvidia-smi`` indices) such a
+    list means, asked of a CUDA process started with it (``uuid`` of each
+    visible device against ``nvidia-smi --query-gpu=index,uuid``); the memory
+    in use per card; and the contexts ``nvidia-smi --query-compute-apps``
+    attributes per card (reported only: in a container it may name other
+    pids and cards)."""
+    def smi(query: str) -> list[list[str]]:
+        out = subprocess.run(["nvidia-smi", query, "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60).stdout
+        return [[x.strip() for x in line.split(",")] for line in out.strip().splitlines()]
+    gpus = smi("--query-gpu=index,uuid,pci.bus_id,memory.used")
+    by_uuid = {u.lower().removeprefix("gpu-"): int(i) for i, u, _, _ in gpus}
+    by_bus = {b: int(i) for i, _, b, _ in gpus}
+    apps: dict[int, int] = {}
+    for _, bus in smi("--query-compute-apps=pid,gpu_bus_id"):
+        apps[by_bus.get(bus, -1)] = apps.get(by_bus.get(bus, -1), 0) + 1
+    visible = {}
+    for pid in pids:
+        with open(f"/proc/{pid}/environ", "rb") as fh:
+            pairs = [x.split(b"=", 1) for x in fh.read().split(b"\0") if b"=" in x]
+        visible[pid] = dict(pairs).get(b"CUDA_VISIBLE_DEVICES", b"").decode()
+    means = {}
+    for v in sorted(set(visible.values())):
+        probe = subprocess.run(
+            [sys.executable, "-c", "import torch; print(' '.join(str(torch.cuda."
+             "get_device_properties(i).uuid) for i in range(torch.cuda.device_count())))"],
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": v}, capture_output=True, text=True,
+            timeout=120)
+        means[v] = [by_uuid.get(u.lower().removeprefix("gpu-"), -1)
+                    for u in probe.stdout.split()]
+    return {"visible_by_pid": visible, "cards_of_visible": means,
+            "memory_used_mib": {int(i): float(m) for i, _, _, m in gpus},
+            "apps_per_card_reported": dict(sorted(apps.items()))}
+
+
+FLEET_STATS_S = 1.0           # serve.stats_every_s: the cadence of the ranks' launch gather
+#: A card that took a rank's CUDA context rises by at least this much memory
+#: (a context with the port's kernels and the model on an H100 is ~800 MiB).
+CONTEXT_MIB = 256.0
+
+
+def card_memory() -> dict[int, float]:
+    """``nvidia-smi``'s memory in use per card (MiB), by card index."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=index,memory.used",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60).stdout
+    return {int(i): float(m) for i, m in (line.split(",") for line in out.strip().splitlines())}
+
+
+def dispatch_launches(port: int, ds) -> list[dict]:
+    """Each rank's kernel launches for one ``SCORE_B``-id GraNd and one EL2N
+    dispatch on the replica answering at ``port``: ``/status``
+    ``rank_kernel_launches`` (gathered at each stats point) across them."""
+    def snap() -> list[dict]:
+        time.sleep(2.5 * FLEET_STATS_S)
+        code, raw = http(port, "/status")
+        check(code == 200, f"10. /status of replica port {port}: {code}")
+        return json.loads(raw)["rank_kernel_launches"]
+    before = snap()
+    for m in ("grand", "el2n"):
+        code, raw = http(port, "/v1/score", {"indices": ds.indices[:SCORE_B].tolist(),
+                                             "method": m})
+        check(code == 200, f"10. a {m} dispatch on port {port}: {code}")
+    after = snap()
+    return [{k: a[k] - b.get(k, 0) for k in a if a[k] != b.get(k, 0)}
+            for a, b in zip(after, before)]
+
+
+def fleet_run(label: str, d: str, argv: list[str], device: str, ds, ref: dict,
+              ranks: int, kill: bool) -> dict:
+    """One ``cli serve`` fleet of step 10: booted, placed, driven through the
+    router (every answer held bitwise to ``ref``), optionally the kill drill,
+    then SIGTERMed. Returns its numbers."""
+    import importlib.util
+    import signal
+    import threading
+    spec = importlib.util.spec_from_file_location(
+        "serve_client", os.path.join(REPO, "tools", "serve_client.py"))
+    sc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sc)
+    metrics = os.path.join(d, f"{label}_metrics.jsonl")
+    env = {k: v for k, v in os.environ.items() if k != "DDT_FAULT_PLAN"}
+    env["PYTHONPATH"] = REPO
+    log = open(os.path.join(d, f"{label}_supervisor.log"), "w")
+    mem_before = card_memory() if device == "cuda" else {}
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "data_diet_distributed_tpu_torch.cli", "serve", "--device",
+         device, *argv, f"obs.metrics_path={metrics}",
+         f"train.checkpoint_dir={d}/{label}_ckpt"],
+        cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+    res: dict = {}
+    try:
+        def wait_for(pred, what, budget):
+            end = time.time() + budget
+            while time.time() < end:
+                check(proc.poll() is None, f"10. {label}: the supervisor exited {proc.poll()}")
+                hit = next((r for r in fleet_records(metrics) if pred(r)), None)
+                if hit is not None:
+                    return hit
+                time.sleep(0.2)
+            fail(f"10. {label}: no {what} within {budget} s")
+
+        launch = wait_for(lambda r: r.get("kind") == "serve_fleet"
+                          and r.get("event") == "launch", "launch", 120)
+        rport = launch["router_port"]
+        probe = sc.ServeClient(f"http://127.0.0.1:{rport}", timeout_s=5.0)
+
+        def available(n: int) -> float:
+            end = time.time() + FLEET_BOOT_S
+            while time.time() < end:
+                check(proc.poll() is None, f"10. {label}: the supervisor exited")
+                try:
+                    if probe.healthz().get("available") == n:
+                        return time.time()
+                except sc.ServeError:
+                    pass
+                time.sleep(0.1)
+            fail(f"10. {label}: never {n} routable replicas")
+
+        replicas = launch["replicas"]
+        res["boot_s"] = available(replicas) - t0
+        spawns = sorted((r for r in fleet_records(metrics) if r.get("kind") == "replica_event"
+                         and r.get("event") == "spawn"), key=lambda r: r["replica"])
+        res["placement"] = launch["placement"]
+        if device == "cuda":
+            mem_after = card_memory()   # before the probes below open contexts
+            ev = card_evidence([p for r in spawns for p in r["pids"]])
+            res["cards"] = ev
+            want = [[int(c) for c in cards] for cards in launch["placement"]]
+            # Rank r of a replica takes cuda:r of its visible list
+            # (parallel/mesh.py), so it runs on cards_of_visible[...][r].
+            got = [[ev["cards_of_visible"][ev["visible_by_pid"][p]][r]
+                    for r, p in enumerate(rec["pids"])] for rec in spawns]
+            check(all(len(cards) == ranks for cards in want) and got == want,
+                  f"10. {label}: placed {want}, ranks on cards {got}: {ev}")
+            # From the cards' side: every placed card took a context, no other did.
+            rise = {c: mem_after[c] - mem_before.get(c, 0.0) for c in mem_after}
+            placed = {c for cards in want for c in cards}
+            res["memory_rise_mib"] = rise
+            check(all(rise[c] >= CONTEXT_MIB for c in placed)
+                  and all(rise[c] < CONTEXT_MIB for c in rise if c not in placed),
+                  f"10. {label}: memory in use rose {rise} MiB a card; placed {sorted(placed)}")
+        res.update(drive_service(rport, ds, ref))
+        check(res["bitwise"], f"10. {label}: an answer differs from score_dataset at "
+                              f"W = {ranks}: max abs {res['max_abs']}")
+        res["dispatch_launches"] = dispatch_launches(spawns[0]["port"], ds)
+        # On the CPU the kernels' plain versions run and count nothing.
+        check(len(res["dispatch_launches"]) == ranks
+              and (device != "cuda" or all(res["dispatch_launches"])),
+              f"10. {label}: a rank launched nothing: {res['dispatch_launches']}")
+        if kill:
+            victim = spawns[1]["pids"][1]
+            errors, answers, stop = [], [], threading.Event()
+            pos = {int(i): k for k, i in enumerate(ds.indices)}
+
+            def client(k: int) -> None:
+                c = sc.ServeClient(f"http://127.0.0.1:{rport}", timeout_s=120.0, retries=6,
+                                   backoff_s=0.25)
+                r = np.random.default_rng(300 + k)
+                while not stop.is_set():
+                    m = ("grand", "el2n")[len(answers) % 2]
+                    ids = r.choice(ds.indices, size=int(r.integers(1, SERVE_MAX_IDS + 1)),
+                                   replace=False)
+                    try:
+                        got = np.asarray(c.score(indices=ids.tolist(), method=m)["scores"],
+                                         np.float32)
+                        answers.append(np.array_equal(
+                            got, ref[m][[pos[int(i)] for i in ids]]))
+                    except Exception as exc:   # noqa: BLE001 — counted, then failed on
+                        errors.append(repr(exc)[:200])
+
+            threads = [threading.Thread(target=client, args=(k,)) for k in range(2)]
+            for t in threads:
+                t.start()
+            time.sleep(2.0)
+            os.kill(victim, signal.SIGKILL)
+            died = wait_for(lambda r: r.get("kind") == "replica_event"
+                            and r.get("event") == "died", "died", 120)
+            respawn = wait_for(lambda r: r.get("kind") == "replica_event"
+                               and r.get("event") == "respawn", "respawn", 120)
+            back = available(replicas)
+            time.sleep(1.0)
+            stop.set()
+            for t in threads:
+                t.join(300)
+            check(errors == [], f"10. {label}: client-visible failures: {errors[:3]}")
+            check(answers and all(answers), f"10. {label}: {answers.count(False)} of "
+                                            f"{len(answers)} answers through the kill differ")
+            check(died["replica"] == 1 and died.get("rank") == 1 and died["signal"] == 9,
+                  f"10. {label}: died {died}")
+            check(respawn["replica"] == 1 and respawn["port"] == spawns[1]["port"]
+                  and respawn["coordinator"] != spawns[1]["coordinator"],
+                  f"10. {label}: respawn {respawn}")
+            res["kill"] = {"requests": len(answers), "died": died, "respawn": respawn,
+                           "respawn_wall_s": back - died["ts"],
+                           "reap_s": respawn["ts"] - died["ts"]}
+        proc.send_signal(signal.SIGTERM)
+        res["rc"] = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+        log.close()
+    recs = fleet_records(metrics)
+    ended = next((r for r in recs if r.get("kind") == "serve_fleet"
+                  and r.get("event") == "preempted_exit"), {})
+    res["rank_rcs"] = ended.get("rank_rcs") or ended.get("rcs")
+    check(res["rc"] == 75 and recs and recs[-1].get("exit_class") == "preempted",
+          f"10. {label}: exit {res['rc']}, last record {recs[-1:]}")
+    flat = [x for v in res["rank_rcs"] for x in (v if isinstance(v, list) else [v])]
+    check(flat and all(x == 75 for x in flat), f"10. {label}: ranks exited {res['rank_rcs']}")
+    return res
+
+
+def fleet_mesh_step(world: int, device: str, n: int, work: str) -> dict:
+    """Step 10 (see the module docstring). Prints its lines; returns its numbers."""
+    from data_diet_distributed_tpu_torch.config import load_config
+    from data_diet_distributed_tpu_torch.train import loop
+    check(world % FLEET_RANKS == 0, f"10. {world} ranks do not tile replicas of "
+                                    f"{FLEET_RANKS}")
+    d = os.path.join(work, "fleet_mesh")
+    os.makedirs(d, exist_ok=True)
+    config, over = serve_over(device, n, d)
+    # The references at once: score_dataset on two ranks and on one.
+    groups = {}
+    for w in (FLEET_RANKS, 1):
+        port, out = free_port(), os.path.join(d, f"ref_w{w}")
+        os.makedirs(out)
+        groups[w] = [spawn(["--score-rank", str(r), str(w), port, out, device, str(n), config,
+                            *over], os.path.join(out, f"rank{r}.log")) for r in range(w)]
+    for w, ranks in groups.items():
+        finish(ranks)
+        for p in ranks:
+            check(p["rc"] == 0, f"10. reference W = {w}: {tail(p)}")
+    refs = {}
+    for w in groups:
+        refs[w] = {}
+        for m in ("grand", "el2n"):
+            got = [np.load(os.path.join(d, f"ref_w{w}", f"scores_{m}_{r}.npy"))
+                   for r in range(w)]
+            check(all(np.array_equal(got[0], g) for g in got), f"10. reference {m}: differ")
+            refs[w][m] = got[0]
+    ds, _ = loop.load_data_for(load_config(config, over))
+    base = [*over, "--config", config, "serve.methods=[el2n,grand]", "serve.warm=false",
+            "serve.router_port=0", "serve.port=0", "serve.health_poll_s=0.25",
+            "serve.breaker_reset_s=0.5", "serve.drain_timeout_s=30",
+            f"serve.stats_every_s={FLEET_STATS_S}",
+            "serve.request_timeout_s=300", "elastic.max_restarts=2", "elastic.backoff_s=0.2"]
+    out = {"mesh": fleet_run("mesh", d, [*base, f"serve.replicas={world // FLEET_RANKS}",
+                                         "mesh.multihost=true",
+                                         f"mesh.num_processes={FLEET_RANKS}"],
+                             device, ds, refs[FLEET_RANKS], FLEET_RANKS, kill=True)}
+    m = out["mesh"]
+    print(f"  10. fleet of {world // FLEET_RANKS} meshes of {FLEET_RANKS} ranks, placed "
+          f"{m['placement']} (on the cards: {m.get('cards')}): every answer "
+          f"through the router bitwise score_dataset on {FLEET_RANKS} ranks at {SCORE_B}; "
+          f"p50/p95 ms { {k: (round(v['p50_ms'], 2), round(v['p95_ms'], 2)) for k, v in m['latency'].items()} }; "
+          f"each rank's launches a {SCORE_B}-id GraNd + EL2N dispatch "
+          f"{m['dispatch_launches']}; "
+          f"rank 1 of replica 1 SIGKILLed under {m['kill']['requests']} keyed requests: 0 "
+          f"failures, peers reaped and the group respawned {m['kill']['reap_s']:.2f} s after "
+          f"the death, routable {m['kill']['respawn_wall_s']:.1f} s after it; SIGTERM -> "
+          f"{m['rank_rcs']}; boot {m['boot_s']:.1f} s", flush=True)
+    out["plain"] = fleet_run("plain", d, [*base, f"serve.replicas={world}"], device, ds,
+                             refs[1], 1, kill=False)
+    p = out["plain"]
+    print(f"  10. {world} plain replicas placed {p['placement']} (on the cards: "
+          f"{p.get('cards')}): every answer bitwise "
+          f"score_dataset on one rank at {SCORE_B}; a dispatch's launches "
+          f"{p['dispatch_launches']}; p50/p95 ms "
+          f"{ {k: (round(v['p50_ms'], 2), round(v['p95_ms'], 2)) for k, v in p['latency'].items()} }; "
+          f"SIGTERM -> {p['rank_rcs']}; boot {p['boot_s']:.1f} s", flush=True)
     return out
 
 

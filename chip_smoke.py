@@ -283,7 +283,7 @@ Phases (the first failure exits non-zero; nothing is caught):
    ``data_fault`` record and bitwise scores; a torn shard fails the pass with
    ``ShardReadError`` naming it and a ``shard_quarantine`` record; the same
    under ``data.skip_quarantined`` lets ``cli run`` finish with the
-   quarantined rows in its prune manifest. Cuts: 4,096 examples for an
+   quarantined rows in its prune manifest. Cuts: 2,048 examples for an
    ImageNet-1k subset, one epoch for 30, synthetic data for real (none in the
    repo); widths as published.
 11. WRN: BASELINE config 4 (``configs/cifar100_wrn28_10.yaml``: WideResNet-28-10
@@ -305,7 +305,7 @@ Phases (the first failure exits non-zero; nothing is caught):
    on the set written as npz: exit 0, one scoring pass (the three seeds'
    launches, exact), ``n_kept`` of 70, 50 and 30 % with a verified prune
    manifest per level; stage walls and each fit's epoch ex/s. 6: with
-   ``model.remat=true`` 20 training steps bitwise those without (losses,
+   ``model.remat=true`` 16 training steps bitwise those without (losses,
    params, batch statistics, momentum) and GraNd bitwise; one step's peak
    CUDA memory with remat on and off. 7: ``cli score`` with ``forgetting`` and
    ``aum`` on the ResNet-18 north-star geometry (``TRAJ_N`` examples,
@@ -353,7 +353,8 @@ Phases (the first failure exits non-zero; nothing is caught):
    set, final checkpoint; launches equal), and the all-reduce of ResNet-18's
    44.7 MB fp32 gradient timed. Two NCCL ranks on cuda:0 must both fail at
    their first all-reduce ("Duplicate GPU detected"). W = 2 as two processes
-   on cuda:0 over gloo
+   on cuda:0 over gloo (started beside the W = 1 run and the refused pair,
+   so the timings of both steps are taken side by side)
    with CUDA tensors: (a) a bf16 ResNet-18 fit (``DIST_FIT_N`` examples,
    batch 128, augmented) ends bitwise equal on both ranks, and 3 fp32 steps
    (TF32 off) are within rtol 1e-5 (losses) and rtol 1e-4, atol 1e-6
@@ -405,6 +406,31 @@ Phases (the first failure exits non-zero; nothing is caught):
    1, from the records) and the SLO's verdict are printed. Cuts: ``ELASTIC_N``
    of 50,000 examples, 2 of 10 seeds, 3 of 198 retrain epochs; one card runs
    W = 1 only (NCCL refuses two ranks on one card).
+12c. Tune: ``python -m data_diet_distributed_tpu_torch.tools.autotune`` as a
+   subprocess over the combos ``baseline`` and ``bn_kernel`` (ResNet-18,
+   ``TUNE_N`` synthetic examples x 2 seeds at batch 512, two timed passes a
+   measure child, no confirmation; files in ``chip_smoke_out/tune/``,
+   removed after a pass): (a) exit 0; (b) the events ``search_start``, two
+   ``measured`` with values > 0, ``verified``, ``winner``,
+   ``manifest_written`` and no ``disqualified``; (c) the manifest reads back
+   through ``tuning.read_tuning_manifest``, matches this card and the
+   geometry (``match_manifest``: backend ``cuda``, the card's name; one
+   device), pins all seven ``DDT_GRAND_*`` toggles, and the winner's
+   exactness entry against ``grand_vmap`` (fp32, TF32 off) is ``ok`` (its max
+   abs and rel errors printed); (d) the ``bn_kernel`` child launched
+   ``bn_grad_norm`` and ``baseline`` did not, both the direct kernel (launches
+   a batch from the children's ledger records, printed beside the routes
+   phase's); (e) ``cli score`` on the same geometry with the manifest and
+   ``tuning.apply=strict`` exits 0, logs ``tuning_applied`` with the winner's
+   combo and launches the winner's route (``bn_grad_norm`` iff it pins
+   ``DDT_GRAND_BN_KERNEL``); (f) ``tools.profile_dispatch`` in this process,
+   while (e)'s process runs, for the score and the train chunk of ResNet-18
+   at batch 512 and K = 1 and 16: t(1), t(16), ms a step, the overhead and
+   the recommended K printed, every figure finite and the step > 0 ms.
+12d. Duty: ``tools.validate_duty`` in this process, ``DUTY_IDLE_S`` idle,
+   ``DUTY_BUSY_S`` of chained bf16 matmuls, ``DUTY_IDLE_S`` idle, under the
+   port's ``ResourceMonitor``: samples taken, and the busy phase's duty above
+   both idle phases' (the three printed).
 13. Calls: each EL2N and last-layer row of phase 3 runs one CUDA kernel per
    call, its own, and no copy, cast or memset (``torch.profiler``).
 
@@ -1777,7 +1803,7 @@ RES_DIR = os.path.join(REPO, "chip_smoke_out", "resilience_ckpt")
 HANG_TIMEOUT_S = 10      # resilience.step_timeout_s of drill E
 HANG_WALL_S = 60         # drill E's whole fit_with_recovery must end within this
 G_N = 1024               # drill G's examples (two CLI processes)
-OVERHEAD_PAIRS = 2
+OVERHEAD_PAIRS = 1
 
 
 class Events:
@@ -2076,13 +2102,13 @@ def _resilience_phase(torch, port, details_out, trained: dict, drill_g) -> dict:
 # no ImageNet subset is in the repo), written by the port as npz, npy and shards.
 DATA_ROOT = os.path.join(REPO, "chip_smoke_out", "data")
 DATA_CONFIG = os.path.join(REPO, "configs", "imagenet_resnet50_grand.yaml")
-DATA_N = 4096                 # train examples; the test split is the generator's 1,024
+DATA_N = 2048                 # train examples; the test split is the generator's 1,024
 DATA_B = 256                  # config 5's data.batch_size and score.batch_size
 DATA_CLASSES = 100
-DATA_SHARD = 1024             # rows a shard
+DATA_SHARD = 512              # rows a shard: 4 train shards, 2 test
 DATA_CACHE = 2 * DATA_SHARD * 96 * 96 * 3   # two decoded shards: the cache must evict
 DATA_PARITY_N = 512           # the fp32 comparisons' examples (two batches)
-DATA_FIT_N = 2560             # 10 steps an epoch at batch 256: a 2-epoch fit is 20 steps
+DATA_FIT_N = 2048             # 8 steps an epoch at batch 256: a 2-epoch fit is 16 steps
 DATA_TORN_SHARD = 1
 
 
@@ -2514,7 +2540,8 @@ def _data_phase(torch, port, rec: dict, card: str) -> dict:
         (plane,) = ev.of("data_plane")
         rec["fit"][name] = {"examples_per_s": [h["examples_per_s"] for h in res.history],
                             "stall_frac": plane["stall_frac"]}
-        print(f"  fit {name} (20 steps, batch {DATA_B}, bf16): epoch ex/s "
+        print(f"  fit {name} ({2 * DATA_FIT_N // DATA_B} steps, batch {DATA_B}, bf16): "
+              "epoch ex/s "
               + ", ".join(f"{h['examples_per_s']:.1f}" for h in res.history)
               + f"; data_plane {plane['engine']} stall_frac {plane['stall_frac']}",
               flush=True)
@@ -2574,7 +2601,7 @@ def _data_phase(torch, port, rec: dict, card: str) -> dict:
 # published; the cuts are in ``wrn_phase``'s docstring.
 WRN_CONFIG = os.path.join(REPO, "configs", "cifar100_wrn28_10.yaml")
 WRN_ROOT = os.path.join(REPO, "chip_smoke_out", "wrn")
-WRN_N = 4096                  # train examples (CIFAR-100 has 50,000)
+WRN_N = 2048                  # train examples (CIFAR-100 has 50,000)
 WRN_TEST = 1024               # test examples
 WRN_CLASSES = 100
 WRN_SEEDS = (0, 1, 2)         # config 4's score.seeds
@@ -2586,7 +2613,7 @@ WRN_PARAMS = 36_479_194       # WRN-28-10 at 10 classes (the JAX package's test_
 # |fp32 logit| (the port's CPU run of the same comparison reads 0.6 %).
 WRN_LOGIT_RTOL = 0.02
 WRN_ROUTES = {"v1": 9, "v2": 7, "gram": 7, "plain": 5}   # one GraNd batch's convs
-WRN_REMAT_STEPS = 20
+WRN_REMAT_STEPS = 16          # all of WRN_N at WRN_TRAIN_B
 # Trajectory scores on the ResNet-18 north-star geometry. The synthetic set's default
 # pixel noise (0.4) is learned whole in two epochs, which leaves every forgetting count
 # at 0: TRAJ_NOISE makes examples that are forgotten or never learned.
@@ -2864,7 +2891,8 @@ def _wrn_phase(torch, port, rec: dict, card: str) -> dict:
         print(f"    epoch {e['tag']}: {e['examples_per_s']:.1f} ex/s in {e['epoch_s']} s",
               flush=True)
 
-    # 6. Remat: 20 steps bitwise without it; GraNd bitwise; one step's peak memory.
+    # 6. Remat: WRN_REMAT_STEPS steps bitwise without it; GraNd bitwise; one step's peak
+    # memory.
     steps = {}
     fit_ds = train.subset(train.indices[:WRN_REMAT_STEPS * WRN_TRAIN_B])
     batches = list(T["ResidentBatches"](fit_ds, WRN_TRAIN_B, "cuda", torch.bfloat16)())
@@ -2896,7 +2924,7 @@ def _wrn_phase(torch, port, rec: dict, card: str) -> dict:
               f"on {card}", flush=True)
     (l0, s0, g0), (l1, s1, g1) = steps[False], steps[True]
     check(torch.equal(l0, l1) and state_equal(torch, s0, s1),
-          "remat: the 20 steps' losses, variables or batch statistics differ")
+          "remat: the steps' losses, variables or batch statistics differ")
     check(np.array_equal(g0, g1), "remat: GraNd scores differ")
     print(f"  remat: {len(batches)} steps bitwise (losses, params, batch statistics, "
           f"momentum), GraNd bitwise; peak {rec['remat']['true']['peak_bytes'] / 2**30:.3f} "
@@ -3742,7 +3770,7 @@ def function_properties(log: str, needle: str) -> list[str]:
 # fails fails the phase.
 DIST_ROOT = os.path.join(REPO, "chip_smoke_out", "dist")
 DIST_TIMEOUT_S = 300           # each worker process
-DIST_FIT_N = 2048              # (a): full-width ResNet-18, batch 128, 16 steps
+DIST_FIT_N = 1024              # (a): full-width ResNet-18, batch 128, 2 epochs of 8 steps
 DIST_PARITY_N = 384            # (a) fp32: 3 steps of batch 128 ...
 DIST_SHARD_N = 384             # (b): 3 steps per update layout
 DIST_GRAD_ELEMS = 11_173_962   # ResNet-18's parameters (10 classes): the gradient
@@ -3947,12 +3975,16 @@ def free_port() -> str:
 
 
 def pair(step: str, world: int = 2) -> list[dict]:
-    ws = start_pair(step, world)
+    return collect(step, start_pair(step, world))
+
+
+def collect(step: str, ws: list[dict]) -> list[dict]:
+    """Wait for a started step's ranks; each must exit 0; their results."""
     finish(ws)
     for w in ws:
         check(w["rc"] == 0, f"dist {step}: a rank failed: {worker_tail(w)}")
     out = []
-    for r in range(world):
+    for r in range(len(ws)):
         with open(os.path.join(DIST_ROOT, f"{step}_{r}.json")) as fh:
             out.append(json.load(fh))
     return out
@@ -4001,11 +4033,31 @@ def dist_phase(torch, port, details_out, card: str, path: dict, trained: dict) -
     os.makedirs(DIST_ROOT)
     rec: dict = {}
     t_phase = time.perf_counter()
-    T = port["train"]
 
     # NCCL refuses two ranks on one card: the reason W = 2 runs over gloo here.
-    # That pair is started beside the W = 1 run and read after it.
+    # That pair, and the W = 2 gloo pair of (a)-(c), are started beside the W = 1
+    # run (their own groups, ports and files); the W = 2 ranks are read after it.
     refused = start_pair("nccl_shared")
+    w2_ranks = start_pair("w2")
+    try:
+        _dist_groups(torch, port, rec, card, path, trained, refused, w2_ranks)
+    finally:
+        for w in w2_ranks:
+            if w["proc"].poll() is None:
+                w["proc"].kill()
+                w["proc"].wait(timeout=30)
+    _dist_drills(rec)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"  dist phase {rec['wall_s']:.1f} s", flush=True)
+    details_out["dist"] = rec
+    shutil.rmtree(DIST_ROOT, ignore_errors=True)
+
+
+def _dist_groups(torch, port, rec: dict, card: str, path: dict, trained: dict,
+                 refused: list[dict], w2_ranks: list[dict]) -> None:
+    """W = 1 over NCCL (and the refused NCCL pair beside it), then W = 2 over
+    gloo: (a)-(c), (e)."""
+    T = port["train"]
     # W = 1 over NCCL: the north-star run joined to a group, bitwise the run without.
     try:
         w1 = pair("w1", world=1)[0]
@@ -4045,7 +4097,7 @@ def dist_phase(torch, port, details_out, card: str, path: dict, trained: dict) -
           f"{quote}", flush=True)
 
     # W = 2 on the one card over gloo: (a) fits, (b) update layouts, (c) scoring, (e).
-    w2 = pair("w2")
+    w2 = collect("w2", w2_ranks)
     r0, r1 = w2
     check(r0["fit"]["digest"] == r1["fit"]["digest"],
           "W=2 bf16 fit: the ranks' final states differ")
@@ -4131,7 +4183,10 @@ def dist_phase(torch, port, details_out, card: str, path: dict, trained: dict) -
                  "fp32_loss_rel": loss_rel, "fp32_var_max_abs": worst,
                  "optimizer_bytes": opt}
 
-    # (d) Consensus drills: two CLI ranks each, tiny_cnn, 256 examples, 4 steps an epoch.
+
+def _dist_drills(rec: dict) -> None:
+    """(d) Consensus drills: two CLI ranks each, tiny_cnn, 256 examples, 4 steps
+    an epoch."""
     wave1 = drills([
         ("whole", None, []),
         ("sigterm", '{"rank": 1, "sigterm_at_epoch_end": 0}', []),
@@ -4191,10 +4246,6 @@ def dist_phase(torch, port, details_out, card: str, path: dict, trained: dict) -
           f"hidden -> both restore step 8 and end bitwise the whole run; a rank-1 hang -> "
           f"both exit 69, rank 0 {after:.1f} s after the first poison (rank "
           f"{first['rank']}'s; bound {DRILL_GRACE_S + DRILL_EXIT_BOUND_S:.0f} s)", flush=True)
-    rec["wall_s"] = time.perf_counter() - t_phase
-    print(f"  dist phase {rec['wall_s']:.1f} s", flush=True)
-    details_out["dist"] = rec
-    shutil.rmtree(DIST_ROOT, ignore_errors=True)
 
 
 
@@ -4506,7 +4557,7 @@ def obs_phase(torch, port, details_out, card: str) -> None:
 
 ELASTIC_ROOT = os.path.join(REPO, "chip_smoke_out", "elastic")
 #: Examples of the elastic phase's runs (the obs phase's cut).
-ELASTIC_N = 4096
+ELASTIC_N = 2048
 ELASTIC_TIMEOUT_S = 300
 #: The recovery SLO's budget (classification to the first training step).
 ELASTIC_SLO_S = 60
@@ -5565,7 +5616,7 @@ def mesh_serve_phase(torch, port, path, details_out, card: str) -> dict:
 
 TP_ROOT = os.path.join(REPO, "chip_smoke_out", "tp")
 TP_WORLD = 2                   # {data: 1, model: 2}: two ranks on cuda:0 over gloo
-TP_N = 2048                    # train examples (CIFAR-100 has 50,000)
+TP_N = 1024                    # train examples (CIFAR-100 has 50,000)
 TP_TEST = 512                  # test examples
 TP_SEEDS = (0, 1, 2)           # config 4's score.seeds
 TP_PARITY_N = 384              # (b): three fp32 steps of batch 128, TF32 off
@@ -5900,6 +5951,149 @@ def tp_phase(torch, port, details_out, card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------ tune, duty phases
+
+TUNE_ROOT = os.path.join(REPO, "chip_smoke_out", "tune")
+TUNE_N = 2048                  # the measure children's examples (x 2 seeds, batch B)
+TUNE_COMBOS = ("baseline", "bn_kernel")
+TUNE_TIMEOUT_S = 400           # the tuner and its children, and (e)'s cli score
+TUNE_K_LONG = 16               # (f): the difference quotient's long chunk
+TUNE_EVENTS = ["search_start", "measured", "measured", "verified", "winner",
+               "manifest_written"]
+DUTY_IDLE_S, DUTY_BUSY_S = 3.0, 6.0
+
+
+def tune_phase(torch, port, routes: dict, card: str) -> dict:
+    """The port's tuner on the card: ``python -m
+    data_diet_distributed_tpu_torch.tools.autotune`` over ``TUNE_COMBOS``
+    (ResNet-18, ``TUNE_N`` x 2 seeds at batch ``B``, 2 timed passes a child, no
+    confirmation), its files in ``chip_smoke_out/tune/``: (a) exit 0; (b) the
+    events ``TUNE_EVENTS``, both values > 0, no ``disqualified``; (c) the
+    manifest reads back, matches this card (backend ``cuda``, the card's name,
+    one device) and the geometry, pins all seven ``DDT_GRAND_*`` toggles, and
+    its winner's exactness entry is ``ok``; (d) the ``bn_kernel`` child
+    launched ``bn_grad_norm`` and ``baseline`` did not, both the direct kernel
+    (launches a batch from the ledger, beside the routes phase's); (e) ``cli
+    score`` on the geometry with ``tuning.apply=strict`` logs ``tuning_applied``
+    with the winner's combo and launches the winner's route; (f)
+    ``profile_dispatch`` in this process, beside (e)'s, for the score and the
+    train chunk at batch ``B`` and K = ``TUNE_K_LONG``: every figure finite, a
+    step > 0 ms."""
+    tools, tuning = port["tools"], port["tuning"]
+    shutil.rmtree(TUNE_ROOT, ignore_errors=True)
+    os.makedirs(TUNE_ROOT)
+    t_phase = time.perf_counter()
+    out, events, ledger = (os.path.join(TUNE_ROOT, f) for f in
+                           ("tuning_manifest.json", "events.jsonl", "ledger.jsonl"))
+    cmd = [sys.executable, "-m", "data_diet_distributed_tpu_torch.tools.autotune",
+           "--task", "score", "--method", "grand", "--arch", "resnet18",
+           "--combos", ",".join(TUNE_COMBOS),
+           "--size", str(TUNE_N), "--batch", str(B), "--repeats", "2", "--no-confirm",
+           "--out", out, "--events", events, "--ledger", ledger, "--device", "cuda"]
+    proc = subprocess.run(cmd, cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+                          capture_output=True, text=True, timeout=TUNE_TIMEOUT_S)
+    tune_s = time.perf_counter() - t_phase
+    check(proc.returncode == 0, f"(a) the tuner exited {proc.returncode}: "
+                                f"{(proc.stdout + proc.stderr)[-3000:]}")
+    evs = jsonl(events)
+    names = [e["event"] for e in evs]
+    measured = {e["combo"]: e["value"] for e in evs if e["event"] == "measured"}
+    check(names == TUNE_EVENTS and sorted(measured) == sorted(TUNE_COMBOS)
+          and all((v or 0) > 0 for v in measured.values()),
+          f"(b) the tuner's events {names}: {evs}")
+    winner = evs[names.index("winner")]["combo"]
+    print(f"  (a)-(b) tuner exit 0 in {tune_s:.1f} s: events {names}; "
+          + ", ".join(f"{c} {v:.1f} ex/s" for c, v in measured.items())
+          + f" ({TUNE_N} x 2 seeds, batch {B}, median of 2 passes) on {card}; "
+          f"winner {winner}", flush=True)
+    manifest = tuning.read_tuning_manifest(out)
+    cfg = port["load_config"](None, ["model.arch=resnet18", "data.dataset=synthetic",
+                                     f"score.batch_size={B}"])
+    ok, reason = tuning.match_manifest(manifest, cfg, backend="cuda",
+                                       device_kind=torch.cuda.get_device_name(0))
+    gates = sorted(k for k in manifest["env"] if k.startswith("DDT_GRAND_"))
+    [exact] = [e for e in manifest["exactness"] if e["combo"] == winner]
+    check(ok and manifest["n_devices"] == 1 and len(gates) == 7
+          and manifest["chosen_combo"] == winner and exact["ok"] is True
+          and manifest["source"] == "data_diet_distributed_tpu_torch/tools/autotune.py",
+          f"(c) manifest: {reason}; {manifest}")
+    print(f"  (c) manifest {manifest['digest'][:12]}: backend {manifest['backend']}, "
+          f"{manifest['device_kind']}, {manifest['n_devices']} device, matches this card and "
+          f"the geometry; pins {len(gates)} DDT_GRAND_* toggles; {winner} against "
+          f"grand_vmap (fp32, TF32 off): max abs err {exact['max_abs_err']:.3e}, max rel "
+          f"err {exact['max_rel_err']:.3e} (rtol {exact['rtol']}, atol {exact['atol']})",
+          flush=True)
+    per_batch = {r["autotune"]["combo"]: r["launches_per_batch"]
+                 for r in tools["perf_sentry"].load_ledger(ledger) if r.get("autotune")}
+    base, bnk = per_batch["baseline"], per_batch["bn_kernel"]
+    check(bnk["bn_grad_norm"] > 0 and base["bn_grad_norm"] == 0
+          and bnk["conv_grad_norm_direct"] > 0 and base["conv_grad_norm_direct"] > 0,
+          f"(d) launches a batch: {per_batch}")
+    runs = ROUTE_N // B * len(SEEDS)
+    route_counts = {name: {k: n // runs for k, n in routes["results"][name]["launches"].items()}
+                    for name in ("grand", "BN_KERNEL")}
+    print(f"  (d) launches a batch a seed: baseline {({k: v for k, v in base.items() if v})}, "
+          f"bn_kernel {({k: v for k, v in bnk.items() if v})}; the routes phase's default "
+          f"route {route_counts['grand']}, BN_KERNEL {route_counts['BN_KERNEL']} (the "
+          "combos pin STEM_XLA off: the 3-channel stem on the direct kernel)", flush=True)
+
+    # (e)'s process starts while (f) times the chunks in this process.
+    d = os.path.join(TUNE_ROOT, "cli")
+    cp = CliProcess(["score", "--device", "cuda", "data.dataset=synthetic",
+                     f"data.synthetic_size={TUNE_N}", "model.arch=resnet18",
+                     f"score.batch_size={B}", "score.method=grand", "score.pretrain_epochs=0",
+                     "score.seeds=[0]", f"tuning.manifest={out}", "tuning.apply=strict",
+                     f"train.checkpoint_dir={d}/ckpt", *OBS_OFF[1:],
+                     f"obs.metrics_path={d}/m.jsonl"])
+    prof = {}
+    for task in ("score", "train"):
+        r = tools["profile_dispatch"].main(["--task", task, "--arch", "resnet18",
+                                            "--batch", str(B), "--k-long", str(TUNE_K_LONG),
+                                            "--device", "cuda"])
+        figures = (r["t1"], r["tl"], r["t_step"], r["overhead"])
+        check(all(np.isfinite(figures)) and r["t_step"] > 0, f"(f) {task}: {r}")
+        prof[task] = r
+        print(f"  (f) {task} chunk at batch {B} (beside (e)'s cli score): t(1) "
+              f"{1e3 * r['t1']:.3f} ms, t({TUNE_K_LONG}) {1e3 * r['tl']:.3f} ms, "
+              f"{1e3 * r['t_step']:.3f} ms a step, overhead {1e3 * r['overhead']:.3f} ms, "
+              f"recommended K {r['recommended']} on {card}", flush=True)
+
+    rc, _, cli_s = cp.wait(TUNE_TIMEOUT_S)
+    recs = jsonl(f"{d}/m.jsonl")
+    applied = [r for r in recs if r["kind"] == "tuning_applied"]
+    bn = int(summary_gauge(recs, "kernel_launches:bn_grad_norm") or 0)
+    direct = int(summary_gauge(recs, "kernel_launches:conv_grad_norm_direct") or 0)
+    check(rc == 0 and len(applied) == 1 and applied[0]["applied"] is True
+          and applied[0]["chosen_combo"] == winner and direct > 0
+          and (bn > 0) == (manifest["env"]["DDT_GRAND_BN_KERNEL"] == "1"),
+          f"(e) cli score exit {rc}, tuning_applied {applied}, launches direct {direct} "
+          f"bn {bn}: {''.join(cp.tail)[-2000:]}")
+    print(f"  (e) cli score with tuning.apply=strict: exit 0 in {cli_s:.1f} s, tuning_applied "
+          f"{winner} (knobs {len(applied[0]['knobs'])}), its scoring pass launched direct "
+          f"{direct}, bn_grad_norm {bn}", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"  tune phase {wall:.1f} s", flush=True)
+    shutil.rmtree(TUNE_ROOT, ignore_errors=True)
+    return {"measured": measured, "winner": winner, "exactness": exact,
+            "launches_per_batch": per_batch, "profile": prof, "cli_s": cli_s,
+            "tune_s": tune_s, "wall_s": wall}
+
+
+def duty_phase(port, card: str) -> dict:
+    """``validate_duty`` in this process: ``DUTY_IDLE_S`` idle, ``DUTY_BUSY_S``
+    of chained bf16 matmuls, ``DUTY_IDLE_S`` idle, the monitor sampling; gate:
+    samples taken, and the busy phase's duty above both idle phases'."""
+    r = port["tools"]["validate_duty"].main([
+        "--idle-s", str(DUTY_IDLE_S), "--busy-s", str(DUTY_BUSY_S), "--device", "cuda"])
+    idle = [r["duty_idle_pre"], r["duty_idle_post"]]
+    check(r["n_samples"] > 0 and r["duty_busy"] is not None and None not in idle
+          and r["duty_busy"] > max(idle), f"duty: {r}")
+    print(f"  duty: idle {r['duty_idle_pre']}, busy {r['duty_busy']}, idle "
+          f"{r['duty_idle_post']} ({r['n_samples']} samples; a block of matmuls "
+          f"{r['block_ms']} ms, {r['blocks_per_enqueue']} an enqueue) on {card}", flush=True)
+    return r
+
+
 def summary_gauge(recs: list[dict], name: str):
     """A gauge of the stream's last registry snapshot."""
     snaps = [r for r in recs if r["kind"] == "metrics"]
@@ -5938,6 +6132,8 @@ def load_port() -> dict:
         from data_diet_distributed_tpu_torch.train import loop, state, steps
         from data_diet_distributed_tpu_torch.weights import init_variables, variables_to
         from data_diet_distributed_tpu_torch.graphs import GraphCache
+        from data_diet_distributed_tpu_torch.tools import (perf_sentry, profile_dispatch,
+                                                           validate_duty)
     except ImportError as err:
         fail(f"the port package is not importable next to this script: {err}")
     return {"load_config": load_config, "load_dataset": load_dataset,
@@ -5957,6 +6153,8 @@ def load_port() -> dict:
             "set_scoring_determinism": set_scoring_determinism,
             "inject": inject, "Preempted": Preempted, "StageManifest": StageManifest,
             "tuning": tuning,
+            "tools": {"perf_sentry": perf_sentry, "profile_dispatch": profile_dispatch,
+                      "validate_duty": validate_duty},
             "CheckpointManager": CheckpointManager, "tier_steps": tier_steps,
             "make_local_scores": make_local_scores,
             "data": {"cli": cli, "native": native, "write_split": sharded.write_split,
@@ -6097,6 +6295,13 @@ def main(argv: list[str]) -> int:
 
     phase("elastic")
     elastic = elastic_phase(torch, port, details, card)
+
+    phase("tune")
+    tune = tune_phase(torch, port, routes, card)
+    details["tune"] = tune
+
+    phase("duty")
+    details["duty"] = duty_phase(port, card)
 
     phase("calls")
     calls_phase(torch)

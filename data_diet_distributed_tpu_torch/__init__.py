@@ -131,9 +131,12 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   over a state dict or any nesting of tensors and arrays)
 * ``tools/`` -> ``tools/make_shards.py``, ``npz_to_npy.py``,
   ``score_report.py``, ``trace_report.py``, ``request_report.py``,
-  ``run_monitor.py`` (the same arguments and output on the port's modules,
-  for a host without JAX: ``python -m
-  data_diet_distributed_tpu_torch.tools.<name>``)
+  ``run_monitor.py``, and the tuning tools ``autotune.py``,
+  ``bisect_grand.py``, ``profile_dispatch.py``, ``perf_sentry.py``,
+  ``validate_duty.py`` (the same arguments and output on the port's
+  modules, for a host without JAX: ``python -m
+  data_diet_distributed_tpu_torch.tools.<name>``; the tuning tools run on
+  ``--device cuda`` unless told ``--device cpu``)
 * ``serve/`` -> ``serve/engine.py``, ``batcher.py``, ``server.py``
   (``ServeEngine`` with ``fit``/``evaluate``/``score``, tenants and weights,
   the verified checkpoint refresh and the program cache; the coalescing

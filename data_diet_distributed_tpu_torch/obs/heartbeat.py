@@ -9,8 +9,9 @@ directory and names the stalest rank.
 
 The directory defaults to a sibling of the checkpoint dir
 (``<train.checkpoint_dir>_heartbeats``). Writes are atomic (temp + rename) and
-throttled to one per ``min_interval_s`` unless forced. No lineage stamp (the
-JAX package adds the run id and attempt; ``obs/lineage.py`` is not ported).
+throttled to one per ``min_interval_s`` unless forced. Each beat carries the
+run id and attempt of the installed lineage (``obs/lineage.py``), as the JAX
+package's does.
 """
 
 from __future__ import annotations

@@ -12,9 +12,9 @@ every record.
 emits and into every heartbeat, never overwriting a field the caller set;
 ``attempt_suffix`` / ``suffixed_path`` name per-attempt artifacts (flight
 recorder dumps, traces) so a relaunch never overwrites the evidence of the
-failure it recovers from. The elastic supervisor that sets the variables is
-not ported; the names are the JAX package's, so a supervisor of either
-package can drive the port. Imports no torch.
+failure it recovers from. The variables are set by the elastic supervisor
+(``resilience/elastic.py``); the names are the JAX package's, so a
+supervisor of either package can drive the port. Imports no torch.
 """
 
 from __future__ import annotations

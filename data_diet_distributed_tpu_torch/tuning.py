@@ -153,8 +153,9 @@ def read_tuning_manifest(path: str) -> dict:
             manifest = json.load(fh)
     except json.JSONDecodeError as err:
         raise TuningError(
-            f"{path}: corrupt tuning manifest ({err}) — re-run "
-            "tools/autotune.py or delete the file") from err
+            f"{path}: corrupt tuning manifest ({err}) — re-run python -m "
+            "data_diet_distributed_tpu_torch.tools.autotune or delete the "
+            "file") from err
     if not isinstance(manifest, dict):
         raise TuningError(f"{path}: tuning manifest is not a JSON object")
     want = manifest.get("digest")
@@ -163,12 +164,14 @@ def read_tuning_manifest(path: str) -> dict:
         raise TuningError(
             f"{path}: tuning manifest digest mismatch (recorded "
             f"{str(want)[:12]}…, recomputed {got[:12]}…) — the file was "
-            "edited or truncated after signing; re-run tools/autotune.py")
+            "edited or truncated after signing; re-run python -m "
+            "data_diet_distributed_tpu_torch.tools.autotune")
     version = manifest.get("version")
     if version != TUNING_MANIFEST_VERSION:
         raise TuningError(
             f"{path}: tuning manifest version {version!r} is not "
-            f"{TUNING_MANIFEST_VERSION} — re-run tools/autotune.py")
+            f"{TUNING_MANIFEST_VERSION} — re-run python -m "
+            "data_diet_distributed_tpu_torch.tools.autotune")
     for key in manifest.get("env", {}):
         if key not in ALLOWED_ENV_KNOBS:
             raise TuningError(f"{path}: manifest env knob {key!r} is not "

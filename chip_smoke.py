@@ -89,11 +89,11 @@ Phases (the first failure exits non-zero; nothing is caught):
    its ``obs_server`` record, first dispatch wedged): the accepted requests
    200 bitwise the in-process scores, a request after SIGTERM 503, exit 75
    with ``[preempted]`` within ``SERVICE_DRAIN_S`` + ``SERVICE_EXIT_GRACE_S``;
-   every record of both services passes ``tools/validate_metrics.py``. Cuts:
+   every record of both services passes the port's ``tools/validate_metrics.py``. Cuts:
    8,192 of 50,000 examples, 2 of 10 seeds; widths as published.
 6c. Fleet: ``cli serve --device cuda serve.replicas=2`` (the path's model, data,
    seeds, batch and dtype, both methods warm; the two replicas share the card)
-   as a subprocess, driven through the router with ``tools/serve_client.py``
+   as a subprocess, driven through the router with the port's ``tools/serve_client.py``
    and Idempotency-Keys. Two such fleets boot at once (four replicas on the
    card); B's (c) runs first, then B's tuning roll (d) beside A's kill (a),
    and A's latency is read once B has stopped. Fleet A is a fleet of one-rank
@@ -431,6 +431,29 @@ Phases (the first failure exits non-zero; nothing is caught):
    ``DUTY_BUSY_S`` of chained bf16 matmuls, ``DUTY_IDLE_S`` idle, under the
    port's ``ResourceMonitor``: samples taken, and the busy phase's duty above
    both idle phases' (the three printed).
+12e. Demo: ``python -m data_diet_distributed_tpu_torch.tools.e2e_demo
+   --device cuda`` as a subprocess, started with phase 12f's soak before
+   phase 10 and judged after phase 11b, so both run beside phases 10-11b
+   (ResNet-18 full width, bf16, ``DEMO_N``
+   synthetic examples at CIFAR geometry, batch ``DEMO_B``, ``DEMO_EPOCHS``
+   epochs, ``--pretrain-epochs 1``, sparsity ``DEMO_SPARSITY`` only, EL2N,
+   one seed; files in ``chip_smoke_out/demo/``, removed after a pass): exit
+   0; the JAX tool's headline keys; ``summary.jsonl`` holds the config and
+   the dense, hardest and random rows; both policies keep ``DEMO_N`` / 2;
+   the hardest row's ``score_method`` is ``el2n`` and the random row's starts
+   with ``reused:``; every accuracy in [0, 1]; the legs' ``metrics`` records
+   count ``DEMO_N`` / ``DEMO_B`` EL2N launches in the hardest sweep and none
+   in the dense fit and the random sweep. Cuts: 2,048 of 50,000 examples, 2
+   of 30 epochs, one of three sparsities.
+12f. Soak: ``python -m data_diet_distributed_tpu_torch.tools.imagenet_soak
+   --smoke --device cuda`` as a subprocess beside phases 10-11b and 12e,
+   judged after 12e (files in ``chip_smoke_out/soak/``, removed after a
+   pass): its
+   cycles ``sigterm``, ``nan`` and ``kill`` of tiny-CNN ``cli train`` under
+   the elastic supervisor; exit 0, every cycle recovered, every
+   ``run_monitor --once`` and post-mortem exit 0, every cycle's
+   ``run_summary`` ``ok`` with its SLO verdict ``ok`` and a valid stream, and
+   the kill cycle relaunched (two attempts or more).
 13. Calls: each EL2N and last-layer row of phase 3 runs one CUDA kernel per
    call, its own, and no copy, cast or memset (``torch.profiler``).
 
@@ -444,7 +467,7 @@ route, and the profiled BN and Gram time per batch is printed beside the
 Every counted run (phases 4, 5, 6b and 7, phase 6c's replicas, phase 6d's and 11b's ranks, phase 8's
 ``run``, phase 8a's ``cli run``, phase 9's runs of ``run_datadiet``, phase 10's ``cli run``, phase 11's
 ``score_dataset`` passes and ``cli sweep``, and the relaunched attempts of
-phase 12b, each a new process) starts with the launch counts at 0
+phase 12b, and the three legs of phase 12e, each a new process) starts with the launch counts at 0
 and is read right after; the kernels line sums them. The line before the last is a
 JSON object with one entry per kernel (launches on the main paths, max error,
 ms, device ms, plain ms, bound ms); the last line is ``{"ok": true, "device":
@@ -466,6 +489,7 @@ import io
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -3237,14 +3261,10 @@ def service_cfg(port, *over):
 
 
 def validate_stream(path: str, expect_terminal: bool = False) -> int:
-    """Every record of a metrics stream passes ``tools/validate_metrics.py``'s
-    ``validate_lines`` (a stdlib-only file, loaded by path), ending in
+    """Every record of a metrics stream passes the port's
+    ``tools/validate_metrics.py``'s ``validate_lines``, ending in
     ``run_summary`` when ``expect_terminal``; returns the count."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "validate_metrics", os.path.join(REPO, "tools", "validate_metrics.py"))
-    vm = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(vm)
+    from data_diet_distributed_tpu_torch.tools import validate_metrics as vm
     with open(path) as fh:
         lines = fh.read().splitlines()
     problems = vm.validate_lines(lines, where=path, expect_terminal=expect_terminal)
@@ -4788,11 +4808,8 @@ class Fleet:
     phase can stop its replicas too) and the views of it the drills read."""
 
     def __init__(self, root: str, plan: dict | None, *over: str):
-        import importlib.util
-        spec = importlib.util.spec_from_file_location(
-            "serve_client", os.path.join(REPO, "tools", "serve_client.py"))
-        self.sc = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(self.sc)
+        from data_diet_distributed_tpu_torch.tools import serve_client
+        self.sc = serve_client
         self.root = root
         os.makedirs(root, exist_ok=True)
         self.metrics = os.path.join(root, "metrics.jsonl")
@@ -6094,6 +6111,148 @@ def duty_phase(port, card: str) -> dict:
     return r
 
 
+# -------------------------------------------------------- demo and soak phases
+
+DEMO_ROOT = os.path.join(REPO, "chip_smoke_out", "demo")
+DEMO_N = 2048                  # synthetic examples (the card's demo runs 50,000)
+DEMO_B = 256                   # the demo's batch
+DEMO_EPOCHS = 2                # retrain epochs (the card's demo runs 30)
+DEMO_SPARSITY = 0.5
+DEMO_TIMEOUT_S = 400
+SOAK_ROOT = os.path.join(REPO, "chip_smoke_out", "soak")
+SOAK_FAULTS = ["sigterm", "nan", "kill"]   # the tool's SMOKE_SCHEDULE
+SOAK_TIMEOUT_S = 400
+
+
+class ToolProcess:
+    """``python -m data_diet_distributed_tpu_torch.tools.<name>`` as a
+    subprocess of the repo root in a session of its own (``stop`` ends its
+    children too), its output in ``log``."""
+
+    def __init__(self, name: str, args: list[str], log: str):
+        self.name, self.log = name, log
+        self.fh = open(log, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", f"data_diet_distributed_tpu_torch.tools.{name}", *args],
+            cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, stdout=self.fh,
+            stderr=subprocess.STDOUT, start_new_session=True)
+
+    def stop(self) -> None:
+        """Ends the tool and whatever of its session is left (a child that
+        outlived it included)."""
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+        self.fh.close()
+
+    def wait(self, timeout: float) -> dict:
+        """The tool's last JSON line; fails unless it exits 0 within
+        ``timeout`` of this call."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        self.stop()
+        with open(self.log, errors="replace") as fh:
+            text = fh.read()
+        check(rc == 0, f"{self.name}: exit {rc}: {text[-3000:]}")
+        lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+        check(bool(lines), f"{self.name}: no JSON line: {text[-3000:]}")
+        return json.loads(lines[-1])
+
+
+def start_soak() -> ToolProcess:
+    """The smoke soak on the card, started before the data phase so it runs
+    beside the data, wrn and tp phases; ``soak_phase`` judges it. Files in
+    ``SOAK_ROOT``."""
+    shutil.rmtree(SOAK_ROOT, ignore_errors=True)
+    os.makedirs(SOAK_ROOT)
+    return ToolProcess("imagenet_soak", [
+        "--smoke", "--device", "cuda", "--workdir", os.path.join(SOAK_ROOT, "wd"),
+        "--quiet"], os.path.join(SOAK_ROOT, "soak.log"))
+
+
+def start_demo() -> ToolProcess:
+    """The prune demo on the card, started with the soak; ``demo_phase``
+    judges it. Files in ``DEMO_ROOT``."""
+    shutil.rmtree(DEMO_ROOT, ignore_errors=True)
+    os.makedirs(DEMO_ROOT)
+    return ToolProcess("e2e_demo", [
+        "--device", "cuda", "--arch", "resnet18", "--half-precision",
+        "--size", str(DEMO_N), "--batch", str(DEMO_B), "--epochs", str(DEMO_EPOCHS),
+        "--pretrain-epochs", "1", "--sparsities", str(DEMO_SPARSITY),
+        "--score-method", "el2n", "--workdir", os.path.join(DEMO_ROOT, "wd"),
+        "--out", os.path.join(DEMO_ROOT, "out")], os.path.join(DEMO_ROOT, "demo.log"))
+
+
+def demo_phase(port, demo: ToolProcess, card: str) -> dict:
+    """Waits for the prune demo ``start_demo`` began and judges it; see the
+    module docstring. Returns its launches by kernel. Files in ``DEMO_ROOT``
+    (removed after a pass)."""
+    headline = demo.wait(DEMO_TIMEOUT_S)
+    wd = os.path.join(DEMO_ROOT, "wd")
+    # Three rows, half of DEMO_N kept by both policies, the random sweep on
+    # the hardest sweep's scores, the JAX tool's headline keys.
+    mid = f"{DEMO_SPARSITY}"
+    check(set(headline) == {"dense_accuracy", f"hardest@{mid}", f"random@{mid}",
+                            "hardest_beats_random_at_mid", "summary", "plot",
+                            "total_wall_s"}, f"demo headline {headline}")
+    with open(headline["summary"]) as fh:
+        config, *rows = [json.loads(line) for line in fh]
+    by = {r["keep"]: r for r in rows}
+    check(config["kind"] == "config" and [r["keep"] for r in rows]
+          == ["dense", "hardest", "random"], f"demo rows {rows}")
+    check(by["hardest"]["n_kept"] == by["random"]["n_kept"] == DEMO_N // 2
+          and by["hardest"]["score_method"] == "el2n"
+          and by["random"]["score_method"].startswith("reused:")
+          and all(0.0 <= r["final_test_accuracy"] <= 1.0 for r in rows),
+          f"demo rows {rows}")
+    launches = {}
+    for leg in ("dense", "hard", "rand"):
+        with open(os.path.join(wd, f"metrics_{leg}.jsonl")) as fh:
+            snaps = [r for r in records(fh.read()) if r["kind"] == "metrics"]
+        launches[leg] = {k[len("kernel_launches:"):]: int(v)
+                         for k, v in snaps[-1]["gauges"].items()
+                         if k.startswith("kernel_launches:")}
+    # One EL2N launch a batch of the hardest sweep's one scoring pass; the
+    # dense fit and the random sweep (its scores reused) launch none.
+    check(launches == {"dense": {}, "hard": {"el2n": DEMO_N // DEMO_B}, "rand": {}},
+          f"demo launches {launches}")
+    print(f"  demo (ResNet-18, {DEMO_N} examples, {DEMO_EPOCHS} epochs, EL2N, sparsity "
+          f"{DEMO_SPARSITY}): exit 0, total_wall_s {headline['total_wall_s']} (beside the "
+          f"data, wrn and tp phases); dense "
+          f"{by['dense']['final_test_accuracy']:.4f}, hardest "
+          f"{by['hardest']['final_test_accuracy']:.4f}, random "
+          f"{by['random']['final_test_accuracy']:.4f} ({by['random']['score_method']}); "
+          f"launches {launches} on {card}", flush=True)
+    shutil.rmtree(DEMO_ROOT, ignore_errors=True)
+    return {k: sum(c.get(k, 0) for c in launches.values()) for k in port["kernels"].KERNELS}
+
+
+def soak_phase(soak: ToolProcess, card: str) -> dict:
+    """Waits for the smoke soak ``start_soak`` began and judges it: every
+    cycle recovered, every monitor and post-mortem verdict 0. Returns its
+    report."""
+    report = soak.wait(SOAK_TIMEOUT_S)
+    cycles = report["per_cycle"]
+    check(report["ok"] is True and report["faults"] == SOAK_FAULTS
+          and report["recovered"] == len(SOAK_FAULTS)
+          and report["monitor_exits"] == [0] * len(SOAK_FAULTS)
+          and report["postmortem_exits"] == [0] * len(SOAK_FAULTS)
+          and all(c["exit_class"] == "ok" and c["slo"] and c["slo"]["ok"]
+                  and c["stream_problems"] == [] for c in cycles)
+          and cycles[SOAK_FAULTS.index("kill")]["attempts"] >= 2,
+          f"soak report {json.dumps(report)[:3000]}")
+    print(f"  soak --smoke {report['faults']}: exit 0, wall_s {report['wall_s']} (beside "
+          f"the data, wrn and tp phases and the demo), "
+          f"recovered {report['recovered']}/{report['cycles']}, monitor exits "
+          f"{report['monitor_exits']}, post-mortem exits {report['postmortem_exits']}, "
+          f"cycle walls {report['recovery_wall_s']} s, attempts "
+          f"{[c['attempts'] for c in cycles]} on {card}", flush=True)
+    shutil.rmtree(SOAK_ROOT, ignore_errors=True)
+    return {k: v for k, v in report.items() if k != "per_cycle"}
+
+
 def summary_gauge(recs: list[dict], name: str):
     """A gauge of the stream's last registry snapshot."""
     snaps = [r for r in recs if r["kind"] == "metrics"]
@@ -6282,13 +6441,25 @@ def main(argv: list[str]) -> int:
     resil = resilience_phase(torch, port, details, trained)
 
     phase("data")
-    data = data_phase(torch, port, details, card)
+    # The demo and the soak run beside the data, wrn and tp phases.
+    soak, demo_proc = start_soak(), start_demo()
+    try:
+        data = data_phase(torch, port, details, card)
 
-    phase("wrn")
-    wrn = wrn_phase(torch, port, details, card)
+        phase("wrn")
+        wrn = wrn_phase(torch, port, details, card)
 
-    phase("tp")
-    tp = tp_phase(torch, port, details, card)
+        phase("tp")
+        tp = tp_phase(torch, port, details, card)
+
+        phase("demo")
+        demo = demo_phase(port, demo_proc, card)
+
+        phase("soak")
+        details["soak"] = soak_phase(soak, card)
+    finally:
+        demo_proc.stop()
+        soak.stop()
 
     phase("dist")
     dist_phase(torch, port, details, card, path, trained)
@@ -6302,6 +6473,7 @@ def main(argv: list[str]) -> int:
 
     phase("duty")
     details["duty"] = duty_phase(port, card)
+
 
     phase("calls")
     calls_phase(torch)
@@ -6318,11 +6490,11 @@ def main(argv: list[str]) -> int:
     # it, bf16; launches summed over the counted runs of the path, routes and
     # resnet50 phases, the train phase's run, the resilience phase's runs, the data
     # phase's run, the wrn phase's passes and sweep, the tp phase's ranks and its
-    # W = 1 run, and the elastic phase's relaunched attempts.
+    # W = 1 run, the elastic phase's relaunched attempts and the demo's three legs.
     launches = {k: path["counts"][k] + routes["counts"][k] + service["counts"][k]
                 + fleet[k] + mesh_serve[k] + r50["counts"][k] + trained["counts"][k]
                 + chunked["counts"][k] + resil["counts"][k]
-                + data["counts"][k] + wrn["counts"][k] + tp[k] + elastic[k]
+                + data["counts"][k] + wrn["counts"][k] + tp[k] + elastic[k] + demo[k]
                 for k in K.KERNELS}
     check(all(launches[k] > 0 for k in KERNEL_INFO), f"a kernel never launched: {launches}")
     entries = []

@@ -233,6 +233,31 @@ Phases (the first failure exits non-zero; nothing is caught):
    flop counter's first step outlasts so short a deadline) is one ``hang``
    fault whose ``WatchdogTimeout`` names rank 0's last progress. Files in
    ``chip_smoke_out/obs/``, removed after a pass.
+8c. Walkthrough: ``python -m data_diet_distributed_tpu_torch.examples.walkthrough
+   --device cuda --arch resnet18 --size WALK_N`` (run by ``runpy`` in a
+   worker process of this script, ``--walkthrough-worker``, which prints its
+   launches), started with 8d before phase 7 and judged after phase 8, so it
+   runs beside phases 7-8 (full-width ResNet-18, fp32, ``WALK_N`` synthetic
+   examples at CIFAR geometry): exit 0; every cell's line in order; finite
+   EL2N, GraNd, Spearman, forgetting and AUM figures; ``WALK_N`` / 2 kept; a
+   retrain accuracy in [0, 1]; exactly one EL2N, 12 direct and 3 Gram
+   launches a scoring batch of ``WALK_B``, the direct and Gram ones in the
+   fp32 mode. Cuts: ``WALK_N`` of 50,000 examples.
+8d. Serve soak: ``python -m data_diet_distributed_tpu_torch.tools.serve_soak
+   --device cuda --arch resnet18 --method grand --schedule
+   partition,autoscale,wedge`` as a subprocess beside phases 7-8b and 8c,
+   judged after 8b (two replicas of full-width ResNet-18 scoring GraNd in
+   fp32, 256 synthetic examples, 12 rps for ``SERVE_SOAK_LOAD_S`` a cycle; files in
+   ``chip_smoke_out/serve_soak/``, removed after a pass): exit 0, every cycle
+   passed (the tool's record forensics, stream validation and request
+   attribution), the monitor exits the tool allows, zero client-visible
+   failures and exit 75 in every cycle, and each cycle's replicas launched
+   the direct and Gram kernels (their exit ``metrics`` records). The
+   partition cycle's replicas ran through the remote backend (``serve.hosts``
+   slots: the ``launch`` record places no card) and reconnected with the
+   restart budget whole; its dark -> quarantined -> reconnected walls, the
+   autoscale cycle's violation -> ``scale_up`` -> routable -> ``scale_down``
+   and the wedge cycle's wedged -> reaped -> respawn -> routable are printed.
 9. Resilience: on the north-star ``run`` of phase 8 (its own directory), A:
    a fault plan SIGTERMs after seed 0's score partial -> ``Preempted``, seed 0's
    partial on disk, ``score`` not complete; the re-invoked run pretrains and
@@ -465,9 +490,10 @@ route, and the profiled BN and Gram time per batch is printed beside the
 ``device_ms`` sums.
 
 Every counted run (phases 4, 5, 6b and 7, phase 6c's replicas, phase 6d's and 11b's ranks, phase 8's
-``run``, phase 8a's ``cli run``, phase 9's runs of ``run_datadiet``, phase 10's ``cli run``, phase 11's
-``score_dataset`` passes and ``cli sweep``, and the relaunched attempts of
-phase 12b, and the three legs of phase 12e, each a new process) starts with the launch counts at 0
+``run``, phase 8a's ``cli run``, phase 8c's walkthrough, phase 8d's replicas, phase 9's runs of
+``run_datadiet``, phase 10's ``cli run``, phase 11's ``score_dataset`` passes and ``cli sweep``,
+and the relaunched attempts of phase 12b, and the three legs of phase 12e, each a new
+process) starts with the launch counts at 0
 and is read right after; the kernels line sums them. The line before the last is a
 JSON object with one entry per kernel (launches on the main paths, max error,
 ms, device ms, plain ms, bound ms); the last line is ``{"ok": true, "device":
@@ -630,10 +656,12 @@ def check(cond: bool, msg: str) -> None:
 
 
 _T0 = time.perf_counter()
+_PHASES: list[str] = []   # the phases begun, in order
 
 
 def phase(name: str) -> None:
     """A phase's banner, with the seconds since the script started."""
+    _PHASES.append(name)
     print(f"== {name} (+{time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
@@ -6125,17 +6153,26 @@ SOAK_TIMEOUT_S = 400
 
 
 class ToolProcess:
-    """``python -m data_diet_distributed_tpu_torch.tools.<name>`` as a
-    subprocess of the repo root in a session of its own (``stop`` ends its
-    children too), its output in ``log``."""
+    """``python -m data_diet_distributed_tpu_torch.tools.<name>`` (or
+    ``command``) as a subprocess of the repo root in a session of its own
+    (``stop`` ends its children too), its output in ``log``."""
 
-    def __init__(self, name: str, args: list[str], log: str):
+    def __init__(self, name: str, args: list[str], log: str,
+                 command: list[str] | None = None):
         self.name, self.log = name, log
+        self.since = len(_PHASES)
+        self.t0 = time.perf_counter()
         self.fh = open(log, "w")
+        command = command or [sys.executable, "-m",
+                              f"data_diet_distributed_tpu_torch.tools.{name}"]
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", f"data_diet_distributed_tpu_torch.tools.{name}", *args],
-            cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, stdout=self.fh,
-            stderr=subprocess.STDOUT, start_new_session=True)
+            [*command, *args], cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+            stdout=self.fh, stderr=subprocess.STDOUT, start_new_session=True)
+
+    def beside(self) -> list[str]:
+        """The phases that ran while this tool did: those begun after its
+        start, up to the one judging it."""
+        return _PHASES[self.since:-1]
 
     def stop(self) -> None:
         """Ends the tool and whatever of its session is left (a child that
@@ -6148,17 +6185,24 @@ class ToolProcess:
     def wait(self, timeout: float) -> dict:
         """The tool's last JSON line; fails unless it exits 0 within
         ``timeout`` of this call."""
+        text = self.wait_text(timeout)
+        lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+        check(bool(lines), f"{self.name}: no JSON line: {text[-3000:]}")
+        return json.loads(lines[-1])
+
+    def wait_text(self, timeout: float) -> str:
+        """The tool's output; fails unless it exits 0 within ``timeout`` of
+        this call. ``wall_s`` is then its wall from start to exit."""
         try:
             rc = self.proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
             rc = None
+        self.wall_s = time.perf_counter() - self.t0
         self.stop()
         with open(self.log, errors="replace") as fh:
             text = fh.read()
         check(rc == 0, f"{self.name}: exit {rc}: {text[-3000:]}")
-        lines = [ln for ln in text.splitlines() if ln.startswith("{")]
-        check(bool(lines), f"{self.name}: no JSON line: {text[-3000:]}")
-        return json.loads(lines[-1])
+        return text
 
 
 def start_soak() -> ToolProcess:
@@ -6253,6 +6297,181 @@ def soak_phase(soak: ToolProcess, card: str) -> dict:
     return {k: v for k, v in report.items() if k != "per_cycle"}
 
 
+# ------------------------------------------------ serve soak and walkthrough
+
+SERVE_SOAK_ROOT = os.path.join(REPO, "chip_smoke_out", "serve_soak")
+# The cycles of the tool's schedule that no other phase drives: the partition
+# quarantine over the remote backend, the autoscaler, a wedge inside a fleet.
+SERVE_SOAK_FAULTS = ["partition", "autoscale", "wedge"]
+# Load seconds a cycle (the tool's default is 6): each fresh replica's first
+# call takes 2-5 s on the card, and the autoscaler grows only after two 1-s
+# ticks under pressure, which a 6-s window left out in one of three card runs.
+SERVE_SOAK_LOAD_S = 12
+SERVE_SOAK_TIMEOUT_S = 600
+WALK_ROOT = os.path.join(REPO, "chip_smoke_out", "walkthrough")
+WALK_N = 4096                  # synthetic examples (the card's walkthrough runs 50,000)
+WALK_B = 256                   # the walkthrough's scoring batch
+WALK_TIMEOUT_S = 400
+# Each walkthrough cell's printed line, in order.
+WALK_PRINTS = ["device=", "pretrain: ", "EL2N: ", "GraNd: ", "spearman(EL2N, GraNd) = ",
+               "kept ", "retrain on 50%: ", "forgetting: ", "aum: "]
+
+
+def start_serve_soak() -> ToolProcess:
+    """The serve soak's ``SERVE_SOAK_FAULTS`` cycles on the card (ResNet-18,
+    GraNd, two replicas); ``serve_soak_phase`` judges it. Files in
+    ``SERVE_SOAK_ROOT``."""
+    shutil.rmtree(SERVE_SOAK_ROOT, ignore_errors=True)
+    os.makedirs(SERVE_SOAK_ROOT)
+    return ToolProcess("serve_soak", [
+        "--device", "cuda", "--arch", "resnet18", "--method", "grand",
+        "--schedule", ",".join(SERVE_SOAK_FAULTS), "--duration", str(SERVE_SOAK_LOAD_S),
+        "--workdir", os.path.join(SERVE_SOAK_ROOT, "wd"), "--quiet"],
+        os.path.join(SERVE_SOAK_ROOT, "serve_soak.log"))
+
+
+def start_walkthrough() -> ToolProcess:
+    """The walkthrough on the card (ResNet-18, ``WALK_N`` examples) in a
+    worker process of this script (``--walkthrough-worker``), which reports
+    its launches; ``walkthrough_phase`` judges it. Its log in ``WALK_ROOT``."""
+    shutil.rmtree(WALK_ROOT, ignore_errors=True)
+    os.makedirs(WALK_ROOT)
+    return ToolProcess("walkthrough", [
+        "--device", "cuda", "--arch", "resnet18", "--size", str(WALK_N)],
+        os.path.join(WALK_ROOT, "walkthrough.log"),
+        command=[sys.executable, os.path.join(REPO, "chip_smoke.py"), "--walkthrough-worker"])
+
+
+def walkthrough_worker(argv: list[str]) -> int:
+    """``python -m data_diet_distributed_tpu_torch.examples.walkthrough
+    <argv>`` in this process (``runpy``, as ``-m`` runs it), then one JSON
+    line: its launches by kernel and by mode, counted from 0."""
+    import runpy
+
+    from data_diet_distributed_tpu_torch.ops import kernels as K
+    sys.argv = ["walkthrough", *argv]
+    K.reset_launch_counts()
+    runpy.run_module("data_diet_distributed_tpu_torch.examples.walkthrough",
+                     run_name="__main__")
+    print(json.dumps({"launches": K.launch_counts(), "modes": K.mode_counts()}), flush=True)
+    return 0
+
+
+def _floats(line: str) -> list[float]:
+    import re
+    return [float(x) for x in re.findall(r"[-+]?\d+\.\d+(?:e[-+]?\d+)?", line)]
+
+
+def walkthrough_phase(port, walk: ToolProcess, card: str) -> dict:
+    """Waits for the walkthrough ``start_walkthrough`` began and judges it:
+    exit 0, every cell's line in order, finite scores, half the set kept, an
+    accuracy in [0, 1], and exactly the EL2N and GraNd cells' launches (one
+    EL2N, 12 direct and 3 Gram a batch of ``WALK_B``, fp32: the walkthrough
+    trains and scores in fp32). Returns its launches by kernel."""
+    text = walk.wait_text(WALK_TIMEOUT_S)
+    lines = [ln for ln in text.splitlines() if ln.startswith(tuple(WALK_PRINTS))]
+    check([next(p for p in WALK_PRINTS if ln.startswith(p)) for ln in lines] == WALK_PRINTS,
+          f"walkthrough: the cells' lines {lines}: {text[-3000:]}")
+    check(lines[0] == f"device=cuda  train={WALK_N} examples"
+          and lines[5] == f"kept {WALK_N // 2}/{WALK_N} hardest examples",
+          f"walkthrough: {lines[0]!r}, {lines[5]!r}")
+    for ln in lines[2:5] + lines[6:]:
+        check(bool(_floats(ln)) and all(np.isfinite(_floats(ln))), f"walkthrough: {ln!r}")
+    check(0.0 <= _floats(lines[6])[-1] <= 1.0, f"walkthrough: {lines[6]!r}")
+    out = json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+    nb = -(-WALK_N // WALK_B)
+    want = {"el2n": nb, "conv_grad_norm_direct": 12 * nb, "conv_grad_norm_gram": 3 * nb}
+    launches = out["launches"]
+    check({k: v for k, v in launches.items() if v} == want
+          and all(out["modes"][k].get("fp32") == want[k]
+                  for k in ("conv_grad_norm_direct", "conv_grad_norm_gram")),
+          f"walkthrough launches {launches}, modes {out['modes']}, want {want}")
+    print(f"  walkthrough (ResNet-18, {WALK_N} examples, fp32): exit 0 in "
+          f"{walk.wall_s:.1f} s beside {walk.beside()}; "
+          + "; ".join(lines[1:]).replace("pretrain: ", "pretrain ")[:900]
+          + f"; launches {want} (fp32) on {card}", flush=True)
+    shutil.rmtree(WALK_ROOT, ignore_errors=True)
+    return {k: launches.get(k, 0) for k in port["kernels"].KERNELS}
+
+
+def _at(cycle: dict, what: str, field: str = "t_s"):
+    """A field of the first row of a cycle's timeline named ``what`` (a
+    prefix for ``slo_violation:``), else None."""
+    row = next((r for r in cycle["timeline"] if r["what"] == what
+                or (what.endswith(":") and r["what"].startswith(what))), None)
+    return None if row is None else row.get(field)
+
+
+def _span(cycle: dict, a: str, b: str):
+    ta, tb = _at(cycle, a), _at(cycle, b)
+    return None if ta is None or tb is None else round(tb - ta, 3)
+
+
+def serve_soak_phase(port, soak: ToolProcess, card: str) -> dict:
+    """Waits for the serve soak ``start_serve_soak`` began and judges it as
+    ``soak_phase`` does: exit 0, every cycle passed (the tool's forensics,
+    stream validation and request attribution), the monitor exits the tool
+    allows, zero client-visible failures; and in every cycle the replicas
+    launched the direct and Gram kernels. The partition cycle's replicas were
+    placed through the remote backend (no card placement) and reconnected
+    with the restart budget whole. Returns the replicas' launches by kernel.
+    Files in ``SERVE_SOAK_ROOT`` (removed after a pass)."""
+    report = soak.wait(SERVE_SOAK_TIMEOUT_S)
+    tool = port["tools"]["serve_soak"]
+    cycles = report["per_cycle"]
+    check(report["ok"] is True and report["faults"] == SERVE_SOAK_FAULTS
+          and report["passed"] == len(SERVE_SOAK_FAULTS)
+          and all(c["monitor_exit"] in tool.MONITOR_OK.get(c["fault"], (0,))
+                  and c["requests"] > 0 and c["errors"] == 0 and c["rejected"] == 0
+                  and c["rc"] == 75 for c in cycles),
+          f"serve soak report {json.dumps(report)[:3000]}")
+    for c in cycles:
+        kl = c["kernel_launches"]
+        check(kl.get("conv_grad_norm_direct", 0) > 0 and kl.get("conv_grad_norm_gram", 0) > 0,
+              f"serve soak: cycle {c['fault']} launched no direct or Gram kernel: {kl}")
+    by = dict(zip(report["faults"], cycles))
+    metrics = os.path.join(SERVE_SOAK_ROOT, "wd",
+                           f"cycle{SERVE_SOAK_FAULTS.index('partition')}_partition",
+                           "metrics.jsonl")
+    launch = next(r for r in jsonl(metrics) if r.get("kind") == "serve_fleet"
+                  and r.get("event") == "launch")
+    part = by["partition"]
+    budget = (part["refresh"] or {}).get("max_restarts")
+    before = _at(part, "replica_event:partitioned", "restarts_left")
+    after = _at(part, "replica_event:reconnected", "restarts_left")
+    check(launch.get("placement") == [None] * report["replicas"] and before == after == budget,
+          f"serve soak partition: placement {launch.get('placement')}, restarts_left "
+          f"{before} -> {after} of {budget}")
+    launches = {k: sum(c["kernel_launches"].get(k, 0) for c in cycles)
+                for k in port["kernels"].KERNELS}
+    auto, wedge = by["autoscale"], by["wedge"]
+    walls = {
+        "partition": {"dark_to_quarantined_s": _span(part, "dark", "replica_event:partitioned"),
+                      "quarantined_to_reconnected_s": _span(
+                          part, "replica_event:partitioned", "replica_event:reconnected"),
+                      "restarts_left": [before, after]},
+        "autoscale": {"violation_s": _at(auto, "slo_violation:"),
+                      "scale_up_s": _at(auto, "autoscale_event:scale_up"),
+                      "grown_routable_s": _at(auto, "grown_routable"),
+                      "scale_down_s": _at(auto, "autoscale_event:scale_down")},
+        "wedge": {"wedged_s": _at(wedge, "replica_event:wedged"),
+                  "reaped_s": _at(wedge, "replica_event:wedged_reaped"),
+                  "respawn_s": _at(wedge, "replica_event:respawn"),
+                  "recovered_s": _at(wedge, "recovered")}}
+    print(f"  serve soak {report['faults']} (ResNet-18 GraNd, fp32, {report['replicas']} "
+          f"replicas): exit 0, wall_s {report['wall_s']} beside {soak.beside()}; "
+          f"passed {report['passed']}/{report['cycles']}, monitor exits "
+          f"{report['monitor_exits']}, cycle walls {report['cycle_wall_s']} s, p95 "
+          f"{[None if p is None else round(p, 2) for p in report['p95_ms']]} ms, requests "
+          f"{[c['requests'] for c in cycles]} with 0 failed; partition placement "
+          f"{launch.get('placement')} (remote slots); walls (s since the fleet's launch) "
+          f"{json.dumps(walls)}; launches {[c['kernel_launches'] for c in cycles]} on {card}",
+          flush=True)
+    shutil.rmtree(SERVE_SOAK_ROOT, ignore_errors=True)
+    return {"launches": launches, "walls": walls,
+            "report": {k: v for k, v in report.items() if k != "per_cycle"}}
+
+
 def summary_gauge(recs: list[dict], name: str):
     """A gauge of the stream's last registry snapshot."""
     snaps = [r for r in recs if r["kind"] == "metrics"]
@@ -6292,7 +6511,7 @@ def load_port() -> dict:
         from data_diet_distributed_tpu_torch.weights import init_variables, variables_to
         from data_diet_distributed_tpu_torch.graphs import GraphCache
         from data_diet_distributed_tpu_torch.tools import (perf_sentry, profile_dispatch,
-                                                           validate_duty)
+                                                           serve_soak, validate_duty)
     except ImportError as err:
         fail(f"the port package is not importable next to this script: {err}")
     return {"load_config": load_config, "load_dataset": load_dataset,
@@ -6313,7 +6532,7 @@ def load_port() -> dict:
             "inject": inject, "Preempted": Preempted, "StageManifest": StageManifest,
             "tuning": tuning,
             "tools": {"perf_sentry": perf_sentry, "profile_dispatch": profile_dispatch,
-                      "validate_duty": validate_duty},
+                      "serve_soak": serve_soak, "validate_duty": validate_duty},
             "CheckpointManager": CheckpointManager, "tier_steps": tier_steps,
             "make_local_scores": make_local_scores,
             "data": {"cli": cli, "native": native, "write_split": sharded.write_split,
@@ -6351,6 +6570,8 @@ def main(argv: list[str]) -> int:
         return mesh_serve_worker(argv[1:])
     if argv[:1] == ["--tp-worker"]:
         return tp_worker(argv[1:])
+    if argv[:1] == ["--walkthrough-worker"]:
+        return walkthrough_worker(argv[1:])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile GraNd batches with torch.profiler")
@@ -6425,17 +6646,31 @@ def main(argv: list[str]) -> int:
     phase("mesh_serve")
     mesh_serve = mesh_serve_phase(torch, port, path, details, card)
 
-    phase("resnet50")
-    r50 = resnet50_phase(torch, port, details, card)
+    # The serve soak and the walkthrough run beside the resnet50, train, chunked
+    # and obs phases, which hold no timing gate.
+    ssoak_proc, walk_proc = start_serve_soak(), start_walkthrough()
+    try:
+        phase("resnet50")
+        r50 = resnet50_phase(torch, port, details, card)
 
-    phase("train")
-    trained = train_phase(torch, port, details, card)
+        phase("train")
+        trained = train_phase(torch, port, details, card)
 
-    phase("chunked")
-    chunked = chunked_phase(torch, port, details, card)
+        phase("walkthrough")
+        walk = walkthrough_phase(port, walk_proc, card)
 
-    phase("obs")
-    obs_phase(torch, port, details, card)
+        phase("chunked")
+        chunked = chunked_phase(torch, port, details, card)
+
+        phase("obs")
+        obs_phase(torch, port, details, card)
+
+        phase("serve_soak")
+        ssoak = serve_soak_phase(port, ssoak_proc, card)
+        details["serve_soak"] = {k: ssoak[k] for k in ("walls", "report")}
+    finally:
+        walk_proc.stop()
+        ssoak_proc.stop()
 
     phase("resilience")
     resil = resilience_phase(torch, port, details, trained)
@@ -6490,11 +6725,13 @@ def main(argv: list[str]) -> int:
     # it, bf16; launches summed over the counted runs of the path, routes and
     # resnet50 phases, the train phase's run, the resilience phase's runs, the data
     # phase's run, the wrn phase's passes and sweep, the tp phase's ranks and its
-    # W = 1 run, the elastic phase's relaunched attempts and the demo's three legs.
+    # W = 1 run, the elastic phase's relaunched attempts, the demo's three legs, the
+    # walkthrough's run and the serve soak's replicas.
     launches = {k: path["counts"][k] + routes["counts"][k] + service["counts"][k]
                 + fleet[k] + mesh_serve[k] + r50["counts"][k] + trained["counts"][k]
                 + chunked["counts"][k] + resil["counts"][k]
                 + data["counts"][k] + wrn["counts"][k] + tp[k] + elastic[k] + demo[k]
+                + walk[k] + ssoak["launches"][k]
                 for k in K.KERNELS}
     check(all(launches[k] > 0 for k in KERNEL_INFO), f"a kernel never launched: {launches}")
     entries = []

@@ -133,12 +133,16 @@ Port map (this package -> its JAX counterpart, ``data_diet_distributed_tpu/...``
   ``score_report.py``, ``trace_report.py``, ``request_report.py``,
   ``run_monitor.py``, and the tuning tools ``autotune.py``,
   ``bisect_grand.py``, ``profile_dispatch.py``, ``perf_sentry.py``,
-  ``validate_duty.py``, the drivers ``e2e_demo.py`` and
-  ``imagenet_soak.py``, and the stdlib ``validate_metrics.py`` and
-  ``serve_client.py`` (the same arguments and output on the port's
-  modules, for a host without JAX: ``python -m
+  ``validate_duty.py``, the drivers ``e2e_demo.py``,
+  ``imagenet_soak.py`` and ``serve_soak.py``, and the stdlib
+  ``validate_metrics.py`` and ``serve_client.py`` (the same arguments and
+  output on the port's modules, for a host without JAX: ``python -m
   data_diet_distributed_tpu_torch.tools.<name>``; the tuning tools and the
   drivers run on ``--device cuda`` unless told ``--device cpu``)
+* ``examples/walkthrough.py`` -> the repo's ``examples/walkthrough.py`` (the
+  same notebook cells on the port: ``python -m
+  data_diet_distributed_tpu_torch.examples.walkthrough``, ``--device cuda``
+  unless ``--device cpu``)
 * ``serve/`` -> ``serve/engine.py``, ``batcher.py``, ``server.py``
   (``ServeEngine`` with ``fit``/``evaluate``/``score``, tenants and weights,
   the verified checkpoint refresh and the program cache; the coalescing

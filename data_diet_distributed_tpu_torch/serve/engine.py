@@ -34,7 +34,9 @@ captures included, or the first request), to the card's completion (cuDNN
 plans, kernel module loads, allocator growth), kept under the JAX field names
 so ``/status`` has the same shape. A dispatch that makes its key's first call,
 or captures the request's ``[1, B]`` chunk, is ``cold``: its first seed's
-call is its ``compile_ms`` and the other seeds' calls its ``dispatch_ms``
+call (``cold_call`` is set while it runs: ``/healthz`` holds it to
+``serve.request_timeout_s``, not to ``serve.dispatch_stall_s``) is its
+``compile_ms`` and the other seeds' calls its ``dispatch_ms``
 (until the score function returns) and ``fetch_ms`` (the ``.cpu()`` that
 waits for the card). The GraNd path syncs inside the call, so there
 ``dispatch_ms`` holds the device time.
@@ -184,6 +186,9 @@ class ServeEngine:
         # Phase timing of the latest score_batch, read by the batcher's single
         # dispatcher thread right after the call.
         self.last_dispatch_info: dict | None = None
+        # True while a cold score call runs (its key's first call or its
+        # chunk's capture), read by the stall watchdog of /healthz.
+        self.cold_call = False
         # Each rank's kernel launches by kernel, as of the last stats gather.
         self.rank_launches: list[dict] = [kernels.launch_counts()]
         # --- the group (W > 1) ----------------------------------------------
@@ -419,18 +424,21 @@ class ServeEngine:
                     return chunks.dispatch(variables, *blk)[0]
             for k, variables in enumerate(t.variables_seeds):
                 td = time.perf_counter()
+                self.cold_call = cold and k == 0
                 out = (self._first_call(key, local) if k == 0 else local)(variables, *ops)
                 tf = time.perf_counter()
                 outs.append(out.cpu().numpy())
                 now = time.perf_counter()
                 if cold and k == 0:
                     compile_s = now - td
+                    self.cold_call = False
                 else:
                     dispatch_s += tf - td
                     fetch_s += now - tf
             self._programs[key]["dispatches"] += n_seeds
         except Exception as exc:   # noqa: BLE001 — reported in the reply, on every rank
             error = exc
+            self.cold_call = False
         mine = (np.stack(outs).astype(np.float32, copy=False) if error is None
                 else np.zeros((n_seeds, rows), np.float32))
         tg = time.perf_counter()

@@ -253,8 +253,14 @@ class ServeServer(obs_server.StatusServer):
         """The obs chassis verdict + the serve-side watchdog: a score
         dispatch in flight past ``serve.dispatch_stall_s`` is a WEDGED
         dispatcher — requests queue behind a worker that will never answer
-        them — and the verdict goes critical (503). A hang inside a CUDA
-        call is beyond the in-process watchdog; this only reports it."""
+        them — and the verdict goes critical (503). A cold call (the first
+        of its program: kernel loads, cuDNN plans and the chunk's CUDA-graph
+        capture, 2-5 s for ResNet-18 GraNd on an H100) is held to
+        ``serve.request_timeout_s`` instead, where the JAX package holds
+        every call to the stall budget: otherwise every fresh replica's first
+        request would read as a wedge and its respawn would be cold again. A
+        hang inside a CUDA call is beyond the in-process watchdog; this only
+        reports it."""
         out = super().health()
         # Load evidence: queue depth and admission counters (the signals
         # check_serve judges).
@@ -265,17 +271,22 @@ class ServeServer(obs_server.StatusServer):
             "accepted": int(b["accepted"]),
             "rejected": int(b["rejected"]),
         }
-        budget = self.service.cfg.serve.dispatch_stall_s
+        sv = self.service.cfg.serve
+        budget = sv.dispatch_stall_s
         age = self.service.batcher.dispatch_age_s()
+        cold = self.service.engine.cold_call
         out["serve_watchdog"] = {
             "dispatch_age_s": None if age is None else round(age, 3),
             "dispatch_stall_budget_s": budget,
+            "cold": cold,
         }
-        if budget is not None and age is not None and age > budget:
+        limit, name = ((max(budget, sv.request_timeout_s), "serve.request_timeout_s")
+                       if cold and budget is not None else (budget, "serve.dispatch_stall_s"))
+        if limit is not None and age is not None and age > limit:
             out["status"] = "critical"
             out.setdefault("reasons", []).append(
-                f"serve dispatcher stalled: dispatch in flight "
-                f"{age:.1f}s > serve.dispatch_stall_s={budget:g}")
+                f"serve dispatcher stalled: {'cold ' if cold else ''}dispatch in flight "
+                f"{age:.1f}s > {name}={limit:g}")
         lost = self.service.engine.group_error
         if lost is not None:
             # A peer of the serving group is gone: no operation can run, so

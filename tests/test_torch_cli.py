@@ -299,17 +299,23 @@ def test_port_sources_import_no_jax():
 
 
 def test_port_runs_with_jax_blocked(tmp_path):
-    """Every module imports and a CPU score runs while JAX, Flax, optax, the
-    oracle and the JAX package are unimportable."""
+    """Every module imports (an example, a script of notebook cells, runs as
+    ``-m`` runs it, on the CPU) and a CPU score runs while JAX, Flax, optax,
+    the oracle and the JAX package are unimportable."""
     script = textwrap.dedent("""
-        import pkgutil, sys
+        import pkgutil, runpy, sys
         for name in ("jax", "jaxlib", "flax", "optax", "oracle",
                      "data_diet_distributed_tpu"):
             sys.modules[name] = None
         import numpy as np
         import data_diet_distributed_tpu_torch as port
+        examples = port.__name__ + ".examples."
         for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
-            __import__(mod.name)
+            if mod.name.startswith(examples):
+                sys.argv = [mod.name, "--device", "cpu", "--size", "64"]
+                runpy.run_module(mod.name, run_name="__main__")
+            else:
+                __import__(mod.name)
         from data_diet_distributed_tpu_torch.data.datasets import load_dataset
         from data_diet_distributed_tpu_torch.models import create_model
         from data_diet_distributed_tpu_torch.ops.scoring import score_dataset

@@ -319,7 +319,7 @@ def test_memory_monitor_stands_down_on_cpu_and_kernels_report_work():
 
 @pytest.mark.parametrize("key", ["slo_fleet_p95_ms=5",
                                  "slo_fleet_available_frac=0.5", "slo_recovery_s=9"])
-def test_unported_obs_keys_refuse_by_name(key):
+def test_fleet_and_recovery_slo_keys_are_accepted_and_armed(key):
     """The recovery SLO (ported with the elastic supervisor) and the fleet
     SLOs (ported with the serving fleet) are accepted and armed."""
     name, value = key.split("=")
